@@ -1,0 +1,51 @@
+"""Architecture registry (port of ``repro.configs``): ``--arch <id>``.
+
+Only ``qwen3-1.7b`` is ported; every other reference arch id raises
+``NotImplementedError`` naming where its port is queued.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List, Optional
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["get_config", "list_archs"]
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+}
+
+# reference arch ids whose port is queued (ROADMAP.md queue A)
+_NOT_PORTED = (
+    "h2o-danube-3-4b", "olmo-1b", "qwen2-7b", "mixtral-8x7b",
+    "deepseek-v2-lite-16b", "internvl2-1b", "hubert-xlarge",
+    "jamba-v0.1-52b", "xlstm-350m",
+)
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False,
+               attention_mode: Optional[str] = None) -> ModelConfig:
+    """Resolve an arch id (``FULL``, or ``SMOKE`` with ``smoke=True``),
+    with an optional attention-mode override.
+
+    Raises:
+        NotImplementedError: a reference arch whose port is still queued.
+        KeyError: an unknown arch id.
+    """
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported to PyTorch yet: its modules are "
+            "queued in ROADMAP.md queue A (items 6 and 11)")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
+    mod = importlib.import_module(_ARCH_MODULES[arch])
+    cfg: ModelConfig = mod.SMOKE if smoke else mod.FULL
+    if attention_mode is not None and attention_mode != cfg.attention_mode:
+        cfg = dataclasses.replace(cfg, attention_mode=attention_mode)
+    return cfg.validate()

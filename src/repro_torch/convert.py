@@ -1,0 +1,57 @@
+"""Carry reference parameters into the port.
+
+``params_from_jax(tree, cfg)`` takes the reference's parameter tree with
+numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and returns
+the port's parameters: numpy in, tensors out. The reference stacks its
+scanned layers on a leading axis of ``params["groups"]``
+(``repro.models.transformer.init_model``); the port keeps one dict per
+layer, so that axis is unstacked, group-major then pattern order. The
+``rm_est`` omegas and ``rm_scale`` cross with the rest, so both packages
+compute with the same weights and the same Rademacher draws.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import layer_kinds
+
+__all__ = ["params_from_jax"]
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes bf16: no numpy bridge
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """Reference parameter tree (numpy leaves) -> the port's parameters
+    (CPU tensors; move them with ``.to(device)`` leaf by leaf)."""
+    kinds = layer_kinds(cfg)
+    layers = []
+    for i in range(cfg.first_k_dense):
+        layers.append(_map(tree[f"dense_{i}"], _tensor))
+    for g in range(cfg.num_scanned_groups):
+        for j, kind in enumerate(cfg.block_pattern):
+            block = tree["groups"][f"b{j}_{kind}"]
+            layers.append(_map(block, lambda a, g=g: _tensor(a[g])))
+    if len(layers) != len(kinds):
+        raise ValueError(f"reference tree holds {len(layers)} layers, "
+                         f"{cfg.name} has {len(kinds)}")
+    return {
+        "embed": _map(tree["embed"], _tensor),
+        "layers": layers,
+        "final_norm": _map(tree["final_norm"], _tensor),
+    }

@@ -1,0 +1,84 @@
+"""Tiling helpers shared by the hand-written Hopper kernels (port of
+``repro.kernels.common``).
+
+The reference sizes its Pallas tiles against a TPU VMEM budget. On Hopper
+the limits are a block's shared memory (227 KB = 232,448 bytes after
+``cudaFuncSetAttribute``) and its registers (65,536 per SM, at most 255 a
+thread). Both kernels build their feature tiles with one device function
+(``csrc/rm_featurize.cuh``): 256 threads, each holding a 4x4 register tile
+of a 64-row by 64-feature output tile, staging 32-wide slices of x and of
+the packed omegas in shared memory. Those constants are fixed by the CUDA
+source and mirrored here. The rm_feature kernel's grid is one such 64 x 64
+tile a block (16.9 KB of staging, 32 fp32 registers of running product and
+partial sum a thread), so it needs no choice; the fused attention kernel's
+chunk and value slice are chosen below. There is no autotune cache yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+__all__ = [
+    "SMEM_PER_BLOCK",
+    "FEATURE_TILE",
+    "STAGE_K",
+    "round_up",
+    "attention_smem_bytes",
+    "pick_attention_blocks",
+]
+
+# Hopper: the most dynamic shared memory one block may opt into.
+SMEM_PER_BLOCK = 232_448
+# Rows and feature columns of one featurize tile (16x16 threads x 4x4 each).
+FEATURE_TILE = 64
+# Width of the x / omega slices staged in shared memory per step over d.
+STAGE_K = 32
+# Lanes of a warp: the fused attention kernel maps one value column to each.
+_WARP = 32
+
+
+def round_up(x: int, m: int) -> int:
+    """Smallest multiple of ``m`` that is >= ``x``."""
+    return (x + m - 1) // m * m
+
+
+def attention_smem_bytes(f_pad: int, chunk: int, dv_block: int) -> int:
+    """Dynamic shared memory of one fused-causal block, in bytes.
+
+    zq and zk of the chunk over ALL features (``chunk x (f_pad + 1)`` each,
+    padded a column against bank conflicts), the carried state slice
+    ``S [f_pad, dv_block]`` and ``n [f_pad]``, the featurize staging area
+    (reused for the ``chunk x (chunk + 1)`` score tile) and the value slice
+    ``[chunk, dv_block]``.
+    """
+    stage = max(2 * FEATURE_TILE * (STAGE_K + 1), chunk * (chunk + 1))
+    floats = (2 * chunk * (f_pad + 1) + f_pad * dv_block + f_pad + stage
+              + chunk * dv_block)
+    return 4 * floats
+
+
+def pick_attention_blocks(f: int, dv: int, t: int) -> Tuple[int, int]:
+    """``(chunk, dv_block)`` for the fused causal kernel.
+
+    One block owns ALL feature columns of one (batch*head, value slice), so
+    the score, numerator and denominator sums over features finish inside
+    the block and the causal mask is applied once, after the feature sum.
+    The value axis is split into ``dv_block``-wide slices (one warp lane a
+    column) to put several blocks on each batch*head. The largest chunk
+    (at most one 64-row featurize tile, and no longer than the padded
+    sequence) whose working set fits ``SMEM_PER_BLOCK`` wins.
+
+    Raises:
+        ValueError: no chunk fits — the feature axis is too wide for one
+            block to own (a split with a second pass is future work).
+    """
+    f_pad = round_up(max(f, 1), FEATURE_TILE)
+    dv_block = min(_WARP, max(dv, 1))
+    cap = min(FEATURE_TILE, round_up(max(t, 1), 8))
+    for chunk in (64, 32, 16, 8):
+        if chunk > cap:
+            continue
+        if attention_smem_bytes(f_pad, chunk, dv_block) <= SMEM_PER_BLOCK:
+            return chunk, dv_block
+    raise ValueError(
+        f"fused causal kernel: F={f} features do not fit one block's "
+        f"{SMEM_PER_BLOCK} bytes of shared memory even at chunk 8")

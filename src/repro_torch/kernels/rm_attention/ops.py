@@ -1,0 +1,222 @@
+"""Public wrappers of the fused RM attention kernel (port of the fused ops
+of ``repro.kernels.rm_attention.ops``).
+
+The ops take RAW pre-scaled q/k rows plus the packed RM layout (``w
+[max_degree, F, d]`` and per-column degrees and scales from
+``core.plan``); featurization happens inside the attention kernel, so the
+``O(T * F)`` Z tensors never reach device memory.
+
+* ``rm_attention_fused_causal`` — causal outputs (training forward).
+* ``rm_attention_fused_prefill`` — causal outputs AND the decode state
+  ``(S, n)`` from the same launch.
+* ``rm_attention_fused_decode_step`` — ONE rm_feature launch for the new
+  q and k rows together, then the O(1) state update in PyTorch.
+
+Dispatch follows the tensor: a CPU tensor takes the plain version
+(``ref.py``), a CUDA tensor launches ``csrc/rm_fused_attention.cu`` or
+raises. ``rm_fused_causal.launches`` counts kernel launches.
+
+The backward of the fused causal op (reference ``_fused_causal_bwd``) is
+not ported yet: with autograd recording on a tensor that requires grad the
+wrappers raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.common import (
+    FEATURE_TILE,
+    attention_smem_bytes,
+    pick_attention_blocks,
+    round_up,
+)
+from repro_torch.kernels.rm_attention.ref import (
+    rm_attention_decode_ref,
+    rm_fused_causal_ref,
+)
+from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+
+__all__ = [
+    "rm_attention_fused_causal",
+    "rm_attention_fused_prefill",
+    "rm_attention_fused_decode_step",
+    "rm_fused_causal",
+]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def _library():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("rm_fused_attention")
+    fn = lib.rm_fused_causal_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _columns(col_deg, col_scale, device) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Per-column degrees and scales as int32 / fp32 tensors on device
+    (host arrays, as the reference passes them, are copied across)."""
+    if not torch.is_tensor(col_deg):
+        col_deg = torch.from_numpy(np.asarray(col_deg, dtype=np.int32))
+    if not torch.is_tensor(col_scale):
+        col_scale = torch.from_numpy(np.asarray(col_scale, dtype=np.float32))
+    return (col_deg.to(device=device, dtype=torch.int32),
+            col_scale.to(device=device, dtype=torch.float32))
+
+
+def _no_grad_check(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the fused causal RM attention op has no backward yet (serving "
+            "only; the training slice and its backward are queued in "
+            "ROADMAP.md)")
+
+
+def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
+                    plain_chunk: int = 128):
+    """The fused causal op: ``(out [B,H,T,dv], S [B,H,F,dv], n [B,H,F])``
+    — the kernel on a CUDA tensor, the plain version on a CPU tensor.
+    ``plain_chunk`` is the plain version's chunk; the kernel takes its own
+    from ``kernels.common.pick_attention_blocks``."""
+    _no_grad_check(q, k, v, w)
+    b, h, t, d = q.shape
+    dv = v.shape[-1]
+    kdeg, f, _ = w.shape
+    dev = q.device
+    if kvalid is None:
+        kvalid = torch.ones((b, t), dtype=torch.float32, device=dev)
+    # Shapes with nothing to compute return their arithmetic result: no
+    # rows give empty outputs; with no feature columns every score and
+    # denominator is 0, so out = 0 / clamp(0) = 0 and the state is empty.
+    if b * h == 0 or t == 0 or f == 0:
+        return (torch.zeros((b, h, t, dv), dtype=torch.float32, device=dev),
+                torch.zeros((b, h, f, dv), dtype=torch.float32, device=dev),
+                torch.zeros((b, h, f), dtype=torch.float32, device=dev))
+    col_deg, col_scale = _columns(col_deg, col_scale, dev)
+    if dev.type == "cpu":
+        return rm_fused_causal_ref(q, k, v, kvalid, w, col_deg, col_scale,
+                                   chunk=plain_chunk, eps=eps)
+    if dev.type != "cuda":
+        raise ValueError(f"fused RM attention runs on cpu or cuda tensors, "
+                         f"got {dev}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or w.dtype != q.dtype:
+        raise TypeError(f"q, k and w must share one of fp32/bf16, got "
+                        f"{q.dtype}, {k.dtype}, {w.dtype}")
+    if k.shape != q.shape or v.shape[:3] != q.shape[:3] or \
+            w.shape[2] != d or kvalid.shape != (b, t):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
+            f"kvalid {tuple(kvalid.shape)}")
+    for name, x in (("k", k), ("v", v), ("kvalid", kvalid), ("w", w)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+    kchunk, dv_block = pick_attention_blocks(f, dv, t)
+    tp = round_up(t, kchunk)
+    # pad T to the chunk (padded keys carry kvalid 0), lay rows out as
+    # contiguous [B*H, T, *]; v enters in fp32 (a lossless upcast of bf16)
+    qf = F.pad(q, (0, 0, 0, tp - t)).reshape(b * h, tp, d).contiguous()
+    kf = F.pad(k, (0, 0, 0, tp - t)).reshape(b * h, tp, d).contiguous()
+    vf = F.pad(v.float(), (0, 0, 0, tp - t)).reshape(b * h, tp,
+                                                    dv).contiguous()
+    kval = F.pad(kvalid.float(), (0, tp - t))
+    kval = kval[:, None, :].expand(b, h, tp).reshape(b * h, tp).contiguous()
+    wc = w.contiguous()
+    out = torch.empty((b * h, tp, dv), dtype=torch.float32, device=dev)
+    s = torch.empty((b * h, f, dv), dtype=torch.float32, device=dev)
+    n = torch.empty((b * h, f), dtype=torch.float32, device=dev)
+    launch = _library()
+    err = launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                 kval.data_ptr(), wc.data_ptr(), col_deg.data_ptr(),
+                 col_scale.data_ptr(), out.data_ptr(), s.data_ptr(),
+                 n.data_ptr(), b * h, tp, d, dv, kdeg, f, kchunk, dv_block,
+                 float(eps),
+                 attention_smem_bytes(round_up(f, FEATURE_TILE), kchunk,
+                                      dv_block),
+                 _DTYPE_CODE[q.dtype],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_fused_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    rm_fused_causal.launches += 1
+    return (out.reshape(b, h, tp, dv)[:, :, :t], s.reshape(b, h, f, dv),
+            n.reshape(b, h, f))
+
+
+rm_fused_causal.launches = 0
+
+
+def rm_attention_fused_causal(
+    q: torch.Tensor,          # [B, H, T, d]  pre-scaled queries (NOT features)
+    k: torch.Tensor,          # [B, H, T, d]
+    v: torch.Tensor,          # [B, H, T, dv]
+    w: torch.Tensor,          # [max_degree, F, d] packed omegas
+    col_deg,                  # [F] int32 tensor or host array
+    col_scale,                # [F] fp32 tensor or host array
+    *,
+    kvalid: Optional[torch.Tensor] = None,   # [B, T] 1.0 real / 0.0 padded
+    chunk: int = 128,
+    eps: float = 1e-4,
+) -> torch.Tensor:            # [B, H, T, dv] fp32
+    """Fused causal RM attention: ``rm_attention_causal(Z(q), Z(k) *
+    kvalid, v)`` without writing Z. ``chunk`` is read by the plain version
+    only (CPU tensors); the kernel picks its own chunk from shared memory.
+    The chunk changes the order of the sums, not the result."""
+    out, _, _ = rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
+                                plain_chunk=chunk)
+    return out
+
+
+def rm_attention_fused_prefill(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    col_deg,
+    col_scale,
+    *,
+    kvalid: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+    eps: float = 1e-4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused prefill: causal outputs AND the final decode state ``(S [B,H,F,
+    dv], n [B,H,F])`` from the SAME launch. ``chunk`` as in
+    :func:`rm_attention_fused_causal` (plain version only)."""
+    return rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
+                           plain_chunk=chunk)
+
+
+def rm_attention_fused_decode_step(
+    q: torch.Tensor,        # [B, H, d]  pre-scaled query (NOT features)
+    k: torch.Tensor,        # [B, H, d]
+    v: torch.Tensor,        # [B, H, dv]
+    state_s: torch.Tensor,  # [B, H, F, dv]
+    state_n: torch.Tensor,  # [B, H, F]
+    w: torch.Tensor,        # [max_degree, F, d]
+    col_deg,
+    col_scale,
+    *,
+    eps: float = 1e-4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode step: ONE featurize launch for q and k stacked along rows,
+    then the rank-1 state update and two GEMVs in PyTorch (they were never
+    a TPU kernel). Returns ``(out [B,H,dv], new_s, new_n)``."""
+    b, h, d = q.shape
+    f = w.shape[1]
+    col_deg, col_scale = _columns(col_deg, col_scale, q.device)
+    x2 = torch.cat([q.reshape(b * h, d), k.reshape(b * h, d)], dim=0)
+    z2 = rm_feature_fused(x2, w, col_deg, col_scale)
+    zq = z2[:b * h].reshape(b, h, f)
+    zk = z2[b * h:].reshape(b, h, f)
+    return rm_attention_decode_ref(zq, zk, v, state_s, state_n, eps=eps)

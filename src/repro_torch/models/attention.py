@@ -1,0 +1,284 @@
+"""Attention, RM linear mode only (port of ``repro.models.attention``).
+
+``attention_mode="rm"``: q/k are per-head l2-normalized, scaled by
+softplus(``rm_scale``) and featurized with a static RM plan for the
+exponential dot product kernel; attention is linear in the features and
+decode keeps an O(1) state (``S [F, dv]``, ``n [F]``) instead of a KV cache.
+The fused ops featurize inside the attention kernel (prefill, forward) or
+in one rm_feature launch for q and k together (decode).
+
+Not ported yet (ROADMAP.md queue A): ``attention_mode="exact"`` and the
+two-launch rm path (``fuse_featurize="off"``, kernel B5); both raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.common.dtypes import resolve_precision
+from repro_torch.core import registry
+from repro_torch.core.maclaurin import ExponentialDotProductKernel
+from repro_torch.core.plan import plan_columns
+from repro_torch.kernels.rm_attention.ops import (
+    rm_attention_fused_causal,
+    rm_attention_fused_decode_step,
+    rm_attention_fused_prefill,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_rope,
+    normal_init,
+    rms_norm_headwise,
+)
+
+Params = Dict[str, torch.Tensor]
+
+
+def _require_rm(cfg: ModelConfig) -> None:
+    if not cfg.causal:
+        raise NotImplementedError(
+            "non-causal (encoder) RM attention is not ported yet (kernels "
+            "B3 and B4, ROADMAP.md)")
+    if cfg.attention_mode != "rm":
+        raise NotImplementedError(
+            f"attention_mode={cfg.attention_mode!r} is not ported yet: the "
+            "port has the RM linear attention mode only (exact softmax "
+            "attention is queued in ROADMAP.md)")
+
+
+def rm_estimator(cfg: ModelConfig) -> registry.Estimator:
+    return registry.get(cfg.rm.estimator)
+
+
+@functools.lru_cache(maxsize=None)
+def rm_plan_for(cfg: ModelConfig, input_dim: int):
+    """The (hashable) feature plan of a config — the reference's
+    arguments, so both packages build the same plan."""
+    rm = cfg.rm
+    kernel = ExponentialDotProductKernel(rm.sigma2)
+    return rm_estimator(cfg).make_plan(
+        kernel,
+        input_dim,
+        rm.num_features,
+        p=rm.p,
+        measure=rm.measure,
+        stratified=rm.stratified,
+        n_max=rm.n_max,
+        radius=rm.qk_scale,
+        seed=0,
+    )
+
+
+def rm_fuse_enabled(cfg: ModelConfig) -> bool:
+    """Whether the rm path runs the fused ops: ``"auto"`` and ``"on"`` do.
+
+    Raises:
+        ValueError: an unknown mode.
+        NotImplementedError: ``"off"`` or an estimator without the fused
+            capability — both need the two-launch path (kernel B5), which
+            is not ported yet.
+    """
+    mode = cfg.rm.fuse_featurize
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(
+            f"cfg.rm.fuse_featurize must be 'auto', 'on' or 'off'; "
+            f"got {mode!r}")
+    if mode == "off" or not rm_estimator(cfg).fused_attention_supported:
+        raise NotImplementedError(
+            "the two-launch RM attention path (fuse_featurize='off', "
+            "kernel B5) is not ported yet; use 'auto' or 'on'")
+    return True
+
+
+def _rm_scaled_qk(params: Params, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, dh] -> [B, H, T, dh] fp32: l2-normalize, then scale by
+    softplus(rm_scale) (or the fixed qk_scale)."""
+    xf = x.float()
+    norm = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
+    xhat = xf / torch.clamp_min(norm, 1e-6)
+    if cfg.rm.learnable_scale:
+        scale = F.softplus(params["rm_scale"]).float()
+    else:
+        scale = torch.tensor(cfg.rm.qk_scale, dtype=torch.float32)
+    return (xhat * scale).transpose(1, 2)
+
+
+def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
+    """The attention params plus ``rm_w``: the packed omegas ``[max_degree,
+    F, dh]`` in the precision policy's compute dtype, which every fused op
+    reads. Worked out once per weight set (``transformer.
+    cast_params_to_compute`` calls this); params that already hold
+    ``rm_w`` come back unchanged."""
+    if "rm_w" in params:
+        return params
+    meta = rm_plan_for(cfg, cfg.resolved_head_dim)
+    w, _, _ = rm_estimator(cfg).pack_fused(meta, params["rm_est"])
+    dt = resolve_precision(cfg.rm.precision).compute_dtype
+    return {**params, "rm_w": w.to(dt)}
+
+
+def _rm_fused_operands(params: Params, cfg: ModelConfig, meta, q, k):
+    """``(qs, ks, w, col_deg, col_scale)``: pre-scaled q/k ``[B,H,T,dh]``
+    in the precision policy's compute dtype, the packed omegas ``rm_w``
+    (:func:`rm_packed_weights`) and the plan's column vectors as device
+    tensors."""
+    w = params["rm_w"]
+    qs = _rm_scaled_qk(params, cfg, q).to(w.dtype)
+    ks = _rm_scaled_qk(params, cfg, k).to(w.dtype)
+    return (qs, ks, w, *plan_columns(meta, w.device))
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
+    _require_rm(cfg)
+    d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    dh = cfg.resolved_head_dim
+    std = cfg.init_std
+    params: Params = {
+        "wq": normal_init(generator, (d, h * dh), std, dtype),
+        "wk": normal_init(generator, (d, hkv * dh), std, dtype),
+        "wv": normal_init(generator, (d, hkv * dh), std, dtype),
+        "wo": normal_init(generator, (h * dh, d), std, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * dh), ("bk", hkv * dh),
+                            ("bv", hkv * dh)):
+            params[name] = torch.zeros((width,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        params["q_norm_scale"] = torch.ones((dh,), dtype=dtype, device=device)
+        params["k_norm_scale"] = torch.ones((dh,), dtype=dtype, device=device)
+    meta = rm_plan_for(cfg, dh)
+    params["rm_est"] = rm_estimator(cfg).init_params(meta, generator)
+    if cfg.rm.learnable_scale:
+        # softplus^-1(qk_scale)
+        params["rm_scale"] = torch.tensor(
+            math.log(math.expm1(cfg.rm.qk_scale)), dtype=torch.float32,
+            device=device)
+    return params
+
+
+def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
+    b, t, _ = x.shape
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    q = q.reshape(b, t, h, dh)
+    k = k.reshape(b, t, hkv, dh)
+    v = v.reshape(b, t, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, params["q_norm_scale"], cfg.norm_eps)
+        k = rms_norm_headwise(k, params["k_norm_scale"], cfg.norm_eps)
+    return q, k, v
+
+
+def _apply_positional(cfg: ModelConfig, q, k, positions):
+    if cfg.pos_embedding != "rope":
+        raise NotImplementedError(
+            f"pos_embedding={cfg.pos_embedding!r} is not ported yet")
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """GQA: [B, T, Hkv, dh] -> [B, T, Hkv * rep, dh], each kv head
+    repeated for its ``rep`` query heads."""
+    if rep == 1:
+        return x
+    return torch.repeat_interleave(x, rep, dim=2)
+
+
+def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence attention (training forward). x: [B, T, d]."""
+    _require_rm(cfg)
+    rm_fuse_enabled(cfg)
+    b, t, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, cfg, x)
+    q, k = _apply_positional(cfg, q, k, positions)
+    k = _repeat_kv(k, cfg.q_per_kv)
+    v = _repeat_kv(v, cfg.q_per_kv)
+    meta = rm_plan_for(cfg, dh)
+    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
+    out = rm_attention_fused_causal(qs, ks, v.transpose(1, 2), w, cd, cs,
+                                    chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+    out = out.transpose(1, 2).to(x.dtype)
+    return out.reshape(b, t, h * dh) @ params["wo"]
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int,
+                         device) -> Dict[str, torch.Tensor]:
+    """The O(1) rm decode state of one layer for ``batch`` lanes."""
+    _require_rm(cfg)
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    f = rm_plan_for(cfg, dh).output_dim
+    return {
+        "rm_s": torch.zeros((batch, h, f, dh), dtype=torch.float32,
+                            device=device),
+        "rm_n": torch.zeros((batch, h, f), dtype=torch.float32,
+                            device=device),
+    }
+
+
+def attention_decode(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,                 # [B, 1, d]
+    cache: Dict[str, torch.Tensor],
+    positions: torch.Tensor,         # [B] position of the new token
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    _require_rm(cfg)
+    rm_fuse_enabled(cfg)
+    b = x.shape[0]
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, cfg, x)
+    q, k = _apply_positional(cfg, q, k, positions[:, None])
+    meta = rm_plan_for(cfg, dh)
+    k = _repeat_kv(k, cfg.q_per_kv)
+    v = _repeat_kv(v, cfg.q_per_kv)
+    v0 = v[:, 0]                                         # [B, H, dv]
+    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
+    out, s_new, n_new = rm_attention_fused_decode_step(
+        qs[:, :, 0], ks[:, :, 0], v0, cache["rm_s"], cache["rm_n"], w, cd,
+        cs, eps=cfg.rm.eps)
+    y = out.reshape(b, 1, h * dh).to(x.dtype) @ params["wo"]
+    return y, {"rm_s": s_new, "rm_n": n_new}
+
+
+def attention_prefill_cache(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,           # [B, T, d] prompt
+    positions: torch.Tensor,   # [B, T]; -1 marks bucket padding
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill AND the decode state in one fused launch; padded prompt
+    positions are masked out of the keys through ``kvalid``."""
+    _require_rm(cfg)
+    rm_fuse_enabled(cfg)
+    b, t, _ = x.shape
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, cfg, x)
+    q, k = _apply_positional(cfg, q, k, positions)
+    meta = rm_plan_for(cfg, dh)
+    kr = _repeat_kv(k, cfg.q_per_kv)
+    vr = _repeat_kv(v, cfg.q_per_kv)
+    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, kr)
+    kvalid = (positions >= 0).float()
+    out, s, n = rm_attention_fused_prefill(
+        qs, ks, vr.transpose(1, 2), w, cd, cs, kvalid=kvalid,
+        chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+    y = out.transpose(1, 2).to(x.dtype).reshape(b, t, h * dh) @ params["wo"]
+    return y, {"rm_s": s, "rm_n": n}

@@ -17,3 +17,11 @@ try:
     settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "ci"))
 except ImportError:  # hypothesis is optional (tests importorskip it)
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; the test skips itself without "
+        "one (on the card: python -m pytest -m cuda "
+        "tests/test_torch_cuda_kernels.py)")

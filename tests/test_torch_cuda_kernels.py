@@ -1,0 +1,107 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here is marked ``cuda`` and skips itself without a
+CUDA device; the file imports neither jax nor the reference, so it runs on
+the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+from repro_torch.kernels.rm_attention.ops import (
+    rm_attention_fused_decode_step,
+    rm_fused_causal,
+)
+from repro_torch.kernels.rm_attention.ref import (
+    rm_attention_decode_ref,
+    rm_fused_causal_ref,
+)
+from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+from repro_torch.models.attention import rm_plan_for
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def _plan_tensors(smoke, device, seed=0):
+    cfg = get_config("qwen3-1.7b", smoke=smoke, attention_mode="rm")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, device)
+    return cfg.resolved_head_dim, w, cd, cs, gen
+
+
+def _unit(shape, gen, device):
+    x = torch.randn(shape, generator=gen, device=device)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def _close(got, want, tol):
+    """max |got - want| <= tol x max(1, max |want|)."""
+    err = (got - want).abs().max().item()
+    assert err <= tol * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [128, 4096, 70])
+@pytest.mark.parametrize("smoke", [False, True], ids=["FULL", "SMOKE"])
+def test_rm_feature_kernel_matches_plain(cuda, dtype, rows, smoke):
+    """Tolerance 1e-5: fp32 accumulation in both, only the order of the
+    sums differs (bf16 inputs upcast exactly)."""
+    d, w, cd, cs, gen = _plan_tensors(smoke, cuda)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    w = w.to(dtype)
+    before = rm_feature_fused.launches
+    got = rm_feature_fused(x, w, cd, cs)
+    torch.cuda.synchronize()
+    assert rm_feature_fused.launches == before + 1
+    _close(got, rm_feature_fused_ref(x, w, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,pad", [(256, 56), (40, 9), (5, 0)])
+@pytest.mark.parametrize("smoke", [False, True], ids=["FULL", "SMOKE"])
+def test_rm_fused_causal_kernel_matches_plain(cuda, dtype, t, pad, smoke):
+    """Tolerance 1e-4: fp32 sums of up to T x F terms in another order."""
+    d, w, cd, cs, gen = _plan_tensors(smoke, cuda, seed=1)
+    q = _unit((2, 8, t, d), gen, cuda).to(dtype)
+    k = _unit((2, 8, t, d), gen, cuda).to(dtype)
+    v = torch.randn((2, 8, t, d), generator=gen, device=cuda)
+    kvalid = torch.ones((2, t), device=cuda)
+    if pad:
+        kvalid[1, t - pad:] = 0.0
+    args = (q, k, v, kvalid, w.to(dtype), cd, cs)
+    before = rm_fused_causal.launches
+    got = rm_fused_causal(*args, 1e-4)
+    torch.cuda.synchronize()
+    assert rm_fused_causal.launches == before + 1
+    for g, w_ in zip(got, rm_fused_causal_ref(*args, chunk=128, eps=1e-4)):
+        assert g.shape == w_.shape
+        _close(g, w_, 1e-4)
+
+
+def test_decode_step_launches_one_featurize(cuda):
+    d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=2)
+    f = w.shape[1]
+    q, k = _unit((4, 16, d), gen, cuda), _unit((4, 16, d), gen, cuda)
+    v = torch.randn((4, 16, d), generator=gen, device=cuda)
+    s0 = torch.zeros((4, 16, f, d), device=cuda)
+    n0 = torch.zeros((4, 16, f), device=cuda)
+    before = rm_feature_fused.launches
+    got = rm_attention_fused_decode_step(q, k, v, s0, n0, w, cd, cs)
+    torch.cuda.synchronize()
+    assert rm_feature_fused.launches == before + 1
+    zq = rm_feature_fused_ref(q.reshape(-1, d), w, cd, cs).reshape(4, 16, f)
+    zk = rm_feature_fused_ref(k.reshape(-1, d), w, cd, cs).reshape(4, 16, f)
+    for g, w_ in zip(got, rm_attention_decode_ref(zq, zk, v, s0, n0)):
+        _close(g, w_, 1e-4)
