@@ -6,31 +6,58 @@
 Phases, each fatal on failure:
 
 1. environment — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions; builds both CUDA kernels from ``src/repro_torch/csrc``
-   (one ``nvcc`` each, in parallel) and prints the build time and the
+   CUDA versions; builds every CUDA kernel from ``src/repro_torch/csrc``
+   (one ``nvcc`` each, all in parallel) and prints the build time and the
    compiler's register / shared-memory report;
 2. kernel B1 (``rm_feature_fused``) against its plain PyTorch version at
    the decode shape of the serving path and at a Gram shape, fp32 and bf16;
 3. kernel B2 (``rm_fused_causal``) against its plain version at a prefill
    shape with padded keys, fp32 and bf16 (out, S and n);
-4. a small end-to-end reference: the qwen3 SMOKE model in fp32 on the card
-   (kernels) against the same weights on the CPU (plain versions);
-5. the slice: qwen3-1.7b at full width and depth, RM attention, random
+4. kernel B6 (``tensor_sketch_fused``) against its plain version at every
+   row count the tensor_sketch path gives it, so at every row tile it
+   launches: the decode shape (x ``[64, 128]``: 4 slots x 16 heads, one
+   launch each for q and k) and the prefill shape of each bucket (x
+   ``[512 .. 4096, 128]``: buckets 32 to 256 x 16 heads), fp32 and bf16;
+   the Gram shape ``[4096, 128]`` also once through
+   ``registry.estimate_gram``, card against CPU;
+5. kernel B5 (``rm_attention_chunked``) against its plain version at the
+   prefill shape (BH 16, T 256, F 256, dv 128, chunk 128, one sequence's
+   keys padded from 200) and at T 32 (chunk 32), fp32; the whole two-launch
+   causal op also against the O(T^2) direct evaluation;
+6. small end-to-end references on the qwen3 SMOKE model in fp32: the rm
+   model on the card (kernels) against the same weights on the CPU (plain
+   versions); the same for the tensor_sketch model; and on the card, the
+   rm model's two-launch path (``fuse_featurize="off"``: B1 + B5) against
+   its fused path (B2);
+7. the rm slice: qwen3-1.7b at full width and depth, RM attention, random
    weights from a seed, served by the continuous-batching Scheduler
    (4 slots, max_len 256, 8 greedy requests over several prompt buckets).
-   Every request must finish, both kernels' launch counters must match the
+   Every request must finish, B1 and B2's launch counters must match the
    admissions and decode steps, and a request run alone must give the
    tokens it got in the batch;
-6. where the time goes: the same workload again on the warm engine (its
-   TTFT and tokens/s), then a ``torch.profiler`` window over warm decode
-   steps and one bucket-256 prefill: wall time, device busy share and the
-   kernels that take the device time.
+8. where the rm slice's time goes: the same workload again on the warm
+   engine (its TTFT and tokens/s), then a ``torch.profiler`` window over
+   warm decode steps and one bucket-256 prefill: wall time, device busy
+   share and the kernels that take the device time;
+9. the tensor_sketch slice: the same model, workload and checks with
+   ``estimator="tensor_sketch"`` (the rm engine is freed first), through
+   the two-launch attention path: B6 must launch twice a layer for every
+   admission and decode step, B5 once a layer for every admission;
+10. where the tensor_sketch slice's time goes, as in phase 8.
 
-It then prints one ``{"kernels": [...]}`` line (times from CUDA events over
-repeated launches, bounds computed from this run's shapes) and, as its
-last line, ``{"ok": true, "device": {...}}``. Without a CUDA device it
-prints no result and exits non-zero.
+Before phase 2 the card runs a second of fp32 products, so the first
+timed kernel does not meet idle clocks. It then prints one ``{"kernels":
+[...]}`` line (times from CUDA events over repeated launches, bounds
+computed from this run's shapes, launches from the slice that runs each
+kernel; the host time of one call through each wrapper is printed beside
+its check) and, as its last
+line, ``{"ok": true,
+"device": {...}}``. Without a CUDA device it prints no result and exits
+non-zero. Should the run near its time limit, the rm slice's warm repeat
+(phase 8) is the part to cut first.
 """
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -45,6 +72,10 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 VALID_REASONS = {"eos", "max_new_tokens", "cache_full"}
 B1_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
 B2_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T x F terms
+B6_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 128 and <= c terms
+B6_GRAM_TOL = 1e-4   # x max(1, max |plain|): Gram sums 256 such features
+B5_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to C x F terms
+E2E_TOL = 1e-4  # relative logits gap of two fp32 paths of one model
 
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -60,6 +91,35 @@ def time_ms(torch, fn, iters=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters=200):
+    """Host time per call to enqueue ``fn`` (Python, argument checks and
+    the launch itself), in microseconds: the host clock around ``iters``
+    calls, with the device drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def warm_card(torch, seconds=1.0):
+    """Keep the card busy with fp32 products for ``seconds``, so the first
+    timed kernel does not run at idle clocks (the build leaves the card
+    idle for several seconds); return the SM clock nvidia-smi reads then."""
+    a = torch.randn((4096, 4096), device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = (a @ a).clamp_(-1.0, 1.0)
+        torch.cuda.synchronize()
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
 
 
 def bound(bytes_moved, ops, dtype_name):
@@ -93,6 +153,41 @@ def featurize_ops(rows, col_deg, d):
     return rows * (2 * d * s + muls + len(col_deg))
 
 
+def sketch_cost(rows, plan, item):
+    """(bytes, operations) of kernel B6 on ``rows`` inputs, counted as this
+    plan's data needs them: the omega rows the columns use (the sum of the
+    column degrees, real and imaginary), the block-diagonal inverse DFT
+    (sum of c^2 entries, real and imaginary), x once and the output once;
+    per row a complex d-long dot product for every used slot, the complex
+    running product, the block inverse DFT and the scale."""
+    import numpy as np
+
+    deg = plan.column_degrees()
+    d = plan.input_dim
+    fs = plan.num_sketch_cols
+    used = int(deg.sum())
+    diag = int(sum(c * c for c in plan.counts))
+    muls = int(np.maximum(deg.astype(np.int64) - 1, 0).sum())
+    nbytes = (rows * d * item + 2 * used * d * item + 2 * diag * item
+              + fs * 8 + rows * fs * 4)
+    ops = rows * (4 * d * used + 6 * muls + 4 * diag + fs)
+    return nbytes, ops
+
+
+def chunked_cost(bh, t, f, dv, chunk, item):
+    """(bytes, operations) of kernel B5: zq, zk, v, the prefixes and the
+    output once each; per chunk the causal triangle of scores over F, the
+    triangle times v, zq S_prev and zq n_prev over F, the row sums and the
+    divide."""
+    n = t // chunk
+    pairs = chunk * (chunk + 1) // 2
+    nbytes = (2 * bh * t * f * item + bh * t * dv * 4 + bh * n * f * dv * 4
+              + bh * n * f * 4 + bh * t * dv * 4)
+    per_chunk = (2 * pairs * f + 2 * pairs * dv + 2 * chunk * f * dv
+                 + 2 * chunk * f + pairs + chunk * dv)
+    return nbytes, bh * n * per_chunk
+
+
 def run_workload(torch, engine, prompts, base):
     """Submit every prompt as a greedy 16-token request (ids ``base + i``),
     step until drained; return (finished states, admissions, decode steps,
@@ -116,8 +211,11 @@ def run_workload(torch, engine, prompts, base):
 
 def device_profile(torch, fn):
     """Run ``fn`` once under torch.profiler; return (device busy ms, {kernel
-    name: ms}) from the CUDA kernel events (one stream, so their durations
-    add up to the busy time)."""
+    name: ms}, device kernels, host ms inside profiled operators) — the
+    device numbers from the CUDA kernel events (one stream, so their
+    durations add up to the busy time), the host number the sum of the CPU
+    events' self times (PyTorch operators and CUDA runtime calls; the
+    Python between them is not in it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,16 +224,150 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
     by_name = {}
+    count = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            count += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
-    return sum(by_name.values()), by_name
+    ops_ms = sum(e.self_cpu_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CPU) / 1e3
+    return sum(by_name.values()), by_name, count, ops_ms
+
+
+def count_syncs(torch, fn):
+    """Synchronizing calls ``fn`` makes, as PyTorch's sync debug mode
+    reports them (a prototype that does not see every kind)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def unit_rows(torch, shape, gen):
     x = torch.randn(shape, generator=gen, device="cuda")
     return x / x.norm(dim=-1, keepdim=True)
+
+
+def rel_err(torch, got, want):
+    return ((got.cpu() - want.cpu()).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+def serve_slice(torch, tag, engine, cfg, prompts, counters, expected):
+    """Drive the slice once with every launch counter at 0; check that each
+    request finished with valid tokens, that ``expected(admissions, decode
+    steps)`` gives each counter's launches, and that requests 7 and 1 run
+    alone give their batched tokens. Returns (finished states, launches
+    by kernel)."""
+    from repro_torch.serve import Request
+
+    buckets = sorted({engine.executor.bucket_for(len(p))
+                      for p in prompts.values()})
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    done, admissions, decode_steps, wall = run_workload(torch, engine,
+                                                        prompts, 0)
+    launches = {kid: fn.launches for kid, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    from repro_torch.launch.serve import summarize
+
+    stats = summarize(done)
+    print(f"[{tag}] cold run: {stats['requests']} requests over buckets "
+          f"{buckets}, {stats['tokens']} tokens in {wall:.3f}s "
+          f"({stats['tokens'] / wall:.1f} tok/s), TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{stats['ttft_p99_s'] * 1e3:.1f} ms, peak memory {peak_gb:.2f} GiB")
+    print(f"[{tag}] admissions {admissions}, decode steps {decode_steps}, "
+          "launches " + " ".join(f"{k} {v}" for k, v in launches.items()))
+    for rid, s in done.items():
+        if s.finish_reason not in VALID_REASONS or not s.generated or \
+                not all(0 <= tok < cfg.vocab_size for tok in s.generated):
+            raise AssertionError(f"{tag} request {rid}: {s.finish_reason} "
+                                 f"{s.generated}")
+    if admissions < len(prompts) or not decode_steps:
+        raise AssertionError(f"{tag}: {admissions} admissions, "
+                             f"{decode_steps} decode steps")
+    want = expected(admissions, decode_steps)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != expected {want} "
+                             f"({admissions} admissions, {decode_steps} "
+                             f"decode steps, {cfg.num_layers} layers)")
+    with torch.inference_mode():
+        logits, _, _ = engine.executor.prefill(prompts[0])
+    if logits.shape != (1, 32, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{tag}: prefill logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    for rid in (7, 1):                           # padded buckets 256, 32
+        engine.submit(Request(100 + rid, prompts[rid], max_new_tokens=16))
+        alone = engine.run()[100 + rid].generated
+        if alone != done[rid].generated:
+            raise AssertionError(f"{tag}: request {rid} alone {alone} != "
+                                 f"batched {done[rid].generated}")
+    print(f"[{tag}] requests 7 and 1 run alone give their batched tokens")
+    return done, launches
+
+
+def where_time_goes(torch, tag, engine, prompts, done):
+    """The workload again on the warm engine (TTFT, tokens/s), then one
+    profiler window over 5 warm decode steps and one over a bucket-256
+    prefill."""
+    from repro_torch.launch.serve import summarize
+
+    done2, _, steps2, wall2 = run_workload(torch, engine, prompts, 1000)
+    if any(done2[r].generated != done[r].generated for r in prompts):
+        raise AssertionError(f"{tag}: the warm run changed a request's "
+                             "tokens")
+    stats2 = summarize(done2)
+    print(f"[{tag} time] warm run: {stats2['tokens']} tokens in {wall2:.3f}s "
+          f"({stats2['tokens'] / wall2:.1f} tok/s), TTFT p50 "
+          f"{stats2['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{stats2['ttft_p99_s'] * 1e3:.1f} ms (queue wait included), "
+          f"{steps2} decode steps")
+    ex = engine.executor
+    toks = torch.zeros((4, 1), dtype=torch.long)
+    pos = torch.full((4,), 10, dtype=torch.int32)
+
+    def decode5():
+        for _ in range(5):
+            ex.decode(toks, pos)
+
+    def prefill256():
+        with torch.inference_mode():
+            ex.prefill(prompts[7])
+
+    for label, fn, reps in (("decode step", decode5, 5),
+                            ("prefill bucket 256", prefill256, 1)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t_enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        enqueue_ms = (t_enqueued - t0) * 1e3 / reps
+        busy_ms, by_name, count, ops_ms = device_profile(torch, fn)
+        busy_ms /= reps
+        syncs = count_syncs(torch, fn)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[{tag} time] {label}: wall {wall_ms:.2f} ms, device busy "
+              f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%, idle "
+              f"{100 * (1 - busy_ms / wall_ms):.0f}%), {count / reps:.0f} "
+              "device kernels; top kernels "
+              + "; ".join(f"{name[:48]} {ms / reps:.3f} ms"
+                          for name, ms in top))
+        print(f"[{tag} time] {label} host: enqueue {enqueue_ms:.2f} ms of "
+              f"the {wall_ms:.2f} ms wall, {ops_ms / reps:.2f} ms inside "
+              f"profiled operators (profiler on), {syncs / reps:.0f} "
+              "synchronizing calls (the inputs' host-to-device copies)")
 
 
 def main():
@@ -149,15 +381,30 @@ def main():
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.core import registry
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rm_attention.ops import rm_fused_causal
-    from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
+    from repro_torch.kernels.common import pick_sketch_rows
+    from repro_torch.kernels.rm_attention.ops import (
+        rm_attention_causal,
+        rm_attention_chunked,
+        rm_fused_causal,
+    )
+    from repro_torch.kernels.rm_attention.ref import (
+        causal_chunked_ref,
+        chunk_states,
+        rm_attention_chunked_ref,
+        rm_attention_ref,
+        rm_fused_causal_ref,
+    )
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
-    from repro_torch.launch.serve import make_engine, summarize
+    from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
+    from repro_torch.launch.serve import make_engine
     from repro_torch.models.attention import rm_plan_for
     from repro_torch.serve import Request
+    from repro_torch.sketch.plan import init_sketch_params, pack_sketch
+    from repro_torch.sketch.ref import tensor_sketch_fused_ref
 
     # -- 1. environment and build -------------------------------------------
     smi = subprocess.run(
@@ -170,7 +417,8 @@ def main():
           f"count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"[build] both kernels ready in {time.perf_counter() - t0:.2f}s")
+    print(f"[build] {len(_build.LIBRARIES)} kernels ready in "
+          f"{time.perf_counter() - t0:.2f}s")
     for name, (secs, log) in _build.build_report().items():
         report = [ln.strip() for ln in log.splitlines()
                   if "registers" in ln or "spill" in ln]
@@ -188,6 +436,7 @@ def main():
     print(f"[plan] qwen3-1.7b rm head: packed w {tuple(w32.shape)}, "
           f"F={f} columns, degrees {np.bincount(deg_np).tolist()}")
     kernels = {}
+    print(f"[clock] SM clock after a 1 s warm-up: {warm_card(torch)}")
 
     # -- 2. B1 against its plain version ------------------------------------
     decode_rows = 2 * 4 * cfg.num_heads          # stacked q+k, 4 slots
@@ -218,6 +467,9 @@ def main():
                                      f"{tol}")
             b1_checks.append((f"{label} {dname}", err, tol))
             if label == "decode" and dtype == torch.float32:
+                hus = host_us(torch, lambda: rm_feature_fused(
+                    x, w, col_deg, col_scale))
+                print(f"[B1] decode host time {hus:.1f} us a call")
                 kernels["B1"] = dict(
                     name="rm_feature_fused", route="cuda",
                     source="src/repro_torch/csrc/rm_feature.cu",
@@ -270,6 +522,9 @@ def main():
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
               f"({by})")
         if dtype == torch.float32:
+            hus = host_us(torch, lambda: rm_fused_causal(*args, cfg.rm.eps),
+                          iters=50)
+            print(f"[B2] host time {hus:.1f} us a call")
             kernels["B2"] = dict(
                 name="rm_fused_causal", route="cuda",
                 source="src/repro_torch/csrc/rm_fused_attention.cu",
@@ -277,22 +532,160 @@ def main():
                 shape=f"q,k[{bh},{t},{dh}] fp32, F={f}",
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None)
+
+    # -- 4. B6 against its plain version ------------------------------------
+    ts_cfg = get_config("qwen3-1.7b", attention_mode="rm",
+                        estimator="tensor_sketch")
+    ts_plan = rm_plan_for(ts_cfg, dh)
+    ts_entry = registry.get("tensor_sketch")
+    ts_params = init_sketch_params(ts_plan, gen)
+    packed32 = pack_sketch(ts_plan, ts_params)
+    ts_deg, ts_scale = plan_columns(ts_plan, "cuda")
+    starts = ts_plan.block_starts()
+    fs = ts_plan.num_sketch_cols
+    print(f"[plan] qwen3-1.7b tensor_sketch head: degrees "
+          f"{ts_plan.degrees} widths {ts_plan.counts}, wr/wi "
+          f"{tuple(packed32[0].shape)}, mr/mi {tuple(packed32[2].shape)}, "
+          f"F={ts_plan.output_dim} features")
+    # every row count the slice gives B6: q (or k) of 4 decode slots, and
+    # one prompt's q (or k) at each prefill bucket; together they take
+    # every row tile that pick_sketch_rows chooses on the path
+    b6_shapes = [(4 * cfg.num_heads, "decode")] + [
+        (bucket * cfg.num_heads, f"prefill bucket {bucket}")
+        for bucket in (32, 64, 128, 256)]
+    c_max = max(b_ - a for a, b_ in zip(starts, starts[1:]))
+    b6_checks = []
+    for rows, label in b6_shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = unit_rows(torch, (rows, dh), gen).to(dtype)
+            wr, wi, mr, mi = (p_.to(dtype) for p_ in packed32)
+            args = (x, wr, wi, ts_deg, mr, mi, ts_scale)
+            got = tensor_sketch_fused(*args, starts)
+            want = tensor_sketch_fused_ref(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = B6_TOL * max(1.0, want.abs().max().item())
+            ms = time_ms(torch, lambda: tensor_sketch_fused(*args, starts))
+            plain_ms = time_ms(torch, lambda: tensor_sketch_fused_ref(*args))
+            dname = str(dtype).split(".")[-1]
+            bms, by = bound(*sketch_cost(rows, ts_plan, x.element_size()),
+                            dname)
+            tile = pick_sketch_rows(c_max, rows, len(starts) - 1)
+            print(f"[B6] {label} x[{rows},{dh}] {dname}, {tile}-row tile: "
+                  f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} "
+                  f"ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+            if not err <= tol:
+                raise AssertionError(f"B6 {label} {dname}: error {err} > "
+                                     f"{tol}")
+            b6_checks.append((f"{label} {dname}", err, tol))
+            if label == "decode" and dtype == torch.float32:
+                hus = host_us(torch, lambda: tensor_sketch_fused(*args,
+                                                                 starts))
+                xs32 = x.reshape(4, cfg.num_heads, 1, dh)
+                apply_us = host_us(torch, lambda: ts_entry.apply(
+                    ts_plan, ts_params, xs32, packed=packed32))
+                print(f"[B6] decode host time {hus:.1f} us a call; the "
+                      f"whole featurize (registry apply) {apply_us:.1f} us")
+                kernels["B6"] = dict(
+                    name="tensor_sketch_fused", route="cuda",
+                    source="src/repro_torch/csrc/tensor_sketch.cu",
+                    replaces="src/repro/kernels/tensor_sketch/"
+                             "tensor_sketch.py:76",
+                    shape=f"x[{rows},{dh}] fp32 x wr,wi"
+                          f"{tuple(packed32[0].shape)}, blocks {starts}",
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=None)
+    # the Gram entry point: estimate_gram over the family's apply, with the
+    # kernel on the card against the plain version on the CPU
+    xg = unit_rows(torch, (4096, dh), gen)
+    cpu_params = {k_: v_.cpu() for k_, v_ in ts_params.items()}
+    for prec in ("fp32", "bf16"):
+        before = tensor_sketch_fused.launches
+        g_card = registry.estimate_gram(
+            lambda a: ts_entry.apply(ts_plan, ts_params, a, precision=prec),
+            xg)
+        torch.cuda.synchronize()
+        if tensor_sketch_fused.launches != before + 1:
+            raise AssertionError("estimate_gram did not launch B6 once")
+        g_plain = registry.estimate_gram(
+            lambda a: ts_entry.apply(ts_plan, cpu_params, a, precision=prec),
+            xg.cpu())
+        err = (g_card.cpu() - g_plain).abs().max().item()
+        tol = B6_GRAM_TOL * max(1.0, g_plain.abs().max().item())
+        print(f"[B6] estimate_gram X[4096,{dh}] {prec}: max_abs_err "
+              f"{err:.3e} (tol {tol:.1e}), Gram {tuple(g_card.shape)}")
+        if not (err <= tol and torch.isfinite(g_card).all()):
+            raise AssertionError(f"B6 Gram {prec}: error {err} > {tol}")
+        b6_checks.append((f"gram {prec}", err, tol))
+
+    # -- 5. B5 against its plain version ------------------------------------
+    b5_checks = []
+    for t, chunk, padded in ((256, cfg.rm.chunk, 200), (32, 32, None)):
+        bh = cfg.num_heads
+        xq = unit_rows(torch, (bh * t, dh), gen)
+        xk = unit_rows(torch, (bh * t, dh), gen)
+        zq = ts_entry.apply(ts_plan, ts_params, xq).reshape(1, bh, t, -1)
+        zk = ts_entry.apply(ts_plan, ts_params, xk).reshape(1, bh, t, -1)
+        if padded:                  # keys of the second half padded
+            kvalid = torch.ones((bh, t), device="cuda")
+            kvalid[bh // 2:, padded:] = 0.0
+            zk = zk * kvalid[None, :, :, None]
+        v = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
+        f_ts = zq.shape[-1]
+        got = rm_attention_causal(zq, zk, v, chunk=chunk, eps=cfg.rm.eps)
+        want = causal_chunked_ref(zq, zk, v, chunk, cfg.rm.eps)
+        quad = rm_attention_ref(zq, zk, v, eps=cfg.rm.eps)
+        s_prev, n_prev = chunk_states(zk, v, chunk)
+        n_ch = t // chunk
+        pb = (zq.reshape(bh, t, f_ts), zk.reshape(bh, t, f_ts),
+              v.reshape(bh, t, dh), s_prev.reshape(bh, n_ch, f_ts, dh),
+              n_prev.reshape(bh, n_ch, f_ts))
+        got_b = rm_attention_chunked(*pb, chunk=chunk, eps=cfg.rm.eps)
+        want_b = rm_attention_chunked_ref(*pb, chunk=chunk, eps=cfg.rm.eps)
+        torch.cuda.synchronize()
+        errs, tols = [], []
+        for name, g_, w_ in (("causal", got, want), ("pass B", got_b,
+                                                     want_b),
+                             ("vs quadratic", got, quad)):
+            err = (g_ - w_).abs().max().item()
+            tol = B5_TOL * max(1.0, w_.abs().max().item())
+            errs.append(err)
+            tols.append(tol)
+            b5_checks.append((f"T{t} {name}", err, tol))
+            if not err <= tol:
+                raise AssertionError(f"B5 T{t} {name}: error {err} > {tol}")
+        ms = time_ms(torch, lambda: rm_attention_chunked(
+            *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
+        plain_ms = time_ms(torch, lambda: rm_attention_chunked_ref(
+            *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
+        bms, by = bound(*chunked_cost(bh, t, f_ts, dh, chunk, 4), "float32")
+        print(f"[B5] zq,zk[{bh},{t},{f_ts}] v dv {dh} chunk {chunk} fp32: "
+              f"max_abs_err causal/pass B/vs quadratic {errs[0]:.3e}/"
+              f"{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/"
+              f"{tols[1]:.1e}/{tols[2]:.1e}) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+        if t == 256:
+            hus = host_us(torch, lambda: rm_attention_chunked(
+                *pb, chunk=chunk, eps=cfg.rm.eps), iters=50)
+            print(f"[B5] host time {hus:.1f} us a call")
+            kernels["B5"] = dict(
+                name="rm_attention_chunked", route="cuda",
+                source="src/repro_torch/csrc/rm_attention_chunked.cu",
+                replaces="src/repro/kernels/rm_attention/rm_attention.py:62",
+                shape=f"zq,zk[{bh},{t},{f_ts}] fp32, dv {dh}, chunk {chunk}",
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
     # each kernel's line reports the check nearest its limit, with that
     # check's own error and limit
-    for kid, checks in (("B1", b1_checks), ("B2", b2_checks)):
+    for kid, checks in (("B1", b1_checks), ("B2", b2_checks),
+                        ("B6", b6_checks), ("B5", b5_checks)):
         label, err, tol = worst(checks)
         kernels[kid].update(max_abs_err=err, tol=tol, check=label)
 
-    # -- 4. small end-to-end reference: card (kernels) vs CPU (plain) -------
-    import dataclasses
-
+    # -- 6. small end-to-end references -------------------------------------
     from repro_torch.models import transformer as tt
     from repro_torch.serve import Scheduler
-
-    small = dataclasses.replace(
-        get_config("qwen3-1.7b", smoke=True, attention_mode="rm"),
-        compute_dtype="float32")
-    cpu_params = tt.init_model(small, torch.Generator().manual_seed(0))
 
     def to_cuda(p):
         if isinstance(p, dict):
@@ -301,29 +694,59 @@ def main():
             return [to_cuda(val) for val in p]
         return p.cuda()
 
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, small.vocab_size, size=(2, 40)))
+    small_rm = None
+    for est in ("rm", "tensor_sketch"):
+        small = dataclasses.replace(
+            get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                       estimator=est), compute_dtype="float32")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, small.vocab_size, size=(2, 40)))
+        cpu_params = tt.init_model(small, torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            ref_logits, _ = tt.forward(cpu_params, small, {"tokens": toks})
+            gpu_logits, _ = tt.forward(to_cuda(cpu_params), small,
+                                       {"tokens": toks.cuda()})
+        rel = rel_err(torch, gpu_logits, ref_logits)
+        small_tokens = {}
+        for dev, params in (("cpu", cpu_params),
+                            ("cuda", to_cuda(cpu_params))):
+            sched = Scheduler(small, params, num_slots=2, max_len=64,
+                              device=dev)
+            for rid, n in enumerate((5, 20, 37)):
+                sched.submit(Request(rid, np.random.default_rng(
+                    rid).integers(0, small.vocab_size, size=n),
+                    max_new_tokens=8))
+            small_tokens[dev] = {r: s.generated
+                                 for r, s in sched.run().items()}
+        same = small_tokens["cpu"] == small_tokens["cuda"]
+        print(f"[small] qwen3 SMOKE fp32 {est}, card vs CPU: forward logits "
+              f"rel err {rel:.2e} (tol {E2E_TOL:.0e}), greedy tokens "
+              f"identical: {same}")
+        if not (rel <= E2E_TOL and same
+                and torch.isfinite(gpu_logits).all()):
+            raise AssertionError(f"small {est} end-to-end check failed")
+        if est == "rm":
+            small_rm = (small, to_cuda(cpu_params))
+    small, params = small_rm
+    off = dataclasses.replace(small, rm=dataclasses.replace(
+        small.rm, fuse_featurize="off"))
     with torch.inference_mode():
-        ref_logits, _ = tt.forward(cpu_params, small, {"tokens": toks})
-        gpu_logits, _ = tt.forward(to_cuda(cpu_params), small,
-                                   {"tokens": toks.cuda()})
-    rel = ((gpu_logits.cpu() - ref_logits).abs().max()
-           / ref_logits.abs().max().clamp_min(1.0)).item()
-    small_tokens = {}
-    for dev, params in (("cpu", cpu_params), ("cuda", to_cuda(cpu_params))):
-        sched = Scheduler(small, params, num_slots=2, max_len=64,
-                          device=dev)
-        for rid, n in enumerate((5, 20, 37)):
-            sched.submit(Request(rid, np.random.default_rng(rid).integers(
-                0, small.vocab_size, size=n), max_new_tokens=8))
-        small_tokens[dev] = {r: s.generated for r, s in sched.run().items()}
-    same = small_tokens["cpu"] == small_tokens["cuda"]
-    print(f"[small] qwen3 SMOKE fp32, card vs CPU: forward logits rel err "
-          f"{rel:.2e} (tol 1e-4), greedy tokens identical: {same}")
-    if not (rel <= 1e-4 and same and torch.isfinite(gpu_logits).all()):
-        raise AssertionError("small end-to-end reference check failed")
+        fused_logits, _ = tt.forward(params, small, {"tokens": toks.cuda()})
+        before = (rm_feature_fused.launches, rm_attention_chunked.launches)
+        off_logits, _ = tt.forward(params, off, {"tokens": toks.cuda()})
+        torch.cuda.synchronize()
+    ran = (rm_feature_fused.launches - before[0],
+           rm_attention_chunked.launches - before[1])
+    rel = rel_err(torch, off_logits, fused_logits)
+    print(f"[small] qwen3 SMOKE fp32 rm on the card, two-launch (B1 + B5: "
+          f"{ran[0]} + {ran[1]} launches) vs fused (B2): logits rel err "
+          f"{rel:.2e} (tol {E2E_TOL:.0e})")
+    if not (rel <= E2E_TOL and ran == (2 * small.num_layers,
+                                       small.num_layers)):
+        raise AssertionError("rm two-launch vs fused check failed")
+    del small_rm, params
 
-    # -- 5. the slice at full width and depth -------------------------------
+    # -- 7. the rm slice at full width and depth ----------------------------
     print(f"[slice] {cfg.name}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv, "
           f"head_dim {dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
@@ -337,94 +760,52 @@ def main():
     lengths = (5, 17, 30, 45, 64, 90, 130, 200)  # buckets 32..256
     prompts = {rid: rng.integers(0, cfg.vocab_size, size=n)
                for rid, n in enumerate(lengths)}
-    buckets = sorted({engine.executor.bucket_for(n) for n in lengths})
-    torch.cuda.reset_peak_memory_stats()
-    rm_feature_fused.launches = 0
-    rm_fused_causal.launches = 0
-    done, admissions, decode_steps, wall = run_workload(torch, engine,
-                                                        prompts, 0)
-    launches = {"B1": rm_feature_fused.launches,
-                "B2": rm_fused_causal.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    stats = summarize(done)
-    print(f"[slice] cold run: {stats['requests']} requests over buckets "
-          f"{buckets}, {stats['tokens']} tokens in {wall:.3f}s "
-          f"({stats['tokens'] / wall:.1f} tok/s), TTFT p50 "
-          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
-          f"{stats['ttft_p99_s'] * 1e3:.1f} ms, peak memory {peak_gb:.2f} GiB")
-    print(f"[slice] admissions {admissions}, decode steps {decode_steps}, "
-          f"launches B1 {launches['B1']} B2 {launches['B2']}")
-    for rid, s in done.items():
-        if s.finish_reason not in VALID_REASONS or not s.generated or \
-                not all(0 <= tok < cfg.vocab_size for tok in s.generated):
-            raise AssertionError(f"request {rid}: {s.finish_reason} "
-                                 f"{s.generated}")
-    if launches["B2"] != admissions * cfg.num_layers or admissions < 8:
-        raise AssertionError(f"B2 launches {launches['B2']} != admissions "
-                             f"{admissions} x {cfg.num_layers} layers")
-    if launches["B1"] != decode_steps * cfg.num_layers or not decode_steps:
-        raise AssertionError(f"B1 launches {launches['B1']} != decode steps "
-                             f"{decode_steps} x {cfg.num_layers} layers")
-    with torch.inference_mode():
-        logits, _, _ = engine.executor.prefill(prompts[0])
-    if logits.shape != (1, 32, cfg.vocab_size) or \
-            not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
-                             "finite or of the wrong shape")
-    for rid in (7, 1):                           # padded buckets 256, 32
-        engine.submit(Request(100 + rid, prompts[rid], max_new_tokens=16))
-        alone = engine.run()[100 + rid].generated
-        if alone != done[rid].generated:
-            raise AssertionError(f"request {rid} alone {alone} != batched "
-                                 f"{done[rid].generated}")
-    print("[slice] requests 7 and 1 run alone give their batched tokens")
-
-    # -- 6. where the time goes (warm) --------------------------------------
-    done2, _, steps2, wall2 = run_workload(torch, engine, prompts, 1000)
-    if any(done2[r].generated != done[r].generated for r in prompts):
-        raise AssertionError("the warm run changed a request's tokens")
-    stats2 = summarize(done2)
-    print(f"[time] warm run: {stats2['tokens']} tokens in {wall2:.3f}s "
-          f"({stats2['tokens'] / wall2:.1f} tok/s), TTFT p50 "
-          f"{stats2['ttft_p50_s'] * 1e3:.1f} ms p99 "
-          f"{stats2['ttft_p99_s'] * 1e3:.1f} ms (queue wait included), "
-          f"{steps2} decode steps")
-    ex = engine.executor
-    toks = torch.zeros((4, 1), dtype=torch.long)
-    pos = torch.full((4,), 10, dtype=torch.int32)
-
-    def decode5():
-        for _ in range(5):
-            ex.decode(toks, pos)
-
-    def prefill256():
-        with torch.inference_mode():
-            ex.prefill(prompts[7])
-
-    for label, fn, reps in (("decode step", decode5, 5),
-                            ("prefill bucket 256", prefill256, 1)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        busy_ms, by_name = device_profile(torch, fn)
-        busy_ms /= reps
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        print(f"[time] {label}: wall {wall_ms:.2f} ms, device busy "
-              f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%, idle "
-              f"{100 * (1 - busy_ms / wall_ms):.0f}%); top kernels "
-              + "; ".join(f"{name[:48]} {ms / reps:.2f} ms"
-                          for name, ms in top))
+    layers = cfg.num_layers
+    all_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
+                    "B5": rm_attention_chunked, "B6": tensor_sketch_fused}
+    done, launches = serve_slice(
+        torch, "slice", engine, cfg, prompts, all_counters,
+        lambda adm, steps: {"B1": steps * layers, "B2": adm * layers,
+                            "B5": 0, "B6": 0})
     kernels["B1"]["launches"] = launches["B1"]
     kernels["B2"]["launches"] = launches["B2"]
 
+    # -- 8. where the rm slice's time goes (warm) ---------------------------
+    where_time_goes(torch, "rm", engine, prompts, done)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9. the tensor_sketch slice -----------------------------------------
+    print(f"[ts slice] {ts_cfg.name}: the same model with estimator "
+          f"tensor_sketch (F={ts_plan.output_dim} features, two-launch "
+          "attention); depth cut: none")
+    t0 = time.perf_counter()
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                         estimator="tensor_sketch", num_slots=4,
+                         max_len=256, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[ts slice] weights + engine ready in "
+          f"{time.perf_counter() - t0:.2f}s; estimator {engine.estimator}, "
+          f"fused attention {engine.fused_attention}")
+    if engine.estimator != "tensor_sketch" or engine.fused_attention:
+        raise AssertionError("the tensor_sketch engine is not on the "
+                             "two-launch path")
+    done, launches = serve_slice(
+        torch, "ts slice", engine, ts_cfg, prompts, all_counters,
+        lambda adm, steps: {"B1": 0, "B2": 0, "B5": adm * layers,
+                            "B6": 2 * layers * (adm + steps)})
+    kernels["B5"]["launches"] = launches["B5"]
+    kernels["B6"]["launches"] = launches["B6"]
+
+    # -- 10. where the tensor_sketch slice's time goes (warm) ---------------
+    where_time_goes(torch, "ts", engine, prompts, done)
+
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")
+             "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{key: kernels[kid][key] for key in order}
-                                  for kid in ("B1", "B2")]}))
+                                  for kid in ("B1", "B2", "B5", "B6")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,10 @@
 """Architecture registry (port of ``repro.configs``): ``--arch <id>``.
 
 Only ``qwen3-1.7b`` is ported; every other reference arch id raises
-``NotImplementedError`` naming where its port is queued.
+``NotImplementedError`` naming where its port is queued. ``get_config``
+takes the reference's overrides: ``attention_mode`` and ``estimator`` (the
+feature family of RM attention, validated against the port's registry:
+``"rm"`` or ``"tensor_sketch"``).
 """
 from __future__ import annotations
 
@@ -30,13 +33,17 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch: str, smoke: bool = False,
-               attention_mode: Optional[str] = None) -> ModelConfig:
+               attention_mode: Optional[str] = None,
+               estimator: Optional[str] = None) -> ModelConfig:
     """Resolve an arch id (``FULL``, or ``SMOKE`` with ``smoke=True``),
-    with an optional attention-mode override.
+    with optional attention-mode and estimator overrides.
 
     Raises:
         NotImplementedError: a reference arch whose port is still queued.
-        KeyError: an unknown arch id.
+        KeyError: an unknown arch id, or an estimator name the registry
+            does not have (the message names the available ones).
+        ValueError: ``estimator`` given for a config whose attention mode
+            is not ``"rm"``.
     """
     if arch in _NOT_PORTED:
         raise NotImplementedError(
@@ -48,4 +55,17 @@ def get_config(arch: str, smoke: bool = False,
     cfg: ModelConfig = mod.SMOKE if smoke else mod.FULL
     if attention_mode is not None and attention_mode != cfg.attention_mode:
         cfg = dataclasses.replace(cfg, attention_mode=attention_mode)
+    if estimator is not None:
+        if cfg.attention_mode != "rm":
+            raise ValueError(
+                f"estimator={estimator!r} requested but {arch} resolves to "
+                f"attention_mode={cfg.attention_mode!r}; estimators only "
+                "apply to the paper's RM linear attention (pass "
+                "attention_mode='rm').")
+        from repro_torch.core import registry
+
+        registry.get(estimator)   # raises with the available names
+        if estimator != cfg.rm.estimator:
+            cfg = dataclasses.replace(
+                cfg, rm=dataclasses.replace(cfg.rm, estimator=estimator))
     return cfg.validate()

@@ -6,8 +6,10 @@ the port's parameters: numpy in, tensors out. The reference stacks its
 scanned layers on a leading axis of ``params["groups"]``
 (``repro.models.transformer.init_model``); the port keeps one dict per
 layer, so that axis is unstacked, group-major then pattern order. The
-``rm_est`` omegas and ``rm_scale`` cross with the rest, so both packages
-compute with the same weights and the same Rademacher draws.
+``rm_est`` estimator params (the rm omegas, or the tensor_sketch hash
+tables ``h`` int32 and signs ``s``) and ``rm_scale`` cross unchanged with
+the rest, dtypes included, so both packages compute with the same weights
+and the same random draws.
 """
 from __future__ import annotations
 

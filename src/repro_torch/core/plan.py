@@ -306,10 +306,11 @@ def _apply_plan_flat(plan: FeaturePlan, omegas: torch.Tensor,
 
 
 def apply_plan(plan: FeaturePlan, omegas: torch.Tensor, x: torch.Tensor,
-               precision=None) -> torch.Tensor:
+               precision=None, packed: torch.Tensor = None) -> torch.Tensor:
     """Featurize ``x [..., d] -> [..., plan.output_dim]`` in ONE launch of
     the fused map (``kernels.rm_feature.rm_feature_fused``: the CUDA kernel
-    for a CUDA tensor, its plain version for a CPU tensor)."""
+    for a CUDA tensor, its plain version for a CPU tensor). ``packed``
+    short-circuits ``pack_omegas`` for callers that pack once."""
     from repro_torch.common.dtypes import resolve_precision
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
 
@@ -317,7 +318,7 @@ def apply_plan(plan: FeaturePlan, omegas: torch.Tensor, x: torch.Tensor,
         raise ValueError(
             f"expected trailing dim {plan.input_dim}, got {tuple(x.shape)}")
     cdt = resolve_precision(precision).compute_dtype
-    w = pack_omegas(plan, omegas)
+    w = pack_omegas(plan, omegas) if packed is None else packed
     col_deg, col_scale = plan_columns(plan, x.device)
     batch_shape = x.shape[:-1]
     z = rm_feature_fused(x.reshape(-1, plan.input_dim).to(cdt), w.to(cdt),
@@ -328,16 +329,18 @@ def apply_plan(plan: FeaturePlan, omegas: torch.Tensor, x: torch.Tensor,
 _COLUMNS_CACHE: dict = {}
 
 
-def plan_columns(plan: FeaturePlan, device) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """``(col_deg int32 [F], col_scale fp32 [F])`` as tensors on ``device``.
+def plan_columns(plan, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(col_deg int32 [F], col_scale fp32 [F])`` of any plan with
+    ``column_degrees``/``column_scales`` (``FeaturePlan``, ``SketchPlan``)
+    as tensors on ``device``.
 
-    Memoized per (plan, device): the decode loop asks for them once per
-    layer and step, and a fresh host-to-device copy each time would
-    synchronize the stream.
+    Memoized per (plan type, plan, device): the decode loop asks for them
+    once per layer and step, and a fresh host-to-device copy each time
+    would synchronize the stream. (Plans are NamedTuples, so two plan
+    types with equal fields would otherwise share an entry.)
     """
     device = torch.device(device)
-    key = (plan, str(device))
+    key = (type(plan).__name__, plan, str(device))
     cols = _COLUMNS_CACHE.get(key)
     if cols is None:
         cols = (torch.from_numpy(plan.column_degrees()).to(device),

@@ -1,19 +1,27 @@
-"""Estimator registry (port of ``repro.core.registry``), ``"rm"`` entry only.
+"""Estimator registry (port of ``repro.core.registry``): the ``"rm"``
+(Random Maclaurin) and ``"tensor_sketch"`` (Pham & Pagh) entries.
 
 Each family is a set of functions behind one name:
 
     make_plan(kernel, input_dim, num_features, *, p, measure, h01, n_max,
               radius, stratified, seed)          -> plan (hashable)
-    init_params(plan, generator, dtype)          -> {"omegas": Tensor}
-    apply(plan, params, x, *, precision)         -> features
+    init_params(plan, generator, dtype)          -> {name: Tensor}
+    apply(plan, params, x, *, precision, packed) -> features [..., F] fp32
     output_dim(plan)                             -> int
+    pack(plan, params, dtype)                    -> the packed weights
+                                                    ``apply`` takes as
+                                                    ``packed=``
     pack_fused(plan, params)                     -> (w, col_deg, col_scale)
                                                     (tensors on w's device)
 
-``fused_attention_supported`` marks families whose map is the packed
-masked-running-product layout the fused attention kernel takes. The other
-reference families (tensor_sketch, ctr, structured) are not ported yet
-(ROADMAP.md queue A); ``get`` raises on them, naming what exists.
+``pack`` is the port's addition: the model packs each layer's weights once
+per weight set (``models.attention.rm_packed_weights``) instead of once
+per call. ``fused_attention_supported`` marks families whose map is the
+packed masked-running-product layout the fused attention kernel takes
+(``pack_fused``); the others run attention through the two-launch path
+(featurize, then kernel B5). The reference's ``ctr`` and ``structured``
+families are not ported yet (ROADMAP.md queue A); ``get`` raises on them,
+naming what exists.
 """
 from __future__ import annotations
 
@@ -22,7 +30,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["Estimator", "get", "list_estimators"]
+__all__ = [
+    "Estimator",
+    "get",
+    "list_estimators",
+    "featurize_chunked",
+    "estimate_gram",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +46,36 @@ class Estimator:
     init_params: Callable[..., Dict[str, torch.Tensor]]
     apply: Callable[..., torch.Tensor]
     output_dim: Callable[[Any], int]
+    pack: Callable[..., Any]
     fused_attention_supported: bool = False
     pack_fused: Optional[Callable[..., Any]] = None
+
+
+def featurize_chunked(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                      X: torch.Tensor, row_chunk: int = 4096) -> torch.Tensor:
+    """Apply a feature map over row chunks of ``X [N, d]``, so the live
+    intermediate never exceeds ``row_chunk`` rows."""
+    n = X.shape[0]
+    if n <= row_chunk:
+        return apply_fn(X)
+    return torch.cat([apply_fn(X[i:i + row_chunk])
+                      for i in range(0, n, row_chunk)], dim=0)
+
+
+def estimate_gram(apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                  X: torch.Tensor, Y: Optional[torch.Tensor] = None,
+                  row_chunk: int = 4096) -> torch.Tensor:
+    """Kernel-matrix estimate ``Z(X) Z(Y)^T`` via chunked featurization
+    (the reference's ``axis_name`` reduction comes with the sharded
+    slice)."""
+    zx = featurize_chunked(apply_fn, X, row_chunk=row_chunk)
+    zy = zx if Y is None else featurize_chunked(apply_fn, Y,
+                                                row_chunk=row_chunk)
+    return zx @ zy.T
+
+
+def _plan_output_dim(plan) -> int:
+    return plan.output_dim
 
 
 def _rm_init_params(plan, generator: torch.Generator,
@@ -45,10 +87,20 @@ def _rm_init_params(plan, generator: torch.Generator,
     return {"omegas": init_omegas(plan, generator, dtype)}
 
 
-def _rm_apply(plan, params, x, *, precision=None) -> torch.Tensor:
+def _rm_apply(plan, params, x, *, precision=None,
+              packed=None) -> torch.Tensor:
     from repro_torch.core.plan import apply_plan
 
-    return apply_plan(plan, params["omegas"], x, precision=precision)
+    return apply_plan(plan, params["omegas"], x, precision=precision,
+                      packed=packed)
+
+
+def _rm_pack(plan, params, dtype=torch.float32) -> torch.Tensor:
+    """The packed ``[max_degree, F, d]`` omegas in ``dtype`` (lossless:
+    the omegas are +-1)."""
+    from repro_torch.core.plan import pack_omegas
+
+    return pack_omegas(plan, params["omegas"]).to(dtype)
 
 
 def _rm_pack_fused(plan, params) -> Tuple[torch.Tensor, torch.Tensor,
@@ -56,15 +108,12 @@ def _rm_pack_fused(plan, params) -> Tuple[torch.Tensor, torch.Tensor,
     """Packed ``[max_degree, F, d]`` omegas plus the per-column degree
     (int32) and scale (fp32) vectors, on the omegas' device (the reference
     returns the vectors as host numpy; here they are memoized device
-    tensors, so a decode step copies nothing from the host)."""
-    from repro_torch.core.plan import pack_omegas, plan_columns
+    tensors, so a decode step copies nothing from the host). The omegas
+    are :func:`_rm_pack`'s, so one function decides their layout."""
+    from repro_torch.core.plan import plan_columns
 
-    w = pack_omegas(plan, params["omegas"])
+    w = _rm_pack(plan, params, params["omegas"].dtype)
     return (w, *plan_columns(plan, w.device))
-
-
-def _plan_output_dim(plan) -> int:
-    return plan.output_dim
 
 
 def _make_rm_entry() -> Estimator:
@@ -76,12 +125,49 @@ def _make_rm_entry() -> Estimator:
         init_params=_rm_init_params,
         apply=_rm_apply,
         output_dim=_plan_output_dim,
+        pack=_rm_pack,
         fused_attention_supported=True,
         pack_fused=_rm_pack_fused,
     )
 
 
-_ENTRIES: Dict[str, Estimator] = {"rm": _make_rm_entry()}
+def _ts_apply(plan, params, x, *, precision=None,
+              packed=None) -> torch.Tensor:
+    """``x [..., d] -> [..., plan.output_dim]`` through
+    ``sketch.plan.apply_sketch_plan`` (one kernel-B6 launch)."""
+    from repro_torch.sketch.plan import apply_sketch_plan
+
+    return apply_sketch_plan(plan, params, x, precision=precision,
+                             packed=packed)
+
+
+def _ts_pack(plan, params, dtype=torch.float32):
+    """``[wr, wi, mr, mi]`` packed in fp32 from the hash tables, then
+    rounded once to ``dtype``. The reference re-packs per call from the
+    stored tables for exactly this reason (its ``_ts_apply`` docstring):
+    cos/sin tensors stored in the bf16 compute dtype would be degraded, so
+    the model keeps them out of the compute cast
+    (``models.transformer.cast_params_to_compute``)."""
+    from repro_torch.sketch.plan import pack_sketch
+
+    return [t.to(dtype) for t in pack_sketch(plan, params)]
+
+
+def _make_ts_entry() -> Estimator:
+    from repro_torch.sketch.plan import init_sketch_params, make_sketch_plan
+
+    return Estimator(
+        name="tensor_sketch",
+        make_plan=make_sketch_plan,
+        init_params=init_sketch_params,
+        apply=_ts_apply,
+        output_dim=_plan_output_dim,
+        pack=_ts_pack,
+    )
+
+
+_ENTRIES: Dict[str, Estimator] = {"rm": _make_rm_entry(),
+                                  "tensor_sketch": _make_ts_entry()}
 
 
 def list_estimators() -> Tuple[str, ...]:

@@ -30,6 +30,8 @@ BUILD_DIR = _PKG / "_build"
 LIBRARIES = {
     "rm_feature": "rm_feature.cu",
     "rm_fused_attention": "rm_fused_attention.cu",
+    "rm_attention_chunked": "rm_attention_chunked.cu",
+    "tensor_sketch": "tensor_sketch.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,7 +11,10 @@ the packed omegas in shared memory. Those constants are fixed by the CUDA
 source and mirrored here. The rm_feature kernel's grid is one such 64 x 64
 tile a block (16.9 KB of staging, 32 fp32 registers of running product and
 partial sum a thread), so it needs no choice; the fused attention kernel's
-chunk and value slice are chosen below. There is no autotune cache yet.
+chunk and value slice, and the tensor_sketch kernel's row tile (the
+reference's ``get_batch_block``), are chosen below. The chunked attention
+kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
+shared memory. There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ __all__ = [
     "round_up",
     "attention_smem_bytes",
     "pick_attention_blocks",
+    "sketch_smem_bytes",
+    "pick_sketch_rows",
 ]
 
 # Hopper: the most dynamic shared memory one block may opt into.
@@ -34,6 +39,11 @@ FEATURE_TILE = 64
 STAGE_K = 32
 # Lanes of a warp: the fused attention kernel maps one value column to each.
 _WARP = 32
+# Streaming multiprocessors of an H100 SXM: enough blocks to fill them.
+NUM_SMS = 132
+# Row tiles the tensor_sketch kernel is compiled for (16 rows x 1, 2 or 4
+# rows a thread).
+SKETCH_ROW_TILES = (64, 32, 16)
 
 
 def round_up(x: int, m: int) -> int:
@@ -82,3 +92,42 @@ def pick_attention_blocks(f: int, dv: int, t: int) -> Tuple[int, int]:
     raise ValueError(
         f"fused causal kernel: F={f} features do not fit one block's "
         f"{SMEM_PER_BLOCK} bytes of shared memory even at chunk 8")
+
+
+def sketch_smem_bytes(rows: int, c_max: int) -> int:
+    """Dynamic shared memory of one tensor_sketch block, in bytes.
+
+    The staging area (x ``[rows, STAGE_K + 1]`` and two 64-column weight or
+    inverse-DFT slices ``[64, STAGE_K + 1]``) and the block's complex
+    running product ``Ar, Ai [rows, round_up(c_max, 64) + 1]``, kept for
+    the inverse-DFT stage.
+    """
+    stage = (rows + 2 * FEATURE_TILE) * (STAGE_K + 1)
+    acc = 2 * rows * (round_up(max(c_max, 1), FEATURE_TILE) + 1)
+    return 4 * (stage + acc)
+
+
+def pick_sketch_rows(c_max: int, b: int, n_blocks: int) -> int:
+    """Row tile of the tensor_sketch kernel (grid = row tiles x degree
+    blocks).
+
+    The largest tile of :data:`SKETCH_ROW_TILES` whose shared memory fits
+    :data:`SMEM_PER_BLOCK` and whose grid still fills the card
+    (``ceil(b / rows) * n_blocks >= NUM_SMS``); when no tile fills it (a
+    decode-sized batch), the smallest tile that fits, for the most blocks
+    in flight.
+
+    Raises:
+        ValueError: the widest degree block does not fit one block's shared
+            memory even at 16 rows.
+    """
+    fits = [r for r in SKETCH_ROW_TILES
+            if sketch_smem_bytes(r, c_max) <= SMEM_PER_BLOCK]
+    if not fits:
+        raise ValueError(
+            f"tensor_sketch kernel: a degree block of {c_max} columns does "
+            f"not fit one block's {SMEM_PER_BLOCK} bytes of shared memory")
+    for r in fits:
+        if -(-b // r) * n_blocks >= NUM_SMS:
+            return r
+    return fits[-1]

@@ -1,10 +1,17 @@
-"""Public wrappers of the fused RM attention kernel (port of the fused ops
-of ``repro.kernels.rm_attention.ops``).
+"""Public RM attention ops (port of ``repro.kernels.rm_attention.ops``).
 
-The ops take RAW pre-scaled q/k rows plus the packed RM layout (``w
+Two-launch ops, over features ``Z`` computed beforehand by any estimator:
+
+* ``rm_attention_causal`` — pass A (per-chunk key states) and their
+  exclusive prefix sums in PyTorch, then pass B in one launch of
+  ``csrc/rm_attention_chunked.cu`` (kernel B5, ``rm_attention_chunked``).
+* ``rm_attention_decode_step`` and ``rm_attention_prefill_final_state`` —
+  plain PyTorch, as in the reference (they were never TPU kernels).
+
+Fused ops, over RAW pre-scaled q/k rows plus the packed RM layout (``w
 [max_degree, F, d]`` and per-column degrees and scales from
 ``core.plan``); featurization happens inside the attention kernel, so the
-``O(T * F)`` Z tensors never reach device memory.
+``O(T * F)`` Z tensors never reach device memory:
 
 * ``rm_attention_fused_causal`` — causal outputs (training forward).
 * ``rm_attention_fused_prefill`` — causal outputs AND the decode state
@@ -13,8 +20,10 @@ The ops take RAW pre-scaled q/k rows plus the packed RM layout (``w
   q and k rows together, then the O(1) state update in PyTorch.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version
-(``ref.py``), a CUDA tensor launches ``csrc/rm_fused_attention.cu`` or
-raises. ``rm_fused_causal.launches`` counts kernel launches.
+(``ref.py``), a CUDA tensor launches ``csrc/rm_fused_attention.cu`` (B2)
+or ``csrc/rm_attention_chunked.cu`` (B5), or raises.
+``rm_fused_causal.launches`` and ``rm_attention_chunked.launches`` count
+kernel launches.
 
 The backward of the fused causal op (reference ``_fused_causal_bwd``) is
 not ported yet: with autograd recording on a tensor that requires grad the
@@ -36,12 +45,19 @@ from repro_torch.kernels.common import (
     round_up,
 )
 from repro_torch.kernels.rm_attention.ref import (
+    causal_chunked,
+    rm_attention_chunked_ref,
     rm_attention_decode_ref,
+    rm_attention_prefill_final_state,
     rm_fused_causal_ref,
 )
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
 
 __all__ = [
+    "rm_attention_chunked",
+    "rm_attention_causal",
+    "rm_attention_decode_step",
+    "rm_attention_prefill_final_state",
     "rm_attention_fused_causal",
     "rm_attention_fused_prefill",
     "rm_attention_fused_decode_step",
@@ -51,6 +67,8 @@ __all__ = [
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_CHUNKED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _library():
@@ -61,6 +79,98 @@ def _library():
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def _chunked_library():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("rm_attention_chunked")
+    fn = lib.rm_attention_chunked_launch
+    fn.argtypes = _CHUNKED_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
+                         eps: float) -> torch.Tensor:
+    """Pass B of the causal attention (kernel B5) — the kernel on a CUDA
+    tensor, ``ref.rm_attention_chunked_ref`` on a CPU tensor.
+
+    ``zq, zk [BH, T, F]`` fp32 or bf16 with T a multiple of ``chunk``,
+    ``v [BH, T, dv]``, ``s_prev [BH, T/C, F, dv]``, ``n_prev [BH, T/C, F]``
+    (``ref.chunk_states``) -> ``out [BH, T, dv]`` fp32.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (zq, zk, v, s_prev, n_prev)):
+        raise NotImplementedError(
+            "rm_attention_chunked has no backward yet (serving only; the "
+            "training slice and its backward are queued in ROADMAP.md)")
+    bh, t, f = zq.shape
+    dv = v.shape[-1]
+    dev = zq.device
+    if dev.type == "cpu":
+        return rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev,
+                                        chunk=chunk, eps=eps)
+    if dev.type != "cuda":
+        raise ValueError(f"rm_attention_chunked runs on cpu or cuda tensors, "
+                         f"got {dev}")
+    if zq.dtype not in _DTYPE_CODE or zk.dtype != zq.dtype:
+        raise TypeError(f"zq and zk must share one of fp32/bf16, got "
+                        f"{zq.dtype} and {zk.dtype}")
+    n = t // chunk if chunk > 0 else 0
+    if chunk < 1 or t % chunk or zk.shape != zq.shape or \
+            v.shape[:2] != (bh, t) or s_prev.shape != (bh, n, f, dv) or \
+            n_prev.shape != (bh, n, f):
+        raise ValueError(
+            f"shape mismatch: zq {tuple(zq.shape)}, zk {tuple(zk.shape)}, "
+            f"v {tuple(v.shape)}, s_prev {tuple(s_prev.shape)}, n_prev "
+            f"{tuple(n_prev.shape)}, chunk {chunk}")
+    for name, x in (("zk", zk), ("v", v), ("s_prev", s_prev),
+                    ("n_prev", n_prev)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, zq on {dev}")
+    out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    # v and the prefixes enter in fp32 (a lossless upcast of bf16)
+    zq, zk = zq.contiguous(), zk.contiguous()
+    vf = v.float().contiguous()
+    sp = s_prev.float().contiguous()
+    np_ = n_prev.float().contiguous()
+    err = _chunked_library()(
+        zq.data_ptr(), zk.data_ptr(), vf.data_ptr(), sp.data_ptr(),
+        np_.data_ptr(), out.data_ptr(), bh, t, f, dv, chunk, float(eps),
+        _DTYPE_CODE[zq.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_attention_chunked kernel launch failed: "
+                           f"CUDA error {err}")
+    rm_attention_chunked.launches += 1
+    return out
+
+
+rm_attention_chunked.launches = 0
+
+
+def rm_attention_causal(
+    zq: torch.Tensor,         # [B, H, T, F] features
+    zk: torch.Tensor,         # [B, H, T, F] (padded keys already zeroed)
+    v: torch.Tensor,          # [B, H, T, dv]
+    *,
+    chunk: int = 128,
+    eps: float = 1e-4,
+) -> torch.Tensor:            # [B, H, T, dv] fp32
+    """Causal linear attention over precomputed features, O(T * F * (C +
+    dv)) work: T padded to ``min(chunk, T)``, pass A and the exclusive
+    prefixes in PyTorch, then ONE launch of kernel B5 (its plain version on
+    a CPU tensor)."""
+    return causal_chunked(zq, zk, v, chunk, eps, rm_attention_chunked)
+
+
+# O(1)-memory decode over precomputed features (rank-1 state update and
+# two GEMVs; returns ``(out [B,H,dv], new_s, new_n)``): the reference's op
+# is plain code, so the port's is its plain version under the reference's
+# name.
+rm_attention_decode_step = rm_attention_decode_ref
 
 
 def _columns(col_deg, col_scale, device) -> Tuple[torch.Tensor,

@@ -22,7 +22,11 @@ from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
 __all__ = [
     "clamp_den",
     "featurize_ref4",
+    "chunk_states",
+    "rm_attention_chunked_ref",
+    "causal_chunked",
     "causal_chunked_ref",
+    "rm_attention_ref",
     "rm_fused_causal_ref",
     "rm_attention_prefill_final_state",
     "rm_attention_decode_ref",
@@ -42,36 +46,92 @@ def featurize_ref4(x, w, col_deg, col_scale) -> torch.Tensor:
     return z.reshape(b, h, t, -1)
 
 
-def causal_chunked_ref(zq, zk, v, chunk: int, eps: float) -> torch.Tensor:
-    """Chunk-parallel causal linear attention (reference
-    ``ops._causal_chunked_jnp``): intra-chunk ``tril(zq zk^T) v`` plus the
-    exclusive prefix state of earlier chunks."""
-    b, h, t, f = zq.shape
-    dv = v.shape[-1]
-    chunk = min(chunk, t)
-    pad = -t % chunk
-    n = (t + pad) // chunk
-
-    def _chunks(x, width):
-        return F.pad(x.float(), (0, 0, 0, pad)).reshape(b, h, n, chunk,
-                                                        width)
-
-    zq_c, zk_c, v_c = _chunks(zq, f), _chunks(zk, f), _chunks(v, dv)
+def chunk_states(zk_p, v_p, chunk: int) -> Tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """Pass A plus the exclusive chunk prefixes (reference
+    ``ops._chunk_states``): for ``zk_p [B,H,T,F]``, ``v_p [B,H,T,dv]`` with
+    T a multiple of ``chunk``, ``s_prev [B,H,T/C,F,dv]`` and ``n_prev
+    [B,H,T/C,F]`` — the key state of all chunks BEFORE each chunk."""
+    b, h, t, f = zk_p.shape
+    dv = v_p.shape[-1]
+    n = t // chunk
+    zk_c = zk_p.float().reshape(b, h, n, chunk, f)
+    v_c = v_p.float().reshape(b, h, n, chunk, dv)
     s_chunk = torch.einsum("bhncf,bhncd->bhnfd", zk_c, v_c)
     n_chunk = zk_c.sum(dim=3)
-    s_prev = torch.cumsum(s_chunk, dim=2) - s_chunk
-    n_prev = torch.cumsum(n_chunk, dim=2) - n_chunk
+    return (torch.cumsum(s_chunk, dim=2) - s_chunk,
+            torch.cumsum(n_chunk, dim=2) - n_chunk)
 
-    scores = torch.einsum("bhnqf,bhnkf->bhnqk", zq_c, zk_c)
+
+def rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev, *, chunk: int,
+                             eps: float) -> torch.Tensor:
+    """Plain version of kernel B5 (reference ``_rm_attn_kernel``): pass B
+    over ``zq, zk [BH,T,F]``, ``v [BH,T,dv]``, ``s_prev [BH,T/C,F,dv]``,
+    ``n_prev [BH,T/C,F]`` with T a multiple of ``chunk``; fp32 out."""
+    bh, t, f = zq.shape
+    dv = v.shape[-1]
+    n = t // chunk
+    zq_c = zq.float().reshape(bh, n, chunk, f)
+    zk_c = zk.float().reshape(bh, n, chunk, f)
+    v_c = v.float().reshape(bh, n, chunk, dv)
+    scores = torch.einsum("bnqf,bnkf->bnqk", zq_c, zk_c)
     mask = torch.ones(chunk, chunk, dtype=torch.bool,
                       device=zq.device).tril()
     scores = torch.where(mask, scores, torch.zeros_like(scores))
-    num = torch.einsum("bhnqk,bhnkd->bhnqd", scores, v_c)
-    num = num + torch.einsum("bhnqf,bhnfd->bhnqd", zq_c, s_prev)
+    num = torch.einsum("bnqk,bnkd->bnqd", scores, v_c)
+    num = num + torch.einsum("bnqf,bnfd->bnqd", zq_c, s_prev.float())
     den = scores.sum(dim=-1)
-    den = den + torch.einsum("bhnqf,bhnf->bhnq", zq_c, n_prev)
+    den = den + torch.einsum("bnqf,bnf->bnq", zq_c, n_prev.float())
     out = num / clamp_den(den, eps)[..., None]
-    return out.reshape(b, h, t + pad, dv)[:, :, :t]
+    return out.reshape(bh, t, dv)
+
+
+def causal_chunked(zq, zk, v, chunk: int, eps: float,
+                   pass_b) -> torch.Tensor:
+    """Chunk-parallel causal linear attention over ``[B,H,T,F]`` features:
+    pad T to the chunk (``chunk = min(chunk, T)``), pass A and the prefixes
+    (:func:`chunk_states`), then ``pass_b`` — :func:`rm_attention_chunked_ref`
+    or the kernel wrapper with the same signature — and crop."""
+    b, h, t, f = zq.shape
+    dv = v.shape[-1]
+    if t == 0:
+        return torch.zeros((b, h, 0, dv), dtype=torch.float32,
+                           device=zq.device)
+    chunk = min(chunk, t)
+    pad = -t % chunk
+    tp = t + pad
+    n = tp // chunk
+
+    def _pad(x):
+        return F.pad(x, (0, 0, 0, pad))
+
+    zq_p, zk_p, v_p = _pad(zq), _pad(zk), _pad(v.float())
+    s_prev, n_prev = chunk_states(zk_p, v_p, chunk)
+    out = pass_b(zq_p.reshape(b * h, tp, f), zk_p.reshape(b * h, tp, f),
+                 v_p.reshape(b * h, tp, dv), s_prev.reshape(b * h, n, f, dv),
+                 n_prev.reshape(b * h, n, f), chunk=chunk, eps=eps)
+    return out.reshape(b, h, tp, dv)[:, :, :t]
+
+
+def causal_chunked_ref(zq, zk, v, chunk: int, eps: float) -> torch.Tensor:
+    """Plain chunked causal linear attention (reference
+    ``ops._causal_chunked_jnp``): intra-chunk ``tril(zq zk^T) v`` plus the
+    exclusive prefix state of earlier chunks."""
+    return causal_chunked(zq, zk, v, chunk, eps, rm_attention_chunked_ref)
+
+
+def rm_attention_ref(zq, zk, v, causal: bool = True,
+                     eps: float = 1e-4) -> torch.Tensor:
+    """The O(T^2) direct evaluation (reference ``ref.rm_attention_ref``),
+    the cross-check of the chunked formulation."""
+    zq, zk, v = zq.float(), zk.float(), v.float()
+    w = torch.einsum("bhtf,bhsf->bhts", zq, zk)
+    if causal:
+        t = zq.shape[2]
+        mask = torch.ones(t, t, dtype=torch.bool, device=zq.device).tril()
+        w = torch.where(mask, w, torch.zeros_like(w))
+    num = torch.einsum("bhts,bhsd->bhtd", w, v)
+    return num / clamp_den(w.sum(dim=-1), eps)[..., None]
 
 
 def rm_attention_prefill_final_state(zk, v) -> Tuple[torch.Tensor,

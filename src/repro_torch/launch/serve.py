@@ -6,12 +6,14 @@
 
 runs the full-width model on the CUDA device with random weights from
 ``--seed``; ``--smoke`` takes the reduced config, ``--device cpu`` the plain
-PyTorch path. It prints TTFT p50/p99 and aggregate tokens/s.
+PyTorch path, ``--estimator tensor_sketch`` the TensorSketch feature family
+(two-launch attention). It prints TTFT p50/p99 and aggregate tokens/s.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ def make_engine(
     *,
     smoke: bool = True,
     attention_mode: str = "rm",
+    estimator: Optional[str] = None,
     num_slots: int = 4,
     max_len: int = 128,
     seed: int = 0,
@@ -36,11 +39,14 @@ def make_engine(
 ) -> Scheduler:
     """Config -> random weights from ``seed`` -> a :class:`Scheduler`.
 
-    ``device`` defaults to ``"cuda"`` and raises a ``RuntimeError`` where
-    CUDA is absent; only ``device="cpu"`` runs on the CPU.
+    ``estimator`` (a registry name) is forwarded to ``get_config``, which
+    validates it. ``device`` defaults to ``"cuda"`` and raises a
+    ``RuntimeError`` where CUDA is absent; only ``device="cpu"`` runs on
+    the CPU.
     """
     dev = resolve_device(device)
-    cfg = get_config(arch, smoke=smoke, attention_mode=attention_mode)
+    cfg = get_config(arch, smoke=smoke, attention_mode=attention_mode,
+                     estimator=estimator)
     if not cfg.causal:
         raise ValueError(f"{arch} is encoder-only; nothing to serve")
     gen = torch.Generator(device=dev)
@@ -66,6 +72,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--attention-mode", default="rm", choices=["rm"])
+    ap.add_argument("--estimator", default=None,
+                    help="feature-estimator registry name (rm or "
+                         "tensor_sketch; default: the config's)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -76,7 +85,8 @@ def main(argv=None):
 
     engine = make_engine(args.arch, smoke=args.smoke,
                          attention_mode=args.attention_mode,
-                         num_slots=args.slots, max_len=args.max_len,
+                         estimator=args.estimator, num_slots=args.slots,
+                         max_len=args.max_len,
                          seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
@@ -90,7 +100,8 @@ def main(argv=None):
     stats = summarize(done)
     print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
           f"in {wall:.3f}s ({stats['tokens'] / wall:.1f} tok/s aggregate) "
-          f"on {engine.device}")
+          f"on {engine.device}, estimator {engine.estimator}, "
+          f"{'fused' if engine.fused_attention else 'two-launch'} attention")
     print(f"[serve] ttft p50={stats['ttft_p50_s']:.4f}s "
           f"p99={stats['ttft_p99_s']:.4f}s")
     for rid in sorted(done):

@@ -1,15 +1,24 @@
 """Attention, RM linear mode only (port of ``repro.models.attention``).
 
 ``attention_mode="rm"``: q/k are per-head l2-normalized, scaled by
-softplus(``rm_scale``) and featurized with a static RM plan for the
+softplus(``rm_scale``) and featurized with a static plan of the estimator
+family ``cfg.rm.estimator`` (``"rm"`` or ``"tensor_sketch"``) for the
 exponential dot product kernel; attention is linear in the features and
 decode keeps an O(1) state (``S [F, dv]``, ``n [F]``) instead of a KV cache.
-The fused ops featurize inside the attention kernel (prefill, forward) or
-in one rm_feature launch for q and k together (decode).
 
-Not ported yet (ROADMAP.md queue A): ``attention_mode="exact"`` and the
-two-launch rm path (``fuse_featurize="off"``, kernel B5); both raise
-``NotImplementedError``.
+Two paths (``rm_fuse_enabled``):
+
+* fused (family ``"rm"``, ``fuse_featurize`` ``"auto"``/``"on"``): the
+  featurize runs inside the attention kernel B2 (prefill, forward) or in
+  one rm_feature launch for q and k together (decode);
+* two-launch (``fuse_featurize="off"``, or a family without the fused
+  capability): each of q and k is featurized by its family's map (B1 for
+  ``"rm"``, B6 for ``"tensor_sketch"``), then kernel B5 runs the causal
+  attention over the features (prefill, forward), or the O(1) state update
+  runs in PyTorch (decode).
+
+Not ported yet (ROADMAP.md queue A): ``attention_mode="exact"`` and
+non-causal attention; both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,9 +34,12 @@ from repro_torch.core import registry
 from repro_torch.core.maclaurin import ExponentialDotProductKernel
 from repro_torch.core.plan import plan_columns
 from repro_torch.kernels.rm_attention.ops import (
+    rm_attention_causal,
+    rm_attention_decode_step,
     rm_attention_fused_causal,
     rm_attention_fused_decode_step,
     rm_attention_fused_prefill,
+    rm_attention_prefill_final_state,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -75,24 +87,31 @@ def rm_plan_for(cfg: ModelConfig, input_dim: int):
 
 
 def rm_fuse_enabled(cfg: ModelConfig) -> bool:
-    """Whether the rm path runs the fused ops: ``"auto"`` and ``"on"`` do.
+    """Whether the rm attention path runs the fused featurize+attention ops.
+
+    ``"off"`` -> never; ``"auto"`` and ``"on"`` -> wherever the estimator
+    family has the ``fused_attention_supported`` capability (the reference's
+    ``"auto"`` also checks for a TPU; here the fused ops run the Hopper
+    kernel on a CUDA tensor and their plain version on a CPU tensor). A
+    family without the capability always takes the two-launch path.
 
     Raises:
         ValueError: an unknown mode.
-        NotImplementedError: ``"off"`` or an estimator without the fused
-            capability — both need the two-launch path (kernel B5), which
-            is not ported yet.
     """
     mode = cfg.rm.fuse_featurize
     if mode not in ("auto", "on", "off"):
         raise ValueError(
             f"cfg.rm.fuse_featurize must be 'auto', 'on' or 'off'; "
             f"got {mode!r}")
-    if mode == "off" or not rm_estimator(cfg).fused_attention_supported:
-        raise NotImplementedError(
-            "the two-launch RM attention path (fuse_featurize='off', "
-            "kernel B5) is not ported yet; use 'auto' or 'on'")
-    return True
+    return mode != "off" and rm_estimator(cfg).fused_attention_supported
+
+
+def rm_valid_mask(z: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Zero featurized keys at padded positions (position < 0), so bucket
+    padding reaches neither the prefix sums nor the decode state.
+    ``z [B, H, T, F]``, ``positions [B, T]``."""
+    valid = (positions >= 0).to(z.dtype)
+    return z * valid[:, None, :, None]
 
 
 def _rm_scaled_qk(params: Params, cfg: ModelConfig,
@@ -109,18 +128,31 @@ def _rm_scaled_qk(params: Params, cfg: ModelConfig,
     return (xhat * scale).transpose(1, 2)
 
 
+def _rm_featurize(params: Params, cfg: ModelConfig, meta,
+                  x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, dh] -> [B, H, T, F] fp32: l2-normalize, scale, then ONE
+    launch of the family's map (``registry.get(cfg.rm.estimator).apply``)
+    on the packed weights ``rm_w`` where the params hold them."""
+    xs = _rm_scaled_qk(params, cfg, x)
+    return rm_estimator(cfg).apply(meta, params["rm_est"], xs,
+                                   precision=cfg.rm.precision,
+                                   packed=params.get("rm_w"))
+
+
 def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
-    """The attention params plus ``rm_w``: the packed omegas ``[max_degree,
-    F, dh]`` in the precision policy's compute dtype, which every fused op
-    reads. Worked out once per weight set (``transformer.
-    cast_params_to_compute`` calls this); params that already hold
-    ``rm_w`` come back unchanged."""
+    """The attention params plus ``rm_w``: the family's packed weights in
+    the precision policy's compute dtype (``registry`` ``pack``): for
+    ``"rm"`` the omegas ``[max_degree, F, dh]`` that every fused op and the
+    rm map read, for ``"tensor_sketch"`` the list ``[wr, wi, mr, mi]``
+    packed in fp32 from the hash tables and then rounded once. Worked out
+    once per weight set (``transformer.cast_params_to_compute`` calls
+    this); params that already hold ``rm_w`` come back unchanged."""
     if "rm_w" in params:
         return params
     meta = rm_plan_for(cfg, cfg.resolved_head_dim)
-    w, _, _ = rm_estimator(cfg).pack_fused(meta, params["rm_est"])
     dt = resolve_precision(cfg.rm.precision).compute_dtype
-    return {**params, "rm_w": w.to(dt)}
+    return {**params, "rm_w": rm_estimator(cfg).pack(meta, params["rm_est"],
+                                                      dt)}
 
 
 def _rm_fused_operands(params: Params, cfg: ModelConfig, meta, q, k):
@@ -204,7 +236,6 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention (training forward). x: [B, T, d]."""
     _require_rm(cfg)
-    rm_fuse_enabled(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -212,9 +243,16 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     k = _repeat_kv(k, cfg.q_per_kv)
     v = _repeat_kv(v, cfg.q_per_kv)
     meta = rm_plan_for(cfg, dh)
-    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
-    out = rm_attention_fused_causal(qs, ks, v.transpose(1, 2), w, cd, cs,
-                                    chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+    v_t = v.transpose(1, 2)
+    if rm_fuse_enabled(cfg):
+        qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
+        out = rm_attention_fused_causal(qs, ks, v_t, w, cd, cs,
+                                        chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+    else:
+        zq = _rm_featurize(params, cfg, meta, q)
+        zk = _rm_featurize(params, cfg, meta, k)
+        out = rm_attention_causal(zq, zk, v_t, chunk=cfg.rm.chunk,
+                                  eps=cfg.rm.eps)
     out = out.transpose(1, 2).to(x.dtype)
     return out.reshape(b, t, h * dh) @ params["wo"]
 
@@ -241,7 +279,6 @@ def attention_decode(
     positions: torch.Tensor,         # [B] position of the new token
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     _require_rm(cfg)
-    rm_fuse_enabled(cfg)
     b = x.shape[0]
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -250,10 +287,16 @@ def attention_decode(
     k = _repeat_kv(k, cfg.q_per_kv)
     v = _repeat_kv(v, cfg.q_per_kv)
     v0 = v[:, 0]                                         # [B, H, dv]
-    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
-    out, s_new, n_new = rm_attention_fused_decode_step(
-        qs[:, :, 0], ks[:, :, 0], v0, cache["rm_s"], cache["rm_n"], w, cd,
-        cs, eps=cfg.rm.eps)
+    if rm_fuse_enabled(cfg):
+        qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
+        out, s_new, n_new = rm_attention_fused_decode_step(
+            qs[:, :, 0], ks[:, :, 0], v0, cache["rm_s"], cache["rm_n"], w,
+            cd, cs, eps=cfg.rm.eps)
+    else:
+        zq = _rm_featurize(params, cfg, meta, q)[:, :, 0]   # [B, H, F]
+        zk = _rm_featurize(params, cfg, meta, k)[:, :, 0]
+        out, s_new, n_new = rm_attention_decode_step(
+            zq, zk, v0, cache["rm_s"], cache["rm_n"], eps=cfg.rm.eps)
     y = out.reshape(b, 1, h * dh).to(x.dtype) @ params["wo"]
     return y, {"rm_s": s_new, "rm_n": n_new}
 
@@ -264,10 +307,11 @@ def attention_prefill_cache(
     x: torch.Tensor,           # [B, T, d] prompt
     positions: torch.Tensor,   # [B, T]; -1 marks bucket padding
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill AND the decode state in one fused launch; padded prompt
-    positions are masked out of the keys through ``kvalid``."""
+    """Prefill AND the decode state: one fused launch, or (two-launch path)
+    the featurize launches, kernel B5 and the whole-prompt state. Padded
+    prompt positions are masked out of the keys (``kvalid`` /
+    :func:`rm_valid_mask`)."""
     _require_rm(cfg)
-    rm_fuse_enabled(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -275,10 +319,18 @@ def attention_prefill_cache(
     meta = rm_plan_for(cfg, dh)
     kr = _repeat_kv(k, cfg.q_per_kv)
     vr = _repeat_kv(v, cfg.q_per_kv)
-    qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, kr)
-    kvalid = (positions >= 0).float()
-    out, s, n = rm_attention_fused_prefill(
-        qs, ks, vr.transpose(1, 2), w, cd, cs, kvalid=kvalid,
-        chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+    v_t = vr.transpose(1, 2)
+    if rm_fuse_enabled(cfg):
+        qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, kr)
+        kvalid = (positions >= 0).float()
+        out, s, n = rm_attention_fused_prefill(
+            qs, ks, v_t, w, cd, cs, kvalid=kvalid, chunk=cfg.rm.chunk,
+            eps=cfg.rm.eps)
+    else:
+        zq = _rm_featurize(params, cfg, meta, q)
+        zk = rm_valid_mask(_rm_featurize(params, cfg, meta, kr), positions)
+        out = rm_attention_causal(zq, zk, v_t, chunk=cfg.rm.chunk,
+                                  eps=cfg.rm.eps)
+        s, n = rm_attention_prefill_final_state(zk, v_t)
     y = out.transpose(1, 2).to(x.dtype).reshape(b, t, h * dh) @ params["wo"]
     return y, {"rm_s": s, "rm_n": n}

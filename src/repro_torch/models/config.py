@@ -20,11 +20,13 @@ class RMAttentionConfig:
     """The paper's technique as an attention mode (reference DESIGN.md §2).
 
     q/k are l2-normalized per head, scaled by softplus(``rm_scale``) (or
-    ``qk_scale``) and mapped through a feature plan for exp(<q,k>/sigma2);
+    ``qk_scale``) and mapped through a feature plan of the ``estimator``
+    family (``"rm"`` or ``"tensor_sketch"``) for exp(<q,k>/sigma2);
     attention becomes linear in the features. ``fuse_featurize``: ``"auto"``
     and ``"on"`` take the fused featurize+attention ops (the Hopper kernels
-    on a CUDA device); ``"off"`` needs the two-launch path, which is not
-    ported yet.
+    on a CUDA device) where the family supports them; ``"off"``, and every
+    family without the fused capability, take the two-launch path
+    (featurize, then the chunked causal attention kernel).
     """
 
     estimator: str = "rm"

@@ -7,7 +7,7 @@ them (PyTorch runs eagerly, there is no compile to keep small). Block kind
 
 Parameters are plain nested dicts of tensors with the reference's leaf
 names; the fp32 master weights get a compute-dtype copy, with each
-layer's RM omegas packed for the fused kernels, through
+layer's estimator weights packed for the kernels, through
 ``cast_params_to_compute`` (a no-op on params it has already returned, so
 a caller that casts once — the serving executor — pays nothing per step).
 """
@@ -80,14 +80,17 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
 def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
     """Mixed precision: every fp32 leaf gets a compute-dtype copy (modules
     re-upcast where fp32 matters: norms, RM feature products), and each
-    layer's attention gets its packed omegas ``rm_w`` in the RM precision
-    policy's dtype (``attention.rm_packed_weights``). On params this has
-    already returned it copies no tensor."""
+    layer's attention gets its estimator's packed weights ``rm_w`` in the
+    RM precision policy's dtype (``attention.rm_packed_weights``). ``rm_w``
+    is never cast to the compute dtype: the packed sketch tensors are cos
+    and sin values that bf16 would round while ``rm.precision`` is fp32.
+    On params this has already returned it copies no tensor."""
     cdtype = canonical_dtype(cfg.compute_dtype)
 
     def _cast(p):
         if isinstance(p, dict):
-            # rm_w is already in the dtype its kernel takes
+            # rm_w (a tensor or a list of them) is already in the dtype
+            # its kernel takes
             return {k: v if k == "rm_w" else _cast(v) for k, v in p.items()}
         if isinstance(p, list):
             return [_cast(v) for v in p]

@@ -56,6 +56,11 @@ class StepExecutor:
         buckets: prefill bucket ladder (default :data:`DEFAULT_BUCKETS`),
             clipped to ``max_len`` (:func:`effective_buckets`).
         device: where the cache lives and the steps run.
+
+    Attributes:
+        estimator: the registry name of the RM feature family served.
+        fused_attention: whether attention runs the fused ops (kernel B2)
+            or the two-launch path (featurize, then kernel B5).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int,
@@ -73,9 +78,9 @@ class StepExecutor:
         from repro_torch.models.attention import rm_fuse_enabled
 
         # fail at construction, naming the valid options
-        registry.get(cfg.rm.estimator)
+        self.estimator = registry.get(cfg.rm.estimator).name
         resolve_precision(cfg.rm.precision)
-        rm_fuse_enabled(cfg)
+        self.fused_attention = rm_fuse_enabled(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params

@@ -87,6 +87,8 @@ class Scheduler:
                  buckets: Optional[Sequence[int]] = None, device="cuda"):
         self.executor = StepExecutor(cfg, params, num_slots, max_len,
                                      buckets=buckets, device=device)
+        self.estimator = self.executor.estimator
+        self.fused_attention = self.executor.fused_attention
         self.cfg = cfg
         self.device = self.executor.device
         self.num_slots = int(num_slots)

@@ -1,0 +1,26 @@
+"""repro_torch.sketch — the TensorSketch estimator family (port of
+``repro.sketch``), registered as ``"tensor_sketch"`` in
+``repro_torch.core.registry``."""
+from repro_torch.sketch.plan import (
+    SketchPlan,
+    apply_sketch_plan,
+    init_sketch_params,
+    make_sketch_plan,
+    pack_sketch,
+)
+from repro_torch.sketch.ref import (
+    count_sketch_ref,
+    tensor_sketch_blocks_ref,
+    tensor_sketch_fused_ref,
+)
+
+__all__ = [
+    "SketchPlan",
+    "apply_sketch_plan",
+    "init_sketch_params",
+    "make_sketch_plan",
+    "pack_sketch",
+    "count_sketch_ref",
+    "tensor_sketch_blocks_ref",
+    "tensor_sketch_fused_ref",
+]

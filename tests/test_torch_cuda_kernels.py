@@ -11,13 +11,19 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
 from repro_torch.kernels.rm_attention.ops import (
+    rm_attention_causal,
+    rm_attention_chunked,
     rm_attention_fused_decode_step,
     rm_fused_causal,
 )
 from repro_torch.kernels.rm_attention.ref import (
+    causal_chunked_ref,
     rm_attention_decode_ref,
     rm_fused_causal_ref,
 )
+from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
+from repro_torch.sketch.plan import init_sketch_params, pack_sketch
+from repro_torch.sketch.ref import tensor_sketch_fused_ref
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
 from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
 from repro_torch.models.attention import rm_plan_for
@@ -105,3 +111,50 @@ def test_decode_step_launches_one_featurize(cuda):
     zk = rm_feature_fused_ref(k.reshape(-1, d), w, cd, cs).reshape(4, 16, f)
     for g, w_ in zip(got, rm_attention_decode_ref(zq, zk, v, s0, n0)):
         _close(g, w_, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 1024, 2048, 4096, 70])
+@pytest.mark.parametrize("smoke", [False, True], ids=["FULL", "SMOKE"])
+def test_tensor_sketch_kernel_matches_plain(cuda, dtype, rows, smoke):
+    """Kernel B6 (block-diagonal inverse DFT) against its plain version
+    (dense inverse DFT). Tolerance 1e-5: fp32 accumulation in both, only
+    the order of the sums differs."""
+    cfg = get_config("qwen3-1.7b", smoke=smoke, attention_mode="rm",
+                     estimator="tensor_sketch")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    packed = [t.to(dtype) for t in pack_sketch(
+        plan, init_sketch_params(plan, gen))]
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, plan.input_dim), gen, cuda).to(dtype)
+    wr, wi, mr, mi = packed
+    before = tensor_sketch_fused.launches
+    got = tensor_sketch_fused(x, wr, wi, cd, mr, mi, cs, plan.block_starts())
+    torch.cuda.synchronize()
+    assert tensor_sketch_fused.launches == before + 1
+    _close(got, tensor_sketch_fused_ref(x, wr, wi, cd, mr, mi, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,f,pad", [(256, 256, 56), (32, 256, 0),
+                                     (40, 163, 9), (20, 64, 0)])
+def test_rm_attention_chunked_kernel_matches_plain(cuda, dtype, t, f, pad):
+    """Kernel B5 through ``rm_attention_causal`` (chunk min(128, T)) against
+    the plain chunked formulation. Tolerance 1e-4: fp32 sums of up to C x F
+    terms in another order."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    zq = (0.3 * torch.randn((2, 8, t, f), generator=gen, device=cuda))
+    zk = (0.3 * torch.randn((2, 8, t, f), generator=gen, device=cuda))
+    zq[..., 0] = zk[..., 0] = 1.0
+    if pad:
+        zk[1, :, t - pad:] = 0.0
+    zq, zk = zq.to(dtype), zk.to(dtype)
+    v = torch.randn((2, 8, t, 128), generator=gen, device=cuda)
+    before = rm_attention_chunked.launches
+    got = rm_attention_causal(zq, zk, v, chunk=128, eps=1e-4)
+    torch.cuda.synchronize()
+    assert rm_attention_chunked.launches == before + 1
+    want = causal_chunked_ref(zq, zk, v, 128, 1e-4)
+    assert got.shape == want.shape
+    _close(got, want, 1e-4)

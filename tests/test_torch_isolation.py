@@ -44,8 +44,9 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 def test_port_sources_exist():
     assert len(PORT_FILES) > 20
     assert (ROOT / "src" / "repro_torch" / "csrc" / "rm_feature.cu").exists()
-    assert (ROOT / "src" / "repro_torch" / "csrc"
-            / "rm_fused_attention.cu").exists()
+    for name in ("rm_fused_attention.cu", "rm_attention_chunked.cu",
+                 "tensor_sketch.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / name).exists()
 
 
 def test_package_turns_tf32_off():

@@ -2,7 +2,9 @@
 with attention_mode="rm" (fuse_featurize="on" on the reference side, so it
 runs the fused jnp formulation) and the reference's weights carried across
 by ``repro_torch.convert.params_from_jax``: forward logits, prefill logits
-and decode state (S, n), and 8 greedy decode steps."""
+and decode state (S, n), and 8 greedy decode steps. The two-launch path
+(estimator "tensor_sketch", and "rm" with fuse_featurize="off") is held
+the same way against the reference's two-launch path."""
 import dataclasses
 
 import jax
@@ -200,13 +202,18 @@ def test_decode_bf16_within_budget_teacher_forced():
 
 
 def test_unported_modes_raise_not_implemented():
+    """``fuse_featurize="off"`` now runs the two-launch path and matches the
+    reference (held in full by the two-launch tests below); exact attention
+    still raises, and so does an unknown fusion mode."""
     from repro_torch.models.attention import rm_fuse_enabled
 
-    _, tcfg = _configs("float32")
-    off = dataclasses.replace(tcfg, rm=dataclasses.replace(
-        tcfg.rm, fuse_featurize="off"))
-    with pytest.raises(NotImplementedError, match="two-launch"):
-        rm_fuse_enabled(off)
+    jcfg, jp, tcfg, tp = _two_launch_models("rm_off", "float32", seed=4)
+    assert rm_fuse_enabled(tcfg) is False
+    toks = _tokens(1, 9, jcfg.vocab_size, 6)
+    want, _ = jt.forward(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.no_grad():
+        got, _ = tt.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-4
     bad = dataclasses.replace(tcfg, rm=dataclasses.replace(
         tcfg.rm, fuse_featurize="sometimes"))
     with pytest.raises(ValueError):
@@ -214,3 +221,153 @@ def test_unported_modes_raise_not_implemented():
     exact = get_config("qwen3-1.7b", smoke=True)
     with pytest.raises(NotImplementedError, match="exact"):
         tt.init_model(exact, torch.Generator().manual_seed(0))
+
+
+# ---------------------------------------------------------------------------
+# the two-launch path: featurize (B1 for rm, B6 for tensor_sketch), then B5
+# ---------------------------------------------------------------------------
+TWO_LAUNCH = ["tensor_sketch", "rm_off"]
+
+
+def _two_launch_configs(kind, compute_dtype, precision="fp32"):
+    """``kind``: "tensor_sketch" (a family without the fused capability:
+    both packages take the two-launch path on their own) or "rm_off" (the
+    rm family with fuse_featurize="off" on both sides)."""
+    est = "rm" if kind == "rm_off" else kind
+    fuse = "off" if kind == "rm_off" else "auto"
+    jcfg = jax_get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                          estimator=est)
+    tcfg = get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                      estimator=est)
+    out = []
+    for cfg in (jcfg, tcfg):
+        out.append(dataclasses.replace(
+            cfg, compute_dtype=compute_dtype,
+            rm=dataclasses.replace(cfg.rm, fuse_featurize=fuse,
+                                   precision=precision)))
+    return out
+
+
+def _two_launch_models(kind, compute_dtype, seed=0, precision="fp32"):
+    jcfg, tcfg = _two_launch_configs(kind, compute_dtype, precision)
+    jp = jt.init_model(jcfg, jax.random.PRNGKey(seed))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    return jcfg, jp, tcfg, tp
+
+
+def test_rm_fuse_enabled_follows_the_reference():
+    from repro.models.attention import rm_fuse_enabled as jax_fuse
+    from repro_torch.models.attention import rm_fuse_enabled
+
+    for kind in TWO_LAUNCH:
+        jcfg, tcfg = _two_launch_configs(kind, "float32")
+        assert rm_fuse_enabled(tcfg) is jax_fuse(jcfg) is False, kind
+    _, tcfg = _configs("float32")
+    for mode in ("auto", "on"):
+        assert rm_fuse_enabled(dataclasses.replace(
+            tcfg, rm=dataclasses.replace(tcfg.rm, fuse_featurize=mode)))
+
+
+def test_sketch_tables_cross_and_pack_once():
+    """The hash tables cross as int32 / fp32 leaves; each layer's compute
+    copy holds ``[wr, wi, mr, mi]`` packed from them within 1e-6 of the
+    reference's ``pack_sketch``, in the RM precision dtype and never in the
+    bf16 compute dtype; a second cast copies no tensor."""
+    from repro.models.attention import rm_plan_for as jax_rm_plan_for
+    from repro.sketch.plan import pack_sketch as jax_pack_sketch
+
+    jcfg, jp, tcfg, tp = _two_launch_models("tensor_sketch", "bfloat16")
+    est = jp["groups"]["b0_attn_mlp"]["attn"]["rm_est"]
+    h, s = np.asarray(est["h"]), np.asarray(est["s"])
+    plan = jax_rm_plan_for(jcfg, jcfg.resolved_head_dim)
+    cp = tt.cast_params_to_compute(tp, tcfg)
+    for i, layer in enumerate(tp["layers"]):
+        assert layer["attn"]["rm_est"]["h"].dtype == torch.int32
+        np.testing.assert_array_equal(layer["attn"]["rm_est"]["h"].numpy(),
+                                      h[i])
+        packed = cp["layers"][i]["attn"]["rm_w"]
+        want = jax_pack_sketch(plan, {"h": h[i], "s": s[i]})
+        for g, w in zip(packed, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6,
+                                       rtol=0)
+    again = tt.cast_params_to_compute(cp, tcfg)
+    for layer, layer2 in zip(cp["layers"], again["layers"]):
+        assert layer2["attn"]["rm_w"] is layer["attn"]["rm_w"]
+
+
+@pytest.mark.parametrize("kind", TWO_LAUNCH)
+def test_two_launch_forward_matches_reference(kind):
+    jcfg, jp, tcfg, tp = _two_launch_models(kind, "float32")
+    toks = _tokens(2, 20, jcfg.vocab_size, 1)
+    want, _ = jt.forward(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.no_grad():
+        got, _ = tt.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got.numpy(), want) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", TWO_LAUNCH)
+def test_two_launch_prefill_and_state_match_reference(kind):
+    """Bucketed prefill (the second prompt right-padded at position -1):
+    logits within 1e-4 relative, the decode state (S, n) within 1e-5."""
+    jcfg, jp, tcfg, tp = _two_launch_models(kind, "float32", seed=1)
+    toks = _tokens(2, 32, jcfg.vocab_size, 2)
+    pos = np.tile(np.arange(32, dtype=np.int32), (2, 1))
+    pos[1, 21:] = -1
+    want, jcache = jt.prefill(jp, jcfg, {"tokens": jnp.asarray(toks),
+                                         "positions": jnp.asarray(pos)}, 64)
+    with torch.no_grad():
+        got, tcache = tt.prefill(tp, tcfg, {
+            "tokens": torch.from_numpy(toks),
+            "positions": torch.from_numpy(pos)}, 64)
+    jstate = jcache["groups"]["b0_attn_mlp"]
+    for i, layer in enumerate(tcache["layers"]):
+        for name in ("rm_s", "rm_n"):
+            assert _rel(layer[name].numpy(),
+                        np.asarray(jstate[name][i])) <= 1e-5, name
+    assert _rel(got.numpy(), np.asarray(want)) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", TWO_LAUNCH)
+def test_two_launch_greedy_decode_matches_reference(kind):
+    """8 greedy tokens: identical tokens, logits within 1e-4 relative."""
+    jcfg, jp, tcfg, tp = _two_launch_models(kind, "float32", seed=2)
+    toks = _tokens(2, 12, jcfg.vocab_size, 3).astype(np.int32)
+
+    def jpre(x):
+        lg, c = jt.prefill(jp, jcfg, {"tokens": jnp.asarray(x)}, 64)
+        return np.asarray(lg), c
+
+    def jstep(c, tok, pos):
+        lg, c = jt.decode_step(jp, jcfg, c, jnp.asarray(tok, jnp.int32),
+                               jnp.asarray(pos))
+        return np.asarray(lg), c
+
+    def tpre(x):
+        lg, c = tt.prefill(tp, tcfg, {"tokens": torch.from_numpy(x)}, 64)
+        return lg.numpy(), c
+
+    def tstep(c, tok, pos):
+        lg, c = tt.decode_step(tp, tcfg, c, torch.from_numpy(tok),
+                               torch.from_numpy(pos))
+        return lg.numpy(), c
+
+    with torch.no_grad():
+        want_tok, want_lg = _greedy_decode(jpre, jstep, toks, 8)
+        got_tok, got_lg = _greedy_decode(tpre, tstep, toks, 8)
+    np.testing.assert_array_equal(got_tok, want_tok)
+    assert _rel(got_lg, want_lg) <= 1e-4
+
+
+def test_tensor_sketch_bf16_within_budget():
+    """Default bf16 compute with the fp32 RM precision: logits within the
+    bf16 budget of the reference."""
+    jcfg, jp, tcfg, tp = _two_launch_models("tensor_sketch", "bfloat16",
+                                            seed=5)
+    toks = _tokens(2, 20, jcfg.vocab_size, 7)
+    want, _ = jt.forward(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.no_grad():
+        got, _ = tt.forward(tp, tcfg, {"tokens": torch.from_numpy(toks)})
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= BF16_LOGIT_ATOL

@@ -170,3 +170,71 @@ def test_make_engine_on_cpu_serves():
     state = sched.run()[0]
     assert len(state.generated) == 3 and state.finish_reason == \
         "max_new_tokens"
+
+
+def _two_launch_fp32_models(kind):
+    est = "rm" if kind == "rm_off" else kind
+    fuse = "off" if kind == "rm_off" else "auto"
+    cfgs = []
+    for get in (jax_get_config, get_config):
+        cfg = get("qwen3-1.7b", smoke=True, attention_mode="rm",
+                  estimator=est)
+        cfgs.append(dataclasses.replace(
+            cfg, compute_dtype="float32",
+            rm=dataclasses.replace(cfg.rm, fuse_featurize=fuse)))
+    jcfg, tcfg = cfgs
+    jp = jt.init_model(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    return jcfg, jp, tcfg, tp
+
+
+@pytest.mark.parametrize("kind", ["tensor_sketch", "rm_off"])
+def test_two_launch_greedy_tokens_identical_to_reference_scheduler(kind):
+    """The two-launch path (featurize launches, kernel B5's plain version,
+    the plain decode update) through both Schedulers: the same tokens and
+    finish reasons, eviction included."""
+    jcfg, jp, tcfg, tp = _two_launch_fp32_models(kind)
+    jsched = JScheduler(jcfg, jp, num_slots=2, max_len=MAX_LEN)
+    tsched = Scheduler(tcfg, tp, num_slots=2, max_len=MAX_LEN, device="cpu")
+    assert tsched.estimator == jsched.estimator
+    assert tsched.fused_attention is jsched.fused_attention is False
+    jdone, jev = _drive(jsched, JRequest, jcfg.vocab_size)
+    tdone, tev = _drive(tsched, Request, tcfg.vocab_size)
+    assert jev == tev is not None
+    assert sorted(tdone) == sorted(jdone) == [r[0] for r in WORKLOAD]
+    for rid in jdone:
+        assert tdone[rid].generated == jdone[rid].generated, rid
+        assert tdone[rid].finish_reason == jdone[rid].finish_reason
+
+
+def test_launch_serve_forwards_estimator():
+    """As the reference's regression test: ``make_engine`` must thread
+    ``estimator=`` into ``get_config``, which validates the name."""
+    eng = make_engine("qwen3-1.7b", smoke=True, attention_mode="rm",
+                      estimator="tensor_sketch", num_slots=1, max_len=32,
+                      device="cpu")
+    assert eng.estimator == "tensor_sketch"
+    assert eng.cfg.rm.estimator == "tensor_sketch"
+    assert eng.fused_attention is False
+    eng.submit(Request(0, _prompt(0, 5, eng.cfg.vocab_size), 2))
+    assert len(eng.run()[0].generated) == 2
+    assert make_engine("qwen3-1.7b", smoke=True, num_slots=1, max_len=32,
+                       device="cpu").estimator == "rm"
+    with pytest.raises(KeyError, match="no_such_estimator"):
+        make_engine("qwen3-1.7b", smoke=True, attention_mode="rm",
+                    estimator="no_such_estimator", num_slots=1, max_len=32,
+                    device="cpu")
+
+
+def test_get_config_validates_estimator():
+    cfg = get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                     estimator="tensor_sketch")
+    assert cfg.rm.estimator == "tensor_sketch"
+    assert get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                      estimator="rm").rm.estimator == "rm"
+    for name in ("ctr", "structured"):      # reference families not ported
+        with pytest.raises(KeyError, match="available"):
+            get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                       estimator=name)
+    with pytest.raises(ValueError, match="attention_mode"):
+        get_config("qwen3-1.7b", smoke=True, estimator="tensor_sketch")
