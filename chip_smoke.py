@@ -43,7 +43,33 @@ Phases, each fatal on failure:
    ``estimator="tensor_sketch"`` (the rm engine is freed first), through
    the two-launch attention path: B6 must launch twice a layer for every
    admission and decode step, B5 once a layer for every admission;
-10. where the tensor_sketch slice's time goes, as in phase 8.
+10. where the tensor_sketch slice's time goes, as in phase 8;
+11. kernels B3 (``rm_fused_state``) and B4 (``rm_fused_apply``) against
+    their plain versions at every shape the encoder gives them (d = dv =
+    80, the hubert plan's ``w [5, 163, 80]``): the 8 x 1500 encode (BH 128
+    = 8 clips x 16 heads, T 1500, unpadded), the same rows padded to T 1536
+    with ``kvalid`` 0 on the last 36 keys, and the 1 x 32768 encode (BH
+    16, T 32768), fp32 and bf16 (S, n and the output); the whole fused
+    non-causal op also against the O(T^2) direct evaluation at BH 16, T
+    1500 with padded keys;
+12. small end-to-end references on the hubert SMOKE encoder in fp32: the
+    card (kernels) against the same weights on the CPU (plain versions),
+    the logits and the first layer's attention output, for rm (B3 + B4)
+    and tensor_sketch (B6 + einsums); on the card, rm's two-launch path
+    (``fuse_featurize="off"``: B1 + einsums) against its fused path;
+13. the encoder slice: hubert-xlarge at full width and depth (48 layers),
+    RM attention, random weights from a seed, bf16 compute, encoding 8
+    clips x 1500 frames of seeded frame embeddings three times through
+    ``train.steps.make_prefill_step`` (the first encode cold). Every
+    encode must give finite logits and launch B3 and B4 48 times each and
+    no other RM kernel; clip 3 encoded alone must give its batched logits
+    within the bf16 budget; ``make_eval_step`` gives a finite CE within
+    0.1 of its expected value at init; one encode of 1 x 32768 frames (the
+    reference's prefill_32k length, its batch cut from 32 to 1) completes,
+    and its first attention layer in fp32 on the card matches the plain
+    path on the CPU;
+14. where the encoder's time goes: a ``torch.profiler`` window over one
+    warm 8 x 1500 encode.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -59,6 +85,7 @@ non-zero. Should the run near its time limit, the rm slice's warm repeat
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,6 +103,11 @@ B6_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 128 and <= c terms
 B6_GRAM_TOL = 1e-4   # x max(1, max |plain|): Gram sums 256 such features
 B5_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to C x F terms
 E2E_TOL = 1e-4  # relative logits gap of two fp32 paths of one model
+B3_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T terms (S, n)
+B4_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of F terms, then a divide
+BF16_LOGITS_TOL = 3e-2  # relative gap of two bf16 encodes (ROADMAP queue C)
+ENC_CLIPS, ENC_FRAMES = 8, 1500   # 30 s of 20 ms frames: the ASR window
+LONG_FRAMES = 32768               # the reference's prefill_32k length
 
 
 def time_ms(torch, fn, iters=50, warmup=5):
@@ -186,6 +218,47 @@ def chunked_cost(bh, t, f, dv, chunk, item):
     per_chunk = (2 * pairs * f + 2 * pairs * dv + 2 * chunk * f * dv
                  + 2 * chunk * f + pairs + chunk * dv)
     return nbytes, bh * n * per_chunk
+
+
+def state_cost(bh, t, valid, d, dv, col_deg, item):
+    """(bytes, operations) of kernel B3: k, v, kvalid, the omega rows the
+    plan uses and the column vectors read once, S and n written once; per
+    real key (``valid`` of the ``bh * t`` keys: a padded key needs no
+    work) the featurize, the mask, one row of S (2 F dv) and of n."""
+    f = len(col_deg)
+    nbytes = (bh * t * d * item + bh * t * dv * 4 + bh * t * 4
+              + omega_bytes(col_deg, d, item) + f * 8 + bh * f * dv * 4
+              + bh * f * 4)
+    return nbytes, featurize_ops(valid, col_deg, d) + valid * f * (2 * dv
+                                                                   + 2)
+
+
+def apply_cost(bh, t, d, dv, col_deg, item):
+    """(bytes, operations) of kernel B4: q, S, n, the omega rows and the
+    column vectors read once, the output written once; per query row the
+    featurize, ``zq S`` (2 F dv), ``zq n`` (2 F) and the divide."""
+    f = len(col_deg)
+    nbytes = (bh * t * d * item + bh * f * dv * 4 + bh * f * 4
+              + omega_bytes(col_deg, d, item) + f * 8 + bh * t * dv * 4)
+    return nbytes, featurize_ops(bh * t, col_deg, d) + bh * t * (
+        2 * f * dv + 2 * f + dv)
+
+
+def first_attention(torch, params, cfg, batch):
+    """The first layer's attention output ``[B, T, d_model]`` of the model
+    on ``batch``: the inputs as ``forward`` prepares them, the first norm,
+    then ``attention_forward``."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import apply_norm
+
+    cp = tt.cast_params_to_compute(params, cfg)
+    x, positions = tt._prepare_inputs(cp, cfg, batch)
+    layer = cp["layers"][0]
+    with torch.inference_mode():
+        return attn_mod.attention_forward(
+            layer["attn"], cfg, apply_norm(layer["norm1"], cfg, x),
+            positions)
 
 
 def run_workload(torch, engine, prompts, base):
@@ -384,18 +457,24 @@ def main():
     from repro_torch.core import registry
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import pick_sketch_rows
+    from repro_torch.kernels.common import pick_sketch_rows, round_up
     from repro_torch.kernels.rm_attention.ops import (
         rm_attention_causal,
         rm_attention_chunked,
+        rm_attention_fused_noncausal,
+        rm_fused_apply,
         rm_fused_causal,
+        rm_fused_state,
     )
     from repro_torch.kernels.rm_attention.ref import (
         causal_chunked_ref,
         chunk_states,
+        featurize_ref4,
         rm_attention_chunked_ref,
         rm_attention_ref,
+        rm_fused_apply_ref,
         rm_fused_causal_ref,
+        rm_fused_state_ref,
     )
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
@@ -687,12 +766,12 @@ def main():
     from repro_torch.models import transformer as tt
     from repro_torch.serve import Scheduler
 
-    def to_cuda(p):
+    def to_cuda(p, device="cuda"):
         if isinstance(p, dict):
-            return {key: to_cuda(val) for key, val in p.items()}
+            return {key: to_cuda(val, device) for key, val in p.items()}
         if isinstance(p, list):
-            return [to_cuda(val) for val in p]
-        return p.cuda()
+            return [to_cuda(val, device) for val in p]
+        return p.to(device)
 
     small_rm = None
     for est in ("rm", "tensor_sketch"):
@@ -801,11 +880,352 @@ def main():
     # -- 10. where the tensor_sketch slice's time goes (warm) ---------------
     where_time_goes(torch, "ts", engine, prompts, done)
 
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11. B3 and B4 against their plain versions -------------------------
+    hcfg = get_config("hubert-xlarge", attention_mode="rm")
+    hd = hcfg.resolved_head_dim
+    hplan = rm_plan_for(hcfg, hd)
+    hw32 = pack_omegas(hplan, init_omegas(hplan, gen))
+    h_deg, h_scale = plan_columns(hplan, "cuda")
+    h_deg_np = hplan.column_degrees()
+    hf = hw32.shape[1]
+    eps = hcfg.rm.eps
+    print(f"[plan] hubert-xlarge rm head: packed w {tuple(hw32.shape)}, "
+          f"F={hf} columns, degrees {np.bincount(h_deg_np).tolist()}")
+    # the shapes the encoder gives B3 and B4 (the rows go in unpadded):
+    # the 8 x 1500 encode (the kernels line's times), its rows padded to
+    # the reference's chunk with kvalid 0 on the padded keys, and the
+    # 1 x 32768 encode (the fewest blocks and the longest fp32 sums)
+    b3_checks, b4_checks = [], []
+    nh = hcfg.num_heads
+    for case, bh, t, valid_t, iters in (
+            ("encode", ENC_CLIPS * nh, ENC_FRAMES, ENC_FRAMES, 20),
+            ("padded", ENC_CLIPS * nh, round_up(ENC_FRAMES, hcfg.rm.chunk),
+             ENC_FRAMES, 20),
+            ("long", nh, LONG_FRAMES, LONG_FRAMES, 5)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            k = unit_rows(torch, (bh, t, hd), gen).to(dtype)
+            q = unit_rows(torch, (bh, t, hd), gen).to(dtype)
+            v = torch.randn((bh, t, hd), generator=gen, device="cuda")
+            kvalid = torch.ones((bh, t), device="cuda")
+            kvalid[:, valid_t:] = 0.0
+            w = hw32.to(dtype)
+            state_args = (k, v, kvalid, w, h_deg, h_scale)
+            s_got, n_got = rm_fused_state(*state_args)
+            s_ref, n_ref = rm_fused_state_ref(*state_args)
+            # B4 on the plain state, so its check does not inherit B3's
+            # error
+            apply_args = (q, s_ref, n_ref, w, h_deg, h_scale, eps)
+            out_got = rm_fused_apply(*apply_args)
+            out_ref = rm_fused_apply_ref(*apply_args)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, want, tol_, checks in (
+                    ("S", s_got, s_ref, B3_TOL, b3_checks),
+                    ("n", n_got, n_ref, B3_TOL, b3_checks),
+                    ("out", out_got, out_ref, B4_TOL, b4_checks)):
+                err = (got - want).abs().max().item()
+                tol = tol_ * max(1.0, want.abs().max().item())
+                errs[name] = (err, tol)
+                checks.append((f"{name} {case} {dname}", err, tol))
+                if not (err <= tol and torch.isfinite(got).all()):
+                    raise AssertionError(f"B3/B4 {name} {case} {dname}: "
+                                         f"error {err} > {tol}")
+            del s_ref, n_ref, out_ref, s_got, n_got, out_got
+            ms3 = time_ms(torch, lambda: rm_fused_state(*state_args),
+                          iters=iters)
+            plain3 = time_ms(torch, lambda: rm_fused_state_ref(*state_args),
+                             iters=min(iters, 5))
+            ms4 = time_ms(torch, lambda: rm_fused_apply(*apply_args),
+                          iters=iters)
+            plain4 = time_ms(torch, lambda: rm_fused_apply_ref(*apply_args),
+                             iters=min(iters, 5))
+            valid = int(kvalid.sum().item())
+            b3ms, b3by = bound(*state_cost(bh, t, valid, hd, hd, h_deg_np,
+                                           item), dname)
+            b4ms, b4by = bound(*apply_cost(bh, t, hd, hd, h_deg_np, item),
+                               dname)
+            print(f"[B3] {case} k,v[{bh},{t},{hd}] ({t - valid_t} keys a "
+                  f"row padded) {dname}: max_abs_err S/n {errs['S'][0]:.3e}/"
+                  f"{errs['n'][0]:.3e} (tol {errs['S'][1]:.1e}/"
+                  f"{errs['n'][1]:.1e}) kernel {ms3:.4f} ms, plain "
+                  f"{plain3:.4f} ms, bound {b3ms:.5f} ms ({b3by}); grid "
+                  f"{bh * -(-hf // 64)} blocks")
+            print(f"[B4] {case} q[{bh},{t},{hd}] {dname}: max_abs_err out "
+                  f"{errs['out'][0]:.3e} (tol {errs['out'][1]:.1e}) kernel "
+                  f"{ms4:.4f} ms, plain {plain4:.4f} ms, bound {b4ms:.5f} ms "
+                  f"({b4by})")
+            if case == "encode" and dtype == torch.float32:
+                us3 = host_us(torch, lambda: rm_fused_state(*state_args),
+                              iters=50)
+                us4 = host_us(torch, lambda: rm_fused_apply(*apply_args),
+                              iters=50)
+                print(f"[B3] host time {us3:.1f} us a call; [B4] host time "
+                      f"{us4:.1f} us a call")
+                shape = f"BH {bh}, T {t}, d = dv = {hd}, " \
+                        f"w{tuple(hw32.shape)} fp32"
+                kernels["B3"] = dict(
+                    name="rm_fused_state", route="cuda",
+                    source="src/repro_torch/csrc/rm_fused_state.cu",
+                    replaces="src/repro/kernels/rm_attention/fused.py:254",
+                    shape=shape, ms=ms3, plain_ms=plain3, bound_ms=b3ms,
+                    bound_by=b3by, library_ms=None)
+                kernels["B4"] = dict(
+                    name="rm_fused_apply", route="cuda",
+                    source="src/repro_torch/csrc/rm_fused_apply.cu",
+                    replaces="src/repro/kernels/rm_attention/fused.py:332",
+                    shape=shape, ms=ms4, plain_ms=plain4, bound_ms=b4ms,
+                    bound_by=b4by, library_ms=None)
+            del k, q, v, kvalid, state_args, apply_args
+            torch.cuda.empty_cache()
+    # the whole op (B3, B4 on the unpadded rows) against the O(T^2) direct
+    # evaluation
+    q4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
+    k4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
+    v4 = torch.randn((2, 8, ENC_FRAMES, hd), generator=gen, device="cuda")
+    kv4 = torch.ones((2, ENC_FRAMES), device="cuda")
+    kv4[1, ENC_FRAMES - 100:] = 0.0
+    got = rm_attention_fused_noncausal(q4, k4, v4, hw32, h_deg, h_scale,
+                                       kvalid=kv4, eps=eps)
+    zq4 = featurize_ref4(q4, hw32, h_deg, h_scale)
+    zk4 = featurize_ref4(k4, hw32, h_deg, h_scale) * kv4[:, None, :, None]
+    want = rm_attention_ref(zq4, zk4, v4, causal=False, eps=eps)
+    err = (got - want).abs().max().item()
+    tol = B4_TOL * max(1.0, want.abs().max().item())
+    print(f"[B3+B4] fused non-causal op [16, {ENC_FRAMES}, {hd}] fp32 vs the "
+          f"O(T^2) "
+          f"direct evaluation: max_abs_err {err:.3e} (tol {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError(f"fused non-causal vs O(T^2): {err} > {tol}")
+    b4_checks.append(("op vs O(T^2)", err, tol))
+    for kid, checks in (("B3", b3_checks), ("B4", b4_checks)):
+        label, err, tol = worst(checks)
+        kernels[kid].update(max_abs_err=err, tol=tol, check=label)
+
+    # -- 12. small end-to-end references on the hubert SMOKE encoder --------
+    rm_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
+                   "B3": rm_fused_state, "B4": rm_fused_apply,
+                   "B5": rm_attention_chunked, "B6": tensor_sketch_fused}
+
+    def counts():
+        return {kid: fn.launches for kid, fn in rm_counters.items()}
+
+    def launched_since(before):
+        """The kernels launched since ``before = counts()``, with counts."""
+        return {kid: n_ - before[kid] for kid, n_ in counts().items()
+                if n_ != before[kid]}
+
+    small_rm = None
+    d_small = get_config("hubert-xlarge", smoke=True).d_model
+    emb_small = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 40, d_small)).astype(np.float32))
+    for est in ("rm", "tensor_sketch"):
+        small = dataclasses.replace(
+            get_config("hubert-xlarge", smoke=True, attention_mode="rm",
+                       estimator=est), compute_dtype="float32")
+        cpu_params = tt.init_model(small, torch.Generator().manual_seed(0))
+        gpu_params = to_cuda(cpu_params)
+        before = counts()
+        with torch.inference_mode():
+            ref_logits, _ = tt.forward(cpu_params, small,
+                                       {"embeds": emb_small})
+            gpu_logits, _ = tt.forward(gpu_params, small,
+                                       {"embeds": emb_small.cuda()})
+        ran = launched_since(before)
+        rel = rel_err(torch, gpu_logits, ref_logits)
+        rel_attn = rel_err(
+            torch, first_attention(torch, gpu_params, small,
+                                   {"embeds": emb_small.cuda()}),
+            first_attention(torch, cpu_params, small, {"embeds": emb_small}))
+        print(f"[small enc] hubert SMOKE fp32 {est}, card vs CPU: logits rel "
+              f"err {rel:.2e}, first layer's attention rel err "
+              f"{rel_attn:.2e} (tol {E2E_TOL:.0e}); forward launches {ran}")
+        want_ran = ({"B3": small.num_layers, "B4": small.num_layers}
+                    if est == "rm" else {"B6": 2 * small.num_layers})
+        if not (rel <= E2E_TOL and rel_attn <= E2E_TOL and ran == want_ran
+                and torch.isfinite(gpu_logits).all()):
+            raise AssertionError(f"small encoder {est} end-to-end check "
+                                 "failed")
+        if est == "rm":
+            small_rm = (small, gpu_params)
+    small, params = small_rm
+    off = dataclasses.replace(small, rm=dataclasses.replace(
+        small.rm, fuse_featurize="off"))
+    with torch.inference_mode():
+        fused_logits, _ = tt.forward(params, small,
+                                     {"embeds": emb_small.cuda()})
+        before = counts()
+        off_logits, _ = tt.forward(params, off, {"embeds": emb_small.cuda()})
+        torch.cuda.synchronize()
+    ran = launched_since(before)
+    rel = rel_err(torch, off_logits, fused_logits)
+    print(f"[small enc] hubert SMOKE fp32 rm on the card, two-launch (B1 + "
+          f"einsums: {ran}) vs fused (B3 + B4): logits rel err {rel:.2e} "
+          f"(tol {E2E_TOL:.0e})")
+    if not (rel <= E2E_TOL and ran == {"B1": 2 * small.num_layers}):
+        raise AssertionError("encoder rm two-launch vs fused check failed")
+    del small_rm, params
+
+    # -- 13. the encoder slice at full width and depth ----------------------
+    from repro_torch.train.steps import (
+        init_params,
+        make_eval_step,
+        make_prefill_step,
+    )
+
+    layers = hcfg.num_layers
+    print(f"[enc] {hcfg.name}: {layers} layers, d_model {hcfg.d_model}, "
+          f"{hcfg.num_heads} heads, head_dim {hd}, d_ff {hcfg.d_ff}, vocab "
+          f"{hcfg.vocab_size}, attention_mode rm (non-causal, fused: "
+          f"F={hf}), {hcfg.compute_dtype} compute; depth cut: none")
+    builds = _build.build_report()
+    print("[enc] build of the two new kernels (in parallel with the other "
+          "four): " + ", ".join(f"{n_} {builds[n_][0]:.2f}s" for n_ in
+                                ("rm_fused_state", "rm_fused_apply")))
+    t0 = time.perf_counter()
+    master = init_params(hcfg, seed=0)            # fp32, on the card
+    # the compute copy once (bf16 weights, packed omegas), as a server
+    # would hold it: each step's own cast then copies nothing
+    hparams = tt.cast_params_to_compute(master, hcfg)
+    del master
+    hgen = torch.Generator(device="cuda")
+    hgen.manual_seed(1)
+    encode = make_prefill_step(hcfg, hcfg.max_seq_len)
+    eval_step = make_eval_step(hcfg)
+    embeds = torch.randn((ENC_CLIPS, ENC_FRAMES, hcfg.d_model),
+                         generator=hgen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"[enc] weights ready in {time.perf_counter() - t0:.2f}s; input "
+          f"embeds {tuple(embeds.shape)} bf16")
+    want_per_encode = {"B3": layers, "B4": layers}
+
+    def timed_encode(batch):
+        torch.cuda.synchronize()
+        before = counts()
+        t0 = time.perf_counter()
+        logits, cache = encode(hparams, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = launched_since(before)
+        b_, t_ = batch["embeds"].shape[:2]
+        if cache is not None or logits.shape != (b_, t_, hcfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"encode: logits {tuple(logits.shape)} not "
+                                 f"finite or of the wrong shape")
+        if ran != want_per_encode:
+            raise AssertionError(f"encode launches {ran} != "
+                                 f"{want_per_encode}")
+        return logits, wall
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in rm_counters.values():
+        fn.launches = 0
+    walls = []
+    for _ in range(3):
+        logits, wall = timed_encode({"embeds": embeds})
+        walls.append(wall)
+    enc_launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    frames = ENC_CLIPS * ENC_FRAMES
+    warm = sum(walls[1:]) / len(walls[1:])
+    print(f"[enc] 3 encodes of {ENC_CLIPS} x {ENC_FRAMES} frames: walls "
+          + " / ".join(f"{1e3 * w_:.2f}" for w_ in walls)
+          + f" ms (first cold), warm {frames / warm:.0f} frames/s, peak "
+          f"memory {peak_gb:.2f} GiB; launches "
+          + " ".join(f"{k_} {v_}" for k_, v_ in enc_launches.items()))
+    kernels["B3"]["launches"] = enc_launches["B3"]
+    kernels["B4"]["launches"] = enc_launches["B4"]
+    alone, _ = timed_encode({"embeds": embeds[3:4]})
+    gap = rel_err(torch, alone, logits[3:4])
+    print(f"[enc] clip 3 alone vs batched: logits rel gap {gap:.3e} (tol "
+          f"{BF16_LOGITS_TOL:.0e})")
+    if not gap <= BF16_LOGITS_TOL:
+        raise AssertionError(f"clip 3 alone differs from batched: {gap}")
+    targets = torch.randint(0, hcfg.vocab_size, (ENC_CLIPS, ENC_FRAMES),
+                            generator=hgen, device="cuda")
+    metrics = eval_step(hparams, {"embeds": embeds, "targets": targets})
+    ce = metrics["ce"].item()
+    # at init the final layernorm gives each frame unit variance, so each
+    # logit is N(0, d_model init_std^2) and the expected CE of random
+    # targets is ln V + d_model init_std^2 / 2 (6.478 here, not ln 504)
+    ce_init = math.log(hcfg.vocab_size) + hcfg.d_model * hcfg.init_std ** 2 / 2
+    print(f"[enc] eval_step: ce {ce:.4f} (ln {hcfg.vocab_size} = "
+          f"{math.log(hcfg.vocab_size):.4f}, expected at init {ce_init:.4f}),"
+          f" z_loss {metrics['z_loss'].item():.3e}, tokens "
+          f"{metrics['tokens'].item():.0f}")
+    if not (math.isfinite(ce) and abs(ce - ce_init) <= 0.1):
+        raise AssertionError(f"eval ce {ce} not finite or not near "
+                             f"{ce_init}")
+    del logits, alone
+    long_emb = torch.randn((1, LONG_FRAMES, hcfg.d_model), generator=hgen,
+                           device="cuda").to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = timed_encode({"embeds": long_emb})
+    print(f"[enc] long encode 1 x {LONG_FRAMES} frames (the reference's "
+          f"prefill_32k length; batch cut from 32 to 1): wall "
+          f"{1e3 * wall:.2f} ms, {LONG_FRAMES / wall:.0f} frames/s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"B3 {hcfg.num_heads * -(-hf // 64)} blocks a launch")
+    # the long encode's first attention layer in fp32 (the same weights
+    # and frames): the card (B3 + B4) against the plain path on the CPU
+    f32 = dataclasses.replace(hcfg, compute_dtype="float32")
+    master = init_params(hcfg, seed=0)
+    first = {**master, "layers": master["layers"][:1]}
+    del master
+    first_cpu = to_cuda(first, "cpu")
+    before = counts()
+    attn_gpu = first_attention(torch, first, f32, {"embeds": long_emb})
+    torch.cuda.synchronize()
+    ran = launched_since(before)
+    attn_cpu = first_attention(torch, first_cpu, f32,
+                               {"embeds": long_emb.cpu()})
+    rel = rel_err(torch, attn_gpu, attn_cpu)
+    print(f"[enc] long encode's first attention layer, fp32: card ({ran}) "
+          f"vs the plain path on the CPU: rel err {rel:.2e} (tol "
+          f"{E2E_TOL:.0e})")
+    if not (rel <= E2E_TOL and ran == {"B3": 1, "B4": 1}
+            and torch.isfinite(attn_gpu).all()):
+        raise AssertionError("long encode's first attention layer differs "
+                             "from the plain path")
+    del long_emb, first, first_cpu, attn_gpu, attn_cpu
+
+    # -- 14. where the encoder's time goes (warm) ---------------------------
+    def encode_once():
+        encode(hparams, {"embeds": embeds})
+
+    encode_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode_once()
+    t_enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    enqueue_ms = (t_enqueued - t0) * 1e3
+    busy_ms, by_name, count, ops_ms = device_profile(torch, encode_once)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[enc time] encode {ENC_CLIPS} x {ENC_FRAMES}: wall {wall_ms:.2f} "
+          f"ms, host enqueue {enqueue_ms:.2f} ms, device busy {busy_ms:.2f} "
+          f"ms ({100 * busy_ms / wall_ms:.0f}%, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.0f}%), {count} device kernels, "
+          f"{ops_ms:.2f} ms inside profiled operators (profiler on); top "
+          "kernels " + "; ".join(f"{name[:56]} {ms:.3f} ms"
+                                  for name, ms in top))
+    for name, ms in by_name.items():
+        if "rm_fused_state" in name or "rm_fused_apply" in name:
+            print(f"[enc time] {name[:64]}: {ms:.3f} ms over the encode "
+                  f"({100 * ms / busy_ms:.1f}% of device busy)")
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{key: kernels[kid][key] for key in order}
-                                  for kid in ("B1", "B2", "B5", "B6")]}))
+                                  for kid in ("B1", "B2", "B3", "B4", "B5",
+                                              "B6")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro.configs``): ``--arch <id>``.
 
-Only ``qwen3-1.7b`` is ported; every other reference arch id raises
-``NotImplementedError`` naming where its port is queued. ``get_config``
+Ported: ``qwen3-1.7b`` (dense decoder, served) and ``hubert-xlarge``
+(audio encoder, non-causal; encoded through ``repro_torch.train.steps``).
+Every other reference arch id raises ``NotImplementedError`` naming where
+its port is queued. ``get_config``
 takes the reference's overrides: ``attention_mode`` and ``estimator`` (the
 feature family of RM attention, validated against the port's registry:
 ``"rm"`` or ``"tensor_sketch"``).
@@ -18,13 +20,14 @@ __all__ = ["get_config", "list_archs"]
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 # reference arch ids whose port is queued (ROADMAP.md queue A)
 _NOT_PORTED = (
     "h2o-danube-3-4b", "olmo-1b", "qwen2-7b", "mixtral-8x7b",
-    "deepseek-v2-lite-16b", "internvl2-1b", "hubert-xlarge",
-    "jamba-v0.1-52b", "xlstm-350m",
+    "deepseek-v2-lite-16b", "internvl2-1b", "jamba-v0.1-52b",
+    "xlstm-350m",
 )
 
 
@@ -47,8 +50,9 @@ def get_config(arch: str, smoke: bool = False,
     """
     if arch in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported to PyTorch yet: its modules are "
-            "queued in ROADMAP.md queue A (items 6 and 11)")
+            f"arch {arch!r} is not ported to PyTorch yet (ported: "
+            f"{list_archs()}); its modules are queued in ROADMAP.md queue A "
+            "(items 6 and 11)")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     mod = importlib.import_module(_ARCH_MODULES[arch])

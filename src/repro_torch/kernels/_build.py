@@ -32,6 +32,8 @@ LIBRARIES = {
     "rm_fused_attention": "rm_fused_attention.cu",
     "rm_attention_chunked": "rm_attention_chunked.cu",
     "tensor_sketch": "tensor_sketch.cu",
+    "rm_fused_state": "rm_fused_state.cu",
+    "rm_fused_apply": "rm_fused_apply.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

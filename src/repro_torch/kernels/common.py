@@ -14,7 +14,10 @@ partial sum a thread), so it needs no choice; the fused attention kernel's
 chunk and value slice, and the tensor_sketch kernel's row tile (the
 reference's ``get_batch_block``), are chosen below. The chunked attention
 kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
-shared memory. There is no autotune cache yet.
+shared memory. The two non-causal kernels (``csrc/rm_fused_state.cu``, B3,
+and ``csrc/rm_fused_apply.cu``, B4) take one 64-wide feature or query tile
+a block and a value slice of up to 128 columns (:func:`noncausal_blocks`).
+There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ __all__ = [
     "pick_attention_blocks",
     "sketch_smem_bytes",
     "pick_sketch_rows",
+    "noncausal_blocks",
 ]
 
 # Hopper: the most dynamic shared memory one block may opt into.
@@ -44,6 +48,10 @@ NUM_SMS = 132
 # Row tiles the tensor_sketch kernel is compiled for (16 rows x 1, 2 or 4
 # rows a thread).
 SKETCH_ROW_TILES = (64, 32, 16)
+# Value columns one non-causal block accumulates: 16 thread columns x 8
+# register slots (``kColSlots`` in csrc/rm_fused_state.cu and
+# csrc/rm_fused_apply.cu).
+NONCAUSAL_DV_BLOCK = 128
 
 
 def round_up(x: int, m: int) -> int:
@@ -131,3 +139,23 @@ def pick_sketch_rows(c_max: int, b: int, n_blocks: int) -> int:
         if -(-b // r) * n_blocks >= NUM_SMS:
             return r
     return fits[-1]
+
+
+def noncausal_blocks(dv: int) -> Tuple[int, int]:
+    """``(dv_block, smem_bytes)`` for the non-causal kernels B3 and B4.
+
+    A block accumulates ``[64, dv_block]`` of S (B3) or of the numerator
+    (B4) in registers, one 64-row tile by 16 thread columns of up to 8
+    values each, so ``dv_block`` is ``dv`` rounded up to 16, at most
+    :data:`NONCAUSAL_DV_BLOCK` (a wider ``dv`` takes several value slices,
+    each featurizing again). Shared memory holds the featurize staging
+    area, the 64 x 64 feature tile (a column of padding against bank
+    conflicts), the 64-row value or state tile and, for B4, ``n`` and the
+    denominators of the tile: 54,528 bytes at ``dv = 80``, 66,816 at 128,
+    so three blocks or more fit an SM's 227 KB (registers allow two).
+    """
+    dv_block = min(round_up(max(dv, 1), 16), NONCAUSAL_DV_BLOCK)
+    floats = (2 * FEATURE_TILE * (STAGE_K + 1)
+              + FEATURE_TILE * (FEATURE_TILE + 1)
+              + FEATURE_TILE * dv_block + 2 * FEATURE_TILE)
+    return dv_block, 4 * floats

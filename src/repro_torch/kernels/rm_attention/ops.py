@@ -5,29 +5,36 @@ Two-launch ops, over features ``Z`` computed beforehand by any estimator:
 * ``rm_attention_causal`` — pass A (per-chunk key states) and their
   exclusive prefix sums in PyTorch, then pass B in one launch of
   ``csrc/rm_attention_chunked.cu`` (kernel B5, ``rm_attention_chunked``).
-* ``rm_attention_decode_step`` and ``rm_attention_prefill_final_state`` —
-  plain PyTorch, as in the reference (they were never TPU kernels).
+* ``rm_attention_noncausal``, ``rm_attention_decode_step`` and
+  ``rm_attention_prefill_final_state`` — plain PyTorch einsums, as in the
+  reference (they were never TPU kernels).
 
 Fused ops, over RAW pre-scaled q/k rows plus the packed RM layout (``w
 [max_degree, F, d]`` and per-column degrees and scales from
-``core.plan``); featurization happens inside the attention kernel, so the
+``core.plan``); featurization happens inside the attention kernels, so the
 ``O(T * F)`` Z tensors never reach device memory:
 
 * ``rm_attention_fused_causal`` — causal outputs (training forward).
 * ``rm_attention_fused_prefill`` — causal outputs AND the decode state
   ``(S, n)`` from the same launch.
+* ``rm_attention_fused_noncausal`` — bidirectional outputs (the encoder):
+  the key state ``(S, n)`` of the whole sequence in one launch of
+  ``csrc/rm_fused_state.cu`` (kernel B3, ``rm_fused_state``), then the
+  queries against it in one launch of ``csrc/rm_fused_apply.cu`` (kernel
+  B4, ``rm_fused_apply``).
 * ``rm_attention_fused_decode_step`` — ONE rm_feature launch for the new
   q and k rows together, then the O(1) state update in PyTorch.
 
 Dispatch follows the tensor: a CPU tensor takes the plain version
-(``ref.py``), a CUDA tensor launches ``csrc/rm_fused_attention.cu`` (B2)
-or ``csrc/rm_attention_chunked.cu`` (B5), or raises.
-``rm_fused_causal.launches`` and ``rm_attention_chunked.launches`` count
-kernel launches.
+(``ref.py``), a CUDA tensor launches ``csrc/rm_fused_attention.cu`` (B2),
+``csrc/rm_attention_chunked.cu`` (B5), ``csrc/rm_fused_state.cu`` (B3) or
+``csrc/rm_fused_apply.cu`` (B4), or raises. ``rm_fused_causal.launches``,
+``rm_attention_chunked.launches``, ``rm_fused_state.launches`` and
+``rm_fused_apply.launches`` count kernel launches.
 
-The backward of the fused causal op (reference ``_fused_causal_bwd``) is
-not ported yet: with autograd recording on a tensor that requires grad the
-wrappers raise.
+The backward of the fused ops (reference ``_fused_causal_bwd``,
+``_fused_noncausal_bwd``) is not ported yet: with autograd recording on a
+tensor that requires grad the wrappers raise.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.common import (
     FEATURE_TILE,
     attention_smem_bytes,
+    noncausal_blocks,
     pick_attention_blocks,
     round_up,
 )
@@ -48,8 +56,11 @@ from repro_torch.kernels.rm_attention.ref import (
     causal_chunked,
     rm_attention_chunked_ref,
     rm_attention_decode_ref,
+    rm_attention_noncausal_ref,
     rm_attention_prefill_final_state,
+    rm_fused_apply_ref,
     rm_fused_causal_ref,
+    rm_fused_state_ref,
 )
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
 
@@ -57,11 +68,15 @@ __all__ = [
     "rm_attention_chunked",
     "rm_attention_causal",
     "rm_attention_decode_step",
+    "rm_attention_noncausal",
     "rm_attention_prefill_final_state",
     "rm_attention_fused_causal",
     "rm_attention_fused_prefill",
+    "rm_attention_fused_noncausal",
     "rm_attention_fused_decode_step",
     "rm_fused_causal",
+    "rm_fused_state",
+    "rm_fused_apply",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,24 +84,18 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _CHUNKED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_STATE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+_APPLY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
 
 
-def _library():
+def _launcher(library: str, symbol: str, argtypes):
     from repro_torch.kernels import _build
 
-    lib = _build.load("rm_fused_attention")
-    fn = lib.rm_fused_causal_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _chunked_library():
-    from repro_torch.kernels import _build
-
-    lib = _build.load("rm_attention_chunked")
-    fn = lib.rm_attention_chunked_launch
-    fn.argtypes = _CHUNKED_ARGTYPES
+    fn = getattr(_build.load(library), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -137,7 +146,8 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
     vf = v.float().contiguous()
     sp = s_prev.float().contiguous()
     np_ = n_prev.float().contiguous()
-    err = _chunked_library()(
+    err = _launcher("rm_attention_chunked", "rm_attention_chunked_launch",
+                    _CHUNKED_ARGTYPES)(
         zq.data_ptr(), zk.data_ptr(), vf.data_ptr(), sp.data_ptr(),
         np_.data_ptr(), out.data_ptr(), bh, t, f, dv, chunk, float(eps),
         _DTYPE_CODE[zq.dtype], torch.cuda.current_stream(dev).cuda_stream)
@@ -167,10 +177,12 @@ def rm_attention_causal(
 
 
 # O(1)-memory decode over precomputed features (rank-1 state update and
-# two GEMVs; returns ``(out [B,H,dv], new_s, new_n)``): the reference's op
-# is plain code, so the port's is its plain version under the reference's
-# name.
+# two GEMVs; returns ``(out [B,H,dv], new_s, new_n)``) and bidirectional
+# attention over precomputed features (two einsums each way): the
+# reference's ops are plain code, so the port's are their plain versions
+# under the reference's names.
 rm_attention_decode_step = rm_attention_decode_ref
+rm_attention_noncausal = rm_attention_noncausal_ref
 
 
 def _columns(col_deg, col_scale, device) -> Tuple[torch.Tensor,
@@ -185,12 +197,26 @@ def _columns(col_deg, col_scale, device) -> Tuple[torch.Tensor,
             col_scale.to(device=device, dtype=torch.float32))
 
 
-def _no_grad_check(*tensors):
+def _no_grad_check(op: str, *tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the fused causal RM attention op has no backward yet (serving "
-            "only; the training slice and its backward are queued in "
-            "ROADMAP.md)")
+            f"{op} has no backward yet (forward only; the training slice "
+            "and its backward are queued in ROADMAP.md)")
+
+
+def _check_cuda_operands(op: str, x, others, w):
+    """Raise unless ``x`` and ``w`` share fp32 or bf16 and every tensor of
+    ``others`` (name -> tensor) lies on ``x``'s device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{op} runs on cpu or cuda tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"{op}: rows and w must share one of fp32/bf16, got "
+                        f"{x.dtype} and {w.dtype}")
+    for name, t in others.items():
+        if t.device != x.device:
+            raise ValueError(f"{op}: {name} is on {t.device}, the rows on "
+                             f"{x.device}")
 
 
 def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
@@ -199,7 +225,7 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
     — the kernel on a CUDA tensor, the plain version on a CPU tensor.
     ``plain_chunk`` is the plain version's chunk; the kernel takes its own
     from ``kernels.common.pick_attention_blocks``."""
-    _no_grad_check(q, k, v, w)
+    _no_grad_check("the fused causal RM attention op", q, k, v, w)
     b, h, t, d = q.shape
     dv = v.shape[-1]
     kdeg, f, _ = w.shape
@@ -246,7 +272,8 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
     out = torch.empty((b * h, tp, dv), dtype=torch.float32, device=dev)
     s = torch.empty((b * h, f, dv), dtype=torch.float32, device=dev)
     n = torch.empty((b * h, f), dtype=torch.float32, device=dev)
-    launch = _library()
+    launch = _launcher("rm_fused_attention", "rm_fused_causal_launch",
+                       _ARGTYPES)
     err = launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
                  kval.data_ptr(), wc.data_ptr(), col_deg.data_ptr(),
                  col_scale.data_ptr(), out.data_ptr(), s.data_ptr(),
@@ -305,6 +332,143 @@ def rm_attention_fused_prefill(
     :func:`rm_attention_fused_causal` (plain version only)."""
     return rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
                            plain_chunk=chunk)
+
+
+def rm_fused_state(k, v, kvalid, w, col_deg, col_scale):
+    """The key state of non-causal attention (kernel B3): ``(S [BH, F,
+    dv], n [BH, F])`` of ``zk = Z(k) * kvalid`` over all T keys — the
+    kernel on a CUDA tensor, ``ref.rm_fused_state_ref`` on a CPU tensor.
+
+    ``k [BH, T, d]`` pre-scaled rows (fp32 or bf16, ``w``'s type), ``v
+    [BH, T, dv]``, ``kvalid [BH, T]`` (1.0 real key, 0.0 padding), packed
+    ``w [kdeg, F, d]``, ``col_deg``/``col_scale [F]``.
+    """
+    _no_grad_check("rm_fused_state", k, v, w)
+    bh, t, d = k.shape
+    dv = v.shape[-1]
+    kdeg, f, _ = w.shape
+    dev = k.device
+    if v.shape[:2] != (bh, t) or kvalid.shape != (bh, t) or w.shape[2] != d:
+        raise ValueError(f"shape mismatch: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, kvalid {tuple(kvalid.shape)}, "
+                         f"w {tuple(w.shape)}")
+    # nothing to sum: an empty state
+    if bh == 0 or t == 0 or f == 0:
+        return (torch.zeros((bh, f, dv), dtype=torch.float32, device=dev),
+                torch.zeros((bh, f), dtype=torch.float32, device=dev))
+    col_deg, col_scale = _columns(col_deg, col_scale, dev)
+    if dev.type == "cpu":
+        return rm_fused_state_ref(k, v, kvalid, w, col_deg, col_scale)
+    _check_cuda_operands("rm_fused_state", k, {"v": v, "kvalid": kvalid},
+                         w)
+    dv_block, smem = noncausal_blocks(dv)
+    # v and kvalid enter in fp32 (a lossless upcast of bf16)
+    kc, wc = k.contiguous(), w.contiguous()
+    vf = v.float().contiguous()
+    kval = kvalid.float().contiguous()
+    s = torch.empty((bh, f, dv), dtype=torch.float32, device=dev)
+    n = torch.empty((bh, f), dtype=torch.float32, device=dev)
+    err = _launcher("rm_fused_state", "rm_fused_state_launch",
+                    _STATE_ARGTYPES)(
+        kc.data_ptr(), vf.data_ptr(), kval.data_ptr(), wc.data_ptr(),
+        col_deg.data_ptr(), col_scale.data_ptr(), s.data_ptr(),
+        n.data_ptr(), bh, t, d, dv, kdeg, f, dv_block, smem,
+        _DTYPE_CODE[k.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_fused_state kernel launch failed: CUDA "
+                           f"error {err}")
+    rm_fused_state.launches += 1
+    return s, n
+
+
+rm_fused_state.launches = 0
+
+
+def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float):
+    """Non-causal outputs from a key state (kernel B4): ``Z(q) S /
+    clamp(Z(q) n)`` ``[BH, T, dv]`` fp32 — the kernel on a CUDA tensor,
+    ``ref.rm_fused_apply_ref`` on a CPU tensor.
+
+    ``q [BH, T, d]`` pre-scaled rows (fp32 or bf16, ``w``'s type), ``s [BH,
+    F, dv]`` and ``n [BH, F]`` from :func:`rm_fused_state`, packed ``w
+    [kdeg, F, d]``, ``col_deg``/``col_scale [F]``.
+    """
+    _no_grad_check("rm_fused_apply", q, s, n, w)
+    bh, t, d = q.shape
+    kdeg, f, _ = w.shape
+    dv = s.shape[-1]
+    dev = q.device
+    if s.shape != (bh, f, dv) or n.shape != (bh, f) or w.shape[2] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, s "
+                         f"{tuple(s.shape)}, n {tuple(n.shape)}, w "
+                         f"{tuple(w.shape)}")
+    # no rows give an empty output; with no feature columns every numerator
+    # and denominator is 0, so out = 0 / clamp(0) = 0
+    if bh == 0 or t == 0 or f == 0:
+        return torch.zeros((bh, t, dv), dtype=torch.float32, device=dev)
+    col_deg, col_scale = _columns(col_deg, col_scale, dev)
+    if dev.type == "cpu":
+        return rm_fused_apply_ref(q, s, n, w, col_deg, col_scale, eps)
+    _check_cuda_operands("rm_fused_apply", q, {"s": s, "n": n}, w)
+    dv_block, smem = noncausal_blocks(dv)
+    qc, wc = q.contiguous(), w.contiguous()
+    sf, nf = s.float().contiguous(), n.float().contiguous()
+    out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
+    err = _launcher("rm_fused_apply", "rm_fused_apply_launch",
+                    _APPLY_ARGTYPES)(
+        qc.data_ptr(), sf.data_ptr(), nf.data_ptr(), wc.data_ptr(),
+        col_deg.data_ptr(), col_scale.data_ptr(), out.data_ptr(), bh, t, d,
+        dv, kdeg, f, dv_block, float(eps), smem, _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_fused_apply kernel launch failed: CUDA "
+                           f"error {err}")
+    rm_fused_apply.launches += 1
+    return out
+
+
+rm_fused_apply.launches = 0
+
+
+def rm_attention_fused_noncausal(
+    q: torch.Tensor,          # [B, H, T, d]  pre-scaled queries (NOT features)
+    k: torch.Tensor,          # [B, H, T, d]
+    v: torch.Tensor,          # [B, H, T, dv]
+    w: torch.Tensor,          # [max_degree, F, d] packed omegas
+    col_deg,                  # [F] int32 tensor or host array
+    col_scale,                # [F] fp32 tensor or host array
+    *,
+    kvalid: Optional[torch.Tensor] = None,   # [B, T] 1.0 real / 0.0 padded
+    chunk: int = 128,
+    eps: float = 1e-4,
+) -> torch.Tensor:            # [B, H, T, dv] fp32
+    """Fused bidirectional RM attention: ``rm_attention_noncausal(Z(q),
+    Z(k) * kvalid, v)`` without writing Z — kernel B3 for the key state,
+    then kernel B4 for the outputs (their plain versions on CPU tensors).
+
+    Neither T nor F is padded. The reference pads T to its chunk (keys
+    with kvalid 0, query rows sliced off) and F to its feature block
+    (degree-0, scale-0 columns); both kernels mask a ragged 64-row key or
+    query tile and treat every column past F in their ragged 64-column
+    tile as feature 0, so neither padding changes the result and both
+    kernels take the rows and the plan's ``w`` as they are. ``chunk`` is
+    kept for the reference's signature and not read.
+    """
+    _no_grad_check("the fused non-causal RM attention op", q, k, v, w)
+    b, h, t, d = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    if b * h == 0 or t == 0:
+        return torch.zeros((b, h, t, dv), dtype=torch.float32, device=dev)
+    if kvalid is None:
+        kvalid = torch.ones((b, t), dtype=torch.float32, device=dev)
+    col_deg, col_scale = _columns(col_deg, col_scale, dev)
+    kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
+    s, n = rm_fused_state(k.reshape(b * h, t, d), v.reshape(b * h, t, dv),
+                          kval, w, col_deg, col_scale)
+    out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg, col_scale,
+                         eps)
+    return out.reshape(b, h, t, dv)
 
 
 def rm_attention_fused_decode_step(

@@ -6,6 +6,9 @@ Given features ``zq, zk [B, H, T, F]`` and values ``v [B, H, T, dv]``,
 
     out_t = (sum_{s <= t} (zq_t . zk_s) v_s) / clamp(sum_{s <= t} zq_t . zk_s)
 
+(causal), or the same sums over every key s (non-causal: ``zq_t S / clamp(
+zq_t n)`` with the key state ``S = zk^T v``, ``n = colsum(zk)``).
+
 RM features are signed, so the denominator can pass through zero; it is
 clamped to ``sign(den) * max(|den|, eps)`` with ``den >= 0 -> +eps``.
 Everything is computed in fp32.
@@ -30,6 +33,10 @@ __all__ = [
     "rm_fused_causal_ref",
     "rm_attention_prefill_final_state",
     "rm_attention_decode_ref",
+    "rm_attention_noncausal_ref",
+    "rm_fused_state_ref",
+    "rm_fused_apply_ref",
+    "rm_fused_noncausal_ref",
 ]
 
 
@@ -168,3 +175,58 @@ def rm_attention_decode_ref(zq, zk, v, state_s, state_n, eps: float = 1e-4):
     num = torch.einsum("bhf,bhfd->bhd", zq, s)
     den = clamp_den(torch.einsum("bhf,bhf->bh", zq, n), eps)
     return num / den[..., None], s, n
+
+
+def rm_attention_noncausal_ref(zq, zk, v, eps: float = 1e-4) -> torch.Tensor:
+    """Bidirectional linear attention over features (reference
+    ``ops.rm_attention_noncausal``): the key state ``S = zk^T v``, ``n =
+    colsum(zk)``, then ``zq S / clamp(zq n)`` — two einsums each way, fp32.
+    ``zq, zk [B, H, T, F]``, ``v [B, H, T, dv]`` -> ``[B, H, T, dv]``."""
+    zq, zk, v = zq.float(), zk.float(), v.float()
+    s = torch.einsum("bhsf,bhsd->bhfd", zk, v)
+    n = zk.sum(dim=2)
+    num = torch.einsum("bhtf,bhfd->bhtd", zq, s)
+    den = clamp_den(torch.einsum("bhtf,bhf->bht", zq, n), eps)
+    return num / den[..., None]
+
+
+def rm_fused_state_ref(k, v, kvalid, w, col_deg,
+                       col_scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B3 (reference ``_fused_state_kernel``): the
+    whole-sequence key state of ``zk = Z(k) * kvalid``.
+
+    ``k [BH, T, d]`` pre-scaled rows, ``v [BH, T, dv]``, ``kvalid [BH, T]``
+    (1.0 real key, 0.0 padding), packed ``w [kdeg, F, d]`` -> ``S [BH, F,
+    dv]``, ``n [BH, F]``, fp32.
+    """
+    bh, t, d = k.shape
+    zk = rm_feature_fused_ref(k.reshape(bh * t, d), w, col_deg, col_scale)
+    zk = zk.reshape(bh, t, -1) * kvalid.float()[..., None]
+    return torch.einsum("bsf,bsd->bfd", zk, v.float()), zk.sum(dim=1)
+
+
+def rm_fused_apply_ref(q, s, n, w, col_deg, col_scale,
+                       eps: float) -> torch.Tensor:
+    """Plain version of kernel B4 (reference ``_fused_apply_kernel``):
+    ``Z(q) S / clamp(Z(q) n)``.
+
+    ``q [BH, T, d]`` pre-scaled rows, ``s [BH, F, dv]``, ``n [BH, F]``,
+    packed ``w [kdeg, F, d]`` -> ``out [BH, T, dv]`` fp32.
+    """
+    bh, t, d = q.shape
+    zq = rm_feature_fused_ref(q.reshape(bh * t, d), w, col_deg, col_scale)
+    zq = zq.reshape(bh, t, -1)
+    num = torch.einsum("btf,bfd->btd", zq, s.float())
+    den = clamp_den(torch.einsum("btf,bf->bt", zq, n.float()), eps)
+    return num / den[..., None]
+
+
+def rm_fused_noncausal_ref(q, k, v, kvalid, w, col_deg, col_scale, *,
+                           eps: float) -> torch.Tensor:
+    """The fused non-causal op composed from its plain parts (reference
+    ``ops._fused_noncausal_jnp``): ``q, k [B, H, T, d]`` pre-scaled rows,
+    ``v [B, H, T, dv]``, ``kvalid [B, T]`` -> ``out [B, H, T, dv]`` fp32."""
+    zq = featurize_ref4(q, w, col_deg, col_scale)
+    zk = featurize_ref4(k, w, col_deg, col_scale) \
+        * kvalid.float()[:, None, :, None]
+    return rm_attention_noncausal_ref(zq, zk, v, eps)

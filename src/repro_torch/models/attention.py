@@ -9,16 +9,20 @@ decode keeps an O(1) state (``S [F, dv]``, ``n [F]``) instead of a KV cache.
 Two paths (``rm_fuse_enabled``):
 
 * fused (family ``"rm"``, ``fuse_featurize`` ``"auto"``/``"on"``): the
-  featurize runs inside the attention kernel B2 (prefill, forward) or in
-  one rm_feature launch for q and k together (decode);
+  featurize runs inside the attention kernels — B2 for causal prefill and
+  forward, B3 (key state) then B4 (queries) for the non-causal forward of
+  an encoder — or in one rm_feature launch for q and k together (decode);
 * two-launch (``fuse_featurize="off"``, or a family without the fused
   capability): each of q and k is featurized by its family's map (B1 for
   ``"rm"``, B6 for ``"tensor_sketch"``), then kernel B5 runs the causal
-  attention over the features (prefill, forward), or the O(1) state update
-  runs in PyTorch (decode).
+  attention over the features (prefill, forward), two einsums run the
+  non-causal attention (encoder forward), or the O(1) state update runs in
+  PyTorch (decode).
 
-Not ported yet (ROADMAP.md queue A): ``attention_mode="exact"`` and
-non-causal attention; both raise ``NotImplementedError``.
+A non-causal config (an encoder) has a forward only: the prefill-cache and
+decode paths raise ``ValueError`` ("encoder-only"). Not ported yet
+(ROADMAP.md queue A): ``attention_mode="exact"``, which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,7 +42,9 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_decode_step,
     rm_attention_fused_causal,
     rm_attention_fused_decode_step,
+    rm_attention_fused_noncausal,
     rm_attention_fused_prefill,
+    rm_attention_noncausal,
     rm_attention_prefill_final_state,
 )
 from repro_torch.models.config import ModelConfig
@@ -51,11 +57,14 @@ from repro_torch.models.layers import (
 Params = Dict[str, torch.Tensor]
 
 
-def _require_rm(cfg: ModelConfig) -> None:
+def _require_decoder(cfg: ModelConfig) -> None:
     if not cfg.causal:
-        raise NotImplementedError(
-            "non-causal (encoder) RM attention is not ported yet (kernels "
-            "B3 and B4, ROADMAP.md)")
+        raise ValueError(
+            f"{cfg.name} is encoder-only: non-causal attention has a "
+            "forward (a full encode) but no prefill cache or decode step")
+
+
+def _require_rm(cfg: ModelConfig) -> None:
     if cfg.attention_mode != "rm":
         raise NotImplementedError(
             f"attention_mode={cfg.attention_mode!r} is not ported yet: the "
@@ -217,11 +226,12 @@ def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _apply_positional(cfg: ModelConfig, q, k, positions):
-    if cfg.pos_embedding != "rope":
-        raise NotImplementedError(
-            f"pos_embedding={cfg.pos_embedding!r} is not ported yet")
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    """RoPE on q and k; any other ``pos_embedding`` (``"sinusoidal"`` is
+    added to the inputs, ``"none"``) leaves them unchanged."""
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
 
 
 def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
@@ -234,7 +244,8 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
 
 def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence attention (training forward). x: [B, T, d]."""
+    """Full-sequence attention (training forward, or an encoder's encode;
+    causal or not as ``cfg.causal`` says). x: [B, T, d]."""
     _require_rm(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
@@ -246,13 +257,18 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     v_t = v.transpose(1, 2)
     if rm_fuse_enabled(cfg):
         qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
-        out = rm_attention_fused_causal(qs, ks, v_t, w, cd, cs,
-                                        chunk=cfg.rm.chunk, eps=cfg.rm.eps)
+        fused_op = (rm_attention_fused_causal if cfg.causal
+                    else rm_attention_fused_noncausal)
+        out = fused_op(qs, ks, v_t, w, cd, cs, chunk=cfg.rm.chunk,
+                       eps=cfg.rm.eps)
     else:
         zq = _rm_featurize(params, cfg, meta, q)
         zk = _rm_featurize(params, cfg, meta, k)
-        out = rm_attention_causal(zq, zk, v_t, chunk=cfg.rm.chunk,
-                                  eps=cfg.rm.eps)
+        if cfg.causal:
+            out = rm_attention_causal(zq, zk, v_t, chunk=cfg.rm.chunk,
+                                      eps=cfg.rm.eps)
+        else:
+            out = rm_attention_noncausal(zq, zk, v_t, eps=cfg.rm.eps)
     out = out.transpose(1, 2).to(x.dtype)
     return out.reshape(b, t, h * dh) @ params["wo"]
 
@@ -261,6 +277,7 @@ def init_attention_cache(cfg: ModelConfig, batch: int,
                          device) -> Dict[str, torch.Tensor]:
     """The O(1) rm decode state of one layer for ``batch`` lanes."""
     _require_rm(cfg)
+    _require_decoder(cfg)
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     f = rm_plan_for(cfg, dh).output_dim
     return {
@@ -279,6 +296,7 @@ def attention_decode(
     positions: torch.Tensor,         # [B] position of the new token
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     _require_rm(cfg)
+    _require_decoder(cfg)
     b = x.shape[0]
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -312,6 +330,7 @@ def attention_prefill_cache(
     prompt positions are masked out of the keys (``kvalid`` /
     :func:`rm_valid_mask`)."""
     _require_rm(cfg)
+    _require_decoder(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)

@@ -3,9 +3,11 @@
 The reference's frozen dataclasses and field names, restricted to the
 fields the port reads, so a config reads the same in both packages. The
 family sub-configs (MoE, MLA, Mamba, xLSTM) and the fields only other
-families or the jit/scan machinery read (``frontend``, ``attention_kind``,
+families or the jit/scan machinery read (``attention_kind``,
 ``sliding_window``, ``remat``, ``scan_unroll``) come with the modules that
-read them (ROADMAP.md queue A).
+read them (ROADMAP.md queue A). ``frontend`` is ported for ``"none"``
+(token inputs) and ``"audio_stub"`` (precomputed frame embeddings, the
+HuBERT encoder); the vision stub waits for its model.
 """
 from __future__ import annotations
 
@@ -63,14 +65,15 @@ class ModelConfig:
     # block structure
     block_pattern: Tuple[str, ...] = ("attn_mlp",)
     first_k_dense: int = 0
-    causal: bool = True
+    causal: bool = True            # False => encoder-only (hubert)
+    frontend: str = "none"         # none | audio_stub
 
     # attention flavor
     attention_mode: str = "exact"  # exact | rm  (rm = the paper's technique)
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
-    pos_embedding: str = "rope"
+    pos_embedding: str = "rope"    # rope | sinusoidal | none
 
     # norms / mlp
     norm_kind: str = "rmsnorm"
@@ -106,6 +109,10 @@ class ModelConfig:
         return n // period
 
     def validate(self) -> "ModelConfig":
+        if self.frontend not in ("none", "audio_stub"):
+            raise NotImplementedError(
+                f"{self.name}: frontend={self.frontend!r} is not ported yet "
+                "('none' or 'audio_stub')")
         if self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} is not a multiple "

@@ -1,6 +1,7 @@
 """Common layers (port of ``repro.models.layers``, the parts the dense
-qwen3 path uses): rmsnorm and the headwise qk-norm, RoPE, the SwiGLU MLP,
-and the tied embedding / unembed.
+qwen3 decoder and the hubert encoder use): rmsnorm, layernorm and the
+headwise qk-norm, RoPE and the sinusoidal position table, the SwiGLU and
+the biased GELU MLPs, and the embedding / unembed.
 
 Plain functions on dicts of tensors, with the reference's parameter names,
 so a reference parameter tree maps across one leaf at a time
@@ -28,18 +29,31 @@ def normal_init(generator: torch.Generator, shape, std: float,
 # norms
 # ---------------------------------------------------------------------------
 def init_norm(cfg: ModelConfig, dim: int, dtype, device) -> Params:
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_kind={cfg.norm_kind!r} is not ported yet (rmsnorm only)")
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    params = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if cfg.norm_kind == "rmsnorm":
+        return params
+    if cfg.norm_kind == "layernorm":
+        params["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
+        return params
+    raise NotImplementedError(
+        f"norm_kind={cfg.norm_kind!r} is not ported yet (rmsnorm and "
+        "layernorm)")
 
 
 def apply_norm(params: Params, cfg: ModelConfig,
                x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to the input dtype."""
+    """RMSNorm or LayerNorm in fp32, cast back to the input dtype.
+    LayerNorm takes the population variance, ``norm_eps`` inside the
+    rsqrt, then the scale and the bias, as the reference does."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + cfg.norm_eps) * params["scale"].float()
+    if cfg.norm_kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * params["scale"].float()
+    else:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        out = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * params["scale"].float() + params["bias"].float()
     return out.to(x.dtype)
 
 
@@ -55,22 +69,37 @@ def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 def init_mlp(cfg: ModelConfig, generator, d_ff: int, dtype) -> Params:
-    if cfg.mlp_kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp_kind={cfg.mlp_kind!r} is not ported yet (swiglu only)")
     d, std = cfg.d_model, cfg.init_std
-    return {
-        "w_gate": normal_init(generator, (d, d_ff), std, dtype),
-        "w_up": normal_init(generator, (d, d_ff), std, dtype),
-        "w_down": normal_init(generator, (d_ff, d), std, dtype),
-    }
+    if cfg.mlp_kind == "swiglu":
+        return {
+            "w_gate": normal_init(generator, (d, d_ff), std, dtype),
+            "w_up": normal_init(generator, (d, d_ff), std, dtype),
+            "w_down": normal_init(generator, (d_ff, d), std, dtype),
+        }
+    if cfg.mlp_kind == "gelu":
+        device = generator.device
+        return {
+            "w_up": normal_init(generator, (d, d_ff), std, dtype),
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_down": normal_init(generator, (d_ff, d), std, dtype),
+            "b_down": torch.zeros((d,), dtype=dtype, device=device),
+        }
+    raise NotImplementedError(
+        f"mlp_kind={cfg.mlp_kind!r} is not ported yet (swiglu and gelu)")
 
 
 def apply_mlp(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
-    return (F.silu(gate) * up) @ params["w_down"]
+    """SwiGLU, or the biased GELU MLP. The reference's ``jax.nn.gelu`` is
+    the tanh approximation by default (PyTorch's default is the exact erf
+    form, up to ~1e-3 away), so the port asks for ``approximate="tanh"``."""
+    if cfg.mlp_kind == "swiglu":
+        gate = x @ params["w_gate"]
+        up = x @ params["w_up"]
+        return (F.silu(gate) * up) @ params["w_down"]
+    up = x @ params["w_up"] + params["b_up"]
+    return F.gelu(up, approximate="tanh") @ params["w_down"] \
+        + params["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +129,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """[B, T] -> [B, T, dim] fp32: the classic table ``concat[sin, cos]``
+    (halves, not interleaved) at frequencies ``10000^(-i / half)``.
+
+    The power is taken in fp64 and rounded once to fp32, as the reference's
+    XLA ``pow`` rounds it; PyTorch's fp32 ``pow`` is one ulp off for some
+    exponents, which moves the angle at position 1500 by ~3e-5.
+    """
+    half = dim // 2
+    expo = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (10000.0 ** expo.double()).float()
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 The reference scans a stacked ``params["groups"]`` over layers; the port
 keeps one parameter dict per layer in ``params["layers"]`` and loops over
 them (PyTorch runs eagerly, there is no compile to keep small). Block kind
-``"attn_mlp"`` only; MoE, MLA and SSM blocks are not ported yet.
+``"attn_mlp"`` only; MoE, MLA and SSM blocks are not ported yet. Inputs
+are tokens, precomputed frame embeddings (``frontend="audio_stub"``, the
+HuBERT encoder), or both; an encoder (``causal=False``) has ``forward`` and
+``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is ported
+forward-only (no gradients yet).
 
 Parameters are plain nested dicts of tensors with the reference's leaf
 names; the fp32 master weights get a compute-dtype copy, with each
@@ -27,6 +31,7 @@ from repro_torch.models.layers import (
     init_embedding,
     init_mlp,
     init_norm,
+    sinusoidal_positions,
     unembed,
 )
 
@@ -36,6 +41,7 @@ __all__ = [
     "init_model",
     "cast_params_to_compute",
     "forward",
+    "loss_fn",
     "prefill",
     "init_decode_cache",
     "decode_step",
@@ -104,15 +110,38 @@ def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
 
 def _prepare_inputs(params: Params, cfg: ModelConfig,
                     batch: Dict[str, Any]):
-    """tokens -> x [B, T, d] in the compute dtype, positions [B, T]."""
+    """tokens and/or precomputed embeds -> x [B, T, d] in the compute
+    dtype, positions [B, T].
+
+    ``batch["embeds"] [B, Te, d]`` (the modality frontend stub's frame
+    embeddings) is cast to the compute dtype and put before the embedded
+    ``batch["tokens"] [B, Tt]`` where both are given; a sinusoidal config
+    adds its position table in x's dtype.
+
+    Raises:
+        ValueError: the batch holds neither; the message names the input
+            ``cfg.frontend`` expects.
+    """
     cdtype = canonical_dtype(cfg.compute_dtype)
-    tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], cfg, tokens, cdtype)
+    parts = []
+    if batch.get("embeds") is not None:
+        parts.append(batch["embeds"].to(cdtype))
+    if batch.get("tokens") is not None:
+        parts.append(embed_tokens(params["embed"], cfg, batch["tokens"],
+                                  cdtype))
+    if not parts:
+        want = "embeds" if cfg.frontend == "audio_stub" else "tokens"
+        raise ValueError(f"{cfg.name} (frontend {cfg.frontend!r}) takes "
+                         f"batch[{want!r}]; the batch holds neither embeds "
+                         "nor tokens")
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     b, t = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32,
                                  device=x.device).expand(b, t)
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
     return x, positions
 
 
@@ -132,6 +161,31 @@ def forward(params: Params, cfg: ModelConfig,
         x = _mlp_residual(layer, cfg, x)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params["embed"], cfg, x), {}
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+            z_loss_weight: float = 1e-4) -> Tuple[torch.Tensor, Dict]:
+    """Causal-LM (or framewise, for encoders) cross entropy plus z-loss ->
+    (loss, metrics ``ce``, ``z_loss``, ``tokens``, ``loss``), all fp32.
+
+    ``batch["targets"] [B, Tt]`` aligns with the LAST Tt positions of the
+    model input; targets < 0 are ignored. Forward only: the fused attention
+    ops have no backward yet, so this raises under autograd on params that
+    require grad.
+    """
+    logits, _ = forward(params, cfg, batch)
+    targets = batch["targets"]
+    logits = logits[:, -targets.shape[1]:, :].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          targets.clamp_min(0).long()[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    denom = mask.sum().clamp_min(1.0)
+    ce = ((lse - picked) * mask).sum() / denom
+    z_loss = (lse ** 2 * mask).sum() / denom * z_loss_weight
+    total = ce + z_loss
+    return total, {"ce": ce, "z_loss": z_loss, "tokens": mask.sum(),
+                   "loss": total}
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],

@@ -14,12 +14,19 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_causal,
     rm_attention_chunked,
     rm_attention_fused_decode_step,
+    rm_attention_fused_noncausal,
+    rm_fused_apply,
     rm_fused_causal,
+    rm_fused_state,
 )
 from repro_torch.kernels.rm_attention.ref import (
     causal_chunked_ref,
+    featurize_ref4,
     rm_attention_decode_ref,
+    rm_attention_ref,
+    rm_fused_apply_ref,
     rm_fused_causal_ref,
+    rm_fused_state_ref,
 )
 from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
 from repro_torch.sketch.plan import init_sketch_params, pack_sketch
@@ -38,8 +45,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _plan_tensors(smoke, device, seed=0):
-    cfg = get_config("qwen3-1.7b", smoke=smoke, attention_mode="rm")
+def _plan_tensors(smoke, device, seed=0, arch="qwen3-1.7b"):
+    cfg = get_config(arch, smoke=smoke, attention_mode="rm")
     plan = rm_plan_for(cfg, cfg.resolved_head_dim)
     gen = torch.Generator(device=device).manual_seed(seed)
     w = pack_omegas(plan, init_omegas(plan, gen))
@@ -156,5 +163,63 @@ def test_rm_attention_chunked_kernel_matches_plain(cuda, dtype, t, f, pad):
     torch.cuda.synchronize()
     assert rm_attention_chunked.launches == before + 1
     want = causal_chunked_ref(zq, zk, v, 128, 1e-4)
+    assert got.shape == want.shape
+    _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,pad,dv", [(128, 1536, 36, 80), (128, 1500, 0, 80),
+                                         (16, 32768, 0, 80), (8, 70, 9, 80),
+                                         (4, 33, 0, 200), (16, 256, 0, 16)])
+@pytest.mark.parametrize("smoke", [False, True], ids=["FULL", "SMOKE"])
+def test_rm_fused_state_and_apply_kernels_match_plain(cuda, dtype, bh, t,
+                                                      pad, dv, smoke):
+    """Kernels B3 and B4 on the hubert head (d 80, F 163; SMOKE d 16, F
+    42) against their plain versions: the encode's shape (8 clips x 16
+    heads, 1500 frames: T ragged against the 64-row tile) and the long
+    encode's (16 heads, 32768 frames: the longest sums), padded keys, dv 80
+    and 16 (one value slice, masked), dv 200 (two slices). Tolerance 1e-4:
+    fp32 sums of up to T x F terms in another order."""
+    d, w, cd, cs, gen = _plan_tensors(smoke, cuda, seed=5,
+                                      arch="hubert-xlarge")
+    k = _unit((bh, t, d), gen, cuda).to(dtype)
+    q = _unit((bh, t, d), gen, cuda).to(dtype)
+    v = torch.randn((bh, t, dv), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    if pad:
+        kvalid[bh // 2:, t - pad:] = 0.0
+    w = w.to(dtype)
+    before = (rm_fused_state.launches, rm_fused_apply.launches)
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs)
+    out = rm_fused_apply(q, s, n, w, cd, cs, 1e-4)
+    torch.cuda.synchronize()
+    assert (rm_fused_state.launches, rm_fused_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    _close(s, s_ref, 1e-4)
+    _close(n, n_ref, 1e-4)
+    # B4 on the plain state, so its check does not inherit B3's error
+    out_b4 = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4)
+    _close(out_b4, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4),
+           1e-4)
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), 1e-4)
+
+
+@pytest.mark.parametrize("t,pad", [(256, 30), (40, 0), (1500, 36)])
+def test_rm_fused_noncausal_op_matches_quadratic(cuda, t, pad):
+    """The whole op (B3, B4 on the unpadded rows) against the O(T^2) direct evaluation
+    ``(Zq Zk^T) V / clamp(rowsum)``, fp32. Tolerance 1e-4."""
+    d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=6,
+                                      arch="hubert-xlarge")
+    q = _unit((2, 8, t, d), gen, cuda)
+    k = _unit((2, 8, t, d), gen, cuda)
+    v = torch.randn((2, 8, t, d), generator=gen, device=cuda)
+    kvalid = torch.ones((2, t), device=cuda)
+    if pad:
+        kvalid[1, t - pad:] = 0.0
+    got = rm_attention_fused_noncausal(q, k, v, w, cd, cs, kvalid=kvalid)
+    zq = featurize_ref4(q, w, cd, cs)
+    zk = featurize_ref4(k, w, cd, cs) * kvalid[:, None, :, None]
+    want = rm_attention_ref(zq, zk, v, causal=False)
     assert got.shape == want.shape
     _close(got, want, 1e-4)

@@ -45,7 +45,8 @@ def test_port_sources_exist():
     assert len(PORT_FILES) > 20
     assert (ROOT / "src" / "repro_torch" / "csrc" / "rm_feature.cu").exists()
     for name in ("rm_fused_attention.cu", "rm_attention_chunked.cu",
-                 "tensor_sketch.cu"):
+                 "tensor_sketch.cu", "rm_fused_state.cu",
+                 "rm_fused_apply.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / name).exists()
 
 

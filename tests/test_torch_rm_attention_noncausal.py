@@ -1,0 +1,285 @@
+"""Kernels B3 (key state) and B4 (apply) and the fused non-causal op in the
+port, against the reference's jnp formulations: ``ops._fused_noncausal_jnp``
+(the op), ``_featurize_ref4`` + ``rm_attention_prefill_final_state`` (the
+state B3 builds), ``ops.rm_attention_noncausal`` and
+``ref.rm_attention_ref(causal=False)`` (the two-launch op and the O(T^2)
+direct evaluation). The reference's Pallas B3/B4 do not trace on this jax
+(ROADMAP.md queue C), so its jnp oracle is the reference here.
+
+Tolerances, as ``max |got - want| <= tol x max(1, max |want|)``: 1e-5 in
+fp32 (only summation orders differ); bf16 inputs against the reference's
+own bf16 path at 1e-5 (both upcast exactly and accumulate in fp32), and
+against the fp32 path within the rm bf16 feature budget of
+``tests/test_precision.py`` (5e-3)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as jplan
+from repro.core.maclaurin import ExponentialDotProductKernel as JExp
+from repro.kernels.rm_attention import ops as jops
+from repro.kernels.rm_attention import ref as jref
+from repro_torch.kernels import common
+from repro_torch.kernels.rm_attention.ops import (
+    rm_attention_fused_noncausal,
+    rm_attention_noncausal,
+    rm_fused_apply,
+    rm_fused_state,
+)
+from repro_torch.kernels.rm_attention.ref import (
+    rm_attention_ref,
+    rm_fused_apply_ref,
+    rm_fused_noncausal_ref,
+    rm_fused_state_ref,
+)
+
+TOL = 1e-5
+RM_BF16_BUDGET = 5e-3    # tests/test_precision.py TOLERANCES["rm"]
+
+
+def _packed(d, num_features, n_max, seed=0):
+    import jax
+
+    plan = jplan.make_feature_plan(JExp(1.0), d, num_features,
+                                   measure="proportional", n_max=n_max)
+    om = jplan.init_omegas(plan, jax.random.PRNGKey(seed))
+    return (np.asarray(jplan.pack_omegas(plan, om)),
+            plan.column_degrees(), plan.column_scales())
+
+
+def _inputs(b, h, t, d, dv, seed, pad_last=0):
+    rng = np.random.default_rng(seed)
+
+    def unit(*shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    q, k = unit(b, h, t, d), unit(b, h, t, d)
+    v = rng.normal(size=(b, h, t, dv)).astype(np.float32)
+    kvalid = np.ones((b, t), np.float32)
+    if pad_last:
+        kvalid[-1, t - pad_last:] = 0.0       # a padded clip
+    return q, k, v, kvalid
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _close(got, want, tol):
+    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() if want.size else 0.0
+    assert err <= tol * max(1.0, np.abs(want).max() if want.size else 0.0), \
+        err
+
+
+def _reference_zk(k, kvalid, w, deg, scale):
+    zk = jops._featurize_ref4(jnp.asarray(k), jnp.asarray(w),
+                              jnp.asarray(deg), jnp.asarray(scale))
+    return zk * jnp.asarray(kvalid)[:, None, :, None]
+
+
+# (b, h, t, d, dv, num_features, n_max, chunk, pad_last); F is the plan's
+# packed width: 42 columns for the 16-wide SMOKE head, 163 for the hubert
+# head (d = 80, 256 features), never a multiple of the 64-column tile
+CASES = [
+    (2, 4, 20, 16, 16, 64, 6, 128, 7),     # T < chunk, SMOKE head
+    (1, 3, 70, 16, 8, 64, 6, 32, 10),      # T not a multiple of the chunk
+    (2, 2, 150, 80, 80, 256, 8, 128, 36),  # hubert head, T 150 -> 256
+    (1, 2, 45, 80, 80, 256, 8, 16, 0),     # hubert head, several chunks
+]
+IDS = ["smoke-short", "smoke-ragged", "hubert-padded", "hubert-chunks"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_state_matches_reference(case):
+    """B3's plain version: the whole-sequence (S, n) of the masked keys."""
+    b, h, t, d, dv, nf, n_max, _, pad = case
+    w, deg, scale = _packed(d, nf, n_max)
+    _, k, v, kvalid = _inputs(b, h, t, d, dv, 1, pad)
+    want_s, want_n = jops.rm_attention_prefill_final_state(
+        _reference_zk(k, kvalid, w, deg, scale), jnp.asarray(v))
+    kv_bh = np.repeat(kvalid[:, None, :], h, axis=1).reshape(b * h, t)
+    s, n = rm_fused_state_ref(*_t(k.reshape(b * h, t, d),
+                                  v.reshape(b * h, t, dv), kv_bh, w, deg,
+                                  scale))
+    assert s.shape == (b * h, w.shape[1], dv) and n.shape == (b * h,
+                                                              w.shape[1])
+    _close(s.reshape(b, h, -1, dv), want_s, TOL)
+    _close(n.reshape(b, h, -1), want_n, TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_apply_matches_reference(case):
+    """B4's plain version against the reference's apply arithmetic
+    (``_featurize_ref4``, two einsums, ``_clamp_den``) on a given state."""
+    b, h, t, d, dv, nf, n_max, _, pad = case
+    w, deg, scale = _packed(d, nf, n_max, seed=1)
+    q, k, v, kvalid = _inputs(b, h, t, d, dv, 2, pad)
+    s, n = map(np.asarray, jops.rm_attention_prefill_final_state(
+        _reference_zk(k, kvalid, w, deg, scale), jnp.asarray(v)))
+    zq = jops._featurize_ref4(jnp.asarray(q), jnp.asarray(w),
+                              jnp.asarray(deg), jnp.asarray(scale))
+    num = jnp.einsum("bhtf,bhfd->bhtd", zq, jnp.asarray(s))
+    den = jref._clamp_den(jnp.einsum("bhtf,bhf->bht", zq, jnp.asarray(n)),
+                          1e-4)
+    want = num / den[..., None]
+    f = w.shape[1]
+    got = rm_fused_apply_ref(*_t(q.reshape(b * h, t, d),
+                                 s.reshape(b * h, f, dv), n.reshape(b * h, f),
+                                 w, deg, scale), eps=1e-4)
+    _close(got.reshape(b, h, t, dv), want, TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_noncausal_op_matches_reference(case):
+    """The public op on CPU tensors (T padding, then B3's and B4's plain
+    versions) against the reference's op with use_pallas=False
+    (``_fused_noncausal_jnp``), its own composed plain version, and the
+    O(T^2) direct evaluation."""
+    b, h, t, d, dv, nf, n_max, chunk, pad = case
+    w, deg, scale = _packed(d, nf, n_max, seed=2)
+    q, k, v, kvalid = _inputs(b, h, t, d, dv, 3, pad)
+    want = jops.rm_attention_fused_noncausal(
+        *[jnp.asarray(a) for a in (q, k, v, w)], deg, scale,
+        kvalid=jnp.asarray(kvalid), chunk=chunk, use_pallas=False)
+    want_jnp = jops._fused_noncausal_jnp(
+        *[jnp.asarray(a) for a in (q, k, v, kvalid, w)], jnp.asarray(deg),
+        jnp.asarray(scale), 1e-4)
+    qt, kt, vt, wt, kvt = _t(q, k, v, w, kvalid)
+    before = (rm_fused_state.launches, rm_fused_apply.launches)
+    got = rm_attention_fused_noncausal(qt, kt, vt, wt, deg, scale,
+                                       kvalid=kvt, chunk=chunk)
+    assert (rm_fused_state.launches, rm_fused_apply.launches) == before
+    assert got.dtype == torch.float32
+    _close(got, want, TOL)
+    _close(got, want_jnp, TOL)
+    _close(rm_fused_noncausal_ref(qt, kt, vt, kvt, wt, *_t(deg, scale),
+                                  eps=1e-4), want, TOL)
+    zq = jops._featurize_ref4(jnp.asarray(q), jnp.asarray(w),
+                              jnp.asarray(deg), jnp.asarray(scale))
+    zk = _reference_zk(k, kvalid, w, deg, scale)
+    _close(got, jref.rm_attention_ref(zq, zk, jnp.asarray(v), causal=False),
+           TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_two_launch_noncausal_matches_reference(case):
+    """``rm_attention_noncausal`` over given features (the two-launch
+    encoder path) and the port's O(T^2) evaluation, against the
+    reference's."""
+    b, h, t, d, dv, nf, n_max, _, pad = case
+    w, deg, scale = _packed(d, nf, n_max, seed=3)
+    q, k, v, kvalid = _inputs(b, h, t, d, dv, 4, pad)
+    zq = np.asarray(jops._featurize_ref4(
+        jnp.asarray(q), jnp.asarray(w), jnp.asarray(deg),
+        jnp.asarray(scale)))
+    zk = np.asarray(_reference_zk(k, kvalid, w, deg, scale))
+    want = jops.rm_attention_noncausal(*map(jnp.asarray, (zq, zk, v)),
+                                       eps=1e-4)
+    got = rm_attention_noncausal(*_t(zq, zk, v), eps=1e-4)
+    _close(got, want, TOL)
+    _close(rm_attention_ref(*_t(zq, zk, v), causal=False),
+           jref.rm_attention_ref(*map(jnp.asarray, (zq, zk, v)),
+                                 causal=False), TOL)
+
+
+@pytest.mark.parametrize("case", CASES[1:3], ids=IDS[1:3])
+def test_bf16_inputs_within_budget(case):
+    """bf16 q, k and w (``rm.precision="bf16"``): the port's op against the
+    reference's op on the same bf16 inputs at 1e-5, and against the fp32
+    op within the rm bf16 budget."""
+    b, h, t, d, dv, nf, n_max, chunk, pad = case
+    w, deg, scale = _packed(d, nf, n_max, seed=4)
+    q, k, v, kvalid = _inputs(b, h, t, d, dv, 5, pad)
+    qb, kb, wb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, w))
+    want16 = jops.rm_attention_fused_noncausal(
+        qb, kb, jnp.asarray(v), wb, deg, scale, kvalid=jnp.asarray(kvalid),
+        chunk=chunk, use_pallas=False)
+    want32 = jops.rm_attention_fused_noncausal(
+        *[jnp.asarray(a) for a in (q, k, v, w)], deg, scale,
+        kvalid=jnp.asarray(kvalid), chunk=chunk, use_pallas=False)
+    qt, kt, vt, wt, kvt = _t(q, k, v, w, kvalid)
+    got = rm_attention_fused_noncausal(
+        qt.bfloat16(), kt.bfloat16(), vt, wt.bfloat16(), deg, scale,
+        kvalid=kvt, chunk=chunk)
+    assert got.dtype == torch.float32
+    _close(got, want16, TOL)
+    _close(got, want32, RM_BF16_BUDGET)
+
+
+def test_empty_shapes_give_their_arithmetic_result():
+    """No rows or no keys: empty outputs and an empty (zero) state; no
+    feature columns: every numerator and denominator is 0, so the output
+    is 0 / clamp(0) = 0 — as the reference returns."""
+    w, deg, scale = _packed(16, 64, 6)
+    wt = torch.from_numpy(np.array(w))
+    q = torch.ones(2, 3, 0, 16)
+    v = torch.ones(2, 3, 0, 8)
+    out = rm_attention_fused_noncausal(q, q, v, wt, deg, scale)
+    want = jops.rm_attention_fused_noncausal(
+        jnp.ones((2, 3, 0, 16)), jnp.ones((2, 3, 0, 16)),
+        jnp.ones((2, 3, 0, 8)), jnp.asarray(w), deg, scale,
+        use_pallas=False)
+    assert out.shape == want.shape == (2, 3, 0, 8)
+    s, n = rm_fused_state(torch.ones(6, 0, 16), torch.ones(6, 0, 8),
+                          torch.ones(6, 0), wt, deg, scale)
+    assert torch.equal(s, torch.zeros(6, w.shape[1], 8))
+    assert torch.equal(n, torch.zeros(6, w.shape[1]))
+    assert rm_fused_apply(torch.ones(6, 0, 16), s, n, wt, deg, scale,
+                          1e-4).shape == (6, 0, 8)
+    q5 = torch.ones(1, 2, 5, 16)
+    v5 = torch.ones(1, 2, 5, 8)
+    out = rm_attention_fused_noncausal(q5, q5, v5, torch.ones(3, 0, 16),
+                                       np.zeros(0, np.int32),
+                                       np.zeros(0, np.float32))
+    assert torch.equal(out, torch.zeros(1, 2, 5, 8))
+
+
+def test_noncausal_ops_refuse_autograd():
+    w, deg, scale = _packed(16, 64, 6)
+    wt = torch.from_numpy(np.array(w))
+    q = torch.ones(1, 1, 4, 16, requires_grad=True)
+    v = torch.ones(1, 1, 4, 8)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rm_attention_fused_noncausal(q, q, v, wt, deg, scale)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rm_fused_state(q[0], v[0], torch.ones(1, 4), wt, deg, scale)
+    s = torch.zeros(1, w.shape[1], 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rm_fused_apply(q[0].detach(), s, torch.zeros(1, w.shape[1]), wt,
+                       deg, scale, 1e-4)
+    with torch.no_grad():
+        assert rm_attention_fused_noncausal(q, q, v, wt, deg,
+                                            scale).shape == (1, 1, 4, 8)
+
+
+def test_wrappers_take_no_other_device_and_check_shapes():
+    """A tensor on neither the CPU nor a card raises (there is no silent
+    fallback), and so do mismatched shapes."""
+    w, deg, scale = _packed(16, 64, 6)
+    wt = torch.from_numpy(np.array(w))
+    k = torch.ones(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rm_fused_state(k, torch.ones(2, 8, 4, device="meta"),
+                       torch.ones(2, 8, device="meta"), wt.to("meta"), deg,
+                       scale)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        rm_fused_state(torch.ones(2, 8, 16), torch.ones(2, 8, 4),
+                       torch.ones(2, 7), wt, deg, scale)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        rm_fused_apply(torch.ones(2, 8, 16), torch.ones(2, 5, 4),
+                       torch.ones(2, 5), wt, deg, scale, 1e-4)
+
+
+@pytest.mark.parametrize("dv", [16, 80, 128, 200, 1])
+def test_noncausal_blocks_fit_shared_memory(dv):
+    """B3/B4's value slice is dv rounded up to 16, at most 128 (a thread
+    holds 8 columns in registers), and three blocks fit one SM."""
+    dv_block, smem = common.noncausal_blocks(dv)
+    assert dv_block % 16 == 0 and 16 <= dv_block <= 128
+    assert dv_block >= min(dv, 128)
+    assert 3 * smem <= common.SMEM_PER_BLOCK
