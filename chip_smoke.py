@@ -69,7 +69,31 @@ Phases, each fatal on failure:
     and its first attention layer in fp32 on the card matches the plain
     path on the CPU;
 14. where the encoder's time goes: a ``torch.profiler`` window over one
-    warm 8 x 1500 encode.
+    warm 8 x 1500 encode;
+15. kernels B7 (``ctr_feature_fused``) and B8 (``structured_feature_fused``)
+    against their plain versions on the full qwen3-1.7b plans' weights
+    (ctr: wr / wi ``[5, 127, 128]``; structured: d1 / d2 ``[5, 6, 128]``)
+    at every row count their slices give them — the decode shape (x ``[64,
+    128]``) and the prefill shape of each bucket (x ``[512 .. 4096, 128]``)
+    — and a ragged count (70 rows), fp32 and bf16; B8 also at the hubert
+    shape (one clip's 1500 frames x 16 heads, x at its true width 80 of
+    d_pad 128); each family's ``registry.estimate_gram`` over ``[4096,
+    128]`` once, card against CPU;
+16. kernel B5 at the ragged width of the ctr features (F 255), at phase
+    5's prefill shape;
+17. small end-to-end references for the two families: the qwen3 and
+    hubert SMOKE models in fp32 with ``estimator="ctr"`` and
+    ``"structured"``, the card against the CPU (logits; for qwen3 greedy
+    tokens through the Scheduler, for hubert the first layer's attention
+    output), with the launches each forward makes;
+18. the ctr slice: qwen3-1.7b at full width and depth with
+    ``estimator="ctr"``, phase 7's workload and checks through the
+    two-launch path: B7 must launch twice a layer for every admission and
+    decode step, B5 once a layer for every admission, no other RM kernel;
+19. where the ctr slice's time goes, as in phase 8;
+20. the structured slice: the same with ``estimator="structured"`` (B8 in
+    place of B7);
+21. where the structured slice's time goes, as in phase 8.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -80,7 +104,8 @@ its check) and, as its last
 line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
-(phase 8) is the part to cut first.
+(phase 8) is the part to cut first, then the tensor_sketch slice's (phase
+10); no kernel check is cut.
 """
 import dataclasses
 import gc
@@ -101,6 +126,9 @@ B1_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
 B2_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T x F terms
 B6_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 128 and <= c terms
 B6_GRAM_TOL = 1e-4   # x max(1, max |plain|): Gram sums 256 such features
+B7_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
+B8_TOL = 1e-5   # x max(1, max |plain|): products of 128-term butterflies
+FEATURE_GRAM_TOL = 1e-4  # x max(1, max |plain|): Gram sums of 255 features
 B5_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to C x F terms
 E2E_TOL = 1e-4  # relative logits gap of two fp32 paths of one model
 B3_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T terms (S, n)
@@ -206,6 +234,39 @@ def sketch_cost(rows, plan, item):
     return nbytes, ops
 
 
+def ctr_cost(rows, plan, item):
+    """(bytes, operations) of kernel B7 on ``rows`` inputs, counted as this
+    plan's data needs them: x once, the wr and wi rows the columns use (the
+    sum of the column degrees), the column vectors, the ``[rows, 2 Fc]``
+    output once; per row a real and an imaginary d-long dot product for
+    every used slot, the complex running product and the two scales."""
+    import numpy as np
+
+    deg = plan.column_degrees()
+    d = plan.input_dim
+    fc = plan.num_complex
+    used = int(deg.sum())
+    muls = int(np.maximum(deg.astype(np.int64) - 1, 0).sum())
+    nbytes = rows * d * item + 2 * used * d * item + fc * 8 + rows * 2 * fc * 4
+    return nbytes, rows * (4 * d * used + 6 * muls + 2 * fc)
+
+
+def structured_cost(rows, plan, item):
+    """(bytes, operations) of kernel B8 on ``rows`` inputs of the plan's
+    true width d: x once, the d1 and d2 rows the stacks use (one per stack
+    and slot of its degree), the column vectors, the ``[rows, S d_pad]``
+    output once (surplus columns included: they are outputs of the
+    function); per row, stack and used slot the two sign products, the
+    d_pad log2(d_pad) butterfly adds and the running product, and the
+    scale per column."""
+    d, m = plan.input_dim, plan.d_pad
+    cols = plan.padded_num_cols
+    slots = plan.total_slots
+    nbytes = rows * d * item + 2 * slots * m * item + cols * 8 + rows * cols * 4
+    lg = m.bit_length() - 1
+    return nbytes, rows * (slots * m * (lg + 3) + cols)
+
+
 def chunked_cost(bh, t, f, dv, chunk, item):
     """(bytes, operations) of kernel B5: zq, zk, v, the prefixes and the
     output once each; per chunk the causal triangle of scores over F, the
@@ -306,6 +367,26 @@ def device_profile(torch, fn):
     ops_ms = sum(e.self_cpu_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CPU) / 1e3
     return sum(by_name.values()), by_name, count, ops_ms
+
+
+def kernel_device_ms(torch, fn, kernel, iters=50):
+    """Device time per call of the CUDA kernel whose name contains
+    ``kernel``, from the profiler's kernel events over ``iters`` calls of
+    ``fn`` (after a warm-up): the kernel's own time even where the host
+    enqueues a call more slowly than the card runs it, which a CUDA-event
+    window over back-to-back calls would measure instead."""
+    for _ in range(5):
+        fn()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    _, by_name, _, _ = device_profile(torch, calls)
+    found = [ms for name, ms in by_name.items() if kernel in name]
+    if not found:
+        raise AssertionError(f"the profiler saw no {kernel} launch")
+    return sum(found) / iters
 
 
 def count_syncs(torch, fn):
@@ -476,14 +557,25 @@ def main():
         rm_fused_causal_ref,
         rm_fused_state_ref,
     )
+    from repro_torch.ctr.plan import init_ctr_params, pack_ctr
+    from repro_torch.ctr.ref import ctr_feature_fused_ref
+    from repro_torch.kernels.ctr_feature.ops import ctr_feature_fused
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+    from repro_torch.kernels.structured_feature.ops import (
+        structured_feature_fused,
+    )
     from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
     from repro_torch.launch.serve import make_engine
     from repro_torch.models.attention import rm_plan_for
     from repro_torch.serve import Request
     from repro_torch.sketch.plan import init_sketch_params, pack_sketch
     from repro_torch.sketch.ref import tensor_sketch_fused_ref
+    from repro_torch.structured.plan import (
+        init_structured_params,
+        pack_structured,
+    )
+    from repro_torch.structured.ref import structured_feature_fused_ref
 
     # -- 1. environment and build -------------------------------------------
     smi = subprocess.run(
@@ -552,7 +644,7 @@ def main():
                 kernels["B1"] = dict(
                     name="rm_feature_fused", route="cuda",
                     source="src/repro_torch/csrc/rm_feature.cu",
-                    replaces="src/repro/kernels/rm_feature/rm_feature.py:65",
+                    replaces="src/repro/kernels/rm_feature/rm_feature.py:79",
                     shape=f"x[{rows},{dh}] fp32 x w{tuple(w32.shape)}",
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=None)
@@ -607,7 +699,7 @@ def main():
             kernels["B2"] = dict(
                 name="rm_fused_causal", route="cuda",
                 source="src/repro_torch/csrc/rm_fused_attention.cu",
-                replaces="src/repro/kernels/rm_attention/fused.py:158",
+                replaces="src/repro/kernels/rm_attention/fused.py:191",
                 shape=f"q,k[{bh},{t},{dh}] fp32, F={f}",
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None)
@@ -670,7 +762,7 @@ def main():
                     name="tensor_sketch_fused", route="cuda",
                     source="src/repro_torch/csrc/tensor_sketch.cu",
                     replaces="src/repro/kernels/tensor_sketch/"
-                             "tensor_sketch.py:76",
+                             "tensor_sketch.py:92",
                     shape=f"x[{rows},{dh}] fp32 x wr,wi"
                           f"{tuple(packed32[0].shape)}, blocks {starts}",
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -751,7 +843,7 @@ def main():
             kernels["B5"] = dict(
                 name="rm_attention_chunked", route="cuda",
                 source="src/repro_torch/csrc/rm_attention_chunked.cu",
-                replaces="src/repro/kernels/rm_attention/rm_attention.py:62",
+                replaces="src/repro/kernels/rm_attention/rm_attention.py:78",
                 shape=f"zq,zk[{bh},{t},{f_ts}] fp32, dv {dh}, chunk {chunk}",
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None)
@@ -841,11 +933,12 @@ def main():
                for rid, n in enumerate(lengths)}
     layers = cfg.num_layers
     all_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
-                    "B5": rm_attention_chunked, "B6": tensor_sketch_fused}
+                    "B5": rm_attention_chunked, "B6": tensor_sketch_fused,
+                    "B7": ctr_feature_fused, "B8": structured_feature_fused}
     done, launches = serve_slice(
         torch, "slice", engine, cfg, prompts, all_counters,
         lambda adm, steps: {"B1": steps * layers, "B2": adm * layers,
-                            "B5": 0, "B6": 0})
+                            "B5": 0, "B6": 0, "B7": 0, "B8": 0})
     kernels["B1"]["launches"] = launches["B1"]
     kernels["B2"]["launches"] = launches["B2"]
 
@@ -873,7 +966,8 @@ def main():
     done, launches = serve_slice(
         torch, "ts slice", engine, ts_cfg, prompts, all_counters,
         lambda adm, steps: {"B1": 0, "B2": 0, "B5": adm * layers,
-                            "B6": 2 * layers * (adm + steps)})
+                            "B6": 2 * layers * (adm + steps), "B7": 0,
+                            "B8": 0})
     kernels["B5"]["launches"] = launches["B5"]
     kernels["B6"]["launches"] = launches["B6"]
 
@@ -972,13 +1066,13 @@ def main():
                 kernels["B3"] = dict(
                     name="rm_fused_state", route="cuda",
                     source="src/repro_torch/csrc/rm_fused_state.cu",
-                    replaces="src/repro/kernels/rm_attention/fused.py:254",
+                    replaces="src/repro/kernels/rm_attention/fused.py:273",
                     shape=shape, ms=ms3, plain_ms=plain3, bound_ms=b3ms,
                     bound_by=b3by, library_ms=None)
                 kernels["B4"] = dict(
                     name="rm_fused_apply", route="cuda",
                     source="src/repro_torch/csrc/rm_fused_apply.cu",
-                    replaces="src/repro/kernels/rm_attention/fused.py:332",
+                    replaces="src/repro/kernels/rm_attention/fused.py:353",
                     shape=shape, ms=ms4, plain_ms=plain4, bound_ms=b4ms,
                     bound_by=b4by, library_ms=None)
             del k, q, v, kvalid, state_args, apply_args
@@ -1010,7 +1104,8 @@ def main():
     # -- 12. small end-to-end references on the hubert SMOKE encoder --------
     rm_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
                    "B3": rm_fused_state, "B4": rm_fused_apply,
-                   "B5": rm_attention_chunked, "B6": tensor_sketch_fused}
+                   "B5": rm_attention_chunked, "B6": tensor_sketch_fused,
+                   "B7": ctr_feature_fused, "B8": structured_feature_fused}
 
     def counts():
         return {kid: fn.launches for kid, fn in rm_counters.items()}
@@ -1084,9 +1179,9 @@ def main():
           f"{hcfg.vocab_size}, attention_mode rm (non-causal, fused: "
           f"F={hf}), {hcfg.compute_dtype} compute; depth cut: none")
     builds = _build.build_report()
-    print("[enc] build of the two new kernels (in parallel with the other "
-          "four): " + ", ".join(f"{n_} {builds[n_][0]:.2f}s" for n_ in
-                                ("rm_fused_state", "rm_fused_apply")))
+    print("[enc] build of the encoder's two kernels (in parallel with the "
+          "others): " + ", ".join(f"{n_} {builds[n_][0]:.2f}s" for n_ in
+                                  ("rm_fused_state", "rm_fused_apply")))
     t0 = time.perf_counter()
     master = init_params(hcfg, seed=0)            # fp32, on the card
     # the compute copy once (bf16 weights, packed omegas), as a server
@@ -1220,12 +1315,276 @@ def main():
             print(f"[enc time] {name[:64]}: {ms:.3f} ms over the encode "
                   f"({100 * ms / busy_ms:.1f}% of device busy)")
 
+    del hparams, embeds, targets, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15. B7 and B8 against their plain versions -------------------------
+    ctr_cfg = get_config("qwen3-1.7b", attention_mode="rm", estimator="ctr")
+    st_cfg = get_config("qwen3-1.7b", attention_mode="rm",
+                        estimator="structured")
+    ctr_plan = rm_plan_for(ctr_cfg, dh)
+    st_plan = rm_plan_for(st_cfg, dh)
+    ctr_params = init_ctr_params(ctr_plan, gen)
+    st_params = init_structured_params(st_plan, gen)
+    ctr_packed = pack_ctr(ctr_plan, ctr_params)
+    st_packed = pack_structured(st_plan, st_params)
+    print(f"[plan] qwen3-1.7b ctr head: degrees {ctr_plan.degrees} complex "
+          f"counts {ctr_plan.counts}, wr/wi {tuple(ctr_packed[0].shape)}, "
+          f"F={ctr_plan.output_dim} features")
+    print(f"[plan] qwen3-1.7b structured head: degrees {st_plan.degrees} "
+          f"counts {st_plan.counts}, stacks {st_plan.stacks_per_bucket} of "
+          f"d_pad {st_plan.d_pad}, d1/d2 {tuple(st_packed[0].shape)}, "
+          f"{st_plan.padded_num_cols} columns computed, F="
+          f"{st_plan.output_dim} features")
+    h_st_cfg = get_config("hubert-xlarge", attention_mode="rm",
+                          estimator="structured")
+    h_st_plan = rm_plan_for(h_st_cfg, hd)
+    h_st_packed = pack_structured(h_st_plan,
+                                  init_structured_params(h_st_plan, gen))
+    # (kernel id, wrapper, plain version, cost, tolerance, the kernel's
+    # name, its family's registry name and params, cases of (rows, label,
+    # plan, packed weights)): every row count each slice gives its kernel
+    # (as for B6), a ragged count, and for B8 one hubert clip (x at width 80)
+    feature_specs = (
+        ("B7", ctr_feature_fused, ctr_feature_fused_ref, ctr_cost, B7_TOL,
+         "ctr_feature_kernel", "ctr", ctr_params,
+         [(rows, label, ctr_plan, ctr_packed)
+          for rows, label in b6_shapes + [(70, "ragged")]]),
+        ("B8", structured_feature_fused, structured_feature_fused_ref,
+         structured_cost, B8_TOL, "structured_feature_kernel", "structured",
+         st_params,
+         [(rows, label, st_plan, st_packed)
+          for rows, label in b6_shapes + [(70, "ragged")]]
+         + [(ENC_FRAMES * nh, "hubert clip", h_st_plan, h_st_packed)]),
+    )
+    new_checks = {"B7": [], "B8": []}
+    for (kid, fn, ref, cost, tol_, kname, family, fparams,
+         cases) in feature_specs:
+        for rows, label, kplan, packed in cases:
+            cd_, cs_ = plan_columns(kplan, "cuda")
+            width = kplan.input_dim
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).split(".")[-1]
+                x = unit_rows(torch, (rows, width), gen).to(dtype)
+                args = (x, *(p_.to(dtype) for p_ in packed), cd_, cs_)
+                got = fn(*args)
+                want = ref(*args)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = tol_ * max(1.0, want.abs().max().item())
+                # B8's surplus columns carry scale 0 and must come out 0
+                surplus_ok = kid != "B8" or not got[:, cs_ == 0].any()
+                # the kernel's device time (profiler), and CUDA events over
+                # back-to-back wrapper calls as for B1-B6 (host-bound where
+                # the host enqueues a call more slowly than the card runs it)
+                ms = kernel_device_ms(torch, lambda: fn(*args), kname)
+                event_ms = time_ms(torch, lambda: fn(*args))
+                plain_ms = time_ms(torch, lambda: ref(*args))
+                bms, by = bound(*cost(rows, kplan, x.element_size()), dname)
+                print(f"[{kid}] {label} x[{rows},{width}] {dname}: "
+                      f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
+                      f"{ms:.4f} ms (events {event_ms:.4f} ms), plain "
+                      f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
+                if not (err <= tol and surplus_ok):
+                    raise AssertionError(f"{kid} {label} {dname}: error {err}"
+                                         f" > {tol} or surplus not 0")
+                new_checks[kid].append((f"{label} {dname}", err, tol))
+                if label == "decode" and dtype == torch.float32:
+                    hus = host_us(torch, lambda: fn(*args))
+                    xs32 = x.reshape(4, cfg.num_heads, 1, width)
+                    entry = registry.get(family)
+                    apply_us = host_us(torch, lambda: entry.apply(
+                        kplan, fparams, xs32, packed=packed))
+                    print(f"[{kid}] decode host time {hus:.1f} us a call; "
+                          f"the whole featurize (registry apply) "
+                          f"{apply_us:.1f} us")
+                    shape = (f"x[{rows},{width}] fp32 x "
+                             f"{tuple(packed[0].shape)} x2")
+                    kernels[kid] = dict(
+                        name=fn.__name__, route="cuda",
+                        source=("src/repro_torch/csrc/ctr_feature.cu"
+                                if kid == "B7" else
+                                "src/repro_torch/csrc/structured_feature.cu"),
+                        replaces=("src/repro/kernels/ctr_feature/"
+                                  "ctr_feature.py:89" if kid == "B7" else
+                                  "src/repro/kernels/structured_feature/"
+                                  "structured_feature.py:102"),
+                        shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                        bound_by=by, library_ms=None)
+                del x, args, got, want
+    # the Gram entry point over each family's apply: card against CPU
+    for kid, name, kplan, kparams, fn in (
+            ("B7", "ctr", ctr_plan, ctr_params, ctr_feature_fused),
+            ("B8", "structured", st_plan, st_params,
+             structured_feature_fused)):
+        entry = registry.get(name)
+        cpu_params = {k_: v_.cpu() for k_, v_ in kparams.items()}
+        for prec in ("fp32", "bf16"):
+            before = fn.launches
+            g_card = registry.estimate_gram(
+                lambda a: entry.apply(kplan, kparams, a, precision=prec), xg)
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                raise AssertionError(f"estimate_gram did not launch {kid} "
+                                     "once")
+            g_plain = registry.estimate_gram(
+                lambda a: entry.apply(kplan, cpu_params, a, precision=prec),
+                xg.cpu())
+            err = (g_card.cpu() - g_plain).abs().max().item()
+            tol = FEATURE_GRAM_TOL * max(1.0, g_plain.abs().max().item())
+            print(f"[{kid}] estimate_gram X[4096,{dh}] {prec}: max_abs_err "
+                  f"{err:.3e} (tol {tol:.1e}), Gram {tuple(g_card.shape)}")
+            if not (err <= tol and torch.isfinite(g_card).all()):
+                raise AssertionError(f"{kid} Gram {prec}: error {err} > {tol}")
+            new_checks[kid].append((f"gram {prec}", err, tol))
+    for kid, checks in new_checks.items():
+        label, err, tol = worst(checks)
+        kernels[kid].update(max_abs_err=err, tol=tol, check=label)
+
+    # -- 16. B5 at the ctr features' ragged width ---------------------------
+    ctr_entry = registry.get("ctr")
+    bh, t, chunk = cfg.num_heads, 256, cfg.rm.chunk
+    xq = unit_rows(torch, (bh * t, dh), gen)
+    xk = unit_rows(torch, (bh * t, dh), gen)
+    zq = ctr_entry.apply(ctr_plan, ctr_params, xq).reshape(1, bh, t, -1)
+    zk = ctr_entry.apply(ctr_plan, ctr_params, xk).reshape(1, bh, t, -1)
+    kvalid = torch.ones((bh, t), device="cuda")
+    kvalid[bh // 2:, 200:] = 0.0
+    zk = zk * kvalid[None, :, :, None]
+    v = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
+    f_ctr = zq.shape[-1]
+    got = rm_attention_causal(zq, zk, v, chunk=chunk, eps=cfg.rm.eps)
+    want = causal_chunked_ref(zq, zk, v, chunk, cfg.rm.eps)
+    quad = rm_attention_ref(zq, zk, v, eps=cfg.rm.eps)
+    s_prev, n_prev = chunk_states(zk, v, chunk)
+    n_ch = t // chunk
+    pb = (zq.reshape(bh, t, f_ctr), zk.reshape(bh, t, f_ctr),
+          v.reshape(bh, t, dh), s_prev.reshape(bh, n_ch, f_ctr, dh),
+          n_prev.reshape(bh, n_ch, f_ctr))
+    got_b = rm_attention_chunked(*pb, chunk=chunk, eps=cfg.rm.eps)
+    want_b = rm_attention_chunked_ref(*pb, chunk=chunk, eps=cfg.rm.eps)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g_, w_ in (("causal", got, want), ("pass B", got_b, want_b),
+                         ("vs quadratic", got, quad)):
+        err = (g_ - w_).abs().max().item()
+        tol = B5_TOL * max(1.0, w_.abs().max().item())
+        errs.append((err, tol))
+        b5_checks.append((f"T{t} F{f_ctr} {name}", err, tol))
+        if not err <= tol:
+            raise AssertionError(f"B5 F{f_ctr} {name}: error {err} > {tol}")
+    ms = time_ms(torch, lambda: rm_attention_chunked(
+        *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
+    bms, by = bound(*chunked_cost(bh, t, f_ctr, dh, chunk, 4), "float32")
+    print(f"[B5] ctr features zq,zk[{bh},{t},{f_ctr}] v dv {dh} chunk {chunk} "
+          "fp32: max_abs_err causal/pass B/vs quadratic "
+          + "/".join(f"{e_:.3e}" for e_, _ in errs) + " (tol "
+          + "/".join(f"{t_:.1e}" for _, t_ in errs) + f") kernel {ms:.4f} "
+          f"ms, bound {bms:.5f} ms ({by})")
+    label, err, tol = worst(b5_checks)
+    kernels["B5"].update(max_abs_err=err, tol=tol, check=label)
+    del xq, xk, zq, zk, v, got, want, quad, pb, got_b, want_b
+
+    # -- 17. small end-to-end references for ctr and structured -------------
+    for est in ("ctr", "structured"):
+        small = dataclasses.replace(
+            get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                       estimator=est), compute_dtype="float32")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, small.vocab_size, size=(2, 40)))
+        cpu_params = tt.init_model(small, torch.Generator().manual_seed(0))
+        gpu_params = to_cuda(cpu_params)
+        before = counts()
+        with torch.inference_mode():
+            ref_logits, _ = tt.forward(cpu_params, small, {"tokens": toks})
+            gpu_logits, _ = tt.forward(gpu_params, small,
+                                       {"tokens": toks.cuda()})
+        ran = launched_since(before)
+        rel = rel_err(torch, gpu_logits, ref_logits)
+        small_tokens = {}
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            sched = Scheduler(small, params, num_slots=2, max_len=64,
+                              device=dev)
+            for rid, n in enumerate((5, 20, 37)):
+                sched.submit(Request(rid, np.random.default_rng(
+                    rid).integers(0, small.vocab_size, size=n),
+                    max_new_tokens=8))
+            small_tokens[dev] = {r: s.generated
+                                 for r, s in sched.run().items()}
+        same = small_tokens["cpu"] == small_tokens["cuda"]
+        kid = "B7" if est == "ctr" else "B8"
+        want_ran = {kid: 2 * small.num_layers, "B5": small.num_layers}
+        print(f"[small] qwen3 SMOKE fp32 {est}, card vs CPU: forward logits "
+              f"rel err {rel:.2e} (tol {E2E_TOL:.0e}), greedy tokens "
+              f"identical: {same}; forward launches {ran}")
+        if not (rel <= E2E_TOL and same and ran == want_ran
+                and torch.isfinite(gpu_logits).all()):
+            raise AssertionError(f"small {est} end-to-end check failed")
+        small = dataclasses.replace(
+            get_config("hubert-xlarge", smoke=True, attention_mode="rm",
+                       estimator=est), compute_dtype="float32")
+        cpu_params = tt.init_model(small, torch.Generator().manual_seed(0))
+        gpu_params = to_cuda(cpu_params)
+        before = counts()
+        with torch.inference_mode():
+            ref_logits, _ = tt.forward(cpu_params, small,
+                                       {"embeds": emb_small})
+            gpu_logits, _ = tt.forward(gpu_params, small,
+                                       {"embeds": emb_small.cuda()})
+        ran = launched_since(before)
+        rel = rel_err(torch, gpu_logits, ref_logits)
+        rel_attn = rel_err(
+            torch, first_attention(torch, gpu_params, small,
+                                   {"embeds": emb_small.cuda()}),
+            first_attention(torch, cpu_params, small, {"embeds": emb_small}))
+        print(f"[small enc] hubert SMOKE fp32 {est}, card vs CPU: logits rel "
+              f"err {rel:.2e}, first layer's attention rel err "
+              f"{rel_attn:.2e} (tol {E2E_TOL:.0e}); forward launches {ran}")
+        if not (rel <= E2E_TOL and rel_attn <= E2E_TOL
+                and ran == {kid: 2 * small.num_layers}
+                and torch.isfinite(gpu_logits).all()):
+            raise AssertionError(f"small encoder {est} end-to-end check "
+                                 "failed")
+    del cpu_params, gpu_params, small_tokens
+
+    # -- 18.-21. the ctr and structured slices, and where their time goes ---
+    layers = cfg.num_layers
+    for est, kid, tag in (("ctr", "B7", "ctr"),
+                          ("structured", "B8", "st")):
+        scfg = get_config("qwen3-1.7b", attention_mode="rm", estimator=est)
+        splan = rm_plan_for(scfg, dh)
+        print(f"[{tag} slice] {scfg.name}: the same model with estimator "
+              f"{est} (F={splan.output_dim} features, two-launch attention, "
+              f"{kid} for every featurize); depth cut: none")
+        t0 = time.perf_counter()
+        engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                             estimator=est, num_slots=4, max_len=256, seed=0,
+                             device="cuda")
+        torch.cuda.synchronize()
+        print(f"[{tag} slice] weights + engine ready in "
+              f"{time.perf_counter() - t0:.2f}s; estimator "
+              f"{engine.estimator}, fused attention {engine.fused_attention}")
+        if engine.estimator != est or engine.fused_attention:
+            raise AssertionError(f"the {est} engine is not on the two-launch "
+                                 "path")
+        done, launches = serve_slice(
+            torch, f"{tag} slice", engine, scfg, prompts, all_counters,
+            lambda adm, steps, kid=kid: {
+                "B1": 0, "B2": 0, "B5": adm * layers, "B6": 0, "B7": 0,
+                "B8": 0, kid: 2 * layers * (adm + steps)})
+        kernels[kid]["launches"] = launches[kid]
+        where_time_goes(torch, tag, engine, prompts, done)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{key: kernels[kid][key] for key in order}
                                   for kid in ("B1", "B2", "B3", "B4", "B5",
-                                              "B6")]}))
+                                              "B6", "B7", "B8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,7 @@ Every other reference arch id raises ``NotImplementedError`` naming where
 its port is queued. ``get_config``
 takes the reference's overrides: ``attention_mode`` and ``estimator`` (the
 feature family of RM attention, validated against the port's registry:
-``"rm"`` or ``"tensor_sketch"``).
+``"rm"``, ``"tensor_sketch"``, ``"ctr"`` or ``"structured"``).
 """
 from __future__ import annotations
 

@@ -6,8 +6,9 @@ the port's parameters: numpy in, tensors out. The reference stacks its
 scanned layers on a leading axis of ``params["groups"]``
 (``repro.models.transformer.init_model``); the port keeps one dict per
 layer, so that axis is unstacked, group-major then pattern order. The
-``rm_est`` estimator params (the rm omegas, or the tensor_sketch hash
-tables ``h`` int32 and signs ``s``) and ``rm_scale`` cross unchanged with
+``rm_est`` estimator params (the rm omegas, the tensor_sketch hash tables
+``h`` int32 and signs ``s``, the ctr rows ``wr``/``wi`` or the structured
+signs ``d1``/``d2``) and ``rm_scale`` cross unchanged with
 the rest, dtypes included, so both packages compute with the same weights
 and the same random draws.
 """

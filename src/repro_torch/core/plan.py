@@ -32,6 +32,8 @@ __all__ = [
     "pack_omegas",
     "plan_to_json",
     "plan_from_json",
+    "prefix_columns",
+    "truncation_bias",
 ]
 
 # Taylor coefficients carried beyond n_max in ``coefs_host`` (the
@@ -52,6 +54,42 @@ def plan_from_json(cls, s: str):
         if f in d:
             d[f] = tuple(d[f])
     return cls(**d)
+
+
+def prefix_columns(plan, xf: torch.Tensor, compute_dtype) -> list:
+    """The exact columns ahead of the random section of a sketch, ctr or
+    structured plan, in order ``[h01 const | h01 identity block | degree-0
+    const]``, for rows ``xf [B, d]`` (fp32): a list of fp32 tensors, empty
+    when the plan has none. The identity block takes x rounded to
+    ``compute_dtype``."""
+    rows = xf.shape[0]
+    cols = []
+    if plan.h01:
+        cols.append(torch.full((rows, 1), float(np.sqrt(plan.h01_a0)),
+                               dtype=torch.float32, device=xf.device))
+        cols.append(float(np.sqrt(plan.h01_a1))
+                    * xf.to(compute_dtype).float())
+    if plan.const != 0.0:
+        cols.append(torch.full((rows, 1), plan.const, dtype=torch.float32,
+                               device=xf.device))
+    return cols
+
+
+def truncation_bias(plan, radius: float) -> float:
+    """Worst-case dropped-degree mass ``sum a_n R^{2n}`` (paper §4.2) of a
+    sketch, ctr or structured plan, the tail window beyond n_max
+    included: every degree with ``a_n > 0`` that neither a bucket nor an
+    exact prefix column carries."""
+    present = set(plan.degrees)
+    if plan.const != 0.0:
+        present.add(0)
+    if plan.h01:
+        present.update((0, 1))
+    bias = 0.0
+    for n, a_n in enumerate(plan.coefs_host):
+        if a_n > 0.0 and n not in present:
+            bias += a_n * radius ** (2 * n)
+    return bias
 
 
 def allocate_features(
@@ -331,8 +369,10 @@ _COLUMNS_CACHE: dict = {}
 
 def plan_columns(plan, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(col_deg int32 [F], col_scale fp32 [F])`` of any plan with
-    ``column_degrees``/``column_scales`` (``FeaturePlan``, ``SketchPlan``)
-    as tensors on ``device``.
+    ``column_degrees``/``column_scales`` (``FeaturePlan``, ``SketchPlan``,
+    ``CtrPlan``), or of the padded columns of a ``StructuredPlan``
+    (``padded_column_degrees``/``padded_column_scales``, the columns its
+    kernel computes), as tensors on ``device``.
 
     Memoized per (plan type, plan, device): the decode loop asks for them
     once per layer and step, and a fresh host-to-device copy each time
@@ -343,7 +383,12 @@ def plan_columns(plan, device) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (type(plan).__name__, plan, str(device))
     cols = _COLUMNS_CACHE.get(key)
     if cols is None:
-        cols = (torch.from_numpy(plan.column_degrees()).to(device),
-                torch.from_numpy(plan.column_scales()).to(device))
+        if hasattr(plan, "padded_column_degrees"):
+            deg, scale = (plan.padded_column_degrees(),
+                          plan.padded_column_scales())
+        else:
+            deg, scale = plan.column_degrees(), plan.column_scales()
+        cols = (torch.from_numpy(deg).to(device),
+                torch.from_numpy(scale).to(device))
         _COLUMNS_CACHE[key] = cols
     return cols

@@ -1,5 +1,7 @@
 """Estimator registry (port of ``repro.core.registry``): the ``"rm"``
-(Random Maclaurin) and ``"tensor_sketch"`` (Pham & Pagh) entries.
+(Random Maclaurin), ``"tensor_sketch"`` (Pham & Pagh), ``"ctr"``
+(complex-to-real, Wacker et al.) and ``"structured"`` (Hadamard,
+Choromanski & Sindhwani) entries — the reference's four families.
 
 Each family is a set of functions behind one name:
 
@@ -19,8 +21,8 @@ per weight set (``models.attention.rm_packed_weights``) instead of once
 per call. ``fused_attention_supported`` marks families whose map is the
 packed masked-running-product layout the fused attention kernel takes
 (``pack_fused``); the others run attention through the two-launch path
-(featurize, then kernel B5). The reference's ``ctr`` and ``structured``
-families are not ported yet (ROADMAP.md queue A); ``get`` raises on them,
+(featurize, then kernel B5): ``tensor_sketch``, ``ctr`` and
+``structured``, as in the reference. ``get`` raises on an unknown name,
 naming what exists.
 """
 from __future__ import annotations
@@ -166,8 +168,78 @@ def _make_ts_entry() -> Estimator:
     )
 
 
+def _ctr_apply(plan, params, x, *, precision=None,
+               packed=None) -> torch.Tensor:
+    """``x [..., d] -> [..., plan.output_dim]`` through
+    ``ctr.plan.apply_ctr_plan`` (one kernel-B7 launch)."""
+    from repro_torch.ctr.plan import apply_ctr_plan
+
+    return apply_ctr_plan(plan, params, x, precision=precision,
+                          packed=packed)
+
+
+def _ctr_pack(plan, params, dtype=torch.float32):
+    """``[wr, wi]`` packed, in ``dtype``: lossless, the values are {0,
+    +-1}, so unlike tensor_sketch's cos/sin tensors they may take the bf16
+    compute cast."""
+    from repro_torch.ctr.plan import pack_ctr
+
+    return [t.to(dtype) for t in pack_ctr(plan, params)]
+
+
+def _make_ctr_entry() -> Estimator:
+    from repro_torch.ctr.plan import init_ctr_params, make_ctr_plan
+
+    return Estimator(
+        name="ctr",
+        make_plan=make_ctr_plan,
+        init_params=init_ctr_params,
+        apply=_ctr_apply,
+        output_dim=_plan_output_dim,
+        pack=_ctr_pack,
+    )
+
+
+def _structured_apply(plan, params, x, *, precision=None,
+                      packed=None) -> torch.Tensor:
+    """``x [..., d] -> [..., plan.output_dim]`` through
+    ``structured.plan.apply_structured_plan`` (one kernel-B8 launch)."""
+    from repro_torch.structured.plan import apply_structured_plan
+
+    return apply_structured_plan(plan, params, x, precision=precision,
+                                 packed=packed)
+
+
+def _structured_pack(plan, params, dtype=torch.float32):
+    """``[d1, d2]`` packed, in ``dtype``: lossless, the signs are +-1."""
+    from repro_torch.structured.plan import pack_structured
+
+    return [t.to(dtype) for t in pack_structured(plan, params)]
+
+
+def _make_structured_entry() -> Estimator:
+    """As in the reference, no ``pack_fused``: the family never
+    materializes dense ``[max_degree, F, d]`` rows, so attention takes the
+    two-launch path."""
+    from repro_torch.structured.plan import (
+        init_structured_params,
+        make_structured_plan,
+    )
+
+    return Estimator(
+        name="structured",
+        make_plan=make_structured_plan,
+        init_params=init_structured_params,
+        apply=_structured_apply,
+        output_dim=_plan_output_dim,
+        pack=_structured_pack,
+    )
+
+
 _ENTRIES: Dict[str, Estimator] = {"rm": _make_rm_entry(),
-                                  "tensor_sketch": _make_ts_entry()}
+                                  "tensor_sketch": _make_ts_entry(),
+                                  "ctr": _make_ctr_entry(),
+                                  "structured": _make_structured_entry()}
 
 
 def list_estimators() -> Tuple[str, ...]:
@@ -178,7 +250,7 @@ def get(name: str) -> Estimator:
     """Resolve an estimator family by name.
 
     Raises:
-        KeyError: unknown or not-yet-ported name, naming the available ones.
+        KeyError: unknown name, naming the available ones.
     """
     try:
         return _ENTRIES[name]

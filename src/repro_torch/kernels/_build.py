@@ -34,6 +34,8 @@ LIBRARIES = {
     "tensor_sketch": "tensor_sketch.cu",
     "rm_fused_state": "rm_fused_state.cu",
     "rm_fused_apply": "rm_fused_apply.cu",
+    "ctr_feature": "ctr_feature.cu",
+    "structured_feature": "structured_feature.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

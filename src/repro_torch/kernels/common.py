@@ -17,6 +17,10 @@ kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
 shared memory. The two non-causal kernels (``csrc/rm_fused_state.cu``, B3,
 and ``csrc/rm_fused_apply.cu``, B4) take one 64-wide feature or query tile
 a block and a value slice of up to 128 columns (:func:`noncausal_blocks`).
+The ctr kernel (``csrc/ctr_feature.cu``, B7) takes B1's 64 x 64 tile with
+three staged slices (x, wr, wi: 25,344 bytes of static shared memory), so
+it needs no choice either; the structured kernel (``csrc/structured_feature.cu``, B8) takes
+a row tile of one Hadamard stack a block (:func:`pick_structured_rows`).
 There is no autotune cache yet.
 """
 from __future__ import annotations
@@ -33,6 +37,9 @@ __all__ = [
     "sketch_smem_bytes",
     "pick_sketch_rows",
     "noncausal_blocks",
+    "STRUCTURED_MAX_DPAD",
+    "check_structured_d_pad",
+    "pick_structured_rows",
 ]
 
 # Hopper: the most dynamic shared memory one block may opt into.
@@ -52,6 +59,18 @@ SKETCH_ROW_TILES = (64, 32, 16)
 # register slots (``kColSlots`` in csrc/rm_fused_state.cu and
 # csrc/rm_fused_apply.cu).
 NONCAUSAL_DV_BLOCK = 128
+# Elements (rows x Hadamard size) one structured block may hold: 32 fp32
+# register slots a thread of 256 and a 32 KB shared-memory butterfly buffer
+# (``kMaxElems`` in csrc/structured_feature.cu). A block holds at least
+# one row, so this is also the largest d_pad the kernel takes.
+STRUCTURED_MAX_DPAD = 8192
+# Elements a structured block takes where d_pad allows: 4 register slots a
+# thread, 48 registers, so several blocks share an SM (an 8192-element
+# block takes 178 registers, one block an SM, and its butterfly barriers
+# then stall the SM).
+STRUCTURED_TILE_ELEMS = 1024
+# Threads of a structured block: the smallest row tile keeps them all busy.
+_STRUCTURED_THREADS = 256
 
 
 def round_up(x: int, m: int) -> int:
@@ -159,3 +178,35 @@ def noncausal_blocks(dv: int) -> Tuple[int, int]:
               + FEATURE_TILE * (FEATURE_TILE + 1)
               + FEATURE_TILE * dv_block + 2 * FEATURE_TILE)
     return dv_block, 4 * floats
+
+
+def check_structured_d_pad(m: int) -> None:
+    """Raises ValueError unless the structured kernel takes Hadamard size
+    ``m``: a power of two no larger than :data:`STRUCTURED_MAX_DPAD`."""
+    if m < 1 or m & (m - 1) or m > STRUCTURED_MAX_DPAD:
+        raise ValueError(
+            f"structured kernel: d_pad={m} must be a power of two no larger "
+            f"than {STRUCTURED_MAX_DPAD} (a block holds at least one row's "
+            "transform)")
+
+
+def pick_structured_rows(m: int, b: int, stacks: int) -> int:
+    """Row tile R of the structured kernel (grid = row tiles x stacks) for
+    Hadamard size ``m``.
+
+    A block holds ``R * m <= STRUCTURED_TILE_ELEMS`` elements (one row,
+    ``m`` elements, where ``m`` is larger), at most 64 rows. The largest
+    power-of-two R whose grid fills the card (``ceil(b / R) * stacks >=
+    NUM_SMS``) wins; when none does (a decode batch), the smallest R that
+    still gives every thread an element, for the most blocks in flight.
+
+    Raises:
+        ValueError: as :func:`check_structured_d_pad`.
+    """
+    check_structured_d_pad(m)
+    r_max = max(1, min(64, STRUCTURED_TILE_ELEMS // m))
+    r_min = min(r_max, max(1, _STRUCTURED_THREADS // m))
+    r = r_max
+    while r > r_min and -(-b // r) * stacks < NUM_SMS:
+        r //= 2
+    return r

@@ -6,8 +6,8 @@
 
 runs the full-width model on the CUDA device with random weights from
 ``--seed``; ``--smoke`` takes the reduced config, ``--device cpu`` the plain
-PyTorch path, ``--estimator tensor_sketch`` the TensorSketch feature family
-(two-launch attention). It prints TTFT p50/p99 and aggregate tokens/s.
+PyTorch path, ``--estimator tensor_sketch``, ``ctr`` or ``structured`` another
+feature family (each takes the two-launch attention path). It prints TTFT p50/p99 and aggregate tokens/s.
 """
 from __future__ import annotations
 
@@ -73,8 +73,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--attention-mode", default="rm", choices=["rm"])
     ap.add_argument("--estimator", default=None,
-                    help="feature-estimator registry name (rm or "
-                         "tensor_sketch; default: the config's)")
+                    help="feature-estimator registry name (rm, "
+                         "tensor_sketch, ctr or structured; default: the "
+                         "config's)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

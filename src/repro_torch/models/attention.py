@@ -2,8 +2,8 @@
 
 ``attention_mode="rm"``: q/k are per-head l2-normalized, scaled by
 softplus(``rm_scale``) and featurized with a static plan of the estimator
-family ``cfg.rm.estimator`` (``"rm"`` or ``"tensor_sketch"``) for the
-exponential dot product kernel; attention is linear in the features and
+family ``cfg.rm.estimator`` (``"rm"``, ``"tensor_sketch"``, ``"ctr"`` or
+``"structured"``) for the exponential dot product kernel; attention is linear in the features and
 decode keeps an O(1) state (``S [F, dv]``, ``n [F]``) instead of a KV cache.
 
 Two paths (``rm_fuse_enabled``):
@@ -14,7 +14,8 @@ Two paths (``rm_fuse_enabled``):
   an encoder — or in one rm_feature launch for q and k together (decode);
 * two-launch (``fuse_featurize="off"``, or a family without the fused
   capability): each of q and k is featurized by its family's map (B1 for
-  ``"rm"``, B6 for ``"tensor_sketch"``), then kernel B5 runs the causal
+  ``"rm"``, B6 for ``"tensor_sketch"``, B7 for ``"ctr"``, B8 for
+  ``"structured"``), then kernel B5 runs the causal
   attention over the features (prefill, forward), two einsums run the
   non-causal attention (encoder forward), or the O(1) state update runs in
   PyTorch (decode).
@@ -153,7 +154,9 @@ def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
     the precision policy's compute dtype (``registry`` ``pack``): for
     ``"rm"`` the omegas ``[max_degree, F, dh]`` that every fused op and the
     rm map read, for ``"tensor_sketch"`` the list ``[wr, wi, mr, mi]``
-    packed in fp32 from the hash tables and then rounded once. Worked out
+    packed in fp32 from the hash tables and then rounded once, for
+    ``"ctr"`` the list ``[wr, wi]`` and for ``"structured"`` ``[d1, d2]``
+    (values {0, +-1}, exact in either dtype). Worked out
     once per weight set (``transformer.cast_params_to_compute`` calls
     this); params that already hold ``rm_w`` come back unchanged."""
     if "rm_w" in params:

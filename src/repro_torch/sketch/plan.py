@@ -35,6 +35,8 @@ from repro_torch.core.plan import (
     plan_columns,
     plan_from_json,
     plan_to_json,
+    prefix_columns,
+    truncation_bias,
 )
 
 __all__ = [
@@ -113,18 +115,7 @@ class SketchPlan(NamedTuple):
         return tuple(itertools.accumulate(self.counts, initial=0))
 
     def truncation_bias(self, radius: float) -> float:
-        """Worst-case dropped-degree mass ``sum a_n R^{2n}`` (paper §4.2),
-        the tail window beyond n_max included."""
-        present = set(self.degrees)
-        if self.const != 0.0:
-            present.add(0)
-        if self.h01:
-            present.update((0, 1))
-        bias = 0.0
-        for n, a_n in enumerate(self.coefs_host):
-            if a_n > 0.0 and n not in present:
-                bias += a_n * radius ** (2 * n)
-        return bias
+        return truncation_bias(self, radius)
 
     def to_json(self) -> str:
         return plan_to_json(self)
@@ -291,15 +282,7 @@ def apply_sketch_plan(
     cdt = resolve_precision(precision).compute_dtype
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, plan.input_dim).float()
-    rows = xf.shape[0]
-    feats = []
-    if plan.h01:
-        feats.append(torch.full((rows, 1), float(np.sqrt(plan.h01_a0)),
-                                dtype=torch.float32, device=x.device))
-        feats.append(float(np.sqrt(plan.h01_a1)) * xf.to(cdt).float())
-    if plan.const != 0.0:
-        feats.append(torch.full((rows, 1), plan.const, dtype=torch.float32,
-                                device=x.device))
+    feats = prefix_columns(plan, xf, cdt)
     if plan.num_sketch_cols:
         if packed is None:
             packed = pack_sketch(plan, params)

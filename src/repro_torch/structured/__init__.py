@@ -1,0 +1,26 @@
+"""repro_torch.structured — the Hadamard-structured estimator family (port
+of ``repro.structured``), registered as ``"structured"`` in
+``repro_torch.core.registry``."""
+from repro_torch.structured.plan import (
+    StructuredPlan,
+    apply_structured_plan,
+    init_structured_params,
+    make_structured_plan,
+    pack_structured,
+)
+from repro_torch.structured.ref import (
+    hadamard_matrix,
+    structured_blocks_ref,
+    structured_feature_fused_ref,
+)
+
+__all__ = [
+    "StructuredPlan",
+    "apply_structured_plan",
+    "init_structured_params",
+    "make_structured_plan",
+    "pack_structured",
+    "hadamard_matrix",
+    "structured_blocks_ref",
+    "structured_feature_fused_ref",
+]

@@ -28,7 +28,20 @@ from repro_torch.kernels.rm_attention.ref import (
     rm_fused_causal_ref,
     rm_fused_state_ref,
 )
+from repro_torch.ctr.plan import init_ctr_params, pack_ctr
+from repro_torch.ctr.ref import ctr_feature_fused_ref
+from repro_torch.kernels.ctr_feature.ops import ctr_feature_fused
+from repro_torch.kernels.structured_feature.ops import (
+    structured_feature_fused,
+)
 from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
+from repro_torch.structured.plan import (
+    init_structured_params,
+    make_structured_plan,
+    pack_structured,
+)
+from repro_torch.structured.ref import structured_feature_fused_ref
+from repro_torch.core.maclaurin import ExponentialDotProductKernel
 from repro_torch.sketch.plan import init_sketch_params, pack_sketch
 from repro_torch.sketch.ref import tensor_sketch_fused_ref
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
@@ -145,7 +158,8 @@ def test_tensor_sketch_kernel_matches_plain(cuda, dtype, rows, smoke):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,f,pad", [(256, 256, 56), (32, 256, 0),
-                                     (40, 163, 9), (20, 64, 0)])
+                                     (256, 255, 56), (40, 163, 9),
+                                     (20, 64, 0)])
 def test_rm_attention_chunked_kernel_matches_plain(cuda, dtype, t, f, pad):
     """Kernel B5 through ``rm_attention_causal`` (chunk min(128, T)) against
     the plain chunked formulation. Tolerance 1e-4: fp32 sums of up to C x F
@@ -223,3 +237,73 @@ def test_rm_fused_noncausal_op_matches_quadratic(cuda, t, pad):
     want = rm_attention_ref(zq, zk, v, causal=False)
     assert got.shape == want.shape
     _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 512, 4096, 70])
+@pytest.mark.parametrize("arch,smoke", [("qwen3-1.7b", False),
+                                        ("qwen3-1.7b", True),
+                                        ("hubert-xlarge", False)])
+def test_ctr_kernel_matches_plain(cuda, dtype, rows, arch, smoke):
+    """Kernel B7 against its plain version: the decode rows (4 slots x 16
+    heads), prefill rows, a ragged count; Fc 127 (ragged against the
+    64-column tile), head widths 128, 16 and 80. Tolerance 1e-5: fp32
+    accumulation in both, only the order of the sums differs."""
+    cfg = get_config(arch, smoke=smoke, attention_mode="rm", estimator="ctr")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    wr, wi = (t.to(dtype) for t in pack_ctr(plan, init_ctr_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, plan.input_dim), gen, cuda).to(dtype)
+    before = ctr_feature_fused.launches
+    got = ctr_feature_fused(x, wr, wi, cd, cs)
+    torch.cuda.synchronize()
+    assert ctr_feature_fused.launches == before + 1
+    assert got.shape == (rows, 2 * plan.num_complex)
+    _close(got, ctr_feature_fused_ref(x, wr, wi, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 512, 4096, 70])
+@pytest.mark.parametrize("arch,smoke", [("qwen3-1.7b", False),
+                                        ("qwen3-1.7b", True),
+                                        ("hubert-xlarge", False)])
+def test_structured_kernel_matches_plain(cuda, dtype, rows, arch, smoke):
+    """Kernel B8 against its plain version on the model plans (d_pad 128
+    and 16; hubert's x at its true width 80 of 128). Tolerance 1e-5: fp32
+    products of 128-term butterflies in another order; the surplus
+    columns (scale 0) come out exactly 0."""
+    cfg = get_config(arch, smoke=smoke, attention_mode="rm",
+                     estimator="structured")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    d1, d2 = (t.to(dtype) for t in pack_structured(
+        plan, init_structured_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, plan.input_dim), gen, cuda).to(dtype)
+    before = structured_feature_fused.launches
+    got = structured_feature_fused(x, d1, d2, cd, cs)
+    torch.cuda.synchronize()
+    assert structured_feature_fused.launches == before + 1
+    _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)
+    assert not got[:, cs == 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,rows", [(1, 70), (2, 5), (8, 64), (32, 300),
+                                    (100, 33), (256, 64), (512, 9),
+                                    (1024, 70), (1024, 4096)])
+def test_structured_kernel_every_d_pad(cuda, dtype, d, rows):
+    """Kernel B8 at d_pad 1 (the identity transform) to 1024, x narrower
+    than d_pad where d is not a power of two. Tolerance 1e-5 x max(1,
+    max |plain|): the butterfly's sums grow with d_pad."""
+    plan = make_structured_plan(ExponentialDotProductKernel(1.0), d, 600,
+                                measure="proportional", n_max=4)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d1, d2 = (t.to(dtype) for t in pack_structured(
+        plan, init_structured_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    got = structured_feature_fused(x, d1, d2, cd, cs)
+    torch.cuda.synchronize()
+    _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)

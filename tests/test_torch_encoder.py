@@ -33,9 +33,11 @@ from repro_torch.train import init_params, make_eval_step, make_prefill_step
 
 BF16_LOGIT_TOL = 3e-2
 # (estimator, fuse_featurize): the fused path, the two-launch path, and
-# the tensor_sketch family (two-launch on its own)
-PATHS = [("rm", "on"), ("rm", "off"), ("tensor_sketch", "auto")]
-PATH_IDS = ["rm-fused", "rm-two-launch", "tensor_sketch"]
+# the tensor_sketch, ctr and structured families (two-launch on their own)
+PATHS = [("rm", "on"), ("rm", "off"), ("tensor_sketch", "auto"),
+         ("ctr", "auto"), ("structured", "auto")]
+PATH_IDS = ["rm-fused", "rm-two-launch", "tensor_sketch", "ctr",
+            "structured"]
 
 
 def _configs(est="rm", fuse="on", compute_dtype="float32"):

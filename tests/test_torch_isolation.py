@@ -46,7 +46,8 @@ def test_port_sources_exist():
     assert (ROOT / "src" / "repro_torch" / "csrc" / "rm_feature.cu").exists()
     for name in ("rm_fused_attention.cu", "rm_attention_chunked.cu",
                  "tensor_sketch.cu", "rm_fused_state.cu",
-                 "rm_fused_apply.cu"):
+                 "rm_fused_apply.cu", "ctr_feature.cu",
+                 "structured_feature.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / name).exists()
 
 

@@ -3,7 +3,8 @@ with attention_mode="rm" (fuse_featurize="on" on the reference side, so it
 runs the fused jnp formulation) and the reference's weights carried across
 by ``repro_torch.convert.params_from_jax``: forward logits, prefill logits
 and decode state (S, n), and 8 greedy decode steps. The two-launch path
-(estimator "tensor_sketch", and "rm" with fuse_featurize="off") is held
+(estimators "tensor_sketch", "ctr" and "structured", and "rm" with
+fuse_featurize="off") is held
 the same way against the reference's two-launch path."""
 import dataclasses
 
@@ -224,15 +225,17 @@ def test_unported_modes_raise_not_implemented():
 
 
 # ---------------------------------------------------------------------------
-# the two-launch path: featurize (B1 for rm, B6 for tensor_sketch), then B5
+# the two-launch path: featurize (B1 for rm, B6 for tensor_sketch, B7 for
+# ctr, B8 for structured), then B5
 # ---------------------------------------------------------------------------
-TWO_LAUNCH = ["tensor_sketch", "rm_off"]
+TWO_LAUNCH = ["tensor_sketch", "rm_off", "ctr", "structured"]
 
 
 def _two_launch_configs(kind, compute_dtype, precision="fp32"):
-    """``kind``: "tensor_sketch" (a family without the fused capability:
-    both packages take the two-launch path on their own) or "rm_off" (the
-    rm family with fuse_featurize="off" on both sides)."""
+    """``kind``: "tensor_sketch", "ctr" or "structured" (families without
+    the fused capability: both packages take the two-launch path on their
+    own) or "rm_off" (the rm family with fuse_featurize="off" on both
+    sides)."""
     est = "rm" if kind == "rm_off" else kind
     fuse = "off" if kind == "rm_off" else "auto"
     jcfg = jax_get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
@@ -294,6 +297,44 @@ def test_sketch_tables_cross_and_pack_once():
     again = tt.cast_params_to_compute(cp, tcfg)
     for layer, layer2 in zip(cp["layers"], again["layers"]):
         assert layer2["attn"]["rm_w"] is layer["attn"]["rm_w"]
+
+
+@pytest.mark.parametrize("est,names", [("ctr", ("wr", "wi")),
+                                       ("structured", ("d1", "d2"))])
+def test_two_tensor_rows_cross_and_pack_once(est, names):
+    """The ctr rows / structured signs cross unchanged (values {0, +-1},
+    dtypes kept); each layer's compute copy holds the two-tensor list
+    ``rm_w``, bit-exact against the reference's pack of the same rows, in
+    the RM precision dtype (bf16 under ``rm.precision="bf16"``, lossless);
+    a second cast copies no tensor."""
+    from repro.ctr.plan import pack_ctr as jax_pack_ctr
+    from repro.models.attention import rm_plan_for as jax_rm_plan_for
+    from repro.structured.plan import pack_structured as jax_pack_structured
+
+    jax_pack = jax_pack_ctr if est == "ctr" else jax_pack_structured
+    for precision, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+        jcfg, jp, tcfg, tp = _two_launch_models(est, "bfloat16",
+                                                precision=precision)
+        rows = jp["groups"]["b0_attn_mlp"]["attn"]["rm_est"]
+        plan = jax_rm_plan_for(jcfg, jcfg.resolved_head_dim)
+        cp = tt.cast_params_to_compute(tp, tcfg)
+        for i, layer in enumerate(tp["layers"]):
+            for name in names:
+                got = layer["attn"]["rm_est"][name]
+                want = np.asarray(rows[name][i])
+                assert got.dtype == torch.float32
+                np.testing.assert_array_equal(got.numpy(), want)
+            packed = cp["layers"][i]["attn"]["rm_w"]
+            assert isinstance(packed, list) and len(packed) == 2
+            want = jax_pack(plan, {n: np.asarray(rows[n][i]) for n in names})
+            for g, w in zip(packed, want):
+                assert g.dtype == dtype
+                np.testing.assert_array_equal(g.float().numpy(),
+                                              np.asarray(w))
+        again = tt.cast_params_to_compute(cp, tcfg)
+        for layer, layer2 in zip(cp["layers"], again["layers"]):
+            assert layer2["attn"]["rm_w"] is layer["attn"]["rm_w"]
 
 
 @pytest.mark.parametrize("kind", TWO_LAUNCH)

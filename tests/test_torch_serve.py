@@ -188,7 +188,8 @@ def _two_launch_fp32_models(kind):
     return jcfg, jp, tcfg, tp
 
 
-@pytest.mark.parametrize("kind", ["tensor_sketch", "rm_off"])
+@pytest.mark.parametrize("kind", ["tensor_sketch", "rm_off", "ctr",
+                                  "structured"])
 def test_two_launch_greedy_tokens_identical_to_reference_scheduler(kind):
     """The two-launch path (featurize launches, kernel B5's plain version,
     the plain decode update) through both Schedulers: the same tokens and
@@ -209,15 +210,17 @@ def test_two_launch_greedy_tokens_identical_to_reference_scheduler(kind):
 
 def test_launch_serve_forwards_estimator():
     """As the reference's regression test: ``make_engine`` must thread
-    ``estimator=`` into ``get_config``, which validates the name."""
-    eng = make_engine("qwen3-1.7b", smoke=True, attention_mode="rm",
-                      estimator="tensor_sketch", num_slots=1, max_len=32,
-                      device="cpu")
-    assert eng.estimator == "tensor_sketch"
-    assert eng.cfg.rm.estimator == "tensor_sketch"
-    assert eng.fused_attention is False
-    eng.submit(Request(0, _prompt(0, 5, eng.cfg.vocab_size), 2))
-    assert len(eng.run()[0].generated) == 2
+    ``estimator=`` into ``get_config``, which validates the name; each of
+    the three two-launch families serves."""
+    for name in ("tensor_sketch", "ctr", "structured"):
+        eng = make_engine("qwen3-1.7b", smoke=True, attention_mode="rm",
+                          estimator=name, num_slots=1, max_len=32,
+                          device="cpu")
+        assert eng.estimator == name
+        assert eng.cfg.rm.estimator == name
+        assert eng.fused_attention is False
+        eng.submit(Request(0, _prompt(0, 5, eng.cfg.vocab_size), 2))
+        assert len(eng.run()[0].generated) == 2
     assert make_engine("qwen3-1.7b", smoke=True, num_slots=1, max_len=32,
                        device="cpu").estimator == "rm"
     with pytest.raises(KeyError, match="no_such_estimator"):
@@ -227,14 +230,12 @@ def test_launch_serve_forwards_estimator():
 
 
 def test_get_config_validates_estimator():
-    cfg = get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
-                     estimator="tensor_sketch")
-    assert cfg.rm.estimator == "tensor_sketch"
-    assert get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
-                      estimator="rm").rm.estimator == "rm"
-    for name in ("ctr", "structured"):      # reference families not ported
-        with pytest.raises(KeyError, match="available"):
-            get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
-                       estimator=name)
+    for name in ("rm", "tensor_sketch", "ctr", "structured"):
+        cfg = get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                         estimator=name)
+        assert cfg.rm.estimator == name
+    with pytest.raises(KeyError, match="available"):
+        get_config("qwen3-1.7b", smoke=True, attention_mode="rm",
+                   estimator="no_such_estimator")
     with pytest.raises(ValueError, match="attention_mode"):
         get_config("qwen3-1.7b", smoke=True, estimator="tensor_sketch")
