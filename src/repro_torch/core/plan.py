@@ -28,6 +28,7 @@ __all__ = [
     "BIAS_TAIL_DEGREES",
     "allocate_features",
     "make_feature_plan",
+    "plan_output_dim",
     "init_omegas",
     "pack_omegas",
     "plan_to_json",
@@ -194,6 +195,9 @@ class FeaturePlan(NamedTuple):
             sc.extend([float(s)] * c)
         return np.asarray(sc, dtype=np.float32)
 
+    def truncation_bias(self, radius: float) -> float:
+        return truncation_bias(self, radius)
+
     def to_json(self) -> str:
         return plan_to_json(self)
 
@@ -265,6 +269,12 @@ def make_feature_plan(
         coefs_host=tuple(float(c) for c in coefs_diag),
         seed=seed,
     )
+
+
+def plan_output_dim(plan: FeaturePlan) -> int:
+    """Real output columns of ``apply_plan`` for this plan (prefix columns
+    plus one column per allocated random feature)."""
+    return plan.output_dim
 
 
 def init_omegas(plan: FeaturePlan, generator: torch.Generator,

@@ -10,6 +10,9 @@ Each family is a set of functions behind one name:
     init_params(plan, generator, dtype)          -> {name: Tensor}
     apply(plan, params, x, *, precision, packed) -> features [..., F] fp32
     output_dim(plan)                             -> int
+    make_map(kernel, input_dim, num_features, generator, *, p, measure,
+             h01, n_max, radius, omega_dtype, stratified,
+             device)                             -> the family's map object
     pack(plan, params, dtype)                    -> the packed weights
                                                     ``apply`` takes as
                                                     ``packed=``
@@ -47,6 +50,7 @@ class Estimator:
     make_plan: Callable[..., Any]
     init_params: Callable[..., Dict[str, torch.Tensor]]
     apply: Callable[..., torch.Tensor]
+    make_map: Callable[..., Any]
     output_dim: Callable[[Any], int]
     pack: Callable[..., Any]
     fused_attention_supported: bool = False
@@ -119,6 +123,7 @@ def _rm_pack_fused(plan, params) -> Tuple[torch.Tensor, torch.Tensor,
 
 
 def _make_rm_entry() -> Estimator:
+    from repro_torch.core.feature_map import make_feature_map
     from repro_torch.core.plan import make_feature_plan
 
     return Estimator(
@@ -126,6 +131,7 @@ def _make_rm_entry() -> Estimator:
         make_plan=make_feature_plan,
         init_params=_rm_init_params,
         apply=_rm_apply,
+        make_map=make_feature_map,
         output_dim=_plan_output_dim,
         pack=_rm_pack,
         fused_attention_supported=True,
@@ -156,6 +162,7 @@ def _ts_pack(plan, params, dtype=torch.float32):
 
 
 def _make_ts_entry() -> Estimator:
+    from repro_torch.sketch.feature_map import make_sketch_feature_map
     from repro_torch.sketch.plan import init_sketch_params, make_sketch_plan
 
     return Estimator(
@@ -163,6 +170,7 @@ def _make_ts_entry() -> Estimator:
         make_plan=make_sketch_plan,
         init_params=init_sketch_params,
         apply=_ts_apply,
+        make_map=make_sketch_feature_map,
         output_dim=_plan_output_dim,
         pack=_ts_pack,
     )
@@ -188,6 +196,7 @@ def _ctr_pack(plan, params, dtype=torch.float32):
 
 
 def _make_ctr_entry() -> Estimator:
+    from repro_torch.ctr.feature_map import make_ctr_feature_map
     from repro_torch.ctr.plan import init_ctr_params, make_ctr_plan
 
     return Estimator(
@@ -195,6 +204,7 @@ def _make_ctr_entry() -> Estimator:
         make_plan=make_ctr_plan,
         init_params=init_ctr_params,
         apply=_ctr_apply,
+        make_map=make_ctr_feature_map,
         output_dim=_plan_output_dim,
         pack=_ctr_pack,
     )
@@ -221,6 +231,9 @@ def _make_structured_entry() -> Estimator:
     """As in the reference, no ``pack_fused``: the family never
     materializes dense ``[max_degree, F, d]`` rows, so attention takes the
     two-launch path."""
+    from repro_torch.structured.feature_map import (
+        make_structured_feature_map,
+    )
     from repro_torch.structured.plan import (
         init_structured_params,
         make_structured_plan,
@@ -231,6 +244,7 @@ def _make_structured_entry() -> Estimator:
         make_plan=make_structured_plan,
         init_params=init_structured_params,
         apply=_structured_apply,
+        make_map=make_structured_feature_map,
         output_dim=_plan_output_dim,
         pack=_structured_pack,
     )

@@ -36,6 +36,7 @@ LIBRARIES = {
     "rm_fused_apply": "rm_fused_apply.cu",
     "ctr_feature": "ctr_feature.cu",
     "structured_feature": "structured_feature.cu",
+    "rm_feature_bucket": "rm_feature_bucket.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,13 +1,18 @@
-"""Public wrapper of the rm_feature kernel (port of
-``repro.kernels.rm_feature.ops.rm_feature_fused``).
+"""Public wrappers of the rm_feature kernels (port of
+``repro.kernels.rm_feature.ops``).
 
 ``rm_feature_fused`` applies a whole packed feature map in ONE launch of
-``csrc/rm_feature.cu``. Dispatch follows the tensor: a CPU tensor takes the
-plain PyTorch version (``ref.rm_feature_fused_ref``); a CUDA tensor
-launches the kernel or raises — there is no fallback. The kernel masks the
-ragged edges itself (rows past B load as zero and are never stored; a
-column past F acts as a padding column of degree 0 and scale 0), so the
-wrapper pads nothing. ``rm_feature_fused.launches`` counts kernel launches.
+``csrc/rm_feature.cu`` (kernel B1); ``apply_feature_map`` is the same path
+on a map object. ``rm_feature_bucket`` applies one degree bucket in one
+launch of ``csrc/rm_feature_bucket.cu`` (kernel B9), and
+``apply_feature_map_bucketed`` is the per-bucket path built on it: one
+launch a degree bucket plus a concatenate, the baseline the fused path is
+compared with. Dispatch follows the tensor: a CPU tensor takes the plain
+PyTorch version (``ref.rm_feature_fused_ref``, ``ref.rm_feature_bucket_ref``);
+a CUDA tensor launches the kernel or raises — there is no fallback. Both
+kernels mask the ragged edges themselves, so the wrappers pad nothing.
+``rm_feature_fused.launches`` and ``rm_feature_bucket.launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -15,12 +20,22 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+from repro_torch.kernels.rm_feature.ref import (
+    rm_feature_bucket_ref,
+    rm_feature_fused_ref,
+)
 
-__all__ = ["rm_feature_fused"]
+__all__ = [
+    "rm_feature_fused",
+    "rm_feature_bucket",
+    "apply_feature_map",
+    "apply_feature_map_bucketed",
+]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BUCKET_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _library():
@@ -29,6 +44,15 @@ def _library():
     lib = _build.load("rm_feature")
     fn = lib.rm_feature_fused_launch
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bucket_library():
+    from repro_torch.kernels import _build
+
+    fn = _build.load("rm_feature_bucket").rm_feature_bucket_launch
+    fn.argtypes = _BUCKET_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -103,3 +127,101 @@ def rm_feature_fused(
 
 
 rm_feature_fused.launches = 0
+
+
+def _check_bucket_operands(xf, omega):
+    if xf.dtype not in _DTYPE_CODE:
+        raise TypeError(f"rm_feature_bucket kernel takes fp32 or bf16 x, got "
+                        f"{xf.dtype}")
+    if omega.dtype != xf.dtype:
+        raise TypeError(f"omega must match x's dtype {xf.dtype}, got "
+                        f"{omega.dtype}")
+    if omega.device != xf.device:
+        raise ValueError(f"omega is on {omega.device}, x on {xf.device}")
+    for name, t in (("x", xf), ("omega", omega)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def rm_feature_bucket(
+    x: torch.Tensor,          # [..., d] fp32 or bf16
+    omega: torch.Tensor,      # [count * degree, d] feature-major rows
+    degree: int,
+    scale: float,
+) -> torch.Tensor:            # [..., count] fp32
+    """Apply one degree bucket in one launch: feature i is ``scale *
+    prod_{j < degree} <omega[i * degree + j], x>``. On a CUDA tensor
+    ``omega`` must have x's dtype.
+
+    Raises:
+        ValueError: ``degree < 1`` (the reference dies there on a division
+            by zero), omega's rows are not a multiple of ``degree`` or its
+            width is not x's, or the operands are on another device or not
+            contiguous.
+        NotImplementedError: called with inputs that require grad.
+    """
+    if degree < 1:
+        raise ValueError(f"rm_feature_bucket takes degree >= 1, got {degree}")
+    if torch.is_grad_enabled() and (x.requires_grad or omega.requires_grad):
+        raise NotImplementedError(
+            "rm_feature_bucket has no backward (the per-bucket path is a "
+            "baseline for featurizing, not for training)")
+    batch_shape = x.shape[:-1]
+    d = x.shape[-1]
+    if omega.shape[0] % degree or omega.shape[-1] != d:
+        raise ValueError(f"omega {tuple(omega.shape)} is not count * "
+                         f"{degree} rows of width {d}")
+    count = omega.shape[0] // degree
+    xf = x.reshape(-1, d)
+    b = xf.shape[0]
+    if b == 0 or count == 0:
+        return torch.zeros((*batch_shape, count), dtype=torch.float32,
+                           device=x.device)
+    if x.device.type == "cpu":
+        return rm_feature_bucket_ref(xf, omega, degree,
+                                     scale).reshape(*batch_shape, count)
+    if x.device.type != "cuda":
+        raise ValueError(f"rm_feature_bucket runs on cpu or cuda tensors, "
+                         f"got {x.device}")
+    _check_bucket_operands(xf, omega)
+    out = torch.empty((b, count), dtype=torch.float32, device=x.device)
+    launch = _bucket_library()
+    err = launch(xf.data_ptr(), omega.data_ptr(), out.data_ptr(), b, count, d,
+                 degree, float(scale), _DTYPE_CODE[xf.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_feature_bucket kernel launch failed: CUDA "
+                           f"error {err}")
+    rm_feature_bucket.launches += 1
+    return out.reshape(*batch_shape, count)
+
+
+rm_feature_bucket.launches = 0
+
+
+def apply_feature_map(fmap, x: torch.Tensor, *, precision=None
+                      ) -> torch.Tensor:
+    """``RMFeatureMap.apply`` as a function: the whole map in ONE launch of
+    kernel B1 (``core.plan.apply_plan``)."""
+    from repro_torch.core.plan import apply_plan
+
+    return apply_plan(fmap.plan, fmap.omegas, x, precision=precision)
+
+
+def apply_feature_map_bucketed(fmap, x: torch.Tensor) -> torch.Tensor:
+    """The per-bucket path: the H0/1 block and the const column as exact
+    fills, then one launch of kernel B9 a degree bucket, concatenated in
+    the fused path's column order. x enters the kernel in its own dtype;
+    each bucket's omega rows are cast to it (lossless: they are +-1)."""
+    from repro_torch.core.plan import prefix_columns
+
+    plan = fmap.plan
+    batch_shape = x.shape[:-1]
+    xf = x.reshape(-1, plan.input_dim)
+    feats = prefix_columns(plan, xf.float(), xf.dtype)
+    for deg, scale, omega in zip(plan.degrees, plan.scales,
+                                 fmap.bucket_omegas()):
+        feats.append(rm_feature_bucket(xf, omega.to(xf.dtype), deg,
+                                       float(scale)))
+    z = torch.cat(feats, dim=-1)
+    return z.reshape(*batch_shape, z.shape[-1])

@@ -1,6 +1,10 @@
 """repro_torch.sketch — the TensorSketch estimator family (port of
 ``repro.sketch``), registered as ``"tensor_sketch"`` in
 ``repro_torch.core.registry``."""
+from repro_torch.sketch.feature_map import (
+    SketchFeatureMap,
+    make_sketch_feature_map,
+)
 from repro_torch.sketch.plan import (
     SketchPlan,
     apply_sketch_plan,
@@ -15,6 +19,8 @@ from repro_torch.sketch.ref import (
 )
 
 __all__ = [
+    "SketchFeatureMap",
+    "make_sketch_feature_map",
     "SketchPlan",
     "apply_sketch_plan",
     "init_sketch_params",

@@ -44,8 +44,15 @@ from repro_torch.structured.ref import structured_feature_fused_ref
 from repro_torch.core.maclaurin import ExponentialDotProductKernel
 from repro_torch.sketch.plan import init_sketch_params, pack_sketch
 from repro_torch.sketch.ref import tensor_sketch_fused_ref
-from repro_torch.kernels.rm_feature.ops import rm_feature_fused
-from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+from repro_torch.kernels.rm_feature.ops import (
+    apply_feature_map_bucketed,
+    rm_feature_bucket,
+    rm_feature_fused,
+)
+from repro_torch.kernels.rm_feature.ref import (
+    rm_feature_bucket_ref,
+    rm_feature_fused_ref,
+)
 from repro_torch.models.attention import rm_plan_for
 
 pytestmark = pytest.mark.cuda
@@ -307,3 +314,77 @@ def test_structured_kernel_every_d_pad(cuda, dtype, d, rows):
     got = structured_feature_fused(x, d1, d2, cd, cs)
     torch.cuda.synchronize()
     _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)
+
+
+# the reference's SHAPES grid (tests/test_kernels_rm_feature.py) as (batch,
+# d, count, degree), then the paper path's ragged shapes: d 8, 22, 50, 57,
+# 123 (none a multiple of the 32-wide staging), counts 1 to 4000 (ragged
+# against the 64-wide tile), degrees 1 to 11
+BUCKET_SHAPES = [
+    (8, 16, 32, 1), (8, 16, 32, 2), (32, 64, 128, 3), (7, 33, 19, 4),
+    (128, 128, 128, 5), (1, 8, 1, 7), (64, 256, 64, 10),
+    (70, 57, 125, 1), (1840, 57, 63, 2), (65, 123, 1000, 1),
+    (33, 8, 1, 9), (100, 50, 4000, 10), (3, 22, 2, 11), (129, 22, 65, 6),
+    (1840, 57, 1, 8),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,count,degree", BUCKET_SHAPES)
+def test_rm_feature_bucket_kernel_matches_plain(cuda, dtype, b, d, count,
+                                                degree):
+    """Kernel B9 against its plain version. Tolerance 1e-5 x max(1,
+    max |plain|): fp32 accumulation in both, only the order of the d-long
+    sums differs (bf16 inputs upcast exactly), and the products run in the
+    same order j = 0, 1, ..."""
+    gen = torch.Generator(device=cuda).manual_seed(degree * 1000 + d)
+    x = (0.3 * torch.randn((b, d), generator=gen, device=cuda)).to(dtype)
+    bits = torch.randint(0, 2, (count * degree, d), generator=gen,
+                         device=cuda)
+    omega = (2 * bits - 1).to(dtype)
+    before = rm_feature_bucket.launches
+    got = rm_feature_bucket(x, omega, degree, 0.37)
+    torch.cuda.synchronize()
+    assert rm_feature_bucket.launches == before + 1
+    assert got.shape == (b, count) and got.dtype == torch.float32
+    _close(got, rm_feature_bucket_ref(x, omega, degree, 0.37), 1e-5)
+
+
+def test_rm_feature_bucket_kernel_batch_dims_and_checks(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = 0.2 * torch.randn((2, 3, 16), generator=gen, device=cuda)
+    omega = (2 * torch.randint(0, 2, (10, 16), generator=gen, device=cuda)
+             - 1).float()
+    got = rm_feature_bucket(x, omega, 2, 1.0)
+    torch.cuda.synchronize()
+    _close(got.reshape(6, 5),
+           rm_feature_bucket_ref(x.reshape(6, 16), omega, 2, 1.0), 1e-5)
+    with pytest.raises(TypeError, match="dtype"):
+        rm_feature_bucket(x, omega.to(torch.bfloat16), 2, 1.0)
+    with pytest.raises(ValueError, match="degree"):
+        rm_feature_bucket(x, omega, 0, 1.0)
+
+
+@pytest.mark.parametrize("kernel,d,num_features,h01", [
+    ("poly", 123, 4000, False), ("poly", 57, 500, True),
+    ("homogeneous", 50, 4000, False), ("exp", 50, 1000, True)])
+def test_bucketed_path_matches_fused_on_the_card(cuda, kernel, d,
+                                                 num_features, h01):
+    """The per-bucket path (one B9 launch a degree bucket) against the
+    fused path (one B1 launch) on the same map: tolerance 1e-5 x max(1,
+    max |fused|), two fp32 kernels summing in different orders."""
+    from repro_torch.core import kernel_from_name, make_feature_map
+
+    kern = kernel_from_name(kernel, degree=10) if kernel != "exp" else \
+        kernel_from_name("exp")
+    fm = make_feature_map(kern, d, num_features, seed=1, h01=h01,
+                          device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = _unit((300, d), gen, cuda)
+    before = (rm_feature_bucket.launches, rm_feature_fused.launches)
+    got = apply_feature_map_bucketed(fm, x)
+    want = fm.apply(x)
+    torch.cuda.synchronize()
+    assert (rm_feature_bucket.launches - before[0],
+            rm_feature_fused.launches - before[1]) == (len(fm.degrees), 1)
+    _close(got, want, 1e-5)

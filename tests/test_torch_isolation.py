@@ -47,7 +47,7 @@ def test_port_sources_exist():
     for name in ("rm_fused_attention.cu", "rm_attention_chunked.cu",
                  "tensor_sketch.cu", "rm_fused_state.cu",
                  "rm_fused_apply.cu", "ctr_feature.cu",
-                 "structured_feature.cu"):
+                 "structured_feature.cu", "rm_feature_bucket.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / name).exists()
 
 

@@ -1,8 +1,10 @@
-"""Kernel B1 (the whole Random Maclaurin map) in the port: its plain
-version against the reference's jnp oracle
-(repro.kernels.rm_feature.ref.rm_feature_fused_ref), the wrapper's dispatch
-and edge shapes (the CUDA kernel against its plain version is in
-tests/test_torch_cuda_kernels.py)."""
+"""Kernels B1 (the whole Random Maclaurin map) and B9 (one degree bucket)
+in the port: B1's plain version against the reference's jnp oracle
+(repro.kernels.rm_feature.ref.rm_feature_fused_ref), B9's plain version
+against the reference's real Pallas kernel in interpret mode
+(repro.kernels.rm_feature.ops.rm_feature_bucket, use_pallas=True), the
+wrappers' dispatch and edge shapes (the CUDA kernels against their plain
+versions are in tests/test_torch_cuda_kernels.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +13,16 @@ import torch
 
 from repro.core import plan as jplan
 from repro.core.maclaurin import ExponentialDotProductKernel as JExp
+from repro.kernels.rm_feature.ops import rm_feature_bucket as jax_bucket
 from repro.kernels.rm_feature.ref import rm_feature_fused_ref as jax_ref
-from repro_torch.kernels.rm_feature.ops import rm_feature_fused
-from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+from repro_torch.kernels.rm_feature.ops import (
+    rm_feature_bucket,
+    rm_feature_fused,
+)
+from repro_torch.kernels.rm_feature.ref import (
+    rm_feature_bucket_ref,
+    rm_feature_fused_ref,
+)
 
 # tests/test_precision.py's documented bf16 budget for the rm family:
 # max |z_bf16 - z_fp32| elementwise on unit-ball inputs.
@@ -119,3 +128,78 @@ def test_wrapper_refuses_autograd():
     with pytest.raises(NotImplementedError, match="backward"):
         rm_feature_fused(x, torch.ones(1, 3, 4),
                          torch.ones(3, dtype=torch.int32), torch.ones(3))
+
+
+# the reference's own B9 grid (tests/test_kernels_rm_feature.py SHAPES):
+# (batch, d, count, degree)
+BUCKET_SHAPES = [
+    (8, 16, 32, 1),
+    (8, 16, 32, 2),
+    (32, 64, 128, 3),
+    (7, 33, 19, 4),
+    (128, 128, 128, 5),
+    (1, 8, 1, 7),
+    (64, 256, 64, 10),
+]
+
+
+def _bucket_inputs(b, d, count, degree, seed):
+    rng = np.random.default_rng(seed)
+    x = (0.3 * rng.normal(size=(b, d))).astype(np.float32)
+    omega = (2.0 * rng.integers(0, 2, size=(count * degree, d))
+             - 1.0).astype(np.float32)
+    return x, omega
+
+
+@pytest.mark.parametrize("b,d,count,degree", BUCKET_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bucket_plain_matches_reference_pallas_interpret(b, d, count, degree,
+                                                         dtype):
+    """B9's plain version against the reference's Pallas kernel (interpret
+    mode), both on the same inputs rounded to ``dtype``. Tolerance x
+    max(1, max |ref|): fp32 1e-5 (fp32 sums of d products in another
+    order, then the same product over j); bf16 the rm bf16 budget
+    (products of bf16 values are exact in fp32, so the measured gap is the
+    fp32 one)."""
+    x, omega = _bucket_inputs(b, d, count, degree, degree * 1000 + d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    want = np.asarray(jax_bucket(jnp.asarray(x, jdt), jnp.asarray(omega, jdt),
+                                 degree, 0.37, use_pallas=True,
+                                 interpret=True))
+    got = rm_feature_bucket(torch.from_numpy(x).to(tdt),
+                            torch.from_numpy(omega).to(tdt), degree,
+                            0.37).numpy()
+    assert got.shape == want.shape == (b, count)
+    tol = 1e-5 if dtype == "float32" else RM_BF16_FEATURE_ATOL
+    assert np.abs(got - want).max() <= tol * max(1.0, np.abs(want).max())
+
+
+def test_bucket_batch_dims_match_reference_pallas_interpret():
+    x, omega = _bucket_inputs(6, 16, 5, 2, 0)
+    x = x.reshape(2, 3, 16)
+    want = np.asarray(jax_bucket(jnp.asarray(x), jnp.asarray(omega), 2, 1.0,
+                                 use_pallas=True, interpret=True))
+    got = rm_feature_bucket(torch.from_numpy(x), torch.from_numpy(omega), 2,
+                            1.0)
+    assert got.shape == (2, 3, 5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_bucket_wrapper_dispatch_and_edges():
+    x, omega = _bucket_inputs(4, 8, 3, 2, 1)
+    xt, om = torch.from_numpy(x), torch.from_numpy(omega)
+    before = rm_feature_bucket.launches
+    got = rm_feature_bucket(xt, om, 2, 0.5)
+    assert rm_feature_bucket.launches == before     # plain version on cpu
+    assert torch.equal(got, rm_feature_bucket_ref(xt, om, 2, 0.5))
+    assert rm_feature_bucket(xt[:0], om, 2, 0.5).shape == (0, 3)
+    # degree 0: the reference dies on a division by zero; the port names it
+    with pytest.raises(ValueError, match="degree >= 1"):
+        rm_feature_bucket(xt, om, 0, 0.5)
+    with pytest.raises(ValueError, match="rows"):
+        rm_feature_bucket(xt, om[:5], 2, 0.5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        rm_feature_bucket(xt.to("meta"), om.to("meta"), 2, 0.5)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rm_feature_bucket(xt.requires_grad_(), om, 2, 0.5)
