@@ -44,12 +44,19 @@ Phases, each fatal on failure:
    the two-launch attention path: B6 must launch twice a layer for every
    admission and decode step, B5 once a layer for every admission;
 10. where the tensor_sketch slice's time goes, as in phase 8;
-11. kernels B3 (``rm_fused_state``) and B4 (``rm_fused_apply``) against
-    their plain versions at every shape the encoder gives them (d = dv =
-    80, the hubert plan's ``w [5, 163, 80]``): the 8 x 1500 encode (BH 128
-    = 8 clips x 16 heads, T 1500, unpadded), the same rows padded to T 1536
-    with ``kvalid`` 0 on the last 36 keys, and the 1 x 32768 encode (BH
-    16, T 32768), fp32 and bf16 (S, n and the output); the whole fused
+11. kernels B3 (``rm_fused_state``) and B4 (``rm_fused_apply``): their
+    ``-Xptxas -v`` registers and spills and the tensor-core instructions
+    (``HMMA``/``GMMA``) in their libraries' SASS (``cuobjdump``, where the
+    toolkit has it); then against their plain versions at every shape the
+    encoder gives them (d = dv = 80, the hubert plan's ``w [5, 163, 80]``
+    as the slab both read): the 8 x 1500 encode (BH 128 = 8 clips x 16
+    heads, T 1500, unpadded), the same rows padded to T 1536 with
+    ``kvalid`` 0 on the last 36 keys, and the 1 x 32768 encode (BH 16, T
+    32768), fp32 and bf16 (S, n and the output; in fp32 also within
+    1e-5 x max(1, max |plain|), which a dropped 3xTF32 term exceeds),
+    each with its grid and split count, two B3 calls bitwise equal, and
+    times beside two bounds (the tensor cores' and the fp32 CUDA
+    cores'); the whole fused
     non-causal op also against the O(T^2) direct evaluation at BH 16, T
     1500 with padded keys;
 12. small end-to-end references on the hubert SMOKE encoder in fp32: the
@@ -121,7 +128,10 @@ timed kernel does not meet idle clocks. It then prints one ``{"kernels":
 [...]}`` line (times from CUDA events over repeated launches, bounds
 computed from this run's shapes, launches from the slice that runs each
 kernel — for B9 the paper phase 23; the host time of one call through each
-wrapper is printed beside its check) and, as its last
+wrapper is printed beside its check; B3's and B4's ``bound_ms`` is on
+the tensor cores, where they run their products, and they also carry
+the bound on the fp32 CUDA cores, the 1 x 32768 shape's times and their
+grids) and, as its last
 line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
@@ -141,6 +151,10 @@ from pathlib import Path
 # bf16 (tensor cores) operations/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# TF32 on the tensor cores (dense). An fp32-accurate product there takes
+# three TF32 mma (3xTF32), or two where one operand is a TF32 number
+# already (its low part is 0).
+PEAK_TF32_OPS_PER_S = 495e12
 
 VALID_REASONS = {"eos", "max_new_tokens", "cache_full"}
 B1_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
@@ -159,6 +173,11 @@ B5_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to C x F terms
 E2E_TOL = 1e-4  # relative logits gap of two fp32 paths of one model
 B3_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T terms (S, n)
 B4_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of F terms, then a divide
+# B3's S, n and B4's out on fp32 inputs, x max(1, max |plain|): the
+# precision of their 3xTF32 products. 3xTF32 reads 2e-6 (S, the encode) to
+# 7e-6 (S, 1 x 32768); a dropped 3xTF32 term fails this where it may still
+# pass B3_TOL / B4_TOL (PERF.md, the 3xTF32 gate).
+B34_FP32_TOL = 1e-5
 BF16_LOGITS_TOL = 3e-2  # relative gap of two bf16 encodes (ROADMAP queue C)
 ENC_CLIPS, ENC_FRAMES = 8, 1500   # 30 s of 20 ms frames: the ASR window
 LONG_FRAMES = 32768               # the reference's prefill_32k length
@@ -317,27 +336,45 @@ def chunked_cost(bh, t, f, dv, chunk, item):
 
 
 def state_cost(bh, t, valid, d, dv, col_deg, item):
-    """(bytes, operations) of kernel B3: k, v, kvalid, the omega rows the
-    plan uses and the column vectors read once, S and n written once; per
-    real key (``valid`` of the ``bh * t`` keys: a padded key needs no
-    work) the featurize, the mask, one row of S (2 F dv) and of n."""
+    """(bytes, featurize operations, state operations) of kernel B3: k, v,
+    kvalid, the omega rows the plan uses and the column vectors read once,
+    S and n written once; per real key (``valid`` of the ``bh * t`` keys:
+    a padded key needs no work) the featurize and the mask, then one row of
+    S (2 F dv) and of n."""
     f = len(col_deg)
     nbytes = (bh * t * d * item + bh * t * dv * 4 + bh * t * 4
               + omega_bytes(col_deg, d, item) + f * 8 + bh * f * dv * 4
               + bh * f * 4)
-    return nbytes, featurize_ops(valid, col_deg, d) + valid * f * (2 * dv
-                                                                   + 2)
+    return (nbytes, featurize_ops(valid, col_deg, d) + valid * f,
+            valid * f * (2 * dv + 1))
 
 
 def apply_cost(bh, t, d, dv, col_deg, item):
-    """(bytes, operations) of kernel B4: q, S, n, the omega rows and the
-    column vectors read once, the output written once; per query row the
-    featurize, ``zq S`` (2 F dv), ``zq n`` (2 F) and the divide."""
+    """(bytes, featurize operations, output operations) of kernel B4: q,
+    S, n, the omega rows and the column vectors read once, the output
+    written once; per query row the featurize, then ``zq S`` (2 F dv),
+    ``zq n`` (2 F) and the divide."""
     f = len(col_deg)
     nbytes = (bh * t * d * item + bh * f * dv * 4 + bh * f * 4
               + omega_bytes(col_deg, d, item) + f * 8 + bh * t * dv * 4)
-    return nbytes, featurize_ops(bh * t, col_deg, d) + bh * t * (
-        2 * f * dv + 2 * f + dv)
+    return (nbytes, featurize_ops(bh * t, col_deg, d),
+            bh * t * (2 * f * dv + 2 * f + dv))
+
+
+def tensor_core_bound(nbytes, feat_ops, other_ops, dtype_name, exact_w):
+    """B3's and B4's bound on the tensor cores: ``(ms, "bytes" or
+    "operations")``, max(bytes / HBM rate, the featurize at the rate of
+    the mma terms its products take plus the contraction in 3xTF32). fp32
+    rows take 3xTF32, or two TF32 terms where the slab's values are TF32
+    numbers (``exact_w``, the rm plans' omegas); bf16 rows one bf16 mma."""
+    if dtype_name == "float32":
+        feat_rate = PEAK_TF32_OPS_PER_S / (2 if exact_w else 3)
+    else:
+        feat_rate = PEAK_OPS_PER_S["bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (feat_ops / feat_rate + other_ops / (PEAK_TF32_OPS_PER_S / 3)) \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def first_attention(torch, params, cfg, batch):
@@ -417,11 +454,17 @@ def kernel_device_ms(torch, fn, kernel, iters=50):
         for _ in range(iters):
             fn()
 
-    _, by_name, _, _ = device_profile(torch, calls)
-    found = [ms for name, ms in by_name.items() if kernel in name]
-    if not found:
-        raise AssertionError(f"the profiler saw no {kernel} launch")
-    return sum(found) / iters
+    # the profiler has returned a window without the kernel's events once
+    # in several runs (the same case saw them in the other runs): a window
+    # that lost them is taken again, twice at most
+    for _ in range(3):
+        _, by_name, events, _ = device_profile(torch, calls)
+        found = [ms for name, ms in by_name.items() if kernel in name]
+        if found:
+            return sum(found) / iters
+        print(f"[profile] a window of {iters} calls showed no {kernel} "
+              f"event ({events} device events in all); taking it again")
+    raise AssertionError(f"the profiler saw no {kernel} launch")
 
 
 def count_syncs(torch, fn):
@@ -559,6 +602,246 @@ def where_time_goes(torch, tag, engine, prompts, done):
               "synchronizing calls (the inputs' host-to-device copies)")
 
 
+def tensor_core_opcodes(lib_path):
+    """``{"HMMA": n, "GMMA": m}``: the tensor-core instructions in a
+    library's SASS (``cuobjdump -sass``), or None where the toolkit has no
+    ``cuobjdump``."""
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    exe = shutil.which("cuobjdump")
+    if exe is None and CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "cuobjdump"
+        exe = str(cand) if cand.exists() else None
+    if exe is None:
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return {op: sum(op in ln for ln in sass.splitlines())
+            for op in ("HMMA", "GMMA")}
+
+
+def noncausal_phase(torch, np, gen, kernels):
+    """Phase 11: kernels B3 and B4 against their plain versions at every
+    shape the encoder gives them, their schedules, registers and
+    tensor-core instructions, B3's repeatability, their times beside both
+    bounds, and the whole op against the O(T^2) evaluation. Fills
+    ``kernels["B3"]`` and ``kernels["B4"]`` (``bound_ms`` on the tensor
+    cores, where both kernels run their products; ``bound_cuda_core_ms``
+    the same work on the fp32 CUDA cores); returns ``(hcfg, hd, hf)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import round_up
+    from repro_torch.kernels.rm_attention.noncausal import pack_noncausal
+    from repro_torch.kernels.rm_attention.ops import (
+        rm_attention_fused_noncausal,
+        rm_fused_apply,
+        rm_fused_state,
+    )
+    from repro_torch.kernels.rm_attention.ref import (
+        featurize_ref4,
+        rm_attention_ref,
+        rm_fused_apply_ref,
+        rm_fused_state_ref,
+    )
+    from repro_torch.models.attention import rm_plan_for
+
+    hcfg = get_config("hubert-xlarge", attention_mode="rm")
+    hd = hcfg.resolved_head_dim
+    hplan = rm_plan_for(hcfg, hd)
+    hw32 = pack_omegas(hplan, init_omegas(hplan, gen))
+    h_deg, h_scale = plan_columns(hplan, "cuda")
+    h_deg_np = hplan.column_degrees()
+    hf = hw32.shape[1]
+    eps = hcfg.rm.eps
+    print(f"[plan] hubert-xlarge rm head: packed w {tuple(hw32.shape)}, "
+          f"F={hf} columns, degrees {np.bincount(h_deg_np).tolist()}")
+    # the slab both kernels read, once per dtype (as the model packs it once
+    # per weight set)
+    packs = {dtype: pack_noncausal(hw32.to(dtype), h_deg_np,
+                                   hplan.column_scales())
+             for dtype in (torch.float32, torch.bfloat16)}
+    print(f"[plan] B3/B4 slab: {packs[torch.float32].slab.shape[0]} rows "
+          f"of d {hd} for {int(h_deg_np.sum())} used slots, "
+          f"{packs[torch.float32].num_col_tiles} column tiles of 8")
+    paths = _build.build_all()
+    for kid, name in (("B3", "rm_fused_state"), ("B4", "rm_fused_apply")):
+        log = _build.build_report().get(name, (0.0, ""))[1]
+        report = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+                  if "Used" in ln or "spill" in ln]
+        print(f"[{kid}] ptxas -v: " + " | ".join(report))
+        ops = tensor_core_opcodes(paths[name])
+        print(f"[{kid}] tensor-core instructions in the SASS of "
+              f"lib{name}: {ops if ops is not None else 'no cuobjdump'}")
+        if ops is not None and ops["HMMA"] + ops["GMMA"] == 0:
+            raise AssertionError(f"{kid}: no tensor-core instruction")
+    # the shapes the encoder gives B3 and B4 (the rows go in unpadded):
+    # the 8 x 1500 encode (the kernels line's times), its rows padded to
+    # the reference's chunk with kvalid 0 on the padded keys, and the
+    # 1 x 32768 encode (the longest fp32 sums; its times go in the kernels
+    # line too)
+    b3_checks, b4_checks = [], []
+    nh = hcfg.num_heads
+    for case, bh, t, valid_t, iters in (
+            ("encode", ENC_CLIPS * nh, ENC_FRAMES, ENC_FRAMES, 20),
+            ("padded", ENC_CLIPS * nh, round_up(ENC_FRAMES, hcfg.rm.chunk),
+             ENC_FRAMES, 20),
+            ("long", nh, LONG_FRAMES, LONG_FRAMES, 10)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            item = torch.tensor([], dtype=dtype).element_size()
+            k = unit_rows(torch, (bh, t, hd), gen).to(dtype)
+            q = unit_rows(torch, (bh, t, hd), gen).to(dtype)
+            v = torch.randn((bh, t, hd), generator=gen, device="cuda")
+            kvalid = torch.ones((bh, t), device="cuda")
+            kvalid[:, valid_t:] = 0.0
+            w = hw32.to(dtype)
+            pack = packs[dtype]
+            state_args = (k, v, kvalid, w, h_deg, h_scale)
+            s_got, n_got = rm_fused_state(*state_args, pack=pack)
+            sched3 = rm_fused_state.last_schedule
+            s_again, n_again = rm_fused_state(*state_args, pack=pack)
+            torch.cuda.synchronize()
+            if not (torch.equal(s_got, s_again)
+                    and torch.equal(n_got, n_again)):
+                raise AssertionError(f"B3 {case} {dname}: two calls differ")
+            del s_again, n_again
+            s_ref, n_ref = rm_fused_state_ref(*state_args)
+            # B4 on the plain state, so its check does not inherit B3's
+            # error
+            apply_args = (q, s_ref, n_ref, w, h_deg, h_scale, eps)
+            out_got = rm_fused_apply(*apply_args, pack=pack)
+            sched4 = rm_fused_apply.last_schedule
+            out_ref = rm_fused_apply_ref(*apply_args)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, want, tol_, checks in (
+                    ("S", s_got, s_ref, B3_TOL, b3_checks),
+                    ("n", n_got, n_ref, B3_TOL, b3_checks),
+                    ("out", out_got, out_ref, B4_TOL, b4_checks)):
+                err = (got - want).abs().max().item()
+                scale = max(1.0, want.abs().max().item())
+                tol = tol_ * scale
+                errs[name] = (err, tol, err / scale)
+                checks.append((f"{name} {case} {dname}", err, tol))
+                if not (err <= tol and torch.isfinite(got).all()):
+                    raise AssertionError(f"B3/B4 {name} {case} {dname}: "
+                                         f"error {err} > {tol}")
+                # fp32 inputs: the 3xTF32 precision
+                if dtype == torch.float32 and not err <= B34_FP32_TOL * scale:
+                    raise AssertionError(
+                        f"B3/B4 {name} {case} fp32: error {err / scale:.2e}"
+                        f" x max(1, max |plain|) > {B34_FP32_TOL}: not "
+                        f"3xTF32-accurate")
+            print(f"[B3/B4] {case} {dname}: max_abs_err / max(1, max "
+                  f"|plain|) S {errs['S'][2]:.2e}, n {errs['n'][2]:.2e}, "
+                  f"out {errs['out'][2]:.2e}"
+                  + (f" (3xTF32 gate {B34_FP32_TOL:.0e})"
+                     if dtype == torch.float32 else ""))
+            del s_ref, n_ref, out_ref, s_got, n_got, out_got
+            ms3 = time_ms(torch, lambda: rm_fused_state(*state_args,
+                                                        pack=pack),
+                          iters=iters)
+            plain3 = time_ms(torch, lambda: rm_fused_state_ref(*state_args),
+                             iters=5)
+            ms4 = time_ms(torch, lambda: rm_fused_apply(*apply_args,
+                                                        pack=pack),
+                          iters=iters)
+            plain4 = time_ms(torch, lambda: rm_fused_apply_ref(*apply_args),
+                             iters=5)
+            valid = int(kvalid.sum().item())
+            cost3 = state_cost(bh, t, valid, hd, hd, h_deg_np, item)
+            cost4 = apply_cost(bh, t, hd, hd, h_deg_np, item)
+            (b3ms, b3by), (b4ms, b4by) = (
+                bound(c[0], c[1] + c[2], dname) for c in (cost3, cost4))
+            (tc3, tc3by), (tc4, tc4by) = (
+                tensor_core_bound(*c, dname, pack.tf32_exact)
+                for c in (cost3, cost4))
+            print(f"[B3] {case} k,v[{bh},{t},{hd}] ({t - valid_t} keys a "
+                  f"row padded) {dname}: max_abs_err S/n {errs['S'][0]:.3e}/"
+                  f"{errs['n'][0]:.3e} (tol {errs['S'][1]:.1e}/"
+                  f"{errs['n'][1]:.1e}), two calls bitwise equal; kernel "
+                  f"{ms3:.4f} ms, plain {plain3:.4f} ms, bound {tc3:.5f} ms "
+                  f"({tc3by}, tensor cores) / {b3ms:.5f} ms ({b3by}, CUDA "
+                  f"cores); grid "
+                  f"{sched3.blocks} blocks = {bh} rows x {sched3.splits} "
+                  f"splits of {sched3.tiles_per_split} key tiles x "
+                  f"{sched3.n_fgroups * sched3.n_dvgroups} groups, "
+                  f"{sched3.smem_bytes} B shared")
+            print(f"[B4] {case} q[{bh},{t},{hd}] {dname}: max_abs_err out "
+                  f"{errs['out'][0]:.3e} (tol {errs['out'][1]:.1e}) kernel "
+                  f"{ms4:.4f} ms, plain {plain4:.4f} ms, bound {tc4:.5f} ms "
+                  f"({tc4by}, tensor cores) / {b4ms:.5f} ms ({b4by}, CUDA "
+                  f"cores); grid "
+                  f"{sched4.blocks} blocks = {bh} rows x {sched4.splits} "
+                  f"splits of {sched4.tiles_per_split} query tiles x "
+                  f"{sched4.n_dvgroups} groups, {sched4.smem_bytes} B shared")
+            if dtype == torch.float32 and case == "encode":
+                us3 = host_us(torch, lambda: rm_fused_state(*state_args,
+                                                            pack=pack),
+                              iters=50)
+                us4 = host_us(torch, lambda: rm_fused_apply(*apply_args,
+                                                            pack=pack),
+                              iters=50)
+                print(f"[B3] host time {us3:.1f} us a call; [B4] host time "
+                      f"{us4:.1f} us a call")
+                shape = f"BH {bh}, T {t}, d = dv = {hd}, " \
+                        f"w{tuple(hw32.shape)} fp32"
+                kernels["B3"] = dict(
+                    name="rm_fused_state", route="cuda",
+                    source="src/repro_torch/csrc/rm_fused_state.cu",
+                    replaces="src/repro/kernels/rm_attention/fused.py:273",
+                    shape=shape, ms=ms3, plain_ms=plain3, bound_ms=tc3,
+                    bound_by=tc3by, library_ms=None,
+                    bound_cuda_core_ms=b3ms, grid=sched3.blocks,
+                    splits=sched3.splits)
+                kernels["B4"] = dict(
+                    name="rm_fused_apply", route="cuda",
+                    source="src/repro_torch/csrc/rm_fused_apply.cu",
+                    replaces="src/repro/kernels/rm_attention/fused.py:353",
+                    shape=shape, ms=ms4, plain_ms=plain4, bound_ms=tc4,
+                    bound_by=tc4by, library_ms=None,
+                    bound_cuda_core_ms=b4ms, grid=sched4.blocks,
+                    splits=sched4.splits)
+            elif dtype == torch.float32 and case == "long":
+                for kid, ms_, plain_, bms_, tc_, sch in (
+                        ("B3", ms3, plain3, b3ms, tc3, sched3),
+                        ("B4", ms4, plain4, b4ms, tc4, sched4)):
+                    kernels[kid].update(
+                        long_shape=f"BH {bh}, T {t} fp32", long_ms=ms_,
+                        long_plain_ms=plain_, long_bound_ms=tc_,
+                        long_bound_cuda_core_ms=bms_, long_grid=sch.blocks,
+                        long_splits=sch.splits)
+            del k, q, v, kvalid, state_args, apply_args
+            torch.cuda.empty_cache()
+    # the whole op (B3, B4 on the unpadded rows) against the O(T^2) direct
+    # evaluation
+    q4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
+    k4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
+    v4 = torch.randn((2, 8, ENC_FRAMES, hd), generator=gen, device="cuda")
+    kv4 = torch.ones((2, ENC_FRAMES), device="cuda")
+    kv4[1, ENC_FRAMES - 100:] = 0.0
+    got = rm_attention_fused_noncausal(q4, k4, v4, hw32, h_deg, h_scale,
+                                       kvalid=kv4, eps=eps)
+    zq4 = featurize_ref4(q4, hw32, h_deg, h_scale)
+    zk4 = featurize_ref4(k4, hw32, h_deg, h_scale) * kv4[:, None, :, None]
+    want = rm_attention_ref(zq4, zk4, v4, causal=False, eps=eps)
+    err = (got - want).abs().max().item()
+    tol = B4_TOL * max(1.0, want.abs().max().item())
+    print(f"[B3+B4] fused non-causal op [16, {ENC_FRAMES}, {hd}] fp32 vs the "
+          f"O(T^2) "
+          f"direct evaluation: max_abs_err {err:.3e} (tol {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError(f"fused non-causal vs O(T^2): {err} > {tol}")
+    b4_checks.append(("op vs O(T^2)", err, tol))
+    for kid, checks in (("B3", b3_checks), ("B4", b4_checks)):
+        label, err, tol = worst(checks)
+        kernels[kid].update(max_abs_err=err, tol=tol, check=label)
+    return hcfg, hd, hf
+
+
 def main():
     import torch
 
@@ -573,11 +856,10 @@ def main():
     from repro_torch.core import registry
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import pick_sketch_rows, round_up
+    from repro_torch.kernels.common import pick_sketch_rows
     from repro_torch.kernels.rm_attention.ops import (
         rm_attention_causal,
         rm_attention_chunked,
-        rm_attention_fused_noncausal,
         rm_fused_apply,
         rm_fused_causal,
         rm_fused_state,
@@ -585,12 +867,9 @@ def main():
     from repro_torch.kernels.rm_attention.ref import (
         causal_chunked_ref,
         chunk_states,
-        featurize_ref4,
         rm_attention_chunked_ref,
         rm_attention_ref,
-        rm_fused_apply_ref,
         rm_fused_causal_ref,
-        rm_fused_state_ref,
     )
     from repro_torch.ctr.plan import init_ctr_params, pack_ctr
     from repro_torch.ctr.ref import ctr_feature_fused_ref
@@ -1022,127 +1301,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 11. B3 and B4 against their plain versions -------------------------
-    hcfg = get_config("hubert-xlarge", attention_mode="rm")
-    hd = hcfg.resolved_head_dim
-    hplan = rm_plan_for(hcfg, hd)
-    hw32 = pack_omegas(hplan, init_omegas(hplan, gen))
-    h_deg, h_scale = plan_columns(hplan, "cuda")
-    h_deg_np = hplan.column_degrees()
-    hf = hw32.shape[1]
-    eps = hcfg.rm.eps
-    print(f"[plan] hubert-xlarge rm head: packed w {tuple(hw32.shape)}, "
-          f"F={hf} columns, degrees {np.bincount(h_deg_np).tolist()}")
-    # the shapes the encoder gives B3 and B4 (the rows go in unpadded):
-    # the 8 x 1500 encode (the kernels line's times), its rows padded to
-    # the reference's chunk with kvalid 0 on the padded keys, and the
-    # 1 x 32768 encode (the fewest blocks and the longest fp32 sums)
-    b3_checks, b4_checks = [], []
+    hcfg, hd, hf = noncausal_phase(torch, np, gen, kernels)
     nh = hcfg.num_heads
-    for case, bh, t, valid_t, iters in (
-            ("encode", ENC_CLIPS * nh, ENC_FRAMES, ENC_FRAMES, 20),
-            ("padded", ENC_CLIPS * nh, round_up(ENC_FRAMES, hcfg.rm.chunk),
-             ENC_FRAMES, 20),
-            ("long", nh, LONG_FRAMES, LONG_FRAMES, 5)):
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            item = torch.tensor([], dtype=dtype).element_size()
-            k = unit_rows(torch, (bh, t, hd), gen).to(dtype)
-            q = unit_rows(torch, (bh, t, hd), gen).to(dtype)
-            v = torch.randn((bh, t, hd), generator=gen, device="cuda")
-            kvalid = torch.ones((bh, t), device="cuda")
-            kvalid[:, valid_t:] = 0.0
-            w = hw32.to(dtype)
-            state_args = (k, v, kvalid, w, h_deg, h_scale)
-            s_got, n_got = rm_fused_state(*state_args)
-            s_ref, n_ref = rm_fused_state_ref(*state_args)
-            # B4 on the plain state, so its check does not inherit B3's
-            # error
-            apply_args = (q, s_ref, n_ref, w, h_deg, h_scale, eps)
-            out_got = rm_fused_apply(*apply_args)
-            out_ref = rm_fused_apply_ref(*apply_args)
-            torch.cuda.synchronize()
-            errs = {}
-            for name, got, want, tol_, checks in (
-                    ("S", s_got, s_ref, B3_TOL, b3_checks),
-                    ("n", n_got, n_ref, B3_TOL, b3_checks),
-                    ("out", out_got, out_ref, B4_TOL, b4_checks)):
-                err = (got - want).abs().max().item()
-                tol = tol_ * max(1.0, want.abs().max().item())
-                errs[name] = (err, tol)
-                checks.append((f"{name} {case} {dname}", err, tol))
-                if not (err <= tol and torch.isfinite(got).all()):
-                    raise AssertionError(f"B3/B4 {name} {case} {dname}: "
-                                         f"error {err} > {tol}")
-            del s_ref, n_ref, out_ref, s_got, n_got, out_got
-            ms3 = time_ms(torch, lambda: rm_fused_state(*state_args),
-                          iters=iters)
-            plain3 = time_ms(torch, lambda: rm_fused_state_ref(*state_args),
-                             iters=min(iters, 5))
-            ms4 = time_ms(torch, lambda: rm_fused_apply(*apply_args),
-                          iters=iters)
-            plain4 = time_ms(torch, lambda: rm_fused_apply_ref(*apply_args),
-                             iters=min(iters, 5))
-            valid = int(kvalid.sum().item())
-            b3ms, b3by = bound(*state_cost(bh, t, valid, hd, hd, h_deg_np,
-                                           item), dname)
-            b4ms, b4by = bound(*apply_cost(bh, t, hd, hd, h_deg_np, item),
-                               dname)
-            print(f"[B3] {case} k,v[{bh},{t},{hd}] ({t - valid_t} keys a "
-                  f"row padded) {dname}: max_abs_err S/n {errs['S'][0]:.3e}/"
-                  f"{errs['n'][0]:.3e} (tol {errs['S'][1]:.1e}/"
-                  f"{errs['n'][1]:.1e}) kernel {ms3:.4f} ms, plain "
-                  f"{plain3:.4f} ms, bound {b3ms:.5f} ms ({b3by}); grid "
-                  f"{bh * -(-hf // 64)} blocks")
-            print(f"[B4] {case} q[{bh},{t},{hd}] {dname}: max_abs_err out "
-                  f"{errs['out'][0]:.3e} (tol {errs['out'][1]:.1e}) kernel "
-                  f"{ms4:.4f} ms, plain {plain4:.4f} ms, bound {b4ms:.5f} ms "
-                  f"({b4by})")
-            if case == "encode" and dtype == torch.float32:
-                us3 = host_us(torch, lambda: rm_fused_state(*state_args),
-                              iters=50)
-                us4 = host_us(torch, lambda: rm_fused_apply(*apply_args),
-                              iters=50)
-                print(f"[B3] host time {us3:.1f} us a call; [B4] host time "
-                      f"{us4:.1f} us a call")
-                shape = f"BH {bh}, T {t}, d = dv = {hd}, " \
-                        f"w{tuple(hw32.shape)} fp32"
-                kernels["B3"] = dict(
-                    name="rm_fused_state", route="cuda",
-                    source="src/repro_torch/csrc/rm_fused_state.cu",
-                    replaces="src/repro/kernels/rm_attention/fused.py:273",
-                    shape=shape, ms=ms3, plain_ms=plain3, bound_ms=b3ms,
-                    bound_by=b3by, library_ms=None)
-                kernels["B4"] = dict(
-                    name="rm_fused_apply", route="cuda",
-                    source="src/repro_torch/csrc/rm_fused_apply.cu",
-                    replaces="src/repro/kernels/rm_attention/fused.py:353",
-                    shape=shape, ms=ms4, plain_ms=plain4, bound_ms=b4ms,
-                    bound_by=b4by, library_ms=None)
-            del k, q, v, kvalid, state_args, apply_args
-            torch.cuda.empty_cache()
-    # the whole op (B3, B4 on the unpadded rows) against the O(T^2) direct
-    # evaluation
-    q4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
-    k4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
-    v4 = torch.randn((2, 8, ENC_FRAMES, hd), generator=gen, device="cuda")
-    kv4 = torch.ones((2, ENC_FRAMES), device="cuda")
-    kv4[1, ENC_FRAMES - 100:] = 0.0
-    got = rm_attention_fused_noncausal(q4, k4, v4, hw32, h_deg, h_scale,
-                                       kvalid=kv4, eps=eps)
-    zq4 = featurize_ref4(q4, hw32, h_deg, h_scale)
-    zk4 = featurize_ref4(k4, hw32, h_deg, h_scale) * kv4[:, None, :, None]
-    want = rm_attention_ref(zq4, zk4, v4, causal=False, eps=eps)
-    err = (got - want).abs().max().item()
-    tol = B4_TOL * max(1.0, want.abs().max().item())
-    print(f"[B3+B4] fused non-causal op [16, {ENC_FRAMES}, {hd}] fp32 vs the "
-          f"O(T^2) "
-          f"direct evaluation: max_abs_err {err:.3e} (tol {tol:.1e})")
-    if not err <= tol:
-        raise AssertionError(f"fused non-causal vs O(T^2): {err} > {tol}")
-    b4_checks.append(("op vs O(T^2)", err, tol))
-    for kid, checks in (("B3", b3_checks), ("B4", b4_checks)):
-        label, err, tol = worst(checks)
-        kernels[kid].update(max_abs_err=err, tol=tol, check=label)
 
     # -- 12. small end-to-end references on the hubert SMOKE encoder --------
     rm_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
@@ -1309,7 +1469,8 @@ def main():
           f"prefill_32k length; batch cut from 32 to 1): wall "
           f"{1e3 * wall:.2f} ms, {LONG_FRAMES / wall:.0f} frames/s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"B3 {hcfg.num_heads * -(-hf // 64)} blocks a launch")
+          f"B3 {rm_fused_state.last_schedule.blocks} blocks a launch "
+          f"({rm_fused_state.last_schedule.splits} key splits)")
     # the long encode's first attention layer in fp32 (the same weights
     # and frames): the card (B3 + B4) against the plain path on the CPU
     f32 = dataclasses.replace(hcfg, compute_dtype="float32")
@@ -1892,9 +2053,12 @@ def main():
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{key: kernels[kid][key] for key in order}
-                                  for kid in ("B1", "B2", "B3", "B4", "B5",
-                                              "B6", "B7", "B8", "B9")]}))
+    # the contract's keys first, then a kernel's own (B3 and B4: the long
+    # shape's times, the bound on the fp32 CUDA cores, the grid)
+    print(json.dumps({"kernels": [
+        {**{key: kernels[kid][key] for key in order},
+         **{key: val for key, val in kernels[kid].items() if key not in order}}
+        for kid in ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8", "B9")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ Each family is a set of functions behind one name:
     init_params(plan, generator, dtype)          -> {name: Tensor}
     apply(plan, params, x, *, precision, packed) -> features [..., F] fp32
     output_dim(plan)                             -> int
+    truncation_bias(plan, radius)                -> float
     make_map(kernel, input_dim, num_features, generator, *, p, measure,
              h01, n_max, radius, omega_dtype, stratified,
              device)                             -> the family's map object
@@ -53,6 +54,7 @@ class Estimator:
     make_map: Callable[..., Any]
     output_dim: Callable[[Any], int]
     pack: Callable[..., Any]
+    truncation_bias: Callable[[Any, float], float]
     fused_attention_supported: bool = False
     pack_fused: Optional[Callable[..., Any]] = None
 
@@ -82,6 +84,13 @@ def estimate_gram(apply_fn: Callable[[torch.Tensor], torch.Tensor],
 
 def _plan_output_dim(plan) -> int:
     return plan.output_dim
+
+
+def _plan_truncation_bias(plan, radius: float) -> float:
+    """Worst-case dropped-degree kernel mass ``sum a_n radius^{2n}`` over
+    the degrees the plan leaves out (paper section 4.2): the plan's own
+    ``truncation_bias``, as the reference's ``_plan_truncation_bias``."""
+    return plan.truncation_bias(radius)
 
 
 def _rm_init_params(plan, generator: torch.Generator,
@@ -133,6 +142,7 @@ def _make_rm_entry() -> Estimator:
         apply=_rm_apply,
         make_map=make_feature_map,
         output_dim=_plan_output_dim,
+        truncation_bias=_plan_truncation_bias,
         pack=_rm_pack,
         fused_attention_supported=True,
         pack_fused=_rm_pack_fused,
@@ -172,6 +182,7 @@ def _make_ts_entry() -> Estimator:
         apply=_ts_apply,
         make_map=make_sketch_feature_map,
         output_dim=_plan_output_dim,
+        truncation_bias=_plan_truncation_bias,
         pack=_ts_pack,
     )
 
@@ -206,6 +217,7 @@ def _make_ctr_entry() -> Estimator:
         apply=_ctr_apply,
         make_map=make_ctr_feature_map,
         output_dim=_plan_output_dim,
+        truncation_bias=_plan_truncation_bias,
         pack=_ctr_pack,
     )
 
@@ -246,6 +258,7 @@ def _make_structured_entry() -> Estimator:
         apply=_structured_apply,
         make_map=make_structured_feature_map,
         output_dim=_plan_output_dim,
+        truncation_bias=_plan_truncation_bias,
         pack=_structured_pack,
     )
 

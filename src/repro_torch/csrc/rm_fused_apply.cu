@@ -1,5 +1,5 @@
 // rm_fused_apply: non-causal RM attention outputs from a given key state,
-// for Hopper.
+// for Hopper's tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/rm_attention/fused.py
 // rm_fused_apply_pallas (body _fused_apply_kernel, helpers _featurize_block
@@ -11,161 +11,316 @@
 // without writing zq to device memory. clamp(den) = sign(den) * max(|den|,
 // eps) with den >= 0 -> +eps (DESIGN.md section 7).
 //
-// Split. The TPU grid (BH, chunk, feature block) runs the feature-block
-// axis innermost and in order, carrying num and den in VMEM. Here one
-// block owns one (batch*head row, 64-row query tile, value slice of up to
-// 128 columns) and loops over the feature tiles: featurize the query tile
-// against the tile (rm_featurize.cuh), stage that tile's rows of S and n in
-// shared memory, and accumulate num [64, dv] in fp32 registers (4 query
-// rows x up to 8 value columns a thread) and den in the registers of 64
-// threads. The divide happens once, after the last tile: the feature sums
-// finish inside the block, with no second pass and no atomics.
+// Design. A block owns one (batch*head row, query split, value group) and
+// walks its split's 64-query tiles. It loads the omega slab and its row's
+// state [S | n] (n as one more column, padded to whole mma tiles) into
+// shared memory once. Per tile:
+//   1. featurize (rm_featurize_mma.cuh): the query tile against the slab,
+//      on the tensor cores, each 8-column tile to its own depth, into the
+//      shared feature tile Z [64, F];
+//   2. contract: [num | den] = Z [S | n] on the tensor cores (3xTF32), the
+//      (16 x 8) tiles of the [64, dv + 1] product dealt out to a 4 x 4 grid
+//      of warps (one query tile by up to 3 value tiles a warp); the warp
+//      holding the den column hands it over through shared memory and
+//      every warp divides its own tiles.
+// The next query tile arrives by cp.async while this one contracts. The
+// feature sums finish inside the block: no second pass, no atomics.
 //
-// What bounds it on the card: operations, as for rm_fused_state (the
-// featurize of every query row and the num product, 2 F dv per row, on the
-// fp32 CUDA cores). Grid = BH x ceil(T / 64) x ceil(dv / 128); each block
-// runs every feature tile, so there is no tail across blocks. wgmma tiles
-// are later work.
+// A slab or state too large for shared memory (a wide d or F) is brought
+// in chunks of column tiles for every query tile; the sums stay in the
+// same registers.
 //
-// Layouts: q [BH, T, d] fp32 or bf16; S [BH, F, dv], n [BH, F] fp32; w
-// [kdeg, F, d] of q's type; col_deg [F] int32; col_scale [F] fp32 -> out
-// [BH, T, dv] fp32. T, F and dv are ragged (masked).
-#include "rm_featurize.cuh"
+// What bounds it on the card: operations (the featurize of every query
+// row, 2 d per used slot, and the numerator and denominator, 2 F (dv + 1)
+// per row) on the tensor cores, 3xTF32 for fp32 and bf16 mma for the bf16
+// featurize. Shared memory holds one block an SM.
+//
+// Layouts: q [BH, T, d] fp32 or bf16; S [BH, F, dv], n [BH, F] fp32; slab
+// [rows, d] of q's type, tile_row0 [n_ct + 1], class_tiles, col_deg /
+// col_scale [8 n_ct] (noncausal.pack_noncausal) -> out [BH, T, dv] fp32.
+// T, F, d and dv are ragged (masked).
+#include <string.h>
+
+#include "rm_featurize_mma.cuh"
 
 namespace {
 
-constexpr int kColSlots = 8;                 // value columns a thread: 8 x 16
-constexpr int kMaxDvBlock = 16 * kColSlots;  // value columns a block
-constexpr int kLdz = rmf::kTile + 1;         // padded row of the zq tile
+using rmm::kRows;
+using rmm::kThreads;
+using rmm::kWarps;
+using rmm::Sched;
 
 __device__ __forceinline__ float clamp_den(float den, float eps) {
   return fabsf(den) < eps ? (den >= 0.f ? eps : -eps) : den;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(rmf::kThreads)
-rm_fused_apply_kernel(const T* __restrict__ q, const float* __restrict__ s_in,
-                      const float* __restrict__ n_in,
-                      const T* __restrict__ w,
-                      const int* __restrict__ col_deg,
-                      const float* __restrict__ col_scale,
-                      float* __restrict__ out, int T_len, int d, int dv,
-                      int kdeg, int F, int dv_block, float eps) {
-  extern __shared__ float smem[];
-  float* stage = smem;                              // featurize staging
-  float* zq = stage + rmf::kStageFloats;            // [kTile][kLdz]
-  float* ss = zq + rmf::kTile * kLdz;               // [kTile][dv_block]
-  float* ns = ss + rmf::kTile * dv_block;           // [kTile]
-  float* dens = ns + rmf::kTile;                    // [kTile]
-
-  const int t0 = blockIdx.y * rmf::kTile;
-  const int nrows = min(rmf::kTile, T_len - t0);
-  const int dv0 = blockIdx.z * dv_block;
-  const int ncols = min(dv_block, dv - dv0);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const size_t row0 = (size_t)blockIdx.x * T_len + t0;
-  const size_t srow0 = (size_t)blockIdx.x * F;
-
-  float num[4][kColSlots];
+// acc[ni] += Z [S | n] over ksteps * 8 features for the warp's output
+// tiles: query tile wm = warp % 4 by value tiles n = warp / 4 + 4 ni (an
+// index past the last tile is clamped to it and never stored). A (m =
+// query, k = feature) is Z, B (k = feature, n = column) the state rows;
+// the three 3xTF32 terms go in three passes over the warp's tiles.
+__device__ __forceinline__ void contract(const float* zs, int ldz,
+                                         const float* ss, int ldb,
+                                         int ksteps, int nt,
+                                         float acc[rmm::kApplyNI][4]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* za = zs + (16 * (warp % 4) + rmm::ldsm_a_row(lane)) * ldz +
+                    4 * rmm::ldsm_a_half(lane);
+  int noff[rmm::kApplyNI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+    noff[ni] = 8 * min(warp / 4 + 4 * ni, nt - 1);
+#pragma unroll 2
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k0 = 8 * ks;
+    uint32_t a[4], ah[4], al[4], bh[rmm::kApplyNI][2], bl[rmm::kApplyNI][2];
+    rmm::ldsm_x4(a, za + k0);
+    rmm::split_words<4>(a, ah, al);
 #pragma unroll
-    for (int jj = 0; jj < kColSlots; ++jj) num[i][jj] = 0.f;
-  float den = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += rmf::kTile) {
-    const int nf = min(rmf::kTile, F - f0);
-    float acc[4][4];
-    rmf::featurize_tile<T>(q + row0 * d, d, nrows, d, w, kdeg, F, col_deg,
-                           col_scale, f0, stage, acc);
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+      rmm::frag_b(ss + k0 * ldb + noff[ni], ldb, 1, lane, bh[ni], bl[ni]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+      rmm::mma_tf32(acc[ni], al, bh[ni]);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) zq[r * kLdz + tx + 16 * jj] = acc[i][jj];
-    }
-    for (int e = tid; e < rmf::kTile * dv_block; e += rmf::kThreads) {
-      const int fr = e / dv_block;
-      const int c = e % dv_block;
-      ss[e] = (fr < nf && c < ncols) ? s_in[(srow0 + f0 + fr) * dv + dv0 + c] : 0.f;
-    }
-    if (tid < rmf::kTile) ns[tid] = tid < nf ? n_in[srow0 + f0 + tid] : 0.f;
-    __syncthreads();
-    for (int f = 0; f < nf; ++f) {
-      float a[4];
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+      rmm::mma_tf32(acc[ni], ah, bl[ni]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = zq[(ty + 16 * i) * kLdz + f];
-#pragma unroll
-      for (int jj = 0; jj < kColSlots; ++jj) {
-        if (16 * jj < dv_block) {                   // uniform in the block
-          const float b = ss[f * dv_block + tx + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) num[i][jj] = fmaf(a[i], b, num[i][jj]);
-        }
-      }
-    }
-    if (tid < rmf::kTile)
-      for (int f = 0; f < nf; ++f) den = fmaf(zq[tid * kLdz + f], ns[f], den);
-    // the next tile rewrites zq, ss and ns (and a depth-0 featurize has no
-    // barrier of its own)
-    __syncthreads();
-  }
-
-  if (tid < rmf::kTile) dens[tid] = clamp_den(den, eps);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r < nrows) {
-      const float dn = dens[r];
-#pragma unroll
-      for (int jj = 0; jj < kColSlots; ++jj) {
-        const int c = tx + 16 * jj;
-        if (c < ncols) out[(row0 + r) * dv + dv0 + c] = num[i][jj] / dn;
-      }
-    }
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+      rmm::mma_tf32(acc[ni], ah, bh[ni]);
   }
 }
 
-template <typename T>
+// Rows [f0, f0 + rows) of [S | n | 0] for value columns [c0, c0 + w): S in
+// columns [0, w) (by cp.async when vec: w and the row stride in whole 16
+// bytes), n in column w, zeros up to 8 nt; rows past F are zero.
+__device__ __forceinline__ void load_state(float* ss, int ldb,
+                                           const float* __restrict__ s_bh,
+                                           const float* __restrict__ n_bh,
+                                           int f, int dv, int w, int nt,
+                                           int f0, int rows, bool vec) {
+  const int first = vec ? w : 0;         // the columns of the plain path
+  if (vec)
+    rmm::load_rows(ss, ldb, s_bh + static_cast<size_t>(f0) * dv, dv, rows,
+                   f - f0, w, true);
+  const int cols = 8 * nt - first;
+  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+    const int r = e / cols;
+    const int c = first + e - r * cols;
+    const int fr = f0 + r;
+    float val = 0.f;
+    if (fr < f) {
+      if (c < w)
+        val = __ldg(s_bh + static_cast<size_t>(fr) * dv + c);
+      else if (c == w)
+        val = __ldg(n_bh + fr);
+    }
+    ss[r * ldb + c] = val;
+  }
+}
+
+template <typename T, bool kExactW>
+__global__ void __launch_bounds__(kThreads, 1)
+rm_fused_apply_kernel(const T* __restrict__ q,
+                      const float* __restrict__ s_in,
+                      const float* __restrict__ n_in,
+                      const T* __restrict__ slab,
+                      const int* __restrict__ tile_row0,
+                      const int* __restrict__ class_tiles,
+                      const int* __restrict__ col_deg,
+                      const float* __restrict__ col_scale,
+                      float* __restrict__ out, const Sched s, float eps,
+                      bool vec_x, bool vec_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const rmm::Smem lay = rmm::smem_layout<T>(s, true);
+  T* slab_s = reinterpret_cast<T*>(smem + lay.slab);
+  T* xs = reinterpret_cast<T*>(smem + lay.x);
+  float* ss = reinterpret_cast<float*>(smem + lay.b);
+  float* zs = reinterpret_cast<float*>(smem + lay.z);
+  float* dens = reinterpret_cast<float*>(smem + lay.den);
+
+  int blk = blockIdx.x;
+  const int dvg = blk % s.n_dvgroups;
+  blk /= s.n_dvgroups;
+  const int split = blk % s.splits;
+  const int bh = blk / s.splits;
+
+  const int c0 = dvg * s.dv_per_group;
+  const int w = min(s.dv_per_group, s.dv - c0);
+  const int nt = (w + 1 + 7) / 8;                   // value tiles + den
+  const int tiles = (s.t + kRows - 1) / kRows;
+  const int tile0 = split * s.tiles_per_split;
+  const int tile1 = min(tiles, tile0 + s.tiles_per_split);
+  const int total_rows = __ldg(tile_row0 + s.n_ct);
+  const bool one_chunk = s.n_ct <= s.chunk_ct && total_rows <= s.slab_cap;
+
+  const T* qb = q + static_cast<size_t>(bh) * s.t * s.d;
+  const float* s_bh = s_in + static_cast<size_t>(bh) * s.f * s.dv + c0;
+  const float* n_bh = n_in + static_cast<size_t>(bh) * s.f;
+  float* ob = out + static_cast<size_t>(bh) * s.t * s.dv + c0;
+
+  rmm::zero_cols(xs, s.ldx, kRows, s.d, s.dp);
+  rmm::zero_cols(slab_s, s.ldx, s.slab_cap, s.d, s.dp);
+  if (one_chunk) {
+    rmm::load_rows(slab_s, s.ldx, slab, s.d, total_rows, total_rows, s.d,
+                   vec_x);
+    load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt, 0,
+               s.n_ct * rmm::kColTile, vec_s);
+  }
+  if (tile0 < tile1)
+    rmm::load_rows(xs, s.ldx, qb + static_cast<size_t>(tile0) * kRows * s.d,
+                   s.d, kRows, min(kRows, s.t - tile0 * kRows), s.d, vec_x);
+  rmm::cp_async_commit();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % 4, wn = warp / 4;
+
+  for (int tile = tile0; tile < tile1; ++tile) {
+    const int r0 = tile * kRows;
+    const int nrows = min(kRows, s.t - r0);
+    float acc[rmm::kApplyNI][4];
+#pragma unroll
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[ni][j] = 0.f;
+    rmm::cp_async_wait<0>();              // this query tile (and the slab)
+    __syncthreads();
+    if (one_chunk) {
+      rmm::featurize_tile<T, kExactW>(xs, s.ldx, s.dp, slab_s, s.ldx, 0, tile_row0,
+                             class_tiles, col_deg, col_scale, 0, s.n_ct, 0,
+                             zs, s.ldz, nullptr, kRows);
+      __syncthreads();                    // Z is complete, xs is free
+      if (tile + 1 < tile1)
+        rmm::load_rows(xs, s.ldx, qb + static_cast<size_t>(r0 + kRows) * s.d,
+                       s.d, kRows, min(kRows, s.t - r0 - kRows), s.d, vec_x);
+      rmm::cp_async_commit();
+      contract(zs, s.ldz, ss, s.ldb, s.n_ct, nt, acc);
+    } else {
+      // the slab or the state does not fit: chunk by chunk of column tiles
+      for (int ca = 0; ca < s.n_ct;) {
+        const int cb = rmm::chunk_end(tile_row0, ca, s.n_ct, s.chunk_ct,
+                                      s.slab_cap);
+        const int ra = __ldg(tile_row0 + ca);
+        const int rows = __ldg(tile_row0 + cb) - ra;
+        __syncthreads();                  // the last chunk's readers are done
+        rmm::load_rows(slab_s, s.ldx, slab + static_cast<size_t>(ra) * s.d,
+                       s.d, rows, rows, s.d, vec_x);
+        load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt,
+                   ca * rmm::kColTile, (cb - ca) * rmm::kColTile, vec_s);
+        rmm::cp_async_commit();
+        rmm::cp_async_wait<0>();
+        __syncthreads();
+        rmm::featurize_tile<T, kExactW>(xs, s.ldx, s.dp, slab_s, s.ldx, ra, tile_row0,
+                               class_tiles, col_deg, col_scale, ca, cb, ca,
+                               zs, s.ldz, nullptr, kRows);
+        __syncthreads();
+        if (cb == s.n_ct && tile + 1 < tile1)
+          rmm::load_rows(xs, s.ldx,
+                         qb + static_cast<size_t>(r0 + kRows) * s.d, s.d,
+                         kRows, min(kRows, s.t - r0 - kRows), s.d, vec_x);
+        rmm::cp_async_commit();
+        contract(zs, s.ldz, ss, s.ldb, cb - ca, nt, acc);
+        ca = cb;
+      }
+    }
+    // the denominators: column w of the product, held by one lane pair of
+    // the warps owning value tile w / 8
+    const int nd = w / 8, ed = w % 8;
+#pragma unroll
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni) {
+      if (wn + 4 * ni == nd && 2 * t4 == (ed & ~1)) {
+        // selects, not an index: acc stays in registers
+        const bool odd = ed & 1;
+        const int row = 16 * wm + g;
+        dens[row] = clamp_den(odd ? acc[ni][1] : acc[ni][0], eps);
+        dens[row + 8] = clamp_den(odd ? acc[ni][3] : acc[ni][2], eps);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ni = 0; ni < rmm::kApplyNI; ++ni) {
+      const int n = wn + 4 * ni;
+      if (n >= nt) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * wm + g + 8 * h;
+        if (row >= nrows) continue;
+        const float dn = dens[row];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t4 + e;
+          if (c < w)
+            ob[static_cast<size_t>(r0 + row) * s.dv + c] =
+                acc[ni][2 * h + e] / dn;
+        }
+      }
+    }
+  }
+  rmm::cp_async_wait<0>();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, bool kExactW>
 int launch(const void* q, const float* s_in, const float* n_in,
-           const void* w, const int* col_deg, const float* col_scale,
-           float* out, int BH, int T_len, int d, int dv, int kdeg, int F,
-           int dv_block, float eps, int smem_bytes, cudaStream_t stream) {
+           const void* slab, const int* tile_row0, const int* class_tiles,
+           const int* col_deg,
+           const float* col_scale, float* out, const Sched& s, float eps,
+           cudaStream_t stream) {
+  if (rmm::smem_layout<T>(s, true).total !=
+      static_cast<size_t>(s.smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  const bool vec_x = (s.d * sizeof(T)) % 16 == 0 && aligned16(q) &&
+                     aligned16(slab);
+  const bool vec_s = s.dv % 4 == 0 && aligned16(s_in);
   cudaError_t err = cudaFuncSetAttribute(
-      rm_fused_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      rm_fused_apply_kernel<T, kExactW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(BH, (T_len + rmf::kTile - 1) / rmf::kTile,
-            (dv + dv_block - 1) / dv_block);
-  rm_fused_apply_kernel<T><<<grid, rmf::kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), s_in, n_in, static_cast<const T*>(w),
-      col_deg, col_scale, out, T_len, d, dv, kdeg, F, dv_block, eps);
+  const long long blocks =
+      static_cast<long long>(s.bh) * s.splits * s.n_dvgroups;
+  rm_fused_apply_kernel<T, kExactW><<<static_cast<unsigned>(blocks), kThreads,
+                             s.smem_bytes, stream>>>(
+      static_cast<const T*>(q), s_in, n_in, static_cast<const T*>(slab),
+      tile_row0, class_tiles, col_deg, col_scale, out, s, eps, vec_x, vec_s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q and w). dv_block (a multiple of 16, at most
-// 128) and smem_bytes come from repro_torch.kernels.common
-// noncausal_blocks. Returns cudaGetLastError().
+// sched: n_sched ints, the fields of repro_torch.kernels.common
+// NoncausalSchedule. dtype (q and the slab): 0 = fp32, 1 = bf16, 2 = fp32
+// with every slab value a TF32 number. Returns cudaGetLastError().
 extern "C" int rm_fused_apply_launch(
-    const void* q, const float* s_in, const float* n_in, const void* w,
-    const int* col_deg, const float* col_scale, float* out, int BH,
-    int T_len, int d, int dv, int kdeg, int F, int dv_block, float eps,
-    int smem_bytes, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH < 1 || T_len < 1 || F < 1 || dv < 1 || dv_block < 16 ||
-      dv_block > kMaxDvBlock || dv_block % 16 != 0)
+    const void* q, const float* s_in, const float* n_in, const void* slab,
+    const int* tile_row0, const int* class_tiles, const int* col_deg,
+    const float* col_scale, float* out, const int* sched, int n_sched,
+    float eps, int dtype, void* stream) {
+  if (n_sched != rmm::kSchedFields) return (int)cudaErrorInvalidValue;
+  Sched s;
+  memcpy(&s, sched, sizeof(Sched));
+  if (s.bh < 1 || s.t < 1 || s.f < 1 || s.dv < 1 || s.d < 1 ||
+      s.n_ct != (s.f + rmm::kColTile - 1) / rmm::kColTile ||
+      s.splits < 1 || s.tiles_per_split < 1 || s.n_fgroups != 1 ||
+      s.n_dvgroups < 1 || s.dv_per_group < 1 || s.chunk_ct < 1 ||
+      s.b_rows != s.chunk_ct * rmm::kColTile ||
+      (s.dv_per_group + 8) / 8 > 4 * rmm::kApplyNI)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, s_in, n_in, w, col_deg, col_scale, out, BH,
-                         T_len, d, dv, kdeg, F, dv_block, eps, smem_bytes, s);
+    return launch<float, false>(q, s_in, n_in, slab, tile_row0, class_tiles,
+                                col_deg, col_scale, out, s, eps, st);
+  if (dtype == 2)
+    return launch<float, true>(q, s_in, n_in, slab, tile_row0, class_tiles,
+                               col_deg, col_scale, out, s, eps, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, s_in, n_in, w, col_deg, col_scale, out,
-                                 BH, T_len, d, dv, kdeg, F, dv_block, eps,
-                                 smem_bytes, s);
+    return launch<__nv_bfloat16, false>(q, s_in, n_in, slab, tile_row0,
+                                        class_tiles, col_deg, col_scale, out,
+                                        s, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,8 +15,11 @@ chunk and value slice, and the tensor_sketch kernel's row tile (the
 reference's ``get_batch_block``), are chosen below. The chunked attention
 kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
 shared memory. The two non-causal kernels (``csrc/rm_fused_state.cu``, B3,
-and ``csrc/rm_fused_apply.cu``, B4) take one 64-wide feature or query tile
-a block and a value slice of up to 128 columns (:func:`noncausal_blocks`).
+and ``csrc/rm_fused_apply.cu``, B4) run on the tensor cores
+(``csrc/rm_featurize_mma.cuh``: 512 threads, a 64-row tile, the omega slab
+resident in shared memory); a block walks several row tiles of one
+batch*head row, and :func:`noncausal_schedule` picks how many, the value
+and feature groups and the shared-memory layout.
 The ctr kernel (``csrc/ctr_feature.cu``, B7) takes B1's 64 x 64 tile with
 three staged slices (x, wr, wi: 25,344 bytes of static shared memory), so
 it needs no choice either; the structured kernel (``csrc/structured_feature.cu``, B8) takes
@@ -25,7 +28,8 @@ There is no autotune cache yet.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 __all__ = [
     "SMEM_PER_BLOCK",
@@ -36,7 +40,8 @@ __all__ = [
     "pick_attention_blocks",
     "sketch_smem_bytes",
     "pick_sketch_rows",
-    "noncausal_blocks",
+    "NoncausalSchedule",
+    "noncausal_schedule",
     "STRUCTURED_MAX_DPAD",
     "check_structured_d_pad",
     "pick_structured_rows",
@@ -55,10 +60,17 @@ NUM_SMS = 132
 # Row tiles the tensor_sketch kernel is compiled for (16 rows x 1, 2 or 4
 # rows a thread).
 SKETCH_ROW_TILES = (64, 32, 16)
-# Value columns one non-causal block accumulates: 16 thread columns x 8
-# register slots (``kColSlots`` in csrc/rm_fused_state.cu and
-# csrc/rm_fused_apply.cu).
-NONCAUSAL_DV_BLOCK = 128
+# The non-causal kernels B3 and B4 (csrc/rm_featurize_mma.cuh): 64-row
+# tiles, 8-column feature tiles (one mma n-tile), and a 4 x 4 grid of warps
+# over the (16 x 8) accumulator tiles of the contraction: B3 holds up to
+# 3 x 3 state tiles a warp (``kStateMI``, ``kStateNI``), B4 one query tile
+# by up to 3 value tiles (``kApplyNI``). So a block takes at most 12 value
+# tiles (its value columns plus B3's ones column or B4's n column) and B3
+# at most 12 feature tiles of 16.
+NONCAUSAL_ROWS = 64
+NONCAUSAL_COL_TILE = 8
+NONCAUSAL_MAX_VALUE_TILES = 12
+STATE_MAX_FEATURE_TILES = 12
 # Elements (rows x Hadamard size) one structured block may hold: 32 fp32
 # register slots a thread of 256 and a 32 KB shared-memory butterfly buffer
 # (``kMaxElems`` in csrc/structured_feature.cu). A block holds at least
@@ -160,24 +172,196 @@ def pick_sketch_rows(c_max: int, b: int, n_blocks: int) -> int:
     return fits[-1]
 
 
-def noncausal_blocks(dv: int) -> Tuple[int, int]:
-    """``(dv_block, smem_bytes)`` for the non-causal kernels B3 and B4.
+class NoncausalSchedule(NamedTuple):
+    """How B3 (``csrc/rm_fused_state.cu``) or B4 (``csrc/rm_fused_apply.cu``)
+    cuts its work and its shared memory. The kernels read these fields as
+    one int array, in this order (``struct Sched`` in
+    ``csrc/rm_featurize_mma.cuh``).
 
-    A block accumulates ``[64, dv_block]`` of S (B3) or of the numerator
-    (B4) in registers, one 64-row tile by 16 thread columns of up to 8
-    values each, so ``dv_block`` is ``dv`` rounded up to 16, at most
-    :data:`NONCAUSAL_DV_BLOCK` (a wider ``dv`` takes several value slices,
-    each featurizing again). Shared memory holds the featurize staging
-    area, the 64 x 64 feature tile (a column of padding against bank
-    conflicts), the 64-row value or state tile and, for B4, ``n`` and the
-    denominators of the tile: 54,528 bytes at ``dv = 80``, 66,816 at 128,
-    so three blocks or more fit an SM's 227 KB (registers allow two).
+    Grid: ``bh * splits * n_fgroups * n_dvgroups`` blocks of 512 threads.
+    A block walks ``tiles_per_split`` 64-row tiles of one batch*head row
+    (B3: keys, its partial state summed by a second pass when ``splits >
+    1``; B4: queries), for the column tiles ``[g * ct_per_group, ...)`` of
+    its feature group and the value columns ``[h * dv_per_group, ...)`` of
+    its value group. Shared memory, in bytes and in this order: the slab
+    (``slab_cap`` rows of the input type) and the 64-row x tile, both with
+    rows of ``ldx`` elements (``d`` padded to ``dp`` with zeros), the B operand of the
+    contraction (``b_rows`` rows of ``ldb`` fp32: B3's value tile plus a
+    ones column, B4's state rows plus an ``n`` column), the feature tile
+    ``Z`` (64 rows of ``ldz`` fp32) and, for B4, 64 denominators. A feature
+    group whose slab rows exceed ``slab_cap`` (or, for B4, whose column
+    tiles exceed ``chunk_ct``) is featurized in chunks that reload the slab
+    for every row tile.
     """
-    dv_block = min(round_up(max(dv, 1), 16), NONCAUSAL_DV_BLOCK)
-    floats = (2 * FEATURE_TILE * (STAGE_K + 1)
-              + FEATURE_TILE * (FEATURE_TILE + 1)
-              + FEATURE_TILE * dv_block + 2 * FEATURE_TILE)
-    return dv_block, 4 * floats
+    bh: int
+    t: int
+    d: int
+    dv: int
+    f: int
+    n_ct: int
+    splits: int
+    tiles_per_split: int
+    ct_per_group: int
+    n_fgroups: int
+    dv_per_group: int
+    n_dvgroups: int
+    dp: int
+    ldx: int
+    slab_cap: int
+    ldb: int
+    b_rows: int
+    ldz: int
+    chunk_ct: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.bh * self.splits * self.n_fgroups * self.n_dvgroups
+
+
+def _ld_rows(n: int) -> int:
+    """Row stride (elements) >= n, = 4 mod 8: the reads of an mma fragment
+    (8 rows x 4 consecutive 32-bit words) then hit 32 distinct banks."""
+    return n + (4 - n) % 8
+
+
+def _ld_cols(n: int) -> int:
+    """Row stride (fp32) >= n, = 8 or 24 mod 32: the reads of a transposed
+    fragment (4 rows x 8 consecutive words) hit 32 distinct banks."""
+    while n % 32 not in (8, 24):
+        n += 1
+    return n
+
+
+def _round16(nbytes: int) -> int:
+    return round_up(nbytes, 16)
+
+
+def _x_layout(d: int, item: int) -> Tuple[int, int]:
+    """``(dp, ldx)``: the MMA depth pads d to 8 (3xTF32 m16n8k8) or 16
+    (bf16 m16n8k16); the row stride adds 4 words against bank conflicts."""
+    if item == 4:
+        dp = round_up(max(d, 1), 8)
+        return dp, dp + 4
+    dp = round_up(max(d, 1), 16)
+    return dp, dp + 8
+
+
+def _value_groups(dv: int, max_ntiles: int) -> Tuple[int, int, int]:
+    """``(dv_per_group, n_dvgroups, n8 tiles a group)``: value columns a
+    block takes, at most ``max_ntiles`` mma n-tiles with the extra column
+    (B3's ones column, B4's n), groups of equal width rounded to 8."""
+    full = -(-(dv + 1) // 8)
+    groups = -(-full // max_ntiles)
+    width = round_up(-(-dv // groups), 8)
+    return width, -(-dv // width), -(-(width + 1) // 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_splits(units: int, tiles: int) -> Tuple[int, int]:
+    """``(splits, tiles_per_split)`` along the row axis for ``units``
+    independent (batch*head, group) items of ``tiles`` 64-row tiles each:
+    at least two waves of blocks on :data:`NUM_SMS` SMs where the tiles
+    allow (one block an SM: a block takes most of the shared memory), never
+    more splits than tiles, and the fewest waves x (tiles a block + one for
+    its fixed cost: slab load, epilogue, its share of a second pass); ties
+    go to fewer splits."""
+    lo = min(tiles, max(1, -(-2 * NUM_SMS // units)))
+    best = None
+    for s in range(lo, tiles + 1):
+        per = -(-tiles // s)
+        s_eff = -(-tiles // per)
+        cost = -(-units * s_eff // NUM_SMS) * (per + 1)
+        if best is None or (cost, s_eff) < best[0]:
+            best = ((cost, s_eff), (s_eff, per))
+    return best[1]
+
+
+def _slab_rows(tile_rows, ct0: int, ct1: int) -> int:
+    return tile_rows[min(ct1, len(tile_rows) - 1)] - tile_rows[ct0]
+
+
+@functools.lru_cache(maxsize=256)
+def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
+                       tile_rows: Sequence[int],
+                       item: int) -> NoncausalSchedule:
+    """The :class:`NoncausalSchedule` of kernel ``kind`` (``"state"``, B3,
+    or ``"apply"``, B4) at ``[bh, t, d]`` rows, ``dv`` values, ``f``
+    features, the slab's ``tile_rows`` (``NoncausalPack.tile_rows``) and
+    input element size ``item`` (4 fp32, 2 bf16).
+
+    B3 holds its ``[features, dv + 1]`` state in registers, at most
+    :data:`STATE_MAX_FEATURE_TILES` x :data:`NONCAUSAL_MAX_VALUE_TILES`
+    (16 x 8) tiles a block, so a wide ``dv`` splits into value groups and a
+    wide F into feature groups (each group featurizes again); B4 holds
+    ``[64, dv + 1]`` outputs, so only ``dv`` groups. Both
+    take :data:`SMEM_PER_BLOCK` bytes of shared memory at most; a slab that
+    does not fit is tiled in chunks of column tiles. Memoized: the encoder
+    asks once per layer with the same shapes (``tile_rows`` a tuple).
+
+    The depth d is not tiled: the 64-row x tile and one column tile's slab
+    rows (8 x its depth rows of d) must fit together. For the rm plans of
+    depth 5 (the hubert and qwen3 heads use d 80 and 128) at dv 80 that
+    holds up to d 384 for B3 and 536 for B4 in fp32, 768 and 1072 in
+    bf16.
+
+    Raises:
+        ValueError: one column tile's slab rows do not fit beside the rest
+            even alone (d past the limit above).
+    """
+    if kind not in ("state", "apply"):
+        raise ValueError(f"kind must be 'state' or 'apply', got {kind!r}")
+    n_ct = len(tile_rows) - 1
+    if n_ct != -(-f // NONCAUSAL_COL_TILE):
+        raise ValueError(f"{n_ct} column tiles do not cover F={f}")
+    tiles = max(1, -(-t // NONCAUSAL_ROWS))
+    dp, ldx = _x_layout(d, item)
+    x_bytes = _round16(NONCAUSAL_ROWS * ldx * item)
+    max_tile = max((tile_rows[c + 1] - tile_rows[c] for c in range(n_ct)),
+                   default=0)
+    width, n_dvg, ntiles = _value_groups(dv, NONCAUSAL_MAX_VALUE_TILES)
+    ldb = _ld_cols(8 * ntiles)
+    if kind == "state":
+        ct_per_group = max(1, min(n_ct, 2 * STATE_MAX_FEATURE_TILES))
+        n_fg = max(1, -(-n_ct // ct_per_group))
+        ct_per_group = max(1, -(-n_ct // n_fg))
+        b_rows = NONCAUSAL_ROWS
+        ldz = _ld_cols(16 * -(-ct_per_group // 2))
+        chunk_ct = ct_per_group
+        fixed = x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
+        need = max(_slab_rows(tile_rows, g * ct_per_group,
+                              (g + 1) * ct_per_group) for g in range(n_fg))
+        cap = (SMEM_PER_BLOCK - fixed - 16) // (ldx * item)
+    else:
+        ct_per_group, n_fg = max(n_ct, 1), 1
+        need = tile_rows[-1]
+        # the most column tiles a chunk may take (their state rows and Z
+        # columns) with room left for one column tile's slab rows
+        chunk_ct = ct_per_group
+        while True:
+            b_rows = NONCAUSAL_COL_TILE * chunk_ct
+            ldz = _ld_rows(b_rows)
+            fixed = (x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
+                     + NONCAUSAL_ROWS * 4)
+            cap = (SMEM_PER_BLOCK - fixed - 16) // (ldx * item)
+            if cap >= max_tile or chunk_ct == 1:
+                break
+            chunk_ct = -(-chunk_ct // 2)
+    slab_cap = min(need, cap)
+    if slab_cap < max_tile:
+        raise ValueError(
+            f"non-causal kernels: a column tile's {max_tile} slab rows of "
+            f"d={d} do not fit {SMEM_PER_BLOCK} bytes of shared memory beside the "
+            f"rest of the block")
+    smem = _round16(slab_cap * ldx * item) + fixed
+    units = bh * n_fg * n_dvg
+    splits, per = _pick_splits(units, tiles)
+    return NoncausalSchedule(
+        bh=bh, t=t, d=d, dv=dv, f=f, n_ct=n_ct, splits=splits,
+        tiles_per_split=per, ct_per_group=ct_per_group, n_fgroups=n_fg,
+        dv_per_group=width, n_dvgroups=n_dvg, dp=dp, ldx=ldx,
+        slab_cap=slab_cap, ldb=ldb, b_rows=b_rows, ldz=ldz,
+        chunk_ct=chunk_ct, smem_bytes=smem)
 
 
 def check_structured_d_pad(m: int) -> None:

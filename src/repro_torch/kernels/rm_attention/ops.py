@@ -48,9 +48,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.common import (
     FEATURE_TILE,
     attention_smem_bytes,
-    noncausal_blocks,
+    noncausal_schedule,
     pick_attention_blocks,
     round_up,
+)
+from repro_torch.kernels.rm_attention.noncausal import (
+    NoncausalPack,
+    pack_noncausal,
 )
 from repro_torch.kernels.rm_attention.ref import (
     causal_chunked,
@@ -84,10 +88,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
              + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _CHUNKED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_STATE_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-_APPLY_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+_SCHED = ctypes.POINTER(ctypes.c_int)
+_STATE_ARGTYPES = ([ctypes.c_void_p] * 12
+                   + [_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_APPLY_ARGTYPES = ([ctypes.c_void_p] * 9
+                   + [_SCHED, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
 
 
@@ -334,14 +339,53 @@ def rm_attention_fused_prefill(
                            plain_chunk=chunk)
 
 
-def rm_fused_state(k, v, kvalid, w, col_deg, col_scale):
+def _slab_for(op: str, x, w, col_deg, col_scale,
+              pack: Optional[NoncausalPack]) -> NoncausalPack:
+    """The non-causal kernels' slab: ``pack`` as given (made once per
+    weight set by ``models.attention.rm_packed_weights``), else made from
+    ``w`` now."""
+    if pack is None:
+        pack = pack_noncausal(w, col_deg, col_scale)
+    if pack.slab.dtype != x.dtype or pack.slab.device != x.device or \
+            pack.slab.shape[1] != x.shape[-1] or \
+            pack.num_features != w.shape[1]:
+        raise ValueError(
+            f"{op}: the slab ({pack.slab.dtype}, {pack.slab.device}, d "
+            f"{pack.slab.shape[1]}, F {pack.num_features}) does not match "
+            f"the rows ({x.dtype}, {x.device}, d {x.shape[-1]}) and w "
+            f"{tuple(w.shape)}")
+    return pack
+
+
+def _sched_array(sched):
+    return (ctypes.c_int * len(sched))(*sched)
+
+
+def _slab_code(x, pack: NoncausalPack) -> int:
+    """The non-causal launchers' dtype code: 0 fp32, 1 bf16, 2 fp32 rows
+    with a slab of TF32 numbers (one 3xTF32 term fewer)."""
+    if x.dtype == torch.float32 and pack.tf32_exact:
+        return 2
+    return _DTYPE_CODE[x.dtype]
+
+
+def rm_fused_state(k, v, kvalid, w, col_deg, col_scale, *,
+                   pack: Optional[NoncausalPack] = None):
     """The key state of non-causal attention (kernel B3): ``(S [BH, F,
     dv], n [BH, F])`` of ``zk = Z(k) * kvalid`` over all T keys — the
     kernel on a CUDA tensor, ``ref.rm_fused_state_ref`` on a CPU tensor.
 
     ``k [BH, T, d]`` pre-scaled rows (fp32 or bf16, ``w``'s type), ``v
     [BH, T, dv]``, ``kvalid [BH, T]`` (1.0 real key, 0.0 padding), packed
-    ``w [kdeg, F, d]``, ``col_deg``/``col_scale [F]``.
+    ``w [kdeg, F, d]``, ``col_deg``/``col_scale [F]``; ``pack`` the slab
+    of ``w`` (``noncausal.pack_noncausal``), made here when not given. The
+    kernel's split of the keys is ``rm_fused_state.last_schedule``
+    (``kernels.common.noncausal_schedule``).
+
+    Raises:
+        ValueError: on a CUDA tensor, a d too deep for the kernel's shared
+            memory (the limit in ``noncausal_schedule``: d 384 in fp32 for
+            the rm plans of depth 5).
     """
     _no_grad_check("rm_fused_state", k, v, w)
     bh, t, d = k.shape
@@ -361,37 +405,61 @@ def rm_fused_state(k, v, kvalid, w, col_deg, col_scale):
         return rm_fused_state_ref(k, v, kvalid, w, col_deg, col_scale)
     _check_cuda_operands("rm_fused_state", k, {"v": v, "kvalid": kvalid},
                          w)
-    dv_block, smem = noncausal_blocks(dv)
+    pack = _slab_for("rm_fused_state", k, w, col_deg, col_scale, pack)
+    sched = noncausal_schedule("state", bh, t, d, dv, f, pack.tile_rows,
+                               k.element_size())
     # v and kvalid enter in fp32 (a lossless upcast of bf16)
-    kc, wc = k.contiguous(), w.contiguous()
+    kc = k.contiguous()
     vf = v.float().contiguous()
     kval = kvalid.float().contiguous()
     s = torch.empty((bh, f, dv), dtype=torch.float32, device=dev)
     n = torch.empty((bh, f), dtype=torch.float32, device=dev)
+    s_part = n_part = None
+    if sched.splits > 1:
+        # the splits' partial states, summed in split order by the kernel's
+        # second pass
+        s_part = torch.empty((bh, sched.splits, f, dv), dtype=torch.float32,
+                             device=dev)
+        n_part = torch.empty((bh, sched.splits, f), dtype=torch.float32,
+                             device=dev)
     err = _launcher("rm_fused_state", "rm_fused_state_launch",
                     _STATE_ARGTYPES)(
-        kc.data_ptr(), vf.data_ptr(), kval.data_ptr(), wc.data_ptr(),
-        col_deg.data_ptr(), col_scale.data_ptr(), s.data_ptr(),
-        n.data_ptr(), bh, t, d, dv, kdeg, f, dv_block, smem,
-        _DTYPE_CODE[k.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        kc.data_ptr(), vf.data_ptr(), kval.data_ptr(), pack.slab.data_ptr(),
+        pack.tile_row0.data_ptr(), pack.class_tiles.data_ptr(),
+        pack.col_deg.data_ptr(),
+        pack.col_scale.data_ptr(), s.data_ptr(), n.data_ptr(),
+        None if s_part is None else s_part.data_ptr(),
+        None if n_part is None else n_part.data_ptr(),
+        _sched_array(sched), len(sched), _slab_code(k, pack),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rm_fused_state kernel launch failed: CUDA "
                            f"error {err}")
     rm_fused_state.launches += 1
+    rm_fused_state.last_schedule = sched
     return s, n
 
 
 rm_fused_state.launches = 0
+rm_fused_state.last_schedule = None
 
 
-def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float):
+def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float, *,
+                   pack: Optional[NoncausalPack] = None):
     """Non-causal outputs from a key state (kernel B4): ``Z(q) S /
     clamp(Z(q) n)`` ``[BH, T, dv]`` fp32 — the kernel on a CUDA tensor,
     ``ref.rm_fused_apply_ref`` on a CPU tensor.
 
     ``q [BH, T, d]`` pre-scaled rows (fp32 or bf16, ``w``'s type), ``s [BH,
     F, dv]`` and ``n [BH, F]`` from :func:`rm_fused_state`, packed ``w
-    [kdeg, F, d]``, ``col_deg``/``col_scale [F]``.
+    [kdeg, F, d]``, ``col_deg``/``col_scale [F]``; ``pack`` as for
+    :func:`rm_fused_state`. The kernel's split of the queries is
+    ``rm_fused_apply.last_schedule``.
+
+    Raises:
+        ValueError: on a CUDA tensor, a d too deep for the kernel's shared
+            memory (the limit in ``noncausal_schedule``: d 536 in fp32 for
+            the rm plans of depth 5).
     """
     _no_grad_check("rm_fused_apply", q, s, n, w)
     bh, t, d = q.shape
@@ -410,24 +478,30 @@ def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float):
     if dev.type == "cpu":
         return rm_fused_apply_ref(q, s, n, w, col_deg, col_scale, eps)
     _check_cuda_operands("rm_fused_apply", q, {"s": s, "n": n}, w)
-    dv_block, smem = noncausal_blocks(dv)
-    qc, wc = q.contiguous(), w.contiguous()
+    pack = _slab_for("rm_fused_apply", q, w, col_deg, col_scale, pack)
+    sched = noncausal_schedule("apply", bh, t, d, dv, f, pack.tile_rows,
+                               q.element_size())
+    qc = q.contiguous()
     sf, nf = s.float().contiguous(), n.float().contiguous()
     out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
     err = _launcher("rm_fused_apply", "rm_fused_apply_launch",
                     _APPLY_ARGTYPES)(
-        qc.data_ptr(), sf.data_ptr(), nf.data_ptr(), wc.data_ptr(),
-        col_deg.data_ptr(), col_scale.data_ptr(), out.data_ptr(), bh, t, d,
-        dv, kdeg, f, dv_block, float(eps), smem, _DTYPE_CODE[q.dtype],
+        qc.data_ptr(), sf.data_ptr(), nf.data_ptr(), pack.slab.data_ptr(),
+        pack.tile_row0.data_ptr(), pack.class_tiles.data_ptr(),
+        pack.col_deg.data_ptr(),
+        pack.col_scale.data_ptr(), out.data_ptr(), _sched_array(sched),
+        len(sched), float(eps), _slab_code(q, pack),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rm_fused_apply kernel launch failed: CUDA "
                            f"error {err}")
     rm_fused_apply.launches += 1
+    rm_fused_apply.last_schedule = sched
     return out
 
 
 rm_fused_apply.launches = 0
+rm_fused_apply.last_schedule = None
 
 
 def rm_attention_fused_noncausal(
@@ -441,18 +515,21 @@ def rm_attention_fused_noncausal(
     kvalid: Optional[torch.Tensor] = None,   # [B, T] 1.0 real / 0.0 padded
     chunk: int = 128,
     eps: float = 1e-4,
+    pack: Optional[NoncausalPack] = None,    # the slab of w, if made already
 ) -> torch.Tensor:            # [B, H, T, dv] fp32
     """Fused bidirectional RM attention: ``rm_attention_noncausal(Z(q),
     Z(k) * kvalid, v)`` without writing Z — kernel B3 for the key state,
     then kernel B4 for the outputs (their plain versions on CPU tensors).
+    Both kernels read the omegas from one slab (``pack``; made here from
+    ``w`` when not given).
 
     Neither T nor F is padded. The reference pads T to its chunk (keys
     with kvalid 0, query rows sliced off) and F to its feature block
     (degree-0, scale-0 columns); both kernels mask a ragged 64-row key or
-    query tile and treat every column past F in their ragged 64-column
-    tile as feature 0, so neither padding changes the result and both
-    kernels take the rows and the plan's ``w`` as they are. ``chunk`` is
-    kept for the reference's signature and not read.
+    query tile and give every column past F in their last 8-column tile
+    degree 0 and scale 0, so neither padding changes the result and both
+    kernels take the rows as they are. ``chunk`` is kept for the
+    reference's signature and not read.
     """
     _no_grad_check("the fused non-causal RM attention op", q, k, v, w)
     b, h, t, d = q.shape
@@ -463,11 +540,13 @@ def rm_attention_fused_noncausal(
     if kvalid is None:
         kvalid = torch.ones((b, t), dtype=torch.float32, device=dev)
     col_deg, col_scale = _columns(col_deg, col_scale, dev)
+    if dev.type == "cuda" and pack is None and w.shape[1]:
+        pack = pack_noncausal(w, col_deg, col_scale)
     kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
     s, n = rm_fused_state(k.reshape(b * h, t, d), v.reshape(b * h, t, dv),
-                          kval, w, col_deg, col_scale)
+                          kval, w, col_deg, col_scale, pack=pack)
     out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg, col_scale,
-                         eps)
+                         eps, pack=pack)
     return out.reshape(b, h, t, dv)
 
 

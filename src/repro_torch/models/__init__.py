@@ -4,6 +4,7 @@ from repro_torch.models.transformer import (
     forward,
     init_decode_cache,
     init_model,
+    loss_fn,
     prefill,
 )
 
@@ -14,5 +15,6 @@ __all__ = [
     "forward",
     "init_decode_cache",
     "init_model",
+    "loss_fn",
     "prefill",
 ]

@@ -38,6 +38,7 @@ from repro_torch.common.dtypes import resolve_precision
 from repro_torch.core import registry
 from repro_torch.core.maclaurin import ExponentialDotProductKernel
 from repro_torch.core.plan import plan_columns
+from repro_torch.kernels.rm_attention.noncausal import pack_noncausal
 from repro_torch.kernels.rm_attention.ops import (
     rm_attention_causal,
     rm_attention_decode_step,
@@ -156,15 +157,23 @@ def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
     rm map read, for ``"tensor_sketch"`` the list ``[wr, wi, mr, mi]``
     packed in fp32 from the hash tables and then rounded once, for
     ``"ctr"`` the list ``[wr, wi]`` and for ``"structured"`` ``[d1, d2]``
-    (values {0, +-1}, exact in either dtype). Worked out
-    once per weight set (``transformer.cast_params_to_compute`` calls
-    this); params that already hold ``rm_w`` come back unchanged."""
-    if "rm_w" in params:
+    (values {0, +-1}, exact in either dtype). A fused non-causal config (an
+    encoder) also gets ``rm_slab``: the same omegas laid out as the slab of
+    kernels B3 and B4 (``kernels.rm_attention.noncausal.pack_noncausal``).
+    Worked out once per weight set (``transformer.cast_params_to_compute``
+    calls this); params that already hold them come back unchanged."""
+    slab = not cfg.causal and rm_fuse_enabled(cfg)
+    if "rm_w" in params and (not slab or "rm_slab" in params):
         return params
     meta = rm_plan_for(cfg, cfg.resolved_head_dim)
-    dt = resolve_precision(cfg.rm.precision).compute_dtype
-    return {**params, "rm_w": rm_estimator(cfg).pack(meta, params["rm_est"],
-                                                      dt)}
+    out = dict(params)
+    if "rm_w" not in out:
+        dt = resolve_precision(cfg.rm.precision).compute_dtype
+        out["rm_w"] = rm_estimator(cfg).pack(meta, params["rm_est"], dt)
+    if slab:
+        out["rm_slab"] = pack_noncausal(out["rm_w"], meta.column_degrees(),
+                                        meta.column_scales())
+    return out
 
 
 def _rm_fused_operands(params: Params, cfg: ModelConfig, meta, q, k):
@@ -260,10 +269,14 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     v_t = v.transpose(1, 2)
     if rm_fuse_enabled(cfg):
         qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
-        fused_op = (rm_attention_fused_causal if cfg.causal
-                    else rm_attention_fused_noncausal)
-        out = fused_op(qs, ks, v_t, w, cd, cs, chunk=cfg.rm.chunk,
-                       eps=cfg.rm.eps)
+        if cfg.causal:
+            out = rm_attention_fused_causal(qs, ks, v_t, w, cd, cs,
+                                            chunk=cfg.rm.chunk,
+                                            eps=cfg.rm.eps)
+        else:
+            out = rm_attention_fused_noncausal(
+                qs, ks, v_t, w, cd, cs, chunk=cfg.rm.chunk, eps=cfg.rm.eps,
+                pack=params.get("rm_slab"))
     else:
         zq = _rm_featurize(params, cfg, meta, q)
         zk = _rm_featurize(params, cfg, meta, k)

@@ -95,9 +95,10 @@ def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
 
     def _cast(p):
         if isinstance(p, dict):
-            # rm_w (a tensor or a list of them) is already in the dtype
-            # its kernel takes
-            return {k: v if k == "rm_w" else _cast(v) for k, v in p.items()}
+            # rm_w (a tensor or a list of them) and rm_slab are already in
+            # the dtype their kernels take
+            return {k: v if k in ("rm_w", "rm_slab") else _cast(v)
+                    for k, v in p.items()}
         if isinstance(p, list):
             return [_cast(v) for v in p]
         return p.to(cdtype) if p.dtype == torch.float32 else p

@@ -246,6 +246,131 @@ def test_rm_fused_noncausal_op_matches_quadratic(cuda, t, pad):
     _close(got, want, 1e-4)
 
 
+def _ragged_omegas(f, d, kdeg, gen, device, seed=0):
+    """A plan of degrees 0..kdeg in no order (F ragged against the
+    8-column tile, two degree-0 columns), +-1 omegas on the slots a column
+    uses, scales in [0.2, 1.5)."""
+    g = torch.Generator().manual_seed(seed)
+    deg = torch.randint(0, kdeg + 1, (f,), generator=g, dtype=torch.int32)
+    deg[0] = deg[f // 2] = 0
+    w = torch.randint(0, 2, (kdeg, f, d), generator=g).float() * 2 - 1
+    w = w * (torch.arange(kdeg)[:, None] < deg[None, :])[..., None]
+    scale = 0.2 + 1.3 * torch.rand(f, generator=g)
+    return w.to(device), deg.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,d,f,kdeg,dv", [
+    (2, 700, 24, 29, 4, 37),     # ragged T, F, dv (dv % 4: plain loads)
+    (3, 130, 33, 13, 6, 1),      # odd d (plain loads), one value column
+    (2, 300, 80, 163, 5, 136),   # dv > 128: two value groups
+    (2, 200, 256, 64, 8, 64),    # the slab does not fit: chunks
+    (1, 4000, 16, 42, 6, 16),    # few rows, long T: many splits
+])
+def test_noncausal_kernels_general_shapes(cuda, dtype, bh, t, d, f, kdeg,
+                                          dv):
+    """B3 and B4 on plans and shapes the encoder does not give them,
+    against their plain versions (tolerance 1e-4 x max(1, max |plain|)),
+    and B3's split order against its plain model
+    (``state_by_splits_ref`` at the kernel's own schedule)."""
+    from repro_torch.kernels.rm_attention.noncausal import (
+        state_by_splits_ref,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    w, cd, cs = _ragged_omegas(f, d, kdeg, gen, cuda)
+    w = w.to(dtype)
+    k = _unit((bh, t, d), gen, cuda).to(dtype)
+    q = _unit((bh, t, d), gen, cuda).to(dtype)
+    v = torch.randn((bh, t, dv), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    kvalid[-1, t - t // 3:] = 0.0
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs)
+    sched = rm_fused_state.last_schedule
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    _close(s, s_ref, 1e-4)
+    _close(n, n_ref, 1e-4)
+    s_split, n_split = state_by_splits_ref(
+        k, v, kvalid, w, cd, cs, splits=sched.splits,
+        tiles_per_split=sched.tiles_per_split)
+    _close(s, s_split, 1e-4)
+    _close(n, n_split, 1e-4)
+    out = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4)
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), 1e-4)
+
+
+@pytest.mark.parametrize("bh,t,d,dv", [(4, 700, 80, 80), (2, 300, 33, 37)])
+def test_noncausal_kernels_full_3xtf32(cuda, bh, t, d, dv):
+    """Gaussian omegas (not TF32 numbers, so the fp32 kernels run all
+    three 3xTF32 terms) against the plain versions, tolerance 1e-4 x
+    max(1, max |plain|)."""
+    from repro_torch.kernels.rm_attention.noncausal import pack_noncausal
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    w, cd, cs = _ragged_omegas(40, d, 4, gen, cuda, seed=3)
+    w = w * torch.randn(w.shape, generator=gen, device=cuda).abs()
+    pack = pack_noncausal(w, cd, cs)
+    assert not pack.tf32_exact
+    k = _unit((bh, t, d), gen, cuda)
+    q = _unit((bh, t, d), gen, cuda)
+    v = torch.randn((bh, t, dv), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs, pack=pack)
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    _close(s, s_ref, 1e-4)
+    _close(n, n_ref, 1e-4)
+    out = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4, pack=pack)
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), 1e-4)
+
+
+@pytest.mark.parametrize("omegas,bh,t", [("rm", 128, 1500),
+                                          ("rm", 16, 32768),
+                                          ("gaussian", 4, 700)])
+def test_noncausal_kernels_are_3xtf32_accurate(cuda, omegas, bh, t):
+    """fp32 B3 and B4 hold S, n and out within 1e-5 x max(1, max |plain|)
+    of their plain versions: 3xTF32 reads about 2e-6 to 7e-6 at the
+    encode's and the long encode's shapes, while plain TF32 in the
+    projection fails here and still passes the 1e-4 tolerance at those
+    shapes. ``rm``: the hubert plan's +-1 omegas (two TF32 terms in the
+    projection); ``gaussian``: all three."""
+    from repro_torch.kernels.rm_attention.noncausal import pack_noncausal
+
+    if omegas == "rm":
+        d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=5,
+                                          arch="hubert-xlarge")
+    else:
+        d = 80
+        gen = torch.Generator(device=cuda).manual_seed(10)
+        w, cd, cs = _ragged_omegas(40, d, 4, gen, cuda, seed=3)
+        w = w * torch.randn(w.shape, generator=gen, device=cuda).abs()
+    pack = pack_noncausal(w, cd, cs)
+    assert pack.tf32_exact == (omegas == "rm")
+    k = _unit((bh, t, d), gen, cuda)
+    q = _unit((bh, t, d), gen, cuda)
+    v = torch.randn((bh, t, d), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs, pack=pack)
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    _close(s, s_ref, 1e-5)
+    _close(n, n_ref, 1e-5)
+    out = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4, pack=pack)
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), 1e-5)
+
+
+@pytest.mark.parametrize("bh,t", [(16, 32768), (128, 1500), (3, 100)])
+def test_rm_fused_state_is_bitwise_repeatable(cuda, bh, t):
+    """No atomics: two calls sum in the same order, so S and n are
+    bitwise equal (the split path, the encode shape, one split)."""
+    d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=8,
+                                      arch="hubert-xlarge")
+    k = _unit((bh, t, d), gen, cuda)
+    v = torch.randn((bh, t, d), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    s1, n1 = rm_fused_state(k, v, kvalid, w, cd, cs)
+    s2, n2 = rm_fused_state(k, v, kvalid, w, cd, cs)
+    assert torch.equal(s1, s2) and torch.equal(n1, n2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [64, 512, 4096, 70])
 @pytest.mark.parametrize("arch,smoke", [("qwen3-1.7b", False),

@@ -304,3 +304,48 @@ def test_init_params_targets_cuda_and_runs_on_cpu_when_asked():
         pytest.skip("a CUDA device is present: the default would run there")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(tcfg)
+
+
+@pytest.mark.parametrize("est,fuse", [("rm", "on"), ("rm", "off"),
+                                      ("tensor_sketch", "auto")],
+                         ids=["rm-fused", "rm-two-launch", "tensor_sketch"])
+def test_compute_params_hold_the_slab_once(est, fuse):
+    """The fused rm encoder's compute params carry the slab of kernels B3
+    and B4 (``rm_slab``: the packed omegas ``rm_w`` laid out by
+    ``pack_noncausal``), made once per weight set: a second cast keeps the
+    same slab, and the forward on the cast params equals the forward on
+    the master weights. The other paths get no slab."""
+    from repro_torch.kernels.rm_attention.noncausal import (
+        featurize_slab_ref,
+        pack_noncausal,
+    )
+    from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+
+    _, tcfg = _configs(est, fuse)
+    params = tt.init_model(tcfg, torch.Generator().manual_seed(0))
+    cp = tt.cast_params_to_compute(params, tcfg)
+    attn = cp["layers"][0]["attn"]
+    again = tt.cast_params_to_compute(cp, tcfg)["layers"][0]["attn"]
+    assert again.get("rm_slab") is attn.get("rm_slab")
+    if (est, fuse) != ("rm", "on"):
+        assert "rm_slab" not in attn
+        return
+    plan = tattn.rm_plan_for(tcfg, tcfg.resolved_head_dim)
+    want = pack_noncausal(attn["rm_w"], plan.column_degrees(),
+                          plan.column_scales())
+    assert torch.equal(attn["rm_slab"].slab, want.slab)
+    assert attn["rm_slab"].tile_rows == want.tile_rows
+    x = torch.randn(5, tcfg.resolved_head_dim,
+                    generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(
+        featurize_slab_ref(x, attn["rm_slab"]).numpy(),
+        rm_feature_fused_ref(x, attn["rm_w"],
+                             *map(torch.from_numpy,
+                                  (plan.column_degrees(),
+                                   plan.column_scales()))).numpy(),
+        atol=1e-6, rtol=0)
+    batch = {"embeds": torch.from_numpy(_embeds(1, 7, tcfg.d_model, 3))}
+    with torch.inference_mode():
+        a, _ = tt.forward(params, tcfg, batch)
+        b, _ = tt.forward(cp, tcfg, batch)
+    assert torch.equal(a, b)

@@ -21,6 +21,14 @@ from repro.core.maclaurin import ExponentialDotProductKernel as JExp
 from repro.kernels.rm_attention import ops as jops
 from repro.kernels.rm_attention import ref as jref
 from repro_torch.kernels import common
+from repro_torch.kernels.rm_attention.noncausal import (
+    COL_CLASSES,
+    featurize_slab_ref,
+    pack_noncausal,
+    slab_layout,
+    state_by_splits_ref,
+    tile_classes,
+)
 from repro_torch.kernels.rm_attention.ops import (
     rm_attention_fused_noncausal,
     rm_attention_noncausal,
@@ -28,6 +36,7 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_fused_state,
 )
 from repro_torch.kernels.rm_attention.ref import (
+    featurize_ref4,
     rm_attention_ref,
     rm_fused_apply_ref,
     rm_fused_noncausal_ref,
@@ -36,6 +45,7 @@ from repro_torch.kernels.rm_attention.ref import (
 
 TOL = 1e-5
 RM_BF16_BUDGET = 5e-3    # tests/test_precision.py TOLERANCES["rm"]
+B3_TOL = 1e-4            # chip_smoke.py: fp32 sums of up to T terms
 
 
 def _packed(d, num_features, n_max, seed=0):
@@ -277,9 +287,226 @@ def test_wrappers_take_no_other_device_and_check_shapes():
 
 @pytest.mark.parametrize("dv", [16, 80, 128, 200, 1])
 def test_noncausal_blocks_fit_shared_memory(dv):
-    """B3/B4's value slice is dv rounded up to 16, at most 128 (a thread
-    holds 8 columns in registers), and three blocks fit one SM."""
-    dv_block, smem = common.noncausal_blocks(dv)
-    assert dv_block % 16 == 0 and 16 <= dv_block <= 128
-    assert dv_block >= min(dv, 128)
-    assert 3 * smem <= common.SMEM_PER_BLOCK
+    """B3's and B4's schedules on the hubert plan (d 80, F 163), fp32 and
+    bf16: each fits one block's shared memory, its value groups cover dv
+    within the accumulator tiles the block's warps hold, and B3's feature
+    groups cover F."""
+    pack = _hubert_pack()
+    for kind in ("state", "apply"):
+        for item in (4, 2):
+            sc = common.noncausal_schedule(kind, 128, 1500, 80, dv, 163,
+                                           pack.tile_rows, item)
+            assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+            assert sc.dv_per_group % 8 == 0
+            assert sc.n_dvgroups * sc.dv_per_group >= dv
+            assert (sc.n_dvgroups - 1) * sc.dv_per_group < dv
+            assert sc.n_fgroups * sc.ct_per_group >= sc.n_ct
+            ntiles = -(-(sc.dv_per_group + 1) // 8)
+            assert ntiles <= common.NONCAUSAL_MAX_VALUE_TILES
+            if kind == "state":
+                assert -(-sc.ct_per_group * 8 // 16) <= \
+                    common.STATE_MAX_FEATURE_TILES
+            else:
+                assert sc.n_fgroups == 1
+
+
+def _hubert_pack(dtype=torch.float32):
+    """The hubert head's slab: d 80, F 163, degrees [0:1, 1:94, 2:47, 3:16,
+    4:4, 5:1]."""
+    w, deg, scale = _packed(80, 256, 8)
+    assert w.shape[1] == 163
+    return pack_noncausal(torch.from_numpy(np.array(w)).to(dtype), deg,
+                          scale)
+
+
+def _ragged_plan(seed=0, f=29, d=24, kdeg=4):
+    """Degrees 0 to kdeg in no order (several degree-0 columns, F ragged
+    against the 8-column tile), omegas +-1 on the slots a column uses."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, kdeg + 1, size=f).astype(np.int32)
+    deg[[0, 5]] = 0
+    w = rng.choice([-1.0, 1.0], size=(kdeg, f, d)).astype(np.float32)
+    w[np.arange(kdeg)[:, None] >= deg[None, :]] = 0.0
+    scale = rng.uniform(0.2, 1.5, size=f).astype(np.float32)
+    return w, deg, scale
+
+
+def test_slab_layout_rows_and_padding():
+    """One 8-column tile a depth: 304 rows for the hubert plan (257 used
+    slots), zero rows for the slots past a column's degree and for the
+    padding columns, which carry degree 0 and scale 0."""
+    w, deg, scale = _packed(80, 256, 8)
+    tile_row0, index = slab_layout(deg)
+    assert tile_row0[-1] == 304 and (index >= 0).sum() == deg.sum() == 257
+    pack = _hubert_pack()
+    assert pack.slab.shape == (304, 80) and pack.num_col_tiles == 21
+    used = torch.from_numpy(index >= 0)
+    assert torch.equal(pack.slab[~used], torch.zeros(int((~used).sum()),
+                                                     80))
+    j, f = np.divmod(index[index >= 0], w.shape[1])
+    assert torch.equal(pack.slab[used], torch.from_numpy(w[j, f]))
+    assert pack.col_deg[163:].eq(0).all() and pack.col_scale[163:].eq(0).all()
+    assert pack.tile_rows == tuple(int(r) for r in tile_row0)
+
+
+@pytest.mark.parametrize("plan", ["hubert", "ragged"])
+def test_tile_classes_deal_out_every_tile_once(plan):
+    """Each column tile in exactly one of the featurize's classes, each
+    class's tiles in order, and the classes' depths within one deepest
+    tile of each other (the hubert plan: 38 slot-tiles, at most 5 a
+    class)."""
+    deg = _packed(80, 256, 8)[1] if plan == "hubert" else _ragged_plan()[1]
+    tile_row0, _ = slab_layout(deg)
+    lists = tile_classes(tile_row0)
+    starts, tiles = lists[:COL_CLASSES + 1], lists[COL_CLASSES + 1:]
+    assert starts[0] == 0 and starts[-1] == len(tile_row0) - 1
+    assert sorted(tiles.tolist()) == list(range(len(tile_row0) - 1))
+    depth = np.diff(tile_row0) // 8
+    loads = []
+    for k in range(COL_CLASSES):
+        mine = tiles[starts[k]:starts[k + 1]]
+        assert list(mine) == sorted(mine)
+        loads.append(int(np.maximum(depth[mine], 1).sum()))
+    assert max(loads) - min(loads) <= depth.max()
+    if plan == "hubert":
+        assert max(loads) == 5
+
+
+def test_slab_knows_when_its_values_are_tf32():
+    """The rm omegas (+-1, 0) are TF32 numbers; Gaussian ones are not; a
+    bf16 slab needs no such test."""
+    w, deg, scale = _packed(16, 64, 6)
+    wt = torch.from_numpy(np.array(w))
+    assert pack_noncausal(wt, deg, scale).tf32_exact
+    noisy = wt * torch.rand(wt.shape, generator=torch.Generator()
+                            .manual_seed(0))
+    assert not pack_noncausal(noisy, deg, scale).tf32_exact
+    assert pack_noncausal(noisy.bfloat16(), deg, scale).tf32_exact
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("plan", ["hubert", "smoke", "ragged"])
+def test_slab_featurize_matches_reference(plan, dtype):
+    """The slab's plain featurize (the kernels' slot order) against the
+    port's ``featurize_ref4`` on ``w [kdeg, F, d]`` and the reference's
+    ``_featurize_ref4``: 1e-5, fp32 accumulation in all three (bf16 rows
+    and omegas upcast exactly)."""
+    if plan == "ragged":
+        w, deg, scale = _ragged_plan()
+    else:
+        w, deg, scale = _packed(*((80, 256, 8) if plan == "hubert"
+                                  else (16, 64, 6)))
+    d = w.shape[2]
+    q, _, _, _ = _inputs(2, 3, 37, d, 8, 11)
+    wt = torch.from_numpy(np.array(w)).to(dtype)
+    xt = torch.from_numpy(q).to(dtype)
+    pack = pack_noncausal(wt, deg, scale)
+    assert pack.slab.dtype == dtype
+    got = featurize_slab_ref(xt.reshape(-1, d), pack).reshape(2, 3, 37, -1)
+    _close(got, featurize_ref4(xt, wt, *_t(deg, scale)).numpy(), TOL)
+    want = jops._featurize_ref4(
+        jnp.asarray(xt.float().numpy()), jnp.asarray(wt.float().numpy()),
+        jnp.asarray(deg), jnp.asarray(scale))
+    _close(got, want, TOL)
+
+
+# (bh, t, splits, tiles_per_split, padded keys at the end of each row):
+# ragged T, a split whose keys are all padding, one split, uneven splits
+SPLIT_CASES = [(3, 150, 3, 1, 0), (2, 200, 4, 1, 72), (2, 130, 1, 3, 9),
+               (1, 300, 2, 3, 0)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=["ragged", "all-padded-split", "one-split",
+                              "uneven"])
+def test_split_order_matches_unsplit_and_reference(case):
+    """B3's split-and-reduce order, plain: partial states summed in split
+    order against the unsplit plain state and the reference's state, and
+    the output they give against the reference's ``_fused_noncausal_jnp``,
+    within B3's tolerance."""
+    bh, t, splits, per, pad = case
+    w, deg, scale = _packed(80, 256, 8, seed=7)
+    q, k, v, _ = _inputs(1, bh, t, 80, 80, 12)
+    kvalid = np.ones((1, t), np.float32)
+    if pad:
+        kvalid[0, t - pad:] = 0.0
+    kv_bh = np.repeat(kvalid, bh, axis=0)
+    args = _t(k[0], v[0], kv_bh, w, deg, scale)
+    s, n = state_by_splits_ref(*args, splits=splits, tiles_per_split=per)
+    s1, n1 = rm_fused_state_ref(*args)
+    _close(s, s1.numpy(), B3_TOL)
+    _close(n, n1.numpy(), B3_TOL)
+    want_s, want_n = jops.rm_attention_prefill_final_state(
+        _reference_zk(k, kvalid, w, deg, scale), jnp.asarray(v))
+    _close(s, np.asarray(want_s)[0], B3_TOL)
+    _close(n, np.asarray(want_n)[0], B3_TOL)
+    out = rm_fused_apply_ref(*_t(q[0]), s, n, *_t(w, deg, scale), eps=1e-4)
+    want = jops._fused_noncausal_jnp(
+        *[jnp.asarray(a) for a in (q, k, v, kvalid, w)], jnp.asarray(deg),
+        jnp.asarray(scale), 1e-4)
+    _close(out, np.asarray(want)[0], B3_TOL)
+
+
+def test_split_picker_block_counts():
+    """Two waves of blocks on 132 SMs where T allows, never more splits
+    than key tiles, no empty split: 384 blocks at the 8 x 1500 encode
+    (128 rows x 3 splits of 8 tiles), 512 at 1 x 32768 (16 x 32 of 16),
+    one split where T is a single tile."""
+    pack = _hubert_pack()
+    for kind in ("state", "apply"):
+        for item in (4, 2):
+            def sched(bh, t, kind=kind, item=item):
+                return common.noncausal_schedule(kind, bh, t, 80, 80, 163,
+                                                 pack.tile_rows, item)
+
+            enc, long_, short = sched(128, 1500), sched(16, 32768), \
+                sched(1, 64)
+            assert (enc.splits, enc.tiles_per_split, enc.blocks) == (3, 8,
+                                                                     384)
+            assert (long_.splits, long_.tiles_per_split,
+                    long_.blocks) == (32, 16, 512)
+            assert (short.splits, short.blocks) == (1, 1)
+            for sc, t in ((enc, 1500), (long_, 32768), (short, 64)):
+                tiles = -(-t // 64)
+                assert sc.splits <= tiles
+                assert (sc.splits - 1) * sc.tiles_per_split < tiles <= \
+                    sc.splits * sc.tiles_per_split
+                assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+                assert sc.slab_cap == pack.tile_rows[-1]    # one chunk
+            assert enc.blocks >= 2 * common.NUM_SMS
+            assert long_.blocks >= 2 * common.NUM_SMS
+
+
+def test_split_picker_tiles_a_slab_too_large():
+    """A slab larger than shared memory (d 256: 8 column tiles of depth 8)
+    is brought in chunks (slab_cap below the slab's rows, at least one
+    column tile); a column tile that cannot fit even alone raises."""
+    deg = np.full(64, 8, np.int32)
+    tile_row0 = tuple(int(r) for r in slab_layout(deg)[0])
+    for kind in ("state", "apply"):
+        for item in (4, 2):
+            sc = common.noncausal_schedule(kind, 4, 200, 256, 64, 64,
+                                           tile_row0, item)
+            assert 64 <= sc.slab_cap < tile_row0[-1]
+            assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+        with pytest.raises(ValueError, match="do not fit"):
+            common.noncausal_schedule(kind, 4, 200, 1024, 64, 64, tile_row0,
+                                      4)
+
+
+@pytest.mark.parametrize("kind,item,limit", [("state", 4, 384),
+                                             ("state", 2, 768),
+                                             ("apply", 4, 536),
+                                             ("apply", 2, 1072)])
+def test_schedule_depth_limit_as_documented(kind, item, limit):
+    """The deepest d the kernels take on the hubert plan (depth 5) at dv
+    80, as ``noncausal_schedule`` and the wrappers document it: d itself is
+    not tiled, so the next multiple of 8 raises."""
+    tile_rows = _hubert_pack().tile_rows
+    sc = common.noncausal_schedule(kind, 128, 1500, limit, 80, 163,
+                                   tile_rows, item)
+    assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="do not fit"):
+        common.noncausal_schedule(kind, 128, 1500, limit + 8, 80, 163,
+                                  tile_rows, item)
