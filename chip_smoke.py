@@ -9,10 +9,22 @@ Phases, each fatal on failure:
    CUDA versions; builds every CUDA kernel from ``src/repro_torch/csrc``
    (one ``nvcc`` each, all in parallel) and prints the build time and the
    compiler's register / shared-memory report;
-2. kernel B1 (``rm_feature_fused``) against its plain PyTorch version at
-   the decode shape of the serving path and at a Gram shape, fp32 and bf16;
-3. kernel B2 (``rm_fused_causal``) against its plain version at a prefill
-   shape with padded keys, fp32 and bf16 (out, S and n);
+2. kernel B1 (``rm_feature_fused``): the ``-Xptxas -v`` registers and
+   spills and the tensor-core instructions of B1's and B2's libraries;
+   then B1 against its plain PyTorch version at the decode shape of the
+   serving path (x ``[128, 128]``, its chain kernel), at a 4096-row Gram
+   shape and at the adult-shaped map that phase 23 featurizes (x ``[20000,
+   123]``, poly10, D 4000; its tile kernel), fp32 and bf16, each with the
+   profiler's device time and the CUDA-event time, its grid, and two
+   bounds (the tensor cores' and the fp32 CUDA cores');
+3. kernel B2 (``rm_fused_causal``) against its plain version (out, S and
+   n; in fp32 also within 1e-5 x max(1, max |plain|), 3xTF32's precision)
+   at the prefill shape (BH 16, T 256) and at a 4096-token prompt (BH 16,
+   T 4096), each with padded keys, fp32 and bf16, and at a wide feature
+   axis (F 2150) and a 32768-token prompt in fp32; two calls bitwise
+   equal; the device memory a call takes beside its inputs, which must
+   stay within its outputs and its scratch of at most 32 chunk states;
+   times, grids and both bounds as for B1;
 4. kernel B6 (``tensor_sketch_fused``) against its plain version at every
    row count the tensor_sketch path gives it, so at every row tile it
    launches: the decode shape (x ``[64, 128]``: 4 slots x 16 heads, one
@@ -38,7 +50,8 @@ Phases, each fatal on failure:
 8. where the rm slice's time goes: the same workload again on the warm
    engine (its TTFT and tokens/s), then a ``torch.profiler`` window over
    warm decode steps and one bucket-256 prefill: wall time, device busy
-   share and the kernels that take the device time;
+   share, the kernels that take the device time, and B1's and B2's share
+   of it;
 9. the tensor_sketch slice: the same model, workload and checks with
    ``estimator="tensor_sketch"`` (the rm engine is freed first), through
    the two-launch attention path: B6 must launch twice a layer for every
@@ -56,7 +69,9 @@ Phases, each fatal on failure:
     1e-5 x max(1, max |plain|), which a dropped 3xTF32 term exceeds),
     each with its grid and split count, two B3 calls bitwise equal, and
     times beside two bounds (the tensor cores' and the fp32 CUDA
-    cores'); the whole fused
+    cores'); past the depth they take whole, at the hubert plan on head
+    widths 640 (fp32, within the 1e-5 gate) and 1088 (bf16), where d is
+    tiled; the whole fused
     non-causal op also against the O(T^2) direct evaluation at BH 16, T
     1500 with padded keys;
 12. small end-to-end references on the hubert SMOKE encoder in fp32: the
@@ -125,14 +140,18 @@ Phases, each fatal on failure:
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
-[...]}`` line (times from CUDA events over repeated launches, bounds
-computed from this run's shapes, launches from the slice that runs each
-kernel — for B9 the paper phase 23; the host time of one call through each
-wrapper is printed beside its check; B3's and B4's ``bound_ms`` is on
-the tensor cores, where they run their products, and they also carry
-the bound on the fp32 CUDA cores, the 1 x 32768 shape's times and their
-grids) and, as its last
-line, ``{"ok": true,
+[...]}`` line (``ms``: CUDA events over repeated launches through the
+wrapper, for every kernel but B7 and B8, whose ``ms`` is the profiler's
+device time of the kernel itself; B1 and B2 carry that device time beside
+as ``device_ms``; bounds computed from this run's shapes, launches from
+the slice that runs each kernel — for B9 the paper phase 23; the host
+time of one call through each wrapper is printed beside its check; B1's
+to B4's ``bound_ms`` is on the tensor cores, where they run their
+products, and they also carry the bound on the fp32 CUDA cores and their
+grids; B1 its Gram-shape and adult-map times and its device time in the
+decode step, B2 its 4096-token, wide-F and 32768-token times, the device
+memory of a call, and its device time in the bucket-256 prefill, B3 and
+B4 the 1 x 32768 shape's times) and, as its last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
 (phase 8) is the part to cut first, then the tensor_sketch slice's (phase
@@ -157,8 +176,12 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_TF32_OPS_PER_S = 495e12
 
 VALID_REASONS = {"eos", "max_new_tokens", "cache_full"}
-B1_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
+B1_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 10 x 128 products
+#                 (3xTF32 on fp32 inputs, exact bf16 products in fp32)
 B2_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T x F terms
+# B2's out, S and n on fp32 inputs, x max(1, max |plain|): the precision of
+# its 3xTF32 products (as B34_FP32_TOL for B3 and B4)
+B2_FP32_TOL = 1e-5
 B6_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 128 and <= c terms
 B6_GRAM_TOL = 1e-4   # x max(1, max |plain|): Gram sums 256 such features
 B7_TOL = 1e-5   # x max(1, max |plain|): fp32 sums of <= 5 x 128 products
@@ -442,11 +465,13 @@ def device_profile(torch, fn):
 
 
 def kernel_device_ms(torch, fn, kernel, iters=50):
-    """Device time per call of the CUDA kernel whose name contains
-    ``kernel``, from the profiler's kernel events over ``iters`` calls of
-    ``fn`` (after a warm-up): the kernel's own time even where the host
-    enqueues a call more slowly than the card runs it, which a CUDA-event
-    window over back-to-back calls would measure instead."""
+    """Device time per call of the CUDA kernels whose names contain
+    ``kernel`` (a string, or a tuple of strings any of which may match),
+    from the profiler's kernel events over ``iters`` calls of ``fn`` (after
+    a warm-up): the kernels' own time even where the host enqueues a call
+    more slowly than the card runs it, which a CUDA-event window over
+    back-to-back calls would measure instead."""
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for _ in range(5):
         fn()
 
@@ -459,7 +484,8 @@ def kernel_device_ms(torch, fn, kernel, iters=50):
     # that lost them is taken again, twice at most
     for _ in range(3):
         _, by_name, events, _ = device_profile(torch, calls)
-        found = [ms for name, ms in by_name.items() if kernel in name]
+        found = [ms for name, ms in by_name.items()
+                 if any(k in name for k in names)]
         if found:
             return sum(found) / iters
         print(f"[profile] a window of {iters} calls showed no {kernel} "
@@ -548,10 +574,12 @@ def serve_slice(torch, tag, engine, cfg, prompts, counters, expected):
     return done, launches
 
 
-def where_time_goes(torch, tag, engine, prompts, done):
+def where_time_goes(torch, tag, engine, prompts, done, families=None):
     """The workload again on the warm engine (TTFT, tokens/s), then one
     profiler window over 5 warm decode steps and one over a bucket-256
-    prefill."""
+    prefill. ``families``: {kernel id: substrings of its device kernels'
+    names}, whose device time in each window is printed (and returned as
+    {window label: {kernel id: ms a step or a prefill}})."""
     from repro_torch.launch.serve import summarize
 
     done2, _, steps2, wall2 = run_workload(torch, engine, prompts, 1000)
@@ -565,6 +593,11 @@ def where_time_goes(torch, tag, engine, prompts, done):
           f"{stats2['ttft_p99_s'] * 1e3:.1f} ms (queue wait included), "
           f"{steps2} decode steps")
     ex = engine.executor
+    shares = {}
+
+    def count_of(by_name, subs):
+        return sum(any(sub in name for sub in subs) for name in by_name)
+
     toks = torch.zeros((4, 1), dtype=torch.long)
     pos = torch.full((4,), 10, dtype=torch.int32)
 
@@ -590,6 +623,13 @@ def where_time_goes(torch, tag, engine, prompts, done):
         busy_ms /= reps
         syncs = count_syncs(torch, fn)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        for kid, subs in (families or {}).items():
+            fam_ms = sum(ms for name, ms in by_name.items()
+                         if any(sub in name for sub in subs)) / reps
+            shares.setdefault(label, {})[kid] = fam_ms
+            print(f"[{tag} time] {label}: {kid} {fam_ms:.3f} ms of the "
+                  f"{busy_ms:.2f} ms device busy ({count_of(by_name, subs)} "
+                  f"kernel names)")
         print(f"[{tag} time] {label}: wall {wall_ms:.2f} ms, device busy "
               f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.0f}%, idle "
               f"{100 * (1 - busy_ms / wall_ms):.0f}%), {count / reps:.0f} "
@@ -600,6 +640,7 @@ def where_time_goes(torch, tag, engine, prompts, done):
               f"the {wall_ms:.2f} ms wall, {ops_ms / reps:.2f} ms inside "
               f"profiled operators (profiler on), {syncs / reps:.0f} "
               "synchronizing calls (the inputs' host-to-device copies)")
+    return shares
 
 
 def tensor_core_opcodes(lib_path):
@@ -622,6 +663,26 @@ def tensor_core_opcodes(lib_path):
             for op in ("HMMA", "GMMA")}
 
 
+def report_build(torch, kid, name):
+    """Print kernel ``kid``'s library ``name``: its ``-Xptxas -v``
+    registers and spills, and the tensor-core instructions (``HMMA`` /
+    ``GMMA``) in its SASS; fail where the SASS holds none."""
+    from repro_torch.kernels import _build
+
+    paths = _build.build_all()
+    log = _build.build_report().get(name, (0.0, ""))[1]
+    report = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
+              if "Used" in ln or "spill" in ln]
+    print(f"[{kid}] ptxas -v: " + (" | ".join(report) if report else
+                                   "no report: the library was built "
+                                   "before this run"))
+    ops = tensor_core_opcodes(paths[name])
+    print(f"[{kid}] tensor-core instructions in the SASS of lib{name}: "
+          f"{ops if ops is not None else 'no cuobjdump'}")
+    if ops is not None and ops["HMMA"] + ops["GMMA"] == 0:
+        raise AssertionError(f"{kid}: no tensor-core instruction")
+
+
 def noncausal_phase(torch, np, gen, kernels):
     """Phase 11: kernels B3 and B4 against their plain versions at every
     shape the encoder gives them, their schedules, registers and
@@ -632,7 +693,6 @@ def noncausal_phase(torch, np, gen, kernels):
     the same work on the fp32 CUDA cores); returns ``(hcfg, hd, hf)``."""
     from repro_torch.configs import get_config
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
-    from repro_torch.kernels import _build
     from repro_torch.kernels.common import round_up
     from repro_torch.kernels.rm_attention.noncausal import pack_noncausal
     from repro_torch.kernels.rm_attention.ops import (
@@ -666,17 +726,8 @@ def noncausal_phase(torch, np, gen, kernels):
     print(f"[plan] B3/B4 slab: {packs[torch.float32].slab.shape[0]} rows "
           f"of d {hd} for {int(h_deg_np.sum())} used slots, "
           f"{packs[torch.float32].num_col_tiles} column tiles of 8")
-    paths = _build.build_all()
     for kid, name in (("B3", "rm_fused_state"), ("B4", "rm_fused_apply")):
-        log = _build.build_report().get(name, (0.0, ""))[1]
-        report = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-                  if "Used" in ln or "spill" in ln]
-        print(f"[{kid}] ptxas -v: " + " | ".join(report))
-        ops = tensor_core_opcodes(paths[name])
-        print(f"[{kid}] tensor-core instructions in the SASS of "
-              f"lib{name}: {ops if ops is not None else 'no cuobjdump'}")
-        if ops is not None and ops["HMMA"] + ops["GMMA"] == 0:
-            raise AssertionError(f"{kid}: no tensor-core instruction")
+        report_build(torch, kid, name)
     # the shapes the encoder gives B3 and B4 (the rows go in unpadded):
     # the 8 x 1500 encode (the kernels line's times), its rows padded to
     # the reference's chunk with kvalid 0 on the padded keys, and the
@@ -816,6 +867,59 @@ def noncausal_phase(torch, np, gen, kernels):
                         long_splits=sch.splits)
             del k, q, v, kvalid, state_args, apply_args
             torch.cuda.empty_cache()
+    # past the depth the kernels take whole (d 384 fp32 / 768 bf16 for B3,
+    # 536 / 1072 for B4 on this depth-5 plan) d is tiled: the hubert plan
+    # at head width 640 (fp32) and 1088 (bf16), 16 rows of 1500 frames
+    for d_deep, dtype in ((640, torch.float32), (1088, torch.bfloat16)):
+        dname = str(dtype).split(".")[-1]
+        dplan = rm_plan_for(hcfg, d_deep)
+        wd = pack_omegas(dplan, init_omegas(dplan, gen)).to(dtype)
+        dd_deg, dd_scale = plan_columns(dplan, "cuda")
+        bh, t = nh, ENC_FRAMES
+        k = unit_rows(torch, (bh, t, d_deep), gen).to(dtype)
+        q = unit_rows(torch, (bh, t, d_deep), gen).to(dtype)
+        v = torch.randn((bh, t, hd), generator=gen, device="cuda")
+        kvalid = torch.ones((bh, t), device="cuda")
+        kvalid[bh // 2:, t - 36:] = 0.0
+        state_args = (k, v, kvalid, wd, dd_deg, dd_scale)
+        s_got, n_got = rm_fused_state(*state_args)
+        sched3 = rm_fused_state.last_schedule
+        s_ref, n_ref = rm_fused_state_ref(*state_args)
+        apply_args = (q, s_ref, n_ref, wd, dd_deg, dd_scale, eps)
+        out_got = rm_fused_apply(*apply_args)
+        sched4 = rm_fused_apply.last_schedule
+        out_ref = rm_fused_apply_ref(*apply_args)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want, tol_, checks in (
+                ("S", s_got, s_ref, B3_TOL, b3_checks),
+                ("n", n_got, n_ref, B3_TOL, b3_checks),
+                ("out", out_got, out_ref, B4_TOL, b4_checks)):
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            if dtype == torch.float32:
+                tol_ = B34_FP32_TOL
+            errs.append(err / scale)
+            checks.append((f"{name} d{d_deep} {dname}", err, tol_ * scale))
+            if not (err <= tol_ * scale and torch.isfinite(got).all()):
+                raise AssertionError(f"B3/B4 {name} d {d_deep} {dname}: "
+                                     f"error {err / scale:.2e} x max(1, max "
+                                     f"|plain|) > {tol_}")
+        ms3 = time_ms(torch, lambda: rm_fused_state(*state_args), iters=5)
+        ms4 = time_ms(torch, lambda: rm_fused_apply(*apply_args), iters=5)
+        print(f"[B3/B4] d {d_deep} (tiled in chunks of {sched3.dk} / "
+              f"{sched4.dk} of dp {sched3.dp}) k,q[{bh},{t},{d_deep}] "
+              f"{dname}: max_abs_err / max(1, max |plain|) S {errs[0]:.2e}, "
+              f"n {errs[1]:.2e}, out {errs[2]:.2e}"
+              + (f" (3xTF32 gate {B34_FP32_TOL:.0e})"
+                 if dtype == torch.float32 else "")
+              + f"; B3 {ms3:.4f} ms ({sched3.blocks} blocks, "
+              f"{sched3.smem_bytes} B shared), B4 {ms4:.4f} ms "
+              f"({sched4.blocks} blocks, {sched4.smem_bytes} B shared)")
+        if not (sched3.dk < sched3.dp and sched4.dk < sched4.dp):
+            raise AssertionError(f"d {d_deep}: the schedules did not tile d")
+        del k, q, v, state_args, apply_args, s_ref, n_ref, out_ref
+        torch.cuda.empty_cache()
     # the whole op (B3, B4 on the unpadded rows) against the O(T^2) direct
     # evaluation
     q4 = unit_rows(torch, (2, 8, ENC_FRAMES, hd), gen)
@@ -849,6 +953,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
@@ -931,99 +1036,218 @@ def main():
     print(f"[clock] SM clock after a 1 s warm-up: {warm_card(torch)}")
 
     # -- 2. B1 against its plain version ------------------------------------
+    from repro_torch.core import PolynomialKernel, make_feature_map
+    from repro_torch.kernels.common import causal_schedule, pick_feature_tiles
+
+    report_build(torch, "B1", "rm_feature")
+    report_build(torch, "B2", "rm_fused_attention")
     decode_rows = 2 * 4 * cfg.num_heads          # stacked q+k, 4 slots
+    # the adult-shaped map that phase 23 featurizes (poly10, d 123, D 4000)
+    fm_b1 = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0)
+    wa32 = pack_omegas(fm_b1.plan, fm_b1.omegas)
+    cda, csa = plan_columns(fm_b1.plan, "cuda")
+    cda_np = fm_b1.plan.column_degrees()
     b1_checks = []
-    for rows, label in ((decode_rows, "decode"), (4096, "gram")):
+    for rows, label, wt32, c_deg, c_scale, c_np, iters in (
+            (decode_rows, "decode", w32, col_deg, col_scale, deg_np, 50),
+            (4096, "gram", w32, col_deg, col_scale, deg_np, 20),
+            (20000, "adult", wa32, cda, csa, cda_np, 5)):
+        d_in, f_out = wt32.shape[2], wt32.shape[1]
         for dtype in (torch.float32, torch.bfloat16):
-            x = unit_rows(torch, (rows, dh), gen).to(dtype)
-            w = w32.to(dtype)
-            got = rm_feature_fused(x, w, col_deg, col_scale)
-            want = rm_feature_fused_ref(x, w, col_deg, col_scale)
+            x = unit_rows(torch, (rows, d_in), gen).to(dtype)
+            w = wt32.to(dtype)
+            got = rm_feature_fused(x, w, c_deg, c_scale)
+            want = rm_feature_fused_ref(x, w, c_deg, c_scale)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = B1_TOL * max(1.0, want.abs().max().item())
-            ms = time_ms(torch, lambda: rm_feature_fused(x, w, col_deg,
-                                                          col_scale))
+            del got, want
+            ms = time_ms(torch, lambda: rm_feature_fused(x, w, c_deg,
+                                                          c_scale),
+                         iters=iters)
+            dev_ms = kernel_device_ms(torch, lambda: rm_feature_fused(
+                x, w, c_deg, c_scale), "rm_feature_kernel", iters=iters)
             plain_ms = time_ms(torch, lambda: rm_feature_fused_ref(
-                x, w, col_deg, col_scale))
+                x, w, c_deg, c_scale), iters=min(iters, 10))
             dname = str(dtype).split(".")[-1]
             item = x.element_size()
-            nbytes = (rows * dh * item + omega_bytes(deg_np, dh, item)
-                      + f * 8 + rows * f * 4)
-            bms, by = bound(nbytes, featurize_ops(rows, deg_np, dh), dname)
-            print(f"[B1] {label} x[{rows},{dh}] {dname}: max_abs_err "
-                  f"{err:.3e} (tol {tol:.1e}) kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-            if not err <= tol:
+            nbytes = (rows * d_in * item + omega_bytes(c_np, d_in, item)
+                      + f_out * 8 + rows * f_out * 4)
+            ops = featurize_ops(rows, c_np, d_in)
+            bms, by = bound(nbytes, ops, dname)
+            tcms, tcby = tensor_core_bound(nbytes, ops, 0, dname, True)
+            row_tile, ctw = pick_feature_tiles(rows, f_out, d_in, item)
+            n_ct = -(-f_out // 8)
+            grid = -(-rows // row_tile) * -(-n_ct // (4 * ctw))
+            print(f"[B1] {label} x[{rows},{d_in}] F {f_out} {dname}: "
+                  f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
+                  f"{dev_ms:.4f} ms device (profiler), {ms:.4f} ms events; "
+                  f"plain {plain_ms:.4f} ms; bound {tcms:.6f} ms ({tcby}, "
+                  f"tensor cores) / {bms:.6f} ms ({by}, CUDA cores); grid "
+                  f"{grid} blocks of 4 warps ("
+                  + ("chain kernel, 16 rows" if row_tile == 16 else
+                     "tile kernel, 64 rows") + f" a block, {ctw} column "
+                  "tile(s) a warp)")
+            if not (err <= tol):
                 raise AssertionError(f"B1 {label} {dname}: error {err} > "
                                      f"{tol}")
             b1_checks.append((f"{label} {dname}", err, tol))
-            if label == "decode" and dtype == torch.float32:
+            if dtype == torch.float32 and label == "decode":
                 hus = host_us(torch, lambda: rm_feature_fused(
-                    x, w, col_deg, col_scale))
+                    x, w, c_deg, c_scale))
                 print(f"[B1] decode host time {hus:.1f} us a call")
                 kernels["B1"] = dict(
                     name="rm_feature_fused", route="cuda",
                     source="src/repro_torch/csrc/rm_feature.cu",
                     replaces="src/repro/kernels/rm_feature/rm_feature.py:79",
                     shape=f"x[{rows},{dh}] fp32 x w{tuple(w32.shape)}",
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None)
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=tcms, bound_by=tcby, library_ms=None,
+                    bound_cuda_core_ms=bms, grid=grid)
+            elif dtype == torch.float32:
+                kernels["B1"].update({
+                    f"{label}_shape": f"x[{rows},{d_in}] fp32, F {f_out}",
+                    f"{label}_ms": ms, f"{label}_device_ms": dev_ms,
+                    f"{label}_plain_ms": plain_ms,
+                    f"{label}_bound_ms": tcms, f"{label}_grid": grid})
+            del x, w
+    del wa32, fm_b1
+    torch.cuda.empty_cache()
 
     # -- 3. B2 against its plain version ------------------------------------
-    b, h, t = 2, cfg.num_heads // 2, 256         # BH = 16
+    # the prefill shape (a bucket-256 prompt's 16 heads), a 4096-token
+    # prompt, a wide feature axis (qwen3's head at a budget of 3400: F
+    # above 2048), and a 32768-token prompt (qwen3's longest context), with
+    # the device memory a call takes beside its inputs
+    from repro_torch.core.maclaurin import ExponentialDotProductKernel
+    from repro_torch.core.plan import make_feature_plan
+
+    wide_plan = make_feature_plan(ExponentialDotProductKernel(1.0), dh, 3400,
+                                  measure="proportional", n_max=8)
+    ww32 = pack_omegas(wide_plan, init_omegas(wide_plan, gen))
+    wcd, wcs = plan_columns(wide_plan, "cuda")
     b2_checks = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q = unit_rows(torch, (b, h, t, dh), gen).to(dtype)
-        k = unit_rows(torch, (b, h, t, dh), gen).to(dtype)
-        v = torch.randn((b, h, t, dh), generator=gen, device="cuda")
-        kvalid = torch.ones((b, t), device="cuda")
-        kvalid[1, 200:] = 0.0                    # a padded prompt bucket
-        w = w32.to(dtype)
-        args = (q, k, v, kvalid, w, col_deg, col_scale)
-        got = rm_fused_causal(*args, cfg.rm.eps)
-        want = rm_fused_causal_ref(*args, chunk=cfg.rm.chunk, eps=cfg.rm.eps)
-        torch.cuda.synchronize()
-        errs, tols = [], []
-        for name, g_, w_ in zip(("out", "S", "n"), got, want):
-            errs.append((g_ - w_).abs().max().item())
-            tols.append(B2_TOL * max(1.0, w_.abs().max().item()))
-            b2_checks.append((f"{name} {dtype}".replace("torch.", ""),
-                              errs[-1], tols[-1]))
-            if not errs[-1] <= tols[-1]:
-                raise AssertionError(f"B2 {name} {dtype}: error {errs[-1]} "
-                                     f"> {tols[-1]}")
-        ms = time_ms(torch, lambda: rm_fused_causal(*args, cfg.rm.eps),
-                     iters=20)
-        plain_ms = time_ms(torch, lambda: rm_fused_causal_ref(
-            *args, chunk=cfg.rm.chunk, eps=cfg.rm.eps), iters=20)
-        dname = str(dtype).split(".")[-1]
-        item = q.element_size()
-        bh = b * h
-        nbytes = (2 * bh * t * dh * item + bh * t * dh * 4 + b * t * 4
-                  + omega_bytes(deg_np, dh, item) + f * 8 + bh * t * dh * 4
-                  + bh * f * dh * 4 + bh * f * 4)
-        # featurize q and k rows, then the recurrent form: S += zk v^T,
-        # n += zk, num = zq S, den = zq n, divide
-        ops = (2 * featurize_ops(bh * t, deg_np, dh)
-               + bh * t * (4 * f * dh + 3 * f + dh))
-        bms, by = bound(nbytes, ops, dname)
-        print(f"[B2] q,k[{bh},{t},{dh}] {dname}: max_abs_err out/S/n "
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
-              f"{tols[0]:.1e}/{tols[1]:.1e}/{tols[2]:.1e}) kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
-              f"({by})")
-        if dtype == torch.float32:
-            hus = host_us(torch, lambda: rm_fused_causal(*args, cfg.rm.eps),
-                          iters=50)
-            print(f"[B2] host time {hus:.1f} us a call")
-            kernels["B2"] = dict(
-                name="rm_fused_causal", route="cuda",
-                source="src/repro_torch/csrc/rm_fused_attention.cu",
-                replaces="src/repro/kernels/rm_attention/fused.py:191",
-                shape=f"q,k[{bh},{t},{dh}] fp32, F={f}",
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+    for label, t, pad, wt32, c_deg, c_scale, c_np, dtypes, iters in (
+            ("prefill", 256, 56, w32, col_deg, col_scale, deg_np,
+             (torch.float32, torch.bfloat16), 20),
+            ("long", 4096, 100, w32, col_deg, col_scale, deg_np,
+             (torch.float32, torch.bfloat16), 10),
+            ("wide", 256, 56, ww32, wcd, wcs, wide_plan.column_degrees(),
+             (torch.float32,), 10),
+            ("prompt32k", 32768, 100, w32, col_deg, col_scale, deg_np,
+             (torch.float32,), 3)):
+        bh, f_b2 = cfg.num_heads, wt32.shape[1]
+        for dtype in dtypes:
+            q = unit_rows(torch, (1, bh, t, dh), gen).to(dtype)
+            k = unit_rows(torch, (1, bh, t, dh), gen).to(dtype)
+            v = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
+            kvalid = torch.ones((1, t), device="cuda")
+            kvalid[0, t - pad:] = 0.0              # a padded prompt bucket
+            w = wt32.to(dtype)
+            args = (q, k, v, kvalid, w, c_deg, c_scale)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = rm_fused_causal(*args, cfg.rm.eps)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            sched = rm_fused_causal.last_schedule
+            # the outputs and the scratch of at most 32 chunk states
+            out_bytes = 4 * bh * (t * dh + f_b2 * (dh + 1))
+            if peak > out_bytes + sched.scratch_bytes + 2**20:
+                raise AssertionError(
+                    f"B2 {label}: a call took {peak} bytes beside its "
+                    f"inputs, more than its outputs ({out_bytes}) and "
+                    f"scratch ({sched.scratch_bytes})")
+            again = rm_fused_causal(*args, cfg.rm.eps)
+            want = rm_fused_causal_ref(*args, chunk=cfg.rm.chunk,
+                                       eps=cfg.rm.eps)
+            torch.cuda.synchronize()
+            dname = str(dtype).split(".")[-1]
+            if not all(torch.equal(g_, a_) for g_, a_ in zip(got, again)):
+                raise AssertionError(f"B2 {label} {dname}: two calls differ")
+            errs, tols = [], []
+            for name, g_, w_ in zip(("out", "S", "n"), got, want):
+                scale_ = max(1.0, w_.abs().max().item())
+                errs.append((g_ - w_).abs().max().item())
+                tols.append(B2_TOL * scale_)
+                b2_checks.append((f"{name} {label} {dname}", errs[-1],
+                                  tols[-1]))
+                if not (errs[-1] <= tols[-1] and torch.isfinite(g_).all()):
+                    raise AssertionError(f"B2 {name} {label} {dname}: error "
+                                         f"{errs[-1]} > {tols[-1]}")
+                # fp32 inputs: the precision of 3xTF32
+                if dtype == torch.float32 and \
+                        not errs[-1] <= B2_FP32_TOL * scale_:
+                    raise AssertionError(
+                        f"B2 {name} {label} fp32: error "
+                        f"{errs[-1] / scale_:.2e} x max(1, max |plain|) > "
+                        f"{B2_FP32_TOL}: not 3xTF32-accurate")
+            del got, again, want
+            ms = time_ms(torch, lambda: rm_fused_causal(*args, cfg.rm.eps),
+                         iters=iters)
+            dev_ms = kernel_device_ms(
+                torch, lambda: rm_fused_causal(*args, cfg.rm.eps),
+                "chunk_", iters=iters)
+            plain_ms = time_ms(torch, lambda: rm_fused_causal_ref(
+                *args, chunk=cfg.rm.chunk, eps=cfg.rm.eps),
+                iters=min(iters, 10))
+            item = q.element_size()
+            valid = bh * (t - pad)
+            nbytes = (2 * bh * t * dh * item + bh * t * dh * 4 + t * 4
+                      + omega_bytes(c_np, dh, item) + f_b2 * 8
+                      + bh * t * dh * 4 + bh * f_b2 * dh * 4 + bh * f_b2 * 4)
+            # featurize q rows and the real k rows, then the recurrent form:
+            # S += zk v^T, n += zk, num = zq S, den = zq n, divide
+            feat_ops = (featurize_ops(bh * t, c_np, dh)
+                        + featurize_ops(valid, c_np, dh))
+            other_ops = bh * t * (4 * f_b2 * dh + 3 * f_b2 + dh)
+            bms, by = bound(nbytes, feat_ops + other_ops, dname)
+            tcms, tcby = tensor_core_bound(nbytes, feat_ops, other_ops,
+                                           dname, True)
+            print(f"[B2] {label} q,k[{bh},{t},{dh}] F {f_b2} ({pad} keys "
+                  f"padded) {dname}: max_abs_err out/S/n {errs[0]:.3e}/"
+                  f"{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/"
+                  f"{tols[1]:.1e}/{tols[2]:.1e}"
+                  + (f"; 3xTF32 gate {B2_FP32_TOL:.0e}" if
+                     dtype == torch.float32 else "")
+                  + f"), two calls bitwise equal; kernel {dev_ms:.4f} ms "
+                  f"device (profiler, three kernels), {ms:.4f} ms events; "
+                  f"plain {plain_ms:.4f} ms; bound {tcms:.5f} ms ({tcby}, "
+                  f"tensor cores) / {bms:.5f} ms ({by}, CUDA cores); grid "
+                  f"pass A {sched.blocks_a} + pass B {sched.blocks_b} "
+                  f"blocks ({sched.n_chunks} chunks in segments of "
+                  f"{sched.seg_chunks}, {sched.n_agroups} feature groups, "
+                  f"{sched.n_dvbgroups} value groups); device memory of a "
+                  f"call beside its inputs {peak / 2**20:.1f} MiB (outputs "
+                  f"{out_bytes / 2**20:.1f} MiB, scratch "
+                  f"{sched.scratch_bytes / 2**20:.1f} MiB)")
+            if dtype == torch.float32 and label == "prefill":
+                hus = host_us(torch, lambda: rm_fused_causal(*args,
+                                                             cfg.rm.eps),
+                              iters=50)
+                print(f"[B2] host time {hus:.1f} us a call")
+                kernels["B2"] = dict(
+                    name="rm_fused_causal", route="cuda",
+                    source="src/repro_torch/csrc/rm_fused_attention.cu",
+                    replaces="src/repro/kernels/rm_attention/fused.py:191",
+                    shape=f"q,k[{bh},{t},{dh}] fp32, F={f_b2}",
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=tcms, bound_by=tcby, library_ms=None,
+                    bound_cuda_core_ms=bms,
+                    grid=sched.blocks_a + sched.blocks_b)
+            elif dtype == torch.float32:
+                kernels["B2"].update({
+                    f"{label}_shape": f"q,k[{bh},{t},{dh}] fp32, F={f_b2}",
+                    f"{label}_ms": ms, f"{label}_device_ms": dev_ms,
+                    f"{label}_plain_ms": plain_ms,
+                    f"{label}_bound_ms": tcms,
+                    f"{label}_grid": sched.blocks_a + sched.blocks_b})
+            if dtype == torch.float32:
+                kernels["B2"][f"{label}_peak_mib"] = peak / 2**20
+            del q, k, v, args
+            torch.cuda.empty_cache()
+    del ww32
 
     # -- 4. B6 against its plain version ------------------------------------
     ts_cfg = get_config("qwen3-1.7b", attention_mode="rm",
@@ -1265,7 +1489,12 @@ def main():
     kernels["B2"]["launches"] = launches["B2"]
 
     # -- 8. where the rm slice's time goes (warm) ---------------------------
-    where_time_goes(torch, "rm", engine, prompts, done)
+    shares = where_time_goes(
+        torch, "rm", engine, prompts, done,
+        families={"B1": ("rm_feature_kernel",), "B2": ("chunk_",)})
+    kernels["B1"]["decode_step_device_ms"] = shares["decode step"]["B1"]
+    kernels["B2"]["prefill_256_device_ms"] = \
+        shares["prefill bucket 256"]["B2"]
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2055,6 +2284,8 @@ def main():
              "bound_by", "library_ms", "shape")
     # the contract's keys first, then a kernel's own (B3 and B4: the long
     # shape's times, the bound on the fp32 CUDA cores, the grid)
+    print(f"[smoke] every phase passed in {time.perf_counter() - t_main:.1f}s "
+          "(the builds included)")
     print(json.dumps({"kernels": [
         {**{key: kernels[kid][key] for key in order},
          **{key: val for key, val in kernels[kid].items() if key not in order}}

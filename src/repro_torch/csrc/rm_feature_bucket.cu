@@ -15,8 +15,8 @@
 // every call; that is a copy through device memory which this kernel does
 // not need.
 //
-// Grid: (row tiles, feature tiles) of 64 x 64, one tile a block: B1's tile
-// (rm_featurize.cuh), 256 threads each holding a 4 x 4 fp32 register tile
+// Grid: (row tiles, feature tiles) of 64 x 64, one tile a block: the tile
+// of rm_featurize.cuh, 256 threads each holding a 4 x 4 fp32 register tile
 // (rows ty + 16 i, features tx + 16 jj), x and slot j's omega rows staged
 // 32 wide along d in shared memory and converted to fp32 on load. A bucket
 // has one degree, so every column of a tile runs all `degree` slots and

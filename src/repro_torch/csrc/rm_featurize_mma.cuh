@@ -1,7 +1,15 @@
-// The tensor-core featurize shared by the non-causal RM kernels B3
-// (rm_fused_state.cu) and B4 (rm_fused_apply.cu).
+// The tensor-core featurize of the Random Maclaurin map, shared by the
+// kernels B1 (rm_feature.cu), B2 (rm_fused_attention.cu), B3
+// (rm_fused_state.cu) and B4 (rm_fused_apply.cu); B9 keeps the CUDA-core
+// tile of rm_featurize.cuh.
 //
-// For a 64-row tile x (keys or queries) it forms
+// The mma products (Proj, Chain) and the precision rules below are shared;
+// B3 and B4 drive them through featurize_tile, B2 and B1's decode-sized
+// batches through chain_z, and B1's Gram-sized batches call Proj on a
+// staged x tile (rm_feature.cu).
+//
+// B3 and B4 (featurize_tile): for a 64-row tile x (keys or queries) it
+// forms
 //
 //     z[r][f] = col_scale[f] * prod_{j < col_deg[f]} <w[j, f, :], x[r, :]>
 //
@@ -44,6 +52,25 @@
 // Masking: rows past the data load as zero; a column past F carries
 // degree 0 and scale 0, so its z is 0; slots past a column's degree
 // multiply by 1 (their slab rows are zero and are never used).
+//
+// Depth d past shared memory (featurize_tile_dchunks): where the 64-row x
+// tile and one column tile's slab rows do not fit together, the schedule
+// sets Sched::dk < dp, and the projections accumulate over chunks of dk
+// columns of d, the x tile and the slab rows staged one chunk at a time,
+// in a shared projection tile P (64 rows x the chunk's slab rows, fp32);
+// the running products are then formed from P.
+//
+// B1 and B2 (chain_z): one warp forms z of 16 rows x one 8-column tile,
+// reading x and w [kdeg, F, d] straight from device memory (no pack: the
+// columns of w are the features, so a column tile's slot j is the 8 rows
+// w[j, 8 c .. 8 c + 7]), to the tile's own depth (the largest degree of
+// its 8 columns), with a loop over d. Each lane loads 32 contiguous bytes
+// of a row per step (two 16-byte loads): the mma's k index is permuted
+// within each 32-byte run per lane, the same way for x and w, which
+// leaves every dot product unchanged. fp32 runs 3xTF32; the hi(x) lo(w)
+// term is skipped for a step where a warp vote finds every omega word of
+// the step a TF32 number (the rm plans' +-1 are), which adds exact zeros
+// where it runs, so the result does not depend on the vote.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,7 +101,7 @@ constexpr int kApplyNI = 3;
 struct Sched {
   int bh, t, d, dv, f, n_ct, splits, tiles_per_split, ct_per_group,
       n_fgroups, dv_per_group, n_dvgroups, dp, ldx, slab_cap, ldb, b_rows,
-      ldz, chunk_ct, smem_bytes;
+      ldz, chunk_ct, dk, ldp, smem_bytes;
 };
 constexpr int kSchedFields = sizeof(Sched) / sizeof(int);
 
@@ -85,7 +112,7 @@ __host__ __device__ inline size_t round16(size_t n) {
 // Byte offsets of the shared-memory regions (the order of
 // NoncausalSchedule's docstring).
 struct Smem {
-  size_t slab, x, b, z, den, total;
+  size_t slab, x, b, z, p, den, total;
 };
 
 template <typename T>
@@ -95,7 +122,8 @@ __host__ __device__ inline Smem smem_layout(const Sched& s, bool with_den) {
   m.x = round16(static_cast<size_t>(s.slab_cap) * s.ldx * sizeof(T));
   m.b = m.x + round16(static_cast<size_t>(kRows) * s.ldx * sizeof(T));
   m.z = m.b + static_cast<size_t>(s.b_rows) * s.ldb * 4;
-  m.den = m.z + static_cast<size_t>(kRows) * s.ldz * 4;
+  m.p = m.z + static_cast<size_t>(kRows) * s.ldz * 4;
+  m.den = m.p + static_cast<size_t>(kRows) * s.ldp * 4;
   m.total = m.den + (with_den ? kRows * 4 : 0);
   return m;
 }
@@ -125,8 +153,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // stride gld elements) into shared memory (row stride sld); rows >=
 // valid_rows come in as zeros, columns >= cols are left alone. vec: 16-byte
 // cp.async (cols and gld multiples of 16 bytes, src 16-byte aligned);
-// otherwise plain loads and stores.
-template <typename T>
+// otherwise plain loads and stores. NT: the block's threads.
+template <typename T, int NT = kThreads>
 __device__ __forceinline__ void load_rows(T* dst, int sld, const T* src,
                                           size_t gld, int rows,
                                           int valid_rows, int cols,
@@ -134,7 +162,7 @@ __device__ __forceinline__ void load_rows(T* dst, int sld, const T* src,
   if (vec) {
     constexpr int kPer = 16 / sizeof(T);
     const int chunks = cols / kPer;
-    for (int e = threadIdx.x; e < rows * chunks; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * chunks; e += NT) {
       const int r = e / chunks;
       const int c = (e - r * chunks) * kPer;
       const bool ok = r < valid_rows;
@@ -142,7 +170,7 @@ __device__ __forceinline__ void load_rows(T* dst, int sld, const T* src,
                  ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+    for (int e = threadIdx.x; e < rows * cols; e += NT) {
       const int r = e / cols;
       const int c = e - r * cols;
       dst[r * sld + c] = r < valid_rows ? src[r * gld + c] : zero_of<T>();
@@ -159,6 +187,36 @@ __device__ __forceinline__ void zero_cols(T* dst, int sld, int rows, int c0,
   for (int e = threadIdx.x; e < rows * w; e += kThreads) {
     const int r = e / w;
     dst[r * sld + c0 + (e - r * w)] = zero_of<T>();
+  }
+}
+
+// Rows [f0, f0 + rows) of [S | n | 0] for value columns [c0, c0 + w) (the
+// caller offsets s_bh by c0): S in columns [0, w) (by cp.async when vec: w
+// and the row stride in whole 16 bytes), n in column w, zeros up to 8 nt;
+// rows past F are zero.
+template <int NT = kThreads>
+__device__ __forceinline__ void load_state(float* ss, int ldb,
+                                           const float* __restrict__ s_bh,
+                                           const float* __restrict__ n_bh,
+                                           int f, int dv, int w, int nt,
+                                           int f0, int rows, bool vec) {
+  const int first = vec ? w : 0;         // the columns of the plain path
+  if (vec)
+    load_rows<float, NT>(ss, ldb, s_bh + static_cast<size_t>(f0) * dv, dv,
+                         rows, f - f0, w, true);
+  const int cols = 8 * nt - first;
+  for (int e = threadIdx.x; e < rows * cols; e += NT) {
+    const int r = e / cols;
+    const int c = first + e - r * cols;
+    const int fr = f0 + r;
+    float val = 0.f;
+    if (fr < f) {
+      if (c < w)
+        val = __ldg(s_bh + static_cast<size_t>(fr) * dv + c);
+      else if (c == w)
+        val = __ldg(n_bh + fr);
+    }
+    ss[r * ldb + c] = val;
   }
 }
 
@@ -505,6 +563,361 @@ __device__ __forceinline__ void featurize_tile(
     fold(cb, jb, p2[1]);
   }
   if (zc >= 0) store(zc, z);
+}
+
+
+// Z of featurize_tile when d is tiled (Sched::dk < Sched::dp): for the
+// column tiles [ca, cb) of the warp's class, whose slab rows [ra, rb) fit
+// slab_cap, each chunk of dk columns of d brings in that chunk of the x
+// tile (xg: row 0 of the tile in device memory, row stride d, nrows rows;
+// rows past them load as zeros) and of the slab rows (slab_g: the whole
+// slab), and every warp adds its (column tile, slot) projections over the
+// chunk into the shared projection tile P (ps: 64 x ldp fp32, column =
+// slab row - ra). Each lane adds to the places of its own mma fragments
+// and reads only those back, so the chunks sum in the order 0, 1, ...
+// with no barrier of their own. Then each warp forms its tiles' running
+// products from P into Z, as featurize_tile does. Starts and ends with a
+// barrier's worth of ordering: it first waits for the block (the last
+// readers of xs and slab_s), and Z is the caller's to publish.
+template <typename T, bool kExactW>
+__device__ void featurize_tile_dchunks(
+    const T* __restrict__ xg, int nrows, const T* __restrict__ slab_g,
+    const Sched& s, T* xs, T* slab_s, float* ps,
+    const int* __restrict__ tile_row0, const int* __restrict__ class_tiles,
+    const int* __restrict__ col_deg, const float* __restrict__ col_scale,
+    int ca, int cb, int zc0, float* zs, const float* __restrict__ rowmul,
+    int valid_rows, bool vec) {
+  constexpr int kDepthStep = sizeof(T) == 4 ? 8 : 16;   // one mma's k
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * kWarpRowGroups * (warp % kRowHalves);
+  const int cls = warp / kRowHalves;
+  const int i0 = __ldg(class_tiles + cls), i1 = __ldg(class_tiles + cls + 1);
+  const int ra = __ldg(tile_row0 + ca);
+  const int rows = __ldg(tile_row0 + cb) - ra;
+  const T* xw = xs + row0 * s.ldx;
+  // P += (or =) one slot tile's projections at P column pc
+  auto add = [&](int pc, const float pr[kWarpRowGroups][4], bool first) {
+#pragma unroll
+    for (int r = 0; r < kWarpRowGroups; ++r) {
+      float* q = ps + (row0 + 16 * r + g) * s.ldp + pc + 2 * t;
+      if (first) {
+        q[0] = pr[r][0];
+        q[1] = pr[r][1];
+        q[8 * s.ldp] = pr[r][2];
+        q[8 * s.ldp + 1] = pr[r][3];
+      } else {
+        q[0] += pr[r][0];
+        q[1] += pr[r][1];
+        q[8 * s.ldp] += pr[r][2];
+        q[8 * s.ldp + 1] += pr[r][3];
+      }
+    }
+  };
+  for (int k0 = 0; k0 < s.d; k0 += s.dk) {
+    const int kw = min(s.dk, s.d - k0);
+    const int kp = (kw + kDepthStep - 1) / kDepthStep * kDepthStep;
+    __syncthreads();                    // the last chunk's readers are done
+    load_rows(xs, s.ldx, xg + k0, s.d, kRows, nrows, kw, vec);
+    load_rows(slab_s, s.ldx, slab_g + static_cast<size_t>(ra) * s.d + k0,
+              s.d, rows, rows, kw, vec);
+    zero_cols(xs, s.ldx, kRows, kw, kp);
+    zero_cols(slab_s, s.ldx, rows, kw, kp);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = i0; i < i1; ++i) {
+      const int c = __ldg(class_tiles + kColClasses + 1 + i);
+      if (c < ca || c >= cb) continue;
+      const int pc = __ldg(tile_row0 + c) - ra;
+      const int depth = (__ldg(tile_row0 + c + 1) - __ldg(tile_row0 + c)) /
+                        kColTile;
+      int j = 0;
+      for (; j + 1 < depth; j += 2) {
+        const T* w2[2] = {slab_s + (pc + kColTile * j) * s.ldx,
+                          slab_s + (pc + kColTile * (j + 1)) * s.ldx};
+        float p2[2][kWarpRowGroups][4];
+        Proj<T>::template run<2, kExactW>(xw, s.ldx, w2, s.ldx, kp, lane,
+                                          p2);
+        add(pc + kColTile * j, p2[0], k0 == 0);
+        add(pc + kColTile * (j + 1), p2[1], k0 == 0);
+      }
+      if (j < depth) {
+        const T* w1[1] = {slab_s + (pc + kColTile * j) * s.ldx};
+        float p1[1][kWarpRowGroups][4];
+        Proj<T>::template run<1, kExactW>(xw, s.ldx, w1, s.ldx, kp, lane,
+                                          p1);
+        add(pc + kColTile * j, p1[0], k0 == 0);
+      }
+    }
+  }
+  // the running products of the warp's tiles, from P
+  float mul[2 * kWarpRowGroups];
+#pragma unroll
+  for (int h = 0; h < 2 * kWarpRowGroups; ++h) {
+    const int r = row0 + g + 8 * h;
+    mul[h] = rowmul == nullptr ? 1.f
+                               : (r < valid_rows ? __ldg(rowmul + r) : 0.f);
+  }
+  for (int i = i0; i < i1; ++i) {
+    const int c = __ldg(class_tiles + kColClasses + 1 + i);
+    if (c < ca || c >= cb) continue;
+    const int pc = __ldg(tile_row0 + c) - ra;
+    const int depth = (__ldg(tile_row0 + c + 1) - __ldg(tile_row0 + c)) /
+                      kColTile;
+    const int f = c * kColTile + 2 * t;
+    const int deg0 = __ldg(col_deg + f), deg1 = __ldg(col_deg + f + 1);
+    const float s0 = __ldg(col_scale + f), s1 = __ldg(col_scale + f + 1);
+#pragma unroll
+    for (int r = 0; r < kWarpRowGroups; ++r) {
+      float z0 = 1.f, z1 = 1.f, z2 = 1.f, z3 = 1.f;
+      const float* q = ps + (row0 + 16 * r + g) * s.ldp + pc + 2 * t;
+      for (int j = 0; j < depth; ++j) {
+        const float* qj = q + kColTile * j;
+        if (j < deg0) {
+          z0 *= qj[0];
+          z2 *= qj[8 * s.ldp];
+        }
+        if (j < deg1) {
+          z1 *= qj[1];
+          z3 *= qj[8 * s.ldp + 1];
+        }
+      }
+      float* zr = zs + (row0 + 16 * r + g) * s.ldz + (c - zc0) * kColTile +
+                  2 * t;
+      zr[0] = z0 * s0 * mul[2 * r];
+      zr[1] = z1 * s1 * mul[2 * r];
+      zr[8 * s.ldz] = z2 * s0 * mul[2 * r + 1];
+      zr[8 * s.ldz + 1] = z3 * s1 * mul[2 * r + 1];
+    }
+  }
+}
+
+// ---- B1 and B2: a warp's chain (16 rows x one 8-column tile) -------------
+
+// Bits of one element, in the low bits of a word.
+__device__ __forceinline__ uint32_t elem_bits(const float* p) {
+  return __float_as_uint(__ldg(p));
+}
+__device__ __forceinline__ uint32_t elem_bits(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// The 32 bytes of a row of device memory that start at element k (8 fp32
+// or 16 bf16 elements), as 8 words (two bf16 a word, the lower k in the
+// low half); elements at or past d, and the whole run of a row that is
+// not valid, are zeros. vec: 16-byte loads (the row 16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void load_run(const T* __restrict__ row, int k,
+                                         int d, bool valid, bool vec,
+                                         uint32_t w[8]) {
+  constexpr int kPer = 32 / sizeof(T);
+  if (valid && vec && k + kPer <= d) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + k));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(row + k + kPer / 2));
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = 0u;
+  if (!valid) return;
+  constexpr int kPerWord = 4 / sizeof(T);
+#pragma unroll
+  for (int e = 0; e < kPer; ++e)
+    if (k + e < d)
+      w[e / kPerWord] |= elem_bits(row + k + e) << (16 * (e % kPerWord));
+}
+
+// p[n] = X[16 x d] W_n[8 x d]^T for the 16 rows x0 (rows 0-7) and x8 (rows
+// 8-15) of a warp (valid0 / valid8: the lane's row of each half exists)
+// and NW slot tiles w[n] (the lane's omega row; wvalid: it exists), as
+// m16n8 accumulator fragments. Per step each lane takes one 32-byte run
+// of its rows (load_run); the k index of the mma runs over the run in the
+// order that makes the words of a run the fragments of consecutive steps.
+template <typename T> struct Chain;
+
+template <> struct Chain<float> {
+  template <int NW>
+  static __device__ __forceinline__ void run(
+      const float* x0, const float* x8, bool valid0, bool valid8,
+      const float* const w[NW], bool wvalid, int d, bool vec, int lane,
+      float p[NW][4]) {
+    const int t = lane & 3;
+    float big[NW][4], small[NW][4];
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) big[n][i] = small[n][i] = 0.f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < d; k0 += 32) {
+      const int k = k0 + 8 * t;
+      uint32_t a0[8], a8[8], b[NW][8];
+      load_run(x0, k, d, valid0, vec, a0);
+      load_run(x8, k, d, valid8, vec, a8);
+      // a TF32 number has its low 13 bits 0 (then its remainder is 0)
+      uint32_t lo_bits = 0u;
+#pragma unroll
+      for (int n = 0; n < NW; ++n) {
+        load_run(w[n], k, d, wvalid, vec, b[n]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) lo_bits |= b[n][i] & 0x1FFFu;
+      }
+      // warp-uniform: an omega word of this step with a TF32 remainder
+      const bool w_lo = __any_sync(0xffffffffu, lo_bits != 0u);
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const uint32_t a[4] = {a0[2 * st], a8[2 * st], a0[2 * st + 1],
+                               a8[2 * st + 1]};
+        uint32_t ah[4], al[4], bh[NW][2], bl[NW][2];
+        split_words<4>(a, ah, al);
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const uint32_t bw[2] = {b[n][2 * st], b[n][2 * st + 1]};
+          split_words<2>(bw, bh[n], bl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < NW; ++n) mma_tf32(small[n], al, bh[n]);
+        if (w_lo) {
+#pragma unroll
+          for (int n = 0; n < NW; ++n) mma_tf32(small[n], ah, bl[n]);
+        }
+#pragma unroll
+        for (int n = 0; n < NW; ++n) mma_tf32(big[n], ah, bh[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[n][i] = small[n][i] + big[n][i];
+  }
+};
+
+template <> struct Chain<__nv_bfloat16> {
+  template <int NW>
+  static __device__ __forceinline__ void run(
+      const __nv_bfloat16* x0, const __nv_bfloat16* x8, bool valid0,
+      bool valid8, const __nv_bfloat16* const w[NW], bool wvalid, int d,
+      bool vec, int lane, float p[NW][4]) {
+    const int t = lane & 3;
+    // alternate k-steps go to two accumulator sets
+    float c0[NW][4], c1[NW][4];
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c0[n][i] = c1[n][i] = 0.f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < d; k0 += 64) {
+      const int k = k0 + 16 * t;
+      uint32_t a0[8], a8[8], b[NW][8];
+      load_run(x0, k, d, valid0, vec, a0);
+      load_run(x8, k, d, valid8, vec, a8);
+#pragma unroll
+      for (int n = 0; n < NW; ++n) load_run(w[n], k, d, wvalid, vec, b[n]);
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const uint32_t a[4] = {a0[2 * st], a8[2 * st], a0[2 * st + 1],
+                               a8[2 * st + 1]};
+#pragma unroll
+        for (int n = 0; n < NW; ++n) {
+          const uint32_t bs[2] = {b[n][2 * st], b[n][2 * st + 1]};
+          mma_bf16(st % 2 ? c1[n] : c0[n], a, bs);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NW; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[n][i] = c0[n][i] + c1[n][i];
+  }
+};
+
+// z of one chain: rows row0 .. row0 + 15 (those below nrows exist) of x
+// (row stride ldx elements) against column tile c of w [kdeg, F, d], as
+// the m16n8 fragment of the lane (rows row0 + g and + 8, columns 8 c + 2
+// t and + 1): the running product over the slots below each column's
+// degree (slot 0 first), times the column's scale; a column past F has z
+// 0. Slots are projected two at a time, sharing each x run.
+template <typename T>
+__device__ __forceinline__ void chain_z(
+    const T* __restrict__ x, size_t ldx, int row0, int nrows,
+    const T* __restrict__ w, int f, int d, int kdeg,
+    const int* __restrict__ col_deg, const float* __restrict__ col_scale,
+    int c, bool vec, int lane, float z[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const int fa = c * kColTile + 2 * t;
+  const int deg0 = fa < f ? min(__ldg(col_deg + fa), kdeg) : 0;
+  const int deg1 = fa + 1 < f ? min(__ldg(col_deg + fa + 1), kdeg) : 0;
+  const int fl = c * kColTile + (lane & 7);
+  const int depth = __reduce_max_sync(
+      0xffffffffu, fl < f ? min(__ldg(col_deg + fl), kdeg) : 0);
+  const T* x0 = x + static_cast<size_t>(row0 + g) * ldx;
+  const T* x8 = x0 + 8 * ldx;
+  const bool valid0 = row0 + g < nrows, valid8 = row0 + g + 8 < nrows;
+  const int wrow = c * kColTile + g;
+  const bool wvalid = wrow < f;
+  const T* wr = w + static_cast<size_t>(wrow) * d;
+  const size_t slot = static_cast<size_t>(f) * d;
+  z[0] = z[1] = z[2] = z[3] = 1.f;
+  auto fold = [&](int j, const float pr[4]) {
+    if (j < deg0) {
+      z[0] *= pr[0];
+      z[2] *= pr[2];
+    }
+    if (j < deg1) {
+      z[1] *= pr[1];
+      z[3] *= pr[3];
+    }
+  };
+  int j = 0;
+  for (; j + 1 < depth; j += 2) {
+    const T* w2[2] = {wr + j * slot, wr + (j + 1) * slot};
+    float p2[2][4];
+    Chain<T>::template run<2>(x0, x8, valid0, valid8, w2, wvalid, d, vec,
+                              lane, p2);
+    fold(j, p2[0]);
+    fold(j + 1, p2[1]);
+  }
+  if (j < depth) {
+    const T* w1[1] = {wr + j * slot};
+    float p1[1][4];
+    Chain<T>::template run<1>(x0, x8, valid0, valid8, w1, wvalid, d, vec,
+                              lane, p1);
+    fold(j, p1[0]);
+  }
+  const float s0 = fa < f ? __ldg(col_scale + fa) : 0.f;
+  const float s1 = fa + 1 < f ? __ldg(col_scale + fa + 1) : 0.f;
+  z[0] *= s0;
+  z[1] *= s1;
+  z[2] *= s0;
+  z[3] *= s1;
+}
+
+// acc[i] += A[16 x K] B_i[K x 8] in 3xTF32 for the warp's 16-row m-tile
+// and NB n-tiles of fp32 operands in shared memory: A's element (m, k) at
+// a[m * am + k * ak], B's (k, n) at b[k * bk + n * bn], n-tile i's first
+// column noff[i]; K a multiple of 8. The three terms go in three passes
+// over the tiles, so no mma waits on the one before it.
+template <int NB>
+__device__ __forceinline__ void mma3(const float* a, int am, int ak,
+                                     const float* b, int bk, int bn,
+                                     const int noff[NB], int kdim, int lane,
+                                     float acc[NB][4]) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < kdim; k0 += 8) {
+    uint32_t ah[4], al[4], bh[NB][2], bl[NB][2];
+    frag_a(a + k0 * ak, am, ak, lane, ah, al);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      frag_b(b + k0 * bk + noff[i] * bn, bk, bn, lane, bh[i], bl[i]);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) mma_tf32(acc[i], al, bh[i]);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) mma_tf32(acc[i], ah, bl[i]);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) mma_tf32(acc[i], ah, bh[i]);
+  }
 }
 
 }  // namespace rmm

@@ -28,7 +28,9 @@
 //
 // A slab or state too large for shared memory (a wide d or F) is brought
 // in chunks of column tiles for every query tile; the sums stay in the
-// same registers.
+// same registers. A d too deep for the query tile and a column tile's slab
+// rows to share shared memory is tiled too (Sched::dk < dp): the featurize
+// then stages both a d chunk at a time (featurize_tile_dchunks).
 //
 // What bounds it on the card: operations (the featurize of every query
 // row, 2 d per used slot, and the numerator and denominator, 2 F (dv + 1)
@@ -92,35 +94,7 @@ __device__ __forceinline__ void contract(const float* zs, int ldz,
   }
 }
 
-// Rows [f0, f0 + rows) of [S | n | 0] for value columns [c0, c0 + w): S in
-// columns [0, w) (by cp.async when vec: w and the row stride in whole 16
-// bytes), n in column w, zeros up to 8 nt; rows past F are zero.
-__device__ __forceinline__ void load_state(float* ss, int ldb,
-                                           const float* __restrict__ s_bh,
-                                           const float* __restrict__ n_bh,
-                                           int f, int dv, int w, int nt,
-                                           int f0, int rows, bool vec) {
-  const int first = vec ? w : 0;         // the columns of the plain path
-  if (vec)
-    rmm::load_rows(ss, ldb, s_bh + static_cast<size_t>(f0) * dv, dv, rows,
-                   f - f0, w, true);
-  const int cols = 8 * nt - first;
-  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-    const int r = e / cols;
-    const int c = first + e - r * cols;
-    const int fr = f0 + r;
-    float val = 0.f;
-    if (fr < f) {
-      if (c < w)
-        val = __ldg(s_bh + static_cast<size_t>(fr) * dv + c);
-      else if (c == w)
-        val = __ldg(n_bh + fr);
-    }
-    ss[r * ldb + c] = val;
-  }
-}
-
-template <typename T, bool kExactW>
+template <typename T, bool kExactW, bool kDChunks>
 __global__ void __launch_bounds__(kThreads, 1)
 rm_fused_apply_kernel(const T* __restrict__ q,
                       const float* __restrict__ s_in,
@@ -138,6 +112,7 @@ rm_fused_apply_kernel(const T* __restrict__ q,
   T* xs = reinterpret_cast<T*>(smem + lay.x);
   float* ss = reinterpret_cast<float*>(smem + lay.b);
   float* zs = reinterpret_cast<float*>(smem + lay.z);
+  float* ps = reinterpret_cast<float*>(smem + lay.p);
   float* dens = reinterpret_cast<float*>(smem + lay.den);
 
   int blk = blockIdx.x;
@@ -153,22 +128,29 @@ rm_fused_apply_kernel(const T* __restrict__ q,
   const int tile0 = split * s.tiles_per_split;
   const int tile1 = min(tiles, tile0 + s.tiles_per_split);
   const int total_rows = __ldg(tile_row0 + s.n_ct);
-  const bool one_chunk = s.n_ct <= s.chunk_ct && total_rows <= s.slab_cap;
+  // d tiled (dk < dp, its own instance of the kernel): the featurize
+  // stages x and the slab a d chunk at a time itself
+  // (featurize_tile_dchunks), so nothing is resident
+  constexpr bool dchunks = kDChunks;
+  const bool one_chunk =
+      !dchunks && s.n_ct <= s.chunk_ct && total_rows <= s.slab_cap;
 
   const T* qb = q + static_cast<size_t>(bh) * s.t * s.d;
   const float* s_bh = s_in + static_cast<size_t>(bh) * s.f * s.dv + c0;
   const float* n_bh = n_in + static_cast<size_t>(bh) * s.f;
   float* ob = out + static_cast<size_t>(bh) * s.t * s.dv + c0;
 
-  rmm::zero_cols(xs, s.ldx, kRows, s.d, s.dp);
-  rmm::zero_cols(slab_s, s.ldx, s.slab_cap, s.d, s.dp);
+  if (!dchunks) {
+    rmm::zero_cols(xs, s.ldx, kRows, s.d, s.dp);
+    rmm::zero_cols(slab_s, s.ldx, s.slab_cap, s.d, s.dp);
+  }
   if (one_chunk) {
     rmm::load_rows(slab_s, s.ldx, slab, s.d, total_rows, total_rows, s.d,
                    vec_x);
-    load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt, 0,
+    rmm::load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt, 0,
                s.n_ct * rmm::kColTile, vec_s);
   }
-  if (tile0 < tile1)
+  if (!dchunks && tile0 < tile1)
     rmm::load_rows(xs, s.ldx, qb + static_cast<size_t>(tile0) * kRows * s.d,
                    s.d, kRows, min(kRows, s.t - tile0 * kRows), s.d, vec_x);
   rmm::cp_async_commit();
@@ -206,18 +188,25 @@ rm_fused_apply_kernel(const T* __restrict__ q,
         const int ra = __ldg(tile_row0 + ca);
         const int rows = __ldg(tile_row0 + cb) - ra;
         __syncthreads();                  // the last chunk's readers are done
-        rmm::load_rows(slab_s, s.ldx, slab + static_cast<size_t>(ra) * s.d,
-                       s.d, rows, rows, s.d, vec_x);
-        load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt,
+        if (!dchunks)
+          rmm::load_rows(slab_s, s.ldx, slab + static_cast<size_t>(ra) * s.d,
+                         s.d, rows, rows, s.d, vec_x);
+        rmm::load_state(ss, s.ldb, s_bh, n_bh, s.f, s.dv, w, nt,
                    ca * rmm::kColTile, (cb - ca) * rmm::kColTile, vec_s);
         rmm::cp_async_commit();
         rmm::cp_async_wait<0>();
         __syncthreads();
-        rmm::featurize_tile<T, kExactW>(xs, s.ldx, s.dp, slab_s, s.ldx, ra, tile_row0,
+        if (dchunks)
+          rmm::featurize_tile_dchunks<T, kExactW>(
+              qb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
+              ps, tile_row0, class_tiles, col_deg, col_scale, ca, cb, ca, zs,
+              nullptr, kRows, vec_x);
+        else
+          rmm::featurize_tile<T, kExactW>(xs, s.ldx, s.dp, slab_s, s.ldx, ra, tile_row0,
                                class_tiles, col_deg, col_scale, ca, cb, ca,
                                zs, s.ldz, nullptr, kRows);
         __syncthreads();
-        if (cb == s.n_ct && tile + 1 < tile1)
+        if (!dchunks && cb == s.n_ct && tile + 1 < tile1)
           rmm::load_rows(xs, s.ldx,
                          qb + static_cast<size_t>(r0 + kRows) * s.d, s.d,
                          kRows, min(kRows, s.t - r0 - kRows), s.d, vec_x);
@@ -278,14 +267,14 @@ int launch(const void* q, const float* s_in, const float* n_in,
   const bool vec_x = (s.d * sizeof(T)) % 16 == 0 && aligned16(q) &&
                      aligned16(slab);
   const bool vec_s = s.dv % 4 == 0 && aligned16(s_in);
+  auto kernel = s.dk < s.dp ? rm_fused_apply_kernel<T, kExactW, true>
+                            : rm_fused_apply_kernel<T, kExactW, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      rm_fused_apply_kernel<T, kExactW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      s.smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks =
       static_cast<long long>(s.bh) * s.splits * s.n_dvgroups;
-  rm_fused_apply_kernel<T, kExactW><<<static_cast<unsigned>(blocks), kThreads,
-                             s.smem_bytes, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, s.smem_bytes, stream>>>(
       static_cast<const T*>(q), s_in, n_in, static_cast<const T*>(slab),
       tile_row0, class_tiles, col_deg, col_scale, out, s, eps, vec_x, vec_s);
   return (int)cudaGetLastError();
@@ -308,7 +297,8 @@ extern "C" int rm_fused_apply_launch(
       s.n_ct != (s.f + rmm::kColTile - 1) / rmm::kColTile ||
       s.splits < 1 || s.tiles_per_split < 1 || s.n_fgroups != 1 ||
       s.n_dvgroups < 1 || s.dv_per_group < 1 || s.chunk_ct < 1 ||
-      s.b_rows != s.chunk_ct * rmm::kColTile ||
+      s.b_rows != s.chunk_ct * rmm::kColTile || s.dk < 1 || s.dk > s.dp ||
+      (s.dk < s.dp && s.ldp < s.slab_cap) ||
       (s.dv_per_group + 8) / 8 > 4 * rmm::kApplyNI)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

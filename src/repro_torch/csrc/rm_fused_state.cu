@@ -23,6 +23,10 @@
 //      warps, at most 3 x 3 a warp.
 // k and v tiles arrive with cp.async: the next key tile loads while this
 // tile contracts, the next value tile while the next key tile featurizes.
+// A d too deep for the key tile and a column tile's slab rows to share
+// shared memory is tiled (Sched::dk < dp): the featurize then stages both
+// a d chunk at a time and sums the projections over the chunks
+// (rm_featurize_mma.cuh featurize_tile_dchunks).
 //
 // Split. Hopper's blocks run unordered, so the TPU's in-order chunk axis
 // becomes a split of the key tiles over `splits` blocks
@@ -101,7 +105,7 @@ __device__ __forceinline__ void contract(
   }
 }
 
-template <typename T, bool kExactW>
+template <typename T, bool kExactW, bool kDChunks>
 __global__ void __launch_bounds__(kThreads, 1)
 rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ kvalid,
@@ -118,6 +122,7 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
   T* xs = reinterpret_cast<T*>(smem + lay.x);
   float* vs = reinterpret_cast<float*>(smem + lay.b);
   float* zs = reinterpret_cast<float*>(smem + lay.z);
+  float* ps = reinterpret_cast<float*>(smem + lay.p);
 
   int blk = blockIdx.x;
   const int dvg = blk % s.n_dvgroups;
@@ -137,7 +142,12 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
   const int tile0 = split * s.tiles_per_split;
   const int tile1 = min(tiles, tile0 + s.tiles_per_split);
   const int grow0 = __ldg(tile_row0 + cg0);
-  const bool one_chunk = __ldg(tile_row0 + cg1) - grow0 <= s.slab_cap;
+  // d tiled (dk < dp, its own instance of the kernel): the featurize
+  // stages x and the slab a d chunk at a time itself
+  // (featurize_tile_dchunks), so nothing is resident
+  constexpr bool dchunks = kDChunks;
+  const bool one_chunk =
+      !dchunks && __ldg(tile_row0 + cg1) - grow0 <= s.slab_cap;
 
   const T* kb = k + static_cast<size_t>(bh) * s.t * s.d;
   const float* vb = v + static_cast<size_t>(bh) * s.t * s.dv + c0;
@@ -146,8 +156,10 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
   // constant parts: the depth padding of x and of the slab, the ones
   // column and the zero columns of the value tile, and Z (its columns past
   // the group's features feed only discarded state rows)
-  rmm::zero_cols(xs, s.ldx, kRows, s.d, s.dp);
-  rmm::zero_cols(slab_s, s.ldx, s.slab_cap, s.d, s.dp);
+  if (!dchunks) {
+    rmm::zero_cols(xs, s.ldx, kRows, s.d, s.dp);
+    rmm::zero_cols(slab_s, s.ldx, s.slab_cap, s.d, s.dp);
+  }
   for (int e = threadIdx.x; e < kRows * (8 * nt - w); e += kThreads) {
     const int r = e / (8 * nt - w);
     const int c = e - r * (8 * nt - w);
@@ -159,7 +171,7 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
     rmm::load_rows(slab_s, s.ldx, slab + static_cast<size_t>(grow0) * s.d,
                    s.d, __ldg(tile_row0 + cg1) - grow0,
                    __ldg(tile_row0 + cg1) - grow0, s.d, vec_x);
-  if (tile0 < tile1)
+  if (!dchunks && tile0 < tile1)
     rmm::load_rows(xs, s.ldx, kb + static_cast<size_t>(tile0) * kRows * s.d,
                    s.d, kRows, min(kRows, s.t - tile0 * kRows), s.d, vec_x);
   rmm::cp_async_commit();
@@ -186,6 +198,16 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
                              tile_row0, class_tiles, col_deg, col_scale, cg0,
                              cg1, cg0,
                              zs, s.ldz, kvb + r0, nrows);
+    } else if (dchunks) {
+      for (int ca = cg0; ca < cg1;) {
+        const int cb = rmm::chunk_end(tile_row0, ca, cg1, s.chunk_ct,
+                                      s.slab_cap);
+        rmm::featurize_tile_dchunks<T, kExactW>(
+            kb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
+            ps, tile_row0, class_tiles, col_deg, col_scale, ca, cb, cg0, zs,
+            kvb + r0, nrows, vec_x);
+        ca = cb;
+      }
     } else {
       // the group's slab does not fit: bring it in chunk by chunk
       for (int ca = cg0; ca < cg1;) {
@@ -207,7 +229,7 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
       }
     }
     __syncthreads();                      // Z is complete, xs is free
-    if (tile + 1 < tile1)
+    if (!dchunks && tile + 1 < tile1)
       rmm::load_rows(xs, s.ldx, kb + static_cast<size_t>(r0 + kRows) * s.d,
                      s.d, kRows, min(kRows, s.t - r0 - kRows), s.d, vec_x);
     rmm::cp_async_commit();
@@ -302,15 +324,15 @@ int launch(const void* k, const float* v, const float* kvalid,
   const bool vec_x = (s.d * sizeof(T)) % 16 == 0 && aligned16(k) &&
                      aligned16(slab);
   const bool vec_v = s.dv % 4 == 0 && aligned16(v);
+  auto kernel = s.dk < s.dp ? rm_fused_state_kernel<T, kExactW, true>
+                            : rm_fused_state_kernel<T, kExactW, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      rm_fused_state_kernel<T, kExactW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      s.smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = static_cast<long long>(s.bh) * s.splits *
                            s.n_fgroups * s.n_dvgroups;
   const bool split = s.splits > 1;
-  rm_fused_state_kernel<T, kExactW><<<static_cast<unsigned>(blocks), kThreads,
-                             s.smem_bytes, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, s.smem_bytes, stream>>>(
       static_cast<const T*>(k), v, kvalid, static_cast<const T*>(slab),
       tile_row0, class_tiles, col_deg, col_scale, split ? s_part : s_out,
       split ? n_part : n_out, s, vec_x, vec_v);
@@ -345,7 +367,8 @@ extern "C" int rm_fused_state_launch(
       s.n_ct != (s.f + rmm::kColTile - 1) / rmm::kColTile ||
       s.splits < 1 || s.tiles_per_split < 1 || s.n_fgroups < 1 ||
       s.n_dvgroups < 1 || s.ct_per_group < 1 || s.dv_per_group < 1 ||
-      s.b_rows != kRows || s.chunk_ct < 1 ||
+      s.b_rows != kRows || s.chunk_ct < 1 || s.dk < 1 || s.dk > s.dp ||
+      (s.dk < s.dp && s.ldp < s.slab_cap) ||
       (s.dv_per_group + 8) / 8 > 4 * rmm::kStateNI ||
       (s.ct_per_group * rmm::kColTile + 15) / 16 > 4 * rmm::kStateMI ||
       (s.splits > 1 && (s_part == nullptr || n_part == nullptr)))

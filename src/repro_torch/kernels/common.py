@@ -4,27 +4,27 @@
 The reference sizes its Pallas tiles against a TPU VMEM budget. On Hopper
 the limits are a block's shared memory (227 KB = 232,448 bytes after
 ``cudaFuncSetAttribute``) and its registers (65,536 per SM, at most 255 a
-thread). Both kernels build their feature tiles with one device function
-(``csrc/rm_featurize.cuh``): 256 threads, each holding a 4x4 register tile
-of a 64-row by 64-feature output tile, staging 32-wide slices of x and of
-the packed omegas in shared memory. Those constants are fixed by the CUDA
-source and mirrored here. The rm_feature kernel's grid is one such 64 x 64
-tile a block (16.9 KB of staging, 32 fp32 registers of running product and
-partial sum a thread), so it needs no choice; the fused attention kernel's
-chunk and value slice, and the tensor_sketch kernel's row tile (the
-reference's ``get_batch_block``), are chosen below. The chunked attention
-kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
-shared memory. The two non-causal kernels (``csrc/rm_fused_state.cu``, B3,
-and ``csrc/rm_fused_apply.cu``, B4) run on the tensor cores
-(``csrc/rm_featurize_mma.cuh``: 512 threads, a 64-row tile, the omega slab
-resident in shared memory); a block walks several row tiles of one
-batch*head row, and :func:`noncausal_schedule` picks how many, the value
-and feature groups and the shared-memory layout.
-The ctr kernel (``csrc/ctr_feature.cu``, B7) takes B1's 64 x 64 tile with
-three staged slices (x, wr, wi: 25,344 bytes of static shared memory), so
-it needs no choice either; the structured kernel (``csrc/structured_feature.cu``, B8) takes
-a row tile of one Hadamard stack a block (:func:`pick_structured_rows`).
-There is no autotune cache yet.
+thread). The Random Maclaurin kernels B1-B4 featurize on the tensor cores
+(``csrc/rm_featurize_mma.cuh``). B2 (``csrc/rm_fused_attention.cu``) forms
+one chain a warp, 16 rows by one 8-column tile, reading x and the packed
+omegas from device memory; its three kernels (chunk states, their prefix,
+the outputs) are cut by :func:`causal_schedule`. B1 (``csrc/rm_feature.cu``)
+runs the same chains on a decode-sized batch and a 64-row tile staged in
+shared memory on a Gram-sized one (:func:`pick_feature_tiles`). The non-causal
+kernels B3 (``csrc/rm_fused_state.cu``) and B4 (``csrc/rm_fused_apply.cu``)
+run 512 threads on a 64-row tile with the omega slab resident in shared
+memory; a block walks several row tiles of one batch*head row, and
+:func:`noncausal_schedule` picks how many, the value and feature groups,
+the depth chunks and the shared-memory layout. B9
+(``csrc/rm_feature_bucket.cu``) keeps the CUDA-core 64 x 64 tile of
+``csrc/rm_featurize.cuh`` and needs no choice. The tensor_sketch kernel's
+row tile (the reference's ``get_batch_block``) is chosen below; the chunked
+attention kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles
+and static shared memory. The ctr kernel (``csrc/ctr_feature.cu``, B7)
+takes a 64 x 64 tile with three staged slices (x, wr, wi: 25,344 bytes of
+static shared memory), so it needs no choice either; the structured kernel
+(``csrc/structured_feature.cu``, B8) takes a row tile of one Hadamard stack
+a block (:func:`pick_structured_rows`). There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -36,8 +36,10 @@ __all__ = [
     "FEATURE_TILE",
     "STAGE_K",
     "round_up",
-    "attention_smem_bytes",
-    "pick_attention_blocks",
+    "feature_tile_smem",
+    "pick_feature_tiles",
+    "CausalSchedule",
+    "causal_schedule",
     "sketch_smem_bytes",
     "pick_sketch_rows",
     "NoncausalSchedule",
@@ -49,12 +51,11 @@ __all__ = [
 
 # Hopper: the most dynamic shared memory one block may opt into.
 SMEM_PER_BLOCK = 232_448
-# Rows and feature columns of one featurize tile (16x16 threads x 4x4 each).
+# Rows and feature columns of one CUDA-core featurize tile (16x16 threads x
+# 4x4 each: the tensor_sketch and ctr kernels, and B9).
 FEATURE_TILE = 64
-# Width of the x / omega slices staged in shared memory per step over d.
+# Width of the x / omega slices those kernels stage per step over d.
 STAGE_K = 32
-# Lanes of a warp: the fused attention kernel maps one value column to each.
-_WARP = 32
 # Streaming multiprocessors of an H100 SXM: enough blocks to fill them.
 NUM_SMS = 132
 # Row tiles the tensor_sketch kernel is compiled for (16 rows x 1, 2 or 4
@@ -90,47 +91,157 @@ def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def attention_smem_bytes(f_pad: int, chunk: int, dv_block: int) -> int:
-    """Dynamic shared memory of one fused-causal block, in bytes.
+# B1 (csrc/rm_feature.cu): 4 warps a block; the chain kernel takes one
+# 16-row group a block, the tile kernel a 64-row tile staged in shared
+# memory beside 4 warps' buffers of 16 omega rows.
+FEATURE_WARPS = 4
+FEATURE_CHAIN_ROWS = 16
+FEATURE_TILE_ROWS = 64
+# B2 (csrc/rm_fused_attention.cu): 64-position chunks, 64-feature tiles, 8
+# warps a block. Pass A holds [dS | dn] tiles of a feature tile by value
+# n-tiles in batches, so a value group is at most 17 n-tiles (16 of values
+# and the ones column); pass B holds a 64-row numerator of at most 10
+# n-tiles (``kOutNI`` x 2 warps), a value group of at most 9 with its den
+# column.
+CAUSAL_CHUNK = 64
+CAUSAL_FTILE = 64
+# Chunks of one segment: B2 runs its three passes on at most this many
+# chunks at a time (the state carried between segments), so its scratch of
+# chunk states is at most 32 times the (S, n) a call returns, whatever T.
+CAUSAL_SEGMENT_CHUNKS = 32
+_CAUSAL_LDZ_A = 72
+_CAUSAL_LDZ_B = 68
+_CAUSAL_A_VALUE_TILES = 17
+_CAUSAL_B_VALUE_TILES = 9
 
-    zq and zk of the chunk over ALL features (``chunk x (f_pad + 1)`` each,
-    padded a column against bank conflicts), the carried state slice
-    ``S [f_pad, dv_block]`` and ``n [f_pad]``, the featurize staging area
-    (reused for the ``chunk x (chunk + 1)`` score tile) and the value slice
-    ``[chunk, dv_block]``.
+
+def feature_tile_smem(d: int, item: int) -> int:
+    """Shared memory of a B1 tile block: the 64-row x tile and 4 warps' 16
+    omega rows, rows of ``dp + step / 2`` elements (``dp`` d padded to one
+    mma's depth ``step``: 8 fp32, 16 bf16)."""
+    step = 8 if item == 4 else 16
+    ldx = round_up(max(d, 1), step) + step // 2
+    return (FEATURE_TILE_ROWS + FEATURE_WARPS * 16) * ldx * item
+
+
+def pick_feature_tiles(rows: int, f: int, d: int,
+                       item: int) -> Tuple[int, int]:
+    """``(row_tile, ct_per_warp)`` of B1 at ``rows`` x ``d`` inputs (element
+    size ``item``) and ``f`` columns.
+
+    The tile kernel (``row_tile`` 64) where its grid at one column tile a
+    warp has two blocks an SM and its shared memory fits (d up to 448 fp32,
+    896 bf16); otherwise the chain kernel (16), whose 16-row groups spread
+    a decode batch over many blocks (128 rows x 21 column tiles: 8 x 6 =
+    48 blocks of 4 warps). Each warp then walks ``ct_per_warp`` column
+    tiles: the most of 8, 4, 2 that still leaves four blocks an SM in the
+    grid (a warp reuses its rows over them), else 1."""
+    n_ct = -(-max(f, 1) // 8)
+    row_tile = FEATURE_CHAIN_ROWS
+    if (-(-max(rows, 1) // FEATURE_TILE_ROWS) * -(-n_ct // FEATURE_WARPS)
+            >= 2 * NUM_SMS
+            and feature_tile_smem(d, item) <= SMEM_PER_BLOCK):
+        row_tile = FEATURE_TILE_ROWS
+    groups = -(-max(rows, 1) // row_tile)
+    for per in (8, 4, 2):
+        if groups * -(-n_ct // (FEATURE_WARPS * per)) >= 4 * NUM_SMS:
+            return row_tile, per
+    return row_tile, 1
+
+
+class CausalSchedule(NamedTuple):
+    """How B2 (``csrc/rm_fused_attention.cu``) cuts its work. The kernels
+    read these fields as one int array, in this order (``struct CSched``).
+
+    ``bh`` rows are ``heads`` heads of each batch row (the kernels read
+    ``kvalid [B, T]`` at row ``bh // heads``). ``t`` is the padded length
+    (a multiple of :data:`CAUSAL_CHUNK`), cut
+    into ``n_chunks`` chunks, run ``seg_chunks`` at a time (a segment: its
+    three passes, then the next segment's, the state carried between
+    them); the features into ``n_ftiles`` tiles of
+    :data:`CAUSAL_FTILE`. Pass A (each chunk's own key state, ``bh *
+    seg_chunks * n_agroups * n_dvagroups`` blocks a segment) takes
+    ``ftiles_per_agroup`` feature tiles and ``dva_per_group`` value columns
+    a block, its value tile at row stride ``lda``; the prefix pass walks a
+    segment's chunks in order; pass B (the outputs, ``bh * seg_chunks *
+    n_dvbgroups`` blocks a segment) takes ``dvb_per_group`` value columns
+    and every feature tile, its state and value tiles at row stride
+    ``ldb``. ``smem_a`` / ``smem_b``: dynamic shared memory of a pass-A /
+    pass-B block, in bytes.
     """
-    stage = max(2 * FEATURE_TILE * (STAGE_K + 1), chunk * (chunk + 1))
-    floats = (2 * chunk * (f_pad + 1) + f_pad * dv_block + f_pad + stage
-              + chunk * dv_block)
-    return 4 * floats
+    bh: int
+    heads: int
+    t: int
+    d: int
+    dv: int
+    f: int
+    n_ct: int
+    n_chunks: int
+    seg_chunks: int
+    n_ftiles: int
+    ftiles_per_agroup: int
+    n_agroups: int
+    dva_per_group: int
+    n_dvagroups: int
+    lda: int
+    dvb_per_group: int
+    n_dvbgroups: int
+    ldb: int
+    smem_a: int
+    smem_b: int
+
+    @property
+    def blocks_a(self) -> int:
+        return self.bh * self.n_chunks * self.n_agroups * self.n_dvagroups
+
+    @property
+    def blocks_b(self) -> int:
+        return self.bh * self.n_chunks * self.n_dvbgroups
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Device memory of the chunk states a call allocates: ``ds [bh,
+        seg_chunks, f, dv]`` and ``dn [bh, seg_chunks, f]``, fp32."""
+        return 4 * self.bh * self.seg_chunks * self.f * (self.dv + 1)
 
 
-def pick_attention_blocks(f: int, dv: int, t: int) -> Tuple[int, int]:
-    """``(chunk, dv_block)`` for the fused causal kernel.
-
-    One block owns ALL feature columns of one (batch*head, value slice), so
-    the score, numerator and denominator sums over features finish inside
-    the block and the causal mask is applied once, after the feature sum.
-    The value axis is split into ``dv_block``-wide slices (one warp lane a
-    column) to put several blocks on each batch*head. The largest chunk
-    (at most one 64-row featurize tile, and no longer than the padded
-    sequence) whose working set fits ``SMEM_PER_BLOCK`` wins.
-
-    Raises:
-        ValueError: no chunk fits — the feature axis is too wide for one
-            block to own (a split with a second pass is future work).
-    """
-    f_pad = round_up(max(f, 1), FEATURE_TILE)
-    dv_block = min(_WARP, max(dv, 1))
-    cap = min(FEATURE_TILE, round_up(max(t, 1), 8))
-    for chunk in (64, 32, 16, 8):
-        if chunk > cap:
-            continue
-        if attention_smem_bytes(f_pad, chunk, dv_block) <= SMEM_PER_BLOCK:
-            return chunk, dv_block
-    raise ValueError(
-        f"fused causal kernel: F={f} features do not fit one block's "
-        f"{SMEM_PER_BLOCK} bytes of shared memory even at chunk 8")
+@functools.lru_cache(maxsize=256)
+def causal_schedule(bh: int, heads: int, t: int, d: int, dv: int,
+                    f: int) -> CausalSchedule:
+    """The :class:`CausalSchedule` of B2 at ``[bh, t, d]`` rows of
+    ``heads`` heads a batch row (``t`` before padding), ``dv`` values and
+    ``f`` features. Shared memory does
+    not depend on ``d`` or ``f`` (x and the omegas are read from device
+    memory, the features a 64-wide tile at a time), so every shape fits:
+    a pass-A block takes at most 57,344 bytes, a pass-B block 80,128 (the
+    widest value groups). Pass A's feature tiles
+    are split into groups until its grid has two blocks an SM (no more
+    groups than tiles). The chunks run in segments of at most
+    :data:`CAUSAL_SEGMENT_CHUNKS` (2048 positions), so the scratch of chunk
+    states (:attr:`CausalSchedule.scratch_bytes`) stays at most that many
+    times the (S, n) a call returns: 43 MB at BH 16, F 163, dv 128 from T
+    2048 on. Memoized: the model asks once per layer with the same
+    shapes."""
+    tp = round_up(max(t, 1), CAUSAL_CHUNK)
+    n_chunks = tp // CAUSAL_CHUNK
+    seg = min(n_chunks, CAUSAL_SEGMENT_CHUNKS)
+    n_ct = -(-f // 8)
+    n_ftiles = max(1, -(-f // CAUSAL_FTILE))
+    dva, n_dva, nta = _value_groups(dv, _CAUSAL_A_VALUE_TILES)
+    dvb, n_dvb, ntb = _value_groups(dv, _CAUSAL_B_VALUE_TILES)
+    lda, ldb = _ld_cols(8 * nta), _ld_cols(8 * ntb)
+    units = bh * seg * n_dva
+    groups = min(n_ftiles, max(1, -(-2 * NUM_SMS // units)))
+    per = -(-n_ftiles // groups)
+    groups = -(-n_ftiles // per)
+    smem_a = 4 * CAUSAL_CHUNK * (_CAUSAL_LDZ_A + lda)
+    smem_b = 4 * CAUSAL_CHUNK * (2 * _CAUSAL_LDZ_B + 2 * ldb + 1)
+    return CausalSchedule(
+        bh=bh, heads=heads, t=tp, d=d, dv=dv, f=f, n_ct=n_ct,
+        n_chunks=n_chunks, seg_chunks=seg, n_ftiles=n_ftiles,
+        ftiles_per_agroup=per, n_agroups=groups,
+        dva_per_group=dva, n_dvagroups=n_dva, lda=lda, dvb_per_group=dvb,
+        n_dvbgroups=n_dvb, ldb=ldb, smem_a=smem_a, smem_b=smem_b)
 
 
 def sketch_smem_bytes(rows: int, c_max: int) -> int:
@@ -188,10 +299,15 @@ class NoncausalSchedule(NamedTuple):
     rows of ``ldx`` elements (``d`` padded to ``dp`` with zeros), the B operand of the
     contraction (``b_rows`` rows of ``ldb`` fp32: B3's value tile plus a
     ones column, B4's state rows plus an ``n`` column), the feature tile
-    ``Z`` (64 rows of ``ldz`` fp32) and, for B4, 64 denominators. A feature
-    group whose slab rows exceed ``slab_cap`` (or, for B4, whose column
-    tiles exceed ``chunk_ct``) is featurized in chunks that reload the slab
-    for every row tile.
+    ``Z`` (64 rows of ``ldz`` fp32), the projection tile ``P`` (64 rows of
+    ``ldp`` fp32; 0 unless d is tiled) and, for B4, 64 denominators. A
+    feature group whose slab rows exceed ``slab_cap`` (or, for B4, whose
+    column tiles exceed ``chunk_ct``) is featurized in chunks that reload
+    the slab for every row tile. ``dk``: the depth a featurize step takes;
+    ``dk == dp`` but where the x tile and one column tile's slab rows do
+    not fit together, and then the x tile and the slab rows are staged
+    ``dk`` columns of d at a time (``ldx`` is then ``dk``'s stride) and the
+    projections summed in ``P``.
     """
     bh: int
     t: int
@@ -212,6 +328,8 @@ class NoncausalSchedule(NamedTuple):
     b_rows: int
     ldz: int
     chunk_ct: int
+    dk: int
+    ldp: int
     smem_bytes: int
 
     @property
@@ -281,6 +399,57 @@ def _slab_rows(tile_rows, ct0: int, ct1: int) -> int:
     return tile_rows[min(ct1, len(tile_rows) - 1)] - tile_rows[ct0]
 
 
+# Depth chunks B3 and B4 try, widest first, where d is tiled: fp32 (item
+# 4) in steps of 8 (one 3xTF32 mma), bf16 in steps of 16.
+_DEPTH_CHUNKS = {4: (128, 64, 32, 16, 8), 2: (256, 128, 64, 32, 16)}
+
+
+def _noncausal_plan(kind, n_ct, tile_rows, dv, item, ldx, p_row_bytes):
+    """``(ct_per_group, n_fgroups, b_rows, ldz, chunk_ct, fixed, cap,
+    need)`` of :func:`noncausal_schedule` for x rows of ``ldx`` elements:
+    ``fixed`` the bytes besides the slab and P, ``cap`` the slab rows that
+    fit beside them when each slab row also takes ``p_row_bytes`` of P,
+    ``need`` the slab rows the largest group (B3) or the whole plan (B4)
+    holds."""
+    x_bytes = _round16(NONCAUSAL_ROWS * ldx * item)
+    max_tile = max((tile_rows[c + 1] - tile_rows[c] for c in range(n_ct)),
+                   default=0)
+    _, _, ntiles = _value_groups(dv, NONCAUSAL_MAX_VALUE_TILES)
+    ldb = _ld_cols(8 * ntiles)
+    # P's row stride is padded to 4 mod 8: at most 7 more columns
+    p_pad = NONCAUSAL_ROWS * 7 * 4 if p_row_bytes else 0
+    if kind == "state":
+        ct_per_group = max(1, min(n_ct, 2 * STATE_MAX_FEATURE_TILES))
+        n_fg = max(1, -(-n_ct // ct_per_group))
+        ct_per_group = max(1, -(-n_ct // n_fg))
+        b_rows = NONCAUSAL_ROWS
+        ldz = _ld_cols(16 * -(-ct_per_group // 2))
+        chunk_ct = ct_per_group
+        fixed = x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
+        need = max(_slab_rows(tile_rows, g * ct_per_group,
+                              (g + 1) * ct_per_group) for g in range(n_fg))
+        cap = (SMEM_PER_BLOCK - fixed - 16 - p_pad) // (ldx * item
+                                                        + p_row_bytes)
+    else:
+        ct_per_group, n_fg = max(n_ct, 1), 1
+        need = tile_rows[-1]
+        # the most column tiles a chunk may take (their state rows and Z
+        # columns) with room left for one column tile's slab rows
+        chunk_ct = ct_per_group
+        while True:
+            b_rows = NONCAUSAL_COL_TILE * chunk_ct
+            ldz = _ld_rows(b_rows)
+            fixed = (x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
+                     + NONCAUSAL_ROWS * 4)
+            cap = (SMEM_PER_BLOCK - fixed - 16 - p_pad) // (ldx * item
+                                                            + p_row_bytes)
+            if cap >= max_tile or chunk_ct == 1:
+                break
+            chunk_ct = -(-chunk_ct // 2)
+    return ct_per_group, n_fg, b_rows, ldz, chunk_ct, fixed, cap, need, \
+        max_tile
+
+
 @functools.lru_cache(maxsize=256)
 def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
                        tile_rows: Sequence[int],
@@ -299,15 +468,17 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
     does not fit is tiled in chunks of column tiles. Memoized: the encoder
     asks once per layer with the same shapes (``tile_rows`` a tuple).
 
-    The depth d is not tiled: the 64-row x tile and one column tile's slab
-    rows (8 x its depth rows of d) must fit together. For the rm plans of
-    depth 5 (the hubert and qwen3 heads use d 80 and 128) at dv 80 that
-    holds up to d 384 for B3 and 536 for B4 in fp32, 768 and 1072 in
-    bf16.
+    The depth d is taken whole (``dk == dp``) where the 64-row x tile and
+    one column tile's slab rows fit together; on the rm plans of depth 5
+    (the hubert and qwen3 heads use d 80 and 128) at dv 80 that holds up
+    to d 384 for B3 and 536 for B4 in fp32, 768 and 1072 in bf16. Past
+    that, d is tiled: the widest depth chunk ``dk`` of
+    :data:`_DEPTH_CHUNKS` with which a column tile's slab rows and their
+    projection tile fit, so any d runs.
 
     Raises:
-        ValueError: one column tile's slab rows do not fit beside the rest
-            even alone (d past the limit above).
+        ValueError: one column tile's slab rows do not fit even at the
+            narrowest depth chunk (a column tile of depth above about 80).
     """
     if kind not in ("state", "apply"):
         raise ValueError(f"kind must be 'state' or 'apply', got {kind!r}")
@@ -316,44 +487,33 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
         raise ValueError(f"{n_ct} column tiles do not cover F={f}")
     tiles = max(1, -(-t // NONCAUSAL_ROWS))
     dp, ldx = _x_layout(d, item)
-    x_bytes = _round16(NONCAUSAL_ROWS * ldx * item)
-    max_tile = max((tile_rows[c + 1] - tile_rows[c] for c in range(n_ct)),
-                   default=0)
-    width, n_dvg, ntiles = _value_groups(dv, NONCAUSAL_MAX_VALUE_TILES)
-    ldb = _ld_cols(8 * ntiles)
-    if kind == "state":
-        ct_per_group = max(1, min(n_ct, 2 * STATE_MAX_FEATURE_TILES))
-        n_fg = max(1, -(-n_ct // ct_per_group))
-        ct_per_group = max(1, -(-n_ct // n_fg))
-        b_rows = NONCAUSAL_ROWS
-        ldz = _ld_cols(16 * -(-ct_per_group // 2))
-        chunk_ct = ct_per_group
-        fixed = x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
-        need = max(_slab_rows(tile_rows, g * ct_per_group,
-                              (g + 1) * ct_per_group) for g in range(n_fg))
-        cap = (SMEM_PER_BLOCK - fixed - 16) // (ldx * item)
-    else:
-        ct_per_group, n_fg = max(n_ct, 1), 1
-        need = tile_rows[-1]
-        # the most column tiles a chunk may take (their state rows and Z
-        # columns) with room left for one column tile's slab rows
-        chunk_ct = ct_per_group
-        while True:
-            b_rows = NONCAUSAL_COL_TILE * chunk_ct
-            ldz = _ld_rows(b_rows)
-            fixed = (x_bytes + b_rows * ldb * 4 + NONCAUSAL_ROWS * ldz * 4
-                     + NONCAUSAL_ROWS * 4)
-            cap = (SMEM_PER_BLOCK - fixed - 16) // (ldx * item)
-            if cap >= max_tile or chunk_ct == 1:
+    dk, ldp = dp, 0
+    ct_per_group, n_fg, b_rows, ldz, chunk_ct, fixed, cap, need, max_tile = \
+        _noncausal_plan(kind, n_ct, tile_rows, dv, item, ldx, 0)
+    if cap < max_tile:
+        # d tiled: the x tile and the slab rows a chunk of d at a time, the
+        # projections of a chunk's slab rows in P
+        for dk in _DEPTH_CHUNKS[item]:
+            if dk >= dp:
+                continue
+            ldx = dk + (4 if item == 4 else 8)
+            ct_per_group, n_fg, b_rows, ldz, chunk_ct, fixed, cap, need, _ = \
+                _noncausal_plan(kind, n_ct, tile_rows, dv, item, ldx,
+                                NONCAUSAL_ROWS * 4)
+            if cap >= max_tile:
                 break
-            chunk_ct = -(-chunk_ct // 2)
     slab_cap = min(need, cap)
     if slab_cap < max_tile:
         raise ValueError(
             f"non-causal kernels: a column tile's {max_tile} slab rows of "
             f"d={d} do not fit {SMEM_PER_BLOCK} bytes of shared memory beside the "
-            f"rest of the block")
+            f"rest of the block, even a depth chunk at a time")
     smem = _round16(slab_cap * ldx * item) + fixed
+    if dk < dp:
+        ldp = _ld_rows(slab_cap)
+        smem += NONCAUSAL_ROWS * ldp * 4
+    width, n_dvg, _ = _value_groups(dv, NONCAUSAL_MAX_VALUE_TILES)
+    ldb = _ld_cols(8 * -(-(width + 1) // 8))
     units = bh * n_fg * n_dvg
     splits, per = _pick_splits(units, tiles)
     return NoncausalSchedule(
@@ -361,7 +521,7 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
         tiles_per_split=per, ct_per_group=ct_per_group, n_fgroups=n_fg,
         dv_per_group=width, n_dvgroups=n_dvg, dp=dp, ldx=ldx,
         slab_cap=slab_cap, ldb=ldb, b_rows=b_rows, ldz=ldz,
-        chunk_ct=chunk_ct, smem_bytes=smem)
+        chunk_ct=chunk_ct, dk=dk, ldp=ldp, smem_bytes=smem)
 
 
 def check_structured_d_pad(m: int) -> None:

@@ -16,7 +16,9 @@ Fused ops, over RAW pre-scaled q/k rows plus the packed RM layout (``w
 
 * ``rm_attention_fused_causal`` — causal outputs (training forward).
 * ``rm_attention_fused_prefill`` — causal outputs AND the decode state
-  ``(S, n)`` from the same launch.
+  ``(S, n)`` from the same call of ``csrc/rm_fused_attention.cu`` (kernel
+  B2, ``rm_fused_causal``: three kernels on the tensor cores, each chunk's
+  own key state, their prefix, the outputs; one counted launch).
 * ``rm_attention_fused_noncausal`` — bidirectional outputs (the encoder):
   the key state ``(S, n)`` of the whole sequence in one launch of
   ``csrc/rm_fused_state.cu`` (kernel B3, ``rm_fused_state``), then the
@@ -39,6 +41,7 @@ tensor that requires grad the wrappers raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,11 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import (
-    FEATURE_TILE,
-    attention_smem_bytes,
+    causal_schedule,
     noncausal_schedule,
-    pick_attention_blocks,
-    round_up,
 )
 from repro_torch.kernels.rm_attention.noncausal import (
     NoncausalPack,
@@ -84,23 +84,27 @@ __all__ = [
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-_CHUNKED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SCHED = ctypes.POINTER(ctypes.c_int)
-_STATE_ARGTYPES = ([ctypes.c_void_p] * 12
-                   + [_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_APPLY_ARGTYPES = ([ctypes.c_void_p] * 9
-                   + [_SCHED, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+_ARGTYPES = ((ctypes.c_void_p,) * 12
+             + (_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_void_p))
+_CHUNKED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
+                     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_STATE_ARGTYPES = ((ctypes.c_void_p,) * 12
+                   + (_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+_APPLY_ARGTYPES = ((ctypes.c_void_p,) * 9
+                   + (_SCHED, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p))
 
 
+@functools.lru_cache(maxsize=None)
 def _launcher(library: str, symbol: str, argtypes):
+    """The C launcher ``symbol`` of ``library`` (built on first use), its
+    argument types set once: a call's host time goes to the launch."""
     from repro_torch.kernels import _build
 
     fn = getattr(_build.load(library), symbol)
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
@@ -226,10 +230,17 @@ def _check_cuda_operands(op: str, x, others, w):
 
 def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
                     plain_chunk: int = 128):
-    """The fused causal op: ``(out [B,H,T,dv], S [B,H,F,dv], n [B,H,F])``
-    — the kernel on a CUDA tensor, the plain version on a CPU tensor.
-    ``plain_chunk`` is the plain version's chunk; the kernel takes its own
-    from ``kernels.common.pick_attention_blocks``."""
+    """The fused causal op (kernel B2): ``(out [B,H,T,dv], S [B,H,F,dv], n
+    [B,H,F])`` — the kernel on a CUDA tensor, the plain version on a CPU
+    tensor. ``plain_chunk`` is the plain version's chunk; the kernel takes
+    64-position chunks and tiles F and d (``kernels.common.causal_schedule``,
+    the call's plan in ``rm_fused_causal.last_schedule``), so it takes any
+    shape the plain version does. One call counts one launch, though the
+    kernel runs as three (chunk states, their prefix, the outputs) on each
+    segment of at most 32 chunks (2048 positions). Beside its outputs a
+    call allocates a scratch of chunk states, ``4 * B*H * min(ceil(T / 64),
+    32) * F * (dv + 1)`` bytes (``last_schedule.scratch_bytes``): 5.4 MB at
+    B*H 16, T 256, F 163, dv 128, and 43 MB there from T 2048 on."""
     _no_grad_check("the fused causal RM attention op", q, k, v, w)
     b, h, t, d = q.shape
     dv = v.shape[-1]
@@ -263,40 +274,56 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
     for name, x in (("k", k), ("v", v), ("kvalid", kvalid), ("w", w)):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
-    kchunk, dv_block = pick_attention_blocks(f, dv, t)
-    tp = round_up(t, kchunk)
-    # pad T to the chunk (padded keys carry kvalid 0), lay rows out as
-    # contiguous [B*H, T, *]; v enters in fp32 (a lossless upcast of bf16)
-    qf = F.pad(q, (0, 0, 0, tp - t)).reshape(b * h, tp, d).contiguous()
-    kf = F.pad(k, (0, 0, 0, tp - t)).reshape(b * h, tp, d).contiguous()
-    vf = F.pad(v.float(), (0, 0, 0, tp - t)).reshape(b * h, tp,
-                                                    dv).contiguous()
-    kval = F.pad(kvalid.float(), (0, tp - t))
-    kval = kval[:, None, :].expand(b, h, tp).reshape(b * h, tp).contiguous()
+    bh = b * h
+    sched = causal_schedule(bh, h, t, d, dv, f)
+    tp = sched.t
+    if kdeg == 0:
+        # no degree slots: every column is its scale (an empty product)
+        w = torch.zeros((1, f, d), dtype=w.dtype, device=dev)
+        kdeg = 1
+
+    def rows(x, width):
+        # T padded to the chunk (padded keys carry kvalid 0), laid out as
+        # contiguous [B*H, T, width]; a copy only where one is needed
+        if tp != t:
+            x = F.pad(x, (0, 0, 0, tp - t))
+        return x.reshape(bh, tp, width).contiguous()
+
+    # v enters in fp32 (a lossless upcast of bf16); the kernels read
+    # kvalid [B, T] by batch row
+    qf, kf, vf = rows(q, d), rows(k, d), rows(v.float(), dv)
+    kval = kvalid.float()
+    if tp != t:
+        kval = F.pad(kval, (0, tp - t))
+    kval = kval.contiguous()
     wc = w.contiguous()
-    out = torch.empty((b * h, tp, dv), dtype=torch.float32, device=dev)
-    s = torch.empty((b * h, f, dv), dtype=torch.float32, device=dev)
-    n = torch.empty((b * h, f), dtype=torch.float32, device=dev)
-    launch = _launcher("rm_fused_attention", "rm_fused_causal_launch",
-                       _ARGTYPES)
-    err = launch(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                 kval.data_ptr(), wc.data_ptr(), col_deg.data_ptr(),
-                 col_scale.data_ptr(), out.data_ptr(), s.data_ptr(),
-                 n.data_ptr(), b * h, tp, d, dv, kdeg, f, kchunk, dv_block,
-                 float(eps),
-                 attention_smem_bytes(round_up(f, FEATURE_TILE), kchunk,
-                                      dv_block),
-                 _DTYPE_CODE[q.dtype],
-                 torch.cuda.current_stream(dev).cuda_stream)
+    out = torch.empty((bh, tp, dv), dtype=torch.float32, device=dev)
+    s = torch.empty((bh, f, dv), dtype=torch.float32, device=dev)
+    n = torch.empty((bh, f), dtype=torch.float32, device=dev)
+    # each chunk's own state, then (in place) the state before each chunk,
+    # for one segment at a time
+    ds = torch.empty((bh, sched.seg_chunks, f, dv), dtype=torch.float32,
+                     device=dev)
+    dn = torch.empty((bh, sched.seg_chunks, f), dtype=torch.float32,
+                     device=dev)
+    err = _launcher("rm_fused_attention", "rm_fused_causal_launch",
+                    _ARGTYPES)(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kval.data_ptr(),
+        wc.data_ptr(), col_deg.data_ptr(), col_scale.data_ptr(),
+        out.data_ptr(), s.data_ptr(), n.data_ptr(), ds.data_ptr(),
+        dn.data_ptr(), _sched_array(sched), len(sched), kdeg, float(eps),
+        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rm_fused_attention kernel launch failed: CUDA "
                            f"error {err}")
     rm_fused_causal.launches += 1
+    rm_fused_causal.last_schedule = sched
     return (out.reshape(b, h, tp, dv)[:, :, :t], s.reshape(b, h, f, dv),
             n.reshape(b, h, f))
 
 
 rm_fused_causal.launches = 0
+rm_fused_causal.last_schedule = None
 
 
 def rm_attention_fused_causal(
@@ -313,8 +340,8 @@ def rm_attention_fused_causal(
 ) -> torch.Tensor:            # [B, H, T, dv] fp32
     """Fused causal RM attention: ``rm_attention_causal(Z(q), Z(k) *
     kvalid, v)`` without writing Z. ``chunk`` is read by the plain version
-    only (CPU tensors); the kernel picks its own chunk from shared memory.
-    The chunk changes the order of the sums, not the result."""
+    only (CPU tensors); the kernel takes 64-position chunks. The chunk
+    changes the order of the sums, not the result."""
     out, _, _ = rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
                                 plain_chunk=chunk)
     return out
@@ -333,7 +360,7 @@ def rm_attention_fused_prefill(
     eps: float = 1e-4,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused prefill: causal outputs AND the final decode state ``(S [B,H,F,
-    dv], n [B,H,F])`` from the SAME launch. ``chunk`` as in
+    dv], n [B,H,F])`` from the SAME call. ``chunk`` as in
     :func:`rm_attention_fused_causal` (plain version only)."""
     return rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
                            plain_chunk=chunk)
@@ -382,10 +409,6 @@ def rm_fused_state(k, v, kvalid, w, col_deg, col_scale, *,
     kernel's split of the keys is ``rm_fused_state.last_schedule``
     (``kernels.common.noncausal_schedule``).
 
-    Raises:
-        ValueError: on a CUDA tensor, a d too deep for the kernel's shared
-            memory (the limit in ``noncausal_schedule``: d 384 in fp32 for
-            the rm plans of depth 5).
     """
     _no_grad_check("rm_fused_state", k, v, w)
     bh, t, d = k.shape
@@ -456,10 +479,6 @@ def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float, *,
     :func:`rm_fused_state`. The kernel's split of the queries is
     ``rm_fused_apply.last_schedule``.
 
-    Raises:
-        ValueError: on a CUDA tensor, a d too deep for the kernel's shared
-            memory (the limit in ``noncausal_schedule``: d 536 in fp32 for
-            the rm plans of depth 5).
     """
     _no_grad_check("rm_fused_apply", q, s, n, w)
     bh, t, d = q.shape

@@ -2,8 +2,9 @@
 ``repro.kernels.rm_feature.ops``).
 
 ``rm_feature_fused`` applies a whole packed feature map in ONE launch of
-``csrc/rm_feature.cu`` (kernel B1); ``apply_feature_map`` is the same path
-on a map object. ``rm_feature_bucket`` applies one degree bucket in one
+``csrc/rm_feature.cu`` (kernel B1, on the tensor cores; it reads the packed
+``w [kdeg, F, d]`` as it is, so nothing is packed per call);
+``apply_feature_map`` is the same path on a map object. ``rm_feature_bucket`` applies one degree bucket in one
 launch of ``csrc/rm_feature_bucket.cu`` (kernel B9), and
 ``apply_feature_map_bucketed`` is the per-bucket path built on it: one
 launch a degree bucket plus a concatenate, the baseline the fused path is
@@ -17,9 +18,11 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.kernels.common import pick_feature_tiles
 from repro_torch.kernels.rm_feature.ref import (
     rm_feature_bucket_ref,
     rm_feature_fused_ref,
@@ -33,11 +36,12 @@ __all__ = [
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _BUCKET_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
     from repro_torch.kernels import _build
 
@@ -48,6 +52,7 @@ def _library():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
 def _bucket_library():
     from repro_torch.kernels import _build
 
@@ -117,6 +122,7 @@ def rm_feature_fused(
     launch = _library()
     err = launch(xf.data_ptr(), w.data_ptr(), col_deg.data_ptr(),
                  col_scale.data_ptr(), out.data_ptr(), b, f, d, k,
+                 *pick_feature_tiles(b, f, d, xf.element_size()),
                  _DTYPE_CODE[xf.dtype],
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

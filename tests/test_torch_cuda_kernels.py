@@ -141,6 +141,183 @@ def test_decode_step_launches_one_featurize(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kern,d,dim,rows", [
+    ("poly10", 123, 4000, 2000),    # the adult-shaped map of the paper
+    ("poly10", 57, 500, 1840),      # spambase: d % 4 != 0 (plain loads)
+    ("exp", 50, 4000, 100),         # deeper columns (degree up to 11)
+])
+def test_rm_feature_kernel_paper_maps(cuda, dtype, kern, d, dim, rows):
+    """B1 on the paper path's maps (``make_feature_map``, ``pack_omegas``:
+    F up to 4001 columns, d not a multiple of the 32-byte run) against its
+    plain version at 1e-5 x max(1, max |plain|)."""
+    from repro_torch.core import (ExponentialDotProductKernel,
+                                  PolynomialKernel, make_feature_map)
+
+    kernel = PolynomialKernel(10, 1.0) if kern == "poly10" else \
+        ExponentialDotProductKernel(1.0)
+    fm = make_feature_map(kernel, d, dim, seed=1, device=cuda)
+    w = pack_omegas(fm.plan, fm.omegas).to(dtype)
+    cd, cs = plan_columns(fm.plan, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    got = rm_feature_fused(x, w, cd, cs)
+    _close(got, rm_feature_fused_ref(x, w, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,f,d,kdeg", [(128, 29, 24, 4), (70, 13, 33, 6),
+                                           (300, 163, 80, 5),
+                                           (4096, 163, 80, 5),
+                                           (3000, 200, 33, 6),
+                                           (2000, 100, 500, 3)])
+def test_rm_feature_kernel_general_omegas(cuda, dtype, rows, f, d, kdeg):
+    """B1 with degrees in no order, ragged F and d, and Gaussian omegas
+    (not TF32 numbers: fp32 runs all three 3xTF32 terms), on both of its
+    kernels (the chain kernel at the first three shapes and at d 500, the
+    tile kernel at 3000 and 4096 rows) against its plain version at 1e-5 x
+    max(1, max |plain|)."""
+    from repro_torch.kernels.common import pick_feature_tiles
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    w, cd, cs = _ragged_omegas(f, d, kdeg, gen, cuda, seed=4)
+    w = (w * torch.randn(w.shape, generator=gen, device=cuda).abs()).to(
+        dtype)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    tile = pick_feature_tiles(rows, f, d, x.element_size())[0]
+    assert tile == (64 if rows in (3000, 4096) else 16)
+    _close(rm_feature_fused(x, w, cd, cs),
+           rm_feature_fused_ref(x, w, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("t,f_budget,pad", [(256, 256, 56), (4096, 256, 100),
+                                            (256, 3400, 30), (2100, 256, 52)])
+def test_rm_fused_causal_kernel_3xtf32_and_repeatable(cuda, t, f_budget,
+                                                      pad):
+    """fp32 B2 (3xTF32 throughout) holds out, S and n within 1e-5 x max(1,
+    max |plain|) of its plain version at the prefill shape (BH 16, T 256,
+    F 163), a 4096-token prompt (two segments of 32 chunks), 2100 tokens
+    (a segment of 32 chunks and one of a ragged chunk) and a wide feature
+    axis (F above 2048, which the earlier one-block kernel refused), and
+    two calls are bitwise equal (a fixed order of sums, no atomics). The
+    plans are qwen3's rm head's (d 128) at a feature budget of 256 (F 163)
+    and 3400."""
+    from repro_torch.core.maclaurin import ExponentialDotProductKernel
+    from repro_torch.core.plan import make_feature_plan
+
+    d = 128
+    plan = make_feature_plan(ExponentialDotProductKernel(1.0), d, f_budget,
+                             measure="proportional", n_max=8)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    w = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, cuda)
+    assert w.shape[1] == (163 if f_budget == 256 else w.shape[1])
+    assert f_budget == 256 or w.shape[1] >= 2048
+    q = _unit((1, 16, t, d), gen, cuda)
+    k = _unit((1, 16, t, d), gen, cuda)
+    v = torch.randn((1, 16, t, d), generator=gen, device=cuda)
+    kvalid = torch.ones((1, t), device=cuda)
+    kvalid[0, t - pad:] = 0.0
+    args = (q, k, v, kvalid, w, cd, cs)
+    got = rm_fused_causal(*args, 1e-4)
+    again = rm_fused_causal(*args, 1e-4)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    for g, w_ in zip(got, rm_fused_causal_ref(*args, chunk=128, eps=1e-4)):
+        _close(g, w_, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv,f,kdeg", [(33, 37, 29, 4), (200, 136, 13, 6),
+                                         (16, 1, 42, 6)])
+def test_rm_fused_causal_kernel_general_shapes(cuda, dtype, d, dv, f, kdeg):
+    """B2 on shapes the model does not give it (odd d and dv: plain loads;
+    d 200, dv 136: three value groups in pass B; one value column;
+    degrees in no order) against its plain version, tolerance
+    1e-4 x max(1, max |plain|), and against the plain version at the
+    kernel's 64-position chunk, the kernel's order of sums."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    w, cd, cs = _ragged_omegas(f, d, kdeg, gen, cuda, seed=5)
+    w = w.to(dtype)
+    q = _unit((2, 3, 150, d), gen, cuda).to(dtype)
+    k = _unit((2, 3, 150, d), gen, cuda).to(dtype)
+    v = torch.randn((2, 3, 150, dv), generator=gen, device=cuda)
+    kvalid = torch.ones((2, 150), device=cuda)
+    kvalid[1, 120:] = 0.0
+    args = (q, k, v, kvalid, w, cd, cs)
+    got = rm_fused_causal(*args, 1e-4)
+    for g, w_ in zip(got, rm_fused_causal_ref(*args, chunk=128, eps=1e-4)):
+        _close(g, w_, 1e-4)
+    for g, w_ in zip(got, rm_fused_causal_ref(*args, chunk=64, eps=1e-4)):
+        _close(g, w_, 1e-4)
+
+
+@pytest.mark.parametrize("t", [256, 4096, 32768])
+def test_rm_fused_causal_scratch_is_bounded(cuda, t):
+    """A B2 call allocates its outputs and a scratch of at most 32 chunk
+    states (``CausalSchedule.scratch_bytes``), whatever T: the device
+    memory it takes above its inputs stays within that (qwen3's rm head,
+    BH 16, F 163, fp32)."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    plan = rm_plan_for(get_config("qwen3-1.7b", attention_mode="rm"), 128)
+    w = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, cuda)
+    q = _unit((1, 16, t, 128), gen, cuda)
+    k = _unit((1, 16, t, 128), gen, cuda)
+    v = torch.randn((1, 16, t, 128), generator=gen, device=cuda)
+    kvalid = torch.ones((1, t), device=cuda)
+    f = w.shape[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out, s, n = rm_fused_causal(q, k, v, kvalid, w, cd, cs, 1e-4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    sched = rm_fused_causal.last_schedule
+    assert sched.seg_chunks == min(t // 64, 32)
+    assert sched.scratch_bytes == 4 * 16 * sched.seg_chunks * f * 129
+    outputs = 4 * 16 * (t * 128 + f * 129)
+    assert peak <= outputs + sched.scratch_bytes + (1 << 20)
+    assert torch.isfinite(out).all() and torch.isfinite(s).all()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 640),
+                                     (torch.bfloat16, 1088),
+                                     (torch.float32, 392)])
+def test_noncausal_kernels_tile_deep_d(cuda, dtype, d):
+    """B3 and B4 past the depth they take whole (d 384 fp32 / 768 bf16 for
+    B3, 536 / 1072 for B4 on the depth-5 rm plans, where the kernels
+    raised before d was tiled): d is tiled in the featurize, and both
+    match their plain versions (fp32 within 1e-5 x max(1, max |plain|),
+    the 3xTF32 gate; bf16 within 1e-4); B3 stays bitwise repeatable. The
+    plan is the hubert rm head's at head width d (F 163, degrees up to
+    5)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    plan = rm_plan_for(get_config("hubert-xlarge", attention_mode="rm"), d)
+    w = pack_omegas(plan, init_omegas(plan, gen)).to(dtype)
+    cd, cs = plan_columns(plan, cuda)
+    bh, t = 8, 300
+    k = _unit((bh, t, d), gen, cuda).to(dtype)
+    q = _unit((bh, t, d), gen, cuda).to(dtype)
+    v = torch.randn((bh, t, 80), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    kvalid[-1, t - 40:] = 0.0
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs)
+    sched3 = rm_fused_state.last_schedule
+    s2, n2 = rm_fused_state(k, v, kvalid, w, cd, cs)
+    assert torch.equal(s, s2) and torch.equal(n, n2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    _close(s, s_ref, tol)
+    _close(n, n_ref, tol)
+    out = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4)
+    sched4 = rm_fused_apply.last_schedule
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), tol)
+    if d > 536:
+        assert sched3.dk < sched3.dp and sched4.dk < sched4.dp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [64, 1024, 2048, 4096, 70])
 @pytest.mark.parametrize("smoke", [False, True], ids=["FULL", "SMOKE"])
 def test_tensor_sketch_kernel_matches_plain(cuda, dtype, rows, smoke):

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of src/repro_torch/ or chip_smoke.py
-imports jax or the reference package, its entry points default to the CUDA
+"""The port stands alone: no file of src/repro_torch/, chip_smoke.py or
+time_rm_kernels.py imports jax or the reference package, its entry points default to the CUDA
 device and refuse to run on the CPU unless asked, and chip_smoke.py prints
 no result and fails where there is no card (or no repository)."""
 import ast
@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_rm_kernels.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

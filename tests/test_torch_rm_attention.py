@@ -20,7 +20,9 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_fused_prefill,
     rm_fused_causal,
 )
-from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
+from repro_torch.kernels.rm_attention.ref import (
+    rm_fused_causal_ref,
+)
 
 TOL = 1e-5
 
@@ -157,17 +159,108 @@ def test_fused_ops_refuse_autograd():
                                   np.ones(3, np.float32))
 
 
-@pytest.mark.parametrize("f,dv,t", [(163, 128, 256), (42, 16, 20),
-                                    (1000, 64, 4096)])
-def test_attention_blocks_fit_shared_memory(f, dv, t):
-    chunk, dvb = common.pick_attention_blocks(f, dv, t)
-    assert 1 <= chunk <= common.FEATURE_TILE and 1 <= dvb <= 32
-    assert chunk <= common.round_up(t, 8)
-    f_pad = common.round_up(f, common.FEATURE_TILE)
-    assert common.attention_smem_bytes(f_pad, chunk, dvb) \
-        <= common.SMEM_PER_BLOCK
+@pytest.mark.parametrize("bh,heads,t,dv,f", [(16, 16, 256, 128, 163),
+                                             (16, 16, 4096, 128, 163),
+                                             (16, 16, 32768, 128, 163),
+                                             (16, 16, 256, 128, 2048),
+                                             (8, 4, 20, 16, 42),
+                                             (1, 1, 1, 1, 1),
+                                             (3, 3, 300, 200, 20000)])
+def test_causal_schedule_covers_the_work(bh, heads, t, dv, f):
+    """B2's plan at any F: the padded length is whole chunks, the feature
+    tiles and value groups cover F and dv within the tiles a block's warps
+    hold (pass A 17 n-tiles, pass B 10 with the den column), and each
+    pass's shared memory, which does not grow with F or d, fits a block
+    (F 2048 and 20000 raised in the earlier one-block kernel); the chunks
+    run in segments of at most 32, so the scratch of chunk states does not grow
+    with T past 2048 positions."""
+    sc = common.causal_schedule(bh, heads, t, 128, dv, f)
+    assert sc.bh % sc.heads == 0
+    assert sc.t % common.CAUSAL_CHUNK == 0 and sc.t - t < common.CAUSAL_CHUNK
+    assert sc.n_chunks * common.CAUSAL_CHUNK == sc.t
+    assert sc.seg_chunks == min(sc.n_chunks, common.CAUSAL_SEGMENT_CHUNKS)
+    assert sc.scratch_bytes == 4 * bh * sc.seg_chunks * f * (dv + 1)
+    assert sc.n_ct == -(-f // 8)
+    assert sc.n_ftiles * common.CAUSAL_FTILE >= f
+    assert sc.n_agroups * sc.ftiles_per_agroup >= sc.n_ftiles
+    assert (sc.n_agroups - 1) * sc.ftiles_per_agroup < sc.n_ftiles
+    for width, groups, max_tiles in (
+            (sc.dva_per_group, sc.n_dvagroups, 17),
+            (sc.dvb_per_group, sc.n_dvbgroups, 10)):
+        assert width % 8 == 0 and groups * width >= dv > (groups - 1) * width
+        assert -(-(width + 1) // 8) <= max_tiles
+    for ld in (sc.lda, sc.ldb):
+        assert ld % 32 in (8, 24)
+    assert sc.smem_a == 4 * 64 * (72 + sc.lda)
+    assert sc.smem_b == 4 * 64 * (2 * 68 + 2 * sc.ldb + 1)
+    assert max(sc.smem_a, sc.smem_b) <= common.SMEM_PER_BLOCK
+    assert sc == common.causal_schedule(bh, heads, t, 128, dv, f)  # memoized
 
 
-def test_attention_blocks_raise_when_features_do_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        common.pick_attention_blocks(20000, 128, 256)
+def test_causal_schedule_block_counts():
+    """At the bucket-256 prefill (BH 16, F 163, dv 128) pass A splits its
+    three feature tiles into three groups (192 blocks) and pass B its
+    values into two groups of 64 (128 blocks), against 64 blocks of the
+    earlier one-block kernel; at a 4096-token prompt 1024 and 2048 blocks
+    in all, in two segments of 32 chunks, so its scratch is 43 MB, not 85."""
+    pre = common.causal_schedule(16, 16, 256, 128, 128, 163)
+    assert (pre.n_chunks, pre.n_ftiles, pre.n_agroups) == (4, 3, 3)
+    assert (pre.dvb_per_group, pre.n_dvbgroups) == (64, 2)
+    assert (pre.blocks_a, pre.blocks_b) == (192, 128)
+    long_ = common.causal_schedule(16, 16, 4096, 128, 128, 163)
+    assert (long_.n_agroups, long_.blocks_a, long_.blocks_b) == (1, 1024,
+                                                                 2048)
+    assert (long_.n_chunks, long_.seg_chunks) == (64, 32)
+    assert long_.scratch_bytes == 43_063_296
+    assert pre.scratch_bytes == 5_382_912
+
+
+@pytest.mark.parametrize("rows,f,d,item,want", [
+    (128, 163, 128, 4, (16, 1)),      # decode: 8 x 6 = 48 blocks
+    (128, 163, 128, 2, (16, 1)),
+    (4096, 163, 128, 4, (64, 1)),     # a Gram shape: 64 x 6 = 384 blocks
+    (20000, 2000, 123, 4, (64, 8)),   # the adult-shaped map
+    (20000, 2000, 460, 4, (16, 8)),   # d past the tile's shared memory
+    (0, 0, 1, 4, (16, 1)),
+])
+def test_feature_tiles_spread_a_decode_batch(rows, f, d, item, want):
+    """B1's kernel and column tiles a warp: the chain kernel at the decode
+    shape (at least 40 blocks for 168 chains), the 64-row tile kernel
+    where its grid has two blocks an SM and its shared memory fits, with
+    several column tiles a warp where the grid stays large."""
+    got = common.pick_feature_tiles(rows, f, d, item)
+    assert got == want
+    row_tile, per = got
+    blocks = -(-max(rows, 1) // row_tile) * -(-(-(-max(f, 1) // 8))
+                                               // (4 * per))
+    if rows == 128:
+        assert blocks >= 40
+    if row_tile == 64:
+        assert common.feature_tile_smem(d, item) <= common.SMEM_PER_BLOCK
+        assert blocks >= common.NUM_SMS
+
+
+@pytest.mark.parametrize("case", CASES, ids=["short", "ragged", "chunks"])
+def test_kernel_pass_order_matches_unsplit_and_reference(case):
+    """B2's order of sums (each chunk's own state, their prefix in chunk
+    order, the outputs over the whole F with the mask after the F sum) is
+    the plain version's at the kernel's 64-position chunk: that, against
+    the plain version at the case's chunk and the reference's
+    ``_fused_causal_jnp`` and final state."""
+    b, h, t, d, dv, nf, n_max, chunk, pad = case
+    w, deg, scale = _packed(d, nf, n_max, seed=3)
+    q, k, v, kvalid = _inputs(b, h, t, d, dv, 4, pad)
+    args = _t(q, k, v, kvalid, w, deg, scale)
+    got = rm_fused_causal_ref(*args, chunk=common.CAUSAL_CHUNK, eps=1e-4)
+    unsplit = rm_fused_causal_ref(*args, chunk=chunk, eps=1e-4)
+    jdeg, jscale = jnp.asarray(deg), jnp.asarray(scale)
+    want_out = np.asarray(jops._fused_causal_jnp(
+        *map(jnp.asarray, (q, k, v, kvalid, w)), jdeg, jscale, chunk, 1e-4))
+    zk = jops._featurize_ref4(jnp.asarray(k), jnp.asarray(w), jdeg, jscale)
+    zk = zk * jnp.asarray(kvalid)[:, None, :, None]
+    want_s, want_n = map(np.asarray, jops.rm_attention_prefill_final_state(
+        zk, jnp.asarray(v)))
+    for g, u, w_ in zip(got, unsplit, (want_out, want_s, want_n)):
+        assert g.shape == u.shape == w_.shape
+        np.testing.assert_allclose(g.numpy(), u.numpy(), atol=TOL, rtol=0)
+        np.testing.assert_allclose(g.numpy(), w_, atol=TOL, rtol=0)

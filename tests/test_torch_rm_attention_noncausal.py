@@ -481,7 +481,10 @@ def test_split_picker_block_counts():
 def test_split_picker_tiles_a_slab_too_large():
     """A slab larger than shared memory (d 256: 8 column tiles of depth 8)
     is brought in chunks (slab_cap below the slab's rows, at least one
-    column tile); a column tile that cannot fit even alone raises."""
+    column tile); at d 1024 a column tile's slab rows do not fit beside
+    the x tile even alone, so d is tiled (a depth chunk dk below dp, the
+    projection tile P beside the slab); only a column tile too deep to fit
+    at the narrowest depth chunk (degree 120) raises."""
     deg = np.full(64, 8, np.int32)
     tile_row0 = tuple(int(r) for r in slab_layout(deg)[0])
     for kind in ("state", "apply"):
@@ -490,8 +493,16 @@ def test_split_picker_tiles_a_slab_too_large():
                                            tile_row0, item)
             assert 64 <= sc.slab_cap < tile_row0[-1]
             assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+            assert (sc.dk, sc.ldp) == (sc.dp, 0)
+        deep = common.noncausal_schedule(kind, 4, 200, 1024, 64, 64,
+                                         tile_row0, 4)
+        assert deep.dk < deep.dp == 1024
+        assert 64 <= deep.slab_cap <= deep.ldp
+        assert deep.smem_bytes <= common.SMEM_PER_BLOCK
+        too_deep = tuple(int(r) for r in
+                         slab_layout(np.full(8, 120, np.int32))[0])
         with pytest.raises(ValueError, match="do not fit"):
-            common.noncausal_schedule(kind, 4, 200, 1024, 64, 64, tile_row0,
+            common.noncausal_schedule(kind, 4, 200, 1024, 64, 8, too_deep,
                                       4)
 
 
@@ -499,14 +510,48 @@ def test_split_picker_tiles_a_slab_too_large():
                                              ("state", 2, 768),
                                              ("apply", 4, 536),
                                              ("apply", 2, 1072)])
-def test_schedule_depth_limit_as_documented(kind, item, limit):
-    """The deepest d the kernels take on the hubert plan (depth 5) at dv
-    80, as ``noncausal_schedule`` and the wrappers document it: d itself is
-    not tiled, so the next multiple of 8 raises."""
+def test_schedule_takes_d_whole_up_to_the_old_limit(kind, item, limit):
+    """Up to the deepest d the kernels took whole on the hubert plan (depth
+    5) at dv 80, the plan keeps d whole (``dk == dp``, no projection tile),
+    so the encoder's d 80 and qwen3's d 128 keep their code path; the next
+    multiple of 8 past it tiles d instead of raising, within shared
+    memory."""
     tile_rows = _hubert_pack().tile_rows
-    sc = common.noncausal_schedule(kind, 128, 1500, limit, 80, 163,
+    for d in (80, 128, limit):
+        sc = common.noncausal_schedule(kind, 128, 1500, d, 80, 163,
+                                       tile_rows, item)
+        assert (sc.dk, sc.ldp) == (sc.dp, 0)
+        assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+    sc = common.noncausal_schedule(kind, 128, 1500, limit + 8, 80, 163,
                                    tile_rows, item)
+    assert sc.dk < sc.dp
     assert sc.smem_bytes <= common.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="do not fit"):
-        common.noncausal_schedule(kind, 128, 1500, limit + 8, 80, 163,
-                                  tile_rows, item)
+
+
+@pytest.mark.parametrize("kind,item,d", [("state", 4, 640),
+                                         ("state", 2, 1088),
+                                         ("apply", 4, 640),
+                                         ("apply", 2, 1088),
+                                         ("state", 4, 4100),
+                                         ("apply", 2, 4100)])
+def test_schedule_tiles_deep_d(kind, item, d):
+    """Any d runs: past the whole-d limit the schedule stages the x tile
+    and the slab rows one depth chunk at a time (``dk``, a multiple of one
+    mma's depth, below ``dp``), with every column tile's slab rows and
+    their projection tile ``P`` (``ldp >= slab_cap``) in shared memory
+    beside the rest (the hubert plan, F 163, dv 80)."""
+    tile_rows = _hubert_pack().tile_rows
+    sc = common.noncausal_schedule(kind, 128, 1500, d, 80, 163, tile_rows,
+                                   item)
+    step = 8 if item == 4 else 16
+    max_tile = max(b - a for a, b in zip(tile_rows, tile_rows[1:]))
+    assert sc.dp == common.round_up(d, step) and sc.dk < sc.dp
+    assert sc.dk % step == 0 and sc.ldx >= sc.dk
+    assert max_tile <= sc.slab_cap <= sc.ldp
+    assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+    # the kernels' layout (rm_featurize_mma.cuh smem_layout) adds up to it
+    layout = (common.round_up(sc.slab_cap * sc.ldx * item, 16)
+              + common.round_up(64 * sc.ldx * item, 16)
+              + sc.b_rows * sc.ldb * 4 + 64 * sc.ldz * 4 + 64 * sc.ldp * 4
+              + (64 * 4 if kind == "apply" else 0))
+    assert layout == sc.smem_bytes

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Time kernels B1 (``rm_feature_fused``) and B2 (``rm_fused_causal``) of
+one source tree of the port on one CUDA card, so that two versions of the
+kernels can be compared in one run on one card.
+
+    python3 time_rm_kernels.py [--src DIR]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
+this checkout's). To compare two versions, unpack the other one with
+``git archive`` into a git-ignored directory and run this file once with
+each ``--src``, in turns. The shapes are those of ``chip_smoke.py`` phases
+2 and 3 (seeded inputs, qwen3-1.7b's rm head: d 128, F 163): B1 at the
+decode shape (x ``[128, 128]``), a 4096-row Gram shape and the adult-shaped
+map of the paper's evaluation (x ``[20000, 123]``, poly10, D 4000); B2 at
+the bucket-256 prefill (BH 16, T 256) and a 4096-token prompt (BH 16, T
+4096, its last 100 keys padded); fp32 and bf16. Each output line is one
+JSON object: the CUDA-event time per call over back-to-back calls, the
+profiler's device time per call of the kernels themselves, and the largest
+error against the plain version as a share of max(1, max |plain|). The
+timing helpers are ``chip_smoke.py``'s. Needs a card; prints the card's
+name and power limit first.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke as smoke
+
+# The device kernels of B1 and B2: the chain and tile kernels, B2's three
+# passes, and the single kernel of B2's first version, so an older tree can
+# be timed too.
+KERNELS = {"B1": ("rm_feature_kernel",),
+           "B2": ("chunk_", "rm_fused_causal_kernel")}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parent
+                                         / "src"))
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_rm_kernels: needs a CUDA device", file=sys.stderr)
+        return 2
+    src = Path(args.src).resolve()
+    sys.path.insert(0, str(src))
+    from repro_torch.configs import get_config
+    from repro_torch.core import PolynomialKernel, make_feature_map
+    from repro_torch.core.plan import (init_omegas, pack_omegas,
+                                       plan_columns)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rm_attention.ops import rm_fused_causal
+    from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
+    from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+    from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+    from repro_torch.models.attention import rm_plan_for
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    _build.build_all()
+    smoke.warm_card(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    dh = cfg.resolved_head_dim
+    plan = rm_plan_for(cfg, dh)
+    w32 = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, "cuda")
+    fm = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0)
+    wa32 = pack_omegas(fm.plan, fm.omegas)
+    cda, csa = plan_columns(fm.plan, "cuda")
+
+    def emit(kid, shape, dtype, fn, plain, iters):
+        got, want = fn(), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max(smoke.rel_err(torch, g, w_) for g, w_ in zip(got, want))
+        del got, want
+        print(json.dumps(dict(
+            src=str(src), kernel=kid, shape=shape,
+            dtype=str(dtype).split(".")[-1],
+            events_ms=smoke.time_ms(torch, fn, iters=iters),
+            device_ms=smoke.kernel_device_ms(torch, fn, KERNELS[kid],
+                                             iters=iters),
+            max_rel_err=err)), flush=True)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, w, c1, c2, label, iters in (
+                (128, w32, cd, cs, "decode x[128,128] F 163", 50),
+                (4096, w32, cd, cs, "gram x[4096,128] F 163", 20),
+                (20000, wa32, cda, csa,
+                 f"adult x[20000,123] poly10 F {wa32.shape[1]}", 5)):
+            x = smoke.unit_rows(torch, (rows, w.shape[2]), gen).to(dtype)
+            wt = w.to(dtype)
+            emit("B1", label, dtype,
+                 lambda x=x, wt=wt, c1=c1, c2=c2: rm_feature_fused(
+                     x, wt, c1, c2),
+                 lambda x=x, wt=wt, c1=c1, c2=c2: rm_feature_fused_ref(
+                     x, wt, c1, c2), iters)
+        for t, iters in ((256, 20), (4096, 5)):
+            q = smoke.unit_rows(torch, (1, 16, t, dh), gen).to(dtype)
+            k = smoke.unit_rows(torch, (1, 16, t, dh), gen).to(dtype)
+            v = torch.randn((1, 16, t, dh), generator=gen, device="cuda")
+            kvalid = torch.ones((1, t), device="cuda")
+            kvalid[0, t - 100:] = 0.0
+            a_ = (q, k, v, kvalid, w32.to(dtype), cd, cs)
+            emit("B2", f"BH 16 T {t} F 163", dtype,
+                 lambda a_=a_: rm_fused_causal(*a_, cfg.rm.eps),
+                 lambda a_=a_: rm_fused_causal_ref(
+                     *a_, chunk=cfg.rm.chunk, eps=cfg.rm.eps), iters)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
