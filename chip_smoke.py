@@ -25,13 +25,19 @@ Phases, each fatal on failure:
    equal; the device memory a call takes beside its inputs, which must
    stay within its outputs and its scratch of at most 32 chunk states;
    times, grids and both bounds as for B1;
-4. kernel B6 (``tensor_sketch_fused``) against its plain version at every
-   row count the tensor_sketch path gives it, so at every row tile it
-   launches: the decode shape (x ``[64, 128]``: 4 slots x 16 heads, one
-   launch each for q and k) and the prefill shape of each bucket (x
-   ``[512 .. 4096, 128]``: buckets 32 to 256 x 16 heads), fp32 and bf16;
-   the Gram shape ``[4096, 128]`` also once through
-   ``registry.estimate_gram``, card against CPU;
+4. kernel B6 (``tensor_sketch_fused``): its ``-Xptxas -v`` registers and
+   spills and the tensor-core instructions of its library; then against
+   its plain version at every row count the tensor_sketch path gives it,
+   so at every output group it launches: the decode shape (x ``[64,
+   128]``: 4 slots x 16 heads, one launch each for q and k) and the
+   prefill shape of each bucket (x ``[512 .. 4096, 128]``: buckets 32 to
+   256 x 16 heads), fp32 and bf16, two calls bitwise equal, with the
+   profiler's device time, the CUDA-event time, the grid and both bounds
+   (the tensor cores' and the fp32 CUDA cores'); the Gram shape ``[4096,
+   128]`` also once through ``registry.estimate_gram``, card against CPU;
+   and the paper's exp map at d 50, D 4000 (a 2000-column degree block)
+   through ``make_feature_map(estimator="tensor_sketch")``, its Gram on the
+   card against the CPU's;
 5. kernel B5 (``rm_attention_chunked``) against its plain version at the
    prefill shape (BH 16, T 256, F 256, dv 128, chunk 128, one sequence's
    keys padded from 200) and at T 32 (chunk 32), fp32; the whole two-launch
@@ -100,7 +106,9 @@ Phases, each fatal on failure:
     — and a ragged count (70 rows), fp32 and bf16; B8 also at the hubert
     shape (one clip's 1500 frames x 16 heads, x at its true width 80 of
     d_pad 128); each family's ``registry.estimate_gram`` over ``[4096,
-    128]`` once, card against CPU;
+    128]`` once, card against CPU; B7 also with its library's registers,
+    spills and tensor-core instructions, two calls bitwise equal, its grid
+    and its tensor-core bound beside the CUDA-core one;
 16. kernel B5 at the ragged width of the ctr features (F 255), at phase
     5's prefill shape;
 17. small end-to-end references for the two families: the qwen3 and
@@ -282,12 +290,13 @@ def featurize_ops(rows, col_deg, d):
 
 
 def sketch_cost(rows, plan, item):
-    """(bytes, operations) of kernel B6 on ``rows`` inputs, counted as this
-    plan's data needs them: the omega rows the columns use (the sum of the
-    column degrees, real and imaginary), the block-diagonal inverse DFT
-    (sum of c^2 entries, real and imaginary), x once and the output once;
-    per row a complex d-long dot product for every used slot, the complex
-    running product, the block inverse DFT and the scale."""
+    """(bytes, stage-1 operations, stage-2 operations) of kernel B6 on
+    ``rows`` inputs, counted as this plan's data needs them: the omega rows
+    the columns use (the sum of the column degrees, real and imaginary),
+    the block-diagonal inverse DFT (sum of c^2 entries, real and
+    imaginary), x once and the output once; per row a complex d-long dot
+    product for every used slot and the complex running product (stage 1),
+    the block inverse DFT and the scale (stage 2)."""
     import numpy as np
 
     deg = plan.column_degrees()
@@ -298,8 +307,7 @@ def sketch_cost(rows, plan, item):
     muls = int(np.maximum(deg.astype(np.int64) - 1, 0).sum())
     nbytes = (rows * d * item + 2 * used * d * item + 2 * diag * item
               + fs * 8 + rows * fs * 4)
-    ops = rows * (4 * d * used + 6 * muls + 4 * diag + fs)
-    return nbytes, ops
+    return nbytes, rows * (4 * d * used + 6 * muls), rows * (4 * diag + fs)
 
 
 def ctr_cost(rows, plan, item):
@@ -385,11 +393,13 @@ def apply_cost(bh, t, d, dv, col_deg, item):
 
 
 def tensor_core_bound(nbytes, feat_ops, other_ops, dtype_name, exact_w):
-    """B3's and B4's bound on the tensor cores: ``(ms, "bytes" or
-    "operations")``, max(bytes / HBM rate, the featurize at the rate of
-    the mma terms its products take plus the contraction in 3xTF32). fp32
-    rows take 3xTF32, or two TF32 terms where the slab's values are TF32
-    numbers (``exact_w``, the rm plans' omegas); bf16 rows one bf16 mma."""
+    """A featurizing kernel's bound on the tensor cores (B1-B4, B6, B7):
+    ``(ms, "bytes" or "operations")``, max(bytes / HBM rate, the featurize
+    at the rate of the mma terms its products take plus the contraction
+    that follows, B6's inverse DFT or B3 / B4's, in 3xTF32). fp32 rows
+    take 3xTF32, or two TF32 terms where the weights are TF32 numbers
+    (``exact_w``: the rm plans' omegas, the ctr plans' {0, +-1}); bf16 rows
+    one bf16 mma."""
     if dtype_name == "float32":
         feat_rate = PEAK_TF32_OPS_PER_S / (2 if exact_w else 3)
     else:
@@ -664,15 +674,32 @@ def tensor_core_opcodes(lib_path):
 
 
 def report_build(torch, kid, name):
-    """Print kernel ``kid``'s library ``name``: its ``-Xptxas -v``
-    registers and spills, and the tensor-core instructions (``HMMA`` /
-    ``GMMA``) in its SASS; fail where the SASS holds none."""
+    """Print kernel ``kid``'s library ``name``: each kernel instance's
+    ``-Xptxas -v`` registers and spills (the instance's name demangled by
+    ``c++filt`` where the toolkit's host has it), and the tensor-core
+    instructions (``HMMA`` / ``GMMA``) in its SASS; fail where the SASS
+    holds none."""
+    import re
+    import shutil
+
     from repro_torch.kernels import _build
 
     paths = _build.build_all()
     log = _build.build_report().get(name, (0.0, ""))[1]
-    report = [ln.split("info    :")[-1].strip() for ln in log.splitlines()
-              if "Used" in ln or "spill" in ln]
+    report, entry = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            if shutil.which("c++filt"):
+                full = subprocess.run(["c++filt", entry], capture_output=True,
+                                      text=True).stdout
+                # the kernel and its template arguments, e.g.
+                # tensor_sketch_kernel<float, 8>
+                m = re.search(r"(\w+<[^()]*>)\(", full)
+                entry = m.group(1) if m else entry
+        elif "spill" in ln or "Used" in ln:
+            report.append((f"{entry}: " if entry and "spill" in ln else "")
+                          + ln.split("info    :")[-1].strip())
     print(f"[{kid}] ptxas -v: " + (" | ".join(report) if report else
                                    "no report: the library was built "
                                    "before this run"))
@@ -961,7 +988,7 @@ def main():
     from repro_torch.core import registry
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import pick_sketch_rows
+    from repro_torch.kernels.common import sketch_schedule
     from repro_torch.kernels.rm_attention.ops import (
         rm_attention_causal,
         rm_attention_chunked,
@@ -1265,11 +1292,11 @@ def main():
           f"F={ts_plan.output_dim} features")
     # every row count the slice gives B6: q (or k) of 4 decode slots, and
     # one prompt's q (or k) at each prefill bucket; together they take
-    # every row tile that pick_sketch_rows chooses on the path
+    # every output group that sketch_schedule chooses on the path
+    report_build(torch, "B6", "tensor_sketch")
     b6_shapes = [(4 * cfg.num_heads, "decode")] + [
         (bucket * cfg.num_heads, f"prefill bucket {bucket}")
         for bucket in (32, 64, 128, 256)]
-    c_max = max(b_ - a for a, b_ in zip(starts, starts[1:]))
     b6_checks = []
     for rows, label in b6_shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1277,23 +1304,33 @@ def main():
             wr, wi, mr, mi = (p_.to(dtype) for p_ in packed32)
             args = (x, wr, wi, ts_deg, mr, mi, ts_scale)
             got = tensor_sketch_fused(*args, starts)
+            again = tensor_sketch_fused(*args, starts)
             want = tensor_sketch_fused_ref(*args)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = B6_TOL * max(1.0, want.abs().max().item())
+            bitwise = torch.equal(got, again)
+            dev_ms = kernel_device_ms(torch, lambda: tensor_sketch_fused(
+                *args, starts), "tensor_sketch_kernel")
             ms = time_ms(torch, lambda: tensor_sketch_fused(*args, starts))
             plain_ms = time_ms(torch, lambda: tensor_sketch_fused_ref(*args))
             dname = str(dtype).split(".")[-1]
-            bms, by = bound(*sketch_cost(rows, ts_plan, x.element_size()),
-                            dname)
-            tile = pick_sketch_rows(c_max, rows, len(starts) - 1)
-            print(f"[B6] {label} x[{rows},{dh}] {dname}, {tile}-row tile: "
-                  f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel {ms:.4f} "
-                  f"ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-            if not err <= tol:
+            nbytes, ops1, ops2 = sketch_cost(rows, ts_plan, x.element_size())
+            bms, by = bound(nbytes, ops1 + ops2, dname)
+            tcms, tcby = tensor_core_bound(nbytes, ops1, ops2, dname, False)
+            sched = sketch_schedule(starts, rows, dh)
+            grid = -(-rows // 16) * sched.n_items
+            print(f"[B6] {label} x[{rows},{dh}] {dname}: max_abs_err "
+                  f"{err:.3e} (tol {tol:.1e}), two calls bitwise equal "
+                  f"{bitwise}; kernel {dev_ms:.4f} ms device (profiler), "
+                  f"{ms:.4f} ms events; plain {plain_ms:.4f} ms; bound "
+                  f"{tcms:.6f} ms ({tcby}, tensor cores) / {bms:.6f} ms "
+                  f"({by}, CUDA cores); grid {grid} blocks of 8 warps (16 "
+                  f"rows x {sched.n_items} items, groups of {sched.group} "
+                  "columns)")
+            if not (err <= tol and bitwise):
                 raise AssertionError(f"B6 {label} {dname}: error {err} > "
-                                     f"{tol}")
+                                     f"{tol} or two calls differ")
             b6_checks.append((f"{label} {dname}", err, tol))
             if label == "decode" and dtype == torch.float32:
                 hus = host_us(torch, lambda: tensor_sketch_fused(*args,
@@ -1310,8 +1347,51 @@ def main():
                              "tensor_sketch.py:92",
                     shape=f"x[{rows},{dh}] fp32 x wr,wi"
                           f"{tuple(packed32[0].shape)}, blocks {starts}",
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None)
+                    ms=dev_ms, events_ms=ms, plain_ms=plain_ms,
+                    bound_ms=tcms, bound_by=tcby, library_ms=None,
+                    bound_cuda_core_ms=bms, grid=grid, host_us=hus)
+            elif dtype == torch.float32 and rows == 4096:
+                kernels["B6"].update(
+                    prefill_shape=f"x[{rows},{dh}] fp32",
+                    prefill_ms=dev_ms, prefill_events_ms=ms,
+                    prefill_plain_ms=plain_ms, prefill_bound_ms=tcms,
+                    prefill_bound_cuda_core_ms=bms, prefill_grid=grid)
+            del x, args, got, again, want
+    # the paper's width, which the earlier kernel refused: the exp map at
+    # d 50, D 4000 through make_feature_map (a 2000-column degree block),
+    # its Gram on the card against the same map's on the CPU
+    from repro_torch.core import ExponentialDotProductKernel
+
+    fm_ts = make_feature_map(ExponentialDotProductKernel(), 50, 4000,
+                             estimator="tensor_sketch", seed=0)
+    fm_ts_cpu = type(fm_ts)(plan=fm_ts.plan, params={
+        k_: v_.cpu() for k_, v_ in fm_ts.params.items()})
+    x_exp = unit_rows(torch, (100, 50), gen)
+    before = tensor_sketch_fused.launches
+    k_card = fm_ts.estimate_gram(x_exp)
+    torch.cuda.synchronize()
+    if tensor_sketch_fused.launches != before + 1:
+        raise AssertionError("the D 4000 map did not launch B6 once")
+    k_cpu = fm_ts_cpu.estimate_gram(x_exp.cpu())
+    err = (k_card.cpu() - k_cpu).abs().max().item()
+    tol = B6_GRAM_TOL * max(1.0, k_cpu.abs().max().item())
+    starts_exp = fm_ts.plan.block_starts()
+    sched = sketch_schedule(starts_exp, 100, 50)
+    dev_ms = kernel_device_ms(torch, lambda: fm_ts.apply(x_exp),
+                              "tensor_sketch_kernel", iters=10)
+    nbytes, ops1, ops2 = sketch_cost(100, fm_ts.plan, 4)
+    tcms, tcby = tensor_core_bound(nbytes, ops1, ops2, "float32", False)
+    print(f"[B6] exp map d 50 D 4000 (make_feature_map, {len(starts_exp) - 1}"
+          f" degree blocks, widest {max(fm_ts.plan.counts)} columns), Gram "
+          f"of X[100,50] card vs CPU: max_abs_err {err:.3e} (tol {tol:.1e}); "
+          f"kernel {dev_ms:.4f} ms device, bound {tcms:.6f} ms ({tcby}, "
+          f"tensor cores), {sched.n_items} items of {sched.group} columns")
+    if not (err <= tol and torch.isfinite(k_card).all()):
+        raise AssertionError(f"B6 D 4000 Gram: error {err} > {tol}")
+    b6_checks.append(("exp D 4000 gram", err, tol))
+    kernels["B6"].update(d4000_shape="exp d 50 D 4000, x[100,50] fp32",
+                         d4000_ms=dev_ms, d4000_bound_ms=tcms)
+    del fm_ts, fm_ts_cpu, k_card, k_cpu
     # the Gram entry point: estimate_gram over the family's apply, with the
     # kernel on the card against the plain version on the CPU
     xg = unit_rows(torch, (4096, dh), gen)
@@ -1793,6 +1873,7 @@ def main():
          + [(ENC_FRAMES * nh, "hubert clip", h_st_plan, h_st_packed)]),
     )
     new_checks = {"B7": [], "B8": []}
+    report_build(torch, "B7", "ctr_feature")
     for (kid, fn, ref, cost, tol_, kname, family, fparams,
          cases) in feature_specs:
         for rows, label, kplan, packed in cases:
@@ -1804,6 +1885,9 @@ def main():
                 args = (x, *(p_.to(dtype) for p_ in packed), cd_, cs_)
                 got = fn(*args)
                 want = ref(*args)
+                # B7: two calls bitwise equal (one thread an output, no
+                # atomics)
+                repeat_ok = kid != "B7" or torch.equal(got, fn(*args))
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 tol = tol_ * max(1.0, want.abs().max().item())
@@ -1815,14 +1899,25 @@ def main():
                 ms = kernel_device_ms(torch, lambda: fn(*args), kname)
                 event_ms = time_ms(torch, lambda: fn(*args))
                 plain_ms = time_ms(torch, lambda: ref(*args))
-                bms, by = bound(*cost(rows, kplan, x.element_size()), dname)
+                nbytes, ops = cost(rows, kplan, x.element_size())
+                bms, by = bound(nbytes, ops, dname)
+                extra = ""
+                if kid == "B7":
+                    tcms, tcby = tensor_core_bound(nbytes, ops, 0, dname,
+                                                   True)
+                    grid = -(-rows // 16) * -(-kplan.num_complex // 32)
+                    extra = (f", tensor-core bound {tcms:.6f} ms ({tcby}); "
+                             f"grid {grid} blocks of 4 warps (16 rows x 32 "
+                             f"columns); two calls bitwise equal {repeat_ok}")
                 print(f"[{kid}] {label} x[{rows},{width}] {dname}: "
                       f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
                       f"{ms:.4f} ms (events {event_ms:.4f} ms), plain "
-                      f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-                if not (err <= tol and surplus_ok):
+                      f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})"
+                      + extra)
+                if not (err <= tol and surplus_ok and repeat_ok):
                     raise AssertionError(f"{kid} {label} {dname}: error {err}"
-                                         f" > {tol} or surplus not 0")
+                                         f" > {tol}, surplus not 0 or two "
+                                         "calls differ")
                 new_checks[kid].append((f"{label} {dname}", err, tol))
                 if label == "decode" and dtype == torch.float32:
                     hus = host_us(torch, lambda: fn(*args))
@@ -1844,8 +1939,19 @@ def main():
                                   "ctr_feature.py:89" if kid == "B7" else
                                   "src/repro/kernels/structured_feature/"
                                   "structured_feature.py:102"),
-                        shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                        bound_by=by, library_ms=None)
+                        shape=shape, ms=ms, events_ms=event_ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=None, host_us=hus)
+                    if kid == "B7":
+                        kernels[kid].update(bound_ms=tcms, bound_by=tcby,
+                                            bound_cuda_core_ms=bms, grid=grid)
+                elif (kid == "B7" and dtype == torch.float32
+                      and rows == 4096):
+                    kernels[kid].update(
+                        prefill_shape=f"x[{rows},{width}] fp32",
+                        prefill_ms=ms, prefill_events_ms=event_ms,
+                        prefill_plain_ms=plain_ms, prefill_bound_ms=tcms,
+                        prefill_bound_cuda_core_ms=bms, prefill_grid=grid)
                 del x, args, got, want
     # the Gram entry point over each family's apply: card against CPU
     for kid, name, kplan, kparams, fn in (

@@ -58,7 +58,11 @@
 // sets Sched::dk < dp, and the projections accumulate over chunks of dk
 // columns of d, the x tile and the slab rows staged one chunk at a time,
 // in a shared projection tile P (64 rows x the chunk's slab rows, fp32);
-// the running products are then formed from P.
+// the running products are then formed from P. A column tile deeper than
+// that (its slab rows and their P rows do not fit even at the narrowest
+// chunk: depth above about 80) is featurized a piece of Sched::slot_rows
+// slab rows at a time (featurize_deep_tile), the running product carried
+// across the pieces in registers.
 //
 // B1 and B2 (chain_z): one warp forms z of 16 rows x one 8-column tile,
 // reading x and w [kdeg, F, d] straight from device memory (no pack: the
@@ -101,7 +105,7 @@ constexpr int kApplyNI = 3;
 struct Sched {
   int bh, t, d, dv, f, n_ct, splits, tiles_per_split, ct_per_group,
       n_fgroups, dv_per_group, n_dvgroups, dp, ldx, slab_cap, ldb, b_rows,
-      ldz, chunk_ct, dk, ldp, smem_bytes;
+      ldz, chunk_ct, dk, ldp, smem_bytes, slot_rows;
 };
 constexpr int kSchedFields = sizeof(Sched) / sizeof(int);
 
@@ -691,6 +695,126 @@ __device__ void featurize_tile_dchunks(
       zr[8 * s.ldz] = z2 * s0 * mul[2 * r + 1];
       zr[8 * s.ldz + 1] = z3 * s1 * mul[2 * r + 1];
     }
+  }
+}
+
+// featurize_tile_dchunks for one column tile c whose slab rows exceed
+// slab_cap (the schedule's slot_rows > 0): its slots go a piece of
+// slot_rows / 8 at a time, each piece a d chunk at a time as above (the x
+// chunk and the piece's slab rows staged, the projections summed in P),
+// and the tile's warps (the two of its class) fold each piece into the
+// running product, which they keep in registers across the pieces; then
+// they write z to Z as featurize_tile_dchunks does. Every thread keeps
+// the barriers. The same ordering contract as featurize_tile_dchunks.
+template <typename T, bool kExactW>
+__device__ void featurize_deep_tile(
+    const T* __restrict__ xg, int nrows, const T* __restrict__ slab_g,
+    const Sched& s, T* xs, T* slab_s, float* ps,
+    const int* __restrict__ tile_row0, const int* __restrict__ class_tiles,
+    const int* __restrict__ col_deg, const float* __restrict__ col_scale,
+    int c, int zc0, float* zs, const float* __restrict__ rowmul,
+    int valid_rows, bool vec) {
+  constexpr int kDepthStep = sizeof(T) == 4 ? 8 : 16;   // one mma's k
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * kWarpRowGroups * (warp % kRowHalves);
+  const int cls = warp / kRowHalves;
+  bool mine = false;
+  for (int i = __ldg(class_tiles + cls); i < __ldg(class_tiles + cls + 1);
+       ++i)
+    mine |= __ldg(class_tiles + kColClasses + 1 + i) == c;
+  const int ra = __ldg(tile_row0 + c);
+  const int depth = (__ldg(tile_row0 + c + 1) - ra) / kColTile;
+  const int piece = s.slot_rows / kColTile;        // slots a piece
+  const int f = c * kColTile + 2 * t;
+  const int deg0 = __ldg(col_deg + f), deg1 = __ldg(col_deg + f + 1);
+  const T* xw = xs + row0 * s.ldx;
+  float z[kWarpRowGroups][4];
+#pragma unroll
+  for (int r = 0; r < kWarpRowGroups; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[r][e] = 1.f;
+  // P = (or +=) one slot tile's projections at P column pc
+  auto add = [&](int pc, const float pr[kWarpRowGroups][4], bool first) {
+#pragma unroll
+    for (int r = 0; r < kWarpRowGroups; ++r) {
+      float* q = ps + (row0 + 16 * r + g) * s.ldp + pc + 2 * t;
+      q[0] = first ? pr[r][0] : q[0] + pr[r][0];
+      q[1] = first ? pr[r][1] : q[1] + pr[r][1];
+      q[8 * s.ldp] = first ? pr[r][2] : q[8 * s.ldp] + pr[r][2];
+      q[8 * s.ldp + 1] = first ? pr[r][3] : q[8 * s.ldp + 1] + pr[r][3];
+    }
+  };
+  for (int j0 = 0; j0 < depth; j0 += piece) {
+    const int ns = min(piece, depth - j0);
+    const int rows = kColTile * ns;
+    for (int k0 = 0; k0 < s.d; k0 += s.dk) {
+      const int kw = min(s.dk, s.d - k0);
+      const int kp = (kw + kDepthStep - 1) / kDepthStep * kDepthStep;
+      __syncthreads();                    // the last chunk's readers are done
+      load_rows(xs, s.ldx, xg + k0, s.d, kRows, nrows, kw, vec);
+      load_rows(slab_s, s.ldx,
+                slab_g + static_cast<size_t>(ra + kColTile * j0) * s.d + k0,
+                s.d, rows, rows, kw, vec);
+      zero_cols(xs, s.ldx, kRows, kw, kp);
+      zero_cols(slab_s, s.ldx, rows, kw, kp);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (!mine) continue;
+      int j = 0;
+      for (; j + 1 < ns; j += 2) {
+        const T* w2[2] = {slab_s + kColTile * j * s.ldx,
+                          slab_s + kColTile * (j + 1) * s.ldx};
+        float p2[2][kWarpRowGroups][4];
+        Proj<T>::template run<2, kExactW>(xw, s.ldx, w2, s.ldx, kp, lane, p2);
+        add(kColTile * j, p2[0], k0 == 0);
+        add(kColTile * (j + 1), p2[1], k0 == 0);
+      }
+      if (j < ns) {
+        const T* w1[1] = {slab_s + kColTile * j * s.ldx};
+        float p1[1][kWarpRowGroups][4];
+        Proj<T>::template run<1, kExactW>(xw, s.ldx, w1, s.ldx, kp, lane, p1);
+        add(kColTile * j, p1[0], k0 == 0);
+      }
+    }
+    if (!mine) continue;
+    // fold the piece's slots j0 .. j0 + ns - 1 (each lane its own P places)
+#pragma unroll
+    for (int r = 0; r < kWarpRowGroups; ++r) {
+      const float* q = ps + (row0 + 16 * r + g) * s.ldp + 2 * t;
+      for (int j = 0; j < ns; ++j) {
+        const float* qj = q + kColTile * j;
+        if (j0 + j < deg0) {
+          z[r][0] *= qj[0];
+          z[r][2] *= qj[8 * s.ldp];
+        }
+        if (j0 + j < deg1) {
+          z[r][1] *= qj[1];
+          z[r][3] *= qj[8 * s.ldp + 1];
+        }
+      }
+    }
+  }
+  if (!mine) return;
+  const float s0 = __ldg(col_scale + f), s1 = __ldg(col_scale + f + 1);
+#pragma unroll
+  for (int r = 0; r < kWarpRowGroups; ++r) {
+    float mul[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * r + g + 8 * h;
+      mul[h] = rowmul == nullptr ? 1.f
+                                 : (row < valid_rows ? __ldg(rowmul + row)
+                                                     : 0.f);
+    }
+    float* zr = zs + (row0 + 16 * r + g) * s.ldz + (c - zc0) * kColTile +
+                2 * t;
+    zr[0] = z[r][0] * s0 * mul[0];
+    zr[1] = z[r][1] * s1 * mul[0];
+    zr[8 * s.ldz] = z[r][2] * s0 * mul[1];
+    zr[8 * s.ldz + 1] = z[r][3] * s1 * mul[1];
   }
 }
 

@@ -94,7 +94,7 @@ __device__ __forceinline__ void contract(const float* zs, int ldz,
   }
 }
 
-template <typename T, bool kExactW, bool kDChunks>
+template <typename T, bool kExactW, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 rm_fused_apply_kernel(const T* __restrict__ q,
                       const float* __restrict__ s_in,
@@ -131,7 +131,7 @@ rm_fused_apply_kernel(const T* __restrict__ q,
   // d tiled (dk < dp, its own instance of the kernel): the featurize
   // stages x and the slab a d chunk at a time itself
   // (featurize_tile_dchunks), so nothing is resident
-  constexpr bool dchunks = kDChunks;
+  constexpr bool dchunks = kMode > 0;
   const bool one_chunk =
       !dchunks && s.n_ct <= s.chunk_ct && total_rows <= s.slab_cap;
 
@@ -196,7 +196,12 @@ rm_fused_apply_kernel(const T* __restrict__ q,
         rmm::cp_async_commit();
         rmm::cp_async_wait<0>();
         __syncthreads();
-        if (dchunks)
+        if (kMode == 2 && rows > s.slab_cap)
+          rmm::featurize_deep_tile<T, kExactW>(
+              qb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
+              ps, tile_row0, class_tiles, col_deg, col_scale, ca, ca, zs,
+              nullptr, kRows, vec_x);
+        else if (dchunks)
           rmm::featurize_tile_dchunks<T, kExactW>(
               qb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
               ps, tile_row0, class_tiles, col_deg, col_scale, ca, cb, ca, zs,
@@ -267,8 +272,11 @@ int launch(const void* q, const float* s_in, const float* n_in,
   const bool vec_x = (s.d * sizeof(T)) % 16 == 0 && aligned16(q) &&
                      aligned16(slab);
   const bool vec_s = s.dv % 4 == 0 && aligned16(s_in);
-  auto kernel = s.dk < s.dp ? rm_fused_apply_kernel<T, kExactW, true>
-                            : rm_fused_apply_kernel<T, kExactW, false>;
+  // d whole (the encoder's instance), d tiled, or d tiled with a column
+  // tile deeper than the shared memory holds (slot_rows > 0)
+  auto kernel = s.dk == s.dp       ? rm_fused_apply_kernel<T, kExactW, 0>
+                : s.slot_rows == 0 ? rm_fused_apply_kernel<T, kExactW, 1>
+                                   : rm_fused_apply_kernel<T, kExactW, 2>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -299,6 +307,8 @@ extern "C" int rm_fused_apply_launch(
       s.n_dvgroups < 1 || s.dv_per_group < 1 || s.chunk_ct < 1 ||
       s.b_rows != s.chunk_ct * rmm::kColTile || s.dk < 1 || s.dk > s.dp ||
       (s.dk < s.dp && s.ldp < s.slab_cap) ||
+      s.slot_rows < 0 || s.slot_rows % rmm::kColTile != 0 ||
+      s.slot_rows > s.slab_cap || (s.slot_rows > 0 && s.dk == s.dp) ||
       (s.dv_per_group + 8) / 8 > 4 * rmm::kApplyNI)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

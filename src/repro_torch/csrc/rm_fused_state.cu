@@ -105,7 +105,7 @@ __device__ __forceinline__ void contract(
   }
 }
 
-template <typename T, bool kExactW, bool kDChunks>
+template <typename T, bool kExactW, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
                       const float* __restrict__ kvalid,
@@ -145,7 +145,7 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
   // d tiled (dk < dp, its own instance of the kernel): the featurize
   // stages x and the slab a d chunk at a time itself
   // (featurize_tile_dchunks), so nothing is resident
-  constexpr bool dchunks = kDChunks;
+  constexpr bool dchunks = kMode > 0;
   const bool one_chunk =
       !dchunks && __ldg(tile_row0 + cg1) - grow0 <= s.slab_cap;
 
@@ -202,10 +202,17 @@ rm_fused_state_kernel(const T* __restrict__ k, const float* __restrict__ v,
       for (int ca = cg0; ca < cg1;) {
         const int cb = rmm::chunk_end(tile_row0, ca, cg1, s.chunk_ct,
                                       s.slab_cap);
-        rmm::featurize_tile_dchunks<T, kExactW>(
-            kb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
-            ps, tile_row0, class_tiles, col_deg, col_scale, ca, cb, cg0, zs,
-            kvb + r0, nrows, vec_x);
+        if (kMode == 2 &&
+            __ldg(tile_row0 + cb) - __ldg(tile_row0 + ca) > s.slab_cap)
+          rmm::featurize_deep_tile<T, kExactW>(
+              kb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
+              ps, tile_row0, class_tiles, col_deg, col_scale, ca, cg0, zs,
+              kvb + r0, nrows, vec_x);
+        else
+          rmm::featurize_tile_dchunks<T, kExactW>(
+              kb + static_cast<size_t>(r0) * s.d, nrows, slab, s, xs, slab_s,
+              ps, tile_row0, class_tiles, col_deg, col_scale, ca, cb, cg0, zs,
+              kvb + r0, nrows, vec_x);
         ca = cb;
       }
     } else {
@@ -324,8 +331,11 @@ int launch(const void* k, const float* v, const float* kvalid,
   const bool vec_x = (s.d * sizeof(T)) % 16 == 0 && aligned16(k) &&
                      aligned16(slab);
   const bool vec_v = s.dv % 4 == 0 && aligned16(v);
-  auto kernel = s.dk < s.dp ? rm_fused_state_kernel<T, kExactW, true>
-                            : rm_fused_state_kernel<T, kExactW, false>;
+  // d whole (the encoder's instance), d tiled, or d tiled with a column
+  // tile deeper than the shared memory holds (slot_rows > 0)
+  auto kernel = s.dk == s.dp       ? rm_fused_state_kernel<T, kExactW, 0>
+                : s.slot_rows == 0 ? rm_fused_state_kernel<T, kExactW, 1>
+                                   : rm_fused_state_kernel<T, kExactW, 2>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -369,6 +379,8 @@ extern "C" int rm_fused_state_launch(
       s.n_dvgroups < 1 || s.ct_per_group < 1 || s.dv_per_group < 1 ||
       s.b_rows != kRows || s.chunk_ct < 1 || s.dk < 1 || s.dk > s.dp ||
       (s.dk < s.dp && s.ldp < s.slab_cap) ||
+      s.slot_rows < 0 || s.slot_rows % rmm::kColTile != 0 ||
+      s.slot_rows > s.slab_cap || (s.slot_rows > 0 && s.dk == s.dp) ||
       (s.dv_per_group + 8) / 8 > 4 * rmm::kStateNI ||
       (s.ct_per_group * rmm::kColTile + 15) / 16 > 4 * rmm::kStateMI ||
       (s.splits > 1 && (s_part == nullptr || n_part == nullptr)))

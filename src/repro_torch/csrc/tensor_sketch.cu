@@ -1,4 +1,5 @@
-// tensor_sketch: the fused TensorSketch map in one launch, for Hopper.
+// tensor_sketch: the fused TensorSketch map in one launch, on Hopper's
+// tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/tensor_sketch/tensor_sketch.py
 // tensor_sketch_fused_pallas (body _ts_fused_kernel). On the packed
@@ -9,284 +10,261 @@
 //   stage 2  z = Ar Mr^T - Ai Mi^T, then z *= col_scale.
 //
 // x [B, d] fp32 or bf16; wr, wi [kdeg, Fs, d], mr, mi [Fs, Fs] of the same
-// type; col_deg [Fs] int32; col_scale [Fs] fp32 -> out [B, Fs] fp32. Every
-// element is converted to fp32 on load; products and sums are fp32.
+// type; col_deg [Fs] int32; col_scale [Fs] fp32 -> out [B, Fs] fp32, fp32
+// accumulation.
 //
-// Split. The TPU kernel tiles the batch only and keeps all Fs columns and
-// the dense [Fs, Fs] inverse DFT resident. On Hopper that does not fit (at
-// qwen3-1.7b's head, Fs = 255: wr + wi are 1.3 MB and mr + mi 0.52 MB in
-// fp32). pack_sketch builds mr / mi block-diagonal by degree block, and
-// inside a block every column has one degree, so here one thread block owns
-// one (row tile, degree block): stage 1 runs the block's c columns over its
-// own slots, in 64-column tiles, and leaves Ar, Ai [rows, c] in shared
-// memory; stage 2 multiplies them by the block's [c, c] inverse DFT only
-// (sum c^2 = 28,339 products a row at Fs = 255, 44% of the dense 65,025).
-// The block bounds come from the plan (SketchPlan.block_starts) through the
-// launch arguments; entries of mr / mi outside the blocks are never read.
+// Split. pack_sketch builds mr / mi block-diagonal by degree block, and
+// inside a block every column has one degree, so stage 2 needs only the
+// block's own [c, c] inverse DFT (sum c^2 = 28,339 entries at qwen3-1.7b's
+// head, Fs 255, 44% of the dense 65,025; entries off the blocks are never
+// read). One thread block owns one *item* (16 rows, a degree block, a group
+// of at most 160 output columns of that block; kernels.common.
+// sketch_schedule, the items in device memory, so any number of blocks
+// fits) and walks the degree block in rounds of 8 W columns, W = 8 warps
+// on decode-sized batches (fewer rounds on the longest item's path), 4
+// past them (more blocks an SM):
+//   stage 1: each warp runs one 8-column tile's complex chain on the
+//     tensor cores (complex_mma.cuh), x and the weight rows read straight
+//     from device memory into mma fragments;
+//   the round's Mr / Mi slices (the group's rows x the round's columns,
+//     inside the block's diagonal only) are copied to shared memory by
+//     cp.async while the chains run;
+//   stage 2: the round's Ar, Ai [16, 8 W] go to shared memory and the
+//     warps form Ar Mr[G, :]^T - Ai Mi[G, :]^T for the round in mma
+//     fragments and add it to z[:, G], held in registers across rounds,
+//     by fp32 adds.
+// No block holds more than a round of Ar / Ai, so a degree block of any
+// width fits (the paper's exp map at D 4000 has one of 2000 columns).
+// Every item of a degree block recomputes that block's stage 1: cheap next
+// to stage 2 on the wide low-degree blocks, and what turns the widest
+// block into several thread blocks at decode. Each output element is
+// written by one thread, in one order: a call is bitwise repeatable.
+//
+// Precision: stage 1 runs 3xTF32 on fp32 inputs and bf16 mma on bf16
+// inputs; stage 2 always runs 3xTF32, since Ar / Ai are fp32 (the TPU
+// kernel computes it in fp32 for bf16 inputs too); bf16 Mr / Mi convert
+// exactly.
 //
 // What bounds it on the card: at the decode shape (x [64, 128], a 4-slot
-// batch of 16 heads) the work is about 20 MFLOP over 0.6 MB, well under a
-// microsecond of fp32 FLOPs or bytes, so the launch is latency-bound: its
-// time is the chain of staged steps of the widest block (stage 1: column
-// tiles x slots x d / 32; stage 2: column tiles x c / 32), each a global
-// load and two barriers. The row tile is chosen for blocks in flight
-// (repro_torch.kernels.common.pick_sketch_rows). Products run on the fp32
-// CUDA cores; wgmma tiles are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// batch of 16 heads) the work is about 20 MFLOP over 0.6 MB, under a
+// microsecond either way, so launch latency and the longest item's rounds
+// (its chains, then its stage-2 share, with two barriers) bound it: the
+// schedule then takes the narrowest groups, for the most blocks in flight.
+// At x [4096, 128] the 1.31 GFLOP take about 8 us in 3xTF32 on the tensor
+// cores (2 us of bytes); the schedule takes wide groups there, so less of
+// stage 1 is recomputed, and the chains' loads (each warp reads its x rows
+// again for every pass) bound it in practice.
+#include "complex_mma.cuh"
 
 namespace {
 
-constexpr int kCols = 64;       // feature columns of a tile
-constexpr int kStage = 32;      // width of a staged d (or f) slice
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kMaxBlocks = 64;  // degree blocks a launch may carry
+// The widest group an item takes: the Mr / Mi slices it stages (two of
+// 160 rows) and the accumulator tiles its W warps hold.
+constexpr int kMaxGroup = 160;
+constexpr int kItemInts = 3;      // c0, c, g0 of an item
 
-struct Blocks {
-  int start[kMaxBlocks + 1];    // first column of each block, then Fs
-};
+// Rows [0, m_rows) x columns [0, 8 W) of one round's slice of m (row g0 +
+// gg, column f0 + k of the block at c0, Fs the row stride) into dst (fp32,
+// stride 8 W + 4): live iff gg < gw and f0 + k < c, zeros otherwise. fp32
+// by 4-byte cp.async; bf16 converts through registers.
+template <typename T, int W>
+__device__ __forceinline__ void stage_m(float* dst, const T* __restrict__ m,
+                                        int c0, int c, int g0, int gw, int f0,
+                                        int Fs, int m_rows) {
+  constexpr int kRoundCols = 8 * W, kLd = kRoundCols + 4;
+  for (int e = threadIdx.x; e < m_rows * kRoundCols; e += 32 * W) {
+    const int gg = e / kRoundCols;
+    const int k = e - gg * kRoundCols;
+    const bool live = gg < gw && f0 + k < c;
+    const T* src = m + static_cast<size_t>(c0 + g0 + gg) * Fs + c0 + f0 + k;
+    if constexpr (sizeof(T) == 4) {
+      const uint32_t s =
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst + gg * kLd + k));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                   "l"(live ? src : m), "r"(live ? 4 : 0));
+    } else {
+      dst[gg * kLd + k] = live ? __bfloat162float(__ldg(src)) : 0.f;
+    }
+  }
+}
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <int W>
+size_t smem_bytes(int m_rows) {
+  return static_cast<size_t>(2 * 16 + 2 * m_rows) * (8 * W + 4) * 4;
+}
 
-// RI rows a thread: a block covers BM = 16 * RI rows. Thread (ty, tx) owns
-// rows ty + 16 i (i < RI) and columns tx + 16 jj (jj < 4) of each tile.
-template <typename T, int RI>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 tensor_sketch_kernel(const T* __restrict__ x, const T* __restrict__ wr,
                      const T* __restrict__ wi, const int* __restrict__ col_deg,
                      const T* __restrict__ mr, const T* __restrict__ mi,
                      const float* __restrict__ col_scale,
-                     float* __restrict__ out, const Blocks blocks, int B,
-                     int Fs, int d, int kdeg, int c_ld) {
-  constexpr int BM = 16 * RI;
-  constexpr int LS = kStage + 1;
-  extern __shared__ float smem[];
-  float* xs = smem;                       // [BM][LS]    x slice
-  float* as = xs + BM * LS;               // [kCols][LS] wr slice / mr slice
-  float* bs = as + kCols * LS;            // [kCols][LS] wi slice / mi slice
-  float* Ar = bs + kCols * LS;            // [BM][c_ld]  running product, real
-  float* Ai = Ar + BM * c_ld;             // [BM][c_ld]  imag
-
-  const int r0 = blockIdx.x * BM;
-  const int c0 = blocks.start[blockIdx.y];
-  const int c = blocks.start[blockIdx.y + 1] - c0;
-  const int nrows = min(BM, B - r0);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  // product depth of this degree block (uniform across the block, so the
-  // barriers below are reached by every thread)
-  int depth = 0;
-  for (int f = 0; f < c; ++f) depth = max(depth, col_deg[c0 + f]);
-  depth = min(depth, kdeg);
-
-  // -- stage 1: complex running product, one 64-column tile at a time ------
-  for (int t0 = 0; t0 < c; t0 += kCols) {
-    float ar[RI][4], ai[RI][4];
-    int my_deg[4];
+                     float* __restrict__ out, const int* __restrict__ items,
+                     int group, int B, int Fs, int d, int kdeg, bool vec) {
+  constexpr int kRoundCols = 8 * W;       // columns a round
+  constexpr int kLd = kRoundCols + 4;      // fp32 row stride of the tiles
+  constexpr int kMaxNTiles = (kMaxGroup / 8 + W - 1) / W;
+  extern __shared__ __align__(16) float smem[];
+  const int m_rows = (group + 7) / 8 * 8;
+  float* as_r = smem;                      // [16][kLd]  the round's Ar
+  float* as_i = as_r + 16 * kLd;           // [16][kLd]  Ai
+  float* ms_r = as_i + 16 * kLd;           // [m_rows][kLd]  Mr slice
+  float* ms_i = ms_r + m_rows * kLd;       // [m_rows][kLd]  Mi slice
+  const int* it = items + kItemInts * blockIdx.y;
+  const int c0 = __ldg(it), c = __ldg(it + 1), g0 = __ldg(it + 2);
+  const int gw = min(group, c - g0);          // this item's output columns
+  const int r0 = blockIdx.x * 16;
+  const int depth = cmm::block_depth<W>(col_deg, c0, c0 + c, kdeg);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // stage 2: warp w takes the output tiles n = w + W q of the item
+  const int n_tiles = (gw + 7) / 8;
+  float acc[kMaxNTiles][4];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int f = t0 + tx + 16 * jj;
-      my_deg[jj] = f < c ? col_deg[c0 + f] : 0;
-    }
+  for (int q = 0; q < kMaxNTiles; ++q)
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+  cmm::complex_rounds<T, W>(
+      x, B, r0, wr, wi, Fs, d, c0, c0 + c, (c + kRoundCols - 1) / kRoundCols,
+      depth, col_deg, vec,
+      [&](int i) {
+        stage_m<T, W>(ms_r, mr, c0, c, g0, gw, i * kRoundCols, Fs, m_rows);
+        stage_m<T, W>(ms_i, mi, c0, c, g0, gw, i * kRoundCols, Fs, m_rows);
+      },
+      [&](int i, int cw, const float zr[4], const float zi[4]) {
+        // the round's Ar / Ai; a column off the block is 0
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        ar[i][jj] = 1.f;
-        ai[i][jj] = 0.f;
-      }
-    for (int j = 0; j < depth; ++j) {
-      float pr[RI][4], pi[RI][4];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          pr[i][jj] = 0.f;
-          pi[i][jj] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int row = g + 8 * (e >> 1);
+          const int col = warp * cmm::kColTile + 2 * t + (e & 1);
+          const bool ok = cw + 2 * t + (e & 1) < c0 + c;
+          as_r[row * kLd + col] = ok ? zr[e] : 0.f;
+          as_i[row * kLd + col] = ok ? zi[e] : 0.f;
         }
-      const T* wrj = wr + (size_t)j * Fs * d;
-      const T* wij = wi + (size_t)j * Fs * d;
-      for (int k0 = 0; k0 < d; k0 += kStage) {
-        for (int e = tid; e < BM * kStage; e += kThreads) {
-          const int r = e / kStage;
-          const int kk = e % kStage;
-          xs[r * LS + kk] = (r < nrows && k0 + kk < d)
-                                ? to_f32(x[(size_t)(r0 + r) * d + k0 + kk]) : 0.f;
-        }
-        for (int e = tid; e < kCols * kStage; e += kThreads) {
-          const int cc = e / kStage;
-          const int kk = e % kStage;
-          const bool in = t0 + cc < c && k0 + kk < d;
-          const size_t off = (size_t)(c0 + t0 + cc) * d + k0 + kk;
-          as[cc * LS + kk] = in ? to_f32(wrj[off]) : 0.f;
-          bs[cc * LS + kk] = in ? to_f32(wij[off]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int kk = 0; kk < kStage; ++kk) {
-          float a[RI], br[4], bi[4];
+        __syncthreads();          // Ar / Ai and the Mr / Mi slices are in
+        const float* mlr = ms_r + (lane & 7) * kLd + 4 * ((lane >> 3) & 1);
+        const float* mli = ms_i + (lane & 7) * kLd + 4 * ((lane >> 3) & 1);
+        // the round's k-steps up to the block's last column, into a
+        // partial sum that joins z by an fp32 add (the tensor cores'
+        // accumulation does not round to nearest: over a 2000-column
+        // block's 32 rounds in one accumulator its error grew to 2e-5)
+        const int k_steps = min(kRoundCols / 8, (c - i * kRoundCols + 7) / 8);
+        float part[kMaxNTiles][4];
 #pragma unroll
-          for (int i = 0; i < RI; ++i) a[i] = xs[(ty + 16 * i) * LS + kk];
+        for (int q = 0; q < kMaxNTiles; ++q)
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            br[jj] = as[(tx + 16 * jj) * LS + kk];
-            bi[jj] = bs[(tx + 16 * jj) * LS + kk];
+          for (int e = 0; e < 4; ++e) part[q][e] = 0.f;
+#pragma unroll 2
+        for (int ks = 0; ks < k_steps; ++ks) {
+          uint32_t ah[4], al[4], nh[4], nl[4];
+          rmm::frag_a(as_r + 8 * ks, kLd, 1, lane, ah, al);
+          rmm::frag_a(as_i + 8 * ks, kLd, 1, lane, nh, nl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {     // -Ai: flip the signs, exactly
+            nh[e] ^= 0x80000000u;
+            nl[e] ^= 0x80000000u;
           }
 #pragma unroll
-          for (int i = 0; i < RI; ++i)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              pr[i][jj] = fmaf(a[i], br[jj], pr[i][jj]);
-              pi[i][jj] = fmaf(a[i], bi[jj], pi[i][jj]);
-            }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          if (j < my_deg[jj]) {
-            const float nr = ar[i][jj] * pr[i][jj] - ai[i][jj] * pi[i][jj];
-            const float ni = ar[i][jj] * pi[i][jj] + ai[i][jj] * pr[i][jj];
-            ar[i][jj] = nr;
-            ai[i][jj] = ni;
+          for (int q = 0; q < kMaxNTiles; ++q) {
+            const int n = warp + W * q;
+            if (n >= n_tiles) continue;
+            uint32_t b[2], brh[2], brl[2], bih[2], bil[2];
+            rmm::ldsm_x2(b, mlr + 8 * n * kLd + 8 * ks);
+            rmm::split_words<2>(b, brh, brl);
+            rmm::ldsm_x2(b, mli + 8 * n * kLd + 8 * ks);
+            rmm::split_words<2>(b, bih, bil);
+            rmm::mma_tf32(part[q], al, brh);
+            rmm::mma_tf32(part[q], ah, brl);
+            rmm::mma_tf32(part[q], nl, bih);
+            rmm::mma_tf32(part[q], nh, bil);
+            rmm::mma_tf32(part[q], ah, brh);
+            rmm::mma_tf32(part[q], nh, bih);
           }
-    }
-    // every column of the tile is written (past c: the finite (1, 0)), so
-    // stage 2 never reads uninitialized shared memory
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int idx = (ty + 16 * i) * c_ld + t0 + tx + 16 * jj;
-        Ar[idx] = ar[i][jj];
-        Ai[idx] = ai[i][jj];
-      }
-  }
-  __syncthreads();
-
-  // -- stage 2: the block's inverse DFT, then the scales --------------------
-  for (int g0 = 0; g0 < c; g0 += kCols) {
-    float acc[RI][4];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
-    for (int f0 = 0; f0 < c; f0 += kStage) {
-      for (int e = tid; e < kCols * kStage; e += kThreads) {
-        const int gg = e / kStage;
-        const int ff = e % kStage;
-        const bool in = g0 + gg < c && f0 + ff < c;
-        const size_t off = (size_t)(c0 + g0 + gg) * Fs + c0 + f0 + ff;
-        as[gg * LS + ff] = in ? to_f32(mr[off]) : 0.f;
-        bs[gg * LS + ff] = in ? to_f32(mi[off]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int ff = 0; ff < kStage; ++ff) {
-        float a_r[RI], a_i[RI], m_r[4], m_i[4];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          a_r[i] = Ar[(ty + 16 * i) * c_ld + f0 + ff];
-          a_i[i] = Ai[(ty + 16 * i) * c_ld + f0 + ff];
         }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          m_r[jj] = as[(tx + 16 * jj) * LS + ff];
-          m_i[jj] = bs[(tx + 16 * jj) * LS + ff];
-        }
+        for (int q = 0; q < kMaxNTiles; ++q)
 #pragma unroll
-        for (int i = 0; i < RI; ++i)
+          for (int e = 0; e < 4; ++e) acc[q][e] += part[q][e];
+        __syncthreads();          // the round's readers are done
+      });
+  // z times the scales, the item's columns and the rows that exist
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            acc[i][jj] = fmaf(a_r[i], m_r[jj], fmaf(-a_i[i], m_i[jj], acc[i][jj]));
-      }
-      __syncthreads();
-    }
+  for (int q = 0; q < kMaxNTiles; ++q) {
+    const int n = warp + W * q;
+    if (n >= n_tiles) continue;
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= nrows) continue;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int g = g0 + tx + 16 * jj;
-        if (g < c)
-          out[(size_t)(r0 + r) * Fs + c0 + g] = acc[i][jj] * col_scale[c0 + g];
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int gc = g0 + 8 * n + 2 * t + (e & 1);
+      const int row = r0 + g + 8 * (e >> 1);
+      if (gc < g0 + gw && row < B)
+        out[static_cast<size_t>(row) * Fs + c0 + gc] =
+            acc[q][e] * __ldg(col_scale + c0 + gc);
     }
   }
 }
 
-template <typename T, int RI>
+template <typename T, int W>
 int launch(const void* x, const void* wr, const void* wi, const int* col_deg,
            const void* mr, const void* mi, const float* col_scale, float* out,
-           const Blocks& blocks, int n_blocks, int B, int Fs, int d, int kdeg,
-           int c_ld, int smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tensor_sketch_kernel<T, RI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + 16 * RI - 1) / (16 * RI), n_blocks);
-  tensor_sketch_kernel<T, RI><<<grid, kThreads, smem_bytes, stream>>>(
+           const int* items, int n_items, int group, int B, int Fs, int d,
+           int kdeg, cudaStream_t stream) {
+  const size_t smem = smem_bytes<W>((group + 7) / 8 * 8);
+  static size_t attr_bytes = 0;      // the instance's dynamic-smem limit set
+  if (smem > attr_bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tensor_sketch_kernel<T, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return (int)err;
+    attr_bytes = smem;
+  }
+  const bool vec = cmm::vec16(static_cast<size_t>(d) * sizeof(T), x, wr, wi);
+  dim3 grid((B + 15) / 16, n_items);
+  tensor_sketch_kernel<T, W><<<grid, 32 * W, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wr),
       static_cast<const T*>(wi), col_deg, static_cast<const T*>(mr),
-      static_cast<const T*>(mi), col_scale, out, blocks, B, Fs, d, kdeg, c_ld);
+      static_cast<const T*>(mi), col_scale, out, items, group, B, Fs, d, kdeg,
+      vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_rows(int rows, const void* x, const void* wr, const void* wi,
-                const int* col_deg, const void* mr, const void* mi,
-                const float* col_scale, float* out, const Blocks& blocks,
-                int n_blocks, int B, int Fs, int d, int kdeg, int c_ld,
-                int smem_bytes, cudaStream_t stream) {
-  if (rows == 64)
-    return launch<T, 4>(x, wr, wi, col_deg, mr, mi, col_scale, out, blocks,
-                        n_blocks, B, Fs, d, kdeg, c_ld, smem_bytes, stream);
-  if (rows == 32)
-    return launch<T, 2>(x, wr, wi, col_deg, mr, mi, col_scale, out, blocks,
-                        n_blocks, B, Fs, d, kdeg, c_ld, smem_bytes, stream);
-  if (rows == 16)
-    return launch<T, 1>(x, wr, wi, col_deg, mr, mi, col_scale, out, blocks,
-                        n_blocks, B, Fs, d, kdeg, c_ld, smem_bytes, stream);
+int launch_warps(int warps, const void* x, const void* wr, const void* wi,
+                 const int* col_deg, const void* mr, const void* mi,
+                 const float* col_scale, float* out, const int* items,
+                 int n_items, int group, int B, int Fs, int d, int kdeg,
+                 cudaStream_t s) {
+  if (warps == 8)
+    return launch<T, 8>(x, wr, wi, col_deg, mr, mi, col_scale, out, items,
+                        n_items, group, B, Fs, d, kdeg, s);
+  if (warps == 4)
+    return launch<T, 4>(x, wr, wi, col_deg, mr, mi, col_scale, out, items,
+                        n_items, group, B, Fs, d, kdeg, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// block_starts: host array of n_blocks + 1 ints (0, ..., Fs), strictly
-// increasing. rows: 64, 32 or 16. c_ld >= round_up(widest block, 64) and
-// smem_bytes come from repro_torch.kernels.common (pick_sketch_rows,
-// sketch_smem_bytes). dtype: 0 = fp32, 1 = bf16 (x, wr, wi, mr, mi).
-// Returns cudaGetLastError().
+// items: device memory, n_items x (c0, c, g0): the degree block [c0, c0 +
+// c) and its output columns [g0, g0 + group) (block-relative, cut at c),
+// group at most 160; warps: 8 or 4 a block (rounds of 64 or 32 columns);
+// both from repro_torch.kernels.common.sketch_schedule. dtype: 0 = fp32,
+// 1 = bf16 (x, wr, wi, mr, mi). Returns cudaGetLastError().
 extern "C" int tensor_sketch_launch(
     const void* x, const void* wr, const void* wi, const int* col_deg,
     const void* mr, const void* mi, const float* col_scale, float* out,
-    const int* block_starts, int n_blocks, int B, int Fs, int d, int kdeg,
-    int rows, int c_ld, int smem_bytes, int dtype, void* stream) {
-  if (n_blocks < 1 || n_blocks > kMaxBlocks || block_starts[0] != 0 ||
-      block_starts[n_blocks] != Fs)
+    const int* items, int n_items, int group, int B, int Fs, int d, int kdeg,
+    int warps, int dtype, void* stream) {
+  if (B < 1 || Fs < 1 || d < 1 || kdeg < 1 || group < 1 ||
+      group > kMaxGroup || n_items < 1 || n_items > 65535)
     return (int)cudaErrorInvalidValue;
-  Blocks blocks;
-  for (int i = 0; i <= n_blocks; ++i) {
-    blocks.start[i] = block_starts[i];
-    if (i > 0 && (block_starts[i] <= block_starts[i - 1] ||
-                  c_ld < ((block_starts[i] - block_starts[i - 1] + kCols - 1) / kCols) * kCols))
-      return (int)cudaErrorInvalidValue;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_rows<float>(rows, x, wr, wi, col_deg, mr, mi, col_scale,
-                              out, blocks, n_blocks, B, Fs, d, kdeg, c_ld,
-                              smem_bytes, s);
+    return launch_warps<float>(warps, x, wr, wi, col_deg, mr, mi, col_scale,
+                               out, items, n_items, group, B, Fs, d, kdeg, s);
   if (dtype == 1)
-    return launch_rows<__nv_bfloat16>(rows, x, wr, wi, col_deg, mr, mi,
-                                      col_scale, out, blocks, n_blocks, B, Fs,
-                                      d, kdeg, c_ld, smem_bytes, s);
+    return launch_warps<__nv_bfloat16>(warps, x, wr, wi, col_deg, mr, mi,
+                                       col_scale, out, items, n_items, group,
+                                       B, Fs, d, kdeg, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,14 +17,15 @@ memory; a block walks several row tiles of one batch*head row, and
 :func:`noncausal_schedule` picks how many, the value and feature groups,
 the depth chunks and the shared-memory layout. B9
 (``csrc/rm_feature_bucket.cu``) keeps the CUDA-core 64 x 64 tile of
-``csrc/rm_featurize.cuh`` and needs no choice. The tensor_sketch kernel's
-row tile (the reference's ``get_batch_block``) is chosen below; the chunked
-attention kernel (``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles
-and static shared memory. The ctr kernel (``csrc/ctr_feature.cu``, B7)
-takes a 64 x 64 tile with three staged slices (x, wr, wi: 25,344 bytes of
-static shared memory), so it needs no choice either; the structured kernel
-(``csrc/structured_feature.cu``, B8) takes a row tile of one Hadamard stack
-a block (:func:`pick_structured_rows`). There is no autotune cache yet.
+``csrc/rm_featurize.cuh`` and needs no choice. The tensor_sketch (B6,
+``csrc/tensor_sketch.cu``) and ctr (B7, ``csrc/ctr_feature.cu``) kernels
+run complex chains on the tensor cores (``csrc/complex_mma.cuh``), 16 rows
+a block: B7 needs no choice, B6's warps and output groups are
+:func:`sketch_schedule`. The chunked attention kernel
+(``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
+shared memory; the structured kernel (``csrc/structured_feature.cu``, B8)
+takes a row tile of one Hadamard stack a block
+(:func:`pick_structured_rows`). There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -33,15 +34,13 @@ from typing import NamedTuple, Sequence, Tuple
 
 __all__ = [
     "SMEM_PER_BLOCK",
-    "FEATURE_TILE",
-    "STAGE_K",
     "round_up",
     "feature_tile_smem",
     "pick_feature_tiles",
     "CausalSchedule",
     "causal_schedule",
-    "sketch_smem_bytes",
-    "pick_sketch_rows",
+    "SketchSchedule",
+    "sketch_schedule",
     "NoncausalSchedule",
     "noncausal_schedule",
     "STRUCTURED_MAX_DPAD",
@@ -51,16 +50,15 @@ __all__ = [
 
 # Hopper: the most dynamic shared memory one block may opt into.
 SMEM_PER_BLOCK = 232_448
-# Rows and feature columns of one CUDA-core featurize tile (16x16 threads x
-# 4x4 each: the tensor_sketch and ctr kernels, and B9).
-FEATURE_TILE = 64
-# Width of the x / omega slices those kernels stage per step over d.
-STAGE_K = 32
 # Streaming multiprocessors of an H100 SXM: enough blocks to fill them.
 NUM_SMS = 132
-# Row tiles the tensor_sketch kernel is compiled for (16 rows x 1, 2 or 4
-# rows a thread).
-SKETCH_ROW_TILES = (64, 32, 16)
+# B6 (csrc/tensor_sketch.cu): a block of 8 warps (batches of at most
+# SKETCH_WIDE_ROWS rows) or 4 owns 16 rows and one item, and walks its
+# degree block in rounds of 8 columns a warp; the output groups tried are
+# at most 160 columns (the Mr / Mi slices a block stages, kMaxGroup there:
+# one group holds qwen3's widest block, 149 columns).
+SKETCH_WIDE_ROWS = 256
+SKETCH_GROUPS = (16, 32, 64, 160)
 # The non-causal kernels B3 and B4 (csrc/rm_featurize_mma.cuh): 64-row
 # tiles, 8-column feature tiles (one mma n-tile), and a 4 x 4 grid of warps
 # over the (16 x 8) accumulator tiles of the contraction: B3 holds up to
@@ -244,43 +242,67 @@ def causal_schedule(bh: int, heads: int, t: int, d: int, dv: int,
         n_dvbgroups=n_dvb, ldb=ldb, smem_a=smem_a, smem_b=smem_b)
 
 
-def sketch_smem_bytes(rows: int, c_max: int) -> int:
-    """Dynamic shared memory of one tensor_sketch block, in bytes.
+class SketchSchedule(NamedTuple):
+    """How the tensor_sketch kernel B6 cuts its work (grid = 16-row groups
+    x items, ``warps`` a block). An item is a degree block ``[c0, c0 + c)``
+    and its output columns ``[g0, g0 + group)`` (block-relative, cut at
+    ``c``); ``items`` is flat, ``(c0, c, g0)`` an item, as the kernel reads
+    it from device memory."""
+    warps: int
+    group: int
+    items: Tuple[int, ...]
 
-    The staging area (x ``[rows, STAGE_K + 1]`` and two 64-column weight or
-    inverse-DFT slices ``[64, STAGE_K + 1]``) and the block's complex
-    running product ``Ar, Ai [rows, round_up(c_max, 64) + 1]``, kept for
-    the inverse-DFT stage.
-    """
-    stage = (rows + 2 * FEATURE_TILE) * (STAGE_K + 1)
-    acc = 2 * rows * (round_up(max(c_max, 1), FEATURE_TILE) + 1)
-    return 4 * (stage + acc)
+    @property
+    def n_items(self) -> int:
+        return len(self.items) // 3
 
 
-def pick_sketch_rows(c_max: int, b: int, n_blocks: int) -> int:
-    """Row tile of the tensor_sketch kernel (grid = row tiles x degree
-    blocks).
+def _sketch_items(starts: Sequence[int], group: int) -> Tuple[int, ...]:
+    items = []
+    for a, b in zip(starts, starts[1:]):
+        for g0 in range(0, b - a, group):
+            items += [a, b - a, g0]
+    return tuple(items)
 
-    The largest tile of :data:`SKETCH_ROW_TILES` whose shared memory fits
-    :data:`SMEM_PER_BLOCK` and whose grid still fills the card
-    (``ceil(b / rows) * n_blocks >= NUM_SMS``); when no tile fills it (a
-    decode-sized batch), the smallest tile that fits, for the most blocks
-    in flight.
+
+def _sketch_time(starts, b: int, d: int, warps: int, group: int) -> float:
+    """B6's time in multiply-adds per row, the larger of the longest item
+    (a block runs its degree block's stage 1 in rounds of ``8 warps``
+    columns, degree 1 assumed, and its group's share of stage 2) and the
+    whole grid's work spread over the SMs."""
+    costs = []
+    for a, b_ in zip(starts, starts[1:]):
+        cols = round_up(b_ - a, 8 * warps)
+        for g0 in range(0, b_ - a, group):
+            gw = round_up(min(group, b_ - a - g0), 8)
+            costs.append(cols * 2 * d + 2 * cols * gw)
+    return max(max(costs), -(-b // 16) * sum(costs) / NUM_SMS)
+
+
+@functools.lru_cache(maxsize=256)
+def sketch_schedule(starts: Tuple[int, ...], b: int,
+                    d: int) -> SketchSchedule:
+    """The :class:`SketchSchedule` of B6 on ``b`` rows of width ``d`` and
+    the degree blocks ``starts`` (``SketchPlan.block_starts()``: 0, ...,
+    Fs), any number of blocks of any width: 8 warps a block up to
+    :data:`SKETCH_WIDE_ROWS` rows, else 4; the group of
+    :data:`SKETCH_GROUPS` whose estimated time (:func:`_sketch_time`) is
+    least, ties to the wider (less of stage 1 recomputed). Narrow groups
+    win on decode-sized batches (more blocks in flight), wide ones on
+    large batches. Memoized: the serving path asks with the same shapes
+    every step.
 
     Raises:
-        ValueError: the widest degree block does not fit one block's shared
-            memory even at 16 rows.
+        ValueError: ``starts`` do not rise strictly from 0.
     """
-    fits = [r for r in SKETCH_ROW_TILES
-            if sketch_smem_bytes(r, c_max) <= SMEM_PER_BLOCK]
-    if not fits:
-        raise ValueError(
-            f"tensor_sketch kernel: a degree block of {c_max} columns does "
-            f"not fit one block's {SMEM_PER_BLOCK} bytes of shared memory")
-    for r in fits:
-        if -(-b // r) * n_blocks >= NUM_SMS:
-            return r
-    return fits[-1]
+    if len(starts) < 2 or starts[0] != 0 or any(
+            a >= b_ for a, b_ in zip(starts, starts[1:])):
+        raise ValueError(f"degree blocks must rise strictly from 0, got "
+                         f"{tuple(starts)}")
+    warps = 8 if b <= SKETCH_WIDE_ROWS else 4
+    group = min(SKETCH_GROUPS,
+                key=lambda g: (_sketch_time(starts, b, d, warps, g), -g))
+    return SketchSchedule(warps, group, _sketch_items(starts, group))
 
 
 class NoncausalSchedule(NamedTuple):
@@ -307,7 +329,11 @@ class NoncausalSchedule(NamedTuple):
     ``dk == dp`` but where the x tile and one column tile's slab rows do
     not fit together, and then the x tile and the slab rows are staged
     ``dk`` columns of d at a time (``ldx`` is then ``dk``'s stride) and the
-    projections summed in ``P``.
+    projections summed in ``P``. ``slot_rows``: 0, or where a column tile's
+    slab rows do not fit even at the narrowest depth chunk (a tile deeper
+    than about 80 slots), the slab rows (whole slots) such a tile is staged
+    in at a time, its running product carried across the pieces (its own
+    kernel instance).
     """
     bh: int
     t: int
@@ -331,6 +357,7 @@ class NoncausalSchedule(NamedTuple):
     dk: int
     ldp: int
     smem_bytes: int
+    slot_rows: int
 
     @property
     def blocks(self) -> int:
@@ -474,11 +501,10 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
     to d 384 for B3 and 536 for B4 in fp32, 768 and 1072 in bf16. Past
     that, d is tiled: the widest depth chunk ``dk`` of
     :data:`_DEPTH_CHUNKS` with which a column tile's slab rows and their
-    projection tile fit, so any d runs.
-
-    Raises:
-        ValueError: one column tile's slab rows do not fit even at the
-            narrowest depth chunk (a column tile of depth above about 80).
+    projection tile fit, so any d runs. A column tile whose slab rows do
+    not fit even at the narrowest chunk (depth above about 80 slots) is
+    staged ``slot_rows`` slab rows at a time (the largest whole number of
+    slots that fits), so any degree runs too.
     """
     if kind not in ("state", "apply"):
         raise ValueError(f"kind must be 'state' or 'apply', got {kind!r}")
@@ -503,11 +529,10 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
             if cap >= max_tile:
                 break
     slab_cap = min(need, cap)
-    if slab_cap < max_tile:
-        raise ValueError(
-            f"non-causal kernels: a column tile's {max_tile} slab rows of "
-            f"d={d} do not fit {SMEM_PER_BLOCK} bytes of shared memory beside the "
-            f"rest of the block, even a depth chunk at a time")
+    # a column tile too deep for shared memory even a depth chunk at a
+    # time: its slots a piece of whole slots at a time
+    slot_rows = 0 if slab_cap >= max_tile else \
+        slab_cap // NONCAUSAL_COL_TILE * NONCAUSAL_COL_TILE
     smem = _round16(slab_cap * ldx * item) + fixed
     if dk < dp:
         ldp = _ld_rows(slab_cap)
@@ -521,7 +546,8 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
         tiles_per_split=per, ct_per_group=ct_per_group, n_fgroups=n_fg,
         dv_per_group=width, n_dvgroups=n_dvg, dp=dp, ldx=ldx,
         slab_cap=slab_cap, ldb=ldb, b_rows=b_rows, ldz=ldz,
-        chunk_ct=chunk_ct, dk=dk, ldp=ldp, smem_bytes=smem)
+        chunk_ct=chunk_ct, dk=dk, ldp=ldp, smem_bytes=smem,
+        slot_rows=slot_rows)
 
 
 def check_structured_d_pad(m: int) -> None:

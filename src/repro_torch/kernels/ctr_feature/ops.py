@@ -3,16 +3,18 @@
 
 ``ctr_feature_fused`` applies the whole complex-bucket section of a
 ``CtrPlan`` (the packed layout of ``ctr.plan.pack_ctr``) in ONE launch of
-``csrc/ctr_feature.cu`` (kernel B7), writing ``[Re | Im]`` straight into
-one ``[B, 2 Fc]`` output. Dispatch follows the tensor: a CPU tensor takes
-the plain PyTorch version (``ctr.ref.ctr_feature_fused_ref``); a CUDA
-tensor launches the kernel or raises — there is no fallback. The kernel
+``csrc/ctr_feature.cu`` (kernel B7, on the tensor cores), writing ``[Re |
+Im]`` straight into one ``[B, 2 Fc]`` output. Dispatch follows the tensor:
+a CPU tensor takes the plain PyTorch version
+(``ctr.ref.ctr_feature_fused_ref``); a CUDA tensor launches the kernel or
+raises — there is no fallback. The kernel
 masks the ragged row and column edges itself, so the wrapper pads nothing.
 ``ctr_feature_fused.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,11 +26,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
     from repro_torch.kernels import _build
 
-    lib = _build.load("ctr_feature")
-    fn = lib.ctr_feature_launch
+    fn = _build.load("ctr_feature").ctr_feature_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
@@ -96,11 +98,10 @@ def ctr_feature_fused(
                          f"got {x.device}")
     _check_cuda_operands(xf, wr, wi, col_deg, col_scale)
     out = torch.empty((b, 2 * fc), dtype=torch.float32, device=x.device)
-    launch = _library()
-    err = launch(xf.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                 col_deg.data_ptr(), col_scale.data_ptr(), out.data_ptr(), b,
-                 fc, d, k, _DTYPE_CODE[xf.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = _library()(xf.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                     col_deg.data_ptr(), col_scale.data_ptr(), out.data_ptr(),
+                     b, fc, d, k, _DTYPE_CODE[xf.dtype],
+                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ctr_feature kernel launch failed: CUDA error "
                            f"{err}")

@@ -4,43 +4,48 @@
 ``tensor_sketch_fused`` applies the whole sketch-block section of a
 ``SketchPlan`` (the packed frequency-domain layout of
 ``sketch.plan.pack_sketch``) in ONE launch of ``csrc/tensor_sketch.cu``
-(kernel B6). Dispatch follows the tensor: a CPU tensor takes the plain
-PyTorch version (``sketch.ref.tensor_sketch_fused_ref``); a CUDA tensor
-launches the kernel or raises — there is no fallback. The kernel masks the
-ragged row edge itself, so the wrapper pads nothing.
+(kernel B6, on the tensor cores; its warps and output groups come from
+``kernels.common.sketch_schedule``, memoized per shape, and its work items
+live in a device array made once per schedule). Dispatch follows the
+tensor: a CPU tensor takes the plain PyTorch version
+(``sketch.ref.tensor_sketch_fused_ref``); a CUDA tensor launches the kernel
+or raises — there is no fallback. The kernel masks the ragged row edge
+itself, so the wrapper pads nothing.
 ``tensor_sketch_fused.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.common import (
-    FEATURE_TILE,
-    pick_sketch_rows,
-    round_up,
-    sketch_smem_bytes,
-)
+from repro_torch.kernels.common import sketch_schedule
 from repro_torch.sketch.ref import tensor_sketch_fused_ref
 
 __all__ = ["tensor_sketch_fused"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BLOCKS = 64      # kMaxBlocks of the CUDA source
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
              + [ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
 def _library():
     from repro_torch.kernels import _build
 
-    lib = _build.load("tensor_sketch")
-    fn = lib.tensor_sketch_launch
+    fn = _build.load("tensor_sketch").tensor_sketch_launch
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=64)
+def _items_on(items, device):
+    """A schedule's items as the int32 device array the kernel reads (made
+    once per schedule and device)."""
+    return torch.tensor(items, dtype=torch.int32, device=device)
 
 
 def _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts):
@@ -63,12 +68,9 @@ def _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts):
             f"wi {tuple(wi.shape)}, mr {tuple(mr.shape)}, "
             f"mi {tuple(mi.shape)}, col_deg {tuple(col_deg.shape)}, "
             f"col_scale {tuple(col_scale.shape)}")
-    if not (1 <= len(starts) - 1 <= _MAX_BLOCKS and starts[0] == 0
-            and starts[-1] == fs
-            and all(a < b for a, b in zip(starts, starts[1:]))):
-        raise ValueError(
-            f"blocks must rise strictly from 0 to Fs={fs} in at most "
-            f"{_MAX_BLOCKS} degree blocks, got {tuple(starts)}")
+    if starts[-1] != fs:
+        raise ValueError(f"degree blocks must end at Fs={fs}, got "
+                         f"{tuple(starts)}")
     for name, t in (("x", xf), ("wr", wr), ("wi", wi), ("col_deg", col_deg),
                     ("mr", mr), ("mi", mi), ("col_scale", col_scale)):
         if t.device != xf.device:
@@ -112,19 +114,16 @@ def tensor_sketch_fused(
     if x.device.type != "cuda":
         raise ValueError(f"tensor_sketch_fused runs on cpu or cuda tensors, "
                          f"got {x.device}")
-    starts = [int(s) for s in blocks]
+    starts = tuple(int(s) for s in blocks)
     _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts)
-    c_max = max(b_ - a for a, b_ in zip(starts, starts[1:]))
-    rows = pick_sketch_rows(c_max, b, len(starts) - 1)
+    sched = sketch_schedule(starts, b, d)
     out = torch.empty((b, fs), dtype=torch.float32, device=x.device)
-    launch = _library()
-    err = launch(xf.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                 col_deg.data_ptr(), mr.data_ptr(), mi.data_ptr(),
-                 col_scale.data_ptr(), out.data_ptr(),
-                 (ctypes.c_int * len(starts))(*starts), len(starts) - 1, b,
-                 fs, d, k, rows, round_up(c_max, FEATURE_TILE) + 1,
-                 sketch_smem_bytes(rows, c_max), _DTYPE_CODE[xf.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    items = _items_on(sched.items, x.device)
+    err = _library()(
+        xf.data_ptr(), wr.data_ptr(), wi.data_ptr(), col_deg.data_ptr(),
+        mr.data_ptr(), mi.data_ptr(), col_scale.data_ptr(), out.data_ptr(),
+        items.data_ptr(), sched.n_items, sched.group, b, fs, d, k, sched.warps,
+        _DTYPE_CODE[xf.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tensor_sketch kernel launch failed: CUDA error "
                            f"{err}")

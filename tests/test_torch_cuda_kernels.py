@@ -341,6 +341,52 @@ def test_tensor_sketch_kernel_matches_plain(cuda, dtype, rows, smoke):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [100, 1000])
+def test_tensor_sketch_kernel_paper_width_d4000(cuda, dtype, rows):
+    """B6 on the paper's exp map at d 50, D 4000: 12 degree blocks, the
+    widest 2000 columns, which the earlier kernel could not hold in shared
+    memory (it raised); against its plain version within 1e-5 x max(1, max
+    |plain|) (fp32 sums of 2000 inverse-DFT terms in another order)."""
+    from repro_torch.sketch.plan import make_sketch_plan
+
+    plan = make_sketch_plan(ExponentialDotProductKernel(), 50, 4000)
+    assert max(plan.counts) == 2000 and len(plan.counts) == 12
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    wr, wi, mr, mi = (t.to(dtype) for t in pack_sketch(
+        plan, init_sketch_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, 50), gen, cuda).to(dtype)
+    got = tensor_sketch_fused(x, wr, wi, cd, mr, mi, cs, plan.block_starts())
+    _close(got, tensor_sketch_fused_ref(x, wr, wi, cd, mr, mi, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 4096])
+def test_sketch_and_ctr_kernels_are_bitwise_repeatable(cuda, dtype, rows):
+    """Two calls of B6 and of B7 on the same inputs are bitwise equal
+    (every output element written by one thread in one order, no
+    atomics), at the decode rows and a bucket-256 prefill's."""
+    cfg = get_config("qwen3-1.7b", attention_mode="rm",
+                     estimator="tensor_sketch")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    wr, wi, mr, mi = (t.to(dtype) for t in pack_sketch(
+        plan, init_sketch_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, plan.input_dim), gen, cuda).to(dtype)
+    a = tensor_sketch_fused(x, wr, wi, cd, mr, mi, cs, plan.block_starts())
+    b = tensor_sketch_fused(x, wr, wi, cd, mr, mi, cs, plan.block_starts())
+    assert torch.equal(a, b)
+    ccfg = get_config("qwen3-1.7b", attention_mode="rm", estimator="ctr")
+    cplan = rm_plan_for(ccfg, ccfg.resolved_head_dim)
+    cwr, cwi = (t.to(dtype) for t in pack_ctr(cplan,
+                                              init_ctr_params(cplan, gen)))
+    ccd, ccs = plan_columns(cplan, cuda)
+    assert torch.equal(ctr_feature_fused(x, cwr, cwi, ccd, ccs),
+                       ctr_feature_fused(x, cwr, cwi, ccd, ccs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,f,pad", [(256, 256, 56), (32, 256, 0),
                                      (256, 255, 56), (40, 163, 9),
                                      (20, 64, 0)])
@@ -434,6 +480,55 @@ def _ragged_omegas(f, d, kdeg, gen, device, seed=0):
     w = w * (torch.arange(kdeg)[:, None] < deg[None, :])[..., None]
     scale = 0.2 + 1.3 * torch.rand(f, generator=g)
     return w.to(device), deg.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 80),
+                                     (torch.bfloat16, 80),
+                                     (torch.float32, 128)])
+def test_noncausal_kernels_take_a_column_of_degree_96(cuda, dtype, d):
+    """B3 and B4 on a hand-built plan with a column tile of depth 96 (three
+    columns of degree 96 beside 30 shallow ones), which the earlier
+    schedule refused: in fp32 its slab rows do not fit even a depth chunk
+    at a time, so they go in pieces of whole slots (``slot_rows``), the
+    running product carried across the pieces; both kernels match their
+    plain versions (fp32 within 1e-5 x max(1, max |plain|), the 3xTF32
+    gate; bf16 within 1e-4, the B3 / B4 gate). Rows near a coordinate axis
+    keep each of the 96 factors near +-1, so a missing or repeated slot
+    shows."""
+    from repro_torch.core.plan import FeaturePlan
+
+    plan = FeaturePlan(degrees=(1, 2, 96), counts=(20, 10, 3),
+                       scales=(1.0, 0.5, 0.25), const=0.0, h01=False,
+                       h01_a0=0.0, h01_a1=0.0, input_dim=d, num_random=33,
+                       coefs_host=(0.0,) * 100, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    w = pack_omegas(plan, init_omegas(plan, gen)).to(dtype)
+    cd, cs = plan_columns(plan, cuda)
+    bh, t = 2, 300
+
+    def rows():
+        x = torch.zeros((bh, t, d), device=cuda)
+        x[..., 0] = 1.0
+        x += 0.02 / d ** 0.5 * torch.randn((bh, t, d), generator=gen,
+                                           device=cuda)
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+    k, q = rows(), rows()
+    v = torch.randn((bh, t, 64), generator=gen, device=cuda)
+    kvalid = torch.ones((bh, t), device=cuda)
+    kvalid[-1, t - 50:] = 0.0
+    s, n = rm_fused_state(k, v, kvalid, w, cd, cs)
+    sched3 = rm_fused_state.last_schedule
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    s_ref, n_ref = rm_fused_state_ref(k, v, kvalid, w, cd, cs)
+    assert n_ref.abs().max().item() > 1.0      # the deep features count
+    _close(s, s_ref, tol)
+    _close(n, n_ref, tol)
+    out = rm_fused_apply(q, s_ref, n_ref, w, cd, cs, 1e-4)
+    sched4 = rm_fused_apply.last_schedule
+    _close(out, rm_fused_apply_ref(q, s_ref, n_ref, w, cd, cs, 1e-4), tol)
+    if dtype == torch.float32:
+        assert sched3.slot_rows > 0 and sched4.slot_rows > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -555,8 +650,8 @@ def test_rm_fused_state_is_bitwise_repeatable(cuda, bh, t):
                                         ("hubert-xlarge", False)])
 def test_ctr_kernel_matches_plain(cuda, dtype, rows, arch, smoke):
     """Kernel B7 against its plain version: the decode rows (4 slots x 16
-    heads), prefill rows, a ragged count; Fc 127 (ragged against the
-    64-column tile), head widths 128, 16 and 80. Tolerance 1e-5: fp32
+    heads), prefill rows, a ragged count; Fc 127 (ragged against a block's
+    32 columns), head widths 128, 16 and 80. Tolerance 1e-5: fp32
     accumulation in both, only the order of the sums differs."""
     cfg = get_config(arch, smoke=smoke, attention_mode="rm", estimator="ctr")
     plan = rm_plan_for(cfg, cfg.resolved_head_dim)
@@ -570,6 +665,25 @@ def test_ctr_kernel_matches_plain(cuda, dtype, rows, arch, smoke):
     assert ctr_feature_fused.launches == before + 1
     assert got.shape == (rows, 2 * plan.num_complex)
     _close(got, ctr_feature_fused_ref(x, wr, wi, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("rows,d", [(64, 128), (3000, 128), (100, 33)])
+def test_ctr_kernel_general_fp32_weights(cuda, rows, d):
+    """B7 given fp32 weights that are not TF32 numbers (the plans' are
+    {0, +-1}): the warp vote finds their remainders and keeps the third
+    3xTF32 term, so the kernel holds its plain version within 1e-5 x
+    max(1, max |plain|); at the decode rows, many rows, and an odd d (plain
+    loads)."""
+    cfg = get_config("qwen3-1.7b", attention_mode="rm", estimator="ctr")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    cd, cs = plan_columns(plan, cuda)
+    shape = (plan.max_degree, plan.num_complex, d)
+    wr = torch.randn(shape, generator=gen, device=cuda) / d ** 0.5
+    wi = torch.randn(shape, generator=gen, device=cuda) / d ** 0.5
+    x = _unit((rows, d), gen, cuda)
+    _close(ctr_feature_fused(x, wr, wi, cd, cs),
+           ctr_feature_fused_ref(x, wr, wi, cd, cs), 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

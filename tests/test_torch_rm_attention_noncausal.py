@@ -483,8 +483,9 @@ def test_split_picker_tiles_a_slab_too_large():
     is brought in chunks (slab_cap below the slab's rows, at least one
     column tile); at d 1024 a column tile's slab rows do not fit beside
     the x tile even alone, so d is tiled (a depth chunk dk below dp, the
-    projection tile P beside the slab); only a column tile too deep to fit
-    at the narrowest depth chunk (degree 120) raises."""
+    projection tile P beside the slab); a column tile too deep to fit even
+    at the narrowest depth chunk (degree 120) is staged a piece of whole
+    slots at a time (``slot_rows``, within ``slab_cap`` and ``P``)."""
     deg = np.full(64, 8, np.int32)
     tile_row0 = tuple(int(r) for r in slab_layout(deg)[0])
     for kind in ("state", "apply"):
@@ -501,9 +502,13 @@ def test_split_picker_tiles_a_slab_too_large():
         assert deep.smem_bytes <= common.SMEM_PER_BLOCK
         too_deep = tuple(int(r) for r in
                          slab_layout(np.full(8, 120, np.int32))[0])
-        with pytest.raises(ValueError, match="do not fit"):
-            common.noncausal_schedule(kind, 4, 200, 1024, 64, 8, too_deep,
-                                      4)
+        sc = common.noncausal_schedule(kind, 4, 200, 1024, 64, 8, too_deep,
+                                       4)
+        assert sc.dk < sc.dp and 0 < sc.slot_rows < too_deep[-1]
+        assert sc.slot_rows % 8 == 0 and sc.slot_rows <= sc.slab_cap <= \
+            sc.ldp
+        assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+        assert (deep.slot_rows, sc.slot_rows > 0) == (0, True)
 
 
 @pytest.mark.parametrize("kind,item,limit", [("state", 4, 384),
@@ -555,3 +560,41 @@ def test_schedule_tiles_deep_d(kind, item, d):
               + sc.b_rows * sc.ldb * 4 + 64 * sc.ldz * 4 + 64 * sc.ldp * 4
               + (64 * 4 if kind == "apply" else 0))
     assert layout == sc.smem_bytes
+
+
+def _deep_column_plan(d):
+    """A hand-built FeaturePlan whose last 3 columns have degree 96 (one
+    column tile of 96 slots: 768 slab rows), beside 30 shallow ones."""
+    from repro_torch.core.plan import FeaturePlan
+
+    return FeaturePlan(degrees=(1, 2, 96), counts=(20, 10, 3),
+                       scales=(1.0, 0.5, 0.25), const=0.0, h01=False,
+                       h01_a0=0.0, h01_a1=0.0, input_dim=d, num_random=33,
+                       coefs_host=(0.0,) * 100, seed=0)
+
+
+@pytest.mark.parametrize("kind", ["state", "apply"])
+@pytest.mark.parametrize("item,d,pieces", [(4, 80, True), (2, 80, False),
+                                           (4, 128, True), (2, 640, True)])
+def test_schedule_takes_a_column_of_degree_96(kind, item, d, pieces):
+    """B3 and B4 schedule a column tile of depth 96, which the earlier
+    schedule refused (a tile deeper than about 80 slots): where its slab
+    rows do not fit even at the narrowest depth chunk, in pieces of whole
+    slots (``slot_rows``) that fit the slab and the projection tile; where
+    they fit (bf16 at d 80), whole."""
+    plan = _deep_column_plan(d)
+    deg = plan.column_degrees()
+    assert deg.max() == 96
+    tile_rows = tuple(int(r) for r in slab_layout(deg)[0])
+    sc = common.noncausal_schedule(kind, 2, 300, d, 64, len(deg), tile_rows,
+                                   item)
+    max_tile = max(b - a for a, b in zip(tile_rows, tile_rows[1:]))
+    assert max_tile == 8 * 96
+    assert sc.smem_bytes <= common.SMEM_PER_BLOCK
+    if pieces:
+        assert sc.dk < sc.dp and 8 <= sc.slot_rows < max_tile
+        assert sc.slot_rows % 8 == 0 and sc.slot_rows <= sc.slab_cap <= \
+            sc.ldp
+    else:
+        assert sc.slot_rows == 0 and sc.slab_cap >= max_tile
+

@@ -264,21 +264,68 @@ def test_sketch_kernel_wrapper_edges():
         tensor_sketch_fused(x, wr, wi, cd, mr, mi, cs, tp.block_starts())
 
 
-@pytest.mark.parametrize("c_max,b,n_blocks,want", [
-    (149, 64, 5, 16),      # decode: no tile fills the card, most blocks
-    (149, 512, 5, 16),     # bucket 32: 16 rows give 160 blocks
-    (149, 1024, 5, 32),    # bucket 64: 64 rows give 80, 32 rows 160
-    (149, 2048, 5, 64),    # bucket 128: 64 rows give 160
-    (149, 4096, 5, 64),    # prefill / Gram: 64 rows already give 320
-    (37, 2048, 4, 32),     # 64 rows give 128 blocks, 32 rows 256
-    (700, 4096, 3, 32),    # 64 rows do not fit the shared memory
+QWEN_BLOCKS = (0, 149, 223, 248, 254, 255)   # qwen3-1.7b's head, Fs 255
+
+
+def _exp_d4000_blocks():
+    """The paper's exp map at d 50, D 4000: 12 degree blocks, the widest
+    (degree 1) 2000 columns."""
+    plan = tsk.make_sketch_plan(TExp(), 50, 4000)
+    return plan.block_starts()
+
+
+def _many_blocks(n):
+    starts = [0]
+    for i in range(n):
+        starts.append(starts[-1] + 1 + (7 * i) % 13)
+    return tuple(starts)
+
+
+def _assert_items_cover(sc, starts):
+    """Every output column of every degree block in exactly one item, each
+    item inside its block and at most ``group`` wide."""
+    seen = set()
+    for n in range(sc.n_items):
+        c0, c, g0 = sc.items[3 * n: 3 * n + 3]
+        assert (c0, c0 + c) in set(zip(starts, starts[1:]))
+        assert 0 <= g0 < c
+        for g in range(g0, min(g0 + sc.group, c)):
+            assert (c0 + g) not in seen
+            seen.add(c0 + g)
+    assert seen == set(range(starts[-1]))
+
+
+@pytest.mark.parametrize("starts,b,d,warps,group", [
+    (QWEN_BLOCKS, 64, 128, 8, 16),    # decode: the most blocks in flight
+    (QWEN_BLOCKS, 512, 128, 4, 64),   # bucket 32
+    (QWEN_BLOCKS, 1024, 128, 4, 160),  # bucket 64: one item a degree block
+    (QWEN_BLOCKS, 2048, 128, 4, 160),  # bucket 128
+    (QWEN_BLOCKS, 4096, 128, 4, 160),  # bucket 256 / the Gram path
+    (QWEN_BLOCKS, 70, 128, 8, 16),    # a ragged row count
+    ("exp", 100, 50, 8, 160),         # Fig. 1's 100 rows at D 4000
 ])
-def test_sketch_row_tile_fits_shared_memory(c_max, b, n_blocks, want):
-    rows = common.pick_sketch_rows(c_max, b, n_blocks)
-    assert rows == want
-    assert common.sketch_smem_bytes(rows, c_max) <= common.SMEM_PER_BLOCK
+def test_sketch_row_tile_fits_shared_memory(starts, b, d, warps, group):
+    """The schedule's warps a block (8 up to SKETCH_WIDE_ROWS rows, else 4)
+    and output group (at most the 160 columns whose Mr / Mi slices a block
+    stages in shared memory), and items that cover every output column
+    once."""
+    starts = _exp_d4000_blocks() if starts == "exp" else starts
+    sc = common.sketch_schedule(starts, b, d)
+    assert (sc.warps, sc.group) == (warps, group)
+    assert sc.group <= max(common.SKETCH_GROUPS) == 160
+    _assert_items_cover(sc, starts)
 
 
-def test_sketch_row_tile_raises_when_a_block_does_not_fit():
-    with pytest.raises(ValueError, match="shared memory"):
-        common.pick_sketch_rows(4000, 64, 2)
+@pytest.mark.parametrize("starts,b", [("exp", 100), ("exp", 20000),
+                                      ("many", 64), ("many", 4096)])
+def test_sketch_schedule_takes_any_block_width_and_count(starts, b):
+    """A degree block of any width (the exp map's 2000 columns, which the
+    former kernel could not hold in shared memory) and any number of blocks
+    (80, past the former limit of 64) schedule, and bad starts raise."""
+    starts = _exp_d4000_blocks() if starts == "exp" else _many_blocks(80)
+    assert len(starts) - 1 in (12, 80)
+    sc = common.sketch_schedule(starts, b, 50)
+    _assert_items_cover(sc, starts)
+    for bad in ((1, 5), (0, 5, 5), (0,)):
+        with pytest.raises(ValueError, match="rise strictly"):
+            common.sketch_schedule(bad, b, 50)

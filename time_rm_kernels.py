@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time kernels B1 (``rm_feature_fused``) and B2 (``rm_fused_causal``) of
-one source tree of the port on one CUDA card, so that two versions of the
-kernels can be compared in one run on one card.
+"""Time kernels B1 (``rm_feature_fused``), B2 (``rm_fused_causal``), B6
+(``tensor_sketch_fused``) and B7 (``ctr_feature_fused``) of one source tree
+of the port on one CUDA card, so that two versions of the kernels can be
+compared in one run on one card.
 
     python3 time_rm_kernels.py [--src DIR]
 
@@ -13,9 +14,13 @@ each ``--src``, in turns. The shapes are those of ``chip_smoke.py`` phases
 decode shape (x ``[128, 128]``), a 4096-row Gram shape and the adult-shaped
 map of the paper's evaluation (x ``[20000, 123]``, poly10, D 4000); B2 at
 the bucket-256 prefill (BH 16, T 256) and a 4096-token prompt (BH 16, T
-4096, its last 100 keys padded); fp32 and bf16. Each output line is one
+4096, its last 100 keys padded); B6 and B7 on qwen3-1.7b's
+tensor_sketch and ctr heads (Fs 255, Fc 127) at the decode shape (x
+``[64, 128]``) and a bucket-256 prefill's (x ``[4096, 128]``), as
+``chip_smoke.py`` phases 4 and 15; fp32 and bf16. Each output line is one
 JSON object: the CUDA-event time per call over back-to-back calls, the
-profiler's device time per call of the kernels themselves, and the largest
+profiler's device time per call of the kernels themselves, the host time
+to enqueue a call (the wrapper's checks and the launch), and the largest
 error against the plain version as a share of max(1, max |plain|). The
 timing helpers are ``chip_smoke.py``'s. Needs a card; prints the card's
 name and power limit first.
@@ -28,11 +33,13 @@ from pathlib import Path
 
 import chip_smoke as smoke
 
-# The device kernels of B1 and B2: the chain and tile kernels, B2's three
-# passes, and the single kernel of B2's first version, so an older tree can
-# be timed too.
+# The device kernels of each: B1's chain and tile kernels, B2's three
+# passes and the single kernel of B2's first version, so an older tree can
+# be timed too; B6's and B7's kernels keep their names across versions.
 KERNELS = {"B1": ("rm_feature_kernel",),
-           "B2": ("chunk_", "rm_fused_causal_kernel")}
+           "B2": ("chunk_", "rm_fused_causal_kernel"),
+           "B6": ("tensor_sketch_kernel",),
+           "B7": ("ctr_feature_kernel",)}
 
 
 def main(argv=None):
@@ -57,6 +64,12 @@ def main(argv=None):
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
     from repro_torch.models.attention import rm_plan_for
+    from repro_torch.ctr.plan import init_ctr_params, pack_ctr
+    from repro_torch.ctr.ref import ctr_feature_fused_ref
+    from repro_torch.kernels.ctr_feature.ops import ctr_feature_fused
+    from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
+    from repro_torch.sketch.plan import init_sketch_params, pack_sketch
+    from repro_torch.sketch.ref import tensor_sketch_fused_ref
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -69,6 +82,14 @@ def main(argv=None):
     plan = rm_plan_for(cfg, dh)
     w32 = pack_omegas(plan, init_omegas(plan, gen))
     cd, cs = plan_columns(plan, "cuda")
+    ts_plan = rm_plan_for(get_config("qwen3-1.7b", attention_mode="rm",
+                                     estimator="tensor_sketch"), dh)
+    ts32 = pack_sketch(ts_plan, init_sketch_params(ts_plan, gen))
+    tcd, tcs = plan_columns(ts_plan, "cuda")
+    ctr_plan = rm_plan_for(get_config("qwen3-1.7b", attention_mode="rm",
+                                      estimator="ctr"), dh)
+    ctr32 = pack_ctr(ctr_plan, init_ctr_params(ctr_plan, gen))
+    ccd, ccs = plan_columns(ctr_plan, "cuda")
     fm = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0)
     wa32 = pack_omegas(fm.plan, fm.omegas)
     cda, csa = plan_columns(fm.plan, "cuda")
@@ -85,6 +106,7 @@ def main(argv=None):
             events_ms=smoke.time_ms(torch, fn, iters=iters),
             device_ms=smoke.kernel_device_ms(torch, fn, KERNELS[kid],
                                              iters=iters),
+            host_us=smoke.host_us(torch, fn, iters=10 * iters),
             max_rel_err=err)), flush=True)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -111,6 +133,20 @@ def main(argv=None):
                  lambda a_=a_: rm_fused_causal(*a_, cfg.rm.eps),
                  lambda a_=a_: rm_fused_causal_ref(
                      *a_, chunk=cfg.rm.chunk, eps=cfg.rm.eps), iters)
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, label, iters in ((64, "decode", 50),
+                                   (4096, "prefill bucket 256", 20)):
+            x = smoke.unit_rows(torch, (rows, dh), gen).to(dtype)
+            ta = (x, *(p_.to(dtype) for p_ in ts32[:2]), tcd,
+                  *(p_.to(dtype) for p_ in ts32[2:]), tcs)
+            emit("B6", f"{label} x[{rows},{dh}] Fs {ts32[0].shape[1]}", dtype,
+                 lambda ta=ta: tensor_sketch_fused(
+                     *ta, ts_plan.block_starts()),
+                 lambda ta=ta: tensor_sketch_fused_ref(*ta), iters)
+            ca = (x, *(p_.to(dtype) for p_ in ctr32), ccd, ccs)
+            emit("B7", f"{label} x[{rows},{dh}] Fc {ctr32[0].shape[1]}", dtype,
+                 lambda ca=ca: ctr_feature_fused(*ca),
+                 lambda ca=ca: ctr_feature_fused_ref(*ca), iters)
     return 0
 
 
