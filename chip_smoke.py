@@ -38,9 +38,14 @@ Phases, each fatal on failure:
    and the paper's exp map at d 50, D 4000 (a 2000-column degree block)
    through ``make_feature_map(estimator="tensor_sketch")``, its Gram on the
    card against the CPU's;
-5. kernel B5 (``rm_attention_chunked``) against its plain version at the
-   prefill shape (BH 16, T 256, F 256, dv 128, chunk 128, one sequence's
-   keys padded from 200) and at T 32 (chunk 32), fp32; the whole two-launch
+5. kernel B5 (``rm_attention_chunked``): its ``-Xptxas -v`` registers and
+   spills and the tensor-core instructions of its library; then against
+   its plain version at the prefill shape (BH 16, T 256, F 256, dv 128,
+   chunk 128, one sequence's keys padded from 200) and at T 32 (chunk 32),
+   fp32, also within 1e-5 x max(1, max |plain|) of the plain version in
+   float64 (3xTF32's precision), two calls bitwise equal, with the
+   profiler's device time, the CUDA-event time, the grid and both bounds
+   (the tensor cores' and the fp32 CUDA cores'); the whole two-launch
    causal op also against the O(T^2) direct evaluation;
 6. small end-to-end references on the qwen3 SMOKE model in fp32: the rm
    model on the card (kernels) against the same weights on the CPU (plain
@@ -62,7 +67,8 @@ Phases, each fatal on failure:
    ``estimator="tensor_sketch"`` (the rm engine is freed first), through
    the two-launch attention path: B6 must launch twice a layer for every
    admission and decode step, B5 once a layer for every admission;
-10. where the tensor_sketch slice's time goes, as in phase 8;
+10. where the tensor_sketch slice's time goes, as in phase 8, with B6's and
+    B5's device time in each window;
 11. kernels B3 (``rm_fused_state``) and B4 (``rm_fused_apply``): their
     ``-Xptxas -v`` registers and spills and the tensor-core instructions
     (``HMMA``/``GMMA``) in their libraries' SASS (``cuobjdump``, where the
@@ -103,14 +109,18 @@ Phases, each fatal on failure:
     (ctr: wr / wi ``[5, 127, 128]``; structured: d1 / d2 ``[5, 6, 128]``)
     at every row count their slices give them — the decode shape (x ``[64,
     128]``) and the prefill shape of each bucket (x ``[512 .. 4096, 128]``)
-    — and a ragged count (70 rows), fp32 and bf16; B8 also at the hubert
-    shape (one clip's 1500 frames x 16 heads, x at its true width 80 of
-    d_pad 128); each family's ``registry.estimate_gram`` over ``[4096,
-    128]`` once, card against CPU; B7 also with its library's registers,
-    spills and tensor-core instructions, two calls bitwise equal, its grid
-    and its tensor-core bound beside the CUDA-core one;
+    — and a ragged count (70 rows), fp32 and bf16, each with two calls
+    bitwise equal, its grid and the profiler's device time; B8 also at the
+    hubert shape (one clip's 1500 frames x 16 heads, x at its true width 80
+    of d_pad 128), and at the decode and bucket-256 rows through
+    ``apply_structured_plan`` (the kept columns written straight into the
+    map: bitwise the full width sliced by bucket; its device time beside
+    the full-width, kept-columns and whole-map bounds); each family's
+    ``registry.estimate_gram`` over ``[4096, 128]`` once, card against
+    CPU; both libraries' registers and spills, B7's tensor-core
+    instructions and its tensor-core bound beside the CUDA-core one;
 16. kernel B5 at the ragged width of the ctr features (F 255), at phase
-    5's prefill shape;
+    5's prefill shape, with phase 5's checks and times;
 17. small end-to-end references for the two families: the qwen3 and
     hubert SMOKE models in fp32 with ``estimator="ctr"`` and
     ``"structured"``, the card against the CPU (logits; for qwen3 greedy
@@ -120,10 +130,12 @@ Phases, each fatal on failure:
     ``estimator="ctr"``, phase 7's workload and checks through the
     two-launch path: B7 must launch twice a layer for every admission and
     decode step, B5 once a layer for every admission, no other RM kernel;
-19. where the ctr slice's time goes, as in phase 8;
+19. where the ctr slice's time goes, as in phase 8, with B7's and B5's
+    device time in each window;
 20. the structured slice: the same with ``estimator="structured"`` (B8 in
     place of B7);
-21. where the structured slice's time goes, as in phase 8;
+21. where the structured slice's time goes, as in phase 8, with B8's and
+    B5's device time in each window;
 22. kernel B9 (``rm_feature_bucket``) against its plain version, fp32 and
     bf16, at the bucket shapes of the paper's path: every bucket of Table
     1's spambase map (poly10, d 57, D 500: counts 125 ... 1 at degrees
@@ -149,17 +161,21 @@ Phases, each fatal on failure:
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
 [...]}`` line (``ms``: CUDA events over repeated launches through the
-wrapper, for every kernel but B7 and B8, whose ``ms`` is the profiler's
-device time of the kernel itself; B1 and B2 carry that device time beside
-as ``device_ms``; bounds computed from this run's shapes, launches from
-the slice that runs each kernel — for B9 the paper phase 23; the host
-time of one call through each wrapper is printed beside its check; B1's
-to B4's ``bound_ms`` is on the tensor cores, where they run their
-products, and they also carry the bound on the fp32 CUDA cores and their
-grids; B1 its Gram-shape and adult-map times and its device time in the
-decode step, B2 its 4096-token, wide-F and 32768-token times, the device
-memory of a call, and its device time in the bucket-256 prefill, B3 and
-B4 the 1 x 32768 shape's times) and, as its last line, ``{"ok": true,
+wrapper, for every kernel but B6, B7 and B8, whose ``ms`` is the
+profiler's device time of the kernel itself; B1, B2 and B5 carry that
+device time beside as ``device_ms``; bounds computed from this run's
+shapes, launches from the slice that runs each kernel — for B9 the paper
+phase 23; the host time of one call through each wrapper is printed
+beside its check; B1's to B7's ``bound_ms`` but B8's is on the tensor
+cores, where they run their products, and they also carry the bound on
+the fp32 CUDA cores and their grids; B1 its Gram-shape and adult-map
+times and its device time in the decode step, B2 its 4096-token, wide-F
+and 32768-token times, the device memory of a call, and its device time
+in the bucket-256 prefill, B3 and B4 the 1 x 32768 shape's times, B5 its
+device time in each two-launch bucket-256 prefill, B6 to B8 theirs in the
+decode step and that prefill, B8 its times through
+``apply_structured_plan`` beside the kept-columns and whole-map bounds)
+and, as its last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
 (phase 8) is the part to cut first, then the tensor_sketch slice's (phase
@@ -201,6 +217,10 @@ BUCKETED_TOL = 1e-5  # x max(1, max |fused|): B9's buckets against B1's map
 FIG1_TOL = 1e-4      # x max(1, max |plain|): card Gram against the CPU's
 TABLE1_FLIP_SHARE = 0.005   # test predictions the card may flip vs the CPU
 B5_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to C x F terms
+# B5's pass B on fp32 features against its plain version in float64, x
+# max(1, max |plain|): the precision of its 3xTF32 products (as
+# B34_FP32_TOL); a product in plain TF32 fails it (PERF.md)
+B5_FP32_TOL = 1e-5
 E2E_TOL = 1e-4  # relative logits gap of two fp32 paths of one model
 B3_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of up to T terms (S, n)
 B4_TOL = 1e-4   # x max(1, max |plain|): fp32 sums of F terms, then a divide
@@ -327,18 +347,22 @@ def ctr_cost(rows, plan, item):
     return nbytes, rows * (4 * d * used + 6 * muls + 2 * fc)
 
 
-def structured_cost(rows, plan, item):
+def structured_cost(rows, plan, item, kept=False):
     """(bytes, operations) of kernel B8 on ``rows`` inputs of the plan's
     true width d: x once, the d1 and d2 rows the stacks use (one per stack
-    and slot of its degree), the column vectors, the ``[rows, S d_pad]``
-    output once (surplus columns included: they are outputs of the
-    function); per row, stack and used slot the two sign products, the
-    d_pad log2(d_pad) butterfly adds and the running product, and the
-    scale per column."""
+    and slot of its degree), the column vectors, and the output once: the
+    ``[rows, S d_pad]`` full width (surplus columns included: they are
+    outputs of the function), or where ``kept`` only the ``[rows,
+    num_random_cols]`` kept columns that ``apply_structured_plan`` has it
+    write; per row, stack and used slot the two sign products, the d_pad
+    log2(d_pad) butterfly adds and the running product, and the scale per
+    column."""
     d, m = plan.input_dim, plan.d_pad
     cols = plan.padded_num_cols
+    out_cols = plan.num_random_cols if kept else cols
     slots = plan.total_slots
-    nbytes = rows * d * item + 2 * slots * m * item + cols * 8 + rows * cols * 4
+    nbytes = (rows * d * item + 2 * slots * m * item + cols * 8
+              + rows * out_cols * 4)
     lg = m.bit_length() - 1
     return nbytes, rows * (slots * m * (lg + 3) + cols)
 
@@ -673,12 +697,13 @@ def tensor_core_opcodes(lib_path):
             for op in ("HMMA", "GMMA")}
 
 
-def report_build(torch, kid, name):
+def report_build(torch, kid, name, tensor_cores=True):
     """Print kernel ``kid``'s library ``name``: each kernel instance's
     ``-Xptxas -v`` registers and spills (the instance's name demangled by
     ``c++filt`` where the toolkit's host has it), and the tensor-core
     instructions (``HMMA`` / ``GMMA``) in its SASS; fail where the SASS
-    holds none."""
+    holds none of a kernel that runs its products there
+    (``tensor_cores``)."""
     import re
     import shutil
 
@@ -706,8 +731,148 @@ def report_build(torch, kid, name):
     ops = tensor_core_opcodes(paths[name])
     print(f"[{kid}] tensor-core instructions in the SASS of lib{name}: "
           f"{ops if ops is not None else 'no cuobjdump'}")
-    if ops is not None and ops["HMMA"] + ops["GMMA"] == 0:
+    if tensor_cores and ops is not None and ops["HMMA"] + ops["GMMA"] == 0:
         raise AssertionError(f"{kid}: no tensor-core instruction")
+
+
+def b5_check(torch, label, zq, zk, v, chunk, eps, kernels, record):
+    """Kernel B5 on features ``zq, zk [1, BH, T, F]`` and values ``v``:
+    the two-launch causal op against the plain chunked version and the
+    O(T^2) evaluation (``B5_TOL``), pass B alone against its plain version
+    (``B5_TOL``) and, in fp32, within ``B5_FP32_TOL`` of the plain version
+    evaluated in float64 (3xTF32's precision), two calls bitwise equal; its
+    device time (profiler) and CUDA-event time, the plain version's, its
+    grid, and the bounds on the tensor cores and on the CUDA cores. Fills
+    ``kernels["B5"]`` where ``record``. Returns the checks as ``(label,
+    err, tol)``."""
+    from repro_torch.kernels.rm_attention.ops import (
+        rm_attention_causal,
+        rm_attention_chunked,
+    )
+    from repro_torch.kernels.rm_attention.ref import (
+        causal_chunked_ref,
+        chunk_states,
+        rm_attention_chunked_ref,
+        rm_attention_ref,
+    )
+
+    _, bh, t, f = zq.shape
+    dh = v.shape[-1]
+    got = rm_attention_causal(zq, zk, v, chunk=chunk, eps=eps)
+    want = causal_chunked_ref(zq, zk, v, chunk, eps)
+    quad = rm_attention_ref(zq, zk, v, eps=eps)
+    s_prev, n_prev = chunk_states(zk, v, chunk)
+    n_ch = t // chunk
+    pb = (zq.reshape(bh, t, f), zk.reshape(bh, t, f), v.reshape(bh, t, dh),
+          s_prev.reshape(bh, n_ch, f, dh), n_prev.reshape(bh, n_ch, f))
+    got_b = rm_attention_chunked(*pb, chunk=chunk, eps=eps)
+    again = rm_attention_chunked(*pb, chunk=chunk, eps=eps)
+    sched = rm_attention_chunked.last_schedule
+    want_b = rm_attention_chunked_ref(*pb, chunk=chunk, eps=eps)
+    want64 = rm_attention_chunked_ref(*(a.double() for a in pb), chunk=chunk,
+                                      eps=eps)
+    torch.cuda.synchronize()
+    checks, errs = [], []
+    for name, g_, w_, tol_ in (("causal", got, want, B5_TOL),
+                               ("pass B", got_b, want_b, B5_TOL),
+                               ("vs quadratic", got, quad, B5_TOL),
+                               ("pass B vs float64", got_b.double(), want64,
+                                B5_FP32_TOL)):
+        err = (g_ - w_).abs().max().item()
+        tol = tol_ * max(1.0, w_.abs().max().item())
+        errs.append((err, tol))
+        checks.append((f"{label} {name}", err, tol))
+        if not err <= tol:
+            raise AssertionError(f"B5 {label} {name}: error {err} > {tol}"
+                                 + (": not 3xTF32-accurate"
+                                    if tol_ == B5_FP32_TOL else ""))
+    bitwise = torch.equal(got_b, again)
+    if not bitwise:
+        raise AssertionError(f"B5 {label}: two calls differ")
+    ms = time_ms(torch, lambda: rm_attention_chunked(
+        *pb, chunk=chunk, eps=eps), iters=20)
+    dev_ms = kernel_device_ms(torch, lambda: rm_attention_chunked(
+        *pb, chunk=chunk, eps=eps), "rm_attention_chunked_kernel", iters=20)
+    plain_ms = time_ms(torch, lambda: rm_attention_chunked_ref(
+        *pb, chunk=chunk, eps=eps), iters=20)
+    nbytes, ops = chunked_cost(bh, t, f, dh, chunk, 4)
+    bms, by = bound(nbytes, ops, "float32")
+    tcms, tcby = tensor_core_bound(nbytes, 0, ops, "float32", False)
+    print(f"[B5] {label} zq,zk[{bh},{t},{f}] v dv {dh} chunk {chunk} fp32: "
+          "max_abs_err causal/pass B/vs quadratic/pass B vs float64 "
+          + "/".join(f"{e_:.3e}" for e_, _ in errs) + " (tol "
+          + "/".join(f"{t_:.1e}" for _, t_ in errs) + f"; 3xTF32 gate "
+          f"{B5_FP32_TOL:.0e}), two calls bitwise equal {bitwise}; kernel "
+          f"{dev_ms:.4f} ms device (profiler), {ms:.4f} ms events; plain "
+          f"{plain_ms:.4f} ms; bound {tcms:.5f} ms ({tcby}, tensor cores) / "
+          f"{bms:.5f} ms ({by}, CUDA cores); grid {sched.blocks} blocks "
+          f"({sched.blocks // 2} clusters of two: {sched.rows}-row query "
+          f"tiles, {sched.q_tiles} a chunk; {sched.n_groups} value "
+          "group(s))")
+    if record:
+        hus = host_us(torch, lambda: rm_attention_chunked(
+            *pb, chunk=chunk, eps=eps), iters=50)
+        print(f"[B5] host time {hus:.1f} us a call")
+        kernels["B5"] = dict(
+            name="rm_attention_chunked", route="cuda",
+            source="src/repro_torch/csrc/rm_attention_chunked.cu",
+            replaces="src/repro/kernels/rm_attention/rm_attention.py:78",
+            shape=f"zq,zk[{bh},{t},{f}] fp32, dv {dh}, chunk {chunk}",
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=tcms,
+            bound_by=tcby, library_ms=None, bound_cuda_core_ms=bms,
+            grid=sched.blocks, host_us=hus)
+    elif "B5" in kernels:
+        kernels["B5"].update({f"{label.replace(' ', '_')}_ms": ms,
+                              f"{label.replace(' ', '_')}_device_ms": dev_ms,
+                              f"{label.replace(' ', '_')}_bound_ms": tcms})
+    return checks
+
+
+def structured_plan_check(torch, label, x, plan, params, packed, full,
+                          full_bound_ms, checks):
+    """B8 through ``apply_structured_plan`` on fp32 rows ``x``: the map must
+    equal the full-width output ``full`` (B8 on the same rows) sliced by
+    bucket after the prefix columns, bitwise; B8's device time in the call
+    and every device kernel's (profiler), beside the bounds of the full-width
+    launch, of the kept-columns launch, and of the whole map (x read once,
+    every column written once). Returns the numbers for the kernels line."""
+    from repro_torch.core.plan import prefix_columns
+    from repro_torch.structured.plan import apply_structured_plan
+
+    rows = x.shape[0]
+    got = apply_structured_plan(plan, params, x, packed=packed)
+    pieces, off = [], 0
+    for c, n_st in zip(plan.counts, plan.stacks_per_bucket):
+        pieces.append(full[:, off: off + c])
+        off += n_st * plan.d_pad
+    want = torch.cat(prefix_columns(plan, x, torch.float32) + pieces, dim=-1)
+    same = torch.equal(got, want)
+    again = torch.equal(got, apply_structured_plan(plan, params, x,
+                                                   packed=packed))
+    if not (same and again):
+        raise AssertionError(f"B8 {label} through apply_structured_plan: "
+                             f"equal to full width sliced {same}, two calls "
+                             f"equal {again}")
+    def call():
+        apply_structured_plan(plan, params, x, packed=packed)
+
+    dev_ms = kernel_device_ms(torch, call, "structured_feature_kernel")
+    all_ms = kernel_device_ms(torch, call, "")
+    host = host_us(torch, call)
+    kept_bytes, kept_ops = structured_cost(rows, plan, 4, kept=True)
+    kept_ms, _ = bound(kept_bytes, kept_ops, "float32")
+    map_ms = (rows * plan.input_dim * 4 + rows * plan.output_dim * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"[B8] {label} x[{rows},{plan.input_dim}] through "
+          f"apply_structured_plan (F {plan.output_dim}, {plan.num_random_cols}"
+          f" kept of {plan.padded_num_cols} computed): equal to full width "
+          f"sliced, bitwise; B8 {dev_ms:.4f} ms device, every kernel of the "
+          f"call {all_ms:.4f} ms, host {host:.1f} us; bounds: full width "
+          f"{full_bound_ms:.6f} ms, kept columns {kept_ms:.6f} ms, the whole "
+          f"map {map_ms:.6f} ms (bytes)")
+    key = "decode" if label == "decode" else "prefill"
+    return {f"{key}_apply_ms": dev_ms, f"{key}_apply_all_ms": all_ms,
+            f"{key}_kept_bound_ms": kept_ms, f"{key}_map_bound_ms": map_ms}
 
 
 def noncausal_phase(torch, np, gen, kernels):
@@ -990,19 +1155,12 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import sketch_schedule
     from repro_torch.kernels.rm_attention.ops import (
-        rm_attention_causal,
         rm_attention_chunked,
         rm_fused_apply,
         rm_fused_causal,
         rm_fused_state,
     )
-    from repro_torch.kernels.rm_attention.ref import (
-        causal_chunked_ref,
-        chunk_states,
-        rm_attention_chunked_ref,
-        rm_attention_ref,
-        rm_fused_causal_ref,
-    )
+    from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
     from repro_torch.ctr.plan import init_ctr_params, pack_ctr
     from repro_torch.ctr.ref import ctr_feature_fused_ref
     from repro_torch.kernels.ctr_feature.ops import ctr_feature_fused
@@ -1416,6 +1574,7 @@ def main():
         b6_checks.append((f"gram {prec}", err, tol))
 
     # -- 5. B5 against its plain version ------------------------------------
+    report_build(torch, "B5", "rm_attention_chunked")
     b5_checks = []
     for t, chunk, padded in ((256, cfg.rm.chunk, 200), (32, 32, None)):
         bh = cfg.num_heads
@@ -1428,50 +1587,8 @@ def main():
             kvalid[bh // 2:, padded:] = 0.0
             zk = zk * kvalid[None, :, :, None]
         v = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
-        f_ts = zq.shape[-1]
-        got = rm_attention_causal(zq, zk, v, chunk=chunk, eps=cfg.rm.eps)
-        want = causal_chunked_ref(zq, zk, v, chunk, cfg.rm.eps)
-        quad = rm_attention_ref(zq, zk, v, eps=cfg.rm.eps)
-        s_prev, n_prev = chunk_states(zk, v, chunk)
-        n_ch = t // chunk
-        pb = (zq.reshape(bh, t, f_ts), zk.reshape(bh, t, f_ts),
-              v.reshape(bh, t, dh), s_prev.reshape(bh, n_ch, f_ts, dh),
-              n_prev.reshape(bh, n_ch, f_ts))
-        got_b = rm_attention_chunked(*pb, chunk=chunk, eps=cfg.rm.eps)
-        want_b = rm_attention_chunked_ref(*pb, chunk=chunk, eps=cfg.rm.eps)
-        torch.cuda.synchronize()
-        errs, tols = [], []
-        for name, g_, w_ in (("causal", got, want), ("pass B", got_b,
-                                                     want_b),
-                             ("vs quadratic", got, quad)):
-            err = (g_ - w_).abs().max().item()
-            tol = B5_TOL * max(1.0, w_.abs().max().item())
-            errs.append(err)
-            tols.append(tol)
-            b5_checks.append((f"T{t} {name}", err, tol))
-            if not err <= tol:
-                raise AssertionError(f"B5 T{t} {name}: error {err} > {tol}")
-        ms = time_ms(torch, lambda: rm_attention_chunked(
-            *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
-        plain_ms = time_ms(torch, lambda: rm_attention_chunked_ref(
-            *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
-        bms, by = bound(*chunked_cost(bh, t, f_ts, dh, chunk, 4), "float32")
-        print(f"[B5] zq,zk[{bh},{t},{f_ts}] v dv {dh} chunk {chunk} fp32: "
-              f"max_abs_err causal/pass B/vs quadratic {errs[0]:.3e}/"
-              f"{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/"
-              f"{tols[1]:.1e}/{tols[2]:.1e}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-        if t == 256:
-            hus = host_us(torch, lambda: rm_attention_chunked(
-                *pb, chunk=chunk, eps=cfg.rm.eps), iters=50)
-            print(f"[B5] host time {hus:.1f} us a call")
-            kernels["B5"] = dict(
-                name="rm_attention_chunked", route="cuda",
-                source="src/repro_torch/csrc/rm_attention_chunked.cu",
-                replaces="src/repro/kernels/rm_attention/rm_attention.py:78",
-                shape=f"zq,zk[{bh},{t},{f_ts}] fp32, dv {dh}, chunk {chunk}",
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None)
+        b5_checks += b5_check(torch, f"T{t}", zq, zk, v, chunk, cfg.rm.eps,
+                              kernels, t == 256)
     # each kernel's line reports the check nearest its limit, with that
     # check's own error and limit
     for kid, checks in (("B1", b1_checks), ("B2", b2_checks),
@@ -1603,7 +1720,15 @@ def main():
     kernels["B6"]["launches"] = launches["B6"]
 
     # -- 10. where the tensor_sketch slice's time goes (warm) ---------------
-    where_time_goes(torch, "ts", engine, prompts, done)
+    shares = where_time_goes(
+        torch, "ts", engine, prompts, done,
+        families={"B6": ("tensor_sketch_kernel",),
+                  "B5": ("rm_attention_chunked_kernel",)})
+    kernels["B6"]["decode_step_device_ms"] = shares["decode step"]["B6"]
+    kernels["B6"]["prefill_256_device_ms"] = \
+        shares["prefill bucket 256"]["B6"]
+    kernels["B5"]["ts_prefill_256_device_ms"] = \
+        shares["prefill bucket 256"]["B5"]
 
     del engine
     gc.collect()
@@ -1873,7 +1998,9 @@ def main():
          + [(ENC_FRAMES * nh, "hubert clip", h_st_plan, h_st_packed)]),
     )
     new_checks = {"B7": [], "B8": []}
+    plan_rows = {}             # B8 through apply_structured_plan
     report_build(torch, "B7", "ctr_feature")
+    report_build(torch, "B8", "structured_feature", tensor_cores=False)
     for (kid, fn, ref, cost, tol_, kname, family, fparams,
          cases) in feature_specs:
         for rows, label, kplan, packed in cases:
@@ -1885,9 +2012,8 @@ def main():
                 args = (x, *(p_.to(dtype) for p_ in packed), cd_, cs_)
                 got = fn(*args)
                 want = ref(*args)
-                # B7: two calls bitwise equal (one thread an output, no
-                # atomics)
-                repeat_ok = kid != "B7" or torch.equal(got, fn(*args))
+                # two calls bitwise equal (one thread an output, no atomics)
+                repeat_ok = torch.equal(got, fn(*args))
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 tol = tol_ * max(1.0, want.abs().max().item())
@@ -1909,6 +2035,16 @@ def main():
                     extra = (f", tensor-core bound {tcms:.6f} ms ({tcby}); "
                              f"grid {grid} blocks of 4 warps (16 rows x 32 "
                              f"columns); two calls bitwise equal {repeat_ok}")
+                else:
+                    sched = structured_feature_fused.last_schedule
+                    grid = sched.blocks
+                    extra = (f"; grid {grid} blocks of {sched.warps} warps ("
+                             + (f"{sched.lanes_per_row} lanes a row, "
+                                f"{sched.elems_per_lane} points a lane"
+                                if not sched.wide else
+                                f"a block a row, {sched.elems_per_lane} "
+                                "points a thread")
+                             + f"); two calls bitwise equal {repeat_ok}")
                 print(f"[{kid}] {label} x[{rows},{width}] {dname}: "
                       f"max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
                       f"{ms:.4f} ms (events {event_ms:.4f} ms), plain "
@@ -1919,6 +2055,11 @@ def main():
                                          f" > {tol}, surplus not 0 or two "
                                          "calls differ")
                 new_checks[kid].append((f"{label} {dname}", err, tol))
+                if kid == "B8" and dtype == torch.float32 and \
+                        label in ("decode", "prefill bucket 256"):
+                    plan_rows.update(structured_plan_check(
+                        torch, label, x, kplan, fparams, packed, got, bms,
+                        new_checks))
                 if label == "decode" and dtype == torch.float32:
                     hus = host_us(torch, lambda: fn(*args))
                     xs32 = x.reshape(4, cfg.num_heads, 1, width)
@@ -1945,13 +2086,17 @@ def main():
                     if kid == "B7":
                         kernels[kid].update(bound_ms=tcms, bound_by=tcby,
                                             bound_cuda_core_ms=bms, grid=grid)
-                elif (kid == "B7" and dtype == torch.float32
-                      and rows == 4096):
+                    if kid == "B8":
+                        kernels[kid].update(grid=grid)
+                elif dtype == torch.float32 and rows == 4096:
                     kernels[kid].update(
                         prefill_shape=f"x[{rows},{width}] fp32",
                         prefill_ms=ms, prefill_events_ms=event_ms,
-                        prefill_plain_ms=plain_ms, prefill_bound_ms=tcms,
-                        prefill_bound_cuda_core_ms=bms, prefill_grid=grid)
+                        prefill_plain_ms=plain_ms,
+                        prefill_bound_ms=tcms if kid == "B7" else bms,
+                        prefill_grid=grid)
+                    if kid == "B7":
+                        kernels[kid]["prefill_bound_cuda_core_ms"] = bms
                 del x, args, got, want
     # the Gram entry point over each family's apply: card against CPU
     for kid, name, kplan, kparams, fn in (
@@ -1981,6 +2126,7 @@ def main():
     for kid, checks in new_checks.items():
         label, err, tol = worst(checks)
         kernels[kid].update(max_abs_err=err, tol=tol, check=label)
+    kernels["B8"].update(plan_rows)
 
     # -- 16. B5 at the ctr features' ragged width ---------------------------
     ctr_entry = registry.get("ctr")
@@ -1994,37 +2140,11 @@ def main():
     zk = zk * kvalid[None, :, :, None]
     v = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
     f_ctr = zq.shape[-1]
-    got = rm_attention_causal(zq, zk, v, chunk=chunk, eps=cfg.rm.eps)
-    want = causal_chunked_ref(zq, zk, v, chunk, cfg.rm.eps)
-    quad = rm_attention_ref(zq, zk, v, eps=cfg.rm.eps)
-    s_prev, n_prev = chunk_states(zk, v, chunk)
-    n_ch = t // chunk
-    pb = (zq.reshape(bh, t, f_ctr), zk.reshape(bh, t, f_ctr),
-          v.reshape(bh, t, dh), s_prev.reshape(bh, n_ch, f_ctr, dh),
-          n_prev.reshape(bh, n_ch, f_ctr))
-    got_b = rm_attention_chunked(*pb, chunk=chunk, eps=cfg.rm.eps)
-    want_b = rm_attention_chunked_ref(*pb, chunk=chunk, eps=cfg.rm.eps)
-    torch.cuda.synchronize()
-    errs = []
-    for name, g_, w_ in (("causal", got, want), ("pass B", got_b, want_b),
-                         ("vs quadratic", got, quad)):
-        err = (g_ - w_).abs().max().item()
-        tol = B5_TOL * max(1.0, w_.abs().max().item())
-        errs.append((err, tol))
-        b5_checks.append((f"T{t} F{f_ctr} {name}", err, tol))
-        if not err <= tol:
-            raise AssertionError(f"B5 F{f_ctr} {name}: error {err} > {tol}")
-    ms = time_ms(torch, lambda: rm_attention_chunked(
-        *pb, chunk=chunk, eps=cfg.rm.eps), iters=20)
-    bms, by = bound(*chunked_cost(bh, t, f_ctr, dh, chunk, 4), "float32")
-    print(f"[B5] ctr features zq,zk[{bh},{t},{f_ctr}] v dv {dh} chunk {chunk} "
-          "fp32: max_abs_err causal/pass B/vs quadratic "
-          + "/".join(f"{e_:.3e}" for e_, _ in errs) + " (tol "
-          + "/".join(f"{t_:.1e}" for _, t_ in errs) + f") kernel {ms:.4f} "
-          f"ms, bound {bms:.5f} ms ({by})")
+    b5_checks += b5_check(torch, f"T{t} F{f_ctr}", zq, zk, v, chunk,
+                          cfg.rm.eps, kernels, False)
     label, err, tol = worst(b5_checks)
     kernels["B5"].update(max_abs_err=err, tol=tol, check=label)
-    del xq, xk, zq, zk, v, got, want, quad, pb, got_b, want_b
+    del xq, xk, zq, zk, v
 
     # -- 17. small end-to-end references for ctr and structured -------------
     for est in ("ctr", "structured"):
@@ -2114,7 +2234,15 @@ def main():
                 "B1": 0, "B2": 0, "B5": adm * layers, "B6": 0, "B7": 0,
                 "B8": 0, "B9": 0, kid: 2 * layers * (adm + steps)})
         kernels[kid]["launches"] = launches[kid]
-        where_time_goes(torch, tag, engine, prompts, done)
+        shares = where_time_goes(
+            torch, tag, engine, prompts, done,
+            families={kid: (f"{est}_feature_kernel",),
+                      "B5": ("rm_attention_chunked_kernel",)})
+        kernels[kid]["decode_step_device_ms"] = shares["decode step"][kid]
+        kernels[kid]["prefill_256_device_ms"] = \
+            shares["prefill bucket 256"][kid]
+        kernels["B5"][f"{tag}_prefill_256_device_ms"] = \
+            shares["prefill bucket 256"]["B5"]
         del engine
         gc.collect()
         torch.cuda.empty_cache()

@@ -21,11 +21,13 @@ the depth chunks and the shared-memory layout. B9
 ``csrc/tensor_sketch.cu``) and ctr (B7, ``csrc/ctr_feature.cu``) kernels
 run complex chains on the tensor cores (``csrc/complex_mma.cuh``), 16 rows
 a block: B7 needs no choice, B6's warps and output groups are
-:func:`sketch_schedule`. The chunked attention kernel
-(``csrc/rm_attention_chunked.cu``) has fixed 64-wide tiles and static
-shared memory; the structured kernel (``csrc/structured_feature.cu``, B8)
-takes a row tile of one Hadamard stack a block
-(:func:`pick_structured_rows`). There is no autotune cache yet.
+:func:`sketch_schedule`. The chunked attention kernel B5
+(``csrc/rm_attention_chunked.cu``) runs a query tile as a cluster of two
+blocks on the tensor cores, its tiles and shared memory cut by
+:func:`chunked_schedule`; the structured kernel B8
+(``csrc/structured_feature.cu``) runs each Hadamard transform in a warp's
+registers (a block's, past 1024 points), its warps and lanes a row chosen
+by :func:`structured_schedule`. There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -43,9 +45,12 @@ __all__ = [
     "sketch_schedule",
     "NoncausalSchedule",
     "noncausal_schedule",
+    "ChunkedSchedule",
+    "chunked_schedule",
     "STRUCTURED_MAX_DPAD",
+    "StructuredSchedule",
     "check_structured_d_pad",
-    "pick_structured_rows",
+    "structured_schedule",
 ]
 
 # Hopper: the most dynamic shared memory one block may opt into.
@@ -70,18 +75,28 @@ NONCAUSAL_ROWS = 64
 NONCAUSAL_COL_TILE = 8
 NONCAUSAL_MAX_VALUE_TILES = 12
 STATE_MAX_FEATURE_TILES = 12
-# Elements (rows x Hadamard size) one structured block may hold: 32 fp32
-# register slots a thread of 256 and a 32 KB shared-memory butterfly buffer
-# (``kMaxElems`` in csrc/structured_feature.cu). A block holds at least
-# one row, so this is also the largest d_pad the kernel takes.
+# B8 (csrc/structured_feature.cu): a warp holds transforms of up to
+# STRUCTURED_WARP_MAX_DPAD points in its registers (one row, d_pad / 32 a
+# lane; two rows of half a warp each; 32 / d_pad rows below 32 points);
+# past that one block of
+# STRUCTURED_WIDE_THREADS threads holds it (d_pad / 256 a thread, the
+# stages past a warp through a shared-memory buffer of d_pad floats, 32 KB
+# at STRUCTURED_MAX_DPAD: the largest d_pad the kernel takes).
 STRUCTURED_MAX_DPAD = 8192
-# Elements a structured block takes where d_pad allows: 4 register slots a
-# thread, 48 registers, so several blocks share an SM (an 8192-element
-# block takes 178 registers, one block an SM, and its butterfly barriers
-# then stall the SM).
-STRUCTURED_TILE_ELEMS = 1024
-# Threads of a structured block: the smallest row tile keeps them all busy.
-_STRUCTURED_THREADS = 256
+STRUCTURED_WARP_MAX_DPAD = 1024
+STRUCTURED_WIDE_THREADS = 256
+# B5 (csrc/rm_attention_chunked.cu): 4 warps a block, a cluster of two
+# blocks a query tile of CHUNKED_ROWS rows (the scores and the state term);
+# F staged 32 features a slice, keys scored CHUNKED_KEY_GROUP at a time, v
+# staged 32 keys a tile; value groups of at most CHUNKED_GROUP_COLS columns
+# (plus the den column: 20 n-tiles, 5 a warp); the scores of at most
+# CHUNKED_WINDOW keys held in shared memory (a multiple of 64).
+CHUNKED_ROWS = 16
+CHUNKED_FSLICE = 32
+CHUNKED_KEY_GROUP = 128
+CHUNKED_VALUE_TILE = 32
+CHUNKED_GROUP_COLS = 156
+CHUNKED_WINDOW = 512
 
 
 def round_up(x: int, m: int) -> int:
@@ -240,6 +255,70 @@ def causal_schedule(bh: int, heads: int, t: int, d: int, dv: int,
         ftiles_per_agroup=per, n_agroups=groups,
         dva_per_group=dva, n_dvagroups=n_dva, lda=lda, dvb_per_group=dvb,
         n_dvbgroups=n_dvb, ldb=ldb, smem_a=smem_a, smem_b=smem_b)
+
+
+class ChunkedSchedule(NamedTuple):
+    """How B5 (``csrc/rm_attention_chunked.cu``) cuts its work. The kernel
+    reads these fields as one int array, in this order (``struct BSched``).
+
+    Each chunk of ``chunk`` rows of the ``bh`` rows of ``t`` positions is
+    cut into ``q_tiles`` query tiles of ``rows`` rows; a query tile is a
+    cluster of two blocks (its scores and tril(scores) [v | 1]; its state
+    term zq [S_prev | n_prev]). Value columns go ``group_cols`` at a time
+    (``n_groups`` groups); the scores of up to ``win_keys`` keys stay in
+    shared memory (row stride ``lds``). ``ldq``: row stride (elements) of
+    the staged zq / zk slices; ``ldv``: of the staged value, state and
+    partial tiles (fp32). ``smem_bytes``: a block's dynamic shared memory.
+    """
+    bh: int
+    t: int
+    f: int
+    dv: int
+    chunk: int
+    rows: int
+    q_tiles: int
+    n_groups: int
+    group_cols: int
+    win_keys: int
+    ldq: int
+    ldv: int
+    lds: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return 2 * self.bh * (self.t // self.chunk) * self.q_tiles
+
+
+@functools.lru_cache(maxsize=256)
+def chunked_schedule(bh: int, t: int, f: int, dv: int, chunk: int,
+                     item: int) -> ChunkedSchedule:
+    """The :class:`ChunkedSchedule` of B5 at ``zq, zk [bh, t, f]`` (element
+    size ``item``), ``dv`` values and chunks of ``chunk`` rows (``t`` a
+    multiple of it). The query tile is 16 rows, one mma m-tile: at the
+    bucket-256 prefill (bh 16, t 256, chunk 128) 512 blocks, two an SM and
+    more. Shared memory does not depend on ``f`` (F is staged 32
+    features at a time): 49,984 bytes a block there (fp32, dv 128), so four
+    blocks share an SM. Memoized: the model asks once per layer with the
+    same shapes."""
+    rows = CHUNKED_ROWS
+    q_tiles = -(-chunk // rows)
+    n_groups = -(-dv // CHUNKED_GROUP_COLS)
+    w0 = min(dv, CHUNKED_GROUP_COLS)
+    ldv = _ld_cols(8 * -(-(w0 + 1) // 8))
+    win = min(round_up(chunk, 64), CHUNKED_WINDOW)
+    lds = win + 4
+    ldq = CHUNKED_FSLICE + (4 if item == 4 else 8)
+    q = _round16(2 * rows * ldq * item)
+    stage = max(q + _round16(2 * CHUNKED_KEY_GROUP * ldq * item),
+                _round16(2 * CHUNKED_VALUE_TILE * ldv * 4),
+                q + _round16(2 * CHUNKED_FSLICE * ldv * 4),
+                _round16(rows * ldv * 4))
+    smem = stage + _round16(rows * lds * 4) + _round16(rows * 4)
+    return ChunkedSchedule(
+        bh=bh, t=t, f=f, dv=dv, chunk=chunk, rows=rows, q_tiles=q_tiles,
+        n_groups=n_groups, group_cols=CHUNKED_GROUP_COLS, win_keys=win,
+        ldq=ldq, ldv=ldv, lds=lds, smem_bytes=smem)
 
 
 class SketchSchedule(NamedTuple):
@@ -556,27 +635,60 @@ def check_structured_d_pad(m: int) -> None:
     if m < 1 or m & (m - 1) or m > STRUCTURED_MAX_DPAD:
         raise ValueError(
             f"structured kernel: d_pad={m} must be a power of two no larger "
-            f"than {STRUCTURED_MAX_DPAD} (a block holds at least one row's "
-            "transform)")
+            f"than {STRUCTURED_MAX_DPAD} (a block holds one row's transform "
+            "at most)")
 
 
-def pick_structured_rows(m: int, b: int, stacks: int) -> int:
-    """Row tile R of the structured kernel (grid = row tiles x stacks) for
-    Hadamard size ``m``.
+class StructuredSchedule(NamedTuple):
+    """How B8 (``csrc/structured_feature.cu``) cuts its work at Hadamard
+    size ``d_pad``. ``wide`` False: ``lanes_per_row`` lanes of a warp hold
+    one row's transform of one stack, ``elems_per_lane`` points a lane, so
+    a warp holds ``rows_per_warp`` rows (grid: row groups of ``warps`` warps
+    x stacks); ``wide`` True: a block of :data:`STRUCTURED_WIDE_THREADS`
+    threads holds one row's (``elems_per_lane`` points a thread; grid: rows
+    x stacks)."""
+    d_pad: int
+    wide: bool
+    lanes_per_row: int
+    rows_per_warp: int
+    elems_per_lane: int
+    warps: int
+    blocks: int
 
-    A block holds ``R * m <= STRUCTURED_TILE_ELEMS`` elements (one row,
-    ``m`` elements, where ``m`` is larger), at most 64 rows. The largest
-    power-of-two R whose grid fills the card (``ceil(b / R) * stacks >=
-    NUM_SMS``) wins; when none does (a decode batch), the smallest R that
-    still gives every thread an element, for the most blocks in flight.
+
+def structured_schedule(m: int, b: int, stacks: int) -> StructuredSchedule:
+    """The :class:`StructuredSchedule` of B8 at Hadamard size ``m`` on
+    ``b`` rows of ``stacks`` stacks. Up to
+    :data:`STRUCTURED_WARP_MAX_DPAD` a warp path: a row takes min(m, 32)
+    lanes, or half a warp (two rows a warp, ``m / 16`` points a lane) for
+    32 <= m <= 512 where there are at least 16 rows x stacks an SM: fewer
+    shuffle stages a point where the card is full (faster at qwen3-1.7b's
+    x ``[4096, 128]`` on an H100), while at decode a warp a row keeps each
+    row's chain of stages shortest (faster at x ``[64, 128]``). A block
+    takes the most warps of 8, 4, 2 whose grid
+    still fills the card (at least :data:`NUM_SMS` blocks; the warps of a
+    block share the stack's signs in L1), else 1. Past the warp path the
+    block path.
 
     Raises:
         ValueError: as :func:`check_structured_d_pad`.
     """
     check_structured_d_pad(m)
-    r_max = max(1, min(64, STRUCTURED_TILE_ELEMS // m))
-    r_min = min(r_max, max(1, _STRUCTURED_THREADS // m))
-    r = r_max
-    while r > r_min and -(-b // r) * stacks < NUM_SMS:
-        r //= 2
-    return r
+    if m > STRUCTURED_WARP_MAX_DPAD:
+        return StructuredSchedule(
+            d_pad=m, wide=True, lanes_per_row=0, rows_per_warp=0,
+            elems_per_lane=m // STRUCTURED_WIDE_THREADS,
+            warps=STRUCTURED_WIDE_THREADS // 32, blocks=b * stacks)
+    lanes = min(m, 32)
+    if 32 <= m <= 512 and b * stacks >= 16 * NUM_SMS:
+        lanes = 16
+    rpw = 32 // lanes
+    warps = 1
+    for w in (8, 4, 2):
+        if -(-b // (w * rpw)) * stacks >= NUM_SMS:
+            warps = w
+            break
+    return StructuredSchedule(
+        d_pad=m, wide=False, lanes_per_row=lanes, rows_per_warp=rpw,
+        elems_per_lane=m // lanes, warps=warps,
+        blocks=-(-b // (warps * rpw)) * stacks)

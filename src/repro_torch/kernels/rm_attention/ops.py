@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.common import (
     causal_schedule,
+    chunked_schedule,
     noncausal_schedule,
 )
 from repro_torch.kernels.rm_attention.noncausal import (
@@ -88,8 +89,9 @@ _SCHED = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = ((ctypes.c_void_p,) * 12
              + (_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_int, ctypes.c_void_p))
-_CHUNKED_ARGTYPES = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5
-                     + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_CHUNKED_ARGTYPES = ((ctypes.c_void_p,) * 6
+                     + (_SCHED, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                        ctypes.c_void_p))
 _STATE_ARGTYPES = ((ctypes.c_void_p,) * 12
                    + (_SCHED, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 _APPLY_ARGTYPES = ((ctypes.c_void_p,) * 9
@@ -116,7 +118,9 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
 
     ``zq, zk [BH, T, F]`` fp32 or bf16 with T a multiple of ``chunk``,
     ``v [BH, T, dv]``, ``s_prev [BH, T/C, F, dv]``, ``n_prev [BH, T/C, F]``
-    (``ref.chunk_states``) -> ``out [BH, T, dv]`` fp32.
+    (``ref.chunk_states``) -> ``out [BH, T, dv]`` fp32. The kernel's
+    query tiles and value groups are ``rm_attention_chunked.last_schedule``
+    (``kernels.common.chunked_schedule``).
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (zq, zk, v, s_prev, n_prev)):
@@ -155,19 +159,23 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
     vf = v.float().contiguous()
     sp = s_prev.float().contiguous()
     np_ = n_prev.float().contiguous()
+    sched = chunked_schedule(bh, t, f, dv, chunk, zq.element_size())
     err = _launcher("rm_attention_chunked", "rm_attention_chunked_launch",
                     _CHUNKED_ARGTYPES)(
         zq.data_ptr(), zk.data_ptr(), vf.data_ptr(), sp.data_ptr(),
-        np_.data_ptr(), out.data_ptr(), bh, t, f, dv, chunk, float(eps),
-        _DTYPE_CODE[zq.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        np_.data_ptr(), out.data_ptr(), _sched_array(sched), len(sched),
+        float(eps), _DTYPE_CODE[zq.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rm_attention_chunked kernel launch failed: "
                            f"CUDA error {err}")
     rm_attention_chunked.launches += 1
+    rm_attention_chunked.last_schedule = sched
     return out
 
 
 rm_attention_chunked.launches = 0
+rm_attention_chunked.last_schedule = None
 
 
 def rm_attention_causal(

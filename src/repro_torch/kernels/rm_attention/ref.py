@@ -11,7 +11,10 @@ zq_t n)`` with the key state ``S = zk^T v``, ``n = colsum(zk)``).
 
 RM features are signed, so the denominator can pass through zero; it is
 clamped to ``sign(den) * max(|den|, eps)`` with ``den >= 0 -> +eps``.
-Everything is computed in fp32.
+Everything is computed in fp32; the chunked path (``chunk_states``,
+``rm_attention_chunked_ref``, ``causal_chunked_ref``) keeps float64 inputs
+in float64, the yardstick the kernel tests hold B5 to where fp32 itself
+loses digits (denominators near zero).
 """
 from __future__ import annotations
 
@@ -46,6 +49,11 @@ def clamp_den(den: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(den.abs() < eps, sign_eps, den)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in float64 where it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def featurize_ref4(x, w, col_deg, col_scale) -> torch.Tensor:
     """[B, H, T, d] -> [B, H, T, F] through the rm_feature plain version."""
     b, h, t, d = x.shape
@@ -62,8 +70,8 @@ def chunk_states(zk_p, v_p, chunk: int) -> Tuple[torch.Tensor,
     b, h, t, f = zk_p.shape
     dv = v_p.shape[-1]
     n = t // chunk
-    zk_c = zk_p.float().reshape(b, h, n, chunk, f)
-    v_c = v_p.float().reshape(b, h, n, chunk, dv)
+    zk_c = _wide(zk_p).reshape(b, h, n, chunk, f)
+    v_c = _wide(v_p).reshape(b, h, n, chunk, dv)
     s_chunk = torch.einsum("bhncf,bhncd->bhnfd", zk_c, v_c)
     n_chunk = zk_c.sum(dim=3)
     return (torch.cumsum(s_chunk, dim=2) - s_chunk,
@@ -74,21 +82,22 @@ def rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev, *, chunk: int,
                              eps: float) -> torch.Tensor:
     """Plain version of kernel B5 (reference ``_rm_attn_kernel``): pass B
     over ``zq, zk [BH,T,F]``, ``v [BH,T,dv]``, ``s_prev [BH,T/C,F,dv]``,
-    ``n_prev [BH,T/C,F]`` with T a multiple of ``chunk``; fp32 out."""
+    ``n_prev [BH,T/C,F]`` with T a multiple of ``chunk``; fp32 out
+    (float64 for float64 inputs)."""
     bh, t, f = zq.shape
     dv = v.shape[-1]
     n = t // chunk
-    zq_c = zq.float().reshape(bh, n, chunk, f)
-    zk_c = zk.float().reshape(bh, n, chunk, f)
-    v_c = v.float().reshape(bh, n, chunk, dv)
+    zq_c = _wide(zq).reshape(bh, n, chunk, f)
+    zk_c = _wide(zk).reshape(bh, n, chunk, f)
+    v_c = _wide(v).reshape(bh, n, chunk, dv)
     scores = torch.einsum("bnqf,bnkf->bnqk", zq_c, zk_c)
     mask = torch.ones(chunk, chunk, dtype=torch.bool,
                       device=zq.device).tril()
     scores = torch.where(mask, scores, torch.zeros_like(scores))
     num = torch.einsum("bnqk,bnkd->bnqd", scores, v_c)
-    num = num + torch.einsum("bnqf,bnfd->bnqd", zq_c, s_prev.float())
+    num = num + torch.einsum("bnqf,bnfd->bnqd", zq_c, _wide(s_prev))
     den = scores.sum(dim=-1)
-    den = den + torch.einsum("bnqf,bnf->bnq", zq_c, n_prev.float())
+    den = den + torch.einsum("bnqf,bnf->bnq", zq_c, _wide(n_prev))
     out = num / clamp_den(den, eps)[..., None]
     return out.reshape(bh, t, dv)
 
@@ -112,7 +121,7 @@ def causal_chunked(zq, zk, v, chunk: int, eps: float,
     def _pad(x):
         return F.pad(x, (0, 0, 0, pad))
 
-    zq_p, zk_p, v_p = _pad(zq), _pad(zk), _pad(v.float())
+    zq_p, zk_p, v_p = _pad(zq), _pad(zk), _pad(_wide(v))
     s_prev, n_prev = chunk_states(zk_p, v_p, chunk)
     out = pass_b(zq_p.reshape(b * h, tp, f), zk_p.reshape(b * h, tp, f),
                  v_p.reshape(b * h, tp, dv), s_prev.reshape(b * h, n, f, dv),

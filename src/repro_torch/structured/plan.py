@@ -20,14 +20,17 @@ Column layout:
       | random columns, buckets ascending ]
 
 Bucket n funds ``ceil(c_n / d_pad)`` stacks; the surplus ``S_n d_pad -
-c_n`` columns of its last stack are computed with scale 0 and sliced off
-by ``apply_structured_plan``. The padded section runs as ONE launch of
-kernel B8 (``kernels.structured_feature``) on a CUDA tensor, or its plain
-PyTorch version on a CPU tensor; the dense-H path in ``structured.ref`` is
-the oracle the tests hold it against.
+c_n`` columns of its last stack are computed with scale 0 and never
+written by ``apply_structured_plan``. The padded section runs as ONE
+launch of kernel B8 (``kernels.structured_feature``) on a CUDA tensor,
+which writes each bucket's kept columns into their place in the map, or
+its plain PyTorch version on a CPU tensor, with the same routing; the
+dense-H path in ``structured.ref`` is the oracle the tests hold it
+against.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +52,7 @@ __all__ = [
     "make_structured_plan",
     "init_structured_params",
     "pack_structured",
+    "structured_keep",
     "apply_structured_plan",
 ]
 
@@ -253,6 +257,26 @@ def pack_structured(plan: StructuredPlan, params: Dict[str, torch.Tensor]
     return _pack(params["d1"]), _pack(params["d2"])
 
 
+@functools.lru_cache(maxsize=None)
+def structured_keep(plan: StructuredPlan):
+    """Where kernel B8 writes each stack in the plan's map: stack i of
+    bucket n keeps its first ``min(d_pad, c_n - i d_pad)`` columns (the
+    last stack's surplus tail is dropped) at their place after the prefix
+    columns and the buckets before it (a
+    ``kernels.structured_feature.StructuredKeep``)."""
+    from repro_torch.kernels.structured_feature.ops import StructuredKeep
+
+    m = plan.d_pad
+    first, count = [], []
+    off = plan.num_prefix_columns
+    for c, s in zip(plan.counts, plan.stacks_per_bucket):
+        for i in range(s):
+            first.append(off + i * m)
+            count.append(min(m, c - i * m))
+        off += c
+    return StructuredKeep(tuple(first), tuple(count))
+
+
 def apply_structured_plan(
     plan: StructuredPlan,
     params: Dict[str, torch.Tensor],
@@ -262,14 +286,15 @@ def apply_structured_plan(
 ) -> torch.Tensor:
     """Featurize ``x [..., d] -> [..., plan.output_dim]`` (fp32).
 
-    The prefix columns are exact fills; the padded structured section runs
-    as ONE launch of ``kernels.structured_feature.structured_feature_fused``
-    (the kernel for a CUDA tensor, its plain version for a CPU tensor),
-    which reads x at its true width ``d <= d_pad`` and treats the rest as
-    zero, then each bucket's surplus tail is sliced off. ``packed=(d1,
-    d2)`` short-circuits ``pack_structured``. Under ``precision="bf16"`` x
-    and the signs enter the launch in bf16 (the signs exactly), and
-    accumulation stays fp32.
+    The map is allocated once: the prefix columns are exact fills written
+    into it, and the padded structured section runs as ONE launch of
+    ``kernels.structured_feature.structured_feature_fused`` (the kernel for
+    a CUDA tensor, its plain version for a CPU tensor), which reads x at
+    its true width ``d <= d_pad`` and treats the rest as zero, and writes
+    each bucket's kept columns in place (``structured_keep``): no slice or
+    concatenation follows. ``packed=(d1, d2)`` short-circuits
+    ``pack_structured``. Under ``precision="bf16"`` x and the signs enter
+    the launch in bf16 (the signs exactly), and accumulation stays fp32.
     """
     from repro_torch.common.dtypes import resolve_precision
     from repro_torch.kernels.structured_feature.ops import (
@@ -282,23 +307,17 @@ def apply_structured_plan(
     cdt = resolve_precision(precision).compute_dtype
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, plan.input_dim).float()
-    m = plan.d_pad
-    feats = prefix_columns(plan, xf, cdt)
+    out = torch.empty((xf.shape[0], plan.output_dim), dtype=torch.float32,
+                      device=x.device)
+    off = 0
+    for col in prefix_columns(plan, xf, cdt):
+        out[:, off: off + col.shape[1]] = col
+        off += col.shape[1]
     if plan.num_random_cols:
         if packed is None:
             packed = pack_structured(plan, params)
         d1, d2 = (t.to(cdt) for t in packed)
         col_deg, col_scale = plan_columns(plan, x.device)
-        z = structured_feature_fused(xf.to(cdt), d1, d2, col_deg, col_scale)
-        # the real columns are the FIRST c_n of each bucket's stack-major
-        # run: one slice per bucket drops the surplus tail
-        off = 0
-        for c, s in zip(plan.counts, plan.stacks_per_bucket):
-            feats.append(z[:, off: off + c])
-            off += s * m
-    if not feats:
-        # a_0 = 0 and no bucket funded: a valid 0-column map
-        return torch.zeros((*batch_shape, 0), dtype=torch.float32,
-                           device=x.device)
-    out = torch.cat(feats, dim=-1)
-    return out.reshape(*batch_shape, out.shape[-1])
+        structured_feature_fused(xf.to(cdt), d1, d2, col_deg, col_scale,
+                                 out=out, keep=structured_keep(plan))
+    return out.reshape(*batch_shape, plan.output_dim)

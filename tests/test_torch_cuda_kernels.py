@@ -392,8 +392,11 @@ def test_sketch_and_ctr_kernels_are_bitwise_repeatable(cuda, dtype, rows):
                                      (20, 64, 0)])
 def test_rm_attention_chunked_kernel_matches_plain(cuda, dtype, t, f, pad):
     """Kernel B5 through ``rm_attention_causal`` (chunk min(128, T)) against
-    the plain chunked formulation. Tolerance 1e-4: fp32 sums of up to C x F
-    terms in another order."""
+    the plain chunked formulation, evaluated in float64 (``causal_chunked_ref``
+    keeps float64 inputs in float64). Tolerance 1e-4 x max(1, max |plain|):
+    these signed features put some denominators near zero, where outputs
+    reach hundreds and fp32 arithmetic itself (the plain version's in fp32)
+    lands close to that tolerance off the float64 value."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     zq = (0.3 * torch.randn((2, 8, t, f), generator=gen, device=cuda))
     zk = (0.3 * torch.randn((2, 8, t, f), generator=gen, device=cuda))
@@ -406,9 +409,109 @@ def test_rm_attention_chunked_kernel_matches_plain(cuda, dtype, t, f, pad):
     got = rm_attention_causal(zq, zk, v, chunk=128, eps=1e-4)
     torch.cuda.synchronize()
     assert rm_attention_chunked.launches == before + 1
-    want = causal_chunked_ref(zq, zk, v, 128, 1e-4)
+    want = causal_chunked_ref(zq.double(), zk.double(), v.double(), 128,
+                              1e-4)
     assert got.shape == want.shape
-    _close(got, want, 1e-4)
+    _close(got.double(), want, 1e-4)
+
+
+def _chunked_inputs(t, f, pad, dtype, device, seed=17):
+    """Features of ``[2, 8, t, f]`` with a constant first column and 0.1 x
+    N(0, 1) entries past it, so each score is 1 +- 0.1 sqrt(f - 1) x 0.1
+    and every denominator stays near its prefix length: there fp32
+    arithmetic is good to about 1e-7 and a product in plain TF32 (about
+    5e-4 per term) shows above the 3xTF32 gate 1e-5."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    zq = 0.1 * torch.randn((2, 8, t, f), generator=gen, device=device)
+    zk = 0.1 * torch.randn((2, 8, t, f), generator=gen, device=device)
+    zq[..., 0] = zk[..., 0] = 1.0
+    if pad:
+        zk[1, :, t - pad:] = 0.0
+    v = torch.randn((2, 8, t, 128), generator=gen, device=device)
+    return zq.to(dtype), zk.to(dtype), v
+
+
+@pytest.mark.parametrize("t,f,pad,chunk", [(256, 256, 56, 128),
+                                           (32, 256, 0, 128),
+                                           (256, 255, 56, 128),
+                                           (40, 163, 9, 128), (20, 64, 0, 128),
+                                           (256, 256, 56, 32),
+                                           (256, 255, 30, 64)])
+def test_rm_attention_chunked_kernel_3xtf32_and_repeatable(cuda, t, f, pad,
+                                                           chunk):
+    """fp32 B5 runs its three products in 3xTF32: pass B within 1e-5 x
+    max(1, max |plain|) of its plain version (in float64) on the same
+    prefixes, at the shapes of
+    ``test_rm_attention_chunked_kernel_matches_plain`` and at chunks 32 and
+    64, on features whose denominators stay clear of 0
+    (``_chunked_inputs``); two calls are bitwise equal (a fixed order of
+    sums, no atomics)."""
+    from repro_torch.kernels.rm_attention.ref import (
+        chunk_states,
+        rm_attention_chunked_ref,
+    )
+
+    zq, zk, v = _chunked_inputs(t, f, pad, torch.float32, cuda)
+    c = min(chunk, t)
+    tp = -(-t // c) * c
+    zq, zk, v = (torch.nn.functional.pad(a, (0, 0, 0, tp - t))
+                 for a in (zq, zk, v))
+    s_prev, n_prev = chunk_states(zk, v, c)
+    n = tp // c
+    args = (zq.reshape(16, tp, f), zk.reshape(16, tp, f),
+            v.reshape(16, tp, 128), s_prev.reshape(16, n, f, 128),
+            n_prev.reshape(16, n, f))
+    got = rm_attention_chunked(*args, chunk=c, eps=1e-4)
+    again = rm_attention_chunked(*args, chunk=c, eps=1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = rm_attention_chunked_ref(*(a.double() for a in args), chunk=c,
+                                    eps=1e-4)
+    _close(got.double(), want, 1e-5)
+    sched = rm_attention_chunked.last_schedule
+    assert sched.blocks == 2 * 16 * n * sched.q_tiles
+
+
+def test_rm_attention_chunked_kernel_prefill_grid(cuda):
+    """At the bucket-256 prefill (BH 16, T 256, chunk 128, F 256, dv 128) B5
+    launches at least two blocks an SM: 16-row query tiles of two blocks,
+    512 blocks."""
+    zq, zk, v = _chunked_inputs(256, 256, 56, torch.float32, cuda)
+    zq, zk, v = (a.reshape(1, 16, 256, -1) for a in (zq, zk, v))
+    rm_attention_causal(zq, zk, v, chunk=128, eps=1e-4)
+    sched = rm_attention_chunked.last_schedule
+    assert sched.rows == 16 and sched.blocks == 512 >= 2 * 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dv,chunk", [(300, 64), (37, 40), (1, 20),
+                                      (300, 1024)])
+def test_rm_attention_chunked_kernel_ragged_values(cuda, dtype, dv, chunk):
+    """B5 at value widths the models do not give it: two value groups (dv
+    300), an odd width (4-byte copies), a single column, and a chunk of
+    1024 keys (two windows of scores, formed again for the second value
+    group), on a ragged F 45,
+    against its plain version in float64: within 1e-4 x max(1, max
+    |plain|) for bf16 features, the 3xTF32 gate 1e-5 for fp32 (features as
+    ``_chunked_inputs``)."""
+    from repro_torch.kernels.rm_attention.ref import (
+        chunk_states,
+        rm_attention_chunked_ref,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    bh, t, f = 3, 4 * chunk, 45
+    zq = 0.1 * torch.randn((bh, t, f), generator=gen, device=cuda)
+    zk = 0.1 * torch.randn((bh, t, f), generator=gen, device=cuda)
+    zq[..., 0] = zk[..., 0] = 1.0
+    v = torch.randn((bh, t, dv), generator=gen, device=cuda)
+    zq, zk = zq.to(dtype), zk.to(dtype)
+    s_prev, n_prev = chunk_states(zk[None], v[None], chunk)
+    args = (zq, zk, v, s_prev[0], n_prev[0])
+    got = rm_attention_chunked(*args, chunk=chunk, eps=1e-4)
+    want = rm_attention_chunked_ref(*(a.double() for a in args), chunk=chunk,
+                                    eps=1e-4)
+    _close(got.double(), want, 1e-5 if dtype == torch.float32 else 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -730,6 +833,87 @@ def test_structured_kernel_every_d_pad(cuda, dtype, d, rows):
     got = structured_feature_fused(x, d1, d2, cd, cs)
     torch.cuda.synchronize()
     _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,rows", [(2048, 9), (3000, 5), (8192, 3)])
+def test_structured_kernel_block_path(cuda, dtype, d, rows):
+    """B8's block path (d_pad 2048 to 8192: one block of 256 threads a row,
+    the stages past a warp through shared memory) against its plain
+    version, tolerance 1e-5 x max(1, max |plain|), and bitwise equal over
+    two calls."""
+    plan = make_structured_plan(ExponentialDotProductKernel(1.0), d, 2 * d,
+                                measure="proportional", n_max=3)
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    d1, d2 = (t.to(dtype) for t in pack_structured(
+        plan, init_structured_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    got = structured_feature_fused(x, d1, d2, cd, cs)
+    assert structured_feature_fused.last_schedule.wide
+    assert torch.equal(got, structured_feature_fused(x, d1, d2, cd, cs))
+    _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)
+
+
+@pytest.mark.parametrize("d", [1, 2, 8, 16, 33, 100, 128, 256, 512, 1024,
+                               2048, 8192])
+def test_structured_kernel_kept_columns_equal_full_width(cuda, d):
+    """B8 writing only each bucket's kept columns into the map
+    (``apply_structured_plan``, ``structured_keep``) equals the full-width
+    output sliced by bucket, at every d_pad from 1 to 8192, and no column
+    outside the kept ones is written; two calls are bitwise equal."""
+    from repro_torch.core.plan import prefix_columns
+    from repro_torch.structured.plan import (
+        apply_structured_plan,
+        structured_keep,
+    )
+
+    plan = make_structured_plan(ExponentialDotProductKernel(1.0), d,
+                                max(40, 3 * d), measure="proportional",
+                                n_max=4)
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    params = init_structured_params(plan, gen)
+    d1, d2 = pack_structured(plan, params)
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((70, d), gen, cuda)
+    full = structured_feature_fused(x, d1, d2, cd, cs)
+    pieces, off = [], 0
+    for c, n_st in zip(plan.counts, plan.stacks_per_bucket):
+        pieces.append(full[:, off: off + c])
+        off += n_st * plan.d_pad
+    want = torch.cat(prefix_columns(plan, x, torch.float32) + pieces, dim=-1)
+    got = apply_structured_plan(plan, params, x)
+    assert torch.equal(got, want)
+    assert torch.equal(got, apply_structured_plan(plan, params, x))
+    out = torch.full((70, plan.output_dim), float("nan"), device=cuda)
+    structured_feature_fused(x, d1, d2, cd, cs, out=out,
+                             keep=structured_keep(plan))
+    p = plan.num_prefix_columns
+    assert out[:, :p].isnan().all() and not out[:, p:].isnan().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [64, 4096, 70])
+def test_structured_kernel_is_bitwise_repeatable(cuda, dtype, rows):
+    """Two calls of B8 on the same inputs are bitwise equal (each output
+    written by one lane in one order, no atomics), at full width and
+    through ``apply_structured_plan``."""
+    from repro_torch.structured.plan import apply_structured_plan
+
+    cfg = get_config("qwen3-1.7b", attention_mode="rm",
+                     estimator="structured")
+    plan = rm_plan_for(cfg, cfg.resolved_head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    params = init_structured_params(plan, gen)
+    d1, d2 = (t.to(dtype) for t in pack_structured(plan, params))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, plan.input_dim), gen, cuda)
+    xd = x.to(dtype)
+    assert torch.equal(structured_feature_fused(xd, d1, d2, cd, cs),
+                       structured_feature_fused(xd, d1, d2, cd, cs))
+    prec = "bf16" if dtype == torch.bfloat16 else "fp32"
+    assert torch.equal(apply_structured_plan(plan, params, x, prec),
+                       apply_structured_plan(plan, params, x, prec))
 
 
 # the reference's SHAPES grid (tests/test_kernels_rm_feature.py) as (batch,

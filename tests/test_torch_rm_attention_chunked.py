@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.rm_attention import ops as jops
 from repro.kernels.rm_attention import ref as jref
+from repro_torch.kernels import common
 from repro_torch.kernels.rm_attention.ops import (
     rm_attention_causal,
     rm_attention_chunked,
@@ -145,3 +146,40 @@ def test_two_launch_ops_edges():
     z = torch.ones(1, 1, 4, 8, requires_grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
         rm_attention_causal(z, z, torch.ones(1, 1, 4, 4))
+
+
+# (bh, t, f, dv, chunk, item) -> (rows, q_tiles, blocks, n_groups,
+# win_keys) of kernel B5
+@pytest.mark.parametrize("shape,want", [
+    ((16, 256, 256, 128, 128, 4), (16, 8, 512, 1, 128)),   # the prefill
+    ((16, 256, 255, 128, 128, 4), (16, 8, 512, 1, 128)),   # ctr's F 255
+    ((16, 256, 256, 128, 128, 2), (16, 8, 512, 1, 128)),   # bf16 features
+    ((16, 32, 256, 128, 32, 4), (16, 2, 64, 1, 64)),       # chunk 32
+    ((16, 20, 64, 128, 20, 4), (16, 2, 64, 1, 64)),        # T 20, ragged
+    ((16, 4096, 256, 128, 128, 4), (16, 8, 8192, 1, 128)),  # 4096 tokens
+    ((2, 2048, 64, 300, 1024, 4), (16, 64, 512, 2, 512)),  # wide chunk, dv
+], ids=["prefill", "ctr-F255", "bf16", "chunk32", "T20", "T4096",
+        "chunk1024-dv300"])
+def test_chunked_schedule(shape, want):
+    """B5's query tile: 32 rows where the grid (a cluster of two blocks a
+    query tile) still has two blocks an SM, else 16; value groups of at
+    most 156 columns; the scores of a window of at most 512 (16 rows) or
+    256 (32 rows) keys in shared memory, which four blocks an SM share at
+    the prefill."""
+    bh, t, f, dv, chunk, item = shape
+    s = common.chunked_schedule(bh, t, f, dv, chunk, item)
+    assert (s.rows, s.q_tiles, s.blocks, s.n_groups, s.win_keys) == want
+    assert s.q_tiles * s.rows >= chunk > (s.q_tiles - 1) * s.rows
+    assert s.rows == 16
+    assert s.n_groups * s.group_cols >= dv
+    w0 = min(dv, s.group_cols)
+    assert s.ldv >= 8 * -(-(w0 + 1) // 8) and s.ldv % 32 in (8, 24)
+    assert s.lds == s.win_keys + 4 and s.win_keys % 64 == 0
+    assert s.win_keys == min(common.round_up(chunk, 64),
+                             common.CHUNKED_WINDOW)
+    assert s.ldq == 32 + (4 if item == 4 else 8)
+    assert s.smem_bytes <= common.SMEM_PER_BLOCK
+    if shape[:5] == (16, 256, 256, 128, 128):
+        assert s.blocks >= 2 * common.NUM_SMS
+        # four blocks share an SM's 228 KB of shared memory
+        assert 4 * (s.smem_bytes + 1024) <= 228 * 1024

@@ -132,21 +132,23 @@ def test_hadamard_matrix_equals_reference(m):
 
 
 def _kernel_butterfly(u, m):
-    """The transform as kernel B8 computes it, pair by pair: stage h maps
-    pair p of a row to (lo, lo + h), lo = (p / h) 2h + p % h (the index
-    arithmetic of csrc/structured_feature.cu, on a numpy row)."""
+    """The transform as kernel B8 computes it (csrc/structured_feature.cu,
+    on a numpy row): stages h = 1, 2, ..., m/2 in order, point i (lane i %
+    32, register i / 32; on the block path thread i % 256, register i /
+    256) taking v[i] + v[i ^ h] where bit h of i is clear and v[i ^ h] -
+    v[i] where it is set, whether the partner comes by a shuffle, through
+    shared memory or from the thread's own registers."""
     v = u.astype(np.float64).copy()
-    lgm = m.bit_length() - 1
-    for lgh in range(lgm):
-        h = 1 << lgh
-        for p in range(m // 2):
-            lo = ((p >> lgh) << (lgh + 1)) + (p & (h - 1))
-            a, b = v[lo], v[lo + h]
-            v[lo], v[lo + h] = a + b, a - b
+    i = np.arange(m)
+    h = 1
+    while h < m:
+        partner = v[i ^ h]
+        v = np.where(i & h, partner - v, v + partner)
+        h *= 2
     return v
 
 
-@pytest.mark.parametrize("m", [1, 2, 8, 128, 1024])
+@pytest.mark.parametrize("m", [1, 2, 8, 128, 1024, 2048])
 def test_kernel_butterfly_order_is_sylvester(m):
     """The kernel's pair order gives H u for the reference's Sylvester H,
     exactly on integer inputs (d_pad 1 is the identity)."""
@@ -201,6 +203,85 @@ def test_apply_matches_reference_oracle(arch, smoke, precision, atol):
         tp, tparams, torch.from_numpy(x), precision=precision,
         packed=tst.pack_structured(tp, tparams))
     assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("precision,atol", [("fp32", 1e-5),
+                                            ("bf16", BF16_FEATURE_ATOL)])
+@pytest.mark.parametrize("arch,smoke", MODELS[:2], ids=MODEL_IDS[:2])
+def test_apply_kept_columns_equal_full_width_sliced(arch, smoke, precision,
+                                                    atol):
+    """``apply_structured_plan`` writes each bucket's kept columns straight
+    into the map (``structured_keep``): bitwise the full-width B8 output
+    sliced by bucket after the prefix columns, and within the reference's
+    dense-H oracle's tolerance."""
+    jp, tp = _model_plans(arch, smoke)
+    jparams, tparams = _signs(jp, 14)
+    x = _unit_rows(33, tp.input_dim, 15)
+    xt = torch.from_numpy(x)
+    cdt = torch.bfloat16 if precision == "bf16" else torch.float32
+    d1, d2 = (t.to(cdt) for t in tst.pack_structured(tp, tparams))
+    cd, cs = plan_columns(tp, "cpu")
+    full = structured_feature_fused(xt.to(cdt), d1, d2, cd, cs)
+    pieces, off = [], 0
+    for c, n_stacks in zip(tp.counts, tp.stacks_per_bucket):
+        pieces.append(full[:, off: off + c])
+        off += n_stacks * tp.d_pad
+    from repro_torch.core.plan import prefix_columns
+
+    sliced = torch.cat(prefix_columns(tp, xt, cdt) + pieces, dim=-1)
+    got = tst.apply_structured_plan(tp, tparams, xt, precision=precision)
+    assert torch.equal(got, sliced)
+    want = np.asarray(jst.apply_structured_plan(
+        jp, jparams, jnp.asarray(x), use_pallas=False, precision=precision))
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("arch,smoke", MODELS, ids=MODEL_IDS)
+def test_structured_keep_places_every_kept_column_once(arch, smoke):
+    """``structured_keep``: the stacks' kept columns tile the map's random
+    section, in bucket and stack order, each bucket's surplus tail
+    dropped."""
+    _, tp = _model_plans(arch, smoke)
+    keep = tst.structured_keep(tp)
+    assert len(keep.first) == len(keep.count) == tp.total_stacks
+    cols = [f + c for f, n in zip(keep.first, keep.count) for c in range(n)]
+    assert cols == list(range(tp.num_prefix_columns, tp.output_dim))
+    i = 0
+    for c, n_stacks in zip(tp.counts, tp.stacks_per_bucket):
+        assert keep.count[i: i + n_stacks] == tuple(
+            min(tp.d_pad, c - j * tp.d_pad) for j in range(n_stacks))
+        i += n_stacks
+
+
+def test_structured_wrapper_writes_only_kept_columns():
+    """With ``out`` and ``keep`` the plain path writes each stack's kept
+    columns where ``keep`` puts them and leaves every other element of
+    ``out`` as it was; ``out`` without ``keep``, or a place past ``out``,
+    raises."""
+    from repro_torch.kernels.structured_feature.ops import StructuredKeep
+
+    _, tp = _model_plans("qwen3-1.7b", True)
+    params = tst.init_structured_params(tp, torch.Generator().manual_seed(2))
+    d1, d2 = tst.pack_structured(tp, params)
+    cd, cs = plan_columns(tp, "cpu")
+    x = torch.from_numpy(_unit_rows(6, tp.input_dim, 16))
+    full = structured_feature_fused(x, d1, d2, cd, cs)
+    m, n_st = tp.d_pad, tp.total_stacks
+    keep = StructuredKeep(tuple(3 + 17 * s for s in range(n_st)),
+                          tuple(min(m, 1 + 3 * s) for s in range(n_st)))
+    out = torch.full((6, 17 * n_st + 3), float("nan"))
+    got = structured_feature_fused(x, d1, d2, cd, cs, out=out, keep=keep)
+    assert got is out
+    written = torch.zeros(out.shape, dtype=torch.bool)
+    for s, (f, c) in enumerate(zip(keep.first, keep.count)):
+        assert torch.equal(out[:, f: f + c], full[:, s * m: s * m + c])
+        written[:, f: f + c] = True
+    assert out[~written].isnan().all()
+    with pytest.raises(ValueError, match="together"):
+        structured_feature_fused(x, d1, d2, cd, cs, out=out)
+    far = StructuredKeep(keep.first[:-1] + (out.shape[1],), keep.count)
+    with pytest.raises(ValueError, match="does not place"):
+        structured_feature_fused(x, d1, d2, cd, cs, out=out, keep=far)
 
 
 @pytest.mark.parametrize("h01", [False, True])
@@ -316,28 +397,49 @@ def test_wrapper_raises_beyond_the_kernels_d_pad():
                                  torch.ones(m))
 
 
+# (d_pad, rows, stacks) -> (wide, lanes a row, rows a warp, points a lane,
+# warps a block): the warp path to 1024 points (half a warp a row where the
+# card is full), the block path past it
 @pytest.mark.parametrize("m,b,stacks,want", [
-    (128, 64, 6, 2),       # decode: no tile fills the card, most blocks
-    (128, 512, 6, 8),      # bucket 32: 8 rows (1024 elements) give 384
-    (128, 4096, 6, 8),     # bucket 256 / Gram: 3072 blocks
-    (16, 512, 7, 16),      # SMOKE head: 16 rows keep 256 elements a block
-    (16, 64, 3, 16),       # SMOKE decode: 16 rows is the least that fills
-    (1, 70, 3, 64),        # d_pad 1: 64 rows, the cap
-    (1024, 70, 1, 1),      # a one-row block is already 1024 elements
-    (8192, 4, 2, 1),       # the widest the kernel takes: one row
+    (1, 70, 3, (False, 1, 32, 1, 1)),       # d_pad 1: 32 rows a warp
+    (16, 512, 7, (False, 16, 2, 1, 8)),     # SMOKE head: 224 blocks of 8
+    (16, 64, 3, (False, 16, 2, 1, 1)),      # SMOKE decode: 96 one-warp blocks
+    (128, 64, 6, (False, 32, 1, 4, 2)),     # decode: 192 blocks of 2 warps
+    (128, 512, 6, (False, 16, 2, 8, 8)),    # bucket 32: 192 blocks of 8
+    (128, 4096, 6, (False, 16, 2, 8, 8)),   # bucket 256 / Gram: 1536 blocks
+    (1024, 70, 1, (False, 32, 1, 32, 1)),   # the widest warp path
+    (2048, 9, 1, (True, 0, 0, 8, 8)),       # the block path: 8 points a thread
+    (8192, 4, 2, (True, 0, 0, 32, 8)),      # the widest the kernel takes
 ])
-def test_structured_row_tile(m, b, stacks, want):
-    rows = common.pick_structured_rows(m, b, stacks)
-    assert rows == want
-    assert rows <= 64
-    assert rows * m <= max(common.STRUCTURED_TILE_ELEMS, m)
-    assert rows * m <= common.STRUCTURED_MAX_DPAD
+def test_structured_schedule(m, b, stacks, want):
+    sched = common.structured_schedule(m, b, stacks)
+    assert (sched.wide, sched.lanes_per_row, sched.rows_per_warp,
+            sched.elems_per_lane, sched.warps) == want
+    assert sched.d_pad == m
+    if sched.wide:
+        assert sched.elems_per_lane * common.STRUCTURED_WIDE_THREADS == m
+        assert sched.blocks == b * stacks
+    else:
+        # a warp's 32 lanes hold whole rows, each row's points spread
+        # evenly over its lanes
+        assert sched.rows_per_warp * sched.lanes_per_row == 32
+        assert sched.elems_per_lane * sched.lanes_per_row == m
+        assert sched.elems_per_lane <= 32
+        per_block = sched.warps * sched.rows_per_warp
+        assert sched.blocks == -(-b // per_block) * stacks
+        # the most warps whose grid still fills the card
+        fills = sched.blocks >= common.NUM_SMS
+        assert fills or sched.warps == 1
+        if sched.warps < 8:
+            more = 2 * sched.warps
+            assert -(-b // (more * sched.rows_per_warp)) * stacks \
+                < common.NUM_SMS
 
 
 @pytest.mark.parametrize("m", [0, 3, 2 * common.STRUCTURED_MAX_DPAD])
-def test_structured_row_tile_rejects_bad_sizes(m):
+def test_structured_schedule_rejects_bad_sizes(m):
     with pytest.raises(ValueError, match="power of two"):
-        common.pick_structured_rows(m, 64, 1)
+        common.structured_schedule(m, 64, 1)
 
 
 # ---------------------------------------------------------------------------

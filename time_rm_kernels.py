@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time kernels B1 (``rm_feature_fused``), B2 (``rm_fused_causal``), B6
-(``tensor_sketch_fused``) and B7 (``ctr_feature_fused``) of one source tree
-of the port on one CUDA card, so that two versions of the kernels can be
-compared in one run on one card.
+"""Time kernels B1 (``rm_feature_fused``), B2 (``rm_fused_causal``), B5
+(``rm_attention_chunked``), B6 (``tensor_sketch_fused``), B7
+(``ctr_feature_fused``) and B8 (``structured_feature_fused``) of one source
+tree of the port on one CUDA card, so that two versions of the kernels can
+be compared in one run on one card.
 
     python3 time_rm_kernels.py [--src DIR]
 
@@ -17,7 +18,13 @@ the bucket-256 prefill (BH 16, T 256) and a 4096-token prompt (BH 16, T
 4096, its last 100 keys padded); B6 and B7 on qwen3-1.7b's
 tensor_sketch and ctr heads (Fs 255, Fc 127) at the decode shape (x
 ``[64, 128]``) and a bucket-256 prefill's (x ``[4096, 128]``), as
-``chip_smoke.py`` phases 4 and 15; fp32 and bf16. Each output line is one
+``chip_smoke.py`` phases 4 and 15; B5 at phase 5's prefill shape (zq, zk
+``[16, 256, 256]``, dv 128, chunk 128) and at T 32 (chunk 32), and at
+phase 16's ctr width (F 255); B8 on qwen3-1.7b's structured head (6 stacks
+of d_pad 128) at the decode and prefill rows, full width, and the prefill
+rows through ``apply_structured_plan`` (the map: kept columns only, from
+this PR's tree on; its ``device_ms`` is B8's kernel, ``all_device_ms``
+every kernel of the call); fp32 and bf16. Each output line is one
 JSON object: the CUDA-event time per call over back-to-back calls, the
 profiler's device time per call of the kernels themselves, the host time
 to enqueue a call (the wrapper's checks and the launch), and the largest
@@ -35,11 +42,14 @@ import chip_smoke as smoke
 
 # The device kernels of each: B1's chain and tile kernels, B2's three
 # passes and the single kernel of B2's first version, so an older tree can
-# be timed too; B6's and B7's kernels keep their names across versions.
+# be timed too; B5's, B6's, B7's and B8's kernels keep their name prefixes
+# across versions.
 KERNELS = {"B1": ("rm_feature_kernel",),
            "B2": ("chunk_", "rm_fused_causal_kernel"),
+           "B5": ("rm_attention_chunked_kernel",),
            "B6": ("tensor_sketch_kernel",),
-           "B7": ("ctr_feature_kernel",)}
+           "B7": ("ctr_feature_kernel",),
+           "B8": ("structured_feature_kernel",)}
 
 
 def main(argv=None):
@@ -59,8 +69,10 @@ def main(argv=None):
     from repro_torch.core.plan import (init_omegas, pack_omegas,
                                        plan_columns)
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rm_attention.ops import rm_fused_causal
-    from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
+    from repro_torch.kernels.rm_attention.ops import (rm_attention_chunked,
+                                                      rm_fused_causal)
+    from repro_torch.kernels.rm_attention.ref import (
+        chunk_states, rm_attention_chunked_ref, rm_fused_causal_ref)
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
     from repro_torch.models.attention import rm_plan_for
@@ -70,6 +82,11 @@ def main(argv=None):
     from repro_torch.kernels.tensor_sketch.ops import tensor_sketch_fused
     from repro_torch.sketch.plan import init_sketch_params, pack_sketch
     from repro_torch.sketch.ref import tensor_sketch_fused_ref
+    from repro_torch.kernels.structured_feature.ops import (
+        structured_feature_fused)
+    from repro_torch.structured.plan import (
+        apply_structured_plan, init_structured_params, pack_structured)
+    from repro_torch.structured.ref import structured_feature_fused_ref
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -90,24 +107,33 @@ def main(argv=None):
                                       estimator="ctr"), dh)
     ctr32 = pack_ctr(ctr_plan, init_ctr_params(ctr_plan, gen))
     ccd, ccs = plan_columns(ctr_plan, "cuda")
+    st_plan = rm_plan_for(get_config("qwen3-1.7b", attention_mode="rm",
+                                     estimator="structured"), dh)
+    st_params = init_structured_params(st_plan, gen)
+    st32 = pack_structured(st_plan, st_params)
+    scd, scs = plan_columns(st_plan, "cuda")
     fm = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0)
     wa32 = pack_omegas(fm.plan, fm.omegas)
     cda, csa = plan_columns(fm.plan, "cuda")
 
-    def emit(kid, shape, dtype, fn, plain, iters):
+    def emit(kid, shape, dtype, fn, plain, iters, all_kernels=False):
         got, want = fn(), plain()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         err = max(smoke.rel_err(torch, g, w_) for g, w_ in zip(got, want))
         del got, want
-        print(json.dumps(dict(
+        row = dict(
             src=str(src), kernel=kid, shape=shape,
             dtype=str(dtype).split(".")[-1],
             events_ms=smoke.time_ms(torch, fn, iters=iters),
             device_ms=smoke.kernel_device_ms(torch, fn, KERNELS[kid],
                                              iters=iters),
             host_us=smoke.host_us(torch, fn, iters=10 * iters),
-            max_rel_err=err)), flush=True)
+            max_rel_err=err)
+        if all_kernels:
+            row["all_device_ms"] = smoke.kernel_device_ms(torch, fn, "",
+                                                          iters=iters)
+        print(json.dumps(row), flush=True)
 
     for dtype in (torch.float32, torch.bfloat16):
         for rows, w, c1, c2, label, iters in (
@@ -147,6 +173,40 @@ def main(argv=None):
             emit("B7", f"{label} x[{rows},{dh}] Fc {ctr32[0].shape[1]}", dtype,
                  lambda ca=ca: ctr_feature_fused(*ca),
                  lambda ca=ca: ctr_feature_fused_ref(*ca), iters)
+            sa = (x, *(p_.to(dtype) for p_ in st32), scd, scs)
+            emit("B8", f"{label} x[{rows},{dh}] full width "
+                 f"{st_plan.padded_num_cols}", dtype,
+                 lambda sa=sa: structured_feature_fused(*sa),
+                 lambda sa=sa: structured_feature_fused_ref(*sa), iters)
+            if rows == 4096:
+                prec = "bf16" if dtype == torch.bfloat16 else "fp32"
+                xf = x.float()
+                emit("B8", f"{label} x[{rows},{dh}] apply_structured_plan "
+                     f"F {st_plan.output_dim}", dtype,
+                     lambda xf=xf, prec=prec: apply_structured_plan(
+                         st_plan, st_params, xf, prec, packed=st32),
+                     lambda xf=xf, prec=prec: apply_structured_plan(
+                         st_plan, {k_: v_.cpu() for k_, v_ in
+                                   st_params.items()}, xf.cpu(), prec),
+                     iters, all_kernels=True)
+    # B5 on seeded features with a constant first column (the families'
+    # maps have one), the last 56 keys of half the rows zeroed (padding)
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, chunk, f in ((256, 128, 256), (32, 32, 256), (256, 128, 255)):
+            zq = 0.3 * torch.randn((16, t, f), generator=gen, device="cuda")
+            zk = 0.3 * torch.randn((16, t, f), generator=gen, device="cuda")
+            zq[..., 0] = zk[..., 0] = 1.0
+            zk[8:, t - t // 4:] = 0.0
+            zq, zk = zq.to(dtype), zk.to(dtype)
+            v = torch.randn((16, t, dh), generator=gen, device="cuda")
+            s_prev, n_prev = (a[0] for a in chunk_states(zk[None], v[None],
+                                                         chunk))
+            ba = (zq, zk, v, s_prev, n_prev)
+            emit("B5", f"zq,zk[16,{t},{f}] dv {dh} chunk {chunk}", dtype,
+                 lambda ba=ba, chunk=chunk: rm_attention_chunked(
+                     *ba, chunk=chunk, eps=cfg.rm.eps),
+                 lambda ba=ba, chunk=chunk: rm_attention_chunked_ref(
+                     *ba, chunk=chunk, eps=cfg.rm.eps), 20)
     return 0
 
 
