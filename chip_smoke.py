@@ -136,16 +136,26 @@ Phases, each fatal on failure:
     place of B7);
 21. where the structured slice's time goes, as in phase 8, with B8's and
     B5's device time in each window;
-22. kernel B9 (``rm_feature_bucket``) against its plain version, fp32 and
-    bf16, at the bucket shapes of the paper's path: every bucket of Table
-    1's spambase map (poly10, d 57, D 500: counts 125 ... 1 at degrees
-    1-8) at its 1840-row test split, homog10 at D 4000 (one bucket,
-    degree 10, omega ``[40000, 50]``) at 100 and 20000 rows, and a ragged
-    70 rows x count 1 x degree 1; then the whole per-bucket path
-    (``apply_feature_map_bucketed``, one B9 launch a bucket) on the
-    adult-shaped map (poly10, d 123, D 4000: 10 buckets and a const
-    column) at 8000 rows, against the fused map (B1) on the card and the
-    plain path on the CPU;
+22. kernel B9 (``rm_feature_bucket``): its ``-Xptxas -v`` registers and
+    spills and the tensor-core instructions of its library; then against
+    its plain version, fp32 and bf16, at the bucket shapes of the paper's
+    path: every bucket of Table 1's spambase map (poly10, d 57, D 500:
+    counts 125 ... 1 at degrees 1-8) at its 1840-row test split, homog10
+    at D 4000 (one bucket, degree 10, omega ``[40000, 50]``) at 100 and
+    20000 rows, exp's deepest bucket at D 4000, a ragged 70 rows x count 1
+    x degree 1, a Gaussian omega in fp32 (the remainder term of 3xTF32)
+    on the tile and on a chain, and d 208 and 216 at degree 2 (the two
+    sides of the tile's shared-memory limit); each case with the kernel
+    and grid ``kernels.common.bucket_schedule`` chose, two calls bitwise
+    equal, the profiler's device time, the CUDA-event time and both bounds
+    (the tensor cores' and the fp32 CUDA cores'); at 20000 rows one
+    profiler window read for where the CUDA-event time goes beyond the
+    kernels' (``launch_gaps``); then the whole per-bucket path
+    (``apply_feature_map_bucketed``: the map allocated once, one B9
+    launch a bucket writing its columns in place) on the adult-shaped map
+    (poly10, d 123, D 4000: 10 buckets and a const column) at 8000 rows,
+    against the fused map (B1) on the card and the plain path on the CPU,
+    with the device time of every kernel of the call beside fused B1's;
 23. the paper's evaluation on the card, through ``repro_torch.core`` and
     ``repro_torch.data`` (the main path of this slice, its launch counts
     read around it): Figure 1 (homog10, poly10 and exp at d 50, N 100, D
@@ -162,11 +172,11 @@ Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
 [...]}`` line (``ms``: CUDA events over repeated launches through the
 wrapper, for every kernel but B6, B7 and B8, whose ``ms`` is the
-profiler's device time of the kernel itself; B1, B2 and B5 carry that
-device time beside as ``device_ms``; bounds computed from this run's
+profiler's device time of the kernel itself; B1, B2, B5 and B9 carry
+that device time beside as ``device_ms``; bounds computed from this run's
 shapes, launches from the slice that runs each kernel — for B9 the paper
 phase 23; the host time of one call through each wrapper is printed
-beside its check; B1's to B7's ``bound_ms`` but B8's is on the tensor
+beside its check; every ``bound_ms`` but B8's is on the tensor
 cores, where they run their products, and they also carry the bound on
 the fp32 CUDA cores and their grids; B1 its Gram-shape and adult-map
 times and its device time in the decode step, B2 its 4096-token, wide-F
@@ -174,8 +184,9 @@ and 32768-token times, the device memory of a call, and its device time
 in the bucket-256 prefill, B3 and B4 the 1 x 32768 shape's times, B5 its
 device time in each two-launch bucket-256 prefill, B6 to B8 theirs in the
 decode step and that prefill, B8 its times through
-``apply_structured_plan`` beside the kept-columns and whole-map bounds)
-and, as its last line, ``{"ok": true,
+``apply_structured_plan`` beside the kept-columns and whole-map bounds,
+B9 its grid and the adult map's per-bucket device time beside fused
+B1's) and, as its last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
 (phase 8) is the part to cut first, then the tensor_sketch slice's (phase
@@ -504,27 +515,113 @@ def kernel_device_ms(torch, fn, kernel, iters=50):
     from the profiler's kernel events over ``iters`` calls of ``fn`` (after
     a warm-up): the kernels' own time even where the host enqueues a call
     more slowly than the card runs it, which a CUDA-event window over
-    back-to-back calls would measure instead."""
+    back-to-back calls would measure instead. The profiler may keep fewer
+    kernel events than were launched (48 of 50 in one window, PERF.md):
+    the time is the mean of the events it kept times
+    the events a call launches (the kept ones over ``iters``, rounded), and
+    a window that kept fewer is reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for _ in range(5):
         fn()
-
-    def calls():
-        for _ in range(iters):
-            fn()
-
     # the profiler has returned a window without the kernel's events once
     # in several runs (the same case saw them in the other runs): a window
     # that lost them is taken again, twice at most
     for _ in range(3):
-        _, by_name, events, _ = device_profile(torch, calls)
-        found = [ms for name, ms in by_name.items()
-                 if any(k in name for k in names)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        found = [e.time_range.elapsed_us() for e in dev
+                 if any(k in e.name for k in names)]
         if found:
-            return sum(found) / iters
+            per_call = max(1, round(len(found) / iters))
+            if len(found) != per_call * iters:
+                print(f"[profile] the window kept {len(found)} of "
+                      f"{per_call * iters} {kernel} kernel events; their "
+                      "mean stands for the lost ones")
+            return sum(found) / len(found) * per_call / 1e3
         print(f"[profile] a window of {iters} calls showed no {kernel} "
-              f"event ({events} device events in all); taking it again")
+              f"event ({len(dev)} device events in all); taking it again")
     raise AssertionError(f"the profiler saw no {kernel} launch")
+
+
+def launch_gaps(torch, fn, kernel, iters=50):
+    """Where a CUDA-event window over back-to-back calls of ``fn`` spends
+    the time that is not the kernels' own: one ``torch.profiler`` window
+    over ``iters`` calls (after half a second of warm calls), read for the
+    window's CUDA-event time per call, the kernel events it kept (names
+    containing ``kernel``) against the ``iters`` launches made, their
+    device time per call, every other device activity, the gaps between
+    consecutive kernel events and the host's operators that ran inside the
+    largest of them, beside the SM clock and power that ``nvidia-smi``
+    sampled every 20 ms during the window. Returns those as a dict."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.5:
+            fn()
+            torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        samples = smi.communicate(timeout=30)[0]
+    clocks = []
+    for ln in samples.splitlines():
+        parts = [p.strip() for p in ln.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            clocks.append((int(parts[0]), float(parts[1])))
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    ks = [e for e in dev if kernel in e.name]
+    others = {}
+    for e in dev:
+        if kernel not in e.name:
+            n, us = others.get(e.name, (0, 0.0))
+            others[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    gaps = [b.time_range.start - a.time_range.end for a, b in zip(ks, ks[1:])]
+    in_gap = {}
+    if gaps:
+        i = max(range(len(gaps)), key=gaps.__getitem__)
+        lo, hi = ks[i].time_range.end, ks[i + 1].time_range.start
+        for e in prof.events():
+            if (e.device_type == DeviceType.CPU and e.cpu_parent is None
+                    and lo <= e.time_range.start < hi):
+                n, us = in_gap.get(e.name, (0, 0.0))
+                in_gap[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return dict(
+        events_ms=start.elapsed_time(end) / iters, launches=iters,
+        kernel_events=len(ks),
+        kernel_device_ms=sum(e.time_range.elapsed_us() for e in ks)
+        / 1e3 / max(len(ks), 1),
+        span_ms=((ks[-1].time_range.end - ks[0].time_range.start) / 1e3
+                 if ks else 0.0),
+        gap_us_mean=sum(gaps) / len(gaps) if gaps else 0.0,
+        gap_us_max=max(gaps) if gaps else 0.0,
+        other_device={k: (n, round(us / 1e3, 4))
+                      for k, (n, us) in others.items()},
+        host_in_largest_gap={k[:60]: (n, round(us, 1))
+                             for k, (n, us) in in_gap.items()},
+        sm_clock_mhz=[c for c, _ in clocks], power_w=[p for _, p in clocks])
 
 
 def count_syncs(torch, fn):
@@ -1153,7 +1250,7 @@ def main():
     from repro_torch.core import registry
     from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
     from repro_torch.kernels import _build
-    from repro_torch.kernels.common import sketch_schedule
+    from repro_torch.kernels.common import bucket_schedule, sketch_schedule
     from repro_torch.kernels.rm_attention.ops import (
         rm_attention_chunked,
         rm_fused_apply,
@@ -2292,18 +2389,39 @@ def main():
                      fm_exp.scales[-1]))
     b9_cases.append(("ragged 70 x1 deg 1", spam["x_test"][:70],
                      ragged_omega, 1, 0.5))
+    # a general omega (Gaussian: its TF32 remainder term must run) on the
+    # tile and on a chain, and d on both sides of the tile's shared-memory
+    # limit at degree 2 (fp32 d 208 takes the tile, d 216 the chain)
+    gauss = [torch.randn((400 * 10, 50), generator=gen, device="cuda"),
+             torch.randn((11, 50), generator=gen, device="cuda")]
+    b9_cases.append(("gaussian omega x[4096,50] deg 10 x400",
+                     unit_rows(torch, (4096, 50), gen), gauss[0], 10, 0.37))
+    b9_cases.append(("gaussian omega x[100,50] deg 11 x1", xh[:100],
+                     gauss[1], 11, 0.37))
+    for d_deep in (208, 216):
+        b9_cases.append((
+            f"deep d x[4096,{d_deep}] deg 2 x256",
+            unit_rows(torch, (4096, d_deep), gen),
+            (2 * torch.randint(0, 2, (512, d_deep), generator=gen,
+                               device="cuda") - 1).float(), 2, 0.5))
+    report_build(torch, "B9", "rm_feature_bucket")
     b9_checks = []
     for label, x32, om32, deg, sc in b9_cases:
         rows, d_ = x32.shape
         count = om32.shape[0] // deg
-        for dtype in (torch.float32, torch.bfloat16):
+        general = label.startswith("gaussian")
+        for dtype in ((torch.float32,) if general
+                      else (torch.float32, torch.bfloat16)):
             dname = str(dtype).split(".")[-1]
             x, om = x32.to(dtype), om32.to(dtype)
+            item = x.element_size()
             got = rm_feature_bucket(x, om, deg, sc)
+            again = rm_feature_bucket(x, om, deg, sc)
             want = rm_feature_bucket_ref(x, om, deg, sc)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = B9_TOL * max(1.0, want.abs().max().item())
+            same = torch.equal(got, again)
             iters = 20 if rows * count > 10**7 else 50
             # CUDA events over back-to-back wrapper calls, and the kernel's
             # own device time (profiler): a small bucket's launch takes
@@ -2312,19 +2430,36 @@ def main():
                          iters=iters)
             dev_ms = kernel_device_ms(
                 torch, lambda: rm_feature_bucket(x, om, deg, sc),
-                "rm_feature_bucket_kernel", iters=iters)
+                "rm_feature_bucket", iters=iters)
             plain_ms = time_ms(torch, lambda: rm_feature_bucket_ref(
                 x, om, deg, sc), iters=iters)
-            bms, by = bound(*bucket_cost(rows, count, deg, d_,
-                                         x.element_size()), dname)
+            nbytes, ops = bucket_cost(rows, count, deg, d_, item)
+            bms, by = bound(nbytes, ops, dname)
+            tcms, tcby = tensor_core_bound(nbytes, ops, 0, dname,
+                                           exact_w=not general)
+            sched = bucket_schedule(rows, count, d_, deg, item)
+            grid = (f"{sched.kernel} kernel, grid {sched.grid[0]} x "
+                    f"{sched.grid[1]} blocks of {sched.rows} rows")
+            if sched.kernel == "tile":
+                grid += (f", runs of {sched.ct_per_warp} column tiles, "
+                         f"{sched.runs} a block, {sched.buffers} buffer(s), "
+                         f"{sched.smem} B shared")
             print(f"[B9] {label}: x[{rows},{d_}] omega[{count * deg},{d_}] "
-                  f"{dname}: max_abs_err {err:.3e} (tol {tol:.1e}) kernel "
-                  f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-                  f"{plain_ms:.4f} ms, bound {bms:.5f} ms ({by})")
-            if not (err <= tol and got.shape == (rows, count)):
+                  f"{dname}: max_abs_err {err:.3e} (tol {tol:.1e}), two "
+                  f"calls bitwise equal {same}; kernel {dev_ms:.4f} ms "
+                  f"device (profiler), {ms:.4f} ms events; plain "
+                  f"{plain_ms:.4f} ms; bound {tcms:.5f} ms ({tcby}, tensor "
+                  f"cores) / {bms:.5f} ms ({by}, CUDA cores); {grid}")
+            if not (err <= tol and got.shape == (rows, count) and same):
                 raise AssertionError(f"B9 {label} {dname}: error {err} > "
-                                     f"{tol}")
+                                     f"{tol} or two calls differ")
             b9_checks.append((f"{label} {dname}", err, tol))
+            if label == "homog10 D4000 rows 20000":
+                gaps = launch_gaps(torch, lambda: rm_feature_bucket(
+                    x, om, deg, sc), "rm_feature_bucket")
+                print(f"[B9] {label} {dname}: one profiler window over "
+                      f"{gaps['launches']} back-to-back calls: "
+                      f"{json.dumps(gaps)}")
             if label == "homog10 D4000 rows 20000" and \
                     dtype == torch.float32:
                 kernels["B9"] = dict(
@@ -2333,14 +2468,15 @@ def main():
                     replaces="src/repro/kernels/rm_feature/rm_feature.py:129",
                     shape=f"x[{rows},{d_}] fp32 x omega[{count * deg},{d_}]"
                           f" degree {deg}",
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=None)
+                    ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=tcms, bound_by=tcby, cuda_core_bound_ms=bms,
+                    library_ms=None, grid=grid)
             if label.startswith("spambase deg 1 ") and \
                     dtype == torch.float32:
                 hus = host_us(torch, lambda: rm_feature_bucket(x, om, deg,
                                                                sc))
                 print(f"[B9] host time {hus:.1f} us a wrapper call")
-            del x, om, got, want
+            del x, om, got, again, want
     # the whole per-bucket path on the adult-shaped map: B9 a bucket
     # against the fused map (B1) on the card and against the CPU's plain
     # path, with B9's launches counted
@@ -2362,21 +2498,36 @@ def main():
     bucketed_ms = time_ms(torch, lambda: apply_feature_map_bucketed(
         fm_adult, xa), iters=20)
     fused_ms = time_ms(torch, lambda: fm_adult.apply(xa), iters=20)
+    bucketed_dev = kernel_device_ms(torch, lambda: apply_feature_map_bucketed(
+        fm_adult, xa), "", iters=20)
+    fused_dev = kernel_device_ms(torch, lambda: fm_adult.apply(xa), "",
+                                 iters=20)
+    def bucketed_20():
+        for _ in range(20):
+            apply_feature_map_bucketed(fm_adult, xa)
+
+    _, by_kernel, n_dev, _ = device_profile(torch, bucketed_20)
     print(f"[B9] adult map (poly10, d 123, D 4000: degrees "
           f"{fm_adult.degrees}, counts {fm_adult.counts}, const "
           f"{fm_adult.const is not None}) x[{xa.shape[0]},123]: bucketed "
           f"({ran} B9 launches) vs fused B1 max_abs_err {err_f:.3e} (tol "
           f"{tol_f:.1e}), vs the CPU's plain path {err_c:.3e} (tol "
-          f"{tol_c:.1e}); bucketed {bucketed_ms:.4f} ms, fused "
-          f"{fused_ms:.4f} ms a featurize")
+          f"{tol_c:.1e}); bucketed {bucketed_ms:.4f} ms events, "
+          f"{bucketed_dev:.4f} ms device (every kernel of the call), fused "
+          f"{fused_ms:.4f} ms events, {fused_dev:.4f} ms device a featurize")
+    print(f"[B9] adult map: a window of 20 bucketed calls kept {n_dev} "
+          "device activities; device ms a call by kernel: "
+          + "; ".join(f"{k[:70]} {v / 20:.4f}" for k, v in by_kernel.items()))
     if not (err_f <= tol_f and err_c <= tol_c
             and ran == len(fm_adult.degrees)):
         raise AssertionError("B9 bucketed path check failed")
     b9_checks += [("adult bucketed vs fused", err_f, tol_f),
                   ("adult bucketed vs CPU", err_c, tol_c)]
     label, err, tol = worst(b9_checks)
-    kernels["B9"].update(max_abs_err=err, tol=tol, check=label)
-    del z_bucketed, z_fused, z_cpu, fm_h4000, fm_exp, b9_cases
+    kernels["B9"].update(max_abs_err=err, tol=tol, check=label,
+                         adult_bucketed_device_ms=bucketed_dev,
+                         adult_fused_device_ms=fused_dev)
+    del z_bucketed, z_fused, z_cpu, fm_h4000, fm_exp, b9_cases, gauss
     gc.collect()
     torch.cuda.empty_cache()
 

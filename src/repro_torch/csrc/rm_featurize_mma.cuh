@@ -1,12 +1,14 @@
-// The tensor-core featurize of the Random Maclaurin map, shared by the
-// kernels B1 (rm_feature.cu), B2 (rm_fused_attention.cu), B3
-// (rm_fused_state.cu) and B4 (rm_fused_apply.cu); B9 keeps the CUDA-core
-// tile of rm_featurize.cuh.
+// The tensor-core featurize of the Random Maclaurin map, shared by every
+// RM kernel: B1 (rm_feature.cu), B2 (rm_fused_attention.cu), B3
+// (rm_fused_state.cu), B4 (rm_fused_apply.cu) and B9 (rm_feature_bucket.cu).
 //
 // The mma products (Proj, Chain) and the precision rules below are shared;
 // B3 and B4 drive them through featurize_tile, B2 and B1's decode-sized
-// batches through chain_z, and B1's Gram-sized batches call Proj on a
-// staged x tile (rm_feature.cu).
+// batches through chain_z, B9's small batches through chain_product (the
+// same chain over any omega row address), and B1's Gram-sized batches call
+// Proj on a staged x tile (rm_feature.cu). B9's Gram-sized batches use the
+// fragments, ldmatrix layouts and precision rules here with the x
+// fragments held in registers (rm_feature_bucket.cu).
 //
 // B3 and B4 (featurize_tile): for a 64-row tile x (keys or queries) it
 // forms
@@ -818,7 +820,7 @@ __device__ void featurize_deep_tile(
   }
 }
 
-// ---- B1 and B2: a warp's chain (16 rows x one 8-column tile) -------------
+// ---- B1, B2 and B9: a warp's chain (16 rows x one 8-column tile) ---------
 
 // Bits of one element, in the low bits of a word.
 __device__ __forceinline__ uint32_t elem_bits(const float* p) {
@@ -957,32 +959,25 @@ template <> struct Chain<__nv_bfloat16> {
   }
 };
 
-// z of one chain: rows row0 .. row0 + 15 (those below nrows exist) of x
-// (row stride ldx elements) against column tile c of w [kdeg, F, d], as
-// the m16n8 fragment of the lane (rows row0 + g and + 8, columns 8 c + 2
-// t and + 1): the running product over the slots below each column's
-// degree (slot 0 first), times the column's scale; a column past F has z
-// 0. Slots are projected two at a time, sharing each x run.
-template <typename T>
-__device__ __forceinline__ void chain_z(
+// The running product of one chain: rows row0 .. row0 + 15 (those below
+// nrows exist) of x (row stride ldx elements) against the lane's omega row
+// wr (the row of feature 8 c + g of the lane's column tile; wvalid: that
+// feature exists), whose slot j is the row at wr + j * slot, for slots 0 ..
+// depth - 1 (slot 0 first), as the m16n8 fragment of the lane (rows row0 +
+// g and + 8, columns 2 t and 2 t + 1 of the tile): a column takes the slots
+// below its degree, deg0 and deg1. Slots are projected NW at a time (then
+// two, then one), sharing each x run. The omegas' layout is the caller's:
+// B1 and B2 read w [kdeg, F, d] (chain_z), B9 the feature-major rows of
+// one bucket.
+template <typename T, int NW = 2>
+__device__ __forceinline__ void chain_product(
     const T* __restrict__ x, size_t ldx, int row0, int nrows,
-    const T* __restrict__ w, int f, int d, int kdeg,
-    const int* __restrict__ col_deg, const float* __restrict__ col_scale,
-    int c, bool vec, int lane, float z[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const int fa = c * kColTile + 2 * t;
-  const int deg0 = fa < f ? min(__ldg(col_deg + fa), kdeg) : 0;
-  const int deg1 = fa + 1 < f ? min(__ldg(col_deg + fa + 1), kdeg) : 0;
-  const int fl = c * kColTile + (lane & 7);
-  const int depth = __reduce_max_sync(
-      0xffffffffu, fl < f ? min(__ldg(col_deg + fl), kdeg) : 0);
+    const T* __restrict__ wr, bool wvalid, size_t slot, int d, int depth,
+    int deg0, int deg1, bool vec, int lane, float z[4]) {
+  const int g = lane >> 2;
   const T* x0 = x + static_cast<size_t>(row0 + g) * ldx;
   const T* x8 = x0 + 8 * ldx;
   const bool valid0 = row0 + g < nrows, valid8 = row0 + g + 8 < nrows;
-  const int wrow = c * kColTile + g;
-  const bool wvalid = wrow < f;
-  const T* wr = w + static_cast<size_t>(wrow) * d;
-  const size_t slot = static_cast<size_t>(f) * d;
   z[0] = z[1] = z[2] = z[3] = 1.f;
   auto fold = [&](int j, const float pr[4]) {
     if (j < deg0) {
@@ -995,6 +990,18 @@ __device__ __forceinline__ void chain_z(
     }
   };
   int j = 0;
+  if constexpr (NW > 2) {
+    for (; j + NW <= depth; j += NW) {
+      const T* wn[NW];
+#pragma unroll
+      for (int n = 0; n < NW; ++n) wn[n] = wr + (j + n) * slot;
+      float pn[NW][4];
+      Chain<T>::template run<NW>(x0, x8, valid0, valid8, wn, wvalid, d,
+                                 vec, lane, pn);
+#pragma unroll
+      for (int n = 0; n < NW; ++n) fold(j + n, pn[n]);
+    }
+  }
   for (; j + 1 < depth; j += 2) {
     const T* w2[2] = {wr + j * slot, wr + (j + 1) * slot};
     float p2[2][4];
@@ -1010,6 +1017,29 @@ __device__ __forceinline__ void chain_z(
                               lane, p1);
     fold(j, p1[0]);
   }
+}
+
+// z of one chain of B1 and B2: chain_product against column tile c of w
+// [kdeg, F, d] (feature f's slot j at w[j, f, :]), to the tile's depth (the
+// largest degree of its 8 columns), times each column's scale; a column
+// past F has z 0.
+template <typename T>
+__device__ __forceinline__ void chain_z(
+    const T* __restrict__ x, size_t ldx, int row0, int nrows,
+    const T* __restrict__ w, int f, int d, int kdeg,
+    const int* __restrict__ col_deg, const float* __restrict__ col_scale,
+    int c, bool vec, int lane, float z[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const int fa = c * kColTile + 2 * t;
+  const int deg0 = fa < f ? min(__ldg(col_deg + fa), kdeg) : 0;
+  const int deg1 = fa + 1 < f ? min(__ldg(col_deg + fa + 1), kdeg) : 0;
+  const int fl = c * kColTile + (lane & 7);
+  const int depth = __reduce_max_sync(
+      0xffffffffu, fl < f ? min(__ldg(col_deg + fl), kdeg) : 0);
+  const int wrow = c * kColTile + g;
+  chain_product<T>(x, ldx, row0, nrows, w + static_cast<size_t>(wrow) * d,
+                   wrow < f, static_cast<size_t>(f) * d, d, depth, deg0,
+                   deg1, vec, lane, z);
   const float s0 = fa < f ? __ldg(col_scale + fa) : 0.f;
   const float s1 = fa + 1 < f ? __ldg(col_scale + fa + 1) : 0.f;
   z[0] *= s0;

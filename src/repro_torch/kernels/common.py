@@ -16,8 +16,9 @@ run 512 threads on a 64-row tile with the omega slab resident in shared
 memory; a block walks several row tiles of one batch*head row, and
 :func:`noncausal_schedule` picks how many, the value and feature groups,
 the depth chunks and the shared-memory layout. B9
-(``csrc/rm_feature_bucket.cu``) keeps the CUDA-core 64 x 64 tile of
-``csrc/rm_featurize.cuh`` and needs no choice. The tensor_sketch (B6,
+(``csrc/rm_feature_bucket.cu``), one degree bucket, runs B1's chains on
+small batches and narrow buckets and a 256-row tile walking runs of staged
+omega rows on Gram-sized ones (:func:`bucket_schedule`). The tensor_sketch (B6,
 ``csrc/tensor_sketch.cu``) and ctr (B7, ``csrc/ctr_feature.cu``) kernels
 run complex chains on the tensor cores (``csrc/complex_mma.cuh``), 16 rows
 a block: B7 needs no choice, B6's warps and output groups are
@@ -39,6 +40,9 @@ __all__ = [
     "round_up",
     "feature_tile_smem",
     "pick_feature_tiles",
+    "BucketSchedule",
+    "bucket_tile_smem",
+    "bucket_schedule",
     "CausalSchedule",
     "causal_schedule",
     "SketchSchedule",
@@ -160,6 +164,130 @@ def pick_feature_tiles(rows: int, f: int, d: int,
         if groups * -(-n_ct // (FEATURE_WARPS * per)) >= 4 * NUM_SMS:
             return row_tile, per
     return row_tile, 1
+
+
+# B9 (csrc/rm_feature_bucket.cu): the chain kernel takes one 16-row group
+# a block of 4 warps, each warp one 8-column tile at a time; the tile
+# kernel a 256-row x tile staged in shared memory by 16 warps (16 rows
+# each, one block an SM), which walks runs of ct_per_warp column tiles,
+# each run's omega rows staged in one go into one of one or two buffers
+# and taken by every warp.
+BUCKET_CHAIN_ROWS = 16
+BUCKET_CHAIN_WARPS = 4
+BUCKET_TILE_ROWS = 256
+# A run is at most BUCKET_RUN_TILES column tiles and about
+# BUCKET_RUN_ITEMS (tile, slot) items a warp.
+BUCKET_RUN_TILES = 8
+BUCKET_RUN_ITEMS = 32
+# The tile kernel's time in (tile, slot) items of a run, fitted to its
+# times on an H100 at homog10 x [20000, 50] and the adult map's buckets
+# at 8000 rows (``time_rm_kernels.py --b9-schedules``, PERF.md): a run
+# costs its items and BUCKET_RUN_OVERHEAD more (its staging wait and
+# barriers), a block BUCKET_BLOCK_OVERHEAD more (the x tile and the first
+# run).
+BUCKET_RUN_OVERHEAD = 2
+BUCKET_BLOCK_OVERHEAD = 8
+
+
+class BucketSchedule(NamedTuple):
+    """How B9 (``csrc/rm_feature_bucket.cu``) cuts its work.
+
+    ``kernel``: ``"chain"`` or ``"tile"``; ``rows``: rows a block (16 or
+    256); ``ct_per_warp``: column tiles a warp takes (chain: in turn; tile:
+    a run's, which every warp takes for its 16 rows); ``runs``: the runs a
+    tile block walks (1 for chain); ``buffers``: run buffers of a tile
+    block (2: the next run is staged while this one multiplies; 0 for
+    chain); ``grid``: ``(row blocks, column blocks)``; ``smem``: a block's
+    dynamic shared memory in bytes (0 for chain)."""
+    kernel: str
+    rows: int
+    ct_per_warp: int
+    runs: int
+    buffers: int
+    grid: Tuple[int, int]
+    smem: int
+
+
+def bucket_tile_smem(d: int, degree: int, ct_per_warp: int, buffers: int,
+                     item: int) -> int:
+    """Shared memory of a B9 tile block: the 256-row x tile and ``buffers``
+    runs of ``ct_per_warp * 8 * degree`` omega rows, rows of ``dp +
+    step / 2`` elements (``dp`` d padded to one mma's depth ``step``: 8
+    fp32, 16 bf16)."""
+    step = 8 if item == 4 else 16
+    ldx = round_up(max(d, 1), step) + step // 2
+    run_rows = ct_per_warp * 8 * degree
+    return (BUCKET_TILE_ROWS + buffers * run_rows) * ldx * item
+
+
+def _bucket_tile(rows: int, n_ct: int, d: int, degree: int, item: int):
+    """The tile kernel's cheapest ``BucketSchedule`` by the cost model
+    above (run sizes that fit shared memory with two buffers, or one
+    column tile with one; 1 to 32 runs a block), or None where nothing
+    fits."""
+    row_blocks = -(-max(rows, 1) // BUCKET_TILE_ROWS)
+    top = min(BUCKET_RUN_TILES, -(-BUCKET_RUN_ITEMS // degree))
+    plans = [(cw, 2) for cw in range(1, top + 1)
+             if bucket_tile_smem(d, degree, cw, 2, item) <= SMEM_PER_BLOCK]
+    if not plans and bucket_tile_smem(d, degree, 1, 1, item) <= SMEM_PER_BLOCK:
+        plans = [(1, 1)]
+    best = None
+    for cw, buffers in plans:
+        n_runs = -(-n_ct // cw)
+        for runs in (1, 2, 4, 8, 16, 32):
+            col_blocks = -(-n_runs // runs)
+            per_block = -(-n_runs // col_blocks)
+            waves = -(-row_blocks * col_blocks // NUM_SMS)
+            cost = waves * (per_block * (cw * degree + BUCKET_RUN_OVERHEAD)
+                            + BUCKET_BLOCK_OVERHEAD)
+            key = (cost, row_blocks * col_blocks)
+            if best is None or key < best[0]:
+                best = (key, BucketSchedule(
+                    "tile", BUCKET_TILE_ROWS, cw, per_block, buffers,
+                    (row_blocks, col_blocks),
+                    bucket_tile_smem(d, degree, cw, buffers, item)))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def bucket_schedule(rows: int, count: int, d: int, degree: int, item: int,
+                    kernel: str = None) -> BucketSchedule:
+    """B9's kernel and grid for ``rows`` x ``d`` inputs (element size
+    ``item``) and one bucket of ``count`` features of ``degree`` slots.
+
+    The tile kernel where its 256-row blocks by 8-column tiles make two
+    waves of blocks on the card (2 NUM_SMS) and its x tile and a run fit
+    shared memory; its run size and runs a block are the cheapest by the
+    cost model above (:func:`_bucket_tile`). Otherwise the chain kernel,
+    whose 16-row groups and 8-column tiles spread a small batch or a
+    narrow bucket over many warps (spambase's deg-8 bucket at 1840 rows:
+    115), any d; each warp then walks ``ct_per_warp`` column tiles, the
+    most of 8, 4, 2 that still leaves four blocks an SM, else 1. ``kernel``
+    forces one of the two (for holding both against the plain version at
+    one shape). Cached: the wrapper asks at every launch.
+
+    Raises:
+        ValueError: ``kernel="tile"`` where the tile does not fit.
+    """
+    n_ct = -(-max(count, 1) // 8)
+    if kernel != "chain":
+        tile = _bucket_tile(rows, n_ct, d, degree, item)
+        if kernel == "tile" and tile is None:
+            raise ValueError(f"B9's tile does not fit d {d}, degree "
+                             f"{degree}")
+        row_blocks = -(-max(rows, 1) // BUCKET_TILE_ROWS)
+        if tile is not None and (kernel == "tile"
+                                 or row_blocks * n_ct >= 2 * NUM_SMS):
+            return tile
+    groups = -(-max(rows, 1) // BUCKET_CHAIN_ROWS)
+    per = 1
+    for p in (8, 4, 2):
+        if groups * -(-n_ct // (BUCKET_CHAIN_WARPS * p)) >= 4 * NUM_SMS:
+            per = p
+            break
+    return BucketSchedule("chain", BUCKET_CHAIN_ROWS, per, 1, 0,
+                          (groups, -(-n_ct // (BUCKET_CHAIN_WARPS * per))),
+                          0)
 
 
 class CausalSchedule(NamedTuple):

@@ -14,11 +14,10 @@ omegas out in exactly that order, once per weight set:
 for the slots a column uses (``j < col_deg[8 c + i]``), and a zero row for
 every slot past a column's degree and for the padding columns past F (the
 kernel masks both, so their rows are never read into a product). Depth is
-per column tile, not per 64-column tile as in B9's ``rm_featurize.cuh``: the
-hubert plan (F 163, degrees ``[0:1, 1:94, 2:47, 3:16, 4:4, 5:1]``, 257 used
-slots) takes 304 slab rows against 512 column-slots at depth per 64-column
-tile; the 47 extra rows are the 8-column tiles that straddle a change of
-degree.
+per column tile, not per 64-column tile: the hubert plan (F 163, degrees
+``[0:1, 1:94, 2:47, 3:16, 4:4, 5:1]``, 257 used slots) takes 304 slab rows
+against 512 column-slots at depth per 64-column tile; the 47 extra rows
+are the 8-column tiles that straddle a change of degree.
 
 **Split order.** With ``splits`` blocks along T, B3's block ``s`` sums the
 key tiles ``[s * tiles_per_split, (s + 1) * tiles_per_split)`` into a

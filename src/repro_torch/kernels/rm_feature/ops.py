@@ -4,14 +4,18 @@
 ``rm_feature_fused`` applies a whole packed feature map in ONE launch of
 ``csrc/rm_feature.cu`` (kernel B1, on the tensor cores; it reads the packed
 ``w [kdeg, F, d]`` as it is, so nothing is packed per call);
-``apply_feature_map`` is the same path on a map object. ``rm_feature_bucket`` applies one degree bucket in one
-launch of ``csrc/rm_feature_bucket.cu`` (kernel B9), and
-``apply_feature_map_bucketed`` is the per-bucket path built on it: one
-launch a degree bucket plus a concatenate, the baseline the fused path is
-compared with. Dispatch follows the tensor: a CPU tensor takes the plain
-PyTorch version (``ref.rm_feature_fused_ref``, ``ref.rm_feature_bucket_ref``);
-a CUDA tensor launches the kernel or raises — there is no fallback. Both
-kernels mask the ragged edges themselves, so the wrappers pad nothing.
+``apply_feature_map`` is the same path on a map object.
+``rm_feature_bucket`` applies one degree bucket in one launch of
+``csrc/rm_feature_bucket.cu`` (kernel B9, on the tensor cores; it reads the
+bucket's feature-major omega rows in place), into a new ``[..., count]``
+tensor or into given columns of a map; ``apply_feature_map_bucketed`` is
+the per-bucket path built on it, the baseline the fused path is compared
+with: the map allocated once, its prefix columns written in place, then
+one launch a degree bucket writing that bucket's columns. Dispatch follows
+the tensor: a CPU tensor takes the plain PyTorch version
+(``ref.rm_feature_fused_ref``, ``ref.rm_feature_bucket_ref``); a CUDA
+tensor launches the kernel or raises — there is no fallback. Both kernels
+mask the ragged edges themselves, so the wrappers pad nothing.
 ``rm_feature_fused.launches`` and ``rm_feature_bucket.launches`` count
 kernel launches.
 """
@@ -22,7 +26,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import pick_feature_tiles
+from repro_torch.kernels.common import bucket_schedule, pick_feature_tiles
 from repro_torch.kernels.rm_feature.ref import (
     rm_feature_bucket_ref,
     rm_feature_fused_ref,
@@ -37,8 +41,10 @@ __all__ = [
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_BUCKET_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BUCKET_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 4 + [ctypes.c_float]
+                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_BUCKET_KERNEL_CODE = {"chain": 0, "tile": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,21 +155,64 @@ def _check_bucket_operands(xf, omega):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_bucket_out(out, xf, col, count):
+    if out.dtype != torch.float32 or out.dim() != 2:
+        raise TypeError(f"out must be a 2-D fp32 map, got {out.dtype} "
+                        f"{tuple(out.shape)}")
+    if out.device != xf.device:
+        raise ValueError(f"out is on {out.device}, x on {xf.device}")
+    if out.shape[0] != xf.shape[0] or col < 0 or \
+            out.shape[1] < col + count or out.stride(1) != 1 or \
+            out.stride(0) < out.shape[1]:
+        raise ValueError(
+            f"out {tuple(out.shape)} (strides {out.stride()}) has no "
+            f"{xf.shape[0]} rows of columns [{col}, {col + count})")
+
+
+def _bucket_launch(xf, omega, out, col, degree, scale, sched):
+    """One launch of B9 on ``xf [B, d]`` and ``omega [count * degree, d]``
+    (CUDA, checked), writing columns ``[col, col + count)`` of the fp32 map
+    ``out`` (rows at its row stride) under the schedule ``sched``
+    (``kernels.common.bucket_schedule``)."""
+    b, d = xf.shape
+    count = omega.shape[0] // degree
+    err = _bucket_library()(
+        xf.data_ptr(), omega.data_ptr(),
+        out.data_ptr() + col * out.element_size(), out.stride(0),
+        b, count, d, degree, float(scale), _BUCKET_KERNEL_CODE[sched.kernel],
+        sched.ct_per_warp, sched.runs, max(sched.buffers, 1),
+        _DTYPE_CODE[xf.dtype],
+        torch.cuda.current_stream(xf.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rm_feature_bucket kernel launch failed: CUDA "
+                           f"error {err}")
+    rm_feature_bucket.launches += 1
+
+
 def rm_feature_bucket(
     x: torch.Tensor,          # [..., d] fp32 or bf16
     omega: torch.Tensor,      # [count * degree, d] feature-major rows
     degree: int,
     scale: float,
+    *,
+    out: torch.Tensor = None,  # [B, >= col + count] fp32 map
+    col: int = 0,
 ) -> torch.Tensor:            # [..., count] fp32
     """Apply one degree bucket in one launch: feature i is ``scale *
     prod_{j < degree} <omega[i * degree + j], x>``. On a CUDA tensor
     ``omega`` must have x's dtype.
 
+    With ``out`` (a 2-D fp32 map on x's device, one row for each row of
+    x, unit column stride) the bucket is written in place into its columns
+    ``[col, col + count)`` and those columns are returned (a view of
+    ``out``); otherwise into a new tensor.
+
     Raises:
         ValueError: ``degree < 1`` (the reference dies there on a division
             by zero), omega's rows are not a multiple of ``degree`` or its
-            width is not x's, or the operands are on another device or not
-            contiguous.
+            width is not x's, ``out`` has not the rows or the columns, or
+            the operands are on another device or not contiguous.
+        TypeError: a dtype the kernel does not take.
         NotImplementedError: called with inputs that require grad.
     """
     if degree < 1:
@@ -180,26 +229,31 @@ def rm_feature_bucket(
     count = omega.shape[0] // degree
     xf = x.reshape(-1, d)
     b = xf.shape[0]
+    if out is not None:
+        _check_bucket_out(out, xf, col, count)
+        target = out[:, col: col + count]
     if b == 0 or count == 0:
-        return torch.zeros((*batch_shape, count), dtype=torch.float32,
-                           device=x.device)
+        if out is None:
+            return torch.zeros((*batch_shape, count), dtype=torch.float32,
+                               device=x.device)
+        return target.reshape(*batch_shape, count)
     if x.device.type == "cpu":
-        return rm_feature_bucket_ref(xf, omega, degree,
-                                     scale).reshape(*batch_shape, count)
+        z = rm_feature_bucket_ref(xf, omega, degree, scale)
+        if out is None:
+            return z.reshape(*batch_shape, count)
+        target.copy_(z)
+        return target.reshape(*batch_shape, count)
     if x.device.type != "cuda":
         raise ValueError(f"rm_feature_bucket runs on cpu or cuda tensors, "
                          f"got {x.device}")
     _check_bucket_operands(xf, omega)
-    out = torch.empty((b, count), dtype=torch.float32, device=x.device)
-    launch = _bucket_library()
-    err = launch(xf.data_ptr(), omega.data_ptr(), out.data_ptr(), b, count, d,
-                 degree, float(scale), _DTYPE_CODE[xf.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rm_feature_bucket kernel launch failed: CUDA "
-                           f"error {err}")
-    rm_feature_bucket.launches += 1
-    return out.reshape(*batch_shape, count)
+    if out is None:
+        out, col = torch.empty((b, count), dtype=torch.float32,
+                               device=x.device), 0
+        target = out
+    _bucket_launch(xf, omega, out, col, degree, scale,
+                   bucket_schedule(b, count, d, degree, xf.element_size()))
+    return target.reshape(*batch_shape, count)
 
 
 rm_feature_bucket.launches = 0
@@ -215,19 +269,27 @@ def apply_feature_map(fmap, x: torch.Tensor, *, precision=None
 
 
 def apply_feature_map_bucketed(fmap, x: torch.Tensor) -> torch.Tensor:
-    """The per-bucket path: the H0/1 block and the const column as exact
-    fills, then one launch of kernel B9 a degree bucket, concatenated in
-    the fused path's column order. x enters the kernel in its own dtype;
-    each bucket's omega rows are cast to it (lossless: they are +-1)."""
+    """The per-bucket path, in place: the map ``[..., output_dim]`` (fp32)
+    is allocated once, the H0/1 block and the const column are exact fills
+    written into their columns, then each degree bucket's columns come from
+    one launch of kernel B9 (``rm_feature_bucket(..., out=, col=)``), in the
+    fused path's column order; nothing is concatenated. x enters the kernel
+    in its own dtype; each bucket's omega rows are cast to it (lossless:
+    they are +-1)."""
     from repro_torch.core.plan import prefix_columns
 
     plan = fmap.plan
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, plan.input_dim)
-    feats = prefix_columns(plan, xf.float(), xf.dtype)
+    z = torch.empty((xf.shape[0], plan.output_dim), dtype=torch.float32,
+                    device=x.device)
+    off = 0
+    for col in prefix_columns(plan, xf.float(), xf.dtype):
+        z[:, off: off + col.shape[1]] = col
+        off += col.shape[1]
     for deg, scale, omega in zip(plan.degrees, plan.scales,
                                  fmap.bucket_omegas()):
-        feats.append(rm_feature_bucket(xf, omega.to(xf.dtype), deg,
-                                       float(scale)))
-    z = torch.cat(feats, dim=-1)
-    return z.reshape(*batch_shape, z.shape[-1])
+        rm_feature_bucket(xf, omega.to(xf.dtype), deg, float(scale), out=z,
+                          col=off)
+        off += omega.shape[0] // deg
+    return z.reshape(*batch_shape, plan.output_dim)

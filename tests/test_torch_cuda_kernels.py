@@ -918,15 +918,57 @@ def test_structured_kernel_is_bitwise_repeatable(cuda, dtype, rows):
 
 # the reference's SHAPES grid (tests/test_kernels_rm_feature.py) as (batch,
 # d, count, degree), then the paper path's ragged shapes: d 8, 22, 50, 57,
-# 123 (none a multiple of the 32-wide staging), counts 1 to 4000 (ragged
-# against the 64-wide tile), degrees 1 to 11
+# 123 (rows of 16-, 8- and 4-byte alignment), counts 1 to 4000 (ragged
+# against the 8-column tile), degrees 1 to 11; then the tile kernel at
+# 20000 and 4096 rows, d 208 (its x tile and one run buffer just fit
+# shared memory in fp32) and past the tile's limit (d 216 fp32, d 1000:
+# the chain kernel), degree 24 (n_max), a count that is no multiple of 8
+# and a single row
 BUCKET_SHAPES = [
     (8, 16, 32, 1), (8, 16, 32, 2), (32, 64, 128, 3), (7, 33, 19, 4),
     (128, 128, 128, 5), (1, 8, 1, 7), (64, 256, 64, 10),
     (70, 57, 125, 1), (1840, 57, 63, 2), (65, 123, 1000, 1),
     (33, 8, 1, 9), (100, 50, 4000, 10), (3, 22, 2, 11), (129, 22, 65, 6),
     (1840, 57, 1, 8),
+    (20000, 50, 500, 10), (4096, 208, 256, 2), (4096, 216, 256, 2),
+    (2048, 1000, 40, 3), (600, 57, 21, 24), (4096, 123, 333, 3),
+    (1, 57, 13, 2),
 ]
+# shapes at which both of B9's kernels run (forced through the schedule):
+# ragged rows, counts and d of every copy width, odd and even degrees
+BUCKET_BOTH_SHAPES = [
+    (7, 33, 19, 4), (129, 22, 65, 6), (300, 57, 13, 3), (1000, 64, 125, 1),
+    (640, 50, 40, 5), (520, 57, 33, 7), (256, 123, 250, 2),
+    (1000, 50, 16, 24),
+]
+
+
+def _bucket_case(b, d, count, degree, dtype, device, gaussian=False):
+    gen = torch.Generator(device=device).manual_seed(degree * 1000 + d)
+    x = (0.3 * torch.randn((b, d), generator=gen, device=device)).to(dtype)
+    if gaussian:
+        omega = torch.randn((count * degree, d), generator=gen,
+                            device=device).to(dtype)
+    else:
+        bits = torch.randint(0, 2, (count * degree, d), generator=gen,
+                             device=device)
+        omega = (2 * bits - 1).to(dtype)
+    return x, omega
+
+
+def _bucket_forced(x, omega, degree, scale, kernel):
+    """B9 under the schedule ``bucket_schedule(..., kernel=kernel)``."""
+    from repro_torch.kernels.common import bucket_schedule
+    from repro_torch.kernels.rm_feature.ops import _bucket_launch
+
+    b, d = x.shape
+    count = omega.shape[0] // degree
+    out = torch.full((b, count), float("nan"), device=x.device)
+    sched = bucket_schedule(b, count, d, degree, x.element_size(),
+                            kernel=kernel)
+    _bucket_launch(x, omega, out, 0, degree, scale, sched)
+    torch.cuda.synchronize()
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -937,17 +979,75 @@ def test_rm_feature_bucket_kernel_matches_plain(cuda, dtype, b, d, count,
     max |plain|): fp32 accumulation in both, only the order of the d-long
     sums differs (bf16 inputs upcast exactly), and the products run in the
     same order j = 0, 1, ..."""
-    gen = torch.Generator(device=cuda).manual_seed(degree * 1000 + d)
-    x = (0.3 * torch.randn((b, d), generator=gen, device=cuda)).to(dtype)
-    bits = torch.randint(0, 2, (count * degree, d), generator=gen,
-                         device=cuda)
-    omega = (2 * bits - 1).to(dtype)
+    x, omega = _bucket_case(b, d, count, degree, dtype, cuda)
     before = rm_feature_bucket.launches
     got = rm_feature_bucket(x, omega, degree, 0.37)
     torch.cuda.synchronize()
     assert rm_feature_bucket.launches == before + 1
     assert got.shape == (b, count) and got.dtype == torch.float32
     _close(got, rm_feature_bucket_ref(x, omega, degree, 0.37), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["chain", "tile"])
+@pytest.mark.parametrize("b,d,count,degree", BUCKET_BOTH_SHAPES)
+def test_rm_feature_bucket_both_kernels_match_plain(cuda, dtype, kernel, b,
+                                                    d, count, degree):
+    """Each of B9's two kernels, forced, against the plain version at
+    shapes either can take; every output written (the map starts as NaN).
+    Tolerance 1e-5 x max(1, max |plain|), as above."""
+    x, omega = _bucket_case(b, d, count, degree, dtype, cuda)
+    got = _bucket_forced(x, omega, degree, 0.37, kernel)
+    assert not got.isnan().any()
+    _close(got, rm_feature_bucket_ref(x, omega, degree, 0.37), 1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["chain", "tile"])
+@pytest.mark.parametrize("b,d,count,degree", [(300, 57, 13, 3),
+                                              (1000, 50, 40, 10),
+                                              (256, 123, 250, 2)])
+def test_rm_feature_bucket_gaussian_omega_fp32(cuda, kernel, b, d, count,
+                                               degree):
+    """A general omega (Gaussian, not +-1): the omegas' TF32 remainder
+    term must run, or the error exceeds 1e-5 x max(1, max |plain|)."""
+    x, omega = _bucket_case(b, d, count, degree, torch.float32, cuda,
+                            gaussian=True)
+    got = _bucket_forced(x, omega, degree, 0.37, kernel)
+    _close(got, rm_feature_bucket_ref(x, omega, degree, 0.37), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,count,degree", [(100, 50, 4000, 10),
+                                              (4096, 50, 800, 10),
+                                              (1840, 57, 125, 1)])
+def test_rm_feature_bucket_is_bitwise_repeatable(cuda, dtype, b, d, count,
+                                                 degree):
+    """No atomics and a fixed order: two calls give the same bits."""
+    x, omega = _bucket_case(b, d, count, degree, dtype, cuda)
+    first = rm_feature_bucket(x, omega, degree, 0.37)
+    assert torch.equal(first, rm_feature_bucket(x, omega, degree, 0.37))
+
+
+def test_rm_feature_bucket_writes_into_map_columns(cuda):
+    """``out=, col=``: the bucket lands in its columns of a wider map
+    (odd row stride and offset) and nothing else of the map changes."""
+    x, omega = _bucket_case(4096, 50, 333, 3, torch.float32, cuda)
+    want = rm_feature_bucket_ref(x, omega, 3, 0.37)
+    for kernel in ("chain", "tile"):
+        from repro_torch.kernels.common import bucket_schedule
+        from repro_torch.kernels.rm_feature.ops import _bucket_launch
+
+        out = torch.full((4096, 341), -7.0, device=cuda)
+        _bucket_launch(x, omega, out, 5, 3, 0.37,
+                       bucket_schedule(4096, 333, 50, 3, 4, kernel=kernel))
+        torch.cuda.synchronize()
+        _close(out[:, 5:338], want, 1e-5)
+        assert (out[:, :5] == -7.0).all() and (out[:, 338:] == -7.0).all()
+    out = torch.zeros((4096, 340), device=cuda)
+    view = rm_feature_bucket(x, omega, 3, 0.37, out=out, col=7)
+    assert view.data_ptr() == out[:, 7:].data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 7:], rm_feature_bucket(x, omega, 3, 0.37))
 
 
 def test_rm_feature_bucket_kernel_batch_dims_and_checks(cuda):
@@ -982,9 +1082,18 @@ def test_bucketed_path_matches_fused_on_the_card(cuda, kernel, d,
     gen = torch.Generator(device=cuda).manual_seed(2)
     x = _unit((300, d), gen, cuda)
     before = (rm_feature_bucket.launches, rm_feature_fused.launches)
-    got = apply_feature_map_bucketed(fm, x)
     want = fm.apply(x)
     torch.cuda.synchronize()
+    # the map is allocated once and written in place: the call's device
+    # memory beyond its output stays within the prefix's temporaries (the
+    # scaled H0/1 block, the const column), where a list of bucket outputs
+    # and a concatenate would hold the map twice
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = apply_feature_map_bucketed(fm, x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - got.numel() * 4
+    assert extra <= 300 * (d + 2) * 4 + 4096, extra
     assert (rm_feature_bucket.launches - before[0],
             rm_feature_fused.launches - before[1]) == (len(fm.degrees), 1)
     _close(got, want, 1e-5)

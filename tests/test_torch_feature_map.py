@@ -305,6 +305,60 @@ def test_paths_match_reference_fused_and_pallas_bucketed(pair, h01,
     assert zb.shape == (1, 11, jfm.output_dim)
 
 
+@pytest.mark.parametrize("kernel,h01", [
+    ("poly", False), ("poly", True), ("exp", False), ("exp", True),
+    ("homogeneous", False)])
+def test_bucketed_path_writes_map_in_place_like_reference(kernel, h01,
+                                                          monkeypatch):
+    """The port's per-bucket path assembles the map in place (no
+    concatenate: ``torch.cat`` raises while it runs; the prefix columns and
+    each bucket written into their columns) and equals the reference's
+    per-bucket path through its plain jnp version (``use_pallas=False``),
+    whose columns it concatenates: the const column (poly and exp without
+    H0/1), the H0/1 block, every bucket. Tolerance 1e-5 x max(1, max
+    |ref|)."""
+    jk = {"poly": J.PolynomialKernel(7, 1.0),
+          "exp": J.ExponentialDotProductKernel(1.0),
+          "homogeneous": J.HomogeneousPolynomialKernel(4)}[kernel]
+    jfm = J.make_feature_map(jk, 24, 300, jax.random.PRNGKey(7), h01=h01)
+    tfm = _port_rm_map(jfm)
+    x = _unit_ball(37, 24, 8)
+    want = np.asarray(jax_bucketed(jfm, jnp.asarray(x), use_pallas=False))
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("the per-bucket path concatenated")
+
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = apply_feature_map_bucketed(tfm, torch.from_numpy(x))
+    monkeypatch.undo()
+    assert got.shape == want.shape == (37, jfm.output_dim)
+    assert (tfm.plan.num_prefix_columns > 0) == (kernel != "homogeneous")
+    assert _scaled_err(got.numpy(), want) <= 1e-5
+
+
+def test_bucket_writes_into_given_map_columns():
+    """``rm_feature_bucket(..., out=, col=)`` writes the plain version's
+    bucket into columns ``[col, col + count)`` of the map, leaves the rest,
+    and returns those columns (a view); a map without the rows or columns
+    is refused."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(6, 10)).astype(np.float32))
+    omega = torch.from_numpy(
+        (2.0 * rng.integers(0, 2, size=(12, 10)) - 1.0).astype(np.float32))
+    out = torch.full((6, 9), -1.0)
+    view = rm_feature_bucket(x, omega, 3, 0.5, out=out, col=2)
+    want = rm_feature_bucket(x, omega, 3, 0.5)
+    assert torch.equal(out[:, 2:6], want) and torch.equal(view, want)
+    assert view.data_ptr() == out[:, 2:].data_ptr()
+    assert (out[:, :2] == -1.0).all() and (out[:, 6:] == -1.0).all()
+    with pytest.raises(ValueError, match="columns"):
+        rm_feature_bucket(x, omega, 3, 0.5, out=out, col=6)
+    with pytest.raises(ValueError, match="rows"):
+        rm_feature_bucket(x[:5], omega, 3, 0.5, out=out, col=0)
+    with pytest.raises(TypeError, match="fp32"):
+        rm_feature_bucket(x, omega, 3, 0.5, out=out.double(), col=0)
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_rm_apply_and_gram_match_reference(precision):
     """apply under both precision policies and estimate_gram (chunked

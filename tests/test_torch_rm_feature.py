@@ -203,3 +203,62 @@ def test_bucket_wrapper_dispatch_and_edges():
         rm_feature_bucket(xt.to("meta"), om.to("meta"), 2, 0.5)
     with pytest.raises(NotImplementedError, match="backward"):
         rm_feature_bucket(xt.requires_grad_(), om, 2, 0.5)
+
+
+# chip_smoke.py phase 22's B9 shapes as (rows, count, d, degree) and the
+# kernel bucket_schedule takes there: the one large bucket (homog10 at D
+# 4000) on the tile at Table 1's 20000-row cap and at Fig. 1's 100 rows
+# (4000 columns); every spambase bucket at its 1840-row split, exp's
+# deepest bucket and the ragged 70 x1 on chains; the adult map's buckets
+# at 8000 rows (the wide low-degree ones on the tile); the tile's shared
+# memory limit at degree 2 (d 208 fp32 fits, d 216 does not), a deep d
+# and degree 24
+SCHEDULE_CASES = [
+    ((20000, 4000, 50, 10), "tile"), ((100, 4000, 50, 10), "tile"),
+    ((1840, 125, 57, 1), "chain"), ((1840, 63, 57, 2), "chain"),
+    ((1840, 16, 57, 4), "chain"), ((1840, 1, 57, 8), "chain"),
+    ((100, 1, 50, 11), "chain"), ((70, 1, 57, 1), "chain"),
+    ((8000, 1000, 123, 1), "tile"), ((8000, 250, 123, 3), "tile"),
+    ((8000, 2, 123, 10), "chain"), ((4096, 256, 208, 2), "tile"),
+    ((4096, 256, 216, 2), "chain"), ((20000, 4000, 1000, 3), "chain"),
+    ((20000, 4000, 50, 24), "tile"),
+]
+
+
+@pytest.mark.parametrize("item", [4, 2])
+@pytest.mark.parametrize("shape,kernel", SCHEDULE_CASES)
+def test_bucket_schedule_choice_and_cover(shape, kernel, item):
+    """B9's schedule: the kernel at each phase-22 shape (bf16 the same as
+    fp32, but for d 216, whose bf16 rows fit the tile), a tile block's
+    shared memory within the block's limit and its two run buffers where
+    two blocks an SM fit, and a grid whose blocks cover every row and
+    every column tile exactly once."""
+    from repro_torch.kernels.common import (
+        BUCKET_CHAIN_WARPS,
+        SMEM_PER_BLOCK,
+        bucket_schedule,
+        bucket_tile_smem,
+    )
+
+    rows, count, d, degree = shape
+    s = bucket_schedule(rows, count, d, degree, item)
+    if item == 2 and d == 216:
+        kernel = "tile"
+    assert s.kernel == kernel
+    n_ct = -(-count // 8)
+    assert s.grid[0] * s.rows >= rows > (s.grid[0] - 1) * s.rows
+    if s.kernel == "tile":
+        assert s.rows == 256 and 1 <= s.runs <= 32
+        assert s.smem == bucket_tile_smem(d, degree, s.ct_per_warp,
+                                          s.buffers, item) <= SMEM_PER_BLOCK
+        per_block = s.ct_per_warp * s.runs
+    else:
+        assert s.rows == 16 and s.runs == 1 and s.smem == 0
+        per_block = BUCKET_CHAIN_WARPS * s.ct_per_warp
+    assert s.grid[1] * per_block >= n_ct > (s.grid[1] - 1) * per_block
+    assert s.grid[1] <= 65535
+    assert bucket_schedule(rows, count, d, degree, item,
+                           kernel="chain").kernel == "chain"
+    if s.kernel == "chain" and d >= 216 and item == 4:
+        with pytest.raises(ValueError, match="fit"):
+            bucket_schedule(rows, count, d, degree, item, kernel="tile")

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Time kernels B1 (``rm_feature_fused``), B2 (``rm_fused_causal``), B5
 (``rm_attention_chunked``), B6 (``tensor_sketch_fused``), B7
-(``ctr_feature_fused``) and B8 (``structured_feature_fused``) of one source
-tree of the port on one CUDA card, so that two versions of the kernels can
-be compared in one run on one card.
+(``ctr_feature_fused``), B8 (``structured_feature_fused``) and B9
+(``rm_feature_bucket``) of one source tree of the port on one CUDA card,
+so that two versions of the kernels can be compared in one run on one card.
 
-    python3 time_rm_kernels.py [--src DIR]
+    python3 time_rm_kernels.py [--src DIR] [--kernels B1,B9,...]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (default:
-this checkout's). To compare two versions, unpack the other one with
+this checkout's); ``--kernels`` times only the kernels named (default: all).
+``--b9-schedules`` instead times B9's tile kernel under every schedule
+``kernels.common.bucket_schedule`` weighs (this checkout only), the data
+its cost model was fitted to.
+To compare two versions, unpack the other one with
 ``git archive`` into a git-ignored directory and run this file once with
 each ``--src``, in turns. The shapes are those of ``chip_smoke.py`` phases
 2 and 3 (seeded inputs, qwen3-1.7b's rm head: d 128, F 163): B1 at the
@@ -24,7 +28,16 @@ phase 16's ctr width (F 255); B8 on qwen3-1.7b's structured head (6 stacks
 of d_pad 128) at the decode and prefill rows, full width, and the prefill
 rows through ``apply_structured_plan`` (the map: kept columns only, from
 this PR's tree on; its ``device_ms`` is B8's kernel, ``all_device_ms``
-every kernel of the call); fp32 and bf16. Each output line is one
+every kernel of the call); B9 at phase 22's shapes: homog10's one bucket
+at D 4000 (degree 10, omega ``[40000, 50]``) at x ``[20000, 50]`` and
+``[100, 50]``, the spambase map's (poly10, d 57, D 500) deg-1 x125, deg-4
+x16 and deg-8 x1 buckets at its 1840 test rows, exp's deepest bucket at D
+4000 (deg 11 x1) at 100 rows, and the whole per-bucket path
+(``apply_feature_map_bucketed``) on the adult map (poly10, d 123, D 4000)
+at its 8000 test rows (``all_device_ms``: every kernel of the call); at
+20000 rows also one profiler window read for where the CUDA-event time
+goes beyond the kernels' (``chip_smoke.launch_gaps``); fp32 and bf16.
+Each output line is one
 JSON object: the CUDA-event time per call over back-to-back calls, the
 profiler's device time per call of the kernels themselves, the host time
 to enqueue a call (the wrapper's checks and the launch), and the largest
@@ -49,14 +62,21 @@ KERNELS = {"B1": ("rm_feature_kernel",),
            "B5": ("rm_attention_chunked_kernel",),
            "B6": ("tensor_sketch_kernel",),
            "B7": ("ctr_feature_kernel",),
-           "B8": ("structured_feature_kernel",)}
+           "B8": ("structured_feature_kernel",),
+           "B9": ("rm_feature_bucket",)}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent
                                          / "src"))
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels to time (default: all)")
+    ap.add_argument("--b9-schedules", action="store_true",
+                    help="time B9's tile kernel under every schedule its "
+                         "cost model weighs")
     args = ap.parse_args(argv)
+    only = set(args.kernels.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -113,10 +133,16 @@ def main(argv=None):
     st32 = pack_structured(st_plan, st_params)
     scd, scs = plan_columns(st_plan, "cuda")
     fm = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0)
+    if args.b9_schedules:
+        sweep_b9(torch, gen, fm)
+        return 0
     wa32 = pack_omegas(fm.plan, fm.omegas)
     cda, csa = plan_columns(fm.plan, "cuda")
 
-    def emit(kid, shape, dtype, fn, plain, iters, all_kernels=False):
+    def emit(kid, shape, dtype, fn, plain, iters, all_kernels=False,
+             gaps=False):
+        if kid not in only:
+            return
         got, want = fn(), plain()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
@@ -133,6 +159,8 @@ def main(argv=None):
         if all_kernels:
             row["all_device_ms"] = smoke.kernel_device_ms(torch, fn, "",
                                                           iters=iters)
+        if gaps:
+            row["gaps"] = smoke.launch_gaps(torch, fn, KERNELS[kid][0])
         print(json.dumps(row), flush=True)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -207,7 +235,121 @@ def main(argv=None):
                      *ba, chunk=chunk, eps=cfg.rm.eps),
                  lambda ba=ba, chunk=chunk: rm_attention_chunked_ref(
                      *ba, chunk=chunk, eps=cfg.rm.eps), 20)
+    if "B9" in only:
+        time_b9(torch, gen, emit, fm)
     return 0
+
+
+def time_b9(torch, gen, emit, fm_adult):
+    """B9 at phase 22's shapes (the module docstring), fp32 and bf16."""
+    from repro_torch.core import (
+        ExponentialDotProductKernel,
+        HomogeneousPolynomialKernel,
+        PolynomialKernel,
+        RMFeatureMap,
+        make_feature_map,
+    )
+    from repro_torch.data import make_classification_dataset
+    from repro_torch.kernels.rm_feature.ops import (
+        apply_feature_map_bucketed,
+        rm_feature_bucket,
+    )
+    from repro_torch.kernels.rm_feature.ref import rm_feature_bucket_ref
+
+    spam = make_classification_dataset("spambase")["x_test"]
+    fm_spam = make_feature_map(PolynomialKernel(10, 1.0), 57, 500, seed=0)
+    fm_h = make_feature_map(HomogeneousPolynomialKernel(10), 50, 4000,
+                            seed=0)
+    fm_exp = make_feature_map(ExponentialDotProductKernel(1.0), 50, 4000,
+                              seed=4000)
+    cases = []
+    for rows, iters in ((20000, 20), (100, 50)):
+        xh = smoke.unit_rows(torch, (rows, 50), gen) / 1.01
+        cases.append((f"homog10 D4000 x[{rows},50] omega[40000,50] deg 10",
+                      xh, fm_h.bucket_omegas()[0], 10, fm_h.scales[0],
+                      iters))
+    for i in (0, 3, 7):
+        n, c = fm_spam.degrees[i], fm_spam.counts[i]
+        cases.append((f"spambase x[1840,57] deg {n} x{c}", spam,
+                      fm_spam.bucket_omegas()[i], n, fm_spam.scales[i], 50))
+    cases.append((f"exp D4000 x[100,50] deg {fm_exp.degrees[-1]} "
+                  f"x{fm_exp.counts[-1]}", xh, fm_exp.bucket_omegas()[-1],
+                  fm_exp.degrees[-1], fm_exp.scales[-1], 50))
+    adult = make_classification_dataset("adult")["x_test"]
+    fm_cpu = RMFeatureMap(plan=fm_adult.plan, omegas=fm_adult.omegas.cpu())
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, x32, om32, deg, sc, iters in cases:
+            x, om = x32.to(dtype), om32.to(dtype)
+            emit("B9", label, dtype,
+                 lambda x=x, om=om, deg=deg, sc=sc: rm_feature_bucket(
+                     x, om, deg, sc),
+                 lambda x=x, om=om, deg=deg, sc=sc: rm_feature_bucket_ref(
+                     x, om, deg, sc), iters, gaps=x.shape[0] == 20000)
+        xa = adult.to(dtype)
+        emit("B9", f"adult per-bucket path x[{xa.shape[0]},123] poly10 D "
+             f"4000 ({len(fm_adult.degrees)} buckets + const)", dtype,
+             lambda xa=xa: apply_feature_map_bucketed(fm_adult, xa),
+             lambda xa=xa: apply_feature_map_bucketed(fm_cpu, xa.cpu()), 20,
+             all_kernels=True)
+
+
+def sweep_b9(torch, gen, fm_adult):
+    """B9's tile kernel at homog10 x ``[20000, 50]`` and at the adult map's
+    buckets that take the tile at its 8000 test rows, fp32 and bf16, under
+    every run size that fits shared memory with two buffers (1 to 8 column
+    tiles) and 1 to 32 runs a block: one JSON line a shape with each
+    schedule's CUDA-event ms, the fastest, and the one
+    ``bucket_schedule`` picks (its cost model was fitted to these)."""
+    from repro_torch.core import HomogeneousPolynomialKernel, make_feature_map
+    from repro_torch.data import make_classification_dataset
+    from repro_torch.kernels.common import (
+        SMEM_PER_BLOCK,
+        bucket_schedule,
+        bucket_tile_smem,
+    )
+    from repro_torch.kernels.rm_feature.ops import _bucket_launch
+
+    fm_h = make_feature_map(HomogeneousPolynomialKernel(10), 50, 4000,
+                            seed=0)
+    cases = [("homog10 x[20000,50] deg 10 x4000",
+              smoke.unit_rows(torch, (20000, 50), gen),
+              fm_h.bucket_omegas()[0], 10)]
+    adult = make_classification_dataset("adult")["x_test"]
+    for n, om in zip(fm_adult.degrees, fm_adult.bucket_omegas()):
+        cases.append((f"adult x[{adult.shape[0]},123] deg {n} "
+                      f"x{om.shape[0] // n}", adult, om, n))
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, x32, om32, deg in cases:
+            x, om = x32.to(dtype), om32.to(dtype)
+            rows, d = x.shape
+            count = om.shape[0] // deg
+            picked = bucket_schedule(rows, count, d, deg, x.element_size())
+            if picked.kernel != "tile":
+                continue
+            out = torch.empty((rows, count), device="cuda")
+            times = {}
+            for ct in range(1, 9):
+                smem = bucket_tile_smem(d, deg, ct, 2, x.element_size())
+                if smem > SMEM_PER_BLOCK:
+                    continue
+                for runs in (1, 2, 4, 8, 16, 32):
+                    sched = picked._replace(ct_per_warp=ct, runs=runs,
+                                            buffers=2, smem=smem)
+                    times[f"{ct}x{runs}"] = smoke.time_ms(
+                        torch, lambda s=sched: _bucket_launch(
+                            x, om, out, 0, deg, 1.0, s), iters=10,
+                        warmup=2)
+            key = f"{picked.ct_per_warp}x{picked.runs}"
+            if key not in times:
+                times[key] = smoke.time_ms(
+                    torch, lambda: _bucket_launch(x, om, out, 0, deg, 1.0,
+                                                  picked), iters=10,
+                    warmup=2)
+            best = min(times, key=times.get)
+            print(json.dumps(dict(
+                shape=label, dtype=str(dtype).split(".")[-1],
+                picked=key, picked_ms=times[key], best=best,
+                best_ms=times[best], ms=times)), flush=True)
 
 
 if __name__ == "__main__":
