@@ -11,6 +11,12 @@ layer, so that axis is unstacked, group-major then pattern order. The
 signs ``d1``/``d2``) and ``rm_scale`` cross unchanged with
 the rest, dtypes included, so both packages compute with the same weights
 and the same random draws.
+
+``compositional_from_jax(cfm)`` does the same for the reference's
+Algorithm 2 map (``repro.core.compositional.CompositionalFeatureMap``):
+each inner map's arrays (a Rademacher map's ``omega``, an RFF map's ``w``,
+``b`` and ``sigma``), then the scales, const, degrees and counts are read
+through ``np.asarray`` and rebuilt as the port's map, on the CPU.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_kinds
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "compositional_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -58,3 +64,35 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
         "layers": layers,
         "final_norm": _map(tree["final_norm"], _tensor),
     }
+
+
+def compositional_from_jax(cfm):
+    """The reference's ``CompositionalFeatureMap`` (its leaves anything
+    ``np.asarray`` reads) -> the port's, its draws as CPU tensors.
+
+    Raises:
+        TypeError: an inner map that is neither Rademacher (``omega``) nor
+            RFF (``w``, ``b``).
+    """
+    from repro_torch.core.compositional import (
+        CompositionalFeatureMap,
+        RademacherInnerMap,
+        RFFInnerMap,
+    )
+
+    inner = []
+    for m in cfm.inner_maps:
+        if hasattr(m, "omega"):
+            inner.append(RademacherInnerMap(omega=_tensor(m.omega)))
+        elif hasattr(m, "w") and hasattr(m, "b"):
+            inner.append(RFFInnerMap(w=_tensor(m.w), b=_tensor(m.b),
+                                     sigma=float(m.sigma)))
+        else:
+            raise TypeError(f"no port counterpart for inner map "
+                            f"{type(m).__name__}")
+    const = None if cfm.const is None else float(np.asarray(cfm.const))
+    return CompositionalFeatureMap(
+        degrees=tuple(int(n) for n in cfm.degrees),
+        counts=tuple(int(c) for c in cfm.counts), inner_maps=inner,
+        scales=[float(np.asarray(s)) for s in cfm.scales], const=const,
+        input_dim=int(cfm.input_dim))

@@ -4,8 +4,11 @@ kernels (Kar & Karnick, AISTATS 2012), in PyTorch (port of ``repro.core``).
 ``repro_torch.core.registry`` holds the estimator registry ("rm",
 "tensor_sketch", "ctr", "structured"); every entry shares the
 Taylor-coefficient degree measure defined here. Exported under the
-reference's names: what is ported so far (the compositional, growable and
-budget-selection maps are not yet)."""
+reference's names: Algorithm 1 (``make_feature_map``), Algorithm 2 (the
+compositional map of ``core.compositional``), the bounds, the linear
+models and the ``core.static_plan`` shim. The growable and
+budget-selection maps (``core.doubling``, ``core.select``) are not ported
+yet."""
 from repro_torch.core import registry
 from repro_torch.core.bounds import (
     HoeffdingConstants,
@@ -15,6 +18,12 @@ from repro_torch.core.bounds import (
     required_features_for_pairs,
     required_num_features,
     uniform_failure_prob,
+)
+from repro_torch.core.compositional import (
+    CompositionalFeatureMap,
+    RademacherInnerMap,
+    RFFInnerMap,
+    make_compositional_feature_map,
 )
 from repro_torch.core.feature_map import (
     RMFeatureMap,
@@ -73,6 +82,10 @@ __all__ = [
     "RMFeatureMap",
     "degree_measure",
     "make_feature_map",
+    "CompositionalFeatureMap",
+    "RademacherInnerMap",
+    "RFFInnerMap",
+    "make_compositional_feature_map",
     "make_truncated_feature_map",
     "truncation_degree",
     "HoeffdingConstants",

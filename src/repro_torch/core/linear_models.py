@@ -225,6 +225,35 @@ def train_kernel_ridge(
     return alpha, Classifier(decision_fn=decision)
 
 
+def _svm_epoch(gram, y, q_diag, alpha, ay, C, coords) -> None:
+    """Coordinate steps of the dual L2-loss SVM over ``coords``, in order,
+    updating ``alpha`` and ``ay = alpha * y`` in place."""
+    for i in coords:
+        # G_i = y_i * (K @ (alpha*y))_i + alpha_i/(2C) - 1
+        g = y[i] * (gram[i] @ ay) + alpha[i] / (2.0 * C) - 1.0
+        new_ai = torch.clamp_min(alpha[i] - g / q_diag[i], 0.0)
+        alpha[i] = new_ai
+        ay[i] = new_ai * y[i]
+
+
+def _svm_epochs_graphed(gram, y, q_diag, alpha, ay, C, n_epochs) -> None:
+    """``n_epochs`` epochs of :func:`_svm_epoch` on a CUDA Gram: one epoch
+    captured into a ``torch.cuda.CUDAGraph`` over ``alpha`` / ``ay`` (zeros
+    on entry) and replayed. One step is first run eagerly on a side stream
+    on scratch copies, so the libraries it calls are initialized before
+    the capture; the capture itself runs nothing."""
+    side = torch.cuda.Stream(device=gram.device)
+    side.wait_stream(torch.cuda.current_stream(gram.device))
+    with torch.cuda.stream(side):
+        _svm_epoch(gram, y, q_diag, alpha.clone(), ay.clone(), C, range(1))
+    torch.cuda.current_stream(gram.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        _svm_epoch(gram, y, q_diag, alpha, ay, C, range(gram.shape[0]))
+    for _ in range(n_epochs):
+        graph.replay()
+
+
 def train_kernel_svm(
     gram: torch.Tensor,
     y: torch.Tensor,
@@ -240,19 +269,25 @@ def train_kernel_svm(
     shift). Coordinates are visited in order 0..N-1, ``n_epochs`` times, as
     in the reference; each step is a few device operations on the Gram's
     device, with no read back to the host.
+
+    On the CPU the epochs run as a Python loop (the plain version). On a
+    CUDA Gram one epoch, its N steps with exactly the loop's operations,
+    is captured once into a CUDA graph over static ``alpha`` / ``ay``
+    buffers and replayed ``n_epochs`` times (the reference compiles the
+    same loop with ``lax.scan``): the graph runs the loop's kernels in the
+    loop's order, so ``alpha`` is bitwise the loop's, without N x the
+    launches' host cost an epoch. A failed capture raises.
     """
     y = torch.as_tensor(y, device=gram.device).to(gram.dtype)
     n = gram.shape[0]
     q_diag = torch.diagonal(gram) + 1.0 / (2.0 * C)
     alpha = torch.zeros(n, dtype=gram.dtype, device=gram.device)
     ay = torch.zeros_like(alpha)                     # alpha * y, kept current
-    for _ in range(n_epochs):
-        for i in range(n):
-            # G_i = y_i * (K @ (alpha*y))_i + alpha_i/(2C) - 1
-            g = y[i] * (gram[i] @ ay) + alpha[i] / (2.0 * C) - 1.0
-            new_ai = torch.clamp_min(alpha[i] - g / q_diag[i], 0.0)
-            alpha[i] = new_ai
-            ay[i] = new_ai * y[i]
+    if gram.device.type == "cuda" and n > 0 and n_epochs > 0:
+        _svm_epochs_graphed(gram, y, q_diag, alpha, ay, C, n_epochs)
+    else:
+        for _ in range(n_epochs):
+            _svm_epoch(gram, y, q_diag, alpha, ay, C, range(n))
 
     coef = alpha * y
 

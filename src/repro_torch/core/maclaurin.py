@@ -100,9 +100,18 @@ class DotProductKernel:
     # -- batched kernels -----------------------------------------------------
     def gram(self, X: torch.Tensor, Y: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
-        """Exact kernel matrix ``K[i, j] = f(<X_i, Y_j>)`` on X's device."""
-        Y = X if Y is None else Y
-        return self.f(X @ Y.T)
+        """Exact kernel matrix ``K[i, j] = f(<X_i, Y_j>)`` on X's device.
+
+        Without ``Y`` the upper triangle of the result is mirrored into
+        the lower one, so the self-Gram is symmetric bit for bit whatever
+        order the BLAS sums each entry of ``X @ X.T`` in, and whether an
+        element of ``f`` lands in a vectorized or a scalar loop (the two
+        may round ``pow`` differently)."""
+        if Y is not None:
+            return self.f(X @ Y.T)
+        k = self.f(X @ X.T)
+        lower = torch.triu(k, diagonal=1).T
+        return k.triu_() + lower
 
     def __repr__(self) -> str:  # pragma: no cover - debugging sugar
         return f"{type(self).__name__}({self.name})"

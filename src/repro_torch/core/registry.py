@@ -263,14 +263,23 @@ def _make_structured_entry() -> Estimator:
     )
 
 
-_ENTRIES: Dict[str, Estimator] = {"rm": _make_rm_entry(),
-                                  "tensor_sketch": _make_ts_entry(),
-                                  "ctr": _make_ctr_entry(),
-                                  "structured": _make_structured_entry()}
+# Built on the first ``get`` / ``list_estimators``, not at import: each
+# family's package imports ``repro_torch.core`` (this module with it), so
+# building the entries here would import a family package half-loaded
+# whenever that package is the first one imported.
+_ENTRIES: Dict[str, Estimator] = {}
+
+
+def _entries() -> Dict[str, Estimator]:
+    if not _ENTRIES:
+        _ENTRIES.update(rm=_make_rm_entry(), tensor_sketch=_make_ts_entry(),
+                        ctr=_make_ctr_entry(),
+                        structured=_make_structured_entry())
+    return _ENTRIES
 
 
 def list_estimators() -> Tuple[str, ...]:
-    return tuple(sorted(_ENTRIES))
+    return tuple(sorted(_entries()))
 
 
 def get(name: str) -> Estimator:
@@ -280,7 +289,7 @@ def get(name: str) -> Estimator:
         KeyError: unknown name, naming the available ones.
     """
     try:
-        return _ENTRIES[name]
+        return _entries()[name]
     except KeyError:
         raise KeyError(
             f"unknown estimator {name!r}; available: {list_estimators()}"

@@ -27,8 +27,9 @@ a block: B7 needs no choice, B6's warps and output groups are
 blocks on the tensor cores, its tiles and shared memory cut by
 :func:`chunked_schedule`; the structured kernel B8
 (``csrc/structured_feature.cu``) runs each Hadamard transform in a warp's
-registers (a block's, past 1024 points), its warps and lanes a row chosen
-by :func:`structured_schedule`. There is no autotune cache yet.
+registers (a block's, past 1024 points; in passes through a scratch, past
+8192), its warps and lanes a row chosen by :func:`structured_schedule`.
+There is no autotune cache yet.
 """
 from __future__ import annotations
 
@@ -51,9 +52,11 @@ __all__ = [
     "noncausal_schedule",
     "ChunkedSchedule",
     "chunked_schedule",
-    "STRUCTURED_MAX_DPAD",
+    "STRUCTURED_BLOCK_MAX_DPAD",
     "StructuredSchedule",
     "check_structured_d_pad",
+    "structured_split_passes",
+    "structured_split_rows",
     "structured_schedule",
 ]
 
@@ -85,10 +88,16 @@ STATE_MAX_FEATURE_TILES = 12
 # past that one block of
 # STRUCTURED_WIDE_THREADS threads holds it (d_pad / 256 a thread, the
 # stages past a warp through a shared-memory buffer of d_pad floats, 32 KB
-# at STRUCTURED_MAX_DPAD: the largest d_pad the kernel takes).
-STRUCTURED_MAX_DPAD = 8192
+# at STRUCTURED_BLOCK_MAX_DPAD); past that the split path: a pass over
+# runs of STRUCTURED_WARP_MAX_DPAD points a warp, then passes of at most
+# 2^STRUCTURED_PASS_MAX_LG points at a stride a thread, through an fp32
+# scratch of every slot of every stack of a chunk of rows, at most
+# STRUCTURED_SCRATCH_BYTES (one row's at the least).
+STRUCTURED_BLOCK_MAX_DPAD = 8192
 STRUCTURED_WARP_MAX_DPAD = 1024
 STRUCTURED_WIDE_THREADS = 256
+STRUCTURED_PASS_MAX_LG = 5
+STRUCTURED_SCRATCH_BYTES = 1 << 30
 # B5 (csrc/rm_attention_chunked.cu): 4 warps a block, a cluster of two
 # blocks a query tile of CHUNKED_ROWS rows (the scores and the state term);
 # F staged 32 features a slice, keys scored CHUNKED_KEY_GROUP at a time, v
@@ -758,13 +767,33 @@ def noncausal_schedule(kind: str, bh: int, t: int, d: int, dv: int, f: int,
 
 
 def check_structured_d_pad(m: int) -> None:
-    """Raises ValueError unless the structured kernel takes Hadamard size
-    ``m``: a power of two no larger than :data:`STRUCTURED_MAX_DPAD`."""
-    if m < 1 or m & (m - 1) or m > STRUCTURED_MAX_DPAD:
+    """Raises ValueError unless ``m`` is a power of two (every Hadamard size
+    the structured kernel takes)."""
+    if m < 1 or m & (m - 1):
         raise ValueError(
-            f"structured kernel: d_pad={m} must be a power of two no larger "
-            f"than {STRUCTURED_MAX_DPAD} (a block holds one row's transform "
-            "at most)")
+            f"structured kernel: d_pad={m} must be a power of two")
+
+
+def structured_split_passes(m: int) -> Tuple[int, ...]:
+    """The log2 sizes of B8's split-path passes at Hadamard size ``m`` (>
+    :data:`STRUCTURED_BLOCK_MAX_DPAD`): the run pass's 10, then lg(m) - 10
+    bits in pieces of at most :data:`STRUCTURED_PASS_MAX_LG`, as even as
+    they come, the larger first (``split_passes`` in the kernel's source).
+    """
+    run = STRUCTURED_WARP_MAX_DPAD.bit_length() - 1
+    rest = m.bit_length() - 1 - run
+    n = -(-rest // STRUCTURED_PASS_MAX_LG)
+    return (run,) + tuple(rest // n + (1 if i < rest % n else 0)
+                          for i in range(n))
+
+
+def structured_split_rows(b: int, m: int, stacks: int, depth: int) -> int:
+    """Rows of one chunk of B8's split path: as many as keep its fp32
+    scratch (``depth`` slots x ``stacks`` x ``m`` a row) within
+    :data:`STRUCTURED_SCRATCH_BYTES`, at least 1 and at most ``b`` (and a
+    grid's 65535)."""
+    per_row = 4 * depth * stacks * m
+    return max(1, min(b, 65535, STRUCTURED_SCRATCH_BYTES // per_row))
 
 
 class StructuredSchedule(NamedTuple):
@@ -772,9 +801,13 @@ class StructuredSchedule(NamedTuple):
     size ``d_pad``. ``wide`` False: ``lanes_per_row`` lanes of a warp hold
     one row's transform of one stack, ``elems_per_lane`` points a lane, so
     a warp holds ``rows_per_warp`` rows (grid: row groups of ``warps`` warps
-    x stacks); ``wide`` True: a block of :data:`STRUCTURED_WIDE_THREADS`
-    threads holds one row's (``elems_per_lane`` points a thread; grid: rows
-    x stacks)."""
+    x stacks); ``wide`` True and ``passes`` empty: a block of
+    :data:`STRUCTURED_WIDE_THREADS` threads holds one row's
+    (``elems_per_lane`` points a thread; grid: rows x stacks); ``passes``
+    set (past :data:`STRUCTURED_BLOCK_MAX_DPAD`): the split path, the log2
+    sizes of its passes (:func:`structured_split_passes`), ``warps`` and
+    ``elems_per_lane`` its run pass's and ``blocks`` that pass's blocks a
+    slot."""
     d_pad: int
     wide: bool
     lanes_per_row: int
@@ -782,6 +815,7 @@ class StructuredSchedule(NamedTuple):
     elems_per_lane: int
     warps: int
     blocks: int
+    passes: Tuple[int, ...] = ()
 
 
 def structured_schedule(m: int, b: int, stacks: int) -> StructuredSchedule:
@@ -796,12 +830,19 @@ def structured_schedule(m: int, b: int, stacks: int) -> StructuredSchedule:
     takes the most warps of 8, 4, 2 whose grid
     still fills the card (at least :data:`NUM_SMS` blocks; the warps of a
     block share the stack's signs in L1), else 1. Past the warp path the
-    block path.
+    block path, and past :data:`STRUCTURED_BLOCK_MAX_DPAD` the split
+    path.
 
     Raises:
         ValueError: as :func:`check_structured_d_pad`.
     """
     check_structured_d_pad(m)
+    if m > STRUCTURED_BLOCK_MAX_DPAD:
+        return StructuredSchedule(
+            d_pad=m, wide=True, lanes_per_row=32, rows_per_warp=0,
+            elems_per_lane=STRUCTURED_WARP_MAX_DPAD // 32, warps=8,
+            blocks=m // (8 * STRUCTURED_WARP_MAX_DPAD) * b * stacks,
+            passes=structured_split_passes(m))
     if m > STRUCTURED_WARP_MAX_DPAD:
         return StructuredSchedule(
             d_pad=m, wide=True, lanes_per_row=0, rows_per_warp=0,

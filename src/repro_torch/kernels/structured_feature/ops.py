@@ -14,7 +14,9 @@ its place in ``out`` and nothing else is written
 Dispatch follows the tensor: a CPU tensor takes the plain PyTorch version
 (``structured.ref.structured_feature_fused_ref``), and the same routing of
 its columns; a CUDA tensor launches the kernel or raises — there is no
-fallback. The kernel masks the ragged row edge itself.
+fallback. The kernel masks the ragged row edge itself. Past d_pad 8192
+the kernel's split path takes an fp32 scratch, which the wrapper
+allocates (``kernels.common.structured_split_rows`` rows at a time).
 ``structured_feature_fused.launches`` counts kernel launches and
 ``structured_feature_fused.last_schedule`` holds the last launch's
 ``kernels.common.StructuredSchedule``.
@@ -29,6 +31,7 @@ import torch
 from repro_torch.kernels.common import (
     check_structured_d_pad,
     structured_schedule,
+    structured_split_rows,
 )
 from repro_torch.structured.ref import structured_feature_fused_ref
 
@@ -36,7 +39,8 @@ __all__ = ["StructuredKeep", "structured_feature_fused"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
 
 
@@ -146,8 +150,7 @@ def structured_feature_fused(
     touched, and ``out`` is returned.
 
     Raises:
-        ValueError: d_pad is not a power of two or exceeds
-            ``kernels.common.STRUCTURED_MAX_DPAD``, or x is wider than it
+        ValueError: d_pad is not a power of two, or x is wider than it
             (on either device, so the CPU path refuses what the kernel
             would); ``out`` or ``keep`` do not fit.
     """
@@ -199,12 +202,21 @@ def structured_feature_fused(
         keep = full_width_keep(s, m)
         dest = torch.empty((b, cols), dtype=torch.float32, device=x.device)
     first, count = _keep_tensors(keep, x.device)
+    depth_ptr = scratch_ptr = chunk = 0
+    if sched.passes:
+        # the split path: each stack's depth, and a scratch of every slot
+        # of every stack for a chunk of rows
+        depth = col_deg.view(s, m).amax(dim=1).clamp_(max=k).to(torch.int32)
+        chunk = structured_split_rows(b, m, s, k)
+        scratch = torch.empty(chunk * k * s * m, dtype=torch.float32,
+                              device=x.device)
+        depth_ptr, scratch_ptr = depth.data_ptr(), scratch.data_ptr()
     err = _library()(
         xf.data_ptr(), d1.data_ptr(), d2.data_ptr(), col_deg.data_ptr(),
         col_scale.data_ptr(), dest.data_ptr(), dest.stride(0),
         first.data_ptr(), count.data_ptr(), b, d, s, m.bit_length() - 1, k,
         sched.warps, max(sched.lanes_per_row, 1).bit_length() - 1,
-        _DTYPE_CODE[xf.dtype],
+        depth_ptr, scratch_ptr, chunk, _DTYPE_CODE[xf.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"structured_feature kernel launch failed: CUDA "

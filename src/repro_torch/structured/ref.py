@@ -6,8 +6,10 @@
   stack is ``(x ∘ d1_j) @ H * d2_j`` with the dense H, then the slots
   multiply. The tests hold the fused map against it.
 * ``structured_feature_fused_ref`` — the plain version of kernel B8: the
-  masked running product on the ``pack_structured`` tensors, through the
-  dense H, in fp32.
+  masked running product on the ``pack_structured`` tensors, each
+  transform by butterflies (``wht``: stages h = 1, 2, ..., d_pad / 2 in
+  Sylvester order, the kernel's own order), in fp32, at any power-of-two
+  d_pad.
 
 Both emit the PADDED random section (``total_stacks * d_pad`` columns,
 surplus columns at scale 0); ``apply_structured_plan`` adds the prefix
@@ -25,6 +27,7 @@ from repro_torch.structured.plan import StructuredPlan
 
 __all__ = [
     "hadamard_matrix",
+    "wht",
     "structured_blocks_ref",
     "structured_feature_fused_ref",
 ]
@@ -40,6 +43,24 @@ def hadamard_matrix(m: int) -> np.ndarray:
     while h.shape[0] < m:
         h = np.block([[h, h], [h, -h]])
     return h
+
+
+def wht(v: torch.Tensor) -> torch.Tensor:
+    """Unnormalized Walsh-Hadamard transform along the last axis (a power
+    of two) by butterflies: stage h = 1, 2, ... maps each pair (i, i + h)
+    with ``i & h == 0`` to (a + b, a - b). Equals ``v @ H`` in exact
+    arithmetic, in O(m log m) and without the ``[m, m]`` matrix."""
+    shape = v.shape
+    m = shape[-1]
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"Hadamard size must be a power of two, got {m}")
+    h = 1
+    while h < m:
+        v = v.reshape(*shape[:-1], m // (2 * h), 2, h)
+        a, b = v[..., 0, :], v[..., 1, :]
+        v = torch.cat([a + b, a - b], dim=-1)
+        h *= 2
+    return v.reshape(shape)
 
 
 def _hmat(m: int, device) -> torch.Tensor:
@@ -80,16 +101,16 @@ def structured_feature_fused_ref(
     """Plain version of kernel B8; every operand is upcast to fp32.
 
     Column f is ``col_scale[f] prod_{j < col_deg[f]} (d2[j] ∘ H (d1[j] ∘
-    x_pad))_f``, x zero-padded to d_pad as the reference pads it.
+    x_pad))_f``, x zero-padded to d_pad as the reference pads it, each
+    transform by :func:`wht`.
     """
     k, s, m = d1.shape
     xf = torch.nn.functional.pad(x.float(), (0, m - x.shape[-1]))
-    hmat = _hmat(m, x.device)
     acc = torch.ones((xf.shape[0], s * m), dtype=torch.float32,
                      device=x.device)
     deg = col_deg.to(x.device)
     for j in range(k):
         u = xf[:, None, :] * d1[j].float()[None]          # [B, S, m]
-        p = ((u @ hmat) * d2[j].float()[None]).reshape(xf.shape[0], s * m)
+        p = (wht(u) * d2[j].float()[None]).reshape(xf.shape[0], s * m)
         acc = torch.where((j < deg)[None, :], acc * p, acc)
     return acc * col_scale.float()[None, :]

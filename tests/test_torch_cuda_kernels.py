@@ -1097,3 +1097,109 @@ def test_bucketed_path_matches_fused_on_the_card(cuda, kernel, d,
     assert (rm_feature_bucket.launches - before[0],
             rm_feature_fused.launches - before[1]) == (len(fm.degrees), 1)
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,rows", [(9000, 5), (40000, 3), (16384, 2)])
+def test_structured_kernel_split_path(cuda, dtype, d, rows):
+    """B8's split path (d_pad past 8192: a pass over runs of 1024 points,
+    passes of at most 32 points at a stride, an fp32 scratch between)
+    against its plain version, tolerance 1e-5 x max(1, max |plain|), two
+    calls bitwise equal, surplus columns 0."""
+    plan = make_structured_plan(ExponentialDotProductKernel(1.0), d, 600,
+                                measure="proportional", n_max=4)
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    d1, d2 = (t.to(dtype) for t in pack_structured(
+        plan, init_structured_params(plan, gen)))
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((rows, d), gen, cuda).to(dtype)
+    got = structured_feature_fused(x, d1, d2, cd, cs)
+    assert structured_feature_fused.last_schedule.passes
+    assert torch.equal(got, structured_feature_fused(x, d1, d2, cd, cs))
+    assert not got[:, cs == 0].any()
+    _close(got, structured_feature_fused_ref(x, d1, d2, cd, cs), 1e-5)
+
+
+def test_structured_kernel_split_path_chunks_and_kept_columns(cuda,
+                                                              monkeypatch):
+    """The split path run a few rows at a time (a scratch budget of 2
+    rows) equals one chunk bitwise, and through ``apply_structured_plan``
+    its kept columns equal the full width sliced, bitwise."""
+    from repro_torch.core.plan import prefix_columns
+    from repro_torch.kernels import common
+    from repro_torch.structured.plan import apply_structured_plan
+
+    plan = make_structured_plan(ExponentialDotProductKernel(1.0), 9000,
+                                4000, measure="proportional", n_max=6)
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    params = init_structured_params(plan, gen)
+    d1, d2 = pack_structured(plan, params)
+    cd, cs = plan_columns(plan, cuda)
+    x = _unit((7, 9000), gen, cuda)
+    full = structured_feature_fused(x, d1, d2, cd, cs)
+    monkeypatch.setattr(common, "STRUCTURED_SCRATCH_BYTES",
+                        2 * plan.max_degree * plan.total_stacks
+                        * plan.d_pad * 4)
+    assert common.structured_split_rows(7, plan.d_pad, plan.total_stacks,
+                                        plan.max_degree) == 2
+    assert torch.equal(structured_feature_fused(x, d1, d2, cd, cs), full)
+    pieces, off = [], 0
+    for c, n_st in zip(plan.counts, plan.stacks_per_bucket):
+        pieces.append(full[:, off: off + c])
+        off += n_st * plan.d_pad
+    want = torch.cat(prefix_columns(plan, x, torch.float32) + pieces, dim=-1)
+    assert torch.equal(apply_structured_plan(plan, params, x), want)
+
+
+def test_kernel_svm_graph_equals_the_eager_loop_bitwise(cuda):
+    """``train_kernel_svm`` on a CUDA Gram replays one captured epoch: the
+    same kernels in the same order as the eager loop, so its alphas are
+    bitwise the loop's (300 rows, 40 epochs)."""
+    from repro_torch.core import PolynomialKernel, train_kernel_svm
+    from repro_torch.core.linear_models import _svm_epoch
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    x = _unit((300, 12), gen, cuda) * 0.9
+    y = torch.sign(x[:, 0] * x[:, 1] + 0.05)
+    gram = PolynomialKernel(10, 1.0).gram(x)
+    alpha, _ = train_kernel_svm(gram, y, C=1.0)
+    q_diag = torch.diagonal(gram) + 0.5
+    eager = torch.zeros(300, device=cuda)
+    ay = torch.zeros_like(eager)
+    for _ in range(40):
+        _svm_epoch(gram, y, q_diag, eager, ay, 1.0, range(300))
+    torch.cuda.synchronize()
+    assert (alpha > 0).any()
+    assert torch.equal(alpha, eager)
+
+
+def test_compositional_map_runs_b9_once_a_rademacher_bucket(cuda):
+    """Algorithm 2 with Rademacher inner maps on the card: one B9 launch a
+    bucket, within 1e-5 x max(1, max |Z|) of the CPU's plain path; an RFF
+    map launches no kernel and matches the CPU within 1e-5."""
+    from repro_torch.core import (
+        ExponentialDotProductKernel as Exp,
+        PolynomialKernel,
+        RademacherInnerMap,
+        RFFInnerMap,
+        make_compositional_feature_map,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    cfm = make_compositional_feature_map(
+        PolynomialKernel(10, 1.0),
+        lambda g, n: RademacherInnerMap.create(g, n, 123), 123, 4000, gen)
+    x = _unit((500, 123), gen, cuda)
+    before = rm_feature_bucket.launches
+    z = cfm(x)
+    torch.cuda.synchronize()
+    assert rm_feature_bucket.launches - before == len(cfm.degrees)
+    _close(z.cpu(), cfm.to("cpu")(x.cpu()), 1e-5)
+    rff = make_compositional_feature_map(
+        Exp(1.0), lambda g, n: RFFInnerMap.create(g, n, 50), 50, 1000, gen,
+        measure="proportional", inner_bound=2.0)
+    xr = _unit((100, 50), gen, cuda)
+    before = rm_feature_bucket.launches
+    zr = rff(xr)
+    assert rm_feature_bucket.launches == before
+    _close(zr.cpu(), rff.to("cpu")(xr.cpu()), 1e-5)

@@ -123,6 +123,35 @@ def test_zoo_gram_on_tensors_matches_reference(pair):
     assert torch.equal(sym, sym.T)
 
 
+@pytest.mark.parametrize("pair", ZOO, ids=ZOO_IDS)
+def test_self_gram_is_bitwise_symmetric_under_a_skewed_matmul(pair,
+                                                              monkeypatch):
+    """``gram(X)`` is symmetric bit for bit whatever order the BLAS sums
+    in: here a product that comes back 1 ulp high above its diagonal (as
+    an asymmetric summation order may) still gives ``K == K.T`` exactly,
+    within 1e-6 of the reference's Gram."""
+    real = torch.Tensor.__matmul__
+
+    def skewed(a, b):
+        out = real(a, b)
+        if out.dim() == 2 and out.shape[0] == out.shape[1]:
+            upper = torch.ones_like(out, dtype=torch.bool).triu(1)
+            out = torch.where(upper, torch.nextafter(
+                out, torch.full_like(out, float("inf"))), out)
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", skewed)
+    monkeypatch.setattr(torch, "matmul", skewed)
+    jk, tk = pair
+    X = _unit_ball(9, 6, 0, 1.5)
+    assert not torch.equal(torch.from_numpy(X) @ torch.from_numpy(X).T,
+                           (torch.from_numpy(X) @ torch.from_numpy(X).T).T)
+    K = tk.gram(torch.from_numpy(X))
+    assert torch.equal(K, K.T)
+    want = np.asarray(jk.gram(jnp.asarray(X)))
+    assert _scaled_err(K.numpy(), want) <= 1e-6
+
+
 def test_kernel_from_name_and_validation_match_reference():
     for name, kw in (("exp", {"sigma2": 2.0}), ("poly", {"degree": 4}),
                      ("homogeneous", {"degree": 2}), ("vovk_real", {}),

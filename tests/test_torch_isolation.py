@@ -41,6 +41,27 @@ def test_port_file_imports_neither_jax_nor_reference(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+SUBPACKAGES = ("sketch", "ctr", "structured", "core", "models", "serve",
+               "data", "launch", "kernels", "paper")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_imports_first_in_a_fresh_process(sub):
+    """Each subpackage of the port imports on its own, first in a fresh
+    interpreter (no import cycle through the registry), and the registry
+    then lists the four families, each entry built once."""
+    code = (f"import repro_torch.{sub}\n"
+            "from repro_torch.core import registry\n"
+            "names = registry.list_estimators()\n"
+            "assert names == ('ctr', 'rm', 'structured', 'tensor_sketch')\n"
+            "assert all(registry.get(n) is registry.get(n) for n in names)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
 def test_port_sources_exist():
     assert len(PORT_FILES) > 20
     assert (ROOT / "src" / "repro_torch" / "csrc" / "rm_feature.cu").exists()

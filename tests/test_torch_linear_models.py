@@ -109,6 +109,29 @@ def test_kernel_svm_matches_reference(n, d):
             torch.from_numpy(xt))
 
 
+def test_kernel_svm_eager_loop_on_the_cpu_matches_reference(monkeypatch):
+    """On a CPU Gram ``train_kernel_svm`` runs its plain version, the
+    Python loop of coordinate steps (no CUDA graph is made), and its
+    alphas stay within 1e-5 x max(1, max |alpha|) of the reference's on a
+    60-row Gram; fewer epochs, and none, match too."""
+    def no_graph(*a, **k):
+        raise AssertionError("a CPU Gram must not capture a CUDA graph")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", no_graph)
+    x, y = _problem(60, 5, 11)
+    gram = np.asarray(JPoly(3, 1.0).gram(jnp.asarray(x)))
+    for epochs in (40, 3, 0):
+        ja, _ = jl.train_kernel_svm(jnp.asarray(gram), jnp.asarray(y),
+                                    C=0.5, n_epochs=epochs)
+        ta, _ = tl.train_kernel_svm(torch.from_numpy(gram),
+                                    torch.from_numpy(y), C=0.5,
+                                    n_epochs=epochs)
+        ja = np.asarray(ja)
+        assert ta.dtype == torch.float32 and ta.shape == (60,)
+        assert np.abs(ta.numpy() - ja).max() <= 1e-5 * max(
+            1.0, np.abs(ja).max()), epochs
+
+
 @pytest.mark.parametrize("loss", ["squared_hinge", "logistic"])
 @pytest.mark.parametrize("n,d,num_features", [(400, 8, 100),
                                               (600, 12, 200)])

@@ -389,12 +389,23 @@ def test_structured_kernel_wrapper_edges():
 
 
 def test_wrapper_raises_beyond_the_kernels_d_pad():
-    m = common.STRUCTURED_MAX_DPAD * 2
+    """The kernel takes every power-of-two d_pad (past
+    ``STRUCTURED_BLOCK_MAX_DPAD`` its split path), so the wrapper refuses
+    only a d_pad that is not one, on the CPU as on the card; at twice the
+    block path's widest the plain version runs (H of a ones row is d_pad
+    at column 0, 0 elsewhere)."""
+    m = common.STRUCTURED_BLOCK_MAX_DPAD * 2
     d1 = torch.ones(1, 1, m)
     cd = torch.ones(m, dtype=torch.int32)
-    with pytest.raises(ValueError, match="power of two no larger"):
-        structured_feature_fused(torch.ones(2, m), d1, d1, cd,
-                                 torch.ones(m))
+    z = structured_feature_fused(torch.ones(2, m), d1, d1, cd, torch.ones(m))
+    assert z.shape == (2, m)
+    assert (z[:, 0] == m).all() and not z[:, 1:].any()
+    bad = 3 * common.STRUCTURED_BLOCK_MAX_DPAD // 2
+    d1 = torch.ones(1, 1, bad)
+    cd = torch.ones(bad, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        structured_feature_fused(torch.ones(2, bad), d1, d1, cd,
+                                 torch.ones(bad))
 
 
 # (d_pad, rows, stacks) -> (wide, lanes a row, rows a warp, points a lane,
@@ -409,7 +420,7 @@ def test_wrapper_raises_beyond_the_kernels_d_pad():
     (128, 4096, 6, (False, 16, 2, 8, 8)),   # bucket 256 / Gram: 1536 blocks
     (1024, 70, 1, (False, 32, 1, 32, 1)),   # the widest warp path
     (2048, 9, 1, (True, 0, 0, 8, 8)),       # the block path: 8 points a thread
-    (8192, 4, 2, (True, 0, 0, 32, 8)),      # the widest the kernel takes
+    (8192, 4, 2, (True, 0, 0, 32, 8)),      # the widest block path
 ])
 def test_structured_schedule(m, b, stacks, want):
     sched = common.structured_schedule(m, b, stacks)
@@ -436,10 +447,108 @@ def test_structured_schedule(m, b, stacks, want):
                 < common.NUM_SMS
 
 
-@pytest.mark.parametrize("m", [0, 3, 2 * common.STRUCTURED_MAX_DPAD])
+@pytest.mark.parametrize("m", [0, 3, 3 * common.STRUCTURED_BLOCK_MAX_DPAD // 2])
 def test_structured_schedule_rejects_bad_sizes(m):
     with pytest.raises(ValueError, match="power of two"):
         common.structured_schedule(m, 64, 1)
+
+
+# d_pad -> the split path's passes (log2 sizes): the run pass's 1024
+# points, then at most 32 points at a stride a thread, as even as they come
+@pytest.mark.parametrize("m,passes", [
+    (16384, (10, 4)),           # d 9000
+    (32768, (10, 5)),
+    (65536, (10, 3, 3)),        # d 40000
+    (2 ** 21, (10, 4, 4, 3)),
+])
+def test_structured_schedule_split_path(m, passes):
+    sched = common.structured_schedule(m, 64, 3)
+    assert sched.wide and sched.passes == passes
+    assert sum(passes) == m.bit_length() - 1
+    assert all(p <= common.STRUCTURED_PASS_MAX_LG for p in passes[1:])
+    assert sched.blocks == m // 8192 * 64 * 3     # the run pass, a slot
+    for b, m_rows in ((5, 5), (10 ** 6, 65535)):
+        assert common.structured_split_rows(b, m, 3, 4) == min(
+            m_rows, max(1, common.STRUCTURED_SCRATCH_BYTES // (4 * 12 * m)))
+    assert common.structured_split_rows(3, 2 ** 30, 4, 4) == 1
+
+
+def _split_butterfly(u, m):
+    """The split path of kernel B8 (csrc/structured_feature.cu) on a numpy
+    row, indexed as the kernel indexes it: the run pass (run r, lane l,
+    register e holds point r 1024 + l + 32 e: lane stages h = 1 .. 16 by
+    its lane bits, then register stages h = 32 .. 512), then each pass of
+    2^k points a thread at stride 2^lo (thread q: its points
+    ``split_base(q) + e 2^lo``, register stages in ascending h)."""
+    v = u.astype(np.float64).copy()
+    passes = common.structured_split_passes(m)
+    runs = v.reshape(m // 1024, 32, 32)        # [run, e, lane]
+    lane = np.arange(32)
+    for k in range(5):
+        partner = runs[:, :, lane ^ (1 << k)]
+        runs = np.where((lane >> k) & 1, partner - runs, runs + partner)
+    for hr in (1, 2, 4, 8, 16):
+        e = np.arange(32)
+        lo = (e & hr) == 0
+        a, b = runs[:, e[lo], :].copy(), runs[:, e[lo] + hr, :].copy()
+        runs[:, e[lo], :], runs[:, e[lo] + hr, :] = a + b, a - b
+    v = runs.reshape(m)
+    lo_bit = passes[0]
+    for k in passes[1:]:
+        t, n_pts = 1 << lo_bit, 1 << k
+        for q in range(m // n_pts):
+            base = ((q >> lo_bit) << (lo_bit + k)) + (q & (t - 1))
+            idx = base + t * np.arange(n_pts)
+            w = v[idx]
+            hr = 1
+            while hr < n_pts:
+                for e in range(n_pts):
+                    if not e & hr:
+                        w[e], w[e + hr] = w[e] + w[e + hr], w[e] - w[e + hr]
+                hr *= 2
+            v[idx] = w
+        lo_bit += k
+    return v
+
+
+@pytest.mark.parametrize("m", [16384, 65536])
+def test_kernel_split_path_order_is_sylvester(m):
+    """The split path's passes give the butterfly of the other paths (the
+    same stages in the same ascending order, so bit for bit on floats) and
+    so H u, exactly on integer inputs."""
+    rng = np.random.default_rng(m)
+    u = rng.integers(-4, 5, size=m).astype(np.float32)
+    want = _kernel_butterfly(u, m)
+    np.testing.assert_array_equal(_split_butterfly(u, m), want)
+    np.testing.assert_array_equal(
+        tstref.wht(torch.from_numpy(u.astype(np.float64))).numpy(), want)
+    f = rng.normal(size=m)
+    np.testing.assert_array_equal(_split_butterfly(f, m),
+                                  _kernel_butterfly(f, m))
+
+
+def test_apply_past_the_block_path_matches_reference():
+    """d 9000 (d_pad 16384, past the block path's 8192): the port's plan
+    and map (B8's plain version, butterflies) against the reference's
+    ``make_structured_plan`` / ``apply_structured_plan`` (its dense-H
+    oracle) on the same signs, shape [3, 40], within 1e-5 x max(1, max
+    |ref|)."""
+    kw = dict(measure="proportional", n_max=4, seed=0)
+    jp = jst.make_structured_plan(JExp(1.0), 9000, 40, **kw)
+    tp = tst.make_structured_plan(TExp(1.0), 9000, 40, **kw)
+    _assert_same_plan(jp, tp)
+    assert tp.d_pad == 16384
+    jparams, tparams = _signs(jp, 6)
+    x = _unit_rows(3, 9000, 7)
+    try:
+        want = np.asarray(jst.apply_structured_plan(
+            jp, jparams, jnp.asarray(x), use_pallas=False))
+    finally:
+        jstref.hadamard_matrix.cache_clear()     # 1 GiB at this size
+    got = tst.apply_structured_plan(tp, tparams, torch.from_numpy(x))
+    assert want.shape == (3, 40) and got.shape == (3, 40)
+    tol = 1e-5 * max(1.0, np.abs(want).max())
+    assert np.abs(got.numpy() - want).max() <= tol
 
 
 # ---------------------------------------------------------------------------
