@@ -180,7 +180,31 @@ Phases, each fatal on failure:
     launch a bucket, against the CPU's plain path on 2000 rows; exp of
     RBF through RFF inner maps at d 50, D 1000 and 8000, its Gram error
     shrinking with D and the card's Gram equal to the CPU's); and Theorem
-    12's required D.
+    12's required D;
+24. training on the card (the serving and encoder engines freed before):
+    (a) each differentiable attention op's gradients card against CPU in
+    fp32 — B2 (``rm_attention_fused_causal``) at the prefill shape (BH 16,
+    T 256, F 163, padded keys), B3 + B4 (``rm_attention_fused_noncausal``)
+    at BH 16, T 1500, d = dv = 80 (padded keys), B5
+    (``rm_attention_causal``) at phase 5's shape — each op's forward
+    bitwise its forward-only wrappers' output with one launch of its
+    kernels, no RM launch in the backward, q/k/v cotangents within 1e-4 x
+    max(1, max |g_cpu|); (b) the qwen3 and hubert SMOKE models in fp32,
+    card against CPU: every trainable leaf's ``loss_fn`` gradient within
+    1e-4 x max(1, max |g|), and one ``make_train_step`` each (loss and
+    grad_norm within 1e-4 relative); (c) qwen3-1.7b at full width and
+    depth (28 layers, bf16 compute, fp32 masters, AdamW) trained 8 steps
+    through ``train.trainer.Trainer`` on ``SyntheticLMDataset`` (4 x 256
+    tokens a step, vocab 151936), the first step cold: every step finite,
+    B2 exactly 28 launches and no other RM kernel, the last step's CE
+    below the first's, the final checkpoint restored bitwise; the cold and
+    warm step walls, tokens/s, peak device memory beside the train state's
+    bytes, and one profiled warm step (wall, device busy and idle share,
+    device kernels, the largest device consumers, B2's device time beside
+    its backward's recompute, and both alone at the step's shape); (d) one
+    ``make_train_step`` of hubert-xlarge at full width and depth (48
+    layers, 2 clips x 1500 frames, framewise targets from the seed):
+    finite, B3 and B4 48 launches each, its wall and peak memory.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -201,11 +225,13 @@ decode step and that prefill, B8 its times through
 ``apply_structured_plan`` beside the kept-columns and whole-map bounds
 and its split path's at d_pad 16384 and 65536,
 B9 its grid and the adult map's per-bucket device time beside fused
-B1's) and, as its last line, ``{"ok": true,
+B1's; B2, B3 and B4 their launches per train step, B2 its device time and
+its backward's in the profiled qwen3 train step) and, as its last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device it prints no result and exits
 non-zero. Should the run near its time limit, the rm slice's warm repeat
 (phase 8) is the part to cut first, then the tensor_sketch slice's (phase
-10); no kernel check is cut.
+10), then phase 24's profiled warm step and its timings alone; no kernel
+check and no gradient check is cut.
 """
 import dataclasses
 import gc
@@ -1326,6 +1352,415 @@ def noncausal_phase(torch, np, gen, kernels):
         label, err, tol = worst(checks)
         kernels[kid].update(max_abs_err=err, tol=tol, check=label)
     return hcfg, hd, hf
+
+
+# -- phase 24: training on the card ------------------------------------------
+TRAIN_GRAD_TOL = 1e-4   # x max(1, max |g_cpu|): one fp32 formulation
+#                         differentiated on both devices, sums reordered
+TRAIN_METRIC_TOL = 1e-4  # relative: loss and grad_norm card vs CPU
+TRAIN_STEPS = 8          # qwen3-1.7b steps through the Trainer
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+ENC_TRAIN_CLIPS = 2      # hubert-xlarge clips of ENC_FRAMES in its step
+
+
+def trainable_grads(cfg, params, batch):
+    """``({path: grad}, loss)`` of ``loss_fn`` for every trainable float
+    leaf (``train.steps.loss_grads``, flattened)."""
+    from repro_torch.common.tree import flatten_dict
+    from repro_torch.optim.adamw import is_frozen
+    from repro_torch.train.steps import loss_grads
+
+    grads, metrics = loss_grads(cfg, params, batch)
+    return ({k: g for k, g in flatten_dict(grads).items()
+             if not is_frozen(tuple(k.split("/")))
+             and g.is_floating_point()}, metrics["loss"])
+
+
+def tree_to(p, device):
+    if isinstance(p, dict):
+        return {k: tree_to(v, device) for k, v in p.items()}
+    if isinstance(p, list):
+        return [tree_to(v, device) for v in p]
+    return p.to(device)
+
+
+def function_grad_check(torch, label, fn, forward_only, args, counters,
+                        kernel_ids):
+    """One differentiable op on the card against the same op on the CPU:
+    the forward bitwise ``forward_only`` (the kernels' wrappers without
+    autograd) with one launch of each of ``kernel_ids`` and none of the
+    other RM kernels, no RM launch in the backward, and the cotangents of
+    the first three args (q, k, v) within TRAIN_GRAD_TOL of the CPU's.
+    ``args``: CUDA tensors, the first three differentiated."""
+    with torch.no_grad():
+        plain = forward_only(*args)
+    cot = torch.randn(plain.shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(9))
+    xs = [a.detach().requires_grad_() for a in args[:3]]
+    before = {k: fn_.launches for k, fn_ in counters.items()}
+    t0 = time.perf_counter()
+    out = fn(*xs, *args[3:])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    mid = {k: fn_.launches for k, fn_ in counters.items()}
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(out, xs, cot)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    after = {k: fn_.launches for k, fn_ in counters.items()}
+    moved = {k: mid[k] - before[k] for k in counters}
+    in_bwd = {k: after[k] - mid[k] for k in counters}
+    want_moved = {k: int(k in kernel_ids) for k in counters}
+    bitwise = torch.equal(out.detach(), plain)
+    xc = [a.detach().cpu().requires_grad_() for a in args[:3]]
+    rest = [a.cpu() if torch.is_tensor(a) else a for a in args[3:]]
+    want = torch.autograd.grad(fn(*xc, *rest), xc, cot.cpu())
+    errs = []
+    for name, g, w in zip("qkv", grads, want):
+        err = (g.float().cpu() - w.float()).abs().max().item()
+        tol = TRAIN_GRAD_TOL * max(1.0, w.abs().max().item())
+        errs.append((name, err, tol))
+    print(f"[train a] {label}: forward bitwise the forward-only wrappers' "
+          f"{bitwise}, launches forward {moved} (want {kernel_ids} once), "
+          f"backward {sum(in_bwd.values())} RM launches; grads card vs CPU "
+          + ", ".join(f"{n} {e:.2e} (tol {t:.1e})" for n, e, t in errs)
+          + f"; forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms (host "
+          "clock, synchronized, cold)")
+    if not (bitwise and moved == want_moved and not any(in_bwd.values())
+            and all(e <= t for _, e, t in errs)):
+        raise AssertionError(f"train a {label}: Function check failed")
+    return max(e / t for _, e, t in errs)
+
+
+def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
+                ts_feats):
+    """Phase 24 (see the module doc): the three differentiable attention
+    ops card vs CPU, the SMOKE models' gradients and one train step card vs
+    CPU, qwen3-1.7b trained for TRAIN_STEPS steps through the Trainer with
+    a checkpoint restored bitwise and one profiled warm step, and one
+    hubert-xlarge train step."""
+    import statistics
+    import tempfile
+
+    from repro_torch.common.tree import flatten_dict, tree_bytes
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.kernels.rm_attention.ops import (
+        _fused_causal_formulation,
+        rm_attention_causal,
+        rm_attention_chunked,
+        rm_attention_fused_causal,
+        rm_attention_fused_noncausal,
+        rm_fused_apply,
+        rm_fused_causal,
+        rm_fused_state,
+    )
+    from repro_torch.kernels.rm_attention.ref import causal_chunked
+    from repro_torch.models.attention import rm_plan_for
+    from repro_torch.train.steps import (
+        TrainHyper,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+
+    # a. each differentiable op's gradients, card against CPU, fp32
+    b, h, t = 2, 8, 256                       # BH 16, the prefill shape
+    d = w32.shape[2]
+    q, k = unit_rows(torch, (b, h, t, d), gen), unit_rows(torch, (b, h, t, d),
+                                                          gen)
+    v = torch.randn((b, h, t, d), generator=gen, device="cuda")
+    kvalid = torch.ones((b, t), device="cuda")
+    kvalid[1, 200:] = 0.0
+    function_grad_check(
+        torch, "B2 (fused causal) BH 16 T 256 F "
+        f"{w32.shape[1]}, padded keys",
+        lambda q, k, v, kv, w, cd, cs: rm_attention_fused_causal(
+            q, k, v, w, cd, cs, kvalid=kv),
+        lambda q, k, v, kv, w, cd, cs: rm_fused_causal(
+            q, k, v, kv, w, cd, cs, 1e-4)[0],
+        (q, k, v, kvalid, w32, col_deg, col_scale), counters, ("B2",))
+    hcfg = get_config("hubert-xlarge", attention_mode="rm")
+    hd = hcfg.resolved_head_dim
+    hplan = rm_plan_for(hcfg, hd)
+    hw = pack_omegas(hplan, init_omegas(hplan, gen))
+    h_deg, h_scale = plan_columns(hplan, "cuda")
+    te = ENC_FRAMES
+    q, k = (unit_rows(torch, (b, h, te, hd), gen) for _ in range(2))
+    v = torch.randn((b, h, te, hd), generator=gen, device="cuda")
+    kvalid = torch.ones((b, te), device="cuda")
+    kvalid[1, te - 36:] = 0.0
+
+    def noncausal_forward_only(q, k, v, kv, w, cd, cs):
+        bh = q.shape[0] * q.shape[1]
+        kval = kv[:, None, :].expand(q.shape[0], q.shape[1], te)
+        s, n = rm_fused_state(k.reshape(bh, te, hd), v.reshape(bh, te, hd),
+                              kval.reshape(bh, te), w, cd, cs)
+        return rm_fused_apply(q.reshape(bh, te, hd), s, n, w, cd, cs,
+                              1e-4).reshape(v.shape)
+
+    function_grad_check(
+        torch, f"B3 + B4 (fused non-causal) BH 16 T {te} d = dv = {hd}, "
+        "padded keys",
+        lambda q, k, v, kv, w, cd, cs: rm_attention_fused_noncausal(
+            q, k, v, w, cd, cs, kvalid=kv),
+        noncausal_forward_only, (q, k, v, kvalid, hw, h_deg, h_scale),
+        counters, ("B3", "B4"))
+    zq, zk, zv = ts_feats
+    function_grad_check(
+        torch, f"B5 (two-launch causal) BH 16 T 256 F {zq.shape[-1]} dv "
+        f"{zv.shape[-1]}, keys padded from 200",
+        lambda a, b_, c: rm_attention_causal(a, b_, c),
+        lambda a, b_, c: causal_chunked(a, b_, c, 128, 1e-4,
+                                        rm_attention_chunked),
+        (zq, zk, zv), counters, ("B5",))
+    del q, k, v, zq, zk, zv, hw
+
+    # b. the SMOKE models in fp32, card against CPU
+    hyper_small = TrainHyper(peak_lr=1e-3, warmup_steps=1, total_steps=8)
+    rng = np.random.default_rng(24)
+    for arch in ("qwen3-1.7b", "hubert-xlarge"):
+        small = dataclasses.replace(
+            get_config(arch, smoke=True, attention_mode="rm"),
+            compute_dtype="float32")
+        if small.frontend == "audio_stub":
+            batch = {"embeds": torch.from_numpy(rng.standard_normal(
+                (2, 40, small.d_model)).astype(np.float32)),
+                "targets": torch.from_numpy(rng.integers(
+                    0, small.vocab_size, size=(2, 40)))}
+        else:
+            toks = torch.from_numpy(rng.integers(0, small.vocab_size,
+                                                 size=(2, 41)))
+            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        state_cpu = init_train_state(small, seed=3, hyper=hyper_small,
+                                     device="cpu")
+        state_gpu = tree_to(state_cpu, "cuda")
+        batch_gpu = tree_to(batch, "cuda")
+        g_cpu, loss_cpu = trainable_grads(small, state_cpu["params"], batch)
+        g_gpu, loss_gpu = trainable_grads(small, state_gpu["params"],
+                                          batch_gpu)
+        ratio, worst_key = 0.0, None
+        for key, g in g_cpu.items():
+            err = (g_gpu[key].cpu() - g).abs().max().item()
+            r = err / (TRAIN_GRAD_TOL * max(1.0, g.abs().max().item()))
+            if r >= ratio:
+                ratio, worst_key = r, key
+        _, m_cpu = make_train_step(small, hyper_small)(state_cpu, batch)
+        _, m_gpu = make_train_step(small, hyper_small)(state_gpu, batch_gpu)
+        gaps = {key: abs(float(m_gpu[key]) - float(m_cpu[key]))
+                / abs(float(m_cpu[key])) for key in ("loss", "grad_norm")}
+        print(f"[train b] {small.name} fp32 rm: loss_fn {float(loss_gpu):.6f} "
+              f"card, {float(loss_cpu):.6f} CPU; {len(g_cpu)} trainable "
+              f"leaves, worst gradient {worst_key} at {ratio:.3f} of its "
+              f"tolerance ({TRAIN_GRAD_TOL:.0e} x max(1, max |g|)); one "
+              "train step card vs CPU: loss "
+              f"{gaps['loss']:.2e}, grad_norm {gaps['grad_norm']:.2e} "
+              f"relative (tol {TRAIN_METRIC_TOL:.0e})")
+        if not (ratio <= 1.0 and all(x <= TRAIN_METRIC_TOL
+                                     for x in gaps.values())):
+            raise AssertionError(f"train b {small.name}: card vs CPU failed")
+    del state_cpu, state_gpu, g_cpu, g_gpu
+
+    # c. qwen3-1.7b at full width and depth through the Trainer
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    layers = cfg.num_layers
+    hyper = TrainHyper(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+    class CountedData(SyntheticLMDataset):
+        """The dataset, with the RM kernels' launch counts read at every
+        ``batch_at`` (once a step, before it)."""
+        marks = []
+
+        def batch_at(self, step):
+            self.marks.append({k: fn.launches for k, fn in counters.items()})
+            return super().batch_at(step)
+
+    data = CountedData(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0, device="cuda")
+    print(f"[train c] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, rm attention (fused: B2), compute "
+          f"{cfg.compute_dtype}, fp32 masters, AdamW; SyntheticLMDataset "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; depth cut: none")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = Trainer(cfg, hyper, data, ckpt_dir=ckpt_dir, seed=0,
+                          log_every=1, checkpoint_every=10 ** 9,
+                          device="cuda")
+        t0 = time.perf_counter()
+        state = trainer.train(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        CountedData.marks.append({k: fn.launches
+                                  for k, fn in counters.items()})
+        peak = torch.cuda.max_memory_allocated()
+        state_bytes = tree_bytes(state)
+        rows = trainer.metrics_log
+        marks = CountedData.marks
+        per_step = [{k: marks[i + 1][k] - marks[i][k] for k in counters}
+                    for i in range(TRAIN_STEPS)]
+        want = {k: layers if k == "B2" else 0 for k in counters}
+        walls = [row["sec_per_step"] for row in rows]
+        for i, (row, launched) in enumerate(zip(rows, per_step)):
+            finite = math.isfinite(row["loss"]) and math.isfinite(
+                row["grad_norm"])
+            if not (finite and launched == want):
+                raise AssertionError(f"train c step {i}: loss "
+                                     f"{row['loss']}, grad_norm "
+                                     f"{row['grad_norm']}, launches "
+                                     f"{launched} (want {want})")
+        warm = statistics.median(walls[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"[train c] {TRAIN_STEPS} steps: ce "
+              + " ".join(f"{row['ce']:.4f}" for row in rows)
+              + f"; grad_norm " + " ".join(f"{row['grad_norm']:.3f}"
+                                           for row in rows)
+              + f"; every step B2 x {layers}, no other RM kernel")
+        print(f"[train c] step wall: cold {walls[0] * 1e3:.1f} ms, warm "
+              f"median {warm * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, "
+              f"max {max(walls[1:]) * 1e3:.1f}) = {tokens / warm:.0f} "
+              f"tokens/s; train() {train_wall:.2f}s, of which "
+              f"{train_wall - sum(walls):.2f}s data, logging and the final "
+              "checkpoint")
+        print(f"[train c] peak device memory {peak / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated) beside the train state "
+              f"{state_bytes / 2**30:.2f} GiB (params, mu, nu fp32)")
+        if not rows[-1]["ce"] < rows[0]["ce"]:
+            raise AssertionError(f"train c: ce did not fall: "
+                                 f"{rows[0]['ce']} -> {rows[-1]['ce']}")
+        t0 = time.perf_counter()
+        restored = trainer.ckpt.restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        flat, back = flatten_dict(state), flatten_dict(restored)
+        same = set(flat) == set(back) and all(
+            back[key].dtype == leaf.dtype and torch.equal(back[key], leaf)
+            for key, leaf in flat.items())
+        print(f"[train c] checkpoint step {trainer.ckpt.latest_step()}: "
+              f"{len(flat)} leaves restored bitwise {same} in "
+              f"{restore_s:.2f}s")
+        if not same:
+            raise AssertionError("train c: the checkpoint did not restore "
+                                 "bitwise")
+        del restored, back
+    kernels["B2"]["train_step_launches"] = layers
+
+    # where a warm step's time goes
+    step_fn = make_train_step(cfg, hyper)
+    batch = data.batch_at(TRAIN_STEPS)
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    t_enq = time.perf_counter()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    enq_ms = (t_enq - t0) * 1e3
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    by_name, count = {}, 0
+    bwd_ms = 0.0
+    span = "rm_attention_fused_causal.backward"
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name == span:
+            continue        # the span's device-side copy: not a kernel
+        if e.device_type == DeviceType.CUDA:
+            count += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+        elif e.name == span:
+            bwd_ms += e.device_time_total / 1e3
+    busy = sum(by_name.values())
+    b2_ms = sum(ms for name, ms in by_name.items() if "chunk_" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[train time] warm step (profiler off): wall {wall_ms:.1f} ms, "
+          f"host enqueue {enq_ms:.1f} ms; profiled step: device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.0f}% of the wall, idle "
+          f"{100 * (1 - busy / wall_ms):.0f}%), {count} device kernels; top "
+          + "; ".join(f"{name[:56]} {ms:.2f} ms" for name, ms in top))
+    print(f"[train time] B2 (forward, kernel) {b2_ms:.2f} ms device a step "
+          f"({layers} launches); its backward's recompute (the "
+          f"rm_attention_fused_causal.backward spans) {bwd_ms:.2f} ms device "
+          "a step ("
+          + (f"{100 * bwd_ms / busy:.1f}% of device busy)" if busy else
+             "the profiler kept no device event: not measured)"))
+    # the same two at the step's shape alone, CUDA events over the layers
+    dh = cfg.resolved_head_dim
+    plan = rm_plan_for(cfg, dh)
+    wq = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, "cuda")
+    bq = unit_rows(torch, (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, dh), gen)
+    bk = unit_rows(torch, (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, dh), gen)
+    bv = torch.randn(bq.shape, generator=gen, device="cuda")
+    ones = torch.ones((TRAIN_BATCH, TRAIN_SEQ), device="cuda")
+    fwd_ev = time_ms(torch, lambda: rm_fused_causal(bq, bk, bv, ones, wq, cd,
+                                                    cs, 1e-4), iters=20)
+    xs = [x.requires_grad_() for x in (bq, bk, bv)]
+
+    def recompute():
+        out = _fused_causal_formulation(*xs, ones, wq, cd, cs, 128, 1e-4)
+        torch.autograd.grad(out, xs, torch.ones_like(out))
+
+    bwd_ev = time_ms(torch, recompute, iters=20)
+    print(f"[train time] at the step's shape (B {TRAIN_BATCH} x H "
+          f"{cfg.num_heads}, T {TRAIN_SEQ}, d {dh}, F {wq.shape[1]}) alone: "
+          f"B2 {fwd_ev:.3f} ms, the backward's recompute {bwd_ev:.3f} ms "
+          f"a layer (CUDA events, 20 calls), x {layers} layers = "
+          f"{fwd_ev * layers:.1f} / {bwd_ev * layers:.1f} ms a step")
+    kernels["B2"]["train_step_device_ms"] = b2_ms
+    kernels["B2"]["train_backward_device_ms"] = bwd_ms
+    del state, metrics, batch, trainer, step_fn, xs, bq, bk, bv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. hubert-xlarge: one train step at full width and depth
+    hlayers = hcfg.num_layers
+    embeds = torch.randn((ENC_TRAIN_CLIPS, ENC_FRAMES, hcfg.d_model),
+                         generator=gen, device="cuda")
+    targets = torch.randint(0, hcfg.vocab_size,
+                            (ENC_TRAIN_CLIPS, ENC_FRAMES), generator=gen,
+                            device="cuda")
+    hstate = init_train_state(hcfg, seed=0, hyper=hyper, device="cuda")
+    hstep = make_train_step(hcfg, hyper)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    hstate, hm = hstep(hstate, {"embeds": embeds, "targets": targets})
+    torch.cuda.synchronize()
+    h_wall = time.perf_counter() - t0
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+    h_peak = torch.cuda.max_memory_allocated()
+    finite = (math.isfinite(float(hm["loss"]))
+              and math.isfinite(float(hm["grad_norm"]))
+              and all(torch.isfinite(x).all()
+                      for x in flatten_dict(hstate["params"]).values()))
+    print(f"[train d] {hcfg.name}: {hlayers} layers, {ENC_TRAIN_CLIPS} clips "
+          f"x {ENC_FRAMES} frames, framewise targets: loss "
+          f"{float(hm['loss']):.4f}, grad_norm {float(hm['grad_norm']):.3f}, "
+          f"finite {finite}; step wall {h_wall * 1e3:.1f} ms (cold), peak "
+          f"{h_peak / 2**30:.2f} GiB beside the state "
+          f"{tree_bytes(hstate) / 2**30:.2f} GiB; launches {launched}")
+    want = {k: hlayers if k in ("B3", "B4") else 0 for k in counters}
+    if not (finite and launched == want):
+        raise AssertionError(f"train d: finite {finite}, launches "
+                             f"{launched} (want {want})")
+    kernels["B3"]["train_step_launches"] = hlayers
+    kernels["B4"]["train_step_launches"] = hlayers
+    del hstate, hstep, embeds, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] phase 24 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -2868,6 +3303,26 @@ def main():
                              f"expected {bucketed_calls} + {comp_launches}, "
                              "B1 > 0, no other")
     kernels["B9"]["launches"] = paper_launches["B9"]
+
+    # -- 24. training on the card ---------------------------------------------
+    # B5's inputs at phase 5's shape: tensor_sketch features of unit rows,
+    # the second half's keys padded from 200
+    bh, t = cfg.num_heads, 256
+    zq = ts_entry.apply(ts_plan, ts_params, unit_rows(
+        torch, (bh * t, dh), gen)).reshape(1, bh, t, -1)
+    zk = ts_entry.apply(ts_plan, ts_params, unit_rows(
+        torch, (bh * t, dh), gen)).reshape(1, bh, t, -1)
+    kvalid = torch.ones((bh, t), device="cuda")
+    kvalid[bh // 2:, 200:] = 0.0
+    zv = torch.randn((1, bh, t, dh), generator=gen, device="cuda")
+    rm_counters = {"B1": rm_feature_fused, "B2": rm_fused_causal,
+                   "B3": rm_fused_state, "B4": rm_fused_apply,
+                   **{k: all_counters[k] for k in ("B5", "B6", "B7", "B8",
+                                                   "B9")}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_phase(torch, np, kernels, rm_counters, w32, col_deg, col_scale,
+                (zq, zk * kvalid[None, :, :, None], zv))
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -12,6 +12,12 @@ signs ``d1``/``d2``) and ``rm_scale`` cross unchanged with
 the rest, dtypes included, so both packages compute with the same weights
 and the same random draws.
 
+``train_state_from_jax(state, cfg)`` carries a reference train state
+(``{"params", "opt": {"mu", "nu", "step"}, "step"}``, numpy leaves) across
+the same way: the params and both AdamW moments each through
+``params_from_jax``'s layer unstacking, the steps as 0-dim int32 tensors,
+so a train step of both packages starts from the same state.
+
 ``compositional_from_jax(cfm)`` does the same for the reference's
 Algorithm 2 map (``repro.core.compositional.CompositionalFeatureMap``):
 each inner map's arrays (a Rademacher map's ``omega``, an RFF map's ``w``,
@@ -28,7 +34,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_kinds
 
-__all__ = ["params_from_jax", "compositional_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax",
+           "compositional_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -63,6 +70,19 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
         "embed": _map(tree["embed"], _tensor),
         "layers": layers,
         "final_norm": _map(tree["final_norm"], _tensor),
+    }
+
+
+def train_state_from_jax(state: Dict[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """Reference train state (numpy leaves) -> the port's (CPU tensors)."""
+    opt = state["opt"]
+    return {
+        "params": params_from_jax(state["params"], cfg),
+        "opt": {"mu": params_from_jax(opt["mu"], cfg),
+                "nu": params_from_jax(opt["nu"], cfg),
+                "step": _tensor(np.asarray(opt["step"], np.int32))},
+        "step": _tensor(np.asarray(state["step"], np.int32)),
     }
 
 

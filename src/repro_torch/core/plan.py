@@ -387,7 +387,10 @@ def plan_columns(plan, device) -> Tuple[torch.Tensor, torch.Tensor]:
     Memoized per (plan type, plan, device): the decode loop asks for them
     once per layer and step, and a fresh host-to-device copy each time
     would synchronize the stream. (Plans are NamedTuples, so two plan
-    types with equal fields would otherwise share an entry.)
+    types with equal fields would otherwise share an entry.) The tensors
+    are made outside inference mode even when the first call comes from
+    inside it, so a train step after an eval or a serve in the same
+    process can save them for its backward.
     """
     device = torch.device(device)
     key = (type(plan).__name__, plan, str(device))
@@ -398,7 +401,8 @@ def plan_columns(plan, device) -> Tuple[torch.Tensor, torch.Tensor]:
                           plan.padded_column_scales())
         else:
             deg, scale = plan.column_degrees(), plan.column_scales()
-        cols = (torch.from_numpy(deg).to(device),
-                torch.from_numpy(scale).to(device))
+        with torch.inference_mode(False):
+            cols = (torch.from_numpy(deg).to(device),
+                    torch.from_numpy(scale).to(device))
         _COLUMNS_CACHE[key] = cols
     return cols

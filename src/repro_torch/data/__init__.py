@@ -1,5 +1,6 @@
-"""repro_torch.data — the paper's toy datasets (port of ``repro.data``;
-the LM data of ``repro.data.synthetic`` comes with the training slice)."""
+"""repro_torch.data — the paper's toy datasets and the synthetic LM
+stream (port of ``repro.data``)."""
+from repro_torch.data.synthetic import SyntheticLMDataset, byte_tokenize
 from repro_torch.data.toy import (
     UCI_LIKE_SPECS,
     make_classification_dataset,
@@ -7,4 +8,4 @@ from repro_torch.data.toy import (
 )
 
 __all__ = ["unit_ball_points", "make_classification_dataset",
-           "UCI_LIKE_SPECS"]
+           "UCI_LIKE_SPECS", "SyntheticLMDataset", "byte_tokenize"]

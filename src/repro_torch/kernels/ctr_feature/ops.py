@@ -73,8 +73,9 @@ def ctr_feature_fused(
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, wr, wi)):
         raise NotImplementedError(
-            "ctr_feature_fused has no backward (the complex rows are model "
-            "constants; serving only)")
+            "ctr_feature_fused has no backward: the reference defines no "
+            "VJP for kernel B7, and two-launch training is an open "
+            "question (ROADMAP.md queue C)")
     batch_shape = x.shape[:-1]
     d = x.shape[-1]
     k, fc, _ = wr.shape

@@ -34,9 +34,17 @@ Dispatch follows the tensor: a CPU tensor takes the plain version
 ``rm_attention_chunked.launches``, ``rm_fused_state.launches`` and
 ``rm_fused_apply.launches`` count kernel launches.
 
-The backward of the fused ops (reference ``_fused_causal_bwd``,
-``_fused_noncausal_bwd``) is not ported yet: with autograd recording on a
-tensor that requires grad the wrappers raise.
+Gradients (the reference's ``jax.custom_vjp`` ops). ``rm_attention_causal``
+(B5), ``rm_attention_fused_causal`` (B2) and ``rm_attention_fused_noncausal``
+(B3 + B4) are ``torch.autograd.Function``s: the forward launches the
+kernel (one counted launch; B3 and B4 one each), the backward recomputes
+and differentiates the port of the XLA formulation the reference's
+backward differentiates (``_causal_chunked_formulation``,
+``_fused_causal_formulation``, ``_fused_noncausal_formulation``) in fp32
+PyTorch ops and launches no RM kernel. The serving-only prefill and the
+raw kernel wrappers (``rm_fused_causal``, ``rm_attention_chunked``,
+``rm_fused_state``, ``rm_fused_apply``) have no VJP, as in the reference,
+and raise with autograd recording on a tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -59,12 +67,15 @@ from repro_torch.kernels.rm_attention.noncausal import (
 )
 from repro_torch.kernels.rm_attention.ref import (
     causal_chunked,
+    causal_chunked_ref,
+    featurize_ref4,
     rm_attention_chunked_ref,
     rm_attention_decode_ref,
     rm_attention_noncausal_ref,
     rm_attention_prefill_final_state,
     rm_fused_apply_ref,
     rm_fused_causal_ref,
+    rm_fused_noncausal_ref,
     rm_fused_state_ref,
 )
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
@@ -122,11 +133,7 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
     query tiles and value groups are ``rm_attention_chunked.last_schedule``
     (``kernels.common.chunked_schedule``).
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (zq, zk, v, s_prev, n_prev)):
-        raise NotImplementedError(
-            "rm_attention_chunked has no backward yet (serving only; the "
-            "training slice and its backward are queued in ROADMAP.md)")
+    _no_grad_check("rm_attention_chunked", zq, zk, v, s_prev, n_prev)
     bh, t, f = zq.shape
     dv = v.shape[-1]
     dev = zq.device
@@ -189,8 +196,62 @@ def rm_attention_causal(
     """Causal linear attention over precomputed features, O(T * F * (C +
     dv)) work: T padded to ``min(chunk, T)``, pass A and the exclusive
     prefixes in PyTorch, then ONE launch of kernel B5 (its plain version on
-    a CPU tensor)."""
-    return causal_chunked(zq, zk, v, chunk, eps, rm_attention_chunked)
+    a CPU tensor). Differentiable: the backward differentiates
+    :func:`_causal_chunked_formulation` (reference ``_causal_pallas_bwd``)."""
+    return _CausalChunked.apply(zq, zk, v, chunk, eps)
+
+
+def _causal_chunked_formulation(zq, zk, v, chunk: int,
+                                eps: float) -> torch.Tensor:
+    """Port of the reference's ``_causal_chunked_jnp``: the chunked causal
+    formulation its custom VJP differentiates (``_causal_pallas_bwd``). It is
+    the port's backward formulation, not a fallback: the forward value on
+    the card comes from kernel B5, and this runs only to be differentiated,
+    on the card too, as the reference runs it in XLA on the TPU."""
+    return causal_chunked_ref(zq, zk, v, chunk, eps)
+
+
+def _vjp(label, formulation, inputs, needs, g):
+    """Cotangents of ``formulation(*inputs)`` for the inputs ``needs``
+    marks (``None`` for the others), recomputed with autograd in fp32: the
+    cotangent is cast to fp32, as the reference casts it. The work runs in
+    a ``torch.profiler`` span named ``label``, from which a profile reads
+    the backward's device time apart from the kernels'."""
+    with torch.profiler.record_function(label), torch.enable_grad():
+        xs = [x.detach().requires_grad_(bool(need))
+              for x, need in zip(inputs, needs)]
+        out = formulation(*xs)
+        wrt = [x for x, need in zip(xs, needs) if need]
+        # an empty shape gives an output that no input reaches
+        grads = iter(torch.autograd.grad(out, wrt, g.float(),
+                                         allow_unused=True)
+                     if wrt and out.requires_grad else [None] * len(wrt))
+    result = []
+    for x, need in zip(xs, needs):
+        gx = next(grads) if need else None
+        if need and gx is None:          # an input the output ignores
+            gx = torch.zeros_like(x)
+        result.append(gx)
+    return tuple(result)
+
+
+class _CausalChunked(torch.autograd.Function):
+    """Kernel B5 under autograd (reference ``_causal_pallas``)."""
+
+    @staticmethod
+    def forward(ctx, zq, zk, v, chunk, eps):
+        ctx.save_for_backward(zq, zk, v)
+        ctx.chunk, ctx.eps = chunk, eps
+        return causal_chunked(zq, zk, v, chunk, eps, rm_attention_chunked)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _vjp(
+            "rm_attention_causal.backward",
+            lambda zq, zk, v: _causal_chunked_formulation(
+                zq, zk, v, ctx.chunk, ctx.eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return grads + (None, None)
 
 
 # O(1)-memory decode over precomputed features (rank-1 state update and
@@ -215,10 +276,16 @@ def _columns(col_deg, col_scale, device) -> Tuple[torch.Tensor,
 
 
 def _no_grad_check(op: str, *tensors):
+    """Raise where autograd records on a tensor that requires grad: the
+    raw kernel wrappers and the prefill have no VJP (nor in the
+    reference); the differentiable ops wrap the kernels in a
+    ``torch.autograd.Function``."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{op} has no backward yet (forward only; the training slice "
-            "and its backward are queued in ROADMAP.md)")
+            f"{op} has no backward (a raw kernel wrapper or the "
+            "serving-only prefill, as in the reference); differentiate "
+            "rm_attention_causal, rm_attention_fused_causal or "
+            "rm_attention_fused_noncausal")
 
 
 def _check_cuda_operands(op: str, x, others, w):
@@ -249,7 +316,7 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
     call allocates a scratch of chunk states, ``4 * B*H * min(ceil(T / 64),
     32) * F * (dv + 1)`` bytes (``last_schedule.scratch_bytes``): 5.4 MB at
     B*H 16, T 256, F 163, dv 128, and 43 MB there from T 2048 on."""
-    _no_grad_check("the fused causal RM attention op", q, k, v, w)
+    _no_grad_check("rm_fused_causal", q, k, v, w)
     b, h, t, d = q.shape
     dv = v.shape[-1]
     kdeg, f, _ = w.shape
@@ -348,11 +415,54 @@ def rm_attention_fused_causal(
 ) -> torch.Tensor:            # [B, H, T, dv] fp32
     """Fused causal RM attention: ``rm_attention_causal(Z(q), Z(k) *
     kvalid, v)`` without writing Z. ``chunk`` is read by the plain version
-    only (CPU tensors); the kernel takes 64-position chunks. The chunk
-    changes the order of the sums, not the result."""
-    out, _, _ = rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps,
-                                plain_chunk=chunk)
-    return out
+    (CPU tensors) and the backward; the kernel takes 64-position chunks.
+    The chunk changes the order of the sums, not the result.
+
+    Differentiable (the training forward): one B2 launch forward, and the
+    backward differentiates :func:`_fused_causal_formulation` (reference
+    ``_fused_causal_bwd``) for q, k, v, and for kvalid and w where they
+    require grad (the model's ``w`` is frozen and does not)."""
+    if kvalid is None:
+        kvalid = torch.ones(q.shape[:1] + q.shape[2:3], dtype=torch.float32,
+                            device=q.device)
+    col_deg, col_scale = _columns(col_deg, col_scale, q.device)
+    return _FusedCausal.apply(q, k, v, kvalid, w, col_deg, col_scale, chunk,
+                              eps)
+
+
+def _fused_causal_formulation(q, k, v, kvalid, w, col_deg, col_scale,
+                              chunk: int, eps: float) -> torch.Tensor:
+    """Port of the reference's ``_fused_causal_jnp``, the formulation its
+    custom VJP differentiates (``_fused_causal_bwd``): featurize q and k
+    (``featurize_ref4``), mask the keys by ``kvalid``, then the chunked
+    causal attention, in fp32. The port's backward formulation, not a
+    fallback: the forward value on the card comes from kernel B2."""
+    zq = featurize_ref4(q, w, col_deg, col_scale)
+    zk = featurize_ref4(k, w, col_deg, col_scale) \
+        * kvalid.float()[:, None, :, None]
+    return causal_chunked_ref(zq, zk, v, chunk, eps)
+
+
+class _FusedCausal(torch.autograd.Function):
+    """Kernel B2 under autograd (reference ``_fused_causal``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvalid, w, col_deg, col_scale, chunk, eps):
+        ctx.save_for_backward(q, k, v, kvalid, w, col_deg, col_scale)
+        ctx.chunk, ctx.eps = chunk, eps
+        out, _, _ = rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale,
+                                    eps, plain_chunk=chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kvalid, w, col_deg, col_scale = ctx.saved_tensors
+        grads = _vjp(
+            "rm_attention_fused_causal.backward",
+            lambda q, k, v, kvalid, w: _fused_causal_formulation(
+                q, k, v, kvalid, w, col_deg, col_scale, ctx.chunk, ctx.eps),
+            (q, k, v, kvalid, w), ctx.needs_input_grad[:5], g)
+        return grads + (None,) * 4
 
 
 def rm_attention_fused_prefill(
@@ -557,24 +667,65 @@ def rm_attention_fused_noncausal(
     degree 0 and scale 0, so neither padding changes the result and both
     kernels take the rows as they are. ``chunk`` is kept for the
     reference's signature and not read.
+
+    Differentiable (the encoder's training forward): one B3 and one B4
+    launch forward, and the backward differentiates
+    :func:`_fused_noncausal_formulation` (reference
+    ``_fused_noncausal_bwd``) for q, k, v, and for kvalid and w where they
+    require grad.
     """
-    _no_grad_check("the fused non-causal RM attention op", q, k, v, w)
-    b, h, t, d = q.shape
-    dv = v.shape[-1]
-    dev = q.device
-    if b * h == 0 or t == 0:
-        return torch.zeros((b, h, t, dv), dtype=torch.float32, device=dev)
     if kvalid is None:
-        kvalid = torch.ones((b, t), dtype=torch.float32, device=dev)
-    col_deg, col_scale = _columns(col_deg, col_scale, dev)
-    if dev.type == "cuda" and pack is None and w.shape[1]:
-        pack = pack_noncausal(w, col_deg, col_scale)
-    kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
-    s, n = rm_fused_state(k.reshape(b * h, t, d), v.reshape(b * h, t, dv),
-                          kval, w, col_deg, col_scale, pack=pack)
-    out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg, col_scale,
-                         eps, pack=pack)
-    return out.reshape(b, h, t, dv)
+        kvalid = torch.ones(q.shape[:1] + q.shape[2:3], dtype=torch.float32,
+                            device=q.device)
+    col_deg, col_scale = _columns(col_deg, col_scale, q.device)
+    return _FusedNoncausal.apply(q, k, v, kvalid, w, col_deg, col_scale,
+                                 eps, pack)
+
+
+def _fused_noncausal_formulation(q, k, v, kvalid, w, col_deg, col_scale,
+                                 eps: float) -> torch.Tensor:
+    """Port of the reference's ``_fused_noncausal_jnp``, the formulation its
+    custom VJP differentiates (``_fused_noncausal_bwd``): featurize q and k,
+    mask the keys by ``kvalid``, then the bidirectional attention in fp32
+    (``ref.rm_fused_noncausal_ref``). The port's backward formulation, not
+    a fallback: the forward value on the card comes from kernels B3 and
+    B4."""
+    return rm_fused_noncausal_ref(q, k, v, kvalid, w, col_deg, col_scale,
+                                  eps=eps)
+
+
+class _FusedNoncausal(torch.autograd.Function):
+    """Kernels B3 + B4 under autograd (reference ``_fused_noncausal``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvalid, w, col_deg, col_scale, eps, pack):
+        ctx.save_for_backward(q, k, v, kvalid, w, col_deg, col_scale)
+        ctx.eps = eps
+        b, h, t, d = q.shape
+        dv = v.shape[-1]
+        dev = q.device
+        if b * h == 0 or t == 0:
+            return torch.zeros((b, h, t, dv), dtype=torch.float32,
+                               device=dev)
+        if dev.type == "cuda" and pack is None and w.shape[1]:
+            pack = pack_noncausal(w, col_deg, col_scale)
+        kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
+        s, n = rm_fused_state(k.reshape(b * h, t, d),
+                              v.reshape(b * h, t, dv), kval, w, col_deg,
+                              col_scale, pack=pack)
+        out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg,
+                             col_scale, eps, pack=pack)
+        return out.reshape(b, h, t, dv)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kvalid, w, col_deg, col_scale = ctx.saved_tensors
+        grads = _vjp(
+            "rm_attention_fused_noncausal.backward",
+            lambda q, k, v, kvalid, w: _fused_noncausal_formulation(
+                q, k, v, kvalid, w, col_deg, col_scale, ctx.eps),
+            (q, k, v, kvalid, w), ctx.needs_input_grad[:5], g)
+        return grads + (None,) * 4
 
 
 def rm_attention_fused_decode_step(

@@ -58,7 +58,7 @@ def featurize_ref4(x, w, col_deg, col_scale) -> torch.Tensor:
     """[B, H, T, d] -> [B, H, T, F] through the rm_feature plain version."""
     b, h, t, d = x.shape
     z = rm_feature_fused_ref(x.reshape(b * h * t, d), w, col_deg, col_scale)
-    return z.reshape(b, h, t, -1)
+    return z.reshape(b, h, t, w.shape[1])
 
 
 def chunk_states(zk_p, v_p, chunk: int) -> Tuple[torch.Tensor,

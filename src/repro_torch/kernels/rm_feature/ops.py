@@ -101,8 +101,9 @@ def rm_feature_fused(
     """Apply a packed feature map: one kernel launch for every column."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(
-            "rm_feature_fused has no backward yet (serving only; the "
-            "training slice is queued in ROADMAP.md)")
+            "rm_feature_fused has no backward: the reference defines no "
+            "VJP for kernel B1, and two-launch training is an open "
+            "question (ROADMAP.md queue C)")
     batch_shape = x.shape[:-1]
     d = x.shape[-1]
     k, f, _ = w.shape
@@ -219,8 +220,9 @@ def rm_feature_bucket(
         raise ValueError(f"rm_feature_bucket takes degree >= 1, got {degree}")
     if torch.is_grad_enabled() and (x.requires_grad or omega.requires_grad):
         raise NotImplementedError(
-            "rm_feature_bucket has no backward (the per-bucket path is a "
-            "baseline for featurizing, not for training)")
+            "rm_feature_bucket has no backward: the reference defines no "
+            "VJP for kernel B9 (the per-bucket path is a baseline for "
+            "featurizing, not for training; ROADMAP.md queue C)")
     batch_shape = x.shape[:-1]
     d = x.shape[-1]
     if omega.shape[0] % degree or omega.shape[-1] != d:

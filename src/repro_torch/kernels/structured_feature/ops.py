@@ -157,8 +157,9 @@ def structured_feature_fused(
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, d1, d2)):
         raise NotImplementedError(
-            "structured_feature_fused has no backward (the signs are model "
-            "constants; serving only)")
+            "structured_feature_fused has no backward: the reference "
+            "defines no VJP for kernel B8, and two-launch training is an "
+            "open question (ROADMAP.md queue C)")
     if (out is None) != (keep is None):
         raise ValueError("out and keep go together")
     batch_shape = x.shape[:-1]

@@ -98,8 +98,9 @@ def tensor_sketch_fused(
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, wr, wi, mr, mi)):
         raise NotImplementedError(
-            "tensor_sketch_fused has no backward (the sketch tables are "
-            "model constants; serving only)")
+            "tensor_sketch_fused has no backward: the reference defines "
+            "no VJP for kernel B6, and two-launch training is an open "
+            "question (ROADMAP.md queue C)")
     batch_shape = x.shape[:-1]
     d = x.shape[-1]
     k, fs, _ = wr.shape

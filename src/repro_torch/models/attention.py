@@ -20,9 +20,14 @@ Two paths (``rm_fuse_enabled``):
   non-causal attention (encoder forward), or the O(1) state update runs in
   PyTorch (decode).
 
-A non-causal config (an encoder) has a forward only: the prefill-cache and
-decode paths raise ``ValueError`` ("encoder-only"). Not ported yet
-(ROADMAP.md queue A): ``attention_mode="exact"``, which raises
+The fused path trains: ``rm_attention_fused_causal`` and
+``rm_attention_fused_noncausal`` differentiate (their backward
+differentiates the reference's XLA formulation in PyTorch), while the
+two-launch path's featurize kernels have no backward, as in the reference.
+
+A non-causal config (an encoder) has a forward and its gradient only: the
+prefill-cache and decode paths raise ``ValueError`` ("encoder-only"). Not
+ported yet (ROADMAP.md queue A): ``attention_mode="exact"``, which raises
 ``NotImplementedError``.
 """
 from __future__ import annotations

@@ -6,14 +6,19 @@ them (PyTorch runs eagerly, there is no compile to keep small). Block kind
 ``"attn_mlp"`` only; MoE, MLA and SSM blocks are not ported yet. Inputs
 are tokens, precomputed frame embeddings (``frontend="audio_stub"``, the
 HuBERT encoder), or both; an encoder (``causal=False``) has ``forward`` and
-``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is ported
-forward-only (no gradients yet).
+``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is
+differentiable end to end on the fused rm path (the attention ops are
+``torch.autograd.Function``s); the two-launch path's featurize kernels have
+no backward (ROADMAP.md queue C).
 
 Parameters are plain nested dicts of tensors with the reference's leaf
 names; the fp32 master weights get a compute-dtype copy, with each
 layer's estimator weights packed for the kernels, through
 ``cast_params_to_compute`` (a no-op on params it has already returned, so
 a caller that casts once — the serving executor — pays nothing per step).
+The copies are differentiable casts: gradients reach the fp32 masters. The
+packed ``rm_w`` / ``rm_slab`` live only in the compute copy, never in the
+masters a train state holds.
 """
 from __future__ import annotations
 
@@ -170,9 +175,11 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     (loss, metrics ``ce``, ``z_loss``, ``tokens``, ``loss``), all fp32.
 
     ``batch["targets"] [B, Tt]`` aligns with the LAST Tt positions of the
-    model input; targets < 0 are ignored. Forward only: the fused attention
-    ops have no backward yet, so this raises under autograd on params that
-    require grad.
+    model input; targets < 0 are ignored. Differentiable on the fused rm
+    path: the loss reaches every master leaf but the frozen ``rm_est``
+    (whose packed ``rm_w`` feeds the kernels as a constant) and reaches
+    ``rm_scale`` through its softplus. The two-launch path raises under
+    autograd at its featurize kernel (no VJP in the reference either).
     """
     logits, _ = forward(params, cfg, batch)
     targets = batch["targets"]

@@ -13,6 +13,7 @@ from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
 from repro_torch.kernels.rm_attention.ops import (
     rm_attention_causal,
     rm_attention_chunked,
+    rm_attention_fused_causal,
     rm_attention_fused_decode_step,
     rm_attention_fused_noncausal,
     rm_fused_apply,
@@ -1203,3 +1204,81 @@ def test_compositional_map_runs_b9_once_a_rademacher_bucket(cuda):
     zr = rff(xr)
     assert rm_feature_bucket.launches == before
     _close(zr.cpu(), rff.to("cpu")(xr.cpu()), 1e-5)
+
+
+def _rm_counts():
+    return (rm_fused_causal.launches, rm_attention_chunked.launches,
+            rm_fused_state.launches, rm_fused_apply.launches,
+            rm_feature_fused.launches)
+
+
+@pytest.mark.parametrize("op", ["fused_causal", "fused_noncausal",
+                                "two_launch_causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_functions_grads_card_vs_cpu(cuda, op, dtype):
+    """The three differentiable ops on the card: the forward is the
+    forward-only wrapper's output bitwise and launches its kernels once
+    (B2; B3 and B4; B5), the backward launches no RM kernel, and the q, k,
+    v cotangents (in the inputs' dtype) match the CPU's within 1e-4 x
+    max(1, max |g|): the same fp32 formulation differentiated on both, its
+    sums in another order. bf16 inputs get their cotangents rounded once
+    from fp32 to bf16 on both devices, so a sum near a rounding boundary
+    may land one bf16 step (2^-8 relative) apart: 2^-8 x max(1, max |g|)
+    there."""
+    arch = "hubert-xlarge" if op == "fused_noncausal" else "qwen3-1.7b"
+    d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=40, arch=arch)
+    b, h, t = 2, 4, 200
+    q = _unit((b, h, t, d), gen, cuda).to(dtype)
+    k = _unit((b, h, t, d), gen, cuda).to(dtype)
+    v = torch.randn((b, h, t, d), generator=gen, device=cuda).to(dtype)
+    kvalid = torch.ones((b, t), device=cuda)
+    kvalid[1, t - 37:] = 0.0
+    w = w.to(dtype)
+    if op == "two_launch_causal":
+        q = featurize_ref4(q, w, cd, cs)
+        k = featurize_ref4(k, w, cd, cs) * kvalid[:, None, :, None]
+        fn = lambda q, k, v: rm_attention_causal(q, k, v)  # noqa: E731
+        forward_only = fn
+        kernel = 1
+    elif op == "fused_causal":
+        fn = lambda q, k, v: rm_attention_fused_causal(  # noqa: E731
+            q, k, v, w, cd, cs, kvalid=kvalid)
+        forward_only = lambda q, k, v: rm_fused_causal(  # noqa: E731
+            q, k, v, kvalid, w, cd, cs, 1e-4)[0]
+        kernel = 0
+    else:
+        fn = lambda q, k, v: rm_attention_fused_noncausal(  # noqa: E731
+            q, k, v, w, cd, cs, kvalid=kvalid)
+        forward_only = fn
+        kernel = 2
+    with torch.no_grad():
+        plain = forward_only(q, k, v)
+    cot = torch.randn(plain.shape, generator=gen, device=cuda)
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = _rm_counts()
+    out = fn(*xs)
+    torch.cuda.synchronize()
+    moved = [a - b_ for a, b_ in zip(_rm_counts(), before)]
+    want_moved = [0] * 5
+    want_moved[kernel] = 1
+    if op == "fused_noncausal":
+        want_moved[3] = 1
+    assert moved == want_moved
+    assert torch.equal(out.detach(), plain)
+    grads = torch.autograd.grad(out, xs, cot)
+    torch.cuda.synchronize()
+    assert list(_rm_counts()) == [a + m for a, m in zip(before, moved)]
+    xc = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+    if op == "two_launch_causal":
+        out_c = rm_attention_causal(*xc)
+    elif op == "fused_causal":
+        out_c = rm_attention_fused_causal(*xc, w.cpu(), cd.cpu(), cs.cpu(),
+                                          kvalid=kvalid.cpu())
+    else:
+        out_c = rm_attention_fused_noncausal(*xc, w.cpu(), cd.cpu(),
+                                             cs.cpu(), kvalid=kvalid.cpu())
+    want = torch.autograd.grad(out_c, xc, cot.cpu())
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -8
+    for g, g_cpu, x in zip(grads, want, xs):
+        assert g.dtype == x.dtype
+        _close(g.float().cpu(), g_cpu.float(), tol)

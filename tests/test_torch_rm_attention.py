@@ -152,11 +152,19 @@ def test_edge_shapes_give_their_arithmetic_result():
 
 
 def test_fused_ops_refuse_autograd():
+    """The serving-only prefill and the raw B2 wrapper have no VJP (nor in
+    the reference) and refuse autograd; the fused causal op differentiates
+    (tests/test_torch_train_grads.py holds its gradients)."""
     q = torch.ones(1, 1, 4, 4, requires_grad=True)
+    args = (q, q, torch.ones(1, 1, 4, 4), torch.ones(1, 3, 4),
+            np.ones(3, np.int32), np.ones(3, np.float32))
     with pytest.raises(NotImplementedError, match="backward"):
-        rm_attention_fused_causal(q, q, torch.ones(1, 1, 4, 4),
-                                  torch.ones(1, 3, 4), np.ones(3, np.int32),
-                                  np.ones(3, np.float32))
+        rm_attention_fused_prefill(*args)
+    with pytest.raises(NotImplementedError, match="backward"):
+        rm_fused_causal(*args[:3], None, *args[3:], 1e-4)
+    out = rm_attention_fused_causal(*args)
+    out.sum().backward()
+    assert q.grad.shape == q.shape
 
 
 @pytest.mark.parametrize("bh,heads,t,dv,f", [(16, 16, 256, 128, 163),

@@ -143,9 +143,15 @@ def test_two_launch_ops_edges():
     zq = torch.ones(1, 2, 0, 8)
     out = rm_attention_causal(zq, zq, torch.ones(1, 2, 0, 4))
     assert out.shape == (1, 2, 0, 4)
+    # the op differentiates (tests/test_torch_train_grads.py holds its
+    # gradients); the raw B5 wrapper has no VJP and refuses autograd
     z = torch.ones(1, 1, 4, 8, requires_grad=True)
+    rm_attention_causal(z, z, torch.ones(1, 1, 4, 4)).sum().backward()
+    assert z.grad.shape == z.shape
     with pytest.raises(NotImplementedError, match="backward"):
-        rm_attention_causal(z, z, torch.ones(1, 1, 4, 4))
+        rm_attention_chunked(z[0], z[0], torch.ones(1, 4, 4),
+                             torch.zeros(1, 1, 8, 4), torch.zeros(1, 1, 8),
+                             chunk=4, eps=1e-4)
 
 
 # (bh, t, f, dv, chunk, item) -> (rows, q_tiles, blocks, n_groups,
