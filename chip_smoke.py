@@ -204,7 +204,36 @@ Phases, each fatal on failure:
     its backward's recompute, and both alone at the step's shape); (d) one
     ``make_train_step`` of hubert-xlarge at full width and depth (48
     layers, 2 clips x 1500 frames, framewise targets from the seed):
-    finite, B3 and B4 48 launches each, its wall and peak memory.
+    finite, B3 and B4 48 launches each, its wall and peak memory;
+25. observability, restart recovery and exact attention: (a) phase 7's
+    workload served again by a ``Scheduler(obs=Obs(trace_path=...,
+    install_kernel_tracing=True))`` (the trace under ``smoke_out/
+    phase25/``, git-ignored): every request finishes with phase 7's
+    tokens bit for bit, the trace's meta header carries the port's
+    provenance, each request's events run submit -> admit -> finish,
+    there are exactly 28 ``kernel/rm_attn_fused`` spans an admission and
+    28 ``kernel/rm_feature`` spans a decode step, equal to B2's and B1's
+    launch counters, each with its analytic flops and hbm_bytes; then the
+    warm decode-step wall with obs and without (the same engine, printed
+    side by side) and the synchronizing calls of a decode tick with and
+    without, which must be equal; (b) the drift check for rm at qwen3's
+    head (d 128, D 256) on the card: ``ok`` at the deployed budget, its
+    sup error within 1e-5 of the CPU's on the same map, and firing at a
+    budget cut to 1/16 held to twice the deployed map's sup error; one B1
+    launch a check; (c) restart recovery: the same engine with one
+    injected decode failure and ``max_restarts=1`` finishes every request
+    with phase 7's tokens, and with ``max_restarts=0`` the failure
+    propagates; (d) exact attention: the qwen3 SMOKE model in fp32 card
+    against CPU (logits within 1e-4 relative, greedy tokens identical, no
+    RM launch) and one exact ``make_train_step`` (loss and grad_norm
+    within 1e-4 relative); a 4096-token causal prompt through the
+    blockwise path against the small one in fp32 (within 1e-4 x max(1,
+    max |small|)); qwen3-1.7b exact at full width and depth on phase 7's
+    workload (every request finishes, no RM launch, requests 7 and 1
+    alone give their batched tokens) and its warm decode-step wall beside
+    rm's; (e) hubert-xlarge exact at full width and depth, 8 x 1500
+    frames: finite logits, its wall beside phase 13's rm wall, its peak
+    memory.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -226,12 +255,14 @@ decode step and that prefill, B8 its times through
 and its split path's at d_pad 16384 and 65536,
 B9 its grid and the adult map's per-bucket device time beside fused
 B1's; B2, B3 and B4 their launches per train step, B2 its device time and
-its backward's in the profiled qwen3 train step) and, as its last line, ``{"ok": true,
-"device": {...}}``. Without a CUDA device it prints no result and exits
-non-zero. Should the run near its time limit, the rm slice's warm repeat
-(phase 8) is the part to cut first, then the tensor_sketch slice's (phase
-10), then phase 24's profiled warm step and its timings alone; no kernel
-check and no gradient check is cut.
+its backward's in the profiled qwen3 train step; B1 and B2 their launches
+in phase 25's traced serve, B1 the drift check's) and, as its last
+line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
+no result and exits non-zero. Should the run near its time limit, the rm
+slice's warm repeat (phase 8) is the part to cut first, then the
+tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
+its timings alone, then phase 25's exact hubert encode (e) and its warm
+exact decode timing; no kernel check and no gradient check is cut.
 """
 import dataclasses
 import gc
@@ -1763,6 +1794,479 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
     print(f"[train] phase 24 in {time.perf_counter() - t_phase:.2f}s")
 
 
+# -- phase 25: observability, restart recovery, exact attention ---------------
+PHASE25_DIR = Path(__file__).resolve().parent / "smoke_out" / "phase25"
+EXACT_TOL = 1e-4     # relative: fp32 exact paths card vs CPU, blockwise vs
+#                      small (x max(1, max |small|)), sums of <= T terms
+DRIFT_CUT = 16       # the budget cut the drift check must catch
+DRIFT_SUP_TOL = 1e-5  # the drift check's sup error, card vs CPU
+
+
+def step_walls(torch, engine, prompts, base):
+    """Submit every prompt as a greedy 16-token request (ids ``base + i``)
+    and step until drained; return the tokens by prompt id and the walls
+    of the decode-only ticks (an active decode and no admission; each tick
+    ends in the host read of the sampled tokens, so its wall is the
+    card's too)."""
+    from repro_torch.serve import Request
+
+    for rid, prompt in prompts.items():
+        engine.submit(Request(base + rid, prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    walls = []
+    while engine.pending():
+        t0 = time.perf_counter()
+        info = engine.step()
+        dt = time.perf_counter() - t0
+        if info.active and not info.admitted:
+            walls.append(dt)
+    return ({rid: engine.finished[base + rid].generated for rid in prompts},
+            walls)
+
+
+def decode_tick_syncs(torch, engine, prompts, base):
+    """Synchronizing calls of one decode-only tick (``count_syncs``): four
+    requests admitted by one tick, the next tick counted, then drained."""
+    from repro_torch.serve import Request
+
+    for rid in range(4):
+        engine.submit(Request(base + rid, prompts[rid], max_new_tokens=4))
+    engine.step()
+    n = count_syncs(torch, engine.step)
+    engine.run()
+    return n
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def scope_cost(torch, n=2000):
+    """The host's cost of one ``kernel_scope`` enter and exit around no
+    work (µs, the mean of ``n``): with no tracer; with a tracer in memory;
+    with a tracer streaming to a file (a JSON line and a flush a span);
+    and ``torch.profiler.record_function`` alone."""
+    from repro_torch.obs import Tracer, install_tracer, kernel_scope
+
+    x = torch.zeros(1, device="cuda")
+    cost = dict(batch=128, d=128, depth=5, f=163, itemsize=2)
+
+    def per_span(body):
+        body()
+        t0 = time.perf_counter()
+        body()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def scopes():
+        for _ in range(n):
+            with kernel_scope("rm_feature", x=x, cost=cost):
+                pass
+
+    def record_functions():
+        for _ in range(n):
+            with torch.profiler.record_function("repro.rm_feature"):
+                pass
+
+    out = {"none": per_span(scopes)}
+    for label, path in (("memory", None),
+                        ("file", PHASE25_DIR / "scope_cost.jsonl")):
+        tracer = Tracer(path=path)
+        prev = install_tracer(tracer)
+        try:
+            out[label] = per_span(scopes)
+        finally:
+            install_tracer(prev)
+            tracer.close()
+    out["record_function"] = per_span(record_functions)
+    print(f"[obs] kernel_scope host cost a span: no tracer "
+          f"{out['none']:.2f} us, tracer in memory {out['memory']:.2f} us, "
+          f"tracer to a file {out['file']:.2f} us; record_function alone "
+          f"{out['record_function']:.2f} us")
+    return out
+
+
+def obs_exact_phase(torch, np, kernels, counters, prompts, rm_tokens,
+                    enc_rm_wall):
+    """Phase 25 (see the module docstring): (a) the traced rm serve, (b)
+    the drift check, (c) restart recovery, (d) exact qwen3, (e) exact
+    hubert. Every check is fatal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.feature_map import RMFeatureMap
+    from repro_torch.core.maclaurin import ExponentialDotProductKernel
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import (
+        NOOP,
+        DriftMonitor,
+        Obs,
+        install_tracer,
+        read_trace,
+    )
+    from repro_torch.serve import Request, Scheduler
+    from repro_torch.train.steps import (
+        TrainHyper,
+        init_params,
+        init_train_state,
+        make_prefill_step,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    layers, dh = cfg.num_layers, cfg.resolved_head_dim
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launched():
+        return {kid: fn.launches for kid, fn in counters.items()
+                if fn.launches}
+
+    # a. the traced rm serve
+    trace_path = PHASE25_DIR / "serve_trace.jsonl"
+    obs = Obs(trace_path=trace_path, install_kernel_tracing=True)
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                         num_slots=4, max_len=256, seed=0, obs=obs,
+                         device="cuda")
+    zero()
+    done, admissions, decode_steps, wall = run_workload(torch, engine,
+                                                        prompts, 0)
+    serve_launches = launched()
+    records = read_trace(trace_path)
+    meta = records[0]
+    prov = meta.get("provenance", {})
+    spans = [r for r in records if r.get("type") == "span"]
+    fused = [r for r in spans if r["name"] == "kernel/rm_attn_fused"]
+    feat = [r for r in spans if r["name"] == "kernel/rm_feature"]
+    other = sorted({r["name"] for r in spans if r["name"].startswith(
+        "kernel/")} - {"kernel/rm_attn_fused", "kernel/rm_feature"})
+    lifecycles = {}
+    for r in records:
+        if r.get("type") == "event" and r["name"].startswith("request/"):
+            lifecycles.setdefault(r["attrs"]["request_id"], []).append(
+                r["name"])
+    print(f"[obs] traced rm serve ({cfg.name}, {layers} layers, "
+          f"Scheduler(obs=Obs(trace_path, install_kernel_tracing=True))): "
+          f"{len(done)} requests in {wall:.3f}s, {admissions} admissions, "
+          f"{decode_steps} decode steps, launches {serve_launches}; trace "
+          f"{len(records)} records, {len(fused)} kernel/rm_attn_fused and "
+          f"{len(feat)} kernel/rm_feature spans; meta provenance {prov}")
+    if any(done[r].generated != rm_tokens[r] for r in prompts):
+        raise AssertionError("traced serve's tokens differ from phase 7's")
+    if not (meta.get("type") == "meta"
+            and meta.get("schema") == "repro.obs.trace/v1"
+            and prov.get("backend") == "cuda"
+            and prov.get("device_kind") == torch.cuda.get_device_name(0)
+            and prov.get("interpret") is False and "jax_version" in prov
+            and prov.get("torch_version") == torch.__version__):
+        raise AssertionError(f"trace meta header {meta}")
+    want_cycle = ["request/submit", "request/admit", "request/finish"]
+    if sorted(lifecycles) != sorted(prompts) or any(
+            c != want_cycle for c in lifecycles.values()):
+        raise AssertionError(f"request lifecycles {lifecycles}")
+    if not (len(fused) == layers * admissions == serve_launches.get("B2")
+            and len(feat) == layers * decode_steps
+            == serve_launches.get("B1")
+            and set(serve_launches) == {"B1", "B2"} and not other):
+        raise AssertionError(
+            f"kernel spans: {len(fused)} rm_attn_fused, {len(feat)} "
+            f"rm_feature, others {other}; launches {serve_launches}")
+    if not all(r["attrs"].get("flops", 0) > 0
+               and r["attrs"].get("hbm_bytes", 0) > 0
+               and r["attrs"].get("traced") is False for r in fused + feat):
+        raise AssertionError("a kernel span lacks its flops / hbm_bytes")
+    if len([r for r in spans if r["name"] == "decode/step"]) != \
+            decode_steps or len([r for r in spans
+                                 if r["name"] == "prefill"]) != admissions:
+        raise AssertionError("decode/step or prefill spans miss a tick")
+    kspan_us = [r["dur_us"] for r in feat]
+    print(f"[obs] every request submit -> admit -> finish; spans equal the "
+          f"launch counters (B2 {serve_launches['B2']} = {layers} x "
+          f"{admissions} admissions, B1 {serve_launches['B1']} = {layers} x "
+          f"{decode_steps} decode steps), each with flops and hbm_bytes; "
+          f"a kernel/rm_feature span's host enqueue p50 "
+          f"{median(kspan_us):.1f} us")
+    obs.close()
+    # warm decode-step walls on the same engine, the observability mode
+    # changed every tick so that every mode meets the same host: off; an
+    # in-memory Obs without kernel tracing; with it; the trace streamed
+    # to a file
+    modes = ("off", "metrics", "spans", "file")
+    obs_of = {"off": NOOP, "metrics": Obs(), "spans": Obs(),
+              "file": Obs(trace_path=PHASE25_DIR / "warm_trace.jsonl")}
+    tracer_of = {"off": None, "metrics": None,
+                 "spans": obs_of["spans"].tracer,
+                 "file": obs_of["file"].tracer}
+    walls = {m: [] for m in modes}
+    tick = 0
+    for rnd in range(4):
+        base = 1000 * (rnd + 1)
+        for rid, prompt in prompts.items():
+            engine.submit(Request(base + rid, prompt, max_new_tokens=16))
+        while engine.pending():
+            mode = modes[tick % len(modes)]
+            tick += 1
+            engine.obs = obs_of[mode]
+            prev = install_tracer(tracer_of[mode])
+            t0 = time.perf_counter()
+            try:
+                info = engine.step()
+            finally:
+                install_tracer(prev)
+            dt = time.perf_counter() - t0
+            if info.active and not info.admitted:
+                walls[mode].append(dt)
+        if any(engine.finished[base + r].generated != rm_tokens[r]
+               for r in prompts):
+            raise AssertionError("a warm run with obs changed tokens")
+    engine.obs = NOOP
+    syncs = {"off": decode_tick_syncs(torch, engine, prompts, 8000)}
+    engine.obs = obs_of["file"]
+    prev = install_tracer(tracer_of["file"])
+    try:
+        syncs["file"] = decode_tick_syncs(torch, engine, prompts, 8500)
+    finally:
+        install_tracer(prev)
+    engine.obs = NOOP
+    for o in obs_of.values():
+        o.close()
+    if syncs["file"] != syncs["off"]:
+        raise AssertionError(f"obs adds synchronizations: {syncs}")
+    step_ms = {m: median(w_) * 1e3 for m, w_ in walls.items()}
+    rm_step_ms = step_ms["off"]
+    print(f"[obs] warm decode-step wall, the mode changed every tick "
+          f"(median of {min(len(w_) for w_ in walls.values())}+ "
+          "decode-only ticks each): " + ", ".join(
+              f"{m} {ms:.2f} ms ({100 * (ms / rm_step_ms - 1):+.1f}%)"
+              for m, ms in step_ms.items())
+          + f"; synchronizing calls a decode tick: {syncs['file']} with "
+          f"the traced obs, {syncs['off']} without")
+    scope_cost(torch)
+    kernels["B1"]["phase25_serve_launches"] = serve_launches["B1"]
+    kernels["B2"]["phase25_serve_launches"] = serve_launches["B2"]
+
+    # b. the drift check at qwen3's head
+    rm = cfg.rm
+    kern = ExponentialDotProductKernel(rm.sigma2)
+    zero()
+    mon = DriftMonitor.for_estimator(kern, dh, rm.num_features,
+                                     estimator="rm", measure=rm.measure,
+                                     device="cuda")
+    rep = mon.check()
+    torch.cuda.synchronize()
+    full_launches = launched()
+    cpu_map = RMFeatureMap(plan=mon.fm.plan, omegas=mon.fm.omegas.cpu())
+    rep_cpu = DriftMonitor(cpu_map, kern, measure=rm.measure).check()
+    zero()
+    cut = DriftMonitor.for_estimator(kern, dh, rm.num_features // DRIFT_CUT,
+                                     estimator="rm", measure=rm.measure,
+                                     device="cuda")
+    # the cut map held to the deployed map's calibrated envelope: twice the
+    # deployed map's own sup error
+    cut.margin = 2.0 * rep.sup_err / cut.eps_bound()
+    rep_cut = cut.check()
+    torch.cuda.synchronize()
+    cut_launches = launched()
+    print(f"[drift] rm at d {dh}, D {rm.num_features} (F "
+          f"{rep.num_features}): sup_err {rep.sup_err:.4f} (CPU "
+          f"{rep_cpu.sup_err:.4f}) vs eps_bound {rep.eps_bound:.4f} over "
+          f"{rep.n_pairs} pairs: {'ok' if rep.ok else 'VIOLATION'}, "
+          f"launches {full_launches}; cut to D/{DRIFT_CUT} (F "
+          f"{rep_cut.num_features}): sup_err {rep_cut.sup_err:.4f} vs the "
+          f"envelope {2.0 * rep.sup_err:.4f}: "
+          f"{'ok' if rep_cut.ok else 'fires'}, launches {cut_launches}; "
+          f"recommend {cut.recommend()}")
+    if not (rep.ok and not rep_cut.ok and full_launches == {"B1": 1}
+            and cut_launches == {"B1": 1}
+            and abs(rep.sup_err - rep_cpu.sup_err) <= DRIFT_SUP_TOL):
+        raise AssertionError("drift check failed")
+    kernels["B1"]["phase25_drift_launches"] = 2
+    del mon, cut, cpu_map
+
+    # c. restart recovery on the same engine
+    orig = engine.executor.decode
+    calls = {"n": 0, "fail": 3}
+
+    def flaky(tokens, positions):
+        calls["n"] += 1
+        if calls["n"] == calls["fail"]:
+            raise RuntimeError("injected decode failure")
+        return orig(tokens, positions)
+
+    engine.executor.decode = flaky
+    engine.max_restarts, engine.restarts = 1, 0
+    done_r, adm_r, _, _ = run_workload(torch, engine, prompts, 20000)
+    toks_r = {rid: s.generated for rid, s in done_r.items()}
+    readmitted = sum(s.admissions > 1 for s in done_r.values())
+    print(f"[restart] decode failure injected at decode call "
+          f"{calls['fail']}, max_restarts 1: {engine.restarts} restart, "
+          f"{adm_r} admissions ({readmitted} requests re-admitted), every "
+          "request finished with phase 7's tokens: "
+          f"{toks_r == rm_tokens}")
+    if not (engine.restarts == 1 and readmitted and toks_r == rm_tokens):
+        raise AssertionError("restart recovery failed")
+    engine.max_restarts, engine.restarts = 0, 0
+    calls.update(n=0, fail=1)
+    for rid, prompt in prompts.items():
+        engine.submit(Request(21000 + rid, prompt, max_new_tokens=16))
+    try:
+        engine.run()
+    except RuntimeError as e:
+        print(f"[restart] max_restarts 0: the failure propagates ({e})")
+    else:
+        raise AssertionError("max_restarts=0 did not raise")
+    engine.executor.decode = orig
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. exact attention: qwen3 SMOKE card vs CPU
+    small = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                                compute_dtype="float32")
+    assert small.attention_mode == "exact"
+    p_cpu = tt.init_model(small, torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, "cuda")
+    rng = np.random.default_rng(25)
+    toks = torch.from_numpy(rng.integers(0, small.vocab_size, size=(2, 24)))
+    zero()
+    with torch.inference_mode():
+        lg_gpu, _ = tt.forward(p_gpu, small, {"tokens": toks.cuda()})
+        lg_cpu, _ = tt.forward(p_cpu, small, {"tokens": toks})
+    rel = rel_err(torch, lg_gpu, lg_cpu)
+    small_prompts = {rid: rng.integers(0, small.vocab_size, size=n)
+                     for rid, n in enumerate((3, 17, 33, 40))}
+    got = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        sched = Scheduler(small, params, num_slots=2, max_len=64,
+                          device=dev)
+        for rid, prompt in small_prompts.items():
+            sched.submit(Request(rid, prompt, max_new_tokens=12))
+        got[dev] = {rid: s.generated for rid, s in sched.run().items()}
+    print(f"[exact small] qwen3 SMOKE exact fp32, card vs CPU: logits rel "
+          f"err {rel:.2e} (tol {EXACT_TOL:.0e}), greedy tokens of "
+          f"{len(small_prompts)} requests identical: "
+          f"{got['cuda'] == got['cpu']}; RM launches {launched()}")
+    if not (rel <= EXACT_TOL and got["cuda"] == got["cpu"]
+            and not launched()):
+        raise AssertionError("exact SMOKE card vs CPU failed")
+    hyper = TrainHyper(peak_lr=1e-3, warmup_steps=1, total_steps=8)
+    tb = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    st_cpu = init_train_state(small, seed=3, hyper=hyper, device="cpu")
+    st_gpu = tree_to(st_cpu, "cuda")
+    _, m_cpu = make_train_step(small, hyper)(st_cpu, tb)
+    _, m_gpu = make_train_step(small, hyper)(st_gpu, tree_to(tb, "cuda"))
+    gaps = {key: abs(float(m_gpu[key]) - float(m_cpu[key]))
+            / abs(float(m_cpu[key])) for key in ("loss", "grad_norm")}
+    print(f"[exact small] one exact SMOKE train step card vs CPU: loss "
+          f"{gaps['loss']:.2e}, grad_norm {gaps['grad_norm']:.2e} relative "
+          f"(tol {TRAIN_METRIC_TOL:.0e})")
+    if not all(x <= TRAIN_METRIC_TOL for x in gaps.values()):
+        raise AssertionError("exact SMOKE train step card vs CPU failed")
+    del p_gpu, p_cpu, st_cpu, st_gpu
+
+    # the blockwise path (a 4096-token prompt) against the small one
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    t_long, h = 4096, cfg.num_heads
+    q, k, v = (torch.randn((1, t_long, h, dh), generator=gen, device="cuda")
+               for _ in range(3))
+    pos = torch.arange(t_long, device="cuda", dtype=torch.int32)[None]
+    ccfg = get_config("qwen3-1.7b")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blk = attn_mod._softmax_attention(ccfg, q, k, v, pos, pos)
+        torch.cuda.synchronize()
+        blk_ms = (time.perf_counter() - t0) * 1e3
+        small_out = attn_mod._softmax_attention_small(ccfg, q, k, v, pos,
+                                                      pos)
+    err = ((blk - small_out).abs().max()
+           / small_out.abs().max().clamp_min(1.0)).item()
+    print(f"[exact] {t_long}-token causal prompt, {h} heads, fp32: the "
+          f"blockwise path ({blk_ms:.1f} ms) vs the small one: err "
+          f"{err:.2e} x max(1, max |small|) (tol {EXACT_TOL:.0e})")
+    if not err <= EXACT_TOL:
+        raise AssertionError("blockwise exact attention differs from small")
+    del q, k, v, blk, small_out
+
+    # qwen3-1.7b exact at full width, phase 7's workload
+    ecfg = get_config("qwen3-1.7b", attention_mode="exact")
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="exact",
+                         num_slots=4, max_len=256, seed=0, device="cuda")
+    if engine.estimator is not None or engine.fused_attention:
+        raise AssertionError("the exact engine reports an estimator")
+    serve_slice(torch, "exact slice", engine, ecfg, prompts, counters,
+                lambda adm, steps: {kid: 0 for kid in counters})
+    _, walls_exact = step_walls(torch, engine, prompts, 5000)
+    exact_step_ms = median(walls_exact) * 1e3
+    kv_gb = sum(t_.numel() * t_.element_size()
+                for lay in engine.executor.cache["layers"]
+                for t_ in lay.values()) / 2**30
+    print(f"[exact] warm decode-step wall (median of {len(walls_exact)} "
+          f"decode-only ticks): exact {exact_step_ms:.2f} ms beside rm "
+          f"{rm_step_ms:.2f} ms; the KV ring buffers {kv_gb:.3f} GiB "
+          "(4 lanes x 256 positions)")
+    # where the exact slice's time goes, as phase 8 reads the rm slice's
+    where_time_goes(torch, "exact", engine, prompts,
+                    {rid: engine.finished[5000 + rid] for rid in prompts})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # e. hubert-xlarge exact at full width
+    hcfg = get_config("hubert-xlarge", attention_mode="exact")
+    master = init_params(hcfg, seed=0)
+    hparams = tt.cast_params_to_compute(master, hcfg)
+    del master
+    hgen = torch.Generator(device="cuda")
+    hgen.manual_seed(1)
+    embeds = torch.randn((ENC_CLIPS, ENC_FRAMES, hcfg.d_model),
+                         generator=hgen, device="cuda").to(torch.bfloat16)
+    encode = make_prefill_step(hcfg, hcfg.max_seq_len)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = encode(hparams, {"embeds": embeds})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    finite = bool(torch.isfinite(logits).all())
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    del logits
+
+    def encode_once():
+        encode(hparams, {"embeds": embeds})
+
+    busy_ms, by_name, count, _ = device_profile(torch, encode_once)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[exact enc time] encode {ENC_CLIPS} x {ENC_FRAMES}: wall "
+          f"{1e3 * walls[1]:.2f} ms, device busy {busy_ms:.2f} ms ("
+          f"{100 * busy_ms / (1e3 * walls[1]):.0f}%, idle "
+          f"{100 * (1 - busy_ms / (1e3 * walls[1])):.0f}%), {count} device "
+          "kernels; top kernels " + "; ".join(
+              f"{name[:56]} {ms:.3f} ms" for name, ms in top))
+    logits, _ = encode(hparams, {"embeds": embeds})
+    print(f"[exact enc] {hcfg.name} exact ({hcfg.num_layers} layers, bf16) "
+          f"{ENC_CLIPS} x {ENC_FRAMES} frames: walls "
+          f"{1e3 * walls[0]:.2f} / {1e3 * walls[1]:.2f} ms (first cold) "
+          f"beside phase 13's rm warm {1e3 * enc_rm_wall:.2f} ms; peak "
+          f"memory {peak_gb:.2f} GiB; logits {tuple(logits.shape)} finite "
+          f"{finite}; RM launches {launched()}")
+    if not (finite and logits.shape == (ENC_CLIPS, ENC_FRAMES,
+                                        hcfg.vocab_size)
+            and not launched()):
+        raise AssertionError("exact hubert encode failed")
+    del hparams, embeds, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[exact] phase 25 in {time.perf_counter() - t_phase:.2f}s")
+
+
 def main():
     import torch
 
@@ -2309,6 +2813,7 @@ def main():
                             "B5": 0, "B6": 0, "B7": 0, "B8": 0, "B9": 0})
     kernels["B1"]["launches"] = launches["B1"]
     kernels["B2"]["launches"] = launches["B2"]
+    rm_tokens = {rid: s_.generated for rid, s_ in done.items()}
 
     # -- 8. where the rm slice's time goes (warm) ---------------------------
     shares = where_time_goes(
@@ -2491,6 +2996,7 @@ def main():
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     frames = ENC_CLIPS * ENC_FRAMES
     warm = sum(walls[1:]) / len(walls[1:])
+    enc_rm_warm = warm
     print(f"[enc] 3 encodes of {ENC_CLIPS} x {ENC_FRAMES} frames: walls "
           + " / ".join(f"{1e3 * w_:.2f}" for w_ in walls)
           + f" ms (first cold), warm {frames / warm:.0f} frames/s, peak "
@@ -3323,6 +3829,13 @@ def main():
     torch.cuda.empty_cache()
     train_phase(torch, np, kernels, rm_counters, w32, col_deg, col_scale,
                 (zq, zk * kvalid[None, :, :, None], zv))
+    del zq, zk, zv, kvalid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25. observability, restart recovery, exact attention -----------------
+    obs_exact_phase(torch, np, kernels, rm_counters, prompts, rm_tokens,
+                    enc_rm_warm)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -10,7 +10,8 @@ layer, so that axis is unstacked, group-major then pattern order. The
 ``h`` int32 and signs ``s``, the ctr rows ``wr``/``wi`` or the structured
 signs ``d1``/``d2``) and ``rm_scale`` cross unchanged with
 the rest, dtypes included, so both packages compute with the same weights
-and the same random draws.
+and the same random draws. An exact-attention tree, which has neither
+leaf, crosses the same way.
 
 ``train_state_from_jax(state, cfg)`` carries a reference train state
 (``{"params", "opt": {"mu", "nu", "step"}, "step"}``, numpy leaves) across

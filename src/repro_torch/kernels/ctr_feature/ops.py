@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch.ctr.ref import ctr_feature_fused_ref
+from repro_torch.obs.trace import kernel_scope as _kernel_scope
 
 __all__ = ["ctr_feature_fused"]
 
@@ -91,23 +92,26 @@ def ctr_feature_fused(
         sc = col_scale.to(device=x.device, dtype=torch.float32)
         out = torch.cat([sc, torch.zeros_like(sc)]).expand(b, 2 * fc)
         return out.clone().reshape(*batch_shape, 2 * fc)
-    if x.device.type == "cpu":
-        return ctr_feature_fused_ref(xf, wr, wi, col_deg,
-                                     col_scale).reshape(*batch_shape, 2 * fc)
-    if x.device.type != "cuda":
-        raise ValueError(f"ctr_feature_fused runs on cpu or cuda tensors, "
-                         f"got {x.device}")
-    _check_cuda_operands(xf, wr, wi, col_deg, col_scale)
-    out = torch.empty((b, 2 * fc), dtype=torch.float32, device=x.device)
-    err = _library()(xf.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                     col_deg.data_ptr(), col_scale.data_ptr(), out.data_ptr(),
-                     b, fc, d, k, _DTYPE_CODE[xf.dtype],
-                     torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ctr_feature kernel launch failed: CUDA error "
-                           f"{err}")
-    ctr_feature_fused.launches += 1
-    return out.reshape(*batch_shape, 2 * fc)
+    with _kernel_scope("ctr_feature", x=x,
+                       cost=dict(batch=b, d=d, depth=k, f=fc,
+                                 itemsize=x.element_size())):
+        if x.device.type == "cpu":
+            z = ctr_feature_fused_ref(xf, wr, wi, col_deg, col_scale)
+            return z.reshape(*batch_shape, 2 * fc)
+        if x.device.type != "cuda":
+            raise ValueError(f"ctr_feature_fused runs on cpu or cuda "
+                             f"tensors, got {x.device}")
+        _check_cuda_operands(xf, wr, wi, col_deg, col_scale)
+        out = torch.empty((b, 2 * fc), dtype=torch.float32, device=x.device)
+        err = _library()(xf.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                         col_deg.data_ptr(), col_scale.data_ptr(),
+                         out.data_ptr(), b, fc, d, k, _DTYPE_CODE[xf.dtype],
+                         torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"ctr_feature kernel launch failed: CUDA error "
+                               f"{err}")
+        ctr_feature_fused.launches += 1
+        return out.reshape(*batch_shape, 2 * fc)
 
 
 ctr_feature_fused.launches = 0

@@ -79,6 +79,7 @@ from repro_torch.kernels.rm_attention.ref import (
     rm_fused_state_ref,
 )
 from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+from repro_torch.obs.trace import kernel_scope as _kernel_scope
 
 __all__ = [
     "rm_attention_chunked",
@@ -137,48 +138,49 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
     bh, t, f = zq.shape
     dv = v.shape[-1]
     dev = zq.device
-    if dev.type == "cpu":
-        return rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev,
-                                        chunk=chunk, eps=eps)
-    if dev.type != "cuda":
-        raise ValueError(f"rm_attention_chunked runs on cpu or cuda tensors, "
-                         f"got {dev}")
-    if zq.dtype not in _DTYPE_CODE or zk.dtype != zq.dtype:
-        raise TypeError(f"zq and zk must share one of fp32/bf16, got "
-                        f"{zq.dtype} and {zk.dtype}")
-    n = t // chunk if chunk > 0 else 0
-    if chunk < 1 or t % chunk or zk.shape != zq.shape or \
-            v.shape[:2] != (bh, t) or s_prev.shape != (bh, n, f, dv) or \
-            n_prev.shape != (bh, n, f):
-        raise ValueError(
-            f"shape mismatch: zq {tuple(zq.shape)}, zk {tuple(zk.shape)}, "
-            f"v {tuple(v.shape)}, s_prev {tuple(s_prev.shape)}, n_prev "
-            f"{tuple(n_prev.shape)}, chunk {chunk}")
-    for name, x in (("zk", zk), ("v", v), ("s_prev", s_prev),
-                    ("n_prev", n_prev)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, zq on {dev}")
-    out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
+    with _kernel_scope("rm_attention", x=zq, chunk=chunk):
+        if dev.type == "cpu":
+            return rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev,
+                                            chunk=chunk, eps=eps)
+        if dev.type != "cuda":
+            raise ValueError(f"rm_attention_chunked runs on cpu or cuda "
+                             f"tensors, got {dev}")
+        if zq.dtype not in _DTYPE_CODE or zk.dtype != zq.dtype:
+            raise TypeError(f"zq and zk must share one of fp32/bf16, got "
+                            f"{zq.dtype} and {zk.dtype}")
+        n = t // chunk if chunk > 0 else 0
+        if chunk < 1 or t % chunk or zk.shape != zq.shape or \
+                v.shape[:2] != (bh, t) or s_prev.shape != (bh, n, f, dv) or \
+                n_prev.shape != (bh, n, f):
+            raise ValueError(
+                f"shape mismatch: zq {tuple(zq.shape)}, zk {tuple(zk.shape)}, "
+                f"v {tuple(v.shape)}, s_prev {tuple(s_prev.shape)}, n_prev "
+                f"{tuple(n_prev.shape)}, chunk {chunk}")
+        for name, x in (("zk", zk), ("v", v), ("s_prev", s_prev),
+                        ("n_prev", n_prev)):
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, zq on {dev}")
+        out = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
+        if out.numel() == 0:
+            return out
+        # v and the prefixes enter in fp32 (a lossless upcast of bf16)
+        zq, zk = zq.contiguous(), zk.contiguous()
+        vf = v.float().contiguous()
+        sp = s_prev.float().contiguous()
+        np_ = n_prev.float().contiguous()
+        sched = chunked_schedule(bh, t, f, dv, chunk, zq.element_size())
+        err = _launcher("rm_attention_chunked", "rm_attention_chunked_launch",
+                        _CHUNKED_ARGTYPES)(
+            zq.data_ptr(), zk.data_ptr(), vf.data_ptr(), sp.data_ptr(),
+            np_.data_ptr(), out.data_ptr(), _sched_array(sched), len(sched),
+            float(eps), _DTYPE_CODE[zq.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rm_attention_chunked kernel launch failed: "
+                               f"CUDA error {err}")
+        rm_attention_chunked.launches += 1
+        rm_attention_chunked.last_schedule = sched
         return out
-    # v and the prefixes enter in fp32 (a lossless upcast of bf16)
-    zq, zk = zq.contiguous(), zk.contiguous()
-    vf = v.float().contiguous()
-    sp = s_prev.float().contiguous()
-    np_ = n_prev.float().contiguous()
-    sched = chunked_schedule(bh, t, f, dv, chunk, zq.element_size())
-    err = _launcher("rm_attention_chunked", "rm_attention_chunked_launch",
-                    _CHUNKED_ARGTYPES)(
-        zq.data_ptr(), zk.data_ptr(), vf.data_ptr(), sp.data_ptr(),
-        np_.data_ptr(), out.data_ptr(), _sched_array(sched), len(sched),
-        float(eps), _DTYPE_CODE[zq.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rm_attention_chunked kernel launch failed: "
-                           f"CUDA error {err}")
-    rm_attention_chunked.launches += 1
-    rm_attention_chunked.last_schedule = sched
-    return out
 
 
 rm_attention_chunked.launches = 0
@@ -331,70 +333,74 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
                 torch.zeros((b, h, f, dv), dtype=torch.float32, device=dev),
                 torch.zeros((b, h, f), dtype=torch.float32, device=dev))
     col_deg, col_scale = _columns(col_deg, col_scale, dev)
-    if dev.type == "cpu":
-        return rm_fused_causal_ref(q, k, v, kvalid, w, col_deg, col_scale,
-                                   chunk=plain_chunk, eps=eps)
-    if dev.type != "cuda":
-        raise ValueError(f"fused RM attention runs on cpu or cuda tensors, "
-                         f"got {dev}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or w.dtype != q.dtype:
-        raise TypeError(f"q, k and w must share one of fp32/bf16, got "
-                        f"{q.dtype}, {k.dtype}, {w.dtype}")
-    if k.shape != q.shape or v.shape[:3] != q.shape[:3] or \
-            w.shape[2] != d or kvalid.shape != (b, t):
-        raise ValueError(
-            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
-            f"kvalid {tuple(kvalid.shape)}")
-    for name, x in (("k", k), ("v", v), ("kvalid", kvalid), ("w", w)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
-    bh = b * h
-    sched = causal_schedule(bh, h, t, d, dv, f)
-    tp = sched.t
-    if kdeg == 0:
-        # no degree slots: every column is its scale (an empty product)
-        w = torch.zeros((1, f, d), dtype=w.dtype, device=dev)
-        kdeg = 1
+    with _kernel_scope("rm_attn_fused", x=q,
+                       cost=dict(batch=b * h, t=t, d=d, depth=kdeg,
+                                 f=f, dv=dv, itemsize=q.element_size())):
+        if dev.type == "cpu":
+            return rm_fused_causal_ref(q, k, v, kvalid, w, col_deg, col_scale,
+                                       chunk=plain_chunk, eps=eps)
+        if dev.type != "cuda":
+            raise ValueError(f"fused RM attention runs on cpu or cuda "
+                             f"tensors, got {dev}")
+        if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+                w.dtype != q.dtype:
+            raise TypeError(f"q, k and w must share one of fp32/bf16, got "
+                            f"{q.dtype}, {k.dtype}, {w.dtype}")
+        if k.shape != q.shape or v.shape[:3] != q.shape[:3] or \
+                w.shape[2] != d or kvalid.shape != (b, t):
+            raise ValueError(
+                f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                f"v {tuple(v.shape)}, w {tuple(w.shape)}, "
+                f"kvalid {tuple(kvalid.shape)}")
+        for name, x in (("k", k), ("v", v), ("kvalid", kvalid), ("w", w)):
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, q on {dev}")
+        bh = b * h
+        sched = causal_schedule(bh, h, t, d, dv, f)
+        tp = sched.t
+        if kdeg == 0:
+            # no degree slots: every column is its scale (an empty product)
+            w = torch.zeros((1, f, d), dtype=w.dtype, device=dev)
+            kdeg = 1
 
-    def rows(x, width):
-        # T padded to the chunk (padded keys carry kvalid 0), laid out as
-        # contiguous [B*H, T, width]; a copy only where one is needed
+        def rows(x, width):
+            # T padded to the chunk (padded keys carry kvalid 0), laid out as
+            # contiguous [B*H, T, width]; a copy only where one is needed
+            if tp != t:
+                x = F.pad(x, (0, 0, 0, tp - t))
+            return x.reshape(bh, tp, width).contiguous()
+
+        # v enters in fp32 (a lossless upcast of bf16); the kernels read
+        # kvalid [B, T] by batch row
+        qf, kf, vf = rows(q, d), rows(k, d), rows(v.float(), dv)
+        kval = kvalid.float()
         if tp != t:
-            x = F.pad(x, (0, 0, 0, tp - t))
-        return x.reshape(bh, tp, width).contiguous()
-
-    # v enters in fp32 (a lossless upcast of bf16); the kernels read
-    # kvalid [B, T] by batch row
-    qf, kf, vf = rows(q, d), rows(k, d), rows(v.float(), dv)
-    kval = kvalid.float()
-    if tp != t:
-        kval = F.pad(kval, (0, tp - t))
-    kval = kval.contiguous()
-    wc = w.contiguous()
-    out = torch.empty((bh, tp, dv), dtype=torch.float32, device=dev)
-    s = torch.empty((bh, f, dv), dtype=torch.float32, device=dev)
-    n = torch.empty((bh, f), dtype=torch.float32, device=dev)
-    # each chunk's own state, then (in place) the state before each chunk,
-    # for one segment at a time
-    ds = torch.empty((bh, sched.seg_chunks, f, dv), dtype=torch.float32,
-                     device=dev)
-    dn = torch.empty((bh, sched.seg_chunks, f), dtype=torch.float32,
-                     device=dev)
-    err = _launcher("rm_fused_attention", "rm_fused_causal_launch",
-                    _ARGTYPES)(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kval.data_ptr(),
-        wc.data_ptr(), col_deg.data_ptr(), col_scale.data_ptr(),
-        out.data_ptr(), s.data_ptr(), n.data_ptr(), ds.data_ptr(),
-        dn.data_ptr(), _sched_array(sched), len(sched), kdeg, float(eps),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rm_fused_attention kernel launch failed: CUDA "
-                           f"error {err}")
-    rm_fused_causal.launches += 1
-    rm_fused_causal.last_schedule = sched
-    return (out.reshape(b, h, tp, dv)[:, :, :t], s.reshape(b, h, f, dv),
-            n.reshape(b, h, f))
+            kval = F.pad(kval, (0, tp - t))
+        kval = kval.contiguous()
+        wc = w.contiguous()
+        out = torch.empty((bh, tp, dv), dtype=torch.float32, device=dev)
+        s = torch.empty((bh, f, dv), dtype=torch.float32, device=dev)
+        n = torch.empty((bh, f), dtype=torch.float32, device=dev)
+        # each chunk's own state, then (in place) the state before each chunk,
+        # for one segment at a time
+        ds = torch.empty((bh, sched.seg_chunks, f, dv), dtype=torch.float32,
+                         device=dev)
+        dn = torch.empty((bh, sched.seg_chunks, f), dtype=torch.float32,
+                         device=dev)
+        err = _launcher("rm_fused_attention", "rm_fused_causal_launch",
+                        _ARGTYPES)(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kval.data_ptr(),
+            wc.data_ptr(), col_deg.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), s.data_ptr(), n.data_ptr(), ds.data_ptr(),
+            dn.data_ptr(), _sched_array(sched), len(sched), kdeg, float(eps),
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rm_fused_attention kernel launch failed: "
+                               f"CUDA error {err}")
+        rm_fused_causal.launches += 1
+        rm_fused_causal.last_schedule = sched
+        return (out.reshape(b, h, tp, dv)[:, :, :t], s.reshape(b, h, f, dv),
+                n.reshape(b, h, f))
 
 
 rm_fused_causal.launches = 0
@@ -709,13 +715,17 @@ class _FusedNoncausal(torch.autograd.Function):
                                device=dev)
         if dev.type == "cuda" and pack is None and w.shape[1]:
             pack = pack_noncausal(w, col_deg, col_scale)
-        kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
-        s, n = rm_fused_state(k.reshape(b * h, t, d),
-                              v.reshape(b * h, t, dv), kval, w, col_deg,
-                              col_scale, pack=pack)
-        out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg,
-                             col_scale, eps, pack=pack)
-        return out.reshape(b, h, t, dv)
+        with _kernel_scope("rm_attn_fused", x=q, mode="noncausal",
+                           cost=dict(batch=b * h, t=t, d=d,
+                                     depth=w.shape[0], f=w.shape[1],
+                                     dv=dv, itemsize=q.element_size())):
+            kval = kvalid.float()[:, None, :].expand(b, h, t).reshape(b * h, t)
+            s, n = rm_fused_state(k.reshape(b * h, t, d),
+                                  v.reshape(b * h, t, dv), kval, w, col_deg,
+                                  col_scale, pack=pack)
+            out = rm_fused_apply(q.reshape(b * h, t, d), s, n, w, col_deg,
+                                 col_scale, eps, pack=pack)
+            return out.reshape(b, h, t, dv)
 
     @staticmethod
     def backward(ctx, g):

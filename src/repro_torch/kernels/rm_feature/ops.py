@@ -31,6 +31,7 @@ from repro_torch.kernels.rm_feature.ref import (
     rm_feature_bucket_ref,
     rm_feature_fused_ref,
 )
+from repro_torch.obs.trace import kernel_scope as _kernel_scope
 
 __all__ = [
     "rm_feature_fused",
@@ -118,25 +119,28 @@ def rm_feature_fused(
     if k == 0:
         out = col_scale.to(device=x.device, dtype=torch.float32)
         return out.expand(b, f).clone().reshape(*batch_shape, f)
-    if x.device.type == "cpu":
-        return rm_feature_fused_ref(xf, w, col_deg,
-                                    col_scale).reshape(*batch_shape, f)
-    if x.device.type != "cuda":
-        raise ValueError(f"rm_feature_fused runs on cpu or cuda tensors, "
-                         f"got {x.device}")
-    _check_cuda_operands(xf, w, col_deg, col_scale)
-    out = torch.empty((b, f), dtype=torch.float32, device=x.device)
-    launch = _library()
-    err = launch(xf.data_ptr(), w.data_ptr(), col_deg.data_ptr(),
-                 col_scale.data_ptr(), out.data_ptr(), b, f, d, k,
-                 *pick_feature_tiles(b, f, d, xf.element_size()),
-                 _DTYPE_CODE[xf.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rm_feature kernel launch failed: CUDA error "
-                           f"{err}")
-    rm_feature_fused.launches += 1
-    return out.reshape(*batch_shape, f)
+    with _kernel_scope("rm_feature", x=x,
+                       cost=dict(batch=b, d=d, depth=k, f=f,
+                                 itemsize=x.element_size())):
+        if x.device.type == "cpu":
+            return rm_feature_fused_ref(xf, w, col_deg,
+                                        col_scale).reshape(*batch_shape, f)
+        if x.device.type != "cuda":
+            raise ValueError(f"rm_feature_fused runs on cpu or cuda tensors, "
+                             f"got {x.device}")
+        _check_cuda_operands(xf, w, col_deg, col_scale)
+        out = torch.empty((b, f), dtype=torch.float32, device=x.device)
+        launch = _library()
+        err = launch(xf.data_ptr(), w.data_ptr(), col_deg.data_ptr(),
+                     col_scale.data_ptr(), out.data_ptr(), b, f, d, k,
+                     *pick_feature_tiles(b, f, d, xf.element_size()),
+                     _DTYPE_CODE[xf.dtype],
+                     torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rm_feature kernel launch failed: CUDA error "
+                               f"{err}")
+        rm_feature_fused.launches += 1
+        return out.reshape(*batch_shape, f)
 
 
 rm_feature_fused.launches = 0

@@ -33,6 +33,7 @@ from repro_torch.kernels.common import (
     structured_schedule,
     structured_split_rows,
 )
+from repro_torch.obs.trace import kernel_scope as _kernel_scope
 from repro_torch.structured.ref import structured_feature_fused_ref
 
 __all__ = ["StructuredKeep", "structured_feature_fused"]
@@ -187,46 +188,51 @@ def structured_feature_fused(
         if out is not None:
             return _route(z, out, keep, m)
         return z.reshape(*batch_shape, cols)
-    if x.device.type == "cpu":
-        z = structured_feature_fused_ref(xf, d1, d2, col_deg, col_scale)
+    with _kernel_scope("structured_feature", x=x,
+                       cost=dict(batch=b, d=m, depth=k, f=cols,
+                                 itemsize=x.element_size())):
+        if x.device.type == "cpu":
+            z = structured_feature_fused_ref(xf, d1, d2, col_deg, col_scale)
+            if out is not None:
+                return _route(z, out, keep, m)
+            return z.reshape(*batch_shape, cols)
+        if x.device.type != "cuda":
+            raise ValueError(f"structured_feature_fused runs on cpu or cuda "
+                             f"tensors, got {x.device}")
+        _check_cuda_operands(xf, d1, d2, col_deg, col_scale)
+        xf = xf.contiguous()
+        sched = structured_schedule(m, b, s)
+        dest = out
+        if out is None:
+            keep = full_width_keep(s, m)
+            dest = torch.empty((b, cols), dtype=torch.float32, device=x.device)
+        first, count = _keep_tensors(keep, x.device)
+        depth_ptr = scratch_ptr = chunk = 0
+        if sched.passes:
+            # the split path: each stack's depth, and a scratch of every slot
+            # of every stack for a chunk of rows
+            depth = col_deg.view(s, m).amax(dim=1).clamp_(max=k)
+            depth = depth.to(torch.int32)
+            chunk = structured_split_rows(b, m, s, k)
+            scratch = torch.empty(chunk * k * s * m, dtype=torch.float32,
+                                  device=x.device)
+            depth_ptr, scratch_ptr = depth.data_ptr(), scratch.data_ptr()
+        err = _library()(
+            xf.data_ptr(), d1.data_ptr(), d2.data_ptr(), col_deg.data_ptr(),
+            col_scale.data_ptr(), dest.data_ptr(), dest.stride(0),
+            first.data_ptr(), count.data_ptr(), b, d, s, m.bit_length() - 1,
+            k,
+            sched.warps, max(sched.lanes_per_row, 1).bit_length() - 1,
+            depth_ptr, scratch_ptr, chunk, _DTYPE_CODE[xf.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"structured_feature kernel launch failed: "
+                               f"CUDA error {err}")
+        structured_feature_fused.launches += 1
+        structured_feature_fused.last_schedule = sched
         if out is not None:
-            return _route(z, out, keep, m)
-        return z.reshape(*batch_shape, cols)
-    if x.device.type != "cuda":
-        raise ValueError(f"structured_feature_fused runs on cpu or cuda "
-                         f"tensors, got {x.device}")
-    _check_cuda_operands(xf, d1, d2, col_deg, col_scale)
-    xf = xf.contiguous()
-    sched = structured_schedule(m, b, s)
-    dest = out
-    if out is None:
-        keep = full_width_keep(s, m)
-        dest = torch.empty((b, cols), dtype=torch.float32, device=x.device)
-    first, count = _keep_tensors(keep, x.device)
-    depth_ptr = scratch_ptr = chunk = 0
-    if sched.passes:
-        # the split path: each stack's depth, and a scratch of every slot
-        # of every stack for a chunk of rows
-        depth = col_deg.view(s, m).amax(dim=1).clamp_(max=k).to(torch.int32)
-        chunk = structured_split_rows(b, m, s, k)
-        scratch = torch.empty(chunk * k * s * m, dtype=torch.float32,
-                              device=x.device)
-        depth_ptr, scratch_ptr = depth.data_ptr(), scratch.data_ptr()
-    err = _library()(
-        xf.data_ptr(), d1.data_ptr(), d2.data_ptr(), col_deg.data_ptr(),
-        col_scale.data_ptr(), dest.data_ptr(), dest.stride(0),
-        first.data_ptr(), count.data_ptr(), b, d, s, m.bit_length() - 1, k,
-        sched.warps, max(sched.lanes_per_row, 1).bit_length() - 1,
-        depth_ptr, scratch_ptr, chunk, _DTYPE_CODE[xf.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"structured_feature kernel launch failed: CUDA "
-                           f"error {err}")
-    structured_feature_fused.launches += 1
-    structured_feature_fused.last_schedule = sched
-    if out is not None:
-        return out
-    return dest.reshape(*batch_shape, cols)
+            return out
+        return dest.reshape(*batch_shape, cols)
 
 
 structured_feature_fused.launches = 0

@@ -22,6 +22,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.common import sketch_schedule
+from repro_torch.obs.trace import kernel_scope as _kernel_scope
 from repro_torch.sketch.ref import tensor_sketch_fused_ref
 
 __all__ = ["tensor_sketch_fused"]
@@ -109,27 +110,31 @@ def tensor_sketch_fused(
     if b == 0 or fs == 0:
         return torch.zeros((*batch_shape, fs), dtype=torch.float32,
                            device=x.device)
-    if x.device.type == "cpu":
-        return tensor_sketch_fused_ref(xf, wr, wi, col_deg, mr, mi,
-                                       col_scale).reshape(*batch_shape, fs)
-    if x.device.type != "cuda":
-        raise ValueError(f"tensor_sketch_fused runs on cpu or cuda tensors, "
-                         f"got {x.device}")
-    starts = tuple(int(s) for s in blocks)
-    _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts)
-    sched = sketch_schedule(starts, b, d)
-    out = torch.empty((b, fs), dtype=torch.float32, device=x.device)
-    items = _items_on(sched.items, x.device)
-    err = _library()(
-        xf.data_ptr(), wr.data_ptr(), wi.data_ptr(), col_deg.data_ptr(),
-        mr.data_ptr(), mi.data_ptr(), col_scale.data_ptr(), out.data_ptr(),
-        items.data_ptr(), sched.n_items, sched.group, b, fs, d, k, sched.warps,
-        _DTYPE_CODE[xf.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"tensor_sketch kernel launch failed: CUDA error "
-                           f"{err}")
-    tensor_sketch_fused.launches += 1
-    return out.reshape(*batch_shape, fs)
+    with _kernel_scope("tensor_sketch", x=x,
+                       cost=dict(batch=b, d=d, depth=k, f=fs,
+                                 itemsize=x.element_size())):
+        if x.device.type == "cpu":
+            return tensor_sketch_fused_ref(xf, wr, wi, col_deg, mr, mi,
+                                           col_scale).reshape(*batch_shape, fs)
+        if x.device.type != "cuda":
+            raise ValueError(f"tensor_sketch_fused runs on cpu or cuda "
+                             f"tensors, got {x.device}")
+        starts = tuple(int(s) for s in blocks)
+        _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts)
+        sched = sketch_schedule(starts, b, d)
+        out = torch.empty((b, fs), dtype=torch.float32, device=x.device)
+        items = _items_on(sched.items, x.device)
+        err = _library()(
+            xf.data_ptr(), wr.data_ptr(), wi.data_ptr(), col_deg.data_ptr(),
+            mr.data_ptr(), mi.data_ptr(), col_scale.data_ptr(),
+            out.data_ptr(), items.data_ptr(), sched.n_items, sched.group, b,
+            fs, d, k, sched.warps, _DTYPE_CODE[xf.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"tensor_sketch kernel launch failed: CUDA "
+                               f"error {err}")
+        tensor_sketch_fused.launches += 1
+        return out.reshape(*batch_shape, fs)
 
 
 tensor_sketch_fused.launches = 0

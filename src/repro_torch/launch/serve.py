@@ -6,8 +6,19 @@
 
 runs the full-width model on the CUDA device with random weights from
 ``--seed``; ``--smoke`` takes the reduced config, ``--device cpu`` the plain
-PyTorch path, ``--estimator tensor_sketch``, ``ctr`` or ``structured`` another
-feature family (each takes the two-launch attention path). It prints TTFT p50/p99 and aggregate tokens/s.
+PyTorch path, ``--attention-mode exact`` softmax attention with a KV
+cache, ``--estimator tensor_sketch``, ``ctr`` or ``structured`` another
+feature family (each takes the two-launch attention path). It prints TTFT
+p50/p99 and aggregate tokens/s.
+
+Observability: ``--trace-out trace.jsonl`` streams the request lifecycle
+and the ``kernel/*`` spans (summarize or convert with ``python -m
+repro_torch.obs``, validate with ``tools/check_trace.py``),
+``--metrics-out metrics.json`` snapshots the TTFT / token-latency /
+tokens-per-second histograms, and ``--drift-every N`` runs the online
+(eps, delta) Gram-drift check every N decode iterations. Not ported yet:
+``--arrival-trace`` (it replays through ``bench/loadgen.py``, ROADMAP.md
+queue A item 2).
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs
+from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
 from repro_torch.models.transformer import init_model
 from repro_torch.serve import Request, Scheduler
 
@@ -35,12 +47,14 @@ def make_engine(
     num_slots: int = 4,
     max_len: int = 128,
     seed: int = 0,
+    obs=None,
     device="cuda",
 ) -> Scheduler:
     """Config -> random weights from ``seed`` -> a :class:`Scheduler`.
 
     ``estimator`` (a registry name) is forwarded to ``get_config``, which
-    validates it. ``device`` defaults to ``"cuda"`` and raises a
+    validates it. ``obs`` (a ``repro_torch.obs.Obs``) reaches the
+    Scheduler. ``device`` defaults to ``"cuda"`` and raises a
     ``RuntimeError`` where CUDA is absent; only ``device="cpu"`` runs on
     the CPU.
     """
@@ -53,7 +67,7 @@ def make_engine(
     gen.manual_seed(seed)
     params = init_model(cfg, gen)
     return Scheduler(cfg, params, num_slots=num_slots, max_len=max_len,
-                     rng_seed=seed, device=dev)
+                     rng_seed=seed, obs=obs, device=dev)
 
 
 def summarize(done) -> dict:
@@ -71,7 +85,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--attention-mode", default="rm", choices=["rm"])
+    ap.add_argument("--attention-mode", default="rm",
+                    choices=["exact", "rm"])
     ap.add_argument("--estimator", default=None,
                     help="feature-estimator registry name (rm, "
                          "tensor_sketch, ctr or structured; default: the "
@@ -82,13 +97,18 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    add_obs_args(ap, "decode iterations")
     args = ap.parse_args(argv)
 
+    cfg = get_config(args.arch, smoke=args.smoke,
+                     attention_mode=args.attention_mode,
+                     estimator=args.estimator)
+    obs = make_obs(args, cfg, resolve_device(args.device), "serve")
     engine = make_engine(args.arch, smoke=args.smoke,
                          attention_mode=args.attention_mode,
                          estimator=args.estimator, num_slots=args.slots,
                          max_len=args.max_len,
-                         seed=args.seed, device=args.device)
+                         seed=args.seed, obs=obs, device=args.device)
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
     for i in range(args.requests):
@@ -101,8 +121,7 @@ def main(argv=None):
     stats = summarize(done)
     print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
           f"in {wall:.3f}s ({stats['tokens'] / wall:.1f} tok/s aggregate) "
-          f"on {engine.device}, estimator {engine.estimator}, "
-          f"{'fused' if engine.fused_attention else 'two-launch'} attention")
+          f"on {engine.device}, {_attention_label(engine)}")
     print(f"[serve] ttft p50={stats['ttft_p50_s']:.4f}s "
           f"p99={stats['ttft_p99_s']:.4f}s")
     for rid in sorted(done):
@@ -110,6 +129,15 @@ def main(argv=None):
         ttft = s.t_first_token - s.t_enqueue
         print(f"  req {rid}: {len(s.generated)} tokens "
               f"({s.finish_reason}), ttft={ttft:.4f}s")
+    close_obs(obs, args, "serve")
+
+
+def _attention_label(engine) -> str:
+    if engine.cfg.attention_mode != "rm":
+        return "exact softmax attention"
+    return (f"estimator {engine.estimator}, "
+            f"{'fused' if engine.fused_attention else 'two-launch'} "
+            "attention")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,14 @@
-"""Attention, RM linear mode only (port of ``repro.models.attention``).
+"""Attention: exact softmax GQA and the paper's Random-Maclaurin linear
+mode (port of ``repro.models.attention``).
+
+``attention_mode="exact"``: softmax attention in plain PyTorch (einsum,
+``torch.where`` with the reference's ``NEG_INF`` mask, softmax), as the
+reference's is plain jnp; it has no TPU kernel, so it has no CUDA kernel
+either, and no library attention kernel stands in for it. Keys at negative
+positions are padding (bucketed prefill) and never attended to; above
+``_BLOCKWISE_THRESHOLD`` positions the forward runs the blockwise
+online-softmax loop over 1024-wide query and key blocks. Decode keeps a
+ring-buffer KV cache (sized by ``sliding_window`` when there is one).
 
 ``attention_mode="rm"``: q/k are per-head l2-normalized, scaled by
 softplus(``rm_scale``) and featurized with a static plan of the estimator
@@ -25,16 +35,15 @@ The fused path trains: ``rm_attention_fused_causal`` and
 differentiates the reference's XLA formulation in PyTorch), while the
 two-launch path's featurize kernels have no backward, as in the reference.
 
-A non-causal config (an encoder) has a forward and its gradient only: the
-prefill-cache and decode paths raise ``ValueError`` ("encoder-only"). Not
-ported yet (ROADMAP.md queue A): ``attention_mode="exact"``, which raises
-``NotImplementedError``.
+A non-causal config (an encoder) has a forward and its gradient only, in
+either mode: the prefill-cache and decode paths raise ``ValueError``
+("encoder-only").
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,20 +72,15 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, torch.Tensor]
 
+NEG_INF = -1e30
+_INT32_MAX = 2**31 - 1
+
 
 def _require_decoder(cfg: ModelConfig) -> None:
     if not cfg.causal:
         raise ValueError(
             f"{cfg.name} is encoder-only: non-causal attention has a "
             "forward (a full encode) but no prefill cache or decode step")
-
-
-def _require_rm(cfg: ModelConfig) -> None:
-    if cfg.attention_mode != "rm":
-        raise NotImplementedError(
-            f"attention_mode={cfg.attention_mode!r} is not ported yet: the "
-            "port has the RM linear attention mode only (exact softmax "
-            "attention is queued in ROADMAP.md)")
 
 
 def rm_estimator(cfg: ModelConfig) -> registry.Estimator:
@@ -167,6 +171,8 @@ def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
     kernels B3 and B4 (``kernels.rm_attention.noncausal.pack_noncausal``).
     Worked out once per weight set (``transformer.cast_params_to_compute``
     calls this); params that already hold them come back unchanged."""
+    if cfg.attention_mode != "rm":
+        return params
     slab = not cfg.causal and rm_fuse_enabled(cfg)
     if "rm_w" in params and (not slab or "rm_slab" in params):
         return params
@@ -196,7 +202,8 @@ def _rm_fused_operands(params: Params, cfg: ModelConfig, meta, q, k):
 # GQA attention
 # ---------------------------------------------------------------------------
 def init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
-    _require_rm(cfg)
+    """The projections (and biases / qk-norm scales), plus, in rm mode, the
+    estimator draws ``rm_est`` and ``rm_scale``; exact mode has neither."""
     d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim
     std = cfg.init_std
@@ -213,6 +220,8 @@ def init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
     if cfg.qk_norm:
         params["q_norm_scale"] = torch.ones((dh,), dtype=dtype, device=device)
         params["k_norm_scale"] = torch.ones((dh,), dtype=dtype, device=device)
+    if cfg.attention_mode != "rm":
+        return params
     meta = rm_plan_for(cfg, dh)
     params["rm_est"] = rm_estimator(cfg).init_params(meta, generator)
     if cfg.rm.learnable_scale:
@@ -259,17 +268,124 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(x, rep, dim=2)
 
 
+# ---------------------------------------------------------------------------
+# exact softmax attention (the reference's plain jnp, in plain PyTorch)
+# ---------------------------------------------------------------------------
+# Above this sequence length the forward switches to the blockwise
+# online-softmax loop (peak score memory [B, H, 1024, 1024] instead of
+# [B, H, T, T]); below it the one einsum is plenty small.
+_BLOCKWISE_THRESHOLD = 2048
+_BLOCK_Q = 1024
+_BLOCK_K = 1024
+
+
+def _mask_block(cfg: ModelConfig, qp: torch.Tensor,
+                kp: torch.Tensor) -> torch.Tensor:
+    """qp: [.., bq], kp: [.., bk] -> bool [.., bq, bk]. Keys at negative
+    positions are padding (bucketed prefill) and are never attended to."""
+    m = (kp[..., None, :] >= 0).expand(qp.shape + kp.shape[-1:])
+    if cfg.causal:
+        m = m & (qp[..., :, None] >= kp[..., None, :])
+    if cfg.sliding_window > 0:
+        m = m & ((qp[..., :, None] - kp[..., None, :]) < cfg.sliding_window)
+    return m
+
+
+def _softmax_attention_small(cfg: ModelConfig, q, k, v, q_positions,
+                             k_positions) -> torch.Tensor:
+    """One einsum of every score: q [B,Tq,H,dh], k/v [B,Tk,H,*] ->
+    [B,Tq,H,dv] in v's dtype (scores and softmax in fp32)."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / math.sqrt(dh)
+    mask = _mask_block(cfg, q_positions, k_positions)[:, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _pad_positions(pos: torch.Tensor, pad: int, value: int) -> torch.Tensor:
+    if not pad:
+        return pos
+    fill = torch.full(pos.shape[:-1] + (pad,), value, dtype=pos.dtype,
+                      device=pos.device)
+    return torch.cat([pos, fill], dim=-1)
+
+
+def _softmax_attention_blockwise(cfg: ModelConfig, q, k, v, q_positions,
+                                 k_positions) -> torch.Tensor:
+    """Memory-efficient exact attention: for each 1024-wide query block, a
+    loop over 1024-wide key blocks with the online softmax (running max
+    and sum). T is padded to the block widths: padded queries sit at
+    position 0 and are sliced off, padded keys carry the sentinel position
+    ``2**31 - 1`` and are masked out. Fully masked blocks are still
+    computed, then zeroed, as in the reference."""
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    dv = v.shape[-1]
+    bq, bk = min(_BLOCK_Q, tq), min(_BLOCK_K, tk)
+    pad_q, pad_k = (-tq) % bq, (-tk) % bk
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    qpos = _pad_positions(q_positions, pad_q, 0)
+    kpos = _pad_positions(k_positions, pad_k, _INT32_MAX)
+    nq, nk = (tq + pad_q) // bq, (tk + pad_k) // bk
+    scale = 1.0 / math.sqrt(dh)
+    outs = []
+    for i in range(nq):
+        q_i = qp[:, i * bq:(i + 1) * bq].float()
+        qpos_i = qpos[:, i * bq:(i + 1) * bq]
+        m = torch.full((b, h, bq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, bq, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            k_j = kp[:, j * bk:(j + 1) * bk].float()
+            v_j = vp[:, j * bk:(j + 1) * bk].float()
+            kpos_j = kpos[:, j * bk:(j + 1) * bk]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_i, k_j) * scale
+            mask = _mask_block(cfg, qpos_i, kpos_j)[:, None]
+            # padded keys carry the sentinel position: always invalid
+            mask = mask & (kpos_j < _INT32_MAX)[:, None, None, :]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                       v_j)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.transpose(1, 2))        # [B, bq, H, dv]
+    out = torch.cat(outs, dim=1)[:, :tq]
+    return out.to(v.dtype)
+
+
+def _softmax_attention(cfg: ModelConfig, q, k, v, q_positions,
+                       k_positions) -> torch.Tensor:
+    """q: [B,Tq,H,dh]; k, v: [B,Tk,H,*] (kv heads already repeated);
+    positions give the mask."""
+    if max(q.shape[1], k.shape[1]) > _BLOCKWISE_THRESHOLD:
+        return _softmax_attention_blockwise(cfg, q, k, v, q_positions,
+                                            k_positions)
+    return _softmax_attention_small(cfg, q, k, v, q_positions, k_positions)
+
+
 def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention (training forward, or an encoder's encode;
     causal or not as ``cfg.causal`` says). x: [B, T, d]."""
-    _require_rm(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     q, k = _apply_positional(cfg, q, k, positions)
     k = _repeat_kv(k, cfg.q_per_kv)
     v = _repeat_kv(v, cfg.q_per_kv)
+    if cfg.attention_mode != "rm":
+        out = _softmax_attention(cfg, q, k, v, positions, positions)
+        return out.reshape(b, t, h * dh) @ params["wo"]
     meta = rm_plan_for(cfg, dh)
     v_t = v.transpose(1, 2)
     if rm_fuse_enabled(cfg):
@@ -294,12 +410,27 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(b, t, h * dh) @ params["wo"]
 
 
-def init_attention_cache(cfg: ModelConfig, batch: int,
-                         device) -> Dict[str, torch.Tensor]:
-    """The O(1) rm decode state of one layer for ``batch`` lanes."""
-    _require_rm(cfg)
+def init_attention_cache(cfg: ModelConfig, batch: int, device,
+                         max_len: Optional[int] = None,
+                         dtype=None) -> Dict[str, torch.Tensor]:
+    """One layer's decode cache for ``batch`` lanes: the O(1) rm state
+    (fp32), or exact attention's ring-buffer KV cache ``k``/``v [batch,
+    size, Hkv, dh]`` in ``dtype``, ``size = max_len`` (at most
+    ``sliding_window`` when the config has one); exact mode needs both."""
     _require_decoder(cfg)
-    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.attention_mode != "rm":
+        if max_len is None or dtype is None:
+            raise ValueError("exact attention's KV cache needs max_len and "
+                             "dtype")
+        size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+            else max_len
+        return {
+            "k": torch.zeros((batch, size, hkv, dh), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, size, hkv, dh), dtype=dtype,
+                             device=device),
+        }
     f = rm_plan_for(cfg, dh).output_dim
     return {
         "rm_s": torch.zeros((batch, h, f, dh), dtype=torch.float32,
@@ -316,12 +447,17 @@ def attention_decode(
     cache: Dict[str, torch.Tensor],
     positions: torch.Tensor,         # [B] position of the new token
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    _require_rm(cfg)
+    """One token a lane. rm: the O(1) state update. exact: the new key and
+    value are written into the ring buffer IN PLACE at slot ``positions %
+    size`` (the returned cache holds the same tensors), then the query
+    attends to every slot whose absolute position is in range."""
     _require_decoder(cfg)
     b = x.shape[0]
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     q, k = _apply_positional(cfg, q, k, positions[:, None])
+    if cfg.attention_mode != "rm":
+        return _exact_decode(params, cfg, q, k, v, cache, positions)
     meta = rm_plan_for(cfg, dh)
     k = _repeat_kv(k, cfg.q_per_kv)
     v = _repeat_kv(v, cfg.q_per_kv)
@@ -345,20 +481,29 @@ def attention_prefill_cache(
     cfg: ModelConfig,
     x: torch.Tensor,           # [B, T, d] prompt
     positions: torch.Tensor,   # [B, T]; -1 marks bucket padding
+    max_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prefill AND the decode state: one fused launch, or (two-launch path)
-    the featurize launches, kernel B5 and the whole-prompt state. Padded
-    prompt positions are masked out of the keys (``kvalid`` /
-    :func:`rm_valid_mask`)."""
-    _require_rm(cfg)
+    """Prefill AND the decode cache. rm: one fused launch, or (two-launch
+    path) the featurize launches, kernel B5 and the whole-prompt state;
+    padded prompt positions are masked out of the keys (``kvalid`` /
+    :func:`rm_valid_mask`). exact: the softmax attention, then the prompt's
+    keys and values written into a fresh ring buffer of ``max_len`` (or the
+    sliding window) slots; ``max_len`` is required there."""
     _require_decoder(cfg)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     q, k = _apply_positional(cfg, q, k, positions)
-    meta = rm_plan_for(cfg, dh)
     kr = _repeat_kv(k, cfg.q_per_kv)
     vr = _repeat_kv(v, cfg.q_per_kv)
+    if cfg.attention_mode != "rm":
+        if max_len is None:
+            raise ValueError("exact attention's prefill cache needs max_len "
+                             "(the ring buffer's length)")
+        out = _softmax_attention(cfg, q, kr, vr, positions, positions)
+        y = out.reshape(b, t, h * dh) @ params["wo"]
+        return y, _exact_prefill_cache(cfg, k, v, positions, max_len)
+    meta = rm_plan_for(cfg, dh)
     v_t = vr.transpose(1, 2)
     if rm_fuse_enabled(cfg):
         qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, kr)
@@ -374,3 +519,53 @@ def attention_prefill_cache(
         s, n = rm_attention_prefill_final_state(zk, v_t)
     y = out.transpose(1, 2).to(x.dtype).reshape(b, t, h * dh) @ params["wo"]
     return y, {"rm_s": s, "rm_n": n}
+
+
+def _exact_decode(params: Params, cfg: ModelConfig, q, k, v,
+                  cache: Dict[str, torch.Tensor], positions: torch.Tensor):
+    """Exact decode: ring-buffer write at slot ``positions % size``, then
+    softmax over the slots. Slot s holds the largest absolute position p
+    <= ``positions`` with p % size == s; slots with p < 0 (not written
+    yet) or out of the sliding window are masked."""
+    b = q.shape[0]
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    k_cache, v_cache = cache["k"], cache["v"]
+    size = k_cache.shape[1]
+    pos = positions.long()
+    bidx = torch.arange(b, device=k_cache.device)
+    slots = pos % size
+    k_cache[bidx, slots] = k[:, 0].to(k_cache.dtype)
+    v_cache[bidx, slots] = v[:, 0].to(v_cache.dtype)
+    slot_ids = torch.arange(size, device=k_cache.device)[None, :]
+    abs_pos = pos[:, None] - ((pos[:, None] - slot_ids) % size)
+    valid = abs_pos >= 0
+    if cfg.sliding_window > 0:
+        valid = valid & ((pos[:, None] - abs_pos) < cfg.sliding_window)
+    kk = _repeat_kv(k_cache, cfg.q_per_kv)
+    vv = _repeat_kv(v_cache, cfg.q_per_kv)
+    scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(),
+                          kk.float()) / math.sqrt(dh)
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", probs.to(vv.dtype), vv)
+    y = out.reshape(b, 1, h * dh) @ params["wo"]
+    return y, {"k": k_cache, "v": v_cache}
+
+
+def _exact_prefill_cache(cfg: ModelConfig, k, v, positions: torch.Tensor,
+                         max_len: int) -> Dict[str, torch.Tensor]:
+    """A fresh ring buffer holding the prompt's keys and values: slots
+    ``[0, T)`` when the prompt fits, else its last ``size`` tokens at slot
+    ``position % size``."""
+    b, t = k.shape[:2]
+    cache = init_attention_cache(cfg, b, k.device, max_len, k.dtype)
+    size = cache["k"].shape[1]
+    if t <= size:
+        cache["k"][:, :t] = k
+        cache["v"][:, :t] = v
+        return cache
+    slots = positions[:, -size:].long() % size
+    bidx = torch.arange(b, device=k.device)[:, None]
+    cache["k"][bidx, slots] = k[:, -size:]
+    cache["v"][bidx, slots] = v[:, -size:]
+    return cache

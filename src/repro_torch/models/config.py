@@ -3,8 +3,8 @@
 The reference's frozen dataclasses and field names, restricted to the
 fields the port reads, so a config reads the same in both packages. The
 family sub-configs (MoE, MLA, Mamba, xLSTM) and the fields only other
-families or the jit/scan machinery read (``attention_kind``,
-``sliding_window``, ``remat``, ``scan_unroll``) come with the modules that
+families or the jit/scan machinery read (``attention_kind``, ``remat``,
+``scan_unroll``) come with the modules that
 read them (ROADMAP.md queue A). ``frontend`` is ported for ``"none"``
 (token inputs) and ``"audio_stub"`` (precomputed frame embeddings, the
 HuBERT encoder); the vision stub waits for its model.
@@ -72,6 +72,7 @@ class ModelConfig:
     attention_mode: str = "exact"  # exact | rm  (rm = the paper's technique)
     qk_norm: bool = False
     qkv_bias: bool = False
+    sliding_window: int = 0        # 0 = full attention (exact mode)
     rope_theta: float = 10000.0
     pos_embedding: str = "rope"    # rope | sinusoidal | none
 

@@ -8,8 +8,9 @@ are tokens, precomputed frame embeddings (``frontend="audio_stub"``, the
 HuBERT encoder), or both; an encoder (``causal=False``) has ``forward`` and
 ``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is
 differentiable end to end on the fused rm path (the attention ops are
-``torch.autograd.Function``s); the two-launch path's featurize kernels have
-no backward (ROADMAP.md queue C).
+``torch.autograd.Function``s) and on the exact path (plain PyTorch, through
+autograd); the two-launch path's featurize kernels have no backward
+(ROADMAP.md queue C).
 
 Parameters are plain nested dicts of tensors with the reference's leaf
 names; the fp32 master weights get a compute-dtype copy, with each
@@ -200,8 +201,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             max_len: int) -> Tuple[torch.Tensor, Params]:
     """Consume a prompt; return (logits [B, T, V], decode cache).
 
-    ``max_len`` is kept for the reference's signature: the rm decode state
-    does not grow with the sequence.
+    ``max_len`` sizes exact attention's ring-buffer KV cache; the rm decode
+    state does not grow with the sequence.
     """
     params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
@@ -209,7 +210,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     for layer in params["layers"]:
         h = apply_norm(layer["norm1"], cfg, x)
         y, cache = attn_mod.attention_prefill_cache(layer["attn"], cfg, h,
-                                                    positions)
+                                                    positions, max_len)
         x = _mlp_residual(layer, cfg, x + y)
         caches.append(cache)
     x = apply_norm(params["final_norm"], cfg, x)
@@ -218,10 +219,13 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device) -> Params:
-    """Zero decode state for ``batch`` lanes, one entry per layer."""
+    """Zero decode cache for ``batch`` lanes, one entry per layer: the rm
+    state, or exact attention's KV ring buffer in the compute dtype."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    return {"layers": [attn_mod.init_attention_cache(cfg, batch, device)
+    dtype = canonical_dtype(cfg.compute_dtype)
+    return {"layers": [attn_mod.init_attention_cache(cfg, batch, device,
+                                                     max_len, dtype)
                        for _ in layer_kinds(cfg)]}
 
 
@@ -229,7 +233,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 tokens: torch.Tensor,      # [B, 1] int
                 positions: torch.Tensor,   # [B] position of this token
                 ) -> Tuple[torch.Tensor, Params]:
-    """One autoregressive step -> (logits [B, 1, V] fp32, new cache)."""
+    """One autoregressive step -> (logits [B, 1, V] fp32, new cache).
+    Exact attention writes the new keys and values into the cache's ring
+    buffers in place."""
     params = cast_params_to_compute(params, cfg)
     cdtype = canonical_dtype(cfg.compute_dtype)
     x = embed_tokens(params["embed"], cfg, tokens, cdtype)

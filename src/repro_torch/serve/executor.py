@@ -2,10 +2,11 @@
 ``repro.serve.executor``).
 
 The executor owns everything that touches the device: construction-time
-config validation (causal, estimator, precision, fusion mode), the
-prefill bucket ladder, the compute-dtype copy of the weights (made once),
-the batched decode cache (``num_slots`` lanes, spliced per admission), and
-the prefill and decode calls. PyTorch runs eagerly, so there is no compile
+config validation (causal, attention mode, estimator, precision, fusion
+mode), the prefill bucket ladder, the compute-dtype copy of the weights
+(made once), the batched decode cache (``num_slots`` lanes, spliced per
+admission: the rm decode state, or exact attention's ring-buffer KV
+cache), and the prefill and decode calls. PyTorch runs eagerly, so there is no compile
 cache; CUDA graphs for the decode step are later work.
 """
 from __future__ import annotations
@@ -58,9 +59,12 @@ class StepExecutor:
         device: where the cache lives and the steps run.
 
     Attributes:
-        estimator: the registry name of the RM feature family served.
+        estimator: the registry name of the RM feature family served
+            (None for ``attention_mode="exact"``).
         fused_attention: whether attention runs the fused ops (kernel B2)
-            or the two-launch path (featurize, then kernel B5).
+            or the two-launch path (featurize, then kernel B5); False for
+            exact softmax attention, which is plain PyTorch with a
+            ring-buffer KV cache.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int,
@@ -69,18 +73,21 @@ class StepExecutor:
         if not cfg.causal:
             raise ValueError("encoder-only models cannot be served "
                              "autoregressively")
-        if cfg.attention_mode != "rm":
-            raise NotImplementedError(
-                f"attention_mode={cfg.attention_mode!r} is not ported yet; "
-                "the port serves the RM attention mode")
-        from repro_torch.common.dtypes import resolve_precision
-        from repro_torch.core import registry
-        from repro_torch.models.attention import rm_fuse_enabled
+        if cfg.attention_mode not in ("exact", "rm"):
+            raise ValueError(f"attention_mode must be 'exact' or 'rm', got "
+                             f"{cfg.attention_mode!r}")
+        # exact softmax attention has no feature family and no fused path
+        self.estimator = None
+        self.fused_attention = False
+        if cfg.attention_mode == "rm":
+            from repro_torch.common.dtypes import resolve_precision
+            from repro_torch.core import registry
+            from repro_torch.models.attention import rm_fuse_enabled
 
-        # fail at construction, naming the valid options
-        self.estimator = registry.get(cfg.rm.estimator).name
-        resolve_precision(cfg.rm.precision)
-        self.fused_attention = rm_fuse_enabled(cfg)
+            # fail at construction, naming the valid options
+            self.estimator = registry.get(cfg.rm.estimator).name
+            resolve_precision(cfg.rm.precision)
+            self.fused_attention = rm_fuse_enabled(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params

@@ -1,22 +1,25 @@
 """The training loop (port of ``repro.train.trainer``): the step-indexed
-data, the train step, the CheckpointManager (atomic, keep-k) and the
-StragglerMonitor.
+data, the train step, the CheckpointManager (atomic, keep-k), the
+StragglerMonitor and observability.
 
 ``Trainer(cfg, hyper, dataset, ckpt_dir=, seed=, log_every=,
-checkpoint_every=, device=)`` on one device; ``mesh`` must be ``None``
-(meshes wait for ROADMAP.md queue A item 7). Observability (``obs=``)
-waits for item 4. A step's wall time is read on the host clock after
-``torch.cuda.synchronize`` (the reference's ``block_until_ready``).
+checkpoint_every=, obs=, device=)`` on one device; ``mesh`` must be
+``None`` (meshes wait for ROADMAP.md queue A item 7). A step's wall time
+is read on the ``obs`` clock after ``torch.cuda.synchronize`` (the
+reference's ``block_until_ready``). With ``obs`` (``repro_torch.obs.Obs``)
+each step records the reference's ``train/step`` span, ``train/step_s``
+histogram, ``train/loss`` gauge and ``train/steps`` counter, and ticks the
+drift monitor; ``obs=None`` is a no-op.
 """
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import resolve as _obs_resolve
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault import StragglerMonitor
 from repro_torch.train.steps import (
@@ -39,6 +42,7 @@ class Trainer:
         seed: int = 0,
         log_every: int = 10,
         checkpoint_every: int = 100,
+        obs: Any = None,
         device="cuda",
     ):
         """Raises:
@@ -56,6 +60,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
+        self.obs = _obs_resolve(obs)
         self.monitor = StragglerMonitor()
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.metrics_log: List[Dict[str, float]] = []
@@ -85,11 +90,18 @@ class Trainer:
             batch = {k: v.to(self.device)
                      for k, v in self.dataset.batch_at(step).items()}
             self._sync()
-            t0 = time.perf_counter()
-            state, metrics = self._step(state, batch)
-            self._sync()
-            dt = time.perf_counter() - t0
+            t0 = self.obs.now()
+            with self.obs.span("train/step", step=step):
+                state, metrics = self._step(state, batch)
+                self._sync()
+            dt = self.obs.now() - t0
             self.monitor.record(step, dt)
+            self.obs.histogram("train/step_s", dt)
+            if self.obs.enabled:
+                # the host read of the loss stays off the disabled path
+                self.obs.gauge("train/loss", float(metrics["loss"]))
+                self.obs.counter("train/steps")
+            self.obs.tick_drift()
             if step % self.log_every == 0 or step == num_steps - 1:
                 row = {k: float(v) for k, v in metrics.items()}
                 row.update(step=step, sec_per_step=dt)

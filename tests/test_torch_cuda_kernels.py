@@ -16,6 +16,7 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_fused_causal,
     rm_attention_fused_decode_step,
     rm_attention_fused_noncausal,
+    rm_attention_fused_prefill,
     rm_fused_apply,
     rm_fused_causal,
     rm_fused_state,
@@ -1282,3 +1283,110 @@ def test_attention_functions_grads_card_vs_cpu(cuda, op, dtype):
     for g, g_cpu, x in zip(grads, want, xs):
         assert g.dtype == x.dtype
         _close(g.float().cpu(), g_cpu.float(), tol)
+
+
+# ---------------------------------------------------------------------------
+# kernel spans and exact attention on the card
+# ---------------------------------------------------------------------------
+def test_kernel_span_per_launch(cuda):
+    """With a tracer installed, each wrapper records one ``kernel/<name>``
+    span for each call that launches its kernel (the non-causal op one span
+    for its B3 + B4 pair, as in the reference), with its analytic cost; the
+    training backward of the fused causal op adds no span; without a
+    tracer nothing is recorded."""
+    from repro_torch.obs import Tracer, clock, install_tracer
+
+    d, w, cd, cs, gen = _plan_tensors(False, cuda, seed=5)
+    x = _unit((64, d), gen, cuda)
+    q, k = _unit((1, 4, 40, d), gen, cuda), _unit((1, 4, 40, d), gen, cuda)
+    v = torch.randn((1, 4, 40, d), generator=gen, device=cuda)
+    tr = Tracer(now=clock.FakeClock(),
+                provenance={"backend": "cuda", "device_kind": "test",
+                            "interpret": False, "jax_version": None})
+    calls = [
+        ("kernel/rm_feature", rm_feature_fused,
+         lambda: rm_feature_fused(x, w, cd, cs)),
+        ("kernel/rm_attn_fused", rm_fused_causal,
+         lambda: rm_attention_fused_prefill(q, k, v, w, cd, cs)),
+    ]
+    prev = install_tracer(tr)
+    try:
+        for name, counter, call in calls:
+            before, spans = counter.launches, len(tr.spans(name))
+            call()
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert len(tr.spans(name)) == spans + 1
+            sp = tr.spans(name)[-1]
+            assert sp["attrs"]["flops"] > 0 and sp["attrs"]["hbm_bytes"] > 0
+            assert sp["attrs"]["traced"] is False
+        before = (rm_fused_state.launches, rm_fused_apply.launches)
+        n = len(tr.spans("kernel/rm_attn_fused"))
+        rm_attention_fused_noncausal(q, k, v, w, cd, cs)
+        torch.cuda.synchronize()
+        assert (rm_fused_state.launches, rm_fused_apply.launches) == \
+            (before[0] + 1, before[1] + 1)
+        (sp,) = tr.spans("kernel/rm_attn_fused")[n:]
+        assert sp["attrs"]["mode"] == "noncausal"
+        qg = q.detach().requires_grad_()
+        out = rm_attention_fused_causal(qg, k, v, w, cd, cs)
+        n = len(tr.spans())
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert len(tr.spans()) == n
+    finally:
+        install_tracer(prev)
+    before = len(tr.records)
+    rm_feature_fused(x, w, cd, cs)
+    assert len(tr.records) == before
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_exact_attention_card_matches_cpu(cuda, window):
+    """qwen3 SMOKE exact attention in fp32 on the card against the CPU:
+    the prefill and decode logits through the ring buffer past its wrap,
+    and a 2500-token forward through the blockwise path; no RM kernel
+    launches."""
+    import dataclasses
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              compute_dtype="float32",
+                              sliding_window=window)
+    assert cfg.attention_mode == "exact"
+    p_cpu = tt.init_model(cfg, torch.Generator().manual_seed(0))
+    p_gpu = {"embed": {k_: v_.to(cuda) for k_, v_ in p_cpu["embed"].items()},
+             "final_norm": {k_: v_.to(cuda)
+                            for k_, v_ in p_cpu["final_norm"].items()},
+             "layers": [{m: {k_: v_.to(cuda) for k_, v_ in sub.items()}
+                         for m, sub in lay.items()}
+                        for lay in p_cpu["layers"]]}
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    launches = rm_feature_fused.launches, rm_fused_causal.launches
+    out = {}
+    with torch.inference_mode():
+        for dev, params in (("cpu", p_cpu), (cuda, p_gpu)):
+            lg, cache = tt.prefill(params, cfg, {"tokens": toks.to(dev)},
+                                   16)
+            seq = [lg[:, -1]]
+            for i in range(8):
+                nt = toks[:, i:i + 1].to(dev)
+                pos = torch.full((2,), 12 + i, dtype=torch.int32,
+                                 device=dev)
+                lg, cache = tt.decode_step(params, cfg, cache, nt, pos)
+                seq.append(lg[:, 0])
+            out[str(dev)] = torch.stack(seq).cpu()
+        assert (rm_feature_fused.launches, rm_fused_causal.launches) == \
+            launches
+        _close(out["cuda"], out["cpu"], 1e-4)
+        q, k, v = (torch.randn((1, 2500, 2, 16), generator=gen)
+                   for _ in range(3))
+        pos = torch.arange(2500, dtype=torch.int32)[None]
+        want = attn_mod._softmax_attention(cfg, q, k, v, pos, pos)
+        got = attn_mod._softmax_attention(cfg, q.to(cuda), k.to(cuda),
+                                          v.to(cuda), pos.to(cuda),
+                                          pos.to(cuda))
+    _close(got.cpu(), want, 1e-4)

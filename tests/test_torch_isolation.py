@@ -42,7 +42,8 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 
 SUBPACKAGES = ("sketch", "ctr", "structured", "core", "models", "serve",
-               "data", "launch", "kernels", "paper")
+               "data", "launch", "kernels", "paper", "obs", "bench",
+               "common", "train")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -204,8 +204,10 @@ def test_decode_bf16_within_budget_teacher_forced():
 
 def test_unported_modes_raise_not_implemented():
     """``fuse_featurize="off"`` now runs the two-launch path and matches the
-    reference (held in full by the two-launch tests below); exact attention
-    still raises, and so does an unknown fusion mode."""
+    reference (held in full by the two-launch tests below); an unknown
+    fusion mode raises, and so does a block kind that is not ported yet.
+    Exact attention is ported (tests/test_torch_exact_attention.py): its
+    layers hold no estimator leaves."""
     from repro_torch.models.attention import rm_fuse_enabled
 
     jcfg, jp, tcfg, tp = _two_launch_models("rm_off", "float32", seed=4)
@@ -220,8 +222,13 @@ def test_unported_modes_raise_not_implemented():
     with pytest.raises(ValueError):
         rm_fuse_enabled(bad)
     exact = get_config("qwen3-1.7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="exact"):
-        tt.init_model(exact, torch.Generator().manual_seed(0))
+    assert exact.attention_mode == "exact"
+    layer = tt.init_model(exact, torch.Generator().manual_seed(0))[
+        "layers"][0]["attn"]
+    assert "rm_est" not in layer and "rm_scale" not in layer
+    moe = dataclasses.replace(exact, block_pattern=("attn_moe",))
+    with pytest.raises(NotImplementedError, match="attn_moe"):
+        tt.init_model(moe, torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------

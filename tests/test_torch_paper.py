@@ -1,6 +1,9 @@
 """The port's paper scripts (repro_torch.paper: Figure 1, Table 1 and the
 CSV entry point) against the reference's (benchmarks/fig1_approx.py,
-table1_svm.py), on the CPU, each fed the reference's data and draws:
+table1_svm.py), on the CPU, each fed the reference's data and draws. The
+reference seeds its datasets with Python's salted ``hash``; here they are
+made with the port's crc32 rule instead (``fixed_datasets``), so every
+process and every worker tests on the same data:
 
 * every row the reference's ``run()`` prints, by name and in order;
 * Figure 1's Gram errors within 1e-5 of the reference's, on its points and
@@ -14,6 +17,7 @@ table1_svm.py), on the CPU, each fed the reference's data and draws:
 
 Figure 2 is held the same way in tests/test_torch_paper_fig2.py."""
 import sys
+import zlib
 from pathlib import Path
 
 import jax
@@ -66,10 +70,21 @@ def handed_over(made):
     return make_map
 
 
+def crc32_of_name(name: str) -> int:
+    """The port's dataset seed rule (``repro_torch.data.toy``): a stable
+    digest of the name, the same in every process."""
+    return zlib.crc32(name.encode())
+
+
 def fixed_datasets(monkeypatch, module, names):
-    """The reference's datasets made once (its seed is salted per
-    process), handed to its script and returned as numpy for the port."""
-    data = {n: jtoy.make_classification_dataset(n) for n in names}
+    """The reference's datasets made once, handed to its script and
+    returned as numpy for the port. The reference seeds a dataset with
+    ``hash(name)``, which Python salts per process, so its module global
+    ``hash`` is the port's crc32 of the name while they are made: the
+    data is then the same in every process and every worker."""
+    with monkeypatch.context() as m:
+        m.setattr(jtoy, "hash", crc32_of_name, raising=False)
+        data = {n: jtoy.make_classification_dataset(n) for n in names}
     monkeypatch.setattr(module, "make_classification_dataset",
                         lambda n, **kw: data[n])
     return {n: {k: np.asarray(v) for k, v in ds.items()}
@@ -77,16 +92,24 @@ def fixed_datasets(monkeypatch, module, names):
 
 
 def at_converged_lam(monkeypatch, module, port_module):
-    """Both scripts' ``train_linear`` at lam 1e-3, where it converges."""
+    """Both scripts' ``train_linear`` at lam 1e-3, where it converges (to
+    within fp32 Newton-CG's reach: see tests/test_torch_paper_fig2.py).
+    Returns ``{"ref": [...], "port": [...]}``, each script's classifiers
+    in the order it trained them."""
+    fits = {"ref": [], "port": []}
+
     def train(z, y, lam=1e-4, **kw):
-        return J.train_linear(z, y, lam=CONVERGED_LAM, **kw)
+        fits["ref"].append(J.train_linear(z, y, lam=CONVERGED_LAM, **kw))
+        return fits["ref"][-1]
 
     def port_train(z, y, lam=1e-4, **kw):
         assert lam == port_module.LAM == 1e-5       # the script's own
-        return T.train_linear(z, y, lam=CONVERGED_LAM, **kw)
+        fits["port"].append(T.train_linear(z, y, lam=CONVERGED_LAM, **kw))
+        return fits["port"][-1]
 
     monkeypatch.setattr(module, "train_linear", train)
     monkeypatch.setattr(port_module, "train_linear", port_train)
+    return fits
 
 
 def parse(rows):
