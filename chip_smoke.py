@@ -233,7 +233,41 @@ Phases, each fatal on failure:
     alone give their batched tokens) and its warm decode-step wall beside
     rm's; (e) hubert-xlarge exact at full width and depth, 8 x 1500
     frames: finite logits, its wall beside phase 13's rm wall, its peak
-    memory.
+    memory;
+26. adaptive accuracy, then MLA and MoE: (a) a growable map
+    (``core.doubling``: exp at d 64, 256 features a generation) grown G
+    1 -> 2 -> 4 -> 8 on the card: the raw prefix bitwise equal across each
+    growth, 1 -> 4 equal to 1 -> 2 -> 4, one B1 launch a generation, the
+    same draws on the CPU within 1e-5, ``estimate_gram`` within 1e-5 of
+    the concatenation's Gram; the drift loop: the G 8 map's sup error sets
+    an envelope of twice it, a map at D/16 is checked, grown
+    (``recommend()`` -> ``grow_to``) and rebound until it is inside, each
+    bound tighter than the last, one B1 launch a generation a check; (b)
+    every family's fused featurize timed on the card (CUDA events, packed
+    weights, fp32 and bf16) at ``BENCH_core.json``'s three shapes, written
+    in that file's schema (``"backend": "gpu"``) to
+    ``smoke_out/phase26/bench_core_gpu.json``; the ``CostModel`` fitted
+    from it covers the 4 x 2 grid, ``select_budget`` at (0.25, 0.05) and
+    (0.1, 0.01) certifies each eps, a ``"tpu"`` platform pin is refused,
+    and ``launch/serve.py --smoke --eps 1.0 --delta 0.1 --bench <it>``
+    resizes ``cfg.rm`` and serves; (c) qwen3-1.7b rm with
+    ``accuracy_tiers={"low": 1, "standard": 2, "high": 4}`` on phase 7's
+    workload: tokens bitwise phase 7's, each request's ``tier_features``
+    its tier's prefix, B2 28 a prefill and B1 28 a decode step; (d)
+    deepseek-v2-lite-16b: its SMOKE config in fp32 card vs CPU in rm fused
+    (B2), rm two-launch (B1 + B5) and exact (no RM kernel) mode, logits
+    within 1e-4 relative and greedy tokens identical; B2 at its
+    bucket-256 prefill (16 heads, q/k width 192, values 128) and B1 at
+    its decode shape (x ``[128, 192]``) against their plain versions (fp32
+    within the 1e-5 gate, bf16, two calls bitwise equal, times and
+    bounds); then the full-width model (27 layers, the first dense, MLA,
+    64 routed experts top-6 + 2 shared; bf16 weights drawn on the card
+    from seed 0) serving phase 7's workload (its lengths, token ids from
+    deepseek's vocabulary) through the Scheduler: every request finishes,
+    B2 27 launches a prefill and B1 27 a decode step; parameters, decode
+    state and peak memory, and phase 8's warm run and profiler windows.
+    No request is held alone against batched: the MoE capacity counts
+    every token of a call.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -256,13 +290,16 @@ and its split path's at d_pad 16384 and 65536,
 B9 its grid and the adult map's per-bucket device time beside fused
 B1's; B2, B3 and B4 their launches per train step, B2 its device time and
 its backward's in the profiled qwen3 train step; B1 and B2 their launches
-in phase 25's traced serve, B1 the drift check's) and, as its last
+in phase 25's traced serve, B1 the drift check's; B1 and B2 with
+``deepseek_*`` keys: their times at the MLA width, their launches in
+deepseek's serve and their device time in its windows) and, as its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
 tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
 its timings alone, then phase 25's exact hubert encode (e) and its warm
-exact decode timing; no kernel check and no gradient check is cut.
+exact decode timing, then phase 26's deepseek profiler windows; no kernel
+check and no gradient check is cut.
 """
 import dataclasses
 import gc
@@ -2267,6 +2304,499 @@ def obs_exact_phase(torch, np, kernels, counters, prompts, rm_tokens,
     print(f"[exact] phase 25 in {time.perf_counter() - t_phase:.2f}s")
 
 
+# -- phase 26: adaptive accuracy; MLA and MoE (deepseek-v2-lite-16b) ----------
+PHASE26_DIR = Path(__file__).resolve().parent / "smoke_out" / "phase26"
+GROW_TOL = 1e-5      # x max(1, max |cpu|): the growable map card vs CPU, and
+#                      its Gram against the concatenation's (fp32 sums of
+#                      <= 10 x 64 products; Grams of <= 8 x 163 features)
+# BENCH_core.json's three shapes: (name, kernel, d, F, batch)
+CORE_SHAPES = (("exp_d64_F256_b1024", "exp", 64, 256, 1024),
+               ("poly7_d32_F512_b512", "poly7", 32, 512, 512),
+               ("exp_d24_F192_b512", "exp", 24, 192, 512))
+TIERS = {"low": 1, "standard": 2, "high": 4}
+DEEPSEEK = "deepseek-v2-lite-16b"
+
+
+def b1_mla_check(torch, np, kernels, gen, w32, cd, cs, rows):
+    """B1 at deepseek's decode shape (x ``[rows, 192]``, q and k of every
+    lane and head stacked) against its plain version, fp32 and bf16, with
+    times and bounds; the fp32 figures go into ``kernels["B1"]``."""
+    from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+    from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
+
+    d, f = w32.shape[2], w32.shape[1]
+    c_np = cd.cpu().numpy()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = unit_rows(torch, (rows, d), gen).to(dtype)
+        w = w32.to(dtype)
+        got = rm_feature_fused(x, w, cd, cs)
+        again = rm_feature_fused(x, w, cd, cs)
+        want = rm_feature_fused_ref(x, w, cd, cs)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = B1_TOL * max(1.0, want.abs().max().item())
+        same = torch.equal(got, again)
+        ms = time_ms(torch, lambda: rm_feature_fused(x, w, cd, cs))
+        dev_ms = kernel_device_ms(torch, lambda: rm_feature_fused(
+            x, w, cd, cs), "rm_feature_kernel")
+        plain_ms = time_ms(torch, lambda: rm_feature_fused_ref(x, w, cd, cs),
+                           iters=10)
+        dname = str(dtype).split(".")[-1]
+        item = x.element_size()
+        nbytes = rows * d * item + omega_bytes(c_np, d, item) + f * 8 \
+            + rows * f * 4
+        tcms, tcby = tensor_core_bound(nbytes, featurize_ops(rows, c_np, d),
+                                       0, dname, True)
+        print(f"[ds B1] decode x[{rows},{d}] F {f} {dname}: max_abs_err "
+              f"{err:.3e} (tol {tol:.1e}), two calls bitwise equal {same}; "
+              f"kernel {dev_ms:.4f} ms device (profiler), {ms:.4f} ms "
+              f"events; plain {plain_ms:.4f} ms; bound {tcms:.6f} ms "
+              f"({tcby}, tensor cores)")
+        if not (err <= tol and same):
+            raise AssertionError(f"B1 at the MLA width {dname}: error {err} "
+                                 f"> {tol} or two calls differ")
+        if dtype == torch.float32:
+            kernels["B1"].update(
+                deepseek_shape=f"x[{rows},{d}] fp32, F {f}",
+                deepseek_max_abs_err=err, deepseek_ms=ms,
+                deepseek_device_ms=dev_ms, deepseek_plain_ms=plain_ms,
+                deepseek_bound_ms=tcms, deepseek_bound_by=tcby)
+
+
+def b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, eps):
+    """B2 at deepseek's bucket-256 prefill (one prompt's 16 heads, q/k
+    width 192, values 128, 56 keys padded) against its plain version: fp32
+    within the 3xTF32 gate, bf16 within B2_TOL, two calls bitwise equal,
+    with times and bounds; the fp32 figures go into ``kernels["B2"]``."""
+    from repro_torch.kernels.rm_attention.ops import rm_fused_causal
+    from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
+
+    d, f = w32.shape[2], w32.shape[1]
+    c_np = cd.cpu().numpy()
+    t, pad = 256, 56
+    for dtype in (torch.float32, torch.bfloat16):
+        q = unit_rows(torch, (1, heads, t, d), gen).to(dtype)
+        k = unit_rows(torch, (1, heads, t, d), gen).to(dtype)
+        v = torch.randn((1, heads, t, dv), generator=gen, device="cuda")
+        kvalid = torch.ones((1, t), device="cuda")
+        kvalid[0, t - pad:] = 0.0
+        args = (q, k, v, kvalid, w32.to(dtype), cd, cs)
+        got = rm_fused_causal(*args, eps)
+        again = rm_fused_causal(*args, eps)
+        want = rm_fused_causal_ref(*args, chunk=128, eps=eps)
+        torch.cuda.synchronize()
+        dname = str(dtype).split(".")[-1]
+        gate = B2_FP32_TOL if dtype == torch.float32 else B2_TOL
+        errs = []
+        for name, g_, w_ in zip(("out", "S", "n"), got, want):
+            scale_ = max(1.0, w_.abs().max().item())
+            errs.append((g_ - w_).abs().max().item() / scale_)
+            if not (errs[-1] <= gate and torch.isfinite(g_).all()):
+                raise AssertionError(f"B2 at the MLA width {name} {dname}: "
+                                     f"error {errs[-1]:.2e} > {gate}")
+        if not all(torch.equal(g_, a_) for g_, a_ in zip(got, again)):
+            raise AssertionError(f"B2 at the MLA width {dname}: two calls "
+                                 "differ")
+        sched = rm_fused_causal.last_schedule
+        ms = time_ms(torch, lambda: rm_fused_causal(*args, eps), iters=20)
+        dev_ms = kernel_device_ms(torch, lambda: rm_fused_causal(*args, eps),
+                                  "chunk_", iters=20)
+        plain_ms = time_ms(torch, lambda: rm_fused_causal_ref(
+            *args, chunk=128, eps=eps), iters=10)
+        bh, item = heads, q.element_size()
+        nbytes = (2 * bh * t * d * item + bh * t * dv * 4 + t * 4
+                  + omega_bytes(c_np, d, item) + f * 8 + bh * t * dv * 4
+                  + bh * f * dv * 4 + bh * f * 4)
+        feat_ops = (featurize_ops(bh * t, c_np, d)
+                    + featurize_ops(bh * (t - pad), c_np, d))
+        other_ops = bh * t * (4 * f * dv + 3 * f + dv)
+        tcms, tcby = tensor_core_bound(nbytes, feat_ops, other_ops, dname,
+                                       True)
+        print(f"[ds B2] prefill q,k[{bh},{t},{d}] v dv {dv} F {f} ({pad} "
+              f"keys padded) {dname}: err out/S/n {errs[0]:.2e}/"
+              f"{errs[1]:.2e}/{errs[2]:.2e} x max(1, max |plain|) (gate "
+              f"{gate:.0e}), two calls bitwise equal; kernel {dev_ms:.4f} "
+              f"ms device (profiler), {ms:.4f} ms events; plain "
+              f"{plain_ms:.4f} ms; bound {tcms:.5f} ms ({tcby}, tensor "
+              f"cores); grid pass A {sched.blocks_a} + pass B "
+              f"{sched.blocks_b} blocks")
+        if dtype == torch.float32:
+            kernels["B2"].update(
+                deepseek_shape=f"q,k[{bh},{t},{d}] v[{bh},{t},{dv}] fp32, "
+                               f"F={f}",
+                deepseek_max_abs_err=max(errs), deepseek_ms=ms,
+                deepseek_device_ms=dev_ms, deepseek_plain_ms=plain_ms,
+                deepseek_bound_ms=tcms, deepseek_bound_by=tcby)
+
+
+def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
+    """Phase 26 (see the module docstring): (a) the growable map, (b)
+    selection priced by the card, (c) accuracy tiers, (d) deepseek-v2-
+    lite-16b. Every check is fatal."""
+    import contextlib
+    import io
+
+    from repro_torch.common.dtypes import resolve_precision
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        CostModel,
+        ExponentialDotProductKernel,
+        make_feature_map,
+        make_growable_feature_map,
+        registry,
+        select_budget,
+    )
+    from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+    from repro_torch.core.select import make_kernel
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.attention import rm_plan_for
+    from repro_torch.models.mla import mla_qk_dim
+    from repro_torch.obs import DriftMonitor
+    from repro_torch.serve import Request, Scheduler
+
+    t_phase = time.perf_counter()
+    PHASE26_DIR.mkdir(parents=True, exist_ok=True)
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def launched():
+        return {kid: fn.launches for kid, fn in counters.items()
+                if fn.launches}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+
+    # a. the growable map: exp at d 64, 256 features a generation, G 1-8
+    kern = ExponentialDotProductKernel(1.0)
+    gm = make_growable_feature_map(kern, 64, 0, base_features=256,
+                                   measure="proportional", device="cuda")
+    X = unit_rows(torch, (512, 64), gen) * 0.9
+    maps, raws, grow_launches = [gm], [], []
+    for _ in range(3):
+        maps.append(maps[-1].grow())
+    for m in maps:
+        zero()
+        raws.append(m.apply(X, rescale=False))
+        torch.cuda.synchronize()
+        grow_launches.append(launched())
+    prefix = all(torch.equal(raws[i + 1][:, :raws[i].shape[1]], raws[i])
+                 for i in range(3))
+    path_indep = torch.equal(gm.grow_to_generations(4).apply(
+        X, rescale=False), raws[2])
+    g8 = maps[3]
+    z_card = g8.apply(X)
+    z_cpu = g8.to("cpu").apply(X.cpu())
+    err_cpu = (z_card.cpu() - z_cpu).abs().max().item()
+    tol_cpu = GROW_TOL * max(1.0, z_cpu.abs().max().item())
+    zero()
+    gram = g8.estimate_gram(X)
+    torch.cuda.synchronize()
+    gram_launches = launched()
+    concat = z_card @ z_card.T
+    err_gram = (gram - concat).abs().max().item()
+    tol_gram = GROW_TOL * max(1.0, concat.abs().max().item())
+    print(f"[grow] exp d 64, {gm.generation_output_dim} columns a "
+          f"generation (base 256), G 1 -> 2 -> 4 -> 8 on the card: raw "
+          f"prefix bitwise equal across each growth {prefix}, 1 -> 4 equal "
+          f"to 1 -> 2 -> 4 {path_indep}; B1 launches an apply "
+          f"{[lc.get('B1', 0) for lc in grow_launches]}; G 8 card vs CPU "
+          f"(the same draws) max_abs_err {err_cpu:.3e} (tol {tol_cpu:.1e}); "
+          f"estimate_gram vs the concatenation's Gram {err_gram:.3e} (tol "
+          f"{tol_gram:.1e}), launches {gram_launches}")
+    if not (prefix and path_indep and err_cpu <= tol_cpu
+            and err_gram <= tol_gram
+            and grow_launches == [{"B1": 2 ** i} for i in range(4)]
+            and gram_launches == {"B1": 8}):
+        raise AssertionError("growable map on the card failed")
+    # the drift loop: the deployed map (G 8) sets an absolute envelope of
+    # twice its own sup error; a map at D/16 is checked, grown and rebound
+    # until it is inside
+    dep = DriftMonitor(g8, kern, measure="proportional").check()
+    envelope = 2.0 * dep.sup_err
+    small = make_growable_feature_map(kern, 64, 1, base_features=2048 // 16,
+                                      measure="proportional", device="cuda")
+    mon = DriftMonitor(small, kern, measure="proportional")
+    reports, drift_launches, gens = [], [], []
+    zero()
+    for _ in range(7):
+        mon.margin = envelope / mon.eps_bound()
+        before = counters["B1"].launches
+        reports.append(mon.check())
+        drift_launches.append(counters["B1"].launches - before)
+        gens.append(mon.fm.n_generations)
+        if reports[-1].ok:
+            break
+        rec = mon.recommend()
+        mon.rebind(mon.fm.grow_to(rec.num_features_target))
+    bounds = [r.eps_bound for r in reports]
+    print(f"[grow drift] deployed G 8 (F {dep.num_features}): sup_err "
+          f"{dep.sup_err:.4f}, envelope {envelope:.4f}; from D/16: "
+          + "; ".join(f"F {r.num_features}: sup_err {r.sup_err:.4f} bound "
+                      f"{r.eps_bound:.4f} {'ok' if r.ok else 'fires'}"
+                      for r in reports)
+          + f"; B1 launches a check {drift_launches} (the generations "
+          f"{gens})")
+    if not (not reports[0].ok and reports[-1].ok
+            and all(b < a for a, b in zip(bounds, bounds[1:]))
+            and drift_launches == gens):
+        raise AssertionError("the drift -> grow -> rebind loop failed")
+    del maps, raws, g8, z_card, z_cpu, gram, concat, small, mon
+
+    # b. selection priced by the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    payload = {"schema_version": 2, "backend": "gpu", "interpret": False,
+               "provenance": {"device_kind": torch.cuda.get_device_name(0),
+                              "nvidia_smi": smi,
+                              "torch_version": torch.__version__,
+                              "source": "chip_smoke.py phase 26"},
+               "precisions": ["fp32", "bf16"],
+               "estimators": list(registry.list_estimators()),
+               "results": {}}
+    for name, kname, d, f_budget, batch in CORE_SHAPES:
+        x = torch.randn((batch, d), generator=gen, device="cuda") * 0.2
+        cells = {}
+        for est in registry.list_estimators():
+            fm = make_feature_map(make_kernel(kname), d, f_budget, seed=0,
+                                  estimator=est, measure="proportional",
+                                  device="cuda")
+            entry = registry.get(est)
+            for prec in ("fp32", "bf16"):
+                packed = entry.pack(fm.plan, fm.params,
+                                    resolve_precision(prec).compute_dtype)
+
+                def featurize(fm=fm, entry=entry, prec=prec, packed=packed):
+                    return entry.apply(fm.plan, fm.params, x, precision=prec,
+                                       packed=packed)
+
+                ms = time_ms(torch, featurize)
+                cells[f"{est}/{prec}"] = {
+                    "output_dim": fm.output_dim, "fused_us": ms * 1e3,
+                    "fused_feats_per_s": batch * fm.output_dim / (ms * 1e-3)}
+        payload["results"][name] = {"kernel": kname, "d": d, "F": f_budget,
+                                    "batch": batch, "cells": cells}
+        print(f"[select] {name}: fused featurize on the card, features/s "
+              + ", ".join(f"{k} {c['fused_feats_per_s']:.3e}"
+                          for k, c in cells.items()))
+    bench_path = PHASE26_DIR / "bench_core_gpu.json"
+    bench_path.write_text(json.dumps(payload, indent=1))
+    cost = CostModel.from_file(bench_path)
+    missing = cost.missing_cells(registry.list_estimators(), ["fp32", "bf16"])
+    decisions = []
+    for eps, delta in ((0.25, 0.05), (0.1, 0.01)):
+        dec = select_budget(make_kernel("exp"), 64, eps, delta,
+                            cost_model=cost, platform="gpu",
+                            measure="proportional", radius=0.7, batch=1024)
+        decisions.append(dec)
+        print(f"[select] exp d 64 at (eps {eps}, delta {delta}): "
+              f"{dec.estimator}/{dec.precision} D={dec.num_features} "
+              f"certifies eps {dec.eps_certified:.4f}, predicted featurize "
+              f"{dec.predicted_latency_s * 1e3:.3f} ms a 1024-row batch "
+              f"(backend {dec.backend})")
+    try:
+        select_budget(make_kernel("exp"), 64, 0.25, 0.05, cost_model=cost,
+                      platform="tpu")
+        guard = False
+    except ValueError:
+        guard = True
+    out = io.StringIO()
+    zero()
+    with contextlib.redirect_stdout(out):
+        serve_main(["--arch", "qwen3-1.7b", "--smoke", "--eps", "1.0",
+                    "--delta", "0.1", "--bench", str(bench_path),
+                    "--requests", "2", "--max-new", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli = out.getvalue()
+    cli_launches = launched()
+    print("[select] launch/serve.py --smoke --eps 1.0 --delta 0.1 --bench "
+          f"<the card's payload>: launches {cli_launches}\n"
+          + "\n".join("    " + ln for ln in cli.splitlines()))
+    if not (not missing and cost.backend == "gpu" and not cost.interpret
+            and guard and all(dd.eps_certified <= dd.eps
+                              and dd.predicted_latency_s is not None
+                              for dd in decisions)
+            and "priced on backend gpu" in cli and "2 requests" in cli
+            and cli_launches):
+        raise AssertionError(f"selection priced by the card failed "
+                             f"(missing cells {missing})")
+
+    # c. accuracy tiers on phase 7's workload
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                         num_slots=4, max_len=256, seed=0, device="cuda",
+                         accuracy_tiers=TIERS)
+    names = sorted(TIERS)
+    zero()
+    for rid, prompt in prompts.items():
+        engine.submit(Request(rid, prompt, max_new_tokens=16,
+                              accuracy_tier=names[rid % len(names)]))
+    admissions = steps = 0
+    while engine.pending():
+        info = engine.step()
+        admissions += len(info.admitted)
+        steps += info.active > 0
+    torch.cuda.synchronize()
+    tier_launches = launched()
+    done = engine.finished
+    per_gen = cfg.rm.num_features // max(TIERS.values())
+    want_feat = {rid: TIERS[names[rid % len(names)]] * per_gen
+                 for rid in prompts}
+    got_feat = {rid: done[rid].tier_features for rid in prompts}
+    same = all(done[rid].generated == rm_tokens[rid] for rid in prompts)
+    print(f"[tiers] qwen3-1.7b rm, accuracy_tiers {TIERS} on phase 7's "
+          f"workload: tokens bitwise phase 7's {same}; tier_features "
+          f"{got_feat} (want {want_feat}); launches {tier_launches} "
+          f"({admissions} admissions, {steps} decode steps)")
+    if not (same and got_feat == want_feat and tier_launches == {
+            "B1": cfg.num_layers * steps, "B2": cfg.num_layers * admissions}):
+        raise AssertionError("the tiered serve failed")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. deepseek-v2-lite-16b: the SMOKE config card vs CPU in three modes
+    for label, mode, fuse, want_kinds in (
+            ("rm fused", "rm", "auto", {"B2"}),
+            ("rm two-launch", "rm", "off", {"B1", "B5"}),
+            ("exact", "exact", None, set())):
+        scfg = dataclasses.replace(get_config(DEEPSEEK, smoke=True,
+                                              attention_mode=mode),
+                                   compute_dtype="float32")
+        if fuse is not None:
+            scfg = dataclasses.replace(scfg, rm=dataclasses.replace(
+                scfg.rm, fuse_featurize=fuse))
+        p_cpu = tt.init_model(scfg, torch.Generator().manual_seed(0))
+        p_gpu = tree_to(p_cpu, "cuda")
+        rng = np.random.default_rng(26)
+        toks = torch.from_numpy(rng.integers(0, scfg.vocab_size,
+                                             size=(2, 24)))
+        zero()
+        with torch.inference_mode():
+            lg_gpu, _ = tt.forward(p_gpu, scfg, {"tokens": toks.cuda()})
+            lg_cpu, _ = tt.forward(p_cpu, scfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        fwd_launches = launched()
+        rel = rel_err(torch, lg_gpu, lg_cpu)
+        small_prompts = {rid: rng.integers(0, scfg.vocab_size, size=n)
+                         for rid, n in enumerate((3, 17, 33, 40))}
+        got = {}
+        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            sched = Scheduler(scfg, params, num_slots=2, max_len=64,
+                              device=dev)
+            for rid, prompt in small_prompts.items():
+                sched.submit(Request(rid, prompt, max_new_tokens=8))
+            got[dev] = {rid: s.generated for rid, s in sched.run().items()}
+        print(f"[ds small] {scfg.name} {label} fp32, card vs CPU: logits "
+              f"rel err {rel:.2e} (tol {E2E_TOL:.0e}), greedy tokens of "
+              f"{len(small_prompts)} requests identical "
+              f"{got['cuda'] == got['cpu']}; forward launches {fwd_launches}")
+        if not (rel <= E2E_TOL and got["cuda"] == got["cpu"]
+                and set(fwd_launches) == want_kinds):
+            raise AssertionError(f"deepseek SMOKE {label} card vs CPU failed")
+        del p_cpu, p_gpu
+
+    # B2 and B1 at the MLA width (q/k 128 nope + 64 rope = 192, values 128)
+    cfg = get_config(DEEPSEEK, attention_mode="rm")
+    qk, dv, heads = mla_qk_dim(cfg), cfg.mla.v_head_dim, cfg.num_heads
+    plan = rm_plan_for(cfg, qk)
+    w32 = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, "cuda")
+    print(f"[ds plan] {cfg.name} rm at the MLA width {qk} (values {dv}): "
+          f"packed w {tuple(w32.shape)}, F={plan.output_dim} columns at a "
+          f"budget of {cfg.rm.num_features}, degrees "
+          f"{np.bincount(plan.column_degrees()).tolist()}")
+    b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, cfg.rm.eps)
+    b1_mla_check(torch, np, kernels, gen, w32, cd, cs, 2 * 4 * heads)
+    del w32
+
+    # the full-width serve: bf16 weights drawn on the card from seed 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(DEEPSEEK, smoke=False, attention_mode="rm",
+                         num_slots=4, max_len=256, seed=0, device="cuda",
+                         param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                yield from leaves(v)
+        else:
+            yield tree
+
+    n_params = sum(p_.numel() for p_ in leaves(engine.executor.params))
+    p_bytes = sum(p_.numel() * p_.element_size()
+                  for p_ in leaves(engine.executor.params))
+    state_bytes = sum(t_.numel() * t_.element_size()
+                      for t_ in leaves(engine.executor.cache))
+    print(f"[ds] {cfg.name}: {cfg.num_layers} layers (first dense, d_ff "
+          f"{cfg.d_ff}), d_model {cfg.d_model}, {heads} heads, MLA kv_lora "
+          f"{cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} routed experts "
+          f"top-{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared (d_ff "
+          f"{cfg.moe.d_ff_expert}), rm attention (F {plan.output_dim}); "
+          f"depth cut: none; {n_params / 1e9:.2f} B parameters, "
+          f"{p_bytes / 2**30:.2f} GiB in bf16, ready in {ready_s:.2f}s; "
+          f"decode state {state_bytes / 2**20:.1f} MiB (4 lanes x "
+          f"{cfg.num_layers} layers x rm_s [{heads}, {plan.output_dim}, "
+          f"{dv}] + rm_n, fp32)")
+    # phase 7's workload (the same lengths, so buckets 32-256) with token
+    # ids drawn from deepseek's vocabulary
+    rng = np.random.default_rng(0)
+    ds_prompts = {rid: rng.integers(0, cfg.vocab_size, size=len(p_))
+                  for rid, p_ in prompts.items()}
+    zero()
+    done, admissions, steps, wall = run_workload(torch, engine, ds_prompts,
+                                                 0)
+    ds_launches = launched()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    from repro_torch.launch.serve import summarize
+
+    stats = summarize(done)
+    buckets = sorted({engine.executor.bucket_for(len(p_))
+                      for p_ in ds_prompts.values()})
+    print(f"[ds] cold run: {stats['requests']} requests over buckets "
+          f"{buckets}, {stats['tokens']} tokens in {wall:.3f}s "
+          f"({stats['tokens'] / wall:.1f} tok/s), TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{stats['ttft_p99_s'] * 1e3:.1f} ms; {admissions} admissions, "
+          f"{steps} decode steps, launches {ds_launches}; peak memory "
+          f"{peak_gb:.2f} GiB")
+    for rid, s_ in done.items():
+        if s_.finish_reason not in VALID_REASONS or not s_.generated or \
+                not all(0 <= tok < cfg.vocab_size for tok in s_.generated):
+            raise AssertionError(f"deepseek request {rid}: "
+                                 f"{s_.finish_reason} {s_.generated}")
+    if ds_launches != {"B1": cfg.num_layers * steps,
+                       "B2": cfg.num_layers * admissions} or \
+            admissions != len(ds_prompts):
+        raise AssertionError(f"deepseek launches {ds_launches}: want B2 "
+                             f"{cfg.num_layers} a prefill, B1 "
+                             f"{cfg.num_layers} a decode step")
+    kernels["B1"]["deepseek_launches"] = ds_launches["B1"]
+    kernels["B2"]["deepseek_launches"] = ds_launches["B2"]
+    shares = where_time_goes(
+        torch, "deepseek", engine, ds_prompts, done,
+        families={"B1": ("rm_feature_kernel",), "B2": ("chunk_",)})
+    kernels["B1"]["deepseek_decode_step_device_ms"] = \
+        shares["decode step"]["B1"]
+    kernels["B2"]["deepseek_prefill_256_device_ms"] = \
+        shares["prefill bucket 256"]["B2"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ds] phase 26 in {time.perf_counter() - t_phase:.2f}s")
+
+
 def main():
     import torch
 
@@ -3836,6 +4366,11 @@ def main():
     # -- 25. observability, restart recovery, exact attention -----------------
     obs_exact_phase(torch, np, kernels, rm_counters, prompts, rm_tokens,
                     enc_rm_warm)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 26. adaptive accuracy; MLA and MoE (deepseek-v2-lite-16b) ------------
+    adaptive_mla_phase(torch, np, kernels, rm_counters, prompts, rm_tokens)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

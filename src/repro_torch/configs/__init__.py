@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro.configs``): ``--arch <id>``.
 
-Ported: ``qwen3-1.7b`` (dense decoder, served) and ``hubert-xlarge``
-(audio encoder, non-causal; encoded through ``repro_torch.train.steps``).
+Ported: ``qwen3-1.7b`` (dense decoder, served), ``hubert-xlarge`` (audio
+encoder, non-causal; encoded through ``repro_torch.train.steps``),
+``deepseek-v2-lite-16b`` (MLA + MoE, served) and ``mixtral-8x7b`` (GQA +
+MoE; its FULL config needs more than one card).
 Every other reference arch id raises ``NotImplementedError`` naming where
 its port is queued. ``get_config``
 takes the reference's overrides: ``attention_mode`` and ``estimator`` (the
@@ -21,13 +23,14 @@ __all__ = ["get_config", "list_archs"]
 _ARCH_MODULES: Dict[str, str] = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
 }
 
 # reference arch ids whose port is queued (ROADMAP.md queue A)
 _NOT_PORTED = (
-    "h2o-danube-3-4b", "olmo-1b", "qwen2-7b", "mixtral-8x7b",
-    "deepseek-v2-lite-16b", "internvl2-1b", "jamba-v0.1-52b",
-    "xlstm-350m",
+    "h2o-danube-3-4b", "olmo-1b", "qwen2-7b", "internvl2-1b",
+    "jamba-v0.1-52b", "xlstm-350m",
 )
 
 

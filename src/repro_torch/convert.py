@@ -5,7 +5,11 @@ numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and returns
 the port's parameters: numpy in, tensors out. The reference stacks its
 scanned layers on a leading axis of ``params["groups"]``
 (``repro.models.transformer.init_model``); the port keeps one dict per
-layer, so that axis is unstacked, group-major then pattern order. The
+layer, so that axis is unstacked, group-major then pattern order, after
+the ``first_k_dense`` leading blocks ``dense_{i}``. A block's mixer
+(``attn``, or MLA's ``mla``) and FFN (``mlp``, or ``moe``: the router,
+the stacked expert weights ``[E, d, ff]`` / ``[E, ff, d]`` and the
+shared experts) cross leaf by leaf under their own names. The
 ``rm_est`` estimator params (the rm omegas, the tensor_sketch hash tables
 ``h`` int32 and signs ``s``, the ctr rows ``wr``/``wi`` or the structured
 signs ``d1``/``d2``) and ``rm_scale`` cross unchanged with
@@ -24,6 +28,14 @@ Algorithm 2 map (``repro.core.compositional.CompositionalFeatureMap``):
 each inner map's arrays (a Rademacher map's ``omega``, an RFF map's ``w``,
 ``b`` and ``sigma``), then the scales, const, degrees and counts are read
 through ``np.asarray`` and rebuilt as the port's map, on the CPU.
+
+``growable_from_jax(gm, kernel=)`` hands the reference's
+``GrowableFeatureMap`` across: its plan through the plans' shared JSON
+(the port's plan type of the same family), its stacked ``[G, ...]``
+params generation by generation, and its bound context. A JAX key cannot
+seed a ``torch.Generator``: generations drawn after the hand-over (a
+``grow()`` of the port's map) come from the port's keying rule
+(``core.doubling``) at ``seed``.
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_kinds
 
 __all__ = ["params_from_jax", "train_state_from_jax",
-           "compositional_from_jax"]
+           "compositional_from_jax", "growable_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -117,3 +129,28 @@ def compositional_from_jax(cfm):
         counts=tuple(int(c) for c in cfm.counts), inner_maps=inner,
         scales=[float(np.asarray(s)) for s in cfm.scales], const=const,
         input_dim=int(cfm.input_dim))
+
+
+def growable_from_jax(gm, kernel=None, seed: int = 0):
+    """The reference's ``GrowableFeatureMap`` (its leaves anything
+    ``np.asarray`` reads) -> the port's, on the CPU. ``kernel`` is the
+    port's ``DotProductKernel`` for the bound side (``eps_at``,
+    ``required_generations``); ``seed`` keys generations drawn later."""
+    import importlib
+
+    from repro_torch.core.doubling import GrowableFeatureMap
+
+    ptype = type(gm.plan)
+    mod = ptype.__module__.replace("repro.", "repro_torch.", 1)
+    plan = getattr(importlib.import_module(mod),
+                   ptype.__qualname__).from_json(gm.plan.to_json())
+    stacked = {k: np.asarray(v) for k, v in gm.params.items()}
+    params = [{k: _tensor(v[g]) for k, v in stacked.items()}
+              for g in range(int(gm.n_generations))]
+    return GrowableFeatureMap(
+        estimator=gm.estimator, plan=plan, params=params,
+        n_generations=int(gm.n_generations), seed=int(seed), kernel=kernel,
+        radius=float(gm.radius), measure=gm.measure, p=float(gm.p),
+        omega_dtype=next((v.dtype for v in params[0].values()
+                          if v.is_floating_point()), torch.float32),
+        device=torch.device("cpu"))

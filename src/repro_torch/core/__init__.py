@@ -6,9 +6,10 @@ kernels (Kar & Karnick, AISTATS 2012), in PyTorch (port of ``repro.core``).
 Taylor-coefficient degree measure defined here. Exported under the
 reference's names: Algorithm 1 (``make_feature_map``), Algorithm 2 (the
 compositional map of ``core.compositional``), the bounds, the linear
-models and the ``core.static_plan`` shim. The growable and
-budget-selection maps (``core.doubling``, ``core.select``) are not ported
-yet."""
+models, the ``core.static_plan`` shim, the growable map of
+``core.doubling`` (the feature budget as a dial: ``grow()`` appends
+generations without redrawing) and the (eps, delta) budget selection of
+``core.select``."""
 from repro_torch.core import registry
 from repro_torch.core.bounds import (
     HoeffdingConstants,
@@ -24,6 +25,10 @@ from repro_torch.core.compositional import (
     RademacherInnerMap,
     RFFInnerMap,
     make_compositional_feature_map,
+)
+from repro_torch.core.doubling import (
+    GrowableFeatureMap,
+    make_growable_feature_map,
 )
 from repro_torch.core.feature_map import (
     RMFeatureMap,
@@ -56,6 +61,7 @@ from repro_torch.core.plan import (
     pack_omegas,
     plan_output_dim,
 )
+from repro_torch.core.select import BudgetDecision, CostModel, select_budget
 from repro_torch.core.truncated import (
     make_truncated_feature_map,
     truncation_degree,
@@ -86,6 +92,11 @@ __all__ = [
     "RademacherInnerMap",
     "RFFInnerMap",
     "make_compositional_feature_map",
+    "GrowableFeatureMap",
+    "make_growable_feature_map",
+    "BudgetDecision",
+    "CostModel",
+    "select_budget",
     "make_truncated_feature_map",
     "truncation_degree",
     "HoeffdingConstants",

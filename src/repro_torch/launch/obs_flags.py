@@ -36,10 +36,13 @@ def make_obs(args, cfg, device, tag: str):
         from repro_torch.core.maclaurin import ExponentialDotProductKernel
 
         rm = cfg.rm
+        # the monitor holds the map to the selected delta (--delta)
+        delta = getattr(args, "delta", None)
         drift = obs_mod.DriftMonitor.for_estimator(
             ExponentialDotProductKernel(sigma2=rm.sigma2),
             cfg.resolved_head_dim, rm.num_features, estimator=rm.estimator,
-            measure=rm.measure, device=device)
+            measure=rm.measure, device=device,
+            **({"delta": delta} if delta is not None else {}))
     elif args.drift_every:
         print(f"[{tag}] --drift-every ignored: attention mode is not "
               "rm-family")

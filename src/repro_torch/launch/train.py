@@ -11,8 +11,10 @@ exact`` softmax attention (plain PyTorch, through autograd). Without
 is refused, as in the reference. ``--trace-out`` streams the
 ``train/step`` and ``kernel/*`` spans, ``--metrics-out`` writes the
 step-time histogram and loss gauge, ``--drift-every N`` runs the Gram-drift
-check every N steps. Not ported yet: meshes and the budget flags
-(ROADMAP.md queue A items 5 and 7).
+check every N steps. ``--eps/--delta/--latency-budget/--bench`` size
+``cfg.rm`` from Theorem 12 (``launch/budget.py``), as the serve
+launcher's do, within the config's feature family (the only one whose
+kernels train). Not ported yet: meshes (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import argparse
 from repro_torch.configs import get_config, list_archs
 from repro_torch import resolve_device
 from repro_torch.data.synthetic import SyntheticLMDataset
+from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
 from repro_torch.train.steps import TrainHyper
 from repro_torch.train.trainer import Trainer
@@ -45,10 +48,16 @@ def main(argv=None):
                     help="seed of the weights and of the data")
     ap.add_argument("--device", default="cuda")
     add_obs_args(ap, "train steps")
+    add_budget_args(ap)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke,
                      attention_mode=args.attention_mode)
+    # only the fused rm family's kernels have a backward (ROADMAP.md queue
+    # C): the selection sizes D and picks the precision within the
+    # config's family
+    args.estimator = cfg.rm.estimator
+    cfg, _ = apply_budget_selection(cfg, args, tag="train")
     if cfg.frontend != "none":
         raise SystemExit(
             f"{args.arch} needs modality inputs; train an LM arch, or step "

@@ -159,7 +159,8 @@ def _rm_featurize(params: Params, cfg: ModelConfig, meta,
                                    packed=params.get("rm_w"))
 
 
-def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
+def rm_packed_weights(params: Params, cfg: ModelConfig,
+                      input_dim: Optional[int] = None) -> Params:
     """The attention params plus ``rm_w``: the family's packed weights in
     the precision policy's compute dtype (``registry`` ``pack``): for
     ``"rm"`` the omegas ``[max_degree, F, dh]`` that every fused op and the
@@ -169,14 +170,16 @@ def rm_packed_weights(params: Params, cfg: ModelConfig) -> Params:
     (values {0, +-1}, exact in either dtype). A fused non-causal config (an
     encoder) also gets ``rm_slab``: the same omegas laid out as the slab of
     kernels B3 and B4 (``kernels.rm_attention.noncausal.pack_noncausal``).
-    Worked out once per weight set (``transformer.cast_params_to_compute``
-    calls this); params that already hold them come back unchanged."""
+    ``input_dim`` is the plan's width (default: the head width; MLA's q/k
+    are ``nope + rope`` wide). Worked out once per weight set
+    (``transformer.cast_params_to_compute`` calls this); params that
+    already hold them come back unchanged."""
     if cfg.attention_mode != "rm":
         return params
     slab = not cfg.causal and rm_fuse_enabled(cfg)
     if "rm_w" in params and (not slab or "rm_slab" in params):
         return params
-    meta = rm_plan_for(cfg, cfg.resolved_head_dim)
+    meta = rm_plan_for(cfg, input_dim or cfg.resolved_head_dim)
     out = dict(params)
     if "rm_w" not in out:
         dt = resolve_precision(cfg.rm.precision).compute_dtype

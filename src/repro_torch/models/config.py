@@ -2,19 +2,20 @@
 
 The reference's frozen dataclasses and field names, restricted to the
 fields the port reads, so a config reads the same in both packages. The
-family sub-configs (MoE, MLA, Mamba, xLSTM) and the fields only other
-families or the jit/scan machinery read (``attention_kind``, ``remat``,
-``scan_unroll``) come with the modules that
-read them (ROADMAP.md queue A). ``frontend`` is ported for ``"none"``
+MoE and MLA sub-configs and ``attention_kind`` are ported with
+``models/moe.py`` and ``models/mla.py``; the Mamba and xLSTM sub-configs
+and the fields only the jit/scan machinery reads (``remat``,
+``scan_unroll``) come with the modules that read them (ROADMAP.md queue
+A). ``frontend`` is ported for ``"none"``
 (token inputs) and ``"audio_stub"`` (precomputed frame embeddings, the
 HuBERT encoder); the vision stub waits for its model.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
-__all__ = ["RMAttentionConfig", "ModelConfig"]
+__all__ = ["RMAttentionConfig", "MoEConfig", "MLAConfig", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +48,32 @@ class RMAttentionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0           # per-expert hidden dim
+    num_shared_experts: int = 0    # DeepSeek shared experts
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    router_z_weight: float = 1e-3
+    # "local": sorted-rank dispatch into per-expert capacity buffers
+    #          (default; the reference runs it per data-parallel shard);
+    # "einsum": GShard one-hot dispatch, O(G*E*C*d) — toy scale / ablation.
+    dispatch: str = "local"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 Multi-head Latent Attention dims."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 = no query compression (V2-Lite)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # identity
     name: str = "model"
@@ -69,6 +96,7 @@ class ModelConfig:
     frontend: str = "none"         # none | audio_stub
 
     # attention flavor
+    attention_kind: str = "gqa"    # gqa | mla
     attention_mode: str = "exact"  # exact | rm  (rm = the paper's technique)
     qk_norm: bool = False
     qkv_bias: bool = False
@@ -85,6 +113,8 @@ class ModelConfig:
 
     # sub-configs
     rm: RMAttentionConfig = RMAttentionConfig()
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
 
     # init / precision
     init_std: float = 0.02
@@ -118,5 +148,10 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} is not a multiple "
                 f"of num_kv_heads={self.num_kv_heads}")
+        if self.attention_kind == "mla" and self.mla is None:
+            raise ValueError(f"{self.name}: attention_kind='mla' needs an "
+                             "mla config")
+        if any("moe" in b for b in self.block_pattern) and self.moe is None:
+            raise ValueError(f"{self.name}: a moe block needs a moe config")
         _ = self.num_scanned_groups
         return self

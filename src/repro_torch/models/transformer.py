@@ -1,9 +1,18 @@
-"""Model assembly, dense path (port of ``repro.models.transformer``).
+"""Model assembly (port of ``repro.models.transformer``).
 
 The reference scans a stacked ``params["groups"]`` over layers; the port
 keeps one parameter dict per layer in ``params["layers"]`` and loops over
-them (PyTorch runs eagerly, there is no compile to keep small). Block kind
-``"attn_mlp"`` only; MoE, MLA and SSM blocks are not ported yet. Inputs
+them (PyTorch runs eagerly, there is no compile to keep small). The layer
+stack is ``first_k_dense`` leading dense blocks (DeepSeek style, kind
+``_dense_kind_for(cfg)``) then ``block_pattern`` repeated. Block kinds
+``"attn_mlp"``, ``"attn_moe"``, ``"mla_mlp"`` and ``"mla_moe"``: a mixer
+(GQA attention, ``models.attention``, or MLA, ``models.mla``) under the
+key ``"attn"`` / ``"mla"``, then an FFN (``"mlp"``, or the MoE of
+``models.moe`` under ``"moe"``), each behind its pre-norm. The SSM kinds
+(``mamba*``, ``mlstm``, ``slstm``) raise (ROADMAP.md queue A item 6).
+``forward`` returns the MoE aux losses summed over the MoE layers
+(``moe_load_balance``, ``moe_router_z``; ``{}`` for a config without MoE)
+and ``loss_fn`` adds them at the config's weights. Inputs
 are tokens, precomputed frame embeddings (``frontend="audio_stub"``, the
 HuBERT encoder), or both; an encoder (``causal=False``) has ``forward`` and
 ``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is
@@ -23,12 +32,14 @@ masters a train state holds.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.common.dtypes import canonical_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp,
@@ -55,19 +66,63 @@ __all__ = [
 ]
 
 
+_MIXER_FWD = {"attn": attn_mod.attention_forward,
+              "mla": mla_mod.mla_forward}
+_MIXER_PREFILL = {"attn": attn_mod.attention_prefill_cache,
+                  "mla": mla_mod.mla_prefill_cache}
+_MIXER_DECODE = {"attn": attn_mod.attention_decode,
+                 "mla": mla_mod.mla_decode}
+_MIXERS = tuple(_MIXER_FWD)
+
+
+def _split_kind(kind: str) -> Tuple[str, Optional[str]]:
+    if "_" in kind:
+        mixer, ffn = kind.split("_", 1)
+        return mixer, ffn
+    return kind, None
+
+
+def _dense_kind_for(cfg: ModelConfig) -> str:
+    """The block kind of the ``first_k_dense`` leading layers."""
+    mixer, _ = _split_kind(cfg.block_pattern[0])
+    return f"{mixer}_mlp" if mixer in _MIXERS else "attn_mlp"
+
+
 def layer_kinds(cfg: ModelConfig):
     """Block kind of every layer, in order (``first_k_dense`` leading
-    blocks, then the pattern repeated)."""
-    kinds = []
-    if cfg.first_k_dense:
-        kinds.extend(["attn_mlp"] * cfg.first_k_dense)
+    blocks, then the pattern repeated).
+
+    Raises:
+        NotImplementedError: a kind whose mixer is not attention or MLA
+            (the SSM kinds, ROADMAP.md queue A item 6), or without an FFN.
+    """
+    kinds = [_dense_kind_for(cfg)] * cfg.first_k_dense
     kinds.extend(list(cfg.block_pattern) * cfg.num_scanned_groups)
     for kind in kinds:
-        if kind != "attn_mlp":
+        mixer, ffn = _split_kind(kind)
+        if mixer not in _MIXERS or ffn not in ("mlp", "moe"):
             raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (dense attn_mlp "
-                "only; MoE, MLA and SSM blocks are queued in ROADMAP.md)")
+                f"block kind {kind!r} is not ported yet (attn_mlp, "
+                "attn_moe, mla_mlp and mla_moe are; the SSM blocks are "
+                "queued in ROADMAP.md queue A item 6)")
     return kinds
+
+
+def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
+                dtype) -> Params:
+    mixer, ffn = _split_kind(kind)
+    device = generator.device
+    init = attn_mod.init_attention if mixer == "attn" else mla_mod.init_mla
+    params: Params = {
+        "norm1": init_norm(cfg, cfg.d_model, dtype, device),
+        mixer: init(cfg, generator, dtype, device),
+        "norm2": init_norm(cfg, cfg.d_model, dtype, device),
+    }
+    if ffn == "moe":
+        params["moe"] = moe_mod.init_moe(cfg, generator, dtype)
+    else:
+        params["mlp"] = init_mlp(cfg, generator, cfg.d_ff, dtype)
+    return params
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
@@ -76,15 +131,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
     device = generator.device
     dtype = canonical_dtype(cfg.param_dtype)
     params: Params = {"embed": init_embedding(cfg, generator, dtype)}
-    params["layers"] = [
-        {
-            "norm1": init_norm(cfg, cfg.d_model, dtype, device),
-            "attn": attn_mod.init_attention(cfg, generator, dtype, device),
-            "norm2": init_norm(cfg, cfg.d_model, dtype, device),
-            "mlp": init_mlp(cfg, generator, cfg.d_ff, dtype),
-        }
-        for _ in layer_kinds(cfg)
-    ]
+    params["layers"] = [_init_block(cfg, kind, generator, dtype)
+                        for kind in layer_kinds(cfg)]
     params["final_norm"] = init_norm(cfg, cfg.d_model, dtype, device)
     return params
 
@@ -110,8 +158,13 @@ def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
         return p.to(cdtype) if p.dtype == torch.float32 else p
 
     out = _cast(params)
-    out["layers"] = [{**layer, "attn": attn_mod.rm_packed_weights(
-        layer["attn"], cfg)} for layer in out["layers"]]
+    layers = []
+    for layer in out["layers"]:
+        kind, mp = _mixer(layer)
+        width = mla_mod.mla_qk_dim(cfg) if kind == "mla" else None
+        layers.append({**layer, kind: attn_mod.rm_packed_weights(
+            mp, cfg, width)})
+    out["layers"] = layers
     return out
 
 
@@ -152,28 +205,53 @@ def _prepare_inputs(params: Params, cfg: ModelConfig,
     return x, positions
 
 
-def _mlp_residual(layer: Params, cfg: ModelConfig, x: torch.Tensor):
-    return x + apply_mlp(layer["mlp"], cfg, apply_norm(layer["norm2"], cfg,
-                                                       x))
+def _mixer(layer: Params) -> Tuple[str, Params]:
+    """The layer's mixer kind and params."""
+    if "attn" in layer:
+        return "attn", layer["attn"]
+    return "mla", layer["mla"]
+
+
+def _ffn_residual(layer: Params, cfg: ModelConfig, x: torch.Tensor):
+    """x plus the layer's FFN (dense MLP or MoE) of its second norm ->
+    (x, the MoE's aux losses or {})."""
+    h = apply_norm(layer["norm2"], cfg, x)
+    if "moe" in layer:
+        y, aux = moe_mod.apply_moe(layer["moe"], cfg, h)
+        return x + y, aux
+    return x + apply_mlp(layer["mlp"], cfg, h), {}
 
 
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence forward -> (logits [B, T, V] fp32, aux losses {})."""
+    """Full-sequence forward -> (logits [B, T, V] fp32, aux losses: the
+    MoE layers' ``moe_load_balance`` and ``moe_router_z`` summed, or {}
+    for a config without MoE)."""
     params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
+    aux_total: Dict[str, torch.Tensor] = {}
     for layer in params["layers"]:
+        kind, mp = _mixer(layer)
         h = apply_norm(layer["norm1"], cfg, x)
-        x = x + attn_mod.attention_forward(layer["attn"], cfg, h, positions)
-        x = _mlp_residual(layer, cfg, x)
+        x = x + _MIXER_FWD[kind](mp, cfg, h, positions)
+        x, aux = _ffn_residual(layer, cfg, x)
+        for k, v in aux.items():
+            aux_total[k] = aux_total[k] + v if k in aux_total else v
     x = apply_norm(params["final_norm"], cfg, x)
-    return unembed(params["embed"], cfg, x), {}
+    if cfg.moe is not None:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = {k: aux_total.get(k, zero)
+                     for k in ("moe_load_balance", "moe_router_z")}
+    return unembed(params["embed"], cfg, x), aux_total
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
             z_loss_weight: float = 1e-4) -> Tuple[torch.Tensor, Dict]:
-    """Causal-LM (or framewise, for encoders) cross entropy plus z-loss ->
-    (loss, metrics ``ce``, ``z_loss``, ``tokens``, ``loss``), all fp32.
+    """Causal-LM (or framewise, for encoders) cross entropy plus z-loss,
+    plus for a MoE config the router's load-balance and z losses at
+    ``router_aux_weight`` / ``router_z_weight`` -> (loss, metrics ``ce``,
+    ``z_loss``, ``tokens``, ``loss``, and ``moe_load_balance`` /
+    ``moe_router_z`` for a MoE config), all fp32.
 
     ``batch["targets"] [B, Tt]`` aligns with the LAST Tt positions of the
     model input; targets < 0 are ignored. Differentiable on the fused rm
@@ -182,7 +260,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     ``rm_scale`` through its softplus. The two-launch path raises under
     autograd at its featurize kernel (no VJP in the reference either).
     """
-    logits, _ = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch)
     targets = batch["targets"]
     logits = logits[:, -targets.shape[1]:, :].float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -193,8 +271,15 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     ce = ((lse - picked) * mask).sum() / denom
     z_loss = (lse ** 2 * mask).sum() / denom * z_loss_weight
     total = ce + z_loss
-    return total, {"ce": ce, "z_loss": z_loss, "tokens": mask.sum(),
-                   "loss": total}
+    metrics = {"ce": ce, "z_loss": z_loss, "tokens": mask.sum()}
+    if cfg.moe is not None:
+        lb, rz = aux["moe_load_balance"], aux["moe_router_z"]
+        total = total + cfg.moe.router_aux_weight * lb
+        total = total + cfg.moe.router_z_weight * rz
+        metrics["moe_load_balance"] = lb
+        metrics["moe_router_z"] = rz
+    metrics["loss"] = total
+    return total, metrics
 
 
 def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -208,10 +293,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     x, positions = _prepare_inputs(params, cfg, batch)
     caches = []
     for layer in params["layers"]:
+        kind, mp = _mixer(layer)
         h = apply_norm(layer["norm1"], cfg, x)
-        y, cache = attn_mod.attention_prefill_cache(layer["attn"], cfg, h,
-                                                    positions, max_len)
-        x = _mlp_residual(layer, cfg, x + y)
+        y, cache = _MIXER_PREFILL[kind](mp, cfg, h, positions, max_len)
+        x, _ = _ffn_residual(layer, cfg, x + y)
         caches.append(cache)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params["embed"], cfg, x), {"layers": caches}
@@ -220,13 +305,20 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device) -> Params:
     """Zero decode cache for ``batch`` lanes, one entry per layer: the rm
-    state, or exact attention's KV ring buffer in the compute dtype."""
+    state, or exact attention's KV ring buffer (MLA: its latent cache) in
+    the compute dtype."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     dtype = canonical_dtype(cfg.compute_dtype)
-    return {"layers": [attn_mod.init_attention_cache(cfg, batch, device,
-                                                     max_len, dtype)
-                       for _ in layer_kinds(cfg)]}
+    caches = []
+    for kind in layer_kinds(cfg):
+        if _split_kind(kind)[0] == "attn":
+            caches.append(attn_mod.init_attention_cache(cfg, batch, device,
+                                                        max_len, dtype))
+        else:
+            caches.append(mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                                 device))
+    return {"layers": caches}
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache: Params,
@@ -241,10 +333,11 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
     x = embed_tokens(params["embed"], cfg, tokens, cdtype)
     new_caches = []
     for layer, layer_cache in zip(params["layers"], cache["layers"]):
+        kind, mp = _mixer(layer)
         h = apply_norm(layer["norm1"], cfg, x)
-        y, new_cache = attn_mod.attention_decode(layer["attn"], cfg, h,
-                                                 layer_cache, positions)
-        x = _mlp_residual(layer, cfg, x + y)
+        y, new_cache = _MIXER_DECODE[kind](mp, cfg, h, layer_cache,
+                                           positions)
+        x, _ = _ffn_residual(layer, cfg, x + y)
         new_caches.append(new_cache)
     x = apply_norm(params["final_norm"], cfg, x)
     return unembed(params["embed"], cfg, x), {"layers": new_caches}

@@ -71,8 +71,9 @@ class GrowthRecommendation:
 
 
 def _map_device(feature_map) -> torch.device:
-    """The device a map's draws live on (its first tensor parameter)."""
-    stack = list(feature_map.params.values())
+    """The device a map's draws live on (its first tensor parameter; a
+    ``GrowableFeatureMap`` holds a list of per-generation dicts)."""
+    stack = [feature_map.params]
     while stack:
         p = stack.pop(0)
         if isinstance(p, torch.Tensor):
@@ -90,7 +91,8 @@ class DriftMonitor:
 
     Args:
         feature_map: any of the port's map objects (``estimate_gram`` +
-            ``plan`` + ``output_dim`` — every family conforms).
+            ``plan`` + ``output_dim`` — every family conforms, and so does
+            ``core.doubling.GrowableFeatureMap``).
         kernel: the exact ``DotProductKernel`` the map approximates.
         delta: failure probability the bound is evaluated at.
         n_sentinels: reservoir size (16 sentinel points = 136 pairs).
@@ -217,3 +219,11 @@ class DriftMonitor:
                     f"eps_bound={self.last.eps_bound:.3g} at "
                     f"D={now}; double to D={target}"),
         )
+
+    def rebind(self, feature_map) -> None:
+        """Point the monitor at a grown or rebuilt map (same kernel and
+        domain). The counters survive (growth is part of one monitored
+        deployment), but the stale report is dropped so ``recommend()``
+        does not fire again off the check made before the growth."""
+        self.fm = feature_map
+        self.last = None

@@ -18,6 +18,9 @@ class Request:
     temperature: float = 0.0
     eos_token: Optional[int] = None
     priority: int = 0                   # higher admits first
+    accuracy_tier: Optional[str] = None  # a key of the Scheduler's
+    #   accuracy_tiers, resolved to a feature generation count and
+    #   certified on the admit event / RequestState.tier_features
 
 
 @dataclasses.dataclass
@@ -33,3 +36,5 @@ class RequestState:
     t_done: Optional[float] = None
     t_tokens: List[float] = dataclasses.field(default_factory=list)
     admissions: int = 0                 # times admitted (> 1 after eviction)
+    tier_features: Optional[int] = None  # feature budget certified for
+    #   the request's accuracy tier (None: no tier, the full budget)

@@ -19,6 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
+    _split_kind,
     cast_params_to_compute,
     decode_step,
     init_decode_cache,
@@ -57,6 +58,8 @@ class StepExecutor:
         buckets: prefill bucket ladder (default :data:`DEFAULT_BUCKETS`),
             clipped to ``max_len`` (:func:`effective_buckets`).
         device: where the cache lives and the steps run.
+        feature_generations: how many equal generations the RM feature
+            budget splits into for accuracy tiers (1: no tiers).
 
     Attributes:
         estimator: the registry name of the RM feature family served
@@ -65,11 +68,19 @@ class StepExecutor:
             or the two-launch path (featurize, then kernel B5); False for
             exact softmax attention, which is plain PyTorch with a
             ring-buffer KV cache.
+        generation_features: the columns of one tier generation (None
+            outside rm mode).
+        bucketed: whether prompts are padded to a bucket of the ladder.
+
+    Raises:
+        ValueError: an encoder config, an unknown attention mode,
+            ``feature_generations`` below 1, not dividing the RM budget,
+            or above 1 outside rm mode.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int,
                  max_len: int, *, buckets: Sequence[int] = None,
-                 device="cuda"):
+                 device="cuda", feature_generations: int = 1):
         if not cfg.causal:
             raise ValueError("encoder-only models cannot be served "
                              "autoregressively")
@@ -79,6 +90,12 @@ class StepExecutor:
         # exact softmax attention has no feature family and no fused path
         self.estimator = None
         self.fused_attention = False
+        feature_generations = int(feature_generations)
+        if feature_generations < 1:
+            raise ValueError(f"feature_generations must be >= 1, got "
+                             f"{feature_generations}")
+        self.feature_generations = feature_generations
+        self.generation_features = None
         if cfg.attention_mode == "rm":
             from repro_torch.common.dtypes import resolve_precision
             from repro_torch.core import registry
@@ -88,6 +105,20 @@ class StepExecutor:
             self.estimator = registry.get(cfg.rm.estimator).name
             resolve_precision(cfg.rm.precision)
             self.fused_attention = rm_fuse_enabled(cfg)
+            # every tier's budget is a whole number of generations
+            if cfg.rm.num_features % feature_generations:
+                raise ValueError(
+                    f"cfg.rm.num_features={cfg.rm.num_features} must "
+                    f"divide evenly into feature_generations="
+                    f"{feature_generations} (per-tier budgets are whole "
+                    "generations)")
+            self.generation_features = (cfg.rm.num_features
+                                        // feature_generations)
+        elif feature_generations != 1:
+            raise ValueError(
+                f"feature_generations={feature_generations} requires the "
+                f"RM attention mode; {cfg.attention_mode!r} has no "
+                "feature budget to tier")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params
@@ -97,8 +128,30 @@ class StepExecutor:
         self.max_len = int(max_len)
         self.buckets = effective_buckets(
             DEFAULT_BUCKETS if buckets is None else buckets, self.max_len)
+        mixers = {_split_kind(kind)[0] for kind in cfg.block_pattern}
+        self.bucketed = mixers <= {"attn", "mla"}
         self.cache = None
         self.reset_cache()
+
+    def tier_features(self, generations: int) -> int:
+        """The feature budget a tier of ``generations`` generations
+        certifies: the first ``generations * generation_features``
+        columns.
+
+        Raises:
+            ValueError: outside rm mode, or ``generations`` outside [1,
+                ``feature_generations``].
+        """
+        if self.generation_features is None:
+            raise ValueError(
+                "accuracy tiers require the RM attention mode "
+                f"(attention_mode={self.cfg.attention_mode!r})")
+        g = int(generations)
+        if not 1 <= g <= self.feature_generations:
+            raise ValueError(
+                f"tier generations={generations} out of range [1, "
+                f"{self.feature_generations}]")
+        return g * self.generation_features
 
     @property
     def scratch_position(self) -> int:
@@ -112,7 +165,10 @@ class StepExecutor:
                                        self.max_len, self.device)
 
     def bucket_for(self, n: int) -> int:
-        """Smallest effective-ladder bucket holding an ``n``-token prompt."""
+        """Smallest effective-ladder bucket holding an ``n``-token prompt
+        (``n`` itself where prompts are not bucketed)."""
+        if not self.bucketed:
+            return int(n)
         for b in self.buckets:
             if n <= b:
                 return b

@@ -35,9 +35,15 @@ no-op: the same tokens, and no device synchronization beyond the step's
 own. Decode-step wall times also feed an optional ``StragglerMonitor``
 (``repro_torch.train.fault``).
 
-Not ported yet: data-parallel meshes (ROADMAP.md queue A item 7) and
-accuracy tiers, which need the fold-in-keyed feature generations of
-``core/doubling.py`` (queue A item 5).
+Accuracy tiers (``accuracy_tiers=``, tier name -> generation count): the
+executor splits the RM budget into ``max(tiers)`` equal generations and a
+request's tier certifies the prefix of its generations
+(``StepExecutor.tier_features``), recorded on its ``request/admit`` event
+and in its ``RequestState.tier_features``. As in the reference this is
+bookkeeping: every request is served at the full budget, so tiers change
+no token.
+
+Not ported yet: data-parallel meshes (ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.seeds import mix_seed
 from repro_torch.obs import resolve as _obs_resolve
 from repro_torch.serve.engine import Request, RequestState
 from repro_torch.serve.executor import StepExecutor
@@ -56,20 +63,12 @@ from repro_torch.serve.sampler import sample_token
 
 __all__ = ["Scheduler", "StepInfo", "sampling_seed"]
 
-_MASK64 = (1 << 64) - 1
-
 
 def sampling_seed(seed: int, request_id: int, token_index: int) -> int:
     """A fixed 63-bit mix of ``(seed, request_id, token_index)``
-    (splitmix64 finalizer over each word in turn), the seed of the
-    generator that samples that token."""
-    h = 0x9E3779B97F4A7C15
-    for word in (seed, request_id, token_index):
-        h = (h ^ (int(word) & _MASK64)) & _MASK64
-        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
-        h ^= h >> 31
-    return h >> 1
+    (``common.seeds.mix_seed``), the seed of the generator that samples
+    that token."""
+    return mix_seed(seed, request_id, token_index)
 
 
 @dataclasses.dataclass
@@ -104,9 +103,14 @@ class Scheduler:
             StragglerMonitor``; every decode step's wall time (on the obs
             clock) is ``record``-ed on it.
         obs: optional ``repro_torch.obs.Obs``; ``None`` is a strict no-op.
-        accuracy_tiers: not ported (raises, naming ROADMAP.md queue A
-            item 5).
+        accuracy_tiers: optional tier name -> feature generations map
+            (each >= 1); validated here and in the executor.
         device: where the model runs (default ``"cuda"``).
+
+    Raises:
+        ValueError: a tier of fewer than 1 generation, or a tier map the
+            executor refuses (outside rm mode, or ``max(tiers)`` not
+            dividing the RM budget).
     """
 
     def __init__(self, cfg: Any, params: Any, *, num_slots: int = 4,
@@ -116,14 +120,21 @@ class Scheduler:
                  obs: Any = None,
                  accuracy_tiers: Optional[Dict[str, int]] = None,
                  device="cuda"):
-        if accuracy_tiers:
-            raise NotImplementedError(
-                "accuracy tiers are not ported yet: they need the "
-                "fold_in-keyed feature generations of core/doubling.py "
-                "(ROADMAP.md queue A item 5)")
         self.obs = _obs_resolve(obs)
+        self.accuracy_tiers: Optional[Dict[str, int]] = None
+        feature_generations = 1
+        if accuracy_tiers:
+            for name, gens in accuracy_tiers.items():
+                if int(gens) < 1:
+                    raise ValueError(
+                        f"accuracy tier {name!r} must map to >= 1 "
+                        f"generations, got {gens}")
+            self.accuracy_tiers = {k: int(v)
+                                   for k, v in accuracy_tiers.items()}
+            feature_generations = max(self.accuracy_tiers.values())
         self.executor = StepExecutor(cfg, params, num_slots, max_len,
-                                     buckets=buckets, device=device)
+                                     buckets=buckets, device=device,
+                                     feature_generations=feature_generations)
         self.estimator = self.executor.estimator
         self.fused_attention = self.executor.fused_attention
         self.cfg = cfg
@@ -165,16 +176,26 @@ class Scheduler:
                 f"prompt length {len(request.prompt)} exceeds engine "
                 f"max_len {self.max_len}: the decode cache has no room "
                 "for generated tokens; raise max_len or truncate")
+        if request.accuracy_tier is not None:
+            if not self.accuracy_tiers:
+                raise ValueError(
+                    f"request {rid} asks for accuracy_tier="
+                    f"{request.accuracy_tier!r} but the scheduler was "
+                    "built without accuracy_tiers=")
+            if request.accuracy_tier not in self.accuracy_tiers:
+                raise ValueError(
+                    f"unknown accuracy_tier {request.accuracy_tier!r} "
+                    f"for request {rid}; configured tiers: "
+                    f"{sorted(self.accuracy_tiers)}")
         seq = self._seq
         self._seq += 1
         self._seq_of[rid] = seq
         self._t_submit[rid] = self.obs.now()
         heapq.heappush(self._heap, (-int(request.priority), seq, request))
-        # the reference's attributes, accuracy_tier included (always None:
-        # tiers are not ported)
         self.obs.event("request/submit", request_id=rid,
                        prompt_len=len(request.prompt),
-                       priority=int(request.priority), accuracy_tier=None)
+                       priority=int(request.priority),
+                       accuracy_tier=request.accuracy_tier)
         self.obs.counter("serve/requests_submitted")
         self.obs.gauge("serve/queue_depth", len(self._heap))
 
@@ -232,6 +253,14 @@ class Scheduler:
         return self.finished
 
     # -- internals ------------------------------------------------------------
+    def _tier_features(self, req: Request) -> Optional[int]:
+        """The feature budget certified for this request's tier (None when
+        tiers are not in play)."""
+        if req.accuracy_tier is None or not self.accuracy_tiers:
+            return None
+        return self.executor.tier_features(
+            self.accuracy_tiers[req.accuracy_tier])
+
     def _sample(self, logits: torch.Tensor, rid: int, token_idx: int,
                 temperature: float) -> int:
         """Sample one token of request ``rid`` from ``logits [1, V]``."""
@@ -294,11 +323,13 @@ class Scheduler:
         tb = self.executor.bucket_for(t)
         attempt = self._attempts.get(rid, 0) + 1
         self._attempts[rid] = attempt
+        tier_features = self._tier_features(req)
         with self.obs.span("admit", request_id=rid, slot=slot, bucket=tb,
                            attempt=attempt):
             self.obs.event("request/admit", request_id=rid, slot=slot,
-                           bucket=tb, attempt=attempt, accuracy_tier=None,
-                           tier_features=None)
+                           bucket=tb, attempt=attempt,
+                           accuracy_tier=req.accuracy_tier,
+                           tier_features=tier_features)
             with self.obs.span("prefill", request_id=rid, bucket=tb,
                                prompt_len=t):
                 logits, cache1, _ = self.executor.prefill(req.prompt)
@@ -307,7 +338,8 @@ class Scheduler:
         if t_enqueue is None:
             t_enqueue = self.obs.now()
         state = RequestState(request=req, slot=slot, position=t,
-                             t_enqueue=t_enqueue, admissions=attempt)
+                             t_enqueue=t_enqueue, admissions=attempt,
+                             tier_features=tier_features)
         info.admitted.append(rid)
         # first token from the LAST REAL prefill position (token index 0)
         tok = self._sample(logits[:, t - 1], rid, 0, req.temperature)

@@ -1390,3 +1390,68 @@ def test_exact_attention_card_matches_cpu(cuda, window):
                                           v.to(cuda), pos.to(cuda),
                                           pos.to(cuda))
     _close(got.cpu(), want, 1e-4)
+
+
+def _mla_plan_tensors(device, seed):
+    """deepseek-v2-lite-16b's rm plan at MLA's q/k width (128 nope + 64
+    rope = 192) against its value width 128."""
+    from repro_torch.models.mla import mla_qk_dim
+
+    cfg = get_config("deepseek-v2-lite-16b", attention_mode="rm")
+    d = mla_qk_dim(cfg)
+    plan = rm_plan_for(cfg, d)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, device)
+    return d, cfg.mla.v_head_dim, w, cd, cs, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,pad", [(256, 56), (32, 27)])
+def test_rm_fused_causal_kernel_mla_width(cuda, dtype, t, pad):
+    """B2 at deepseek's prefill shapes (16 heads, q/k width 192, values
+    128): fp32 within 1e-5 x max(1, max |plain|) of its plain version
+    (3xTF32), bf16 within 1e-4, two calls bitwise equal."""
+    d, dv, w, cd, cs, gen = _mla_plan_tensors(cuda, 21)
+    assert (d, dv) == (192, 128)
+    q = _unit((1, 16, t, d), gen, cuda).to(dtype)
+    k = _unit((1, 16, t, d), gen, cuda).to(dtype)
+    v = torch.randn((1, 16, t, dv), generator=gen, device=cuda)
+    kvalid = torch.ones((1, t), device=cuda)
+    kvalid[0, t - pad:] = 0.0
+    args = (q, k, v, kvalid, w.to(dtype), cd, cs)
+    got = rm_fused_causal(*args, 1e-4)
+    again = rm_fused_causal(*args, 1e-4)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    for g, w_ in zip(got, rm_fused_causal_ref(*args, chunk=128, eps=1e-4)):
+        assert g.shape == w_.shape
+        _close(g, w_, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_mla_width(cuda, dtype):
+    """B1 at deepseek's decode shape (4 slots x 16 heads, q and k stacked:
+    x [128, 192]) within 1e-5 of its plain version, and the decode step
+    (one B1 launch) against the plain state update."""
+    d, dv, w, cd, cs, gen = _mla_plan_tensors(cuda, 22)
+    w = w.to(dtype)
+    f = w.shape[1]
+    x = _unit((128, d), gen, cuda).to(dtype)
+    _close(rm_feature_fused(x, w, cd, cs), rm_feature_fused_ref(x, w, cd, cs),
+           1e-5)
+    q = _unit((4, 16, d), gen, cuda).to(dtype)
+    k = _unit((4, 16, d), gen, cuda).to(dtype)
+    v = torch.randn((4, 16, dv), generator=gen, device=cuda)
+    s0 = torch.zeros((4, 16, f, dv), device=cuda)
+    n0 = torch.zeros((4, 16, f), device=cuda)
+    before = rm_feature_fused.launches
+    got = rm_attention_fused_decode_step(q, k, v, s0, n0, w, cd, cs)
+    torch.cuda.synchronize()
+    assert rm_feature_fused.launches == before + 1
+    zq = rm_feature_fused_ref(q.reshape(-1, d), w, cd, cs).reshape(4, 16, f)
+    zk = rm_feature_fused_ref(k.reshape(-1, d), w, cd, cs).reshape(4, 16, f)
+    for g, w_ in zip(got, rm_attention_decode_ref(zq, zk, v, s0, n0)):
+        _close(g, w_, 1e-4)

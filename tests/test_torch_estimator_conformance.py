@@ -17,7 +17,14 @@ reference's registry on the same plan and the same draws handed across:
   * the five edge rows: batch 0, d 1, a single tile, n_max 1, strided
     inputs and uneven row chunks.
 
-The reference's growth rows wait for ``core.doubling`` (ROADMAP queue A5).
+and the reference's growth rows (``core.doubling``): the raw prefix
+bitwise across ``grow()`` and path independent, the scaled output the raw
+times ``1/sqrt(G)``, ``eps_at`` tightening with every doubling and
+``estimate_gram`` the scaled features' Gram (against the reference's map
+handed across, within 1e-5), the JSON round trip, and the generation
+layout: a G-generation map's raw features are generation g's draws by the
+keying rule, concatenated (the contract shards will reuse; the reference
+holds it against its S = G shard draw).
 """
 import jax
 import jax.numpy as jnp
@@ -246,3 +253,93 @@ def test_edge_noncontiguous_and_uneven_chunks(name):
         lambda Z: est.apply(plan, params, Z), X, row_chunk=5)
     np.testing.assert_allclose(chunked.numpy(), full.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# progressive growth (core.doubling): every family doubles its budget
+# without redrawing
+# ---------------------------------------------------------------------------
+from repro.core import make_growable_feature_map as jax_growable  # noqa: E402
+from repro_torch.convert import growable_from_jax  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    GrowableFeatureMap,
+    make_growable_feature_map,
+)
+from repro_torch.core.doubling import generation_generator  # noqa: E402
+
+
+def _growable(name, **kw):
+    kw.setdefault("base_features", 48)
+    kw.setdefault("measure", "proportional")
+    return make_growable_feature_map(TKERN, 10, 5, estimator=name,
+                                     device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", ESTIMATORS)
+def test_growth_prefix_bit_identical(name):
+    gm = _growable(name)
+    X = torch.from_numpy(_x(6, (5, 10)))
+    raw1 = gm.apply(X, rescale=False)
+    g2 = gm.grow()
+    g4 = g2.grow()
+    assert (g2.n_generations, g4.n_generations) == (2, 4)
+    raw2, raw4 = g2.apply(X, rescale=False), g4.apply(X, rescale=False)
+    assert raw2.shape[1] == 2 * raw1.shape[1]
+    assert torch.equal(raw2[:, :raw1.shape[1]], raw1)
+    assert torch.equal(raw4[:, :raw2.shape[1]], raw2)
+    assert torch.equal(gm.grow_to_generations(4).apply(X, rescale=False),
+                       raw4)
+    _close(g4.apply(X).numpy(), raw4.numpy() / np.sqrt(4.0), 1e-6)
+
+
+@pytest.mark.parametrize("name", ESTIMATORS)
+def test_growth_eps_monotone_and_gram(name):
+    """eps_at tightens with every doubling; on the reference's map handed
+    across at G = 4, estimate_gram equals the reference's and the scaled
+    features' Gram within 1e-5."""
+    gm = _growable(name)
+    eps = [gm.eps_at(0.05)]
+    maps = [gm]
+    for _ in range(3):
+        maps.append(maps[-1].grow())
+        eps.append(maps[-1].eps_at(0.05))
+    assert all(b < a for a, b in zip(eps, eps[1:])), eps
+    jgm = jax_growable(JKERN, 10, jax.random.PRNGKey(5), estimator=name,
+                       base_features=48, measure="proportional")
+    jg4 = jgm.grow().grow()
+    assert [jgm.eps_at(0.05), jg4.eps_at(0.05)] == [eps[0], eps[2]]
+    tg4 = growable_from_jax(jg4, kernel=TKERN)
+    X = _x(7, (6, 10))
+    got = tg4.estimate_gram(torch.from_numpy(X))
+    want = jax.jit(lambda a: jg4.estimate_gram(a, use_pallas=False))(
+        jnp.asarray(X))
+    _close(got.numpy(), want)
+    Z = tg4.apply(torch.from_numpy(X))
+    _close(got.numpy(), (Z @ Z.T).numpy())
+
+
+@pytest.mark.parametrize("name", ESTIMATORS)
+def test_growth_json_round_trip(name):
+    gm = _growable(name).grow_to_generations(3)
+    rt = GrowableFeatureMap.from_json(gm.to_json(), kernel=TKERN,
+                                      device="cpu")
+    assert rt.n_generations == 3 and rt.plan == gm.plan
+    X = torch.from_numpy(_x(8, (4, 10)))
+    assert torch.equal(rt.apply(X, rescale=False), gm.apply(X, rescale=False))
+    assert rt.eps_at(0.05) == pytest.approx(gm.eps_at(0.05))
+    bare = GrowableFeatureMap.from_json(gm.to_json(), device="cpu")
+    with pytest.raises(ValueError, match="kernel"):
+        bare.eps_at(0.05)
+
+
+@pytest.mark.parametrize("name", ESTIMATORS)
+def test_growth_matches_generation_layout(name):
+    """A 2-generation map's raw features are each generation's draws
+    (``generation_generator(seed, g)``) applied and concatenated."""
+    gm = _growable(name).grow_to_generations(2)
+    est = registry.get(name)
+    X = torch.from_numpy(_x(9, (3, 10)))
+    want = torch.cat([est.apply(gm.plan, est.init_params(
+        gm.plan, generation_generator(5, g, "cpu")), X) for g in range(2)],
+        dim=-1)
+    assert torch.equal(gm.apply(X, rescale=False), want)

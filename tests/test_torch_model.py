@@ -226,9 +226,9 @@ def test_unported_modes_raise_not_implemented():
     layer = tt.init_model(exact, torch.Generator().manual_seed(0))[
         "layers"][0]["attn"]
     assert "rm_est" not in layer and "rm_scale" not in layer
-    moe = dataclasses.replace(exact, block_pattern=("attn_moe",))
-    with pytest.raises(NotImplementedError, match="attn_moe"):
-        tt.init_model(moe, torch.Generator().manual_seed(0))
+    ssm = dataclasses.replace(exact, block_pattern=("mamba_mlp",))
+    with pytest.raises(NotImplementedError, match="mamba_mlp"):
+        tt.init_model(ssm, torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------

@@ -143,7 +143,7 @@ def test_registry_rm_entry_and_unknown_names():
 
 def test_other_archs_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config("qwen3-1.7b", attention_mode="rm")

@@ -151,9 +151,9 @@ def test_obs_none_is_bitwise_identical(models, both_traced):
     sched = Scheduler(models[2], models[3], num_slots=1, max_len=16,
                       device="cpu")
     assert sched.obs.enabled is False
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        Scheduler(models[2], models[3], num_slots=1, max_len=16,
-                  device="cpu", accuracy_tiers={"low": 1})
+    tiered = Scheduler(models[2], models[3], num_slots=1, max_len=16,
+                       device="cpu", accuracy_tiers={"low": 1})
+    assert tiered.executor.tier_features(1) == models[2].rm.num_features
     assert torch.is_grad_enabled()
 
 
