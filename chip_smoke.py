@@ -267,7 +267,28 @@ Phases, each fatal on failure:
     B2 27 launches a prefill and B1 27 a decode step; parameters, decode
     state and peak memory, and phase 8's warm run and profiler windows.
     No request is held alone against batched: the MoE capacity counts
-    every token of a call.
+    every token of a call;
+27. the SSM mixers and the last configs: (a) SMOKE card vs CPU in fp32
+    (logits within 1e-4 relative, greedy tokens of 4 requests identical,
+    the forward's launches): jamba in rm fused (B2), rm two-launch (B1 +
+    B5) and exact mode, xlstm (no RM kernel), and olmo, danube, qwen2 and
+    internvl2 in rm fused (internvl2 with 6 precomputed patch embeddings
+    before the tokens); (b) B2 at jamba's exact-length prefills (32 heads
+    over 8 kv heads, d 128, F 163, T 5, 37 and 200: SSM prompts are not
+    bucketed) and B1 at its decode shape (x ``[256, 128]``) against their
+    plain versions (fp32 within the 1e-5 gate, bf16, two calls bitwise
+    equal, times and bounds); (c) jamba-v0.1-52b at full width (d_model
+    4096, 32 / 8 heads of 128, d_ff 14336, 16 experts top-2, Mamba d_state
+    16 expand 2, vocab 65536) with its depth cut from 32 to 8 layers (one
+    period: 32 layers are about 96 GiB in bf16, one period about 25),
+    bf16 weights drawn on the card from seed 0, rm, serving phase 7's
+    workload at each prompt's own length (ids from jamba's vocabulary):
+    every request finishes, B2 launches once a prefill and B1 once a
+    decode step; parameters, decode state, peak memory, TTFT, tokens/s
+    and phase 8's warm run and profiler windows (the prefill window at T
+    200); (d) xlstm-350m at full width and depth (24 layers) on the same
+    workload (ids under 50304): every request finishes, no RM kernel
+    launches; its mLSTM decode state's bytes and the same windows.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -292,14 +313,18 @@ B1's; B2, B3 and B4 their launches per train step, B2 its device time and
 its backward's in the profiled qwen3 train step; B1 and B2 their launches
 in phase 25's traced serve, B1 the drift check's; B1 and B2 with
 ``deepseek_*`` keys: their times at the MLA width, their launches in
-deepseek's serve and their device time in its windows) and, as its last
+deepseek's serve and their device time in its windows; B1 and B2 with
+``jamba_*`` keys: B2's times at T 5, 37 and 200 (``jamba_t5_*`` ...), B1's
+at jamba's decode shape, their launches in jamba's serve and their device
+time in its windows) and, as its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
 tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
 its timings alone, then phase 25's exact hubert encode (e) and its warm
-exact decode timing, then phase 26's deepseek profiler windows; no kernel
-check and no gradient check is cut.
+exact decode timing, then phase 26's deepseek profiler windows, then phase
+27's jamba and xlstm profiler windows; no kernel check and no gradient
+check is cut.
 """
 import dataclasses
 import gc
@@ -814,12 +839,15 @@ def serve_slice(torch, tag, engine, cfg, prompts, counters, expected):
     return done, launches
 
 
-def where_time_goes(torch, tag, engine, prompts, done, families=None):
+def where_time_goes(torch, tag, engine, prompts, done, families=None,
+                    prefill_label="prefill bucket 256"):
     """The workload again on the warm engine (TTFT, tokens/s), then one
-    profiler window over 5 warm decode steps and one over a bucket-256
-    prefill. ``families``: {kernel id: substrings of its device kernels'
-    names}, whose device time in each window is printed (and returned as
-    {window label: {kernel id: ms a step or a prefill}})."""
+    profiler window over 5 warm decode steps and one over request 7's
+    prefill (bucket 256; its own 200 tokens where prompts are not
+    bucketed, ``prefill_label`` naming it). ``families``: {kernel id:
+    substrings of its device kernels' names}, whose device time in each
+    window is printed (and returned as {window label: {kernel id: ms a
+    step or a prefill}})."""
     from repro_torch.launch.serve import summarize
 
     done2, _, steps2, wall2 = run_workload(torch, engine, prompts, 1000)
@@ -850,7 +878,7 @@ def where_time_goes(torch, tag, engine, prompts, done, families=None):
             ex.prefill(prompts[7])
 
     for label, fn, reps in (("decode step", decode5, 5),
-                            ("prefill bucket 256", prefill256, 1)):
+                            (prefill_label, prefill256, 1)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1450,6 +1478,17 @@ def tree_to(p, device):
     if isinstance(p, list):
         return [tree_to(v, device) for v in p]
     return p.to(device)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 def function_grad_check(torch, label, fn, forward_only, args, counters,
@@ -2317,15 +2356,17 @@ TIERS = {"low": 1, "standard": 2, "high": 4}
 DEEPSEEK = "deepseek-v2-lite-16b"
 
 
-def b1_mla_check(torch, np, kernels, gen, w32, cd, cs, rows):
-    """B1 at deepseek's decode shape (x ``[rows, 192]``, q and k of every
-    lane and head stacked) against its plain version, fp32 and bf16, with
-    times and bounds; the fp32 figures go into ``kernels["B1"]``."""
+def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag):
+    """B1 at a model's decode shape (x ``[rows, d]``, q and k of every lane
+    and head stacked) against its plain version, fp32 and bf16, with times
+    and bounds; returns the fp32 figures (``shape``, ``max_abs_err``,
+    ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``, ``bound_by``)."""
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
 
     d, f = w32.shape[2], w32.shape[1]
     c_np = cd.cpu().numpy()
+    record = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = unit_rows(torch, (rows, d), gen).to(dtype)
         w = w32.to(dtype)
@@ -2347,33 +2388,34 @@ def b1_mla_check(torch, np, kernels, gen, w32, cd, cs, rows):
             + rows * f * 4
         tcms, tcby = tensor_core_bound(nbytes, featurize_ops(rows, c_np, d),
                                        0, dname, True)
-        print(f"[ds B1] decode x[{rows},{d}] F {f} {dname}: max_abs_err "
+        print(f"[{tag} B1] decode x[{rows},{d}] F {f} {dname}: max_abs_err "
               f"{err:.3e} (tol {tol:.1e}), two calls bitwise equal {same}; "
               f"kernel {dev_ms:.4f} ms device (profiler), {ms:.4f} ms "
               f"events; plain {plain_ms:.4f} ms; bound {tcms:.6f} ms "
               f"({tcby}, tensor cores)")
         if not (err <= tol and same):
-            raise AssertionError(f"B1 at the MLA width {dname}: error {err} "
-                                 f"> {tol} or two calls differ")
+            raise AssertionError(f"B1 at {tag}'s decode shape {dname}: "
+                                 f"error {err} > {tol} or two calls differ")
         if dtype == torch.float32:
-            kernels["B1"].update(
-                deepseek_shape=f"x[{rows},{d}] fp32, F {f}",
-                deepseek_max_abs_err=err, deepseek_ms=ms,
-                deepseek_device_ms=dev_ms, deepseek_plain_ms=plain_ms,
-                deepseek_bound_ms=tcms, deepseek_bound_by=tcby)
+            record = dict(shape=f"x[{rows},{d}] fp32, F {f}",
+                          max_abs_err=err, ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=tcms, bound_by=tcby)
+    return record
 
 
-def b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, eps):
-    """B2 at deepseek's bucket-256 prefill (one prompt's 16 heads, q/k
-    width 192, values 128, 56 keys padded) against its plain version: fp32
-    within the 3xTF32 gate, bf16 within B2_TOL, two calls bitwise equal,
-    with times and bounds; the fp32 figures go into ``kernels["B2"]``."""
+def b2_shape_check(torch, np, gen, w32, cd, cs, heads, dv, eps, t, pad,
+                   tag):
+    """B2 at a model's prefill (one prompt's ``heads`` heads, q/k width of
+    ``w32``, values ``dv``, T ``t`` with the last ``pad`` keys padded)
+    against its plain version: fp32 within the 3xTF32 gate, bf16 within
+    B2_TOL, two calls bitwise equal, with times and bounds; returns the
+    fp32 figures (the keys of :func:`b1_shape_check`)."""
     from repro_torch.kernels.rm_attention.ops import rm_fused_causal
     from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
 
     d, f = w32.shape[2], w32.shape[1]
     c_np = cd.cpu().numpy()
-    t, pad = 256, 56
+    record = {}
     for dtype in (torch.float32, torch.bfloat16):
         q = unit_rows(torch, (1, heads, t, d), gen).to(dtype)
         k = unit_rows(torch, (1, heads, t, d), gen).to(dtype)
@@ -2392,10 +2434,10 @@ def b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, eps):
             scale_ = max(1.0, w_.abs().max().item())
             errs.append((g_ - w_).abs().max().item() / scale_)
             if not (errs[-1] <= gate and torch.isfinite(g_).all()):
-                raise AssertionError(f"B2 at the MLA width {name} {dname}: "
+                raise AssertionError(f"B2 at {tag}'s T {t} {name} {dname}: "
                                      f"error {errs[-1]:.2e} > {gate}")
         if not all(torch.equal(g_, a_) for g_, a_ in zip(got, again)):
-            raise AssertionError(f"B2 at the MLA width {dname}: two calls "
+            raise AssertionError(f"B2 at {tag}'s T {t} {dname}: two calls "
                                  "differ")
         sched = rm_fused_causal.last_schedule
         ms = time_ms(torch, lambda: rm_fused_causal(*args, eps), iters=20)
@@ -2412,7 +2454,7 @@ def b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, eps):
         other_ops = bh * t * (4 * f * dv + 3 * f + dv)
         tcms, tcby = tensor_core_bound(nbytes, feat_ops, other_ops, dname,
                                        True)
-        print(f"[ds B2] prefill q,k[{bh},{t},{d}] v dv {dv} F {f} ({pad} "
+        print(f"[{tag} B2] prefill q,k[{bh},{t},{d}] v dv {dv} F {f} ({pad} "
               f"keys padded) {dname}: err out/S/n {errs[0]:.2e}/"
               f"{errs[1]:.2e}/{errs[2]:.2e} x max(1, max |plain|) (gate "
               f"{gate:.0e}), two calls bitwise equal; kernel {dev_ms:.4f} "
@@ -2421,12 +2463,17 @@ def b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, eps):
               f"cores); grid pass A {sched.blocks_a} + pass B "
               f"{sched.blocks_b} blocks")
         if dtype == torch.float32:
-            kernels["B2"].update(
-                deepseek_shape=f"q,k[{bh},{t},{d}] v[{bh},{t},{dv}] fp32, "
-                               f"F={f}",
-                deepseek_max_abs_err=max(errs), deepseek_ms=ms,
-                deepseek_device_ms=dev_ms, deepseek_plain_ms=plain_ms,
-                deepseek_bound_ms=tcms, deepseek_bound_by=tcby)
+            record = dict(shape=f"q,k[{bh},{t},{d}] v[{bh},{t},{dv}] fp32, "
+                                f"F={f}",
+                          max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, bound_ms=tcms, bound_by=tcby)
+    return record
+
+
+def prefixed(prefix, record):
+    """``record``'s keys under ``prefix_`` (a model's figures in the
+    kernels line)."""
+    return {f"{prefix}_{k}": v for k, v in record.items()}
 
 
 def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
@@ -2450,11 +2497,10 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
     from repro_torch.core.select import make_kernel
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve import make_engine
-    from repro_torch.models import transformer as tt
     from repro_torch.models.attention import rm_plan_for
     from repro_torch.models.mla import mla_qk_dim
     from repro_torch.obs import DriftMonitor
-    from repro_torch.serve import Request, Scheduler
+    from repro_torch.serve import Request
 
     t_phase = time.perf_counter()
     PHASE26_DIR.mkdir(parents=True, exist_ok=True)
@@ -2665,41 +2711,8 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
             ("rm fused", "rm", "auto", {"B2"}),
             ("rm two-launch", "rm", "off", {"B1", "B5"}),
             ("exact", "exact", None, set())):
-        scfg = dataclasses.replace(get_config(DEEPSEEK, smoke=True,
-                                              attention_mode=mode),
-                                   compute_dtype="float32")
-        if fuse is not None:
-            scfg = dataclasses.replace(scfg, rm=dataclasses.replace(
-                scfg.rm, fuse_featurize=fuse))
-        p_cpu = tt.init_model(scfg, torch.Generator().manual_seed(0))
-        p_gpu = tree_to(p_cpu, "cuda")
-        rng = np.random.default_rng(26)
-        toks = torch.from_numpy(rng.integers(0, scfg.vocab_size,
-                                             size=(2, 24)))
-        zero()
-        with torch.inference_mode():
-            lg_gpu, _ = tt.forward(p_gpu, scfg, {"tokens": toks.cuda()})
-            lg_cpu, _ = tt.forward(p_cpu, scfg, {"tokens": toks})
-        torch.cuda.synchronize()
-        fwd_launches = launched()
-        rel = rel_err(torch, lg_gpu, lg_cpu)
-        small_prompts = {rid: rng.integers(0, scfg.vocab_size, size=n)
-                         for rid, n in enumerate((3, 17, 33, 40))}
-        got = {}
-        for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-            sched = Scheduler(scfg, params, num_slots=2, max_len=64,
-                              device=dev)
-            for rid, prompt in small_prompts.items():
-                sched.submit(Request(rid, prompt, max_new_tokens=8))
-            got[dev] = {rid: s.generated for rid, s in sched.run().items()}
-        print(f"[ds small] {scfg.name} {label} fp32, card vs CPU: logits "
-              f"rel err {rel:.2e} (tol {E2E_TOL:.0e}), greedy tokens of "
-              f"{len(small_prompts)} requests identical "
-              f"{got['cuda'] == got['cpu']}; forward launches {fwd_launches}")
-        if not (rel <= E2E_TOL and got["cuda"] == got["cpu"]
-                and set(fwd_launches) == want_kinds):
-            raise AssertionError(f"deepseek SMOKE {label} card vs CPU failed")
-        del p_cpu, p_gpu
+        smoke_card_vs_cpu(torch, np, counters, label, DEEPSEEK, mode, fuse,
+                          want_kinds, False)
 
     # B2 and B1 at the MLA width (q/k 128 nope + 64 rope = 192, values 128)
     cfg = get_config(DEEPSEEK, attention_mode="rm")
@@ -2711,8 +2724,10 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
           f"packed w {tuple(w32.shape)}, F={plan.output_dim} columns at a "
           f"budget of {cfg.rm.num_features}, degrees "
           f"{np.bincount(plan.column_degrees()).tolist()}")
-    b2_mla_check(torch, np, kernels, gen, w32, cd, cs, heads, dv, cfg.rm.eps)
-    b1_mla_check(torch, np, kernels, gen, w32, cd, cs, 2 * 4 * heads)
+    kernels["B2"].update(prefixed("deepseek", b2_shape_check(
+        torch, np, gen, w32, cd, cs, heads, dv, cfg.rm.eps, 256, 56, "ds")))
+    kernels["B1"].update(prefixed("deepseek", b1_shape_check(
+        torch, np, gen, w32, cd, cs, 2 * 4 * heads, "ds")))
     del w32
 
     # the full-width serve: bf16 weights drawn on the card from seed 0
@@ -2724,21 +2739,11 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
     torch.cuda.synchronize()
     ready_s = time.perf_counter() - t0
 
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for v in tree.values():
-                yield from leaves(v)
-        elif isinstance(tree, list):
-            for v in tree:
-                yield from leaves(v)
-        else:
-            yield tree
-
-    n_params = sum(p_.numel() for p_ in leaves(engine.executor.params))
+    n_params = sum(p_.numel() for p_ in tree_leaves(engine.executor.params))
     p_bytes = sum(p_.numel() * p_.element_size()
-                  for p_ in leaves(engine.executor.params))
+                  for p_ in tree_leaves(engine.executor.params))
     state_bytes = sum(t_.numel() * t_.element_size()
-                      for t_ in leaves(engine.executor.cache))
+                      for t_ in tree_leaves(engine.executor.cache))
     print(f"[ds] {cfg.name}: {cfg.num_layers} layers (first dense, d_ff "
           f"{cfg.d_ff}), d_model {cfg.d_model}, {heads} heads, MLA kv_lora "
           f"{cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} routed experts "
@@ -2751,34 +2756,10 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
           f"{dv}] + rm_n, fp32)")
     # phase 7's workload (the same lengths, so buckets 32-256) with token
     # ids drawn from deepseek's vocabulary
-    rng = np.random.default_rng(0)
-    ds_prompts = {rid: rng.integers(0, cfg.vocab_size, size=len(p_))
-                  for rid, p_ in prompts.items()}
-    zero()
-    done, admissions, steps, wall = run_workload(torch, engine, ds_prompts,
-                                                 0)
-    ds_launches = launched()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    from repro_torch.launch.serve import summarize
-
-    stats = summarize(done)
-    buckets = sorted({engine.executor.bucket_for(len(p_))
-                      for p_ in ds_prompts.values()})
-    print(f"[ds] cold run: {stats['requests']} requests over buckets "
-          f"{buckets}, {stats['tokens']} tokens in {wall:.3f}s "
-          f"({stats['tokens'] / wall:.1f} tok/s), TTFT p50 "
-          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
-          f"{stats['ttft_p99_s'] * 1e3:.1f} ms; {admissions} admissions, "
-          f"{steps} decode steps, launches {ds_launches}; peak memory "
-          f"{peak_gb:.2f} GiB")
-    for rid, s_ in done.items():
-        if s_.finish_reason not in VALID_REASONS or not s_.generated or \
-                not all(0 <= tok < cfg.vocab_size for tok in s_.generated):
-            raise AssertionError(f"deepseek request {rid}: "
-                                 f"{s_.finish_reason} {s_.generated}")
+    done, ds_launches, admissions, steps, ds_prompts = serve_full_width(
+        torch, np, "ds", engine, cfg, prompts, counters)
     if ds_launches != {"B1": cfg.num_layers * steps,
-                       "B2": cfg.num_layers * admissions} or \
-            admissions != len(ds_prompts):
+                       "B2": cfg.num_layers * admissions}:
         raise AssertionError(f"deepseek launches {ds_launches}: want B2 "
                              f"{cfg.num_layers} a prefill, B1 "
                              f"{cfg.num_layers} a decode step")
@@ -2795,6 +2776,234 @@ def adaptive_mla_phase(torch, np, kernels, counters, prompts, rm_tokens):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[ds] phase 26 in {time.perf_counter() - t_phase:.2f}s")
+
+
+# -- phase 27: the SSM mixers (jamba-v0.1-52b, xlstm-350m); the last configs --
+JAMBA = "jamba-v0.1-52b"
+XLSTM = "xlstm-350m"
+JAMBA_DEPTH = 8            # one pattern period of the 32 layers: one card
+JAMBA_PREFILL_T = (5, 37, 200)   # exact-length prompts: no bucket
+# (label, arch, attention mode or None for the config's own, fuse, the
+# kernels its forward must launch, precomputed embeddings before tokens)
+SMOKE_CASES = (
+    ("jamba rm fused", JAMBA, "rm", "auto", {"B2"}, False),
+    ("jamba rm two-launch", JAMBA, "rm", "off", {"B1", "B5"}, False),
+    ("jamba exact", JAMBA, "exact", None, set(), False),
+    ("xlstm", XLSTM, None, None, set(), False),
+    ("olmo rm", "olmo-1b", "rm", "auto", {"B2"}, False),
+    ("danube rm", "h2o-danube-3-4b", "rm", "auto", {"B2"}, False),
+    ("qwen2 rm", "qwen2-7b", "rm", "auto", {"B2"}, False),
+    ("internvl2 rm", "internvl2-1b", "rm", "auto", {"B2"}, True),
+)
+
+
+def smoke_card_vs_cpu(torch, np, counters, label, arch, mode, fuse,
+                      want_kinds, embeds):
+    """One SMOKE config in fp32, the same weights on the card and the CPU:
+    logits within E2E_TOL relative (with 6 precomputed embeddings before
+    the tokens where ``embeds``), greedy tokens of 4 requests through the
+    Scheduler identical, and the forward's launches the ``want_kinds``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import Request, Scheduler
+
+    scfg = dataclasses.replace(get_config(arch, smoke=True,
+                                          attention_mode=mode),
+                               compute_dtype="float32")
+    if fuse is not None:
+        scfg = dataclasses.replace(scfg, rm=dataclasses.replace(
+            scfg.rm, fuse_featurize=fuse))
+    p_cpu = tt.init_model(scfg, torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, "cuda")
+    rng = np.random.default_rng(27)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, scfg.vocab_size,
+                                                     size=(2, 24)))}
+    if embeds:
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 6, scfg.d_model)).astype(np.float32) * 0.02)
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        lg_gpu, _ = tt.forward(p_gpu, scfg, {k: v.cuda()
+                                             for k, v in batch.items()})
+        lg_cpu, _ = tt.forward(p_cpu, scfg, batch)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    rel = rel_err(torch, lg_gpu, lg_cpu)
+    small_prompts = {rid: rng.integers(0, scfg.vocab_size, size=n)
+                     for rid, n in enumerate((3, 17, 33, 40))}
+    got = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        sched = Scheduler(scfg, params, num_slots=2, max_len=64, device=dev)
+        for rid, prompt in small_prompts.items():
+            sched.submit(Request(rid, prompt, max_new_tokens=8))
+        got[dev] = {rid: s.generated for rid, s in sched.run().items()}
+    print(f"[small] {scfg.name} {label} fp32, card vs CPU: logits "
+          f"{tuple(lg_gpu.shape)} rel err {rel:.2e} (tol {E2E_TOL:.0e}), "
+          f"greedy tokens of {len(small_prompts)} requests identical "
+          f"{got['cuda'] == got['cpu']}; forward launches {launches}")
+    if not (rel <= E2E_TOL and got["cuda"] == got["cpu"]
+            and set(launches) == want_kinds
+            and all(len(g) == 8 for g in got["cuda"].values())):
+        raise AssertionError(f"{arch} SMOKE {label} card vs CPU failed")
+
+
+def serve_full_width(torch, np, tag, engine, cfg, prompts, counters):
+    """Phase 7's workload (its lengths, ids from ``cfg``'s vocabulary) on
+    a full-width engine with every counter at 0: every request finishes
+    with valid tokens. Returns (finished, launches, admissions, decode
+    steps, the prompts served)."""
+    from repro_torch.launch.serve import summarize
+
+    rng = np.random.default_rng(0)
+    own = {rid: rng.integers(0, cfg.vocab_size, size=len(p_))
+           for rid, p_ in prompts.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    done, admissions, steps, wall = run_workload(torch, engine, own, 0)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    stats = summarize(done)
+    lengths = sorted({engine.executor.bucket_for(len(p_))
+                      for p_ in own.values()})
+    kind = "buckets" if engine.executor.bucketed else "own lengths"
+    print(f"[{tag}] cold run: {stats['requests']} requests, prefills at "
+          f"{kind} {lengths}, {stats['tokens']} tokens in {wall:.3f}s "
+          f"({stats['tokens'] / wall:.1f} tok/s), TTFT p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{stats['ttft_p99_s'] * 1e3:.1f} ms; {admissions} admissions, "
+          f"{steps} decode steps, launches {launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for rid, s_ in done.items():
+        if s_.finish_reason not in VALID_REASONS or not s_.generated or \
+                not all(0 <= tok < cfg.vocab_size for tok in s_.generated):
+            raise AssertionError(f"{tag} request {rid}: "
+                                 f"{s_.finish_reason} {s_.generated}")
+    if admissions != len(own) or not steps:
+        raise AssertionError(f"{tag}: {admissions} admissions, {steps} "
+                             "decode steps")
+    return done, launches, admissions, steps, own
+
+
+def ssm_phase(torch, np, kernels, counters, prompts):
+    """Phase 27 (see the module docstring): (a) the six new configs' SMOKE
+    card vs CPU, (b) B2 and B1 at jamba's width, (c) jamba-v0.1-52b at full
+    width (8 of its 32 layers) in rm mode, (d) xlstm-350m at full width and
+    depth. Every check is fatal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models.attention import rm_plan_for
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+
+    # a. SMOKE card vs CPU
+    for case in SMOKE_CASES:
+        smoke_card_vs_cpu(torch, np, counters, *case)
+
+    # b. B2 at jamba's exact-length prefills, B1 at its decode shape
+    cfg = dataclasses.replace(get_config(JAMBA, attention_mode="rm"),
+                              num_layers=JAMBA_DEPTH).validate()
+    dh, heads = cfg.resolved_head_dim, cfg.num_heads
+    plan = rm_plan_for(cfg, dh)
+    w32 = pack_omegas(plan, init_omegas(plan, gen))
+    cd, cs = plan_columns(plan, "cuda")
+    print(f"[jamba plan] rm at head width {dh}: packed w "
+          f"{tuple(w32.shape)}, F={plan.output_dim}; {heads} heads over "
+          f"{cfg.num_kv_heads} kv heads (k and v repeated to {heads})")
+    for t in JAMBA_PREFILL_T:
+        kernels["B2"].update(prefixed(f"jamba_t{t}", b2_shape_check(
+            torch, np, gen, w32, cd, cs, heads, dh, cfg.rm.eps, t, 0,
+            "jamba")))
+    kernels["B1"].update(prefixed("jamba", b1_shape_check(
+        torch, np, gen, w32, cd, cs, 2 * 4 * heads, "jamba")))
+    del w32
+
+    # c. jamba-v0.1-52b at full width, one pattern period, rm
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(JAMBA, cfg=cfg, num_slots=4, max_len=256, seed=0,
+                         device="cuda", param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+    n_params = sum(p_.numel() for p_ in tree_leaves(engine.executor.params))
+    p_bytes = sum(p_.numel() * p_.element_size()
+                  for p_ in tree_leaves(engine.executor.params))
+    state_bytes = sum(t_.numel() * t_.element_size()
+                      for t_ in tree_leaves(engine.executor.cache))
+    moe, mc = cfg.moe, cfg.mamba
+    print(f"[jamba] {cfg.name}: depth cut from 32 to {cfg.num_layers} "
+          f"layers (one period: {', '.join(cfg.block_pattern)}), d_model "
+          f"{cfg.d_model}, {heads} heads / {cfg.num_kv_heads} kv of {dh}, "
+          f"d_ff {cfg.d_ff}, {moe.num_experts} experts top-{moe.top_k}, "
+          f"mamba d_state {mc.d_state} expand {mc.expand} d_conv "
+          f"{mc.d_conv}, vocab {cfg.vocab_size}, rm attention (F "
+          f"{plan.output_dim}); {n_params / 1e9:.2f} B parameters, "
+          f"{p_bytes / 2**30:.2f} GiB (bf16; a_log, d_skip and the router "
+          f"fp32), ready in {ready_s:.2f}s; decode state "
+          f"{state_bytes / 2**20:.2f} MiB (4 lanes: 7 x mamba conv + ssm, "
+          f"1 x rm_s / rm_n)")
+    done, launches, admissions, steps, own = serve_full_width(
+        torch, np, "jamba", engine, cfg, prompts, counters)
+    if launches != {"B1": steps, "B2": admissions}:
+        raise AssertionError(f"jamba launches {launches}: want B2 once a "
+                             f"prefill ({admissions}), B1 once a decode "
+                             f"step ({steps})")
+    kernels["B1"]["jamba_launches"] = launches["B1"]
+    kernels["B2"]["jamba_launches"] = launches["B2"]
+    shares = where_time_goes(
+        torch, "jamba", engine, own, done,
+        families={"B1": ("rm_feature_kernel",), "B2": ("chunk_",)},
+        prefill_label="prefill T 200")
+    kernels["B1"]["jamba_decode_step_device_ms"] = \
+        shares["decode step"]["B1"]
+    kernels["B2"]["jamba_prefill_200_device_ms"] = \
+        shares["prefill T 200"]["B2"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # d. xlstm-350m at full width and depth: attention-free, no RM kernel
+    xcfg = get_config(XLSTM)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(XLSTM, cfg=xcfg, num_slots=4, max_len=256, seed=0,
+                         device="cuda")
+    torch.cuda.synchronize()
+    ready_s = time.perf_counter() - t0
+    n_params = sum(p_.numel() for p_ in tree_leaves(engine.executor.params))
+    mlstm_bytes = sum(t_.numel() * t_.element_size()
+                      for layer in engine.executor.cache["layers"]
+                      if "c" in layer and layer["c"].dim() == 4
+                      for t_ in layer.values())
+    state_bytes = sum(t_.numel() * t_.element_size()
+                      for t_ in tree_leaves(engine.executor.cache))
+    d_up = int(xcfg.xlstm.proj_factor * xcfg.d_model)
+    print(f"[xlstm] {xcfg.name}: {xcfg.num_layers} layers ("
+          f"{', '.join(xcfg.block_pattern)} x {xcfg.num_scanned_groups}), "
+          f"d_model {xcfg.d_model}, {xcfg.num_heads} heads, mLSTM d_up "
+          f"{d_up} (head {d_up // xcfg.num_heads}), tied embeddings, vocab "
+          f"{xcfg.vocab_size}; depth not cut; {n_params / 1e9:.3f} B "
+          f"parameters (fp32 masters), ready in {ready_s:.2f}s; mLSTM decode "
+          f"state {mlstm_bytes / 2**20:.1f} MiB (4 lanes x 18 layers x "
+          f"{xcfg.num_heads} heads x {d_up // xcfg.num_heads}^2 fp32 + n, "
+          f"m, conv), all decode state {state_bytes / 2**20:.1f} MiB")
+    done, launches, _, _, own = serve_full_width(
+        torch, np, "xlstm", engine, xcfg, prompts, counters)
+    if launches:
+        raise AssertionError(f"xlstm launched RM kernels {launches}")
+    where_time_goes(torch, "xlstm", engine, own, done,
+                    prefill_label="prefill T 200")
+    if any(fn.launches for fn in counters.values()):
+        raise AssertionError("xlstm's warm run and windows launched an RM "
+                             "kernel")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ssm] phase 27 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -4371,6 +4580,11 @@ def main():
 
     # -- 26. adaptive accuracy; MLA and MoE (deepseek-v2-lite-16b) ------------
     adaptive_mla_phase(torch, np, kernels, rm_counters, prompts, rm_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 27. the SSM mixers: jamba-v0.1-52b, xlstm-350m; the last configs ----
+    ssm_phase(torch, np, kernels, rm_counters, prompts)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

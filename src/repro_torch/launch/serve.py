@@ -28,8 +28,13 @@ cycle through them; each finished request prints the budget its tier
 certifies), rounding a selected D up to a multiple of the largest tier.
 ``--arch deepseek-v2-lite-16b`` serves MLA + MoE; ``--param-dtype
 bfloat16`` draws the weights straight in bf16 (its 15.7 B parameters fit
-one card only so). Not ported yet: ``--arrival-trace`` (it replays
-through ``bench/loadgen.py``, ROADMAP.md queue A item 2).
+one card only so). ``--arch jamba-v0.1-52b`` serves the Mamba + attention
+hybrid (its FULL config, 51.6 B parameters, does not fit one card: serve
+``--smoke`` there, or cut its depth in a config of your own) and ``--arch
+xlstm-350m`` the attention-free xLSTM; ``--attention-mode`` defaults to rm
+where the arch attends and to the config's own mode where it does not.
+Not ported yet: ``--arrival-trace`` (it replays through
+``bench/loadgen.py``, ROADMAP.md queue A item 2).
 """
 from __future__ import annotations
 
@@ -42,7 +47,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import (
+    get_config,
+    launcher_attention_mode,
+    list_archs,
+    supports_rm,
+)
 from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
 from repro_torch.models.transformer import init_model
@@ -122,8 +132,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--attention-mode", default="rm",
-                    choices=["exact", "rm"])
+    ap.add_argument("--attention-mode", default=None,
+                    choices=["exact", "rm"],
+                    help="default: rm where the arch attends, else the "
+                         "config's own (xlstm-350m: attention-free)")
     ap.add_argument("--estimator", default=None,
                     help="feature-estimator registry name (rm, "
                          "tensor_sketch, ctr or structured; default: the "
@@ -150,7 +162,8 @@ def main(argv=None):
     # resolve the config once: the budget selection rewrites cfg.rm, and
     # the drift monitor and the engine both see the selected budget
     cfg = get_config(args.arch, smoke=args.smoke,
-                     attention_mode=args.attention_mode,
+                     attention_mode=launcher_attention_mode(
+                         args.arch, args.attention_mode),
                      estimator=args.estimator)
     cfg, decision = apply_budget_selection(cfg, args, tag="serve")
     tiers = parse_tiers(args.accuracy_tiers) if args.accuracy_tiers \
@@ -201,6 +214,8 @@ def main(argv=None):
 
 
 def _attention_label(engine) -> str:
+    if not supports_rm(engine.cfg):
+        return "attention-free"
     if engine.cfg.attention_mode != "rm":
         return "exact softmax attention"
     return (f"estimator {engine.estimator}, "

@@ -20,8 +20,12 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.configs import get_config, list_archs
 from repro_torch import resolve_device
+from repro_torch.configs import (
+    get_config,
+    launcher_attention_mode,
+    list_archs,
+)
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
@@ -36,8 +40,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-1.7b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
-    ap.add_argument("--attention-mode", default="rm",
-                    choices=["exact", "rm"])
+    ap.add_argument("--attention-mode", default=None,
+                    choices=["exact", "rm"],
+                    help="default: rm where the arch attends, else the "
+                         "config's own (xlstm-350m: attention-free)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -52,7 +58,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke,
-                     attention_mode=args.attention_mode)
+                     attention_mode=launcher_attention_mode(
+                         args.arch, args.attention_mode))
     # only the fused rm family's kernels have a backward (ROADMAP.md queue
     # C): the selection sizes D and picks the precision within the
     # config's family

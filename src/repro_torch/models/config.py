@@ -1,21 +1,22 @@
 """Model configuration (port of ``repro.models.config``).
 
 The reference's frozen dataclasses and field names, restricted to the
-fields the port reads, so a config reads the same in both packages. The
-MoE and MLA sub-configs and ``attention_kind`` are ported with
-``models/moe.py`` and ``models/mla.py``; the Mamba and xLSTM sub-configs
-and the fields only the jit/scan machinery reads (``remat``,
-``scan_unroll``) come with the modules that read them (ROADMAP.md queue
-A). ``frontend`` is ported for ``"none"``
-(token inputs) and ``"audio_stub"`` (precomputed frame embeddings, the
-HuBERT encoder); the vision stub waits for its model.
+fields the port reads, so a config reads the same in both packages: every
+field but ``remat`` and ``scan_unroll``, which only the reference's jit and
+scan machinery reads. The MoE, MLA, Mamba and xLSTM sub-configs are read
+by ``models/moe.py``, ``models/mla.py``, ``models/mamba.py`` and
+``models/xlstm.py``. ``frontend`` is ``"none"`` (token inputs),
+``"audio_stub"`` (precomputed frame embeddings, the HuBERT encoder) or
+``"vision_stub"`` (precomputed patch embeddings put before the tokens,
+InternVL2).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["RMAttentionConfig", "MoEConfig", "MLAConfig", "ModelConfig"]
+__all__ = ["RMAttentionConfig", "MoEConfig", "MLAConfig", "MambaConfig",
+           "XLSTMConfig", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,23 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0               # 0 = ceil(d_model / 16)
+    scan_chunk: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    proj_factor: float = 2.0       # mLSTM up-projection
+    conv_kernel: int = 4
+    slstm_ff_factor: float = 1.3333
+    chunk: int = 64                # mLSTM chunkwise parallel size
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # identity
     name: str = "model"
@@ -93,7 +111,7 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("attn_mlp",)
     first_k_dense: int = 0
     causal: bool = True            # False => encoder-only (hubert)
-    frontend: str = "none"         # none | audio_stub
+    frontend: str = "none"         # none | vision_stub | audio_stub
 
     # attention flavor
     attention_kind: str = "gqa"    # gqa | mla
@@ -105,7 +123,7 @@ class ModelConfig:
     pos_embedding: str = "rope"    # rope | sinusoidal | none
 
     # norms / mlp
-    norm_kind: str = "rmsnorm"
+    norm_kind: str = "rmsnorm"     # rmsnorm | layernorm | nonparametric_ln
     mlp_kind: str = "swiglu"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -115,6 +133,8 @@ class ModelConfig:
     rm: RMAttentionConfig = RMAttentionConfig()
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
 
     # init / precision
     init_std: float = 0.02
@@ -140,10 +160,10 @@ class ModelConfig:
         return n // period
 
     def validate(self) -> "ModelConfig":
-        if self.frontend not in ("none", "audio_stub"):
-            raise NotImplementedError(
-                f"{self.name}: frontend={self.frontend!r} is not ported yet "
-                "('none' or 'audio_stub')")
+        if self.frontend not in ("none", "vision_stub", "audio_stub"):
+            raise ValueError(
+                f"{self.name}: unknown frontend={self.frontend!r} ('none', "
+                "'vision_stub' or 'audio_stub')")
         if self.num_heads % self.num_kv_heads:
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} is not a multiple "
@@ -153,5 +173,13 @@ class ModelConfig:
                              "mla config")
         if any("moe" in b for b in self.block_pattern) and self.moe is None:
             raise ValueError(f"{self.name}: a moe block needs a moe config")
+        if any("mamba" in b for b in self.block_pattern) and \
+                self.mamba is None:
+            raise ValueError(f"{self.name}: a mamba block needs a mamba "
+                             "config")
+        if any(b in ("mlstm", "slstm") for b in self.block_pattern) and \
+                self.xlstm is None:
+            raise ValueError(f"{self.name}: an xlstm block needs an xlstm "
+                             "config")
         _ = self.num_scanned_groups
         return self

@@ -1,7 +1,7 @@
-"""Common layers (port of ``repro.models.layers``, the parts the dense
-qwen3 decoder and the hubert encoder use): rmsnorm, layernorm and the
-headwise qk-norm, RoPE and the sinusoidal position table, the SwiGLU and
-the biased GELU MLPs, and the embedding / unembed.
+"""Common layers (port of ``repro.models.layers``): rmsnorm, layernorm,
+the parameter-free layernorm (OLMo) and the headwise qk-norm, RoPE and
+the sinusoidal position table, the SwiGLU and the biased GELU MLPs, and
+the embedding / unembed.
 
 Plain functions on dicts of tensors, with the reference's parameter names,
 so a reference parameter tree maps across one leaf at a time
@@ -9,7 +9,7 @@ so a reference parameter tree maps across one leaf at a time
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,22 +29,26 @@ def normal_init(generator: torch.Generator, shape, std: float,
 # norms
 # ---------------------------------------------------------------------------
 def init_norm(cfg: ModelConfig, dim: int, dtype, device) -> Params:
+    """rmsnorm: a scale; layernorm: a scale and a bias;
+    ``nonparametric_ln`` (OLMo): no parameters, an empty dict."""
+    if cfg.norm_kind == "nonparametric_ln":
+        return {}
     params = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
     if cfg.norm_kind == "rmsnorm":
         return params
     if cfg.norm_kind == "layernorm":
         params["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
         return params
-    raise NotImplementedError(
-        f"norm_kind={cfg.norm_kind!r} is not ported yet (rmsnorm and "
-        "layernorm)")
+    raise ValueError(f"unknown norm_kind={cfg.norm_kind!r} (rmsnorm, "
+                     "layernorm or nonparametric_ln)")
 
 
 def apply_norm(params: Params, cfg: ModelConfig,
                x: torch.Tensor) -> torch.Tensor:
     """RMSNorm or LayerNorm in fp32, cast back to the input dtype.
     LayerNorm takes the population variance, ``norm_eps`` inside the
-    rsqrt, then the scale and the bias, as the reference does."""
+    rsqrt, then the scale and the bias where ``params`` has them (the
+    parameter-free norm has neither), as the reference does."""
     xf = x.float()
     if cfg.norm_kind == "rmsnorm":
         var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -53,7 +57,10 @@ def apply_norm(params: Params, cfg: ModelConfig,
         mean = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, correction=0)
         out = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
-        out = out * params["scale"].float() + params["bias"].float()
+        if "scale" in params:
+            out = out * params["scale"].float()
+        if "bias" in params:
+            out = out + params["bias"].float()
     return out.to(x.dtype)
 
 
@@ -100,6 +107,28 @@ def apply_mlp(params: Params, cfg: ModelConfig,
     up = x @ params["w_up"] + params["b_up"]
     return F.gelu(up, approximate="tanh") @ params["w_down"] \
         + params["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv (the Mamba and mLSTM front convs)
+# ---------------------------------------------------------------------------
+def causal_conv(conv_w: torch.Tensor, conv_b: torch.Tensor, x: torch.Tensor,
+                state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over T in x's dtype: x ``[B, T, C]``, taps
+    ``conv_w [K, C]``, bias ``conv_b [C]``, ``state`` the previous call's
+    last ``K - 1`` inputs (zeros when None) -> (out ``[B, T, C]``, the last
+    ``K - 1`` inputs: the next call's window). The taps add in order, as
+    the reference's Python ``sum`` adds them."""
+    kk = conv_w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    t = x.shape[1]
+    out = xp[:, 0:t] * conv_w[0].to(x.dtype)
+    for i in range(1, kk):
+        out = out + xp[:, i:i + t] * conv_w[i].to(x.dtype)
+    return out + conv_b.to(x.dtype), xp[:, xp.shape[1] - (kk - 1):]
 
 
 # ---------------------------------------------------------------------------

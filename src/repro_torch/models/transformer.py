@@ -4,26 +4,30 @@ The reference scans a stacked ``params["groups"]`` over layers; the port
 keeps one parameter dict per layer in ``params["layers"]`` and loops over
 them (PyTorch runs eagerly, there is no compile to keep small). The layer
 stack is ``first_k_dense`` leading dense blocks (DeepSeek style, kind
-``_dense_kind_for(cfg)``) then ``block_pattern`` repeated. Block kinds
-``"attn_mlp"``, ``"attn_moe"``, ``"mla_mlp"`` and ``"mla_moe"``: a mixer
-(GQA attention, ``models.attention``, or MLA, ``models.mla``) under the
-key ``"attn"`` / ``"mla"``, then an FFN (``"mlp"``, or the MoE of
-``models.moe`` under ``"moe"``), each behind its pre-norm. The SSM kinds
-(``mamba*``, ``mlstm``, ``slstm``) raise (ROADMAP.md queue A item 6).
+``_dense_kind_for(cfg)``) then ``block_pattern`` repeated. A block kind is
+a mixer, optionally ``_`` an FFN: the mixers are GQA attention
+(``"attn"``, ``models.attention``), MLA (``"mla"``, ``models.mla``), the
+Mamba SSM (``"mamba"``, ``models.mamba``) and the xLSTM cells (``"mlstm"``,
+``"slstm"``, ``models.xlstm``), each under its own key behind the pre-norm
+``norm1``; the FFN is a dense MLP (``"mlp"``) or the MoE of
+``models.moe`` (``"moe"``) behind ``norm2``. The kinds without an FFN
+(``"mamba"``, ``"mlstm"``, ``"slstm"``) have no ``norm2`` and no FFN
+residual, as in the reference.
 ``forward`` returns the MoE aux losses summed over the MoE layers
 (``moe_load_balance``, ``moe_router_z``; ``{}`` for a config without MoE)
 and ``loss_fn`` adds them at the config's weights. Inputs
-are tokens, precomputed frame embeddings (``frontend="audio_stub"``, the
-HuBERT encoder), or both; an encoder (``causal=False``) has ``forward`` and
+are tokens, precomputed embeddings (``frontend="audio_stub"``, the
+HuBERT encoder's frames; ``"vision_stub"``, InternVL2's patches put before
+the tokens), or both; an encoder (``causal=False``) has ``forward`` and
 ``loss_fn`` but no prefill cache or decode step. ``loss_fn`` is
 differentiable end to end on the fused rm path (the attention ops are
-``torch.autograd.Function``s) and on the exact path (plain PyTorch, through
-autograd); the two-launch path's featurize kernels have no backward
-(ROADMAP.md queue C).
+``torch.autograd.Function``s), on the exact path and through the SSM
+mixers (plain PyTorch, through autograd); the two-launch path's featurize
+kernels have no backward (ROADMAP.md queue C).
 
 Parameters are plain nested dicts of tensors with the reference's leaf
 names; the fp32 master weights get a compute-dtype copy, with each
-layer's estimator weights packed for the kernels, through
+attention or MLA layer's estimator weights packed for the kernels, through
 ``cast_params_to_compute`` (a no-op on params it has already returned, so
 a caller that casts once — the serving executor — pays nothing per step).
 The copies are differentiable casts: gradients reach the fp32 masters. The
@@ -38,8 +42,10 @@ import torch
 
 from repro_torch.common.dtypes import canonical_dtype
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp,
@@ -66,13 +72,39 @@ __all__ = [
 ]
 
 
-_MIXER_FWD = {"attn": attn_mod.attention_forward,
-              "mla": mla_mod.mla_forward}
-_MIXER_PREFILL = {"attn": attn_mod.attention_prefill_cache,
-                  "mla": mla_mod.mla_prefill_cache}
-_MIXER_DECODE = {"attn": attn_mod.attention_decode,
-                 "mla": mla_mod.mla_decode}
+_MIXER_INIT = {
+    "attn": lambda cfg, gen, dtype: attn_mod.init_attention(
+        cfg, gen, dtype, gen.device),
+    "mla": lambda cfg, gen, dtype: mla_mod.init_mla(cfg, gen, dtype,
+                                                    gen.device),
+    "mamba": mamba_mod.init_mamba,
+    "mlstm": xlstm_mod.init_mlstm,
+    "slstm": xlstm_mod.init_slstm,
+}
+_MIXER_FWD = {
+    "attn": attn_mod.attention_forward,
+    "mla": mla_mod.mla_forward,
+    "mamba": mamba_mod.mamba_forward,
+    "mlstm": xlstm_mod.mlstm_forward,
+    "slstm": xlstm_mod.slstm_forward,
+}
+_MIXER_PREFILL = {
+    "attn": attn_mod.attention_prefill_cache,
+    "mla": mla_mod.mla_prefill_cache,
+    "mamba": mamba_mod.mamba_prefill_cache,
+    "mlstm": xlstm_mod.mlstm_prefill_cache,
+    "slstm": xlstm_mod.slstm_prefill_cache,
+}
+_MIXER_DECODE = {
+    "attn": attn_mod.attention_decode,
+    "mla": mla_mod.mla_decode,
+    "mamba": mamba_mod.mamba_decode,
+    "mlstm": xlstm_mod.mlstm_decode,
+    "slstm": xlstm_mod.slstm_decode,
+}
 _MIXERS = tuple(_MIXER_FWD)
+# the mixers that attend: the ones rm mode featurizes
+_ATTENTION_MIXERS = ("attn", "mla")
 
 
 def _split_kind(kind: str) -> Tuple[str, Optional[str]]:
@@ -85,7 +117,7 @@ def _split_kind(kind: str) -> Tuple[str, Optional[str]]:
 def _dense_kind_for(cfg: ModelConfig) -> str:
     """The block kind of the ``first_k_dense`` leading layers."""
     mixer, _ = _split_kind(cfg.block_pattern[0])
-    return f"{mixer}_mlp" if mixer in _MIXERS else "attn_mlp"
+    return f"{mixer}_mlp" if mixer in _ATTENTION_MIXERS else "attn_mlp"
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -93,18 +125,17 @@ def layer_kinds(cfg: ModelConfig):
     blocks, then the pattern repeated).
 
     Raises:
-        NotImplementedError: a kind whose mixer is not attention or MLA
-            (the SSM kinds, ROADMAP.md queue A item 6), or without an FFN.
+        ValueError: a kind whose mixer is none of attn, mla, mamba, mlstm
+            and slstm, or whose FFN is neither mlp nor moe.
     """
     kinds = [_dense_kind_for(cfg)] * cfg.first_k_dense
     kinds.extend(list(cfg.block_pattern) * cfg.num_scanned_groups)
     for kind in kinds:
         mixer, ffn = _split_kind(kind)
-        if mixer not in _MIXERS or ffn not in ("mlp", "moe"):
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (attn_mlp, "
-                "attn_moe, mla_mlp and mla_moe are; the SSM blocks are "
-                "queued in ROADMAP.md queue A item 6)")
+        if mixer not in _MIXERS or ffn not in (None, "mlp", "moe"):
+            raise ValueError(
+                f"unknown block kind {kind!r}: a mixer of {_MIXERS}, "
+                "optionally followed by _mlp or _moe")
     return kinds
 
 
@@ -112,16 +143,16 @@ def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
                 dtype) -> Params:
     mixer, ffn = _split_kind(kind)
     device = generator.device
-    init = attn_mod.init_attention if mixer == "attn" else mla_mod.init_mla
     params: Params = {
         "norm1": init_norm(cfg, cfg.d_model, dtype, device),
-        mixer: init(cfg, generator, dtype, device),
-        "norm2": init_norm(cfg, cfg.d_model, dtype, device),
+        mixer: _MIXER_INIT[mixer](cfg, generator, dtype),
     }
-    if ffn == "moe":
-        params["moe"] = moe_mod.init_moe(cfg, generator, dtype)
-    else:
-        params["mlp"] = init_mlp(cfg, generator, cfg.d_ff, dtype)
+    if ffn is not None:
+        params["norm2"] = init_norm(cfg, cfg.d_model, dtype, device)
+        if ffn == "moe":
+            params["moe"] = moe_mod.init_moe(cfg, generator, dtype)
+        else:
+            params["mlp"] = init_mlp(cfg, generator, cfg.d_ff, dtype)
     return params
 
 
@@ -139,8 +170,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
 
 def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
     """Mixed precision: every fp32 leaf gets a compute-dtype copy (modules
-    re-upcast where fp32 matters: norms, RM feature products), and each
-    layer's attention gets its estimator's packed weights ``rm_w`` in the
+    re-upcast where fp32 matters: norms, RM feature products, the SSM
+    dynamics; the SSM's fp32 leaves ``a_log``, ``d_skip`` and ``r_rec`` are
+    cast too, as in the reference), and each attention or MLA layer gets
+    its estimator's packed weights ``rm_w`` in the
     RM precision policy's dtype (``attention.rm_packed_weights``). ``rm_w``
     is never cast to the compute dtype: the packed sketch tensors are cos
     and sin values that bf16 would round while ``rm.precision`` is fp32.
@@ -161,6 +194,9 @@ def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
     layers = []
     for layer in out["layers"]:
         kind, mp = _mixer(layer)
+        if kind not in _ATTENTION_MIXERS:
+            layers.append(layer)
+            continue
         width = mla_mod.mla_qk_dim(cfg) if kind == "mla" else None
         layers.append({**layer, kind: attn_mod.rm_packed_weights(
             mp, cfg, width)})
@@ -207,14 +243,17 @@ def _prepare_inputs(params: Params, cfg: ModelConfig,
 
 def _mixer(layer: Params) -> Tuple[str, Params]:
     """The layer's mixer kind and params."""
-    if "attn" in layer:
-        return "attn", layer["attn"]
-    return "mla", layer["mla"]
+    for kind in _MIXERS:
+        if kind in layer:
+            return kind, layer[kind]
+    raise KeyError(f"a layer without a mixer: keys {sorted(layer)}")
 
 
 def _ffn_residual(layer: Params, cfg: ModelConfig, x: torch.Tensor):
     """x plus the layer's FFN (dense MLP or MoE) of its second norm ->
-    (x, the MoE's aux losses or {})."""
+    (x, the MoE's aux losses or {}); a kind without an FFN returns x."""
+    if "norm2" not in layer:
+        return x, {}
     h = apply_norm(layer["norm2"], cfg, x)
     if "moe" in layer:
         y, aux = moe_mod.apply_moe(layer["moe"], cfg, h)
@@ -306,18 +345,26 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device) -> Params:
     """Zero decode cache for ``batch`` lanes, one entry per layer: the rm
     state, or exact attention's KV ring buffer (MLA: its latent cache) in
-    the compute dtype."""
+    the compute dtype; a Mamba layer's (conv window, ssm state), an mLSTM
+    layer's (conv window, C, n, m), an sLSTM layer's (h, c, n, m), their
+    conv windows in the compute dtype and the rest fp32."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     dtype = canonical_dtype(cfg.compute_dtype)
     caches = []
     for kind in layer_kinds(cfg):
-        if _split_kind(kind)[0] == "attn":
+        mixer = _split_kind(kind)[0]
+        if mixer == "attn":
             caches.append(attn_mod.init_attention_cache(cfg, batch, device,
                                                         max_len, dtype))
-        else:
+        elif mixer == "mla":
             caches.append(mla_mod.init_mla_cache(cfg, batch, max_len, dtype,
                                                  device))
+        else:
+            init = {"mamba": mamba_mod.init_mamba_cache,
+                    "mlstm": xlstm_mod.init_mlstm_cache,
+                    "slstm": xlstm_mod.init_slstm_cache}[mixer]
+            caches.append(init(cfg, batch, dtype, device))
     return {"layers": caches}
 
 

@@ -260,8 +260,9 @@ def test_hubert_config_resolves_as_the_reference():
             full.resolved_head_dim, full.d_ff, full.vocab_size) == (
         48, 1280, 16, 80, 5120, 504)
     assert not full.causal and full.frontend == "audio_stub"
-    with pytest.raises(NotImplementedError, match="frontend"):
-        dataclasses.replace(full, frontend="vision_stub").validate()
+    dataclasses.replace(full, frontend="vision_stub").validate()
+    with pytest.raises(ValueError, match="frontend"):
+        dataclasses.replace(full, frontend="video_stub").validate()
 
 
 def test_encoder_refuses_decode_prefill_cache_and_serving():

@@ -205,7 +205,7 @@ def test_decode_bf16_within_budget_teacher_forced():
 def test_unported_modes_raise_not_implemented():
     """``fuse_featurize="off"`` now runs the two-launch path and matches the
     reference (held in full by the two-launch tests below); an unknown
-    fusion mode raises, and so does a block kind that is not ported yet.
+    fusion mode raises, and so does an unknown block kind.
     Exact attention is ported (tests/test_torch_exact_attention.py): its
     layers hold no estimator leaves."""
     from repro_torch.models.attention import rm_fuse_enabled
@@ -226,9 +226,10 @@ def test_unported_modes_raise_not_implemented():
     layer = tt.init_model(exact, torch.Generator().manual_seed(0))[
         "layers"][0]["attn"]
     assert "rm_est" not in layer and "rm_scale" not in layer
-    ssm = dataclasses.replace(exact, block_pattern=("mamba_mlp",))
-    with pytest.raises(NotImplementedError, match="mamba_mlp"):
-        tt.init_model(ssm, torch.Generator().manual_seed(0))
+    # every reference block kind is ported; an unknown one is refused
+    odd = dataclasses.replace(exact, block_pattern=("conv_mlp",))
+    with pytest.raises(ValueError, match="conv_mlp"):
+        tt.init_model(odd, torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------
