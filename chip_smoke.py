@@ -288,7 +288,27 @@ Phases, each fatal on failure:
     and phase 8's warm run and profiler windows (the prefill window at T
     200); (d) xlstm-350m at full width and depth (24 layers) on the same
     workload (ids under 50304): every request finishes, no RM kernel
-    launches; its mLSTM decode state's bytes and the same windows.
+    launches; its mLSTM decode state's bytes and the same windows;
+28. meshes (``repro_torch.distributed``, ``launch.mesh``): (a) the
+    adult-shaped map of phase 23 (poly10, d 123, D 4000) through
+    ``make_feature_map(num_shards=4)``, the host loop on x ``[20000,
+    123]``: B1 4 launches an apply, the first 2048 rows' features and Gram
+    against the same draws on the CPU (1e-5, 1e-4 relative), the apply's
+    event and device time beside one unsharded D 4000 B1 call's; the
+    tensor_sketch, ctr and structured maps (exp, D 1024) as 4 shards on x
+    ``[64, 128]``: B6, B7, B8 4 launches each, card vs CPU; (b) an NCCL
+    world of one (``init_distributed``) and its ``make_feature_mesh()``:
+    the mesh apply bitwise the host loop, one B1 launch, one
+    ``all_reduce`` a Gram within 1e-5 of the host loop's; (c) two spawned
+    processes joined by gloo on cuda:0, each drawing and featurizing its
+    own shard (one B1 launch): the gathered features on x ``[4096, 123]``
+    bitwise the host loop of 2 shards, their Gram (one ``all_reduce``)
+    within 1e-5 of it; (d) qwen3-1.7b rm at full width and depth (phase 24
+    c's 4 x 256 tokens, bf16 compute) 3 steps through the ``Trainer`` with
+    ``mesh=None``, on ``make_host_mesh()`` (losses bitwise ``mesh=None``'s)
+    and with ``grad_compression="int8_pod"`` on a (1, 1, 1) ``("pod",
+    "data", "model")`` mesh: B2 28 launches a step, finite losses, the
+    residuals' max, each run's wall and peak memory beside phase 24 c's.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -316,7 +336,10 @@ in phase 25's traced serve, B1 the drift check's; B1 and B2 with
 deepseek's serve and their device time in its windows; B1 and B2 with
 ``jamba_*`` keys: B2's times at T 5, 37 and 200 (``jamba_t5_*`` ...), B1's
 at jamba's decode shape, their launches in jamba's serve and their device
-time in its windows) and, as its last
+time in its windows; B1 and B6–B8 their launches in a 4-shard apply
+(``sharded_launches``), B1 that apply's event and device times; B2 its
+training peak (``train_peak_gib``) and its launches in phase 28's
+data-parallel runs) and, as its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
@@ -1706,6 +1729,7 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
         CountedData.marks.append({k: fn.launches
                                   for k, fn in counters.items()})
         peak = torch.cuda.max_memory_allocated()
+        kernels["B2"]["train_peak_gib"] = peak / 2**30
         state_bytes = tree_bytes(state)
         rows = trainer.metrics_log
         marks = CountedData.marks
@@ -3004,6 +3028,276 @@ def ssm_phase(torch, np, kernels, counters, prompts):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[ssm] phase 27 in {time.perf_counter() - t_phase:.2f}s")
+
+
+# -- phase 28: meshes (the sharded estimator, data-parallel training) --------
+SHARD_GRAM_TOL = 1e-4   # relative: a card Gram of 4 shards against the CPU's
+MESH_GRAM_TOL = 1e-5    # x max(1, max |host|): one all_reduce vs a serial sum
+DP_STEPS = 3            # qwen3-1.7b steps per Trainer in phase 28 d
+GLOO_RANKS = 2          # phase 28 c: processes sharing cuda:0 over gloo
+GLOO_ROWS = 4096        # rows of the adult-shaped x phase 28 c featurizes
+SPAWN_TIMEOUT = 180     # s: the gloo ranks of phase 28 c
+
+
+def _gloo_shard_worker(rank, world, store, out_dir):
+    """Phase 28 c, one rank: join a gloo group on cuda:0, draw its own
+    shard of the adult-shaped map (poly10, d 123, D 4000, seed 0), featurize
+    the rows the parent wrote (one B1 launch) and estimate their first
+    2048 rows' Gram (one all_reduce); rank 0 writes both back."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.core import PolynomialKernel, make_feature_map
+        from repro_torch.distributed import collectives
+        from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+        from repro_torch.launch.mesh import make_feature_mesh
+
+        out = Path(out_dir)
+        mesh = make_feature_mesh(device_type="cuda")
+        x = torch.load(out / "x.pt").cuda()
+        fm = make_feature_map(PolynomialKernel(10, 1.0), 123, 4000, seed=0,
+                              mesh=mesh)
+        rm_feature_fused.launches = 0
+        z = fm.apply(x)
+        torch.cuda.synchronize()
+        apply_launches = rm_feature_fused.launches
+        calls = collectives.all_reduce.calls
+        g = fm.estimate_gram(x[:2048])
+        torch.cuda.synchronize()
+        report = {"apply_launches": apply_launches,
+                  "gram_all_reduces": collectives.all_reduce.calls - calls,
+                  "device": str(z.device)}
+        if rank == 0:
+            torch.save({"z": z.cpu(), "g": g.cpu()}, out / "gloo.pt")
+        (out / f"gloo{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world, *args):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes, each
+    joined within ``SPAWN_TIMEOUT``; a hang or a non-zero exit fails."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SPAWN_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    if hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"spawned ranks: {len(hung)} hung, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+
+
+def meshes_phase(torch, np, kernels, counters):
+    """Phase 28 (see the module docstring): (a) the sharded host loop on
+    the card, (b) a one-rank NCCL feature mesh, (c) two gloo ranks on
+    cuda:0, (d) data-parallel qwen3-1.7b training on a world of one. Every
+    check is fatal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        ExponentialDotProductKernel,
+        PolynomialKernel,
+        make_feature_map,
+    )
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.mesh import (
+        init_distributed,
+        make_feature_mesh,
+        make_host_mesh,
+        make_mesh,
+    )
+    from repro_torch.train.steps import TrainHyper
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    poly10 = PolynomialKernel(10, 1.0)
+
+    def launched(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()
+                     if c.launches}
+
+    # a. the sharded host loop: the adult-shaped map as 4 shards
+    shards = 4
+    sfm = make_feature_map(poly10, 123, 4000, seed=0, num_shards=shards)
+    x = unit_rows(torch, (20000, 123), gen) * 0.95
+    z, launches = launched(lambda: sfm.apply(x))
+    if launches != {"B1": shards} or not torch.isfinite(z).all():
+        raise AssertionError(f"28 a: launches {launches}, want B1 x "
+                             f"{shards}; finite {torch.isfinite(z).all()}")
+    cpu = dataclasses.replace(sfm, params={k: v.cpu()
+                                           for k, v in sfm.params.items()})
+    z_err = rel_err(torch, z[:2048].cpu(), cpu.apply(x[:2048].cpu()))
+    g_card = sfm.estimate_gram(x[:2048])
+    g_err = rel_err(torch, g_card.cpu(), cpu.estimate_gram(x[:2048].cpu()))
+    ms_s = time_ms(torch, lambda: sfm.apply(x), iters=10)
+    dev_s = kernel_device_ms(torch, lambda: sfm.apply(x),
+                             "rm_feature_kernel", iters=10)
+    fm1 = make_feature_map(poly10, 123, 4000, seed=0)
+    ms_1 = time_ms(torch, lambda: fm1.apply(x), iters=10)
+    dev_1 = kernel_device_ms(torch, lambda: fm1.apply(x),
+                             "rm_feature_kernel", iters=10)
+    print(f"[mesh a] adult-shaped poly10 d 123 D 4000 as {shards} shards of "
+          f"{sfm.shard_output_dim} columns (host loop) on x[20000,123]: B1 x "
+          f"{launches['B1']} an apply; first 2048 rows card vs CPU: features "
+          f"{z_err:.3e} (tol {B1_TOL:.0e}), Gram {g_err:.3e} (tol "
+          f"{SHARD_GRAM_TOL:.0e}); apply {ms_s:.4f} ms events, B1 device "
+          f"{dev_s:.4f} ms (4 launches) against one unsharded D 4000 B1 call "
+          f"{ms_1:.4f} ms events, {dev_1:.4f} ms device")
+    if not (z_err <= B1_TOL and g_err <= SHARD_GRAM_TOL):
+        raise AssertionError(f"28 a: card vs CPU {z_err}, {g_err}")
+    kernels["B1"].update(sharded_launches=launches["B1"],
+                         sharded_apply_ms=ms_s, sharded_device_ms=dev_s)
+    del z, g_card, fm1
+    exp1 = ExponentialDotProductKernel(1.0)
+    x64 = unit_rows(torch, (64, 128), gen)
+    for kid, family in (("B6", "tensor_sketch"), ("B7", "ctr"),
+                        ("B8", "structured")):
+        ffm = make_feature_map(exp1, 128, 1024, seed=0, num_shards=shards,
+                               estimator=family, measure="proportional")
+        zf, launches = launched(lambda: ffm.apply(x64))
+        cpu_f = dataclasses.replace(ffm, params={
+            k: v.cpu() for k, v in ffm.params.items()})
+        err = rel_err(torch, zf.cpu(), cpu_f.apply(x64.cpu()))
+        print(f"[mesh a] {family} exp D 1024 as {shards} shards on "
+              f"x[64,128]: {kid} x {launches.get(kid)}, card vs CPU "
+              f"{err:.3e} (tol {B1_TOL:.0e})")
+        if launches != {kid: shards} or not err <= B1_TOL:
+            raise AssertionError(f"28 a {family}: launches {launches}, "
+                                 f"error {err}")
+        kernels[kid]["sharded_launches"] = launches[kid]
+
+    # b. a one-rank NCCL feature mesh
+    init_distributed(device="cuda")
+    try:
+        mesh = make_feature_mesh()
+        mfm = make_feature_map(poly10, 123, 4000, seed=0, mesh=mesh)
+        z_mesh, launches = launched(lambda: mfm.apply(x))
+        z_host = mfm.apply(x, sharded=False)
+        calls = collectives.all_reduce.calls
+        g_mesh = mfm.estimate_gram(x[:2048])
+        reduces = collectives.all_reduce.calls - calls
+        g_host = mfm.estimate_gram(x[:2048], sharded=False)
+        g_gap = rel_err(torch, g_mesh, g_host)
+        same = torch.equal(z_mesh, z_host)
+        print(f"[mesh b] NCCL world of {dist.get_world_size()}, mesh "
+              f"{mesh}: apply B1 x {launches.get('B1')}, bitwise the host "
+              f"loop {same}; Gram {reduces} all_reduce, {g_gap:.3e} from the "
+              f"host loop (tol {MESH_GRAM_TOL:.0e})")
+        if not (same and reduces == 1 and launches == {"B1": 1}
+                and g_gap <= MESH_GRAM_TOL):
+            raise AssertionError("28 b: the NCCL feature mesh failed")
+        del z_mesh, z_host, g_mesh, g_host, mfm
+
+        # c. two gloo processes on cuda:0, one shard each
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.save(x[:GLOO_ROWS].cpu(), Path(tmp) / "x.pt")
+            t0 = time.perf_counter()
+            spawn_ranks(_gloo_shard_worker, GLOO_RANKS,
+                        str(Path(tmp) / "store"), tmp)
+            spawn_s = time.perf_counter() - t0
+            reports = [json.loads((Path(tmp) / f"gloo{r}.json").read_text())
+                       for r in range(GLOO_RANKS)]
+            got = torch.load(Path(tmp) / "gloo.pt")
+        host = make_feature_map(poly10, 123, 4000, seed=0,
+                                num_shards=GLOO_RANKS)
+        same = torch.equal(got["z"], host.apply(x[:GLOO_ROWS]).cpu())
+        g_gap = rel_err(torch, got["g"], host.estimate_gram(x[:2048]).cpu())
+        print(f"[mesh c] {GLOO_RANKS} gloo processes on cuda:0 ({spawn_s:.1f}s"
+              f" with their start-up): per rank {reports}; apply on "
+              f"x[{GLOO_ROWS},123] bitwise the host loop of {GLOO_RANKS} "
+              f"shards {same}; Gram {g_gap:.3e} from it (tol "
+              f"{MESH_GRAM_TOL:.0e}); no host copy (gloo takes CUDA tensors)")
+        if not (same and g_gap <= MESH_GRAM_TOL and all(
+                r["apply_launches"] == 1 and r["gram_all_reduces"] == 1
+                for r in reports)):
+            raise AssertionError("28 c: the gloo ranks failed")
+        del host, got
+
+        # d. data-parallel qwen3-1.7b training on a world of one
+        cfg = get_config("qwen3-1.7b", attention_mode="rm")
+        data = SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=0, device="cuda")
+        runs = {}
+        for label, mesh_fn, compression in (
+                ("none", None, "none"),
+                ("host", make_host_mesh, "none"),
+                ("int8_pod", lambda: make_mesh((1, 1, 1),
+                                               ("pod", "data", "model")),
+                 "int8_pod")):
+            hyper = TrainHyper(peak_lr=1e-3, warmup_steps=2,
+                               total_steps=DP_STEPS,
+                               grad_compression=compression)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 2**30
+            trainer = Trainer(cfg, hyper, data, seed=0, log_every=1,
+                              mesh=mesh_fn() if mesh_fn else None,
+                              checkpoint_every=10 ** 9, device="cuda")
+            t0 = time.perf_counter()
+            state, launches = launched(lambda: trainer.train(DP_STEPS))
+            wall = time.perf_counter() - t0
+            runs[label] = {
+                "losses": [row["loss"] for row in trainer.metrics_log],
+                "step_ms": [row["sec_per_step"] * 1e3
+                            for row in trainer.metrics_log],
+                "launches": launches, "wall": wall,
+                "peak": torch.cuda.max_memory_allocated() / 2**30,
+                "base": base,
+                "residual_max": (max(float(t.abs().max()) for t in
+                                     tree_leaves(state["residuals"]))
+                                 if "residuals" in state else None)}
+            del state, trainer
+        want = {"B2": cfg.num_layers * DP_STEPS}
+        for label, r in runs.items():
+            print(f"[mesh d] qwen3-1.7b rm {TRAIN_BATCH} x {TRAIN_SEQ} tokens,"
+                  f" {DP_STEPS} steps, mesh {label}: losses "
+                  + " ".join(f"{v:.6f}" for v in r["losses"])
+                  + "; step walls " + " / ".join(f"{v:.1f}"
+                                                 for v in r["step_ms"])
+                  + f" ms; launches {r['launches']}; {r['wall']:.2f}s; peak "
+                  f"{r['peak']:.2f} GiB with {r['base']:.2f} GiB held before "
+                  f"(phase 24 c: {kernels['B2']['train_peak_gib']:.2f} GiB)"
+                  + (f"; residual max {r['residual_max']:.3e}"
+                     if r["residual_max"] is not None else ""))
+            if r["launches"] != want or not all(
+                    math.isfinite(v) for v in r["losses"]):
+                raise AssertionError(f"28 d {label}: launches "
+                                     f"{r['launches']} (want {want})")
+        if runs["host"]["losses"] != runs["none"]["losses"]:
+            raise AssertionError("28 d: the one-rank mesh's losses are not "
+                                 "bitwise mesh=None's")
+        kernels["B2"]["dp_train_launches"] = sum(
+            r["launches"]["B2"] for r in runs.values())
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[mesh] phase 28 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -4585,6 +4879,11 @@ def main():
 
     # -- 27. the SSM mixers: jamba-v0.1-52b, xlstm-350m; the last configs ----
     ssm_phase(torch, np, kernels, rm_counters, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 28. meshes: the sharded estimator, data-parallel training -----------
+    meshes_phase(torch, np, kernels, rm_counters)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -29,6 +29,13 @@ each inner map's arrays (a Rademacher map's ``omega``, an RFF map's ``w``,
 ``b`` and ``sigma``), then the scales, const, degrees and counts are read
 through ``np.asarray`` and rebuilt as the port's map, on the CPU.
 
+``specs_from_jax(tree, cfg)`` lays a tree of the reference's
+``PartitionSpec``s over params or a decode cache out as the port's: one
+tuple a leaf, a stacked layer's spec without its leading (layer) entry.
+``sharded_from_jax(sfm)`` hands the reference's ``ShardedFeatureMap``
+across: the same per-shard plan (its JSON) and the stacked ``[S, ...]``
+params, as the port's host-loop map on the CPU.
+
 ``growable_from_jax(gm, kernel=)`` hands the reference's
 ``GrowableFeatureMap`` across: its plan through the plans' shared JSON
 (the port's plan type of the same family), its stacked ``[G, ...]``
@@ -47,8 +54,9 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_kinds
 
-__all__ = ["params_from_jax", "train_state_from_jax",
-           "compositional_from_jax", "growable_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax", "specs_from_jax",
+           "compositional_from_jax", "growable_from_jax",
+           "sharded_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -64,26 +72,45 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _layers(tree: Dict[str, Any], cfg: ModelConfig, leaf, stacked_leaf
+            ) -> list:
+    """The reference's ``dense_{i}`` blocks, then its scanned groups
+    unstacked group-major in pattern order: ``leaf(a)`` on a dense block's
+    leaves, ``stacked_leaf(a, g)`` on group g's."""
+    layers = []
+    for i in range(cfg.first_k_dense):
+        layers.append(_map(tree[f"dense_{i}"], leaf))
+    for g in range(cfg.num_scanned_groups):
+        for j, kind in enumerate(cfg.block_pattern):
+            block = tree["groups"][f"b{j}_{kind}"]
+            layers.append(_map(block, lambda a, g=g: stacked_leaf(a, g)))
+    if len(layers) != len(layer_kinds(cfg)):
+        raise ValueError(f"reference tree holds {len(layers)} layers, "
+                         f"{cfg.name} has {len(layer_kinds(cfg))}")
+    return layers
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
     """Reference parameter tree (numpy leaves) -> the port's parameters
     (CPU tensors; move them with ``.to(device)`` leaf by leaf)."""
-    kinds = layer_kinds(cfg)
-    layers = []
-    for i in range(cfg.first_k_dense):
-        layers.append(_map(tree[f"dense_{i}"], _tensor))
-    for g in range(cfg.num_scanned_groups):
-        for j, kind in enumerate(cfg.block_pattern):
-            block = tree["groups"][f"b{j}_{kind}"]
-            layers.append(_map(block, lambda a, g=g: _tensor(a[g])))
-    if len(layers) != len(kinds):
-        raise ValueError(f"reference tree holds {len(layers)} layers, "
-                         f"{cfg.name} has {len(kinds)}")
     return {
         "embed": _map(tree["embed"], _tensor),
-        "layers": layers,
+        "layers": _layers(tree, cfg, _tensor, lambda a, g: _tensor(a[g])),
         "final_norm": _map(tree["final_norm"], _tensor),
     }
+
+
+def specs_from_jax(tree: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, Any]:
+    """A reference spec tree over params (``embed``, layers,
+    ``final_norm``) or a decode cache (layers only) -> the port's layout,
+    each spec a tuple; a scanned group's specs lose their leading entry
+    (the stacked layer dim the port does not have)."""
+    out = {k: _map(tree[k], tuple) for k in ("embed", "final_norm")
+           if k in tree}
+    out["layers"] = _layers(tree, cfg, tuple, lambda s, g: tuple(s)[1:])
+    return out
 
 
 def train_state_from_jax(state: Dict[str, Any], cfg: ModelConfig
@@ -131,19 +158,37 @@ def compositional_from_jax(cfm):
         input_dim=int(cfm.input_dim))
 
 
+def _plan_from_jax(plan):
+    """The port's plan of the reference plan's family, through the plans'
+    shared JSON."""
+    import importlib
+
+    ptype = type(plan)
+    mod = ptype.__module__.replace("repro.", "repro_torch.", 1)
+    return getattr(importlib.import_module(mod),
+                   ptype.__qualname__).from_json(plan.to_json())
+
+
+def sharded_from_jax(sfm):
+    """The reference's ``ShardedFeatureMap`` (leaves anything
+    ``np.asarray`` reads) -> the port's, its stacked params as CPU tensors
+    and no mesh (the host loop)."""
+    from repro_torch.distributed.estimator import ShardedFeatureMap
+
+    return ShardedFeatureMap(
+        estimator=sfm.estimator, plan=_plan_from_jax(sfm.plan),
+        params={k: _tensor(v) for k, v in sfm.params.items()},
+        num_shards=int(sfm.num_shards), axis=sfm.axis)
+
+
 def growable_from_jax(gm, kernel=None, seed: int = 0):
     """The reference's ``GrowableFeatureMap`` (its leaves anything
     ``np.asarray`` reads) -> the port's, on the CPU. ``kernel`` is the
     port's ``DotProductKernel`` for the bound side (``eps_at``,
     ``required_generations``); ``seed`` keys generations drawn later."""
-    import importlib
-
     from repro_torch.core.doubling import GrowableFeatureMap
 
-    ptype = type(gm.plan)
-    mod = ptype.__module__.replace("repro.", "repro_torch.", 1)
-    plan = getattr(importlib.import_module(mod),
-                   ptype.__qualname__).from_json(gm.plan.to_json())
+    plan = _plan_from_jax(gm.plan)
     stacked = {k: np.asarray(v) for k, v in gm.params.items()}
     params = [{k: _tensor(v[g]) for k, v in stacked.items()}
               for g in range(int(gm.n_generations))]

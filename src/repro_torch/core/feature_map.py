@@ -229,6 +229,13 @@ def make_feature_map(
       per-degree weights ``sqrt(a_n / c_n)``: no degree-sampling variance;
       the dropped-degree mass is ``RMFeatureMap.truncation_bias``.
 
+    ``mesh`` / ``num_shards`` switch to the sharded construction
+    (``repro_torch.distributed.estimator``): the budget splits over the
+    ``"rm_features"`` mesh axis into per-shard sub-maps, shard s drawing
+    from ``mix_seed(base seed, s)``; the returned ``ShardedFeatureMap``
+    duck-types this function's output for any registry family. On a mesh
+    ``device`` must name the mesh's device type.
+
     ``precision`` ("fp32" | "bf16") sets the storage dtype of the draws to
     the policy's compute dtype (lossless: they are {0, +-1}); an explicit
     ``omega_dtype`` wins. Accuracy-target mode: pass ``eps=``/``delta=``
@@ -238,8 +245,6 @@ def make_feature_map(
     Raises:
         TypeError: neither ``key`` nor ``seed`` (or both) given.
         ValueError: the budget is given both ways, or neither.
-        NotImplementedError: ``mesh`` / ``num_shards`` (the sharded
-            construction is ROADMAP queue A12).
         RuntimeError: ``device`` is CUDA and there is none.
     """
     if (key is None) == (seed is None):
@@ -262,10 +267,6 @@ def make_feature_map(
     elif num_features is None:
         raise ValueError("pass num_features or accuracy targets "
                          "(eps=..., delta=...)")
-    if mesh is not None or num_shards is not None:
-        raise NotImplementedError(
-            "sharded feature maps (mesh= / num_shards=) are not ported yet "
-            "(ROADMAP queue A12)")
     if omega_dtype is None:
         from repro_torch.common.dtypes import resolve_precision
 
@@ -274,6 +275,18 @@ def make_feature_map(
     dev = resolve_device(device)
     if key is None:
         key = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is not None or num_shards is not None:
+        from repro_torch.distributed.estimator import (
+            make_sharded_feature_map,
+        )
+
+        return make_sharded_feature_map(
+            kernel, input_dim, num_features, key,
+            mesh=mesh, num_shards=num_shards, estimator=estimator,
+            omega_dtype=omega_dtype, device=dev,
+            p=p, measure=measure, h01=h01, n_max=n_max, radius=radius,
+            stratified=stratified,
+        )
     if estimator != "rm":
         from repro_torch.core import registry
 

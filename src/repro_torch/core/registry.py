@@ -72,14 +72,22 @@ def featurize_chunked(apply_fn: Callable[[torch.Tensor], torch.Tensor],
 
 def estimate_gram(apply_fn: Callable[[torch.Tensor], torch.Tensor],
                   X: torch.Tensor, Y: Optional[torch.Tensor] = None,
-                  row_chunk: int = 4096) -> torch.Tensor:
-    """Kernel-matrix estimate ``Z(X) Z(Y)^T`` via chunked featurization
-    (the reference's ``axis_name`` reduction comes with the sharded
-    slice)."""
+                  row_chunk: int = 4096, group=None) -> torch.Tensor:
+    """Kernel-matrix estimate ``Z(X) Z(Y)^T`` via chunked featurization.
+
+    With ``group`` (a process group whose ranks each hold a slice of the
+    feature columns: the reference's ``axis_name``) the partial Gram is
+    summed over the group by exactly one ``all_reduce``
+    (``repro_torch.distributed.estimator``)."""
     zx = featurize_chunked(apply_fn, X, row_chunk=row_chunk)
     zy = zx if Y is None else featurize_chunked(apply_fn, Y,
                                                 row_chunk=row_chunk)
-    return zx @ zy.T
+    gram = zx @ zy.T
+    if group is not None:
+        from repro_torch.distributed.collectives import all_reduce
+
+        all_reduce(gram, group)
+    return gram
 
 
 def _plan_output_dim(plan) -> int:

@@ -1,0 +1,52 @@
+"""The collectives of the mesh paths, each counted.
+
+``all_reduce`` and ``all_gather`` wrap ``torch.distributed``'s on a process
+group (a ``DeviceMesh`` dim's group), and each adds one to its ``calls``
+where it issues its collective, as the kernel wrappers count launches: the
+sharded estimator's contract (one ``all_reduce`` a Gram) is checked by
+reading ``all_reduce.calls`` around a call. NCCL takes CUDA tensors and
+gloo CPU or CUDA tensors; the backend is the group's own, chosen once
+(``launch.mesh.init_distributed``).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+__all__ = ["all_reduce", "all_gather"]
+
+_OPS = ("sum", "max")
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` in place over ``group`` (``"sum"`` or ``"max"``) and
+    return it.
+
+    Raises:
+        ValueError: an unknown ``op``.
+    """
+    import torch.distributed as dist
+
+    if op not in _OPS:
+        raise ValueError(f"op must be one of {_OPS}, got {op!r}")
+    all_reduce.calls += 1
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group)
+    return t
+
+
+all_reduce.calls = 0
+
+
+def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes), in the group's rank order."""
+    import torch.distributed as dist
+
+    all_gather.calls += 1
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+all_gather.calls = 0

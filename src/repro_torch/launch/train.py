@@ -14,7 +14,15 @@ step-time histogram and loss gauge, ``--drift-every N`` runs the Gram-drift
 check every N steps. ``--eps/--delta/--latency-budget/--bench`` size
 ``cfg.rm`` from Theorem 12 (``launch/budget.py``), as the serve
 launcher's do, within the config's feature family (the only one whose
-kernels train). Not ported yet: meshes (ROADMAP.md queue A item 7).
+kernels train). ``--mesh host`` trains data-parallel over every rank of
+the default process group (``launch.mesh.init_distributed``: under
+``torchrun`` one process a rank, else a world of one), ``--mesh single``
+and ``multi`` over the 256- and 512-rank production meshes (they raise
+with fewer ranks); ``--model-parallel`` above 1 (tensor parallelism) is
+the next part of ROADMAP.md queue A item 7:
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh host \
+        --smoke --steps 20
 """
 from __future__ import annotations
 
@@ -53,6 +61,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the data")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "host", "single", "multi"])
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="TP size for --mesh host")
     add_obs_args(ap, "train steps")
     add_budget_args(ap)
     args = ap.parse_args(argv)
@@ -74,10 +86,26 @@ def main(argv=None):
                               device=args.device)
     hyper = TrainHyper(peak_lr=args.lr, warmup_steps=max(args.steps // 10, 5),
                        total_steps=args.steps, grad_accum=args.grad_accum)
+    mesh = None
+    if args.mesh != "none":
+        from repro_torch.launch import mesh as mesh_mod
+
+        mesh_mod.init_distributed(device=args.device)
+        mesh = {
+            "host": lambda: mesh_mod.make_host_mesh(args.model_parallel),
+            "single": mesh_mod.make_production_mesh,
+            "multi": lambda: mesh_mod.make_production_mesh(multi_pod=True),
+        }[args.mesh]()
     obs = make_obs(args, cfg, resolve_device(args.device), "train")
-    trainer = Trainer(cfg, hyper, data, ckpt_dir=args.ckpt_dir,
+    trainer = Trainer(cfg, hyper, data, ckpt_dir=args.ckpt_dir, mesh=mesh,
                       seed=args.seed, obs=obs, device=args.device)
-    state = trainer.train(args.steps)
+    try:
+        state = trainer.train(args.steps)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     close_obs(obs, args, "train")
     return state
 

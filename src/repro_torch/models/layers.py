@@ -91,8 +91,7 @@ def init_mlp(cfg: ModelConfig, generator, d_ff: int, dtype) -> Params:
             "w_down": normal_init(generator, (d_ff, d), std, dtype),
             "b_down": torch.zeros((d,), dtype=dtype, device=device),
         }
-    raise NotImplementedError(
-        f"mlp_kind={cfg.mlp_kind!r} is not ported yet (swiglu and gelu)")
+    raise ValueError(f"unknown mlp_kind={cfg.mlp_kind!r} (swiglu or gelu)")
 
 
 def apply_mlp(params: Params, cfg: ModelConfig,

@@ -27,8 +27,8 @@ z-loss ``mean(logsumexp(logits)^2)``.
 The reference has no Pallas kernel here: the expert products are plain
 ``torch.bmm`` / ``einsum``, as the reference computes them in XLA. Its
 ``shard_map`` path (tokens routed per data-parallel shard, experts split
-over the tensor-parallel axis) waits for meshes (ROADMAP.md queue A item
-7): ``mesh=`` raises.
+over the tensor-parallel axis) is the next part of ROADMAP.md queue A
+item 7: ``mesh=`` raises.
 """
 from __future__ import annotations
 
@@ -179,14 +179,14 @@ def apply_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     """x: [B, T, d] -> (y [B, T, d] in x's dtype, aux losses).
 
     Raises:
-        NotImplementedError: ``mesh`` given (the sharded path is ROADMAP.md
-            queue A item 7).
+        NotImplementedError: ``mesh`` given (expert parallelism is the
+            next part of ROADMAP.md queue A item 7).
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the sharded MoE path (shard_map over data-parallel shards, "
-            "experts split over the tensor-parallel axis) waits for "
-            "meshes (ROADMAP.md queue A item 7)")
+            "the sharded MoE path (experts split over the mesh's 'model' "
+            "axis, over DTensor) is the next part of ROADMAP.md queue A "
+            "item 7")
     moe = cfg.moe
     b, t, d = x.shape
     core = _moe_core_einsum if moe.dispatch == "einsum" else _moe_core_local

@@ -1,9 +1,19 @@
 """Gradient compression for cross-pod links (port of
-``repro.optim.compression``): symmetric per-tensor int8 quantization.
+``repro.optim.compression``): int8 quantization with error feedback.
 
-``compressed_psum_with_feedback`` (the int8 all-reduce with error
-feedback) reduces over a mesh axis; the port has no mesh yet, so it
-raises until the distributed slice (ROADMAP.md queue A item 7).
+The cross-pod link is the scarcest bandwidth at multi-pod scale, and the
+data-parallel gradient all-reduce over the "pod" axis its largest user.
+``compressed_psum_with_feedback`` runs on every rank of a pod process
+group (a ``DeviceMesh``'s ``"pod"`` dim):
+
+    q, scale = quantize(g + residual);  q_sum = all_reduce(q);
+    g' = dequant(q_sum) / n;  residual' = (g + residual) - dequant(q)
+
+The scale is shared (the max over the group of ``max|g + r| / 127``), so
+every rank encodes with one codebook and the int payloads sum exactly as
+``int32``. The error feedback re-injects step t's quantization error at
+step t + 1, so the compression is unbiased over time (Karimireddy et al.,
+2019).
 """
 from __future__ import annotations
 
@@ -11,7 +21,7 @@ from typing import Any, Tuple
 
 import torch
 
-__all__ = ["quantize_int8", "dequantize_int8",
+__all__ = ["quantize_int8", "dequantize_int8", "compress_leaf",
            "compressed_psum_with_feedback"]
 
 
@@ -27,14 +37,41 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compressed_psum_with_feedback(grads: Any, residuals: Any,
-                                  axis_name: str):
-    """Not ported: it all-reduces over a mesh axis.
+def compress_leaf(g: torch.Tensor, r: torch.Tensor,
+                  group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One leaf of :func:`compressed_psum_with_feedback`: ``(mean-reduced
+    fp32 gradient, new residual)``, in the reference's order: the shared
+    scale (one ``all_reduce(MAX)``), ``q = clip(round(corrected / scale),
+    -127, 127)``, the residual ``corrected - q * scale``, the ``int32`` sum
+    of ``q`` (one ``all_reduce(SUM)``), then ``sum * scale / n``. Neither
+    input is modified; the temporaries are updated in place, so at most
+    four leaf-sized ones live at once."""
+    import torch.distributed as dist
 
-    Raises:
-        NotImplementedError: always, until meshes are ported.
-    """
-    raise NotImplementedError(
-        f"compressed_psum_with_feedback reduces over the mesh axis "
-        f"{axis_name!r}; the port has no mesh yet (ROADMAP.md queue A "
-        "item 7, distributed and launch)")
+    from repro_torch.distributed.collectives import all_reduce
+
+    corrected = g.float() + r
+    local_scale = torch.clamp_min(corrected.abs().max(), 1e-12) / 127.0
+    shared = all_reduce(local_scale.reshape(1), group, "max")[0]
+    q = torch.round(corrected / shared).clamp_(-127, 127)
+    new_r = corrected.sub_(q * shared)
+    summed = all_reduce(q.to(torch.int32), group)
+    del q
+    return (summed.float().mul_(shared).div_(dist.get_world_size(group)),
+            new_r)
+
+
+def compressed_psum_with_feedback(grads: Any, residuals: Any,
+                                  group) -> Tuple[Any, Any]:
+    """All-reduce ``grads`` over ``group`` in int8 with error feedback ->
+    ``(mean-reduced fp32 grads, new residuals)``, trees of ``grads``'
+    layout, one :func:`compress_leaf` a leaf. As in the reference, ``q``
+    holds int8 values but is summed as ``int32``, so the reduction itself
+    moves as many bytes as fp32."""
+    from repro_torch.common.tree import tree_get, tree_map_with_path
+
+    out = tree_map_with_path(
+        lambda path, g: compress_leaf(g, tree_get(residuals, path), group),
+        grads)
+    return (tree_map_with_path(lambda _, pair: pair[0], out),
+            tree_map_with_path(lambda _, pair: pair[1], out))

@@ -43,7 +43,8 @@ and in its ``RequestState.tier_features``. As in the reference this is
 bookkeeping: every request is served at the full budget, so tiers change
 no token.
 
-Not ported yet: data-parallel meshes (ROADMAP.md queue A item 7).
+Not ported yet: data-parallel serving, whose slot shards must agree on
+admissions (the next part of ROADMAP.md queue A item 7).
 """
 from __future__ import annotations
 

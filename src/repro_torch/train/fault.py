@@ -7,9 +7,8 @@
 * ``run_with_restarts`` — run a step loop, checkpoint every k steps, and
   on an exception restore the latest checkpoint and go on (bounded
   retries).
-
-``elastic_remesh`` (restore onto another mesh) waits for the port's meshes
-(ROADMAP.md queue A item 7) and raises.
+* ``elastic_remesh`` — restore the latest checkpoint onto a new mesh
+  (another rank count or layout).
 """
 from __future__ import annotations
 
@@ -99,13 +98,22 @@ def run_with_restarts(
     return state
 
 
-def elastic_remesh(ckpt_manager, make_mesh_fn, make_shardings_fn,
+def elastic_remesh(ckpt_manager, make_mesh_fn: Callable[[], Any],
+                   make_shardings_fn: Optional[Callable[[Any], Any]] = None,
                    step: Optional[int] = None):
-    """Not ported: restoring onto a new mesh needs the port's meshes.
+    """Restore checkpoint ``step`` (the latest by default) onto the mesh
+    ``make_mesh_fn()`` builds -> ``(mesh, state)``.
 
-    Raises:
-        NotImplementedError: always, until meshes are ported.
+    The checkpoint is host numpy, free of any layout, so any mesh can pick
+    the run up (two pods down to one after a failure, 2 ranks down to 1).
+    The port's training state is replicated on data-parallel meshes, so
+    ``make_shardings_fn(mesh)`` says only where this rank's copy goes: a
+    device (``None``, or no function: the mesh's own device).
     """
-    raise NotImplementedError(
-        "elastic_remesh restores onto a device mesh; the port has no mesh "
-        "yet (ROADMAP.md queue A item 7, distributed and launch)")
+    from repro_torch.launch.mesh import mesh_device
+
+    mesh = make_mesh_fn()
+    device = make_shardings_fn(mesh) if make_shardings_fn else None
+    state = ckpt_manager.restore(
+        step, device=mesh_device(mesh) if device is None else device)
+    return mesh, state

@@ -14,6 +14,18 @@ gradients and metrics are averaged (the reference's ``lax.scan``, as a
 loop). The update is in place (``optim.adamw``): a step consumes the
 state it is given, as the reference's trainer donates it.
 
+Data-parallel ranks (``train.trainer.Trainer(mesh=)``) pass their
+process groups: ``data_group`` averages the gradients and metrics over
+``"data"`` with ``all_reduce``; ``pod_group`` then averages over ``"pod"``,
+int8-compressed with error feedback under ``grad_compression="int8_pod"``
+(the state then carries fp32 ``residuals``, as the reference's; the step
+runs ``optim.compression.compress_leaf`` a leaf and writes the reduced
+gradient and the new residual over the old, so no second copy of either
+tree is held). Each rank's gradients are weighted by
+its share of the target tokens before the mean, so the result is the
+global batch's mean whatever the ranks' masks; with equal token counts
+the weight is exactly 1.
+
 ``make_eval_step(cfg)``, ``make_prefill_step(cfg, max_len)`` and
 ``make_decode_step(cfg)`` are forward-only, under ``torch.inference_mode``.
 For an encoder (``causal=False``) "prefill" is a full bidirectional
@@ -81,16 +93,11 @@ class TrainHyper:
     total_steps: int = 10000
     grad_accum: int = 1
     adamw: AdamWConfig = AdamWConfig()
-    # "none" only: "int8_pod" compresses a cross-pod all-reduce, which
-    # needs a mesh (ROADMAP.md queue A item 7)
+    # "none" | "int8_pod": compress the cross-pod gradient all-reduce
     grad_compression: str = "none"
 
     def __post_init__(self):
-        if self.grad_compression == "int8_pod":
-            raise NotImplementedError(
-                "grad_compression='int8_pod' all-reduces over a mesh's pod "
-                "axis; the port has no mesh yet (ROADMAP.md queue A item 7)")
-        if self.grad_compression != "none":
+        if self.grad_compression not in ("none", "int8_pod"):
             raise ValueError(f"unknown grad_compression "
                              f"{self.grad_compression!r}")
         if self.grad_accum < 1:
@@ -113,14 +120,19 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
                      hyper: TrainHyper = TrainHyper(),
                      device="cuda") -> TrainState:
     """``{"params", "opt", "step"}``: masters from ``seed`` on ``device``,
-    zero AdamW moments, step 0."""
+    zero AdamW moments, step 0; with ``grad_compression="int8_pod"`` also
+    zero fp32 ``residuals`` of the params' layout."""
     params = init_params(cfg, seed, device)
-    return {
+    state = {
         "params": params,
         "opt": adamw_init(params),
         "step": torch.zeros((), dtype=torch.int32,
                             device=resolve_device(device)),
     }
+    if hyper.grad_compression == "int8_pod":
+        state["residuals"] = tree_map_with_path(
+            lambda _, p: torch.zeros_like(p, dtype=torch.float32), params)
+    return state
 
 
 def _lr_at(hyper: TrainHyper, step):
@@ -169,20 +181,66 @@ def _microbatch(batch, accum: int, i: int):
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
+def _average(grads, metrics, group, residuals=None):
+    """Average ``grads`` and ``metrics`` over ``group`` in place: each
+    rank's share weighted by its target tokens (``tokens_r * n / sum
+    tokens``, exactly 1 for equal counts), then one ``all_reduce`` a leaf
+    and ``/ n``, or with ``residuals`` the int8 reduction with error
+    feedback (``optim.compression.compress_leaf``), the new residuals
+    written over the old. Returns ``(grads, metrics)``;
+    ``metrics["tokens"]`` becomes the sum over the group."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.optim.compression import compress_leaf
+
+    n = dist.get_world_size(group)
+    tokens = metrics["tokens"].float().reshape(1)
+    total = all_reduce(tokens.clone(), group)
+    weight = tokens[0] * n / total[0]
+    keys = [k for k in metrics if k != "tokens"]
+    vec = all_reduce(torch.stack([metrics[k].float() * weight
+                                  for k in keys]), group).div_(n)
+    metrics = {**dict(zip(keys, vec.unbind())), "tokens": total[0]}
+
+    def leaf(path, g):
+        if not g.is_floating_point():      # frozen integer tables
+            return
+        g.mul_(weight)
+        if residuals is None:
+            all_reduce(g, group).div_(n)
+            return
+        r = tree_get(residuals, path)
+        mean, new_r = compress_leaf(g, r, group)
+        g.copy_(mean)
+        r.copy_(new_r)
+
+    tree_map_with_path(leaf, grads)
+    return grads, metrics
+
+
+def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
+                    data_group=None, pod_group=None):
     """``step(state, batch) -> (state, metrics)``: gradients of ``loss_fn``
-    (averaged over ``hyper.grad_accum`` microbatches), then one AdamW step
-    at the warm-up-cosine learning rate of ``state["step"]``. ``metrics``
-    holds ``loss_fn``'s (``loss``, ``ce``, ``z_loss``, ``tokens``) and the
+    (averaged over ``hyper.grad_accum`` microbatches; then over
+    ``data_group``, then over ``pod_group``, int8-compressed under
+    ``grad_compression="int8_pod"``), then one AdamW step at the
+    warm-up-cosine learning rate of ``state["step"]``. ``metrics`` holds
+    ``loss_fn``'s (``loss``, ``ce``, ``z_loss``, ``tokens``) and the
     optimizer's (``grad_norm``, ``lr``), as 0-dim tensors on the state's
-    device.
+    device, the same on every rank.
 
     Raises:
-        ValueError: the params hold the compute copy's derived keys
-            (``rm_w``, ``rm_slab``), or the batch does not split into
-            ``grad_accum`` microbatches.
+        ValueError: ``int8_pod`` without a ``pod_group``; the params hold
+            the compute copy's derived keys (``rm_w``, ``rm_slab``), or
+            the batch does not split into ``grad_accum`` microbatches.
     """
     accum = hyper.grad_accum
+    compress = hyper.grad_compression == "int8_pod"
+    if compress and pod_group is None:
+        raise ValueError("grad_compression='int8_pod' reduces over a pod "
+                         "process group: pass pod_group= (Trainer(mesh=) "
+                         "with a 'pod' axis)")
 
     def accumulate(params, batch):
         if accum == 1:
@@ -204,6 +262,12 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper()):
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         _check_masters(state["params"])
         grads, metrics = accumulate(state["params"], batch)
+        if data_group is not None:
+            grads, metrics = _average(grads, metrics, data_group)
+        if pod_group is not None:
+            grads, metrics = _average(
+                grads, metrics, pod_group,
+                state["residuals"] if compress else None)
         lr = _lr_at(hyper, state["step"])
         params, opt, opt_metrics = adamw_update(
             state["params"], grads, state["opt"], lr, hyper.adamw)

@@ -2,9 +2,19 @@
 data, the train step, the CheckpointManager (atomic, keep-k), the
 StragglerMonitor and observability.
 
-``Trainer(cfg, hyper, dataset, ckpt_dir=, seed=, log_every=,
-checkpoint_every=, obs=, device=)`` on one device; ``mesh`` must be
-``None`` (meshes wait for ROADMAP.md queue A item 7). A step's wall time
+``Trainer(cfg, hyper, dataset, ckpt_dir=, mesh=, seed=, log_every=,
+checkpoint_every=, obs=, device=)``. With ``mesh=None`` it trains on one
+device. With a ``DeviceMesh`` over ``("data", "model")`` or ``("pod",
+"data", "model")`` (``launch.mesh``) it trains data-parallel, one process
+a rank: the params and optimizer state are replicated (every rank draws
+them from ``seed``), rank r trains on its rows of ``dataset.batch_at(step)``
+(the batch dim split over the axes ``batch_partition_specs`` gives it),
+the gradients are averaged over ``"data"`` and then over ``"pod"``
+(int8-compressed under ``grad_compression="int8_pod"``), so every rank
+holds the same state and logs the same metrics. Only rank 0 prints and
+writes checkpoints; every rank waits at a barrier after a save. A
+``"model"`` axis larger than 1 (tensor parallelism) and FSDP's sharded
+weights are the next part of ROADMAP.md queue A item 7. A step's wall time
 is read on the ``obs`` clock after ``torch.cuda.synchronize`` (the
 reference's ``block_until_ready``). With ``obs`` (``repro_torch.obs.Obs``)
 each step records the reference's ``train/step`` span, ``train/step_s``
@@ -30,6 +40,25 @@ from repro_torch.train.steps import (
 
 __all__ = ["Trainer"]
 
+_MESH_AXES = ("pod", "data", "model")
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    """The mesh's axis sizes, checked for data-parallel training."""
+    from repro_torch.distributed.sharding import mesh_axes
+
+    sizes = mesh_axes(mesh)
+    unknown = set(sizes) - set(_MESH_AXES)
+    if unknown:
+        raise ValueError(f"Trainer meshes have axes {_MESH_AXES}; got "
+                         f"{tuple(sizes)}")
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a 'model' axis of {sizes['model']} (tensor parallelism over "
+            "DTensor) is the next part of ROADMAP.md queue A item 7; this "
+            "Trainer trains data-parallel over 'pod' and 'data'")
+    return sizes
+
 
 class Trainer:
     def __init__(
@@ -46,25 +75,38 @@ class Trainer:
         device="cuda",
     ):
         """Raises:
-            NotImplementedError: a ``mesh`` is given.
+            NotImplementedError: the mesh has a ``"model"`` axis above 1.
+            ValueError: a mesh axis other than ``pod``, ``data`` and
+                ``model``; ``device`` is not the mesh's device type;
+                ``int8_pod`` without a ``"pod"`` axis.
             RuntimeError: ``device`` is CUDA (the default) and there is
                 none.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) shards over a device mesh; the port has "
-                "no mesh yet (ROADMAP.md queue A item 7)")
         self.cfg = cfg
         self.hyper = hyper
         self.dataset = dataset
+        self.mesh = mesh
         self.device = resolve_device(device)
+        groups = {}
+        if mesh is not None:
+            from repro_torch.launch.mesh import mesh_device
+
+            sizes = _mesh_sizes(mesh)
+            if self.device.type != mesh.device_type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device_type!r}")
+            self.device = mesh_device(mesh)
+            groups = {f"{axis}_group": mesh.get_group(axis)
+                      for axis in ("data", "pod") if axis in sizes}
+            self._sizes = sizes
+        self._rank0 = mesh is None or _global_rank() == 0
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
         self.obs = _obs_resolve(obs)
         self.monitor = StragglerMonitor()
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.metrics_log: List[Dict[str, float]] = []
-        self._step = make_train_step(cfg, hyper)
+        self._step = make_train_step(cfg, hyper, **groups)
         self._seed = seed
 
     # -- lifecycle -------------------------------------------------------------
@@ -79,6 +121,35 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _local_rows(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows: the batch dim split over the mesh axes its
+        spec names, in mesh order (all rows where the spec replicates)."""
+        if self.mesh is None:
+            return batch
+        from repro_torch.distributed.sharding import batch_partition_specs
+
+        specs = batch_partition_specs(batch, self.mesh)
+        out = {}
+        for k, v in batch.items():
+            axes = specs[k][0] if len(specs[k]) else None
+            axes = () if axes is None else (
+                axes if isinstance(axes, tuple) else (axes,))
+            index, parts = 0, 1
+            for axis in axes:
+                index = (index * self._sizes[axis]
+                         + self.mesh.get_local_rank(axis))
+                parts *= self._sizes[axis]
+            rows = v.shape[0] // parts
+            out[k] = v[index * rows:(index + 1) * rows]
+        return out
+
+    def _save(self, step: int, state) -> None:
+        """Rank 0 writes; on a mesh every rank then waits at a barrier."""
+        if self._rank0:
+            self.ckpt.save(step, state)
+        if self.mesh is not None:
+            _barrier(self.device)
+
     def train(self, num_steps: int, state: Optional[Dict] = None):
         """Run steps ``state["step"] .. num_steps - 1``; log every
         ``log_every`` steps and the last one (a ``[train]`` line and a row
@@ -87,8 +158,9 @@ class Trainer:
         state = state if state is not None else self.init_or_restore()
         start = int(state["step"])
         for step in range(start, num_steps):
-            batch = {k: v.to(self.device)
-                     for k, v in self.dataset.batch_at(step).items()}
+            batch = self._local_rows(
+                {k: v.to(self.device)
+                 for k, v in self.dataset.batch_at(step).items()})
             self._sync()
             t0 = self.obs.now()
             with self.obs.span("train/step", step=step):
@@ -106,12 +178,29 @@ class Trainer:
                 row = {k: float(v) for k, v in metrics.items()}
                 row.update(step=step, sec_per_step=dt)
                 self.metrics_log.append(row)
-                print(f"[train] step={step:5d} loss={row['loss']:.4f} "
-                      f"ce={row['ce']:.4f} gnorm={row['grad_norm']:.3f} "
-                      f"{dt * 1000:.0f}ms", flush=True)
+                if self._rank0:
+                    print(f"[train] step={step:5d} loss={row['loss']:.4f} "
+                          f"ce={row['ce']:.4f} "
+                          f"gnorm={row['grad_norm']:.3f} "
+                          f"{dt * 1000:.0f}ms", flush=True)
             if (self.ckpt is not None and step > start
                     and step % self.checkpoint_every == 0):
-                self.ckpt.save(step, state)
+                self._save(step, state)
         if self.ckpt is not None:
-            self.ckpt.save(num_steps, state)
+            self._save(num_steps, state)
         return state
+
+
+def _global_rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+def _barrier(device: torch.device) -> None:
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[device.index])
+    else:
+        dist.barrier()

@@ -86,6 +86,33 @@ def test_nonparametric_ln_has_no_params():
     assert params["layers"][0]["norm1"] == {}
 
 
+@pytest.mark.parametrize("field,value", [("mlp_kind", "geglu"),
+                                         ("norm_kind", "batchnorm")])
+def test_unknown_kinds_raise_the_references_error(field, value):
+    """An unknown MLP or norm kind: ``ValueError`` in both packages, the
+    port's message naming the kind."""
+    import jax.numpy as jnp
+
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers as tlayers
+
+    jcfg = dataclasses.replace(jget("qwen3-1.7b", smoke=True),
+                               **{field: value})
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              **{field: value})
+    if field == "mlp_kind":
+        with pytest.raises(ValueError):
+            jlayers.init_mlp(jcfg, jax.random.PRNGKey(0), 16, jnp.float32)
+        with pytest.raises(ValueError, match=value):
+            tlayers.init_mlp(cfg, torch.Generator().manual_seed(0), 16,
+                             torch.float32)
+    else:
+        with pytest.raises(ValueError):
+            jlayers.init_norm(jcfg, 16, jnp.float32)
+        with pytest.raises(ValueError, match=value):
+            init_norm(cfg, 16, torch.float32, "cpu")
+
+
 def _batch(cfg, seed):
     """Tokens, and for the vision stub 6 precomputed patch embeddings put
     before them (numpy, for both packages)."""

@@ -475,9 +475,19 @@ def test_make_feature_map_arguments():
                            device="cpu")
     with pytest.raises(ValueError, match="num_features"):
         T.make_feature_map(kern, 4, key=gen, device="cpu")
-    for kw in ({"mesh": object()}, {"num_shards": 2}):
-        with pytest.raises(NotImplementedError, match="A12"):
-            T.make_feature_map(kern, 4, 64, gen, device="cpu", **kw)
+    # num_shards= (no mesh): the sharded construction's host loop
+    sfm = T.make_feature_map(kern, 4, 64, seed=0, num_shards=2,
+                             device="cpu")
+    assert type(sfm).__name__ == "ShardedFeatureMap"
+    assert sfm.num_shards == 2 and sfm.output_dim == 2 * sfm.shard_output_dim
+    assert sfm.params["omegas"].shape[0] == 2
+    x = torch.randn(5, 4, generator=torch.Generator().manual_seed(1))
+    x = x / x.norm(dim=1, keepdim=True)
+    torch.testing.assert_close(sfm.estimate_gram(x),
+                               sfm.apply(x) @ sfm.apply(x).T, rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="divide evenly"):
+        T.make_feature_map(kern, 4, 63, seed=0, num_shards=2, device="cpu")
     assert T.make_feature_map(kern, 4, 64, gen, precision="bf16",
                               device="cpu").omegas.dtype == torch.bfloat16
     assert T.make_feature_map(kern, 4, 64, gen, precision="bf16",

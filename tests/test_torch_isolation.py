@@ -43,7 +43,7 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 SUBPACKAGES = ("sketch", "ctr", "structured", "core", "models", "serve",
                "data", "launch", "kernels", "paper", "obs", "bench",
-               "common", "train")
+               "common", "train", "distributed")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -224,11 +224,43 @@ def test_int8_quantization_matches_reference():
                                                                    jscale)))
 
 
-def test_pod_compression_waits_for_meshes():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        compressed_psum_with_feedback({}, {}, axis_name="pod")
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        TrainHyper(grad_compression="int8_pod")
+def test_pod_compression_on_a_world_of_one(tmp_path):
+    """One gloo rank (a pod axis of 1): the reduced grads and residuals
+    equal the reference's under ``jax.vmap(axis_name="pod")`` over one
+    member, within 1e-6; ``int8_pod`` is a valid ``TrainHyper`` whose
+    step needs a pod group. (Four ranks: tests/test_torch_distributed.py.)"""
+    import torch.distributed as dist
+
+    from repro_torch.train.steps import make_train_step
+
+    rng = np.random.default_rng(3)
+    g = {"w": rng.standard_normal((9, 7)).astype(np.float32),
+         "layers": [{"b": rng.standard_normal(5).astype(np.float32)}]}
+    r = {"w": (rng.standard_normal((9, 7)) * 1e-2).astype(np.float32),
+         "layers": [{"b": np.zeros(5, np.float32)}]}
+    jg, jr = jax.vmap(
+        lambda g, r: jcomp.compressed_psum_with_feedback(g, r, "pod"),
+        axis_name="pod")(*jax.tree_util.tree_map(lambda a: a[None], (g, r)))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        tg, tr = compressed_psum_with_feedback(
+            ttree.tree_map_with_path(lambda _, a: torch.from_numpy(a), g),
+            ttree.tree_map_with_path(lambda _, a: torch.from_numpy(a), r),
+            dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    for got, want in ((tg, jg), (tr, jr)):
+        np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"][0]),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got["layers"][0]["b"].numpy(),
+                                   np.asarray(want["layers"][0]["b"][0]),
+                                   rtol=0, atol=1e-6)
+    assert TrainHyper(grad_compression="int8_pod").grad_compression == \
+        "int8_pod"
+    cfg = get_config("qwen3-1.7b", smoke=True, attention_mode="rm")
+    with pytest.raises(ValueError, match="pod_group"):
+        make_train_step(cfg, TrainHyper(grad_compression="int8_pod"))
     with pytest.raises(ValueError, match="grad_compression"):
         TrainHyper(grad_compression="fp8")
 

@@ -1,9 +1,10 @@
 """The port's training slice on the CPU: the train step against the
 reference's from one handed-over state, gradient accumulation, the
 synthetic LM data bit for bit, checkpointing and fault tolerance (the
-cases of ``tests/test_checkpoint_fault.py`` but ``elastic_remesh``), the
-Trainer (the cases of ``tests/test_trainer_integration.py`` on a tiny rm
+cases of ``tests/test_checkpoint_fault.py``; ``elastic_remesh`` onto a
+mesh of one), the Trainer (the cases of ``tests/test_trainer_integration.py`` on a tiny rm
 config), the launcher in-process, and the entry points' CUDA default."""
+import contextlib
 import dataclasses
 import inspect
 
@@ -253,9 +254,35 @@ def test_straggler_monitor():
     assert seen and seen[0][0] == 8
 
 
-def test_elastic_remesh_waits_for_meshes(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        elastic_remesh(CheckpointManager(tmp_path), None, None)
+@contextlib.contextmanager
+def _world_of_one(tmp_path):
+    """A gloo default process group of one rank in this process."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_elastic_remesh_restores_onto_a_mesh(tmp_path):
+    """A checkpoint restored onto a one-rank host mesh, bitwise; the
+    shardings function may name the device. (From 2 ranks to 1:
+    tests/test_torch_dp_train.py.)"""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    state = init_train_state(CFG, seed=2, device=CPU)
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save(5, state)
+    with _world_of_one(tmp_path):
+        for shardings in (None, lambda mesh: torch.device(CPU)):
+            mesh, back = elastic_remesh(mgr, make_host_mesh, shardings)
+            assert tuple(mesh.mesh_dim_names) == ("data", "model")
+            a, b = flatten_dict(state), flatten_dict(back)
+            assert set(a) == set(b)
+            assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 # -- the Trainer (tests/test_trainer_integration.py) -------------------------
@@ -289,9 +316,50 @@ def test_checkpoint_resume_is_deterministic(tmp_path):
     assert CheckpointManager(tmp_path / "b").available_steps() == [10, 20]
 
 
-def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Trainer(CFG, TrainHyper(), None, mesh=object(), device=CPU)
+def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
+    """``Trainer(mesh=make_host_mesh())`` on one gloo rank: every loss and
+    the final state bitwise ``mesh=None``'s (the all-reduce of one rank
+    and the token weight 1 change nothing). A "model" axis above 1 and an
+    unknown axis are refused before any group is touched."""
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    single = _mk_trainer(steps=3)
+    state_a = single.train(3)
+    with _world_of_one(tmp_path):
+        data = SyntheticLMDataset(vocab_size=128, seq_len=64,
+                                  global_batch=4, num_contexts=64,
+                                  device=CPU)
+        meshed = Trainer(CFG, TrainHyper(peak_lr=5e-3, warmup_steps=3,
+                                         total_steps=3), data,
+                         mesh=make_host_mesh(), log_every=100, device=CPU)
+        state_b = meshed.train(3)
+    assert [r["loss"] for r in meshed.metrics_log] == \
+        [r["loss"] for r in single.metrics_log]
+    a, b = flatten_dict(state_a), flatten_dict(state_b)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    with pytest.raises(NotImplementedError, match="next part of ROADMAP"):
+        Trainer(CFG, TrainHyper(), None, device=CPU,
+                mesh=AbstractMesh((1, 2), ("data", "model")))
+    with pytest.raises(ValueError, match="axes"):
+        Trainer(CFG, TrainHyper(), None, device=CPU,
+                mesh=AbstractMesh((2,), ("fsdp",)))
+    with pytest.raises(ValueError, match="pod_group"):
+        Trainer(CFG, TrainHyper(grad_compression="int8_pod"), None,
+                device=CPU)
+
+
+def test_launcher_trains_on_a_host_mesh(capsys):
+    """``--mesh host`` on the CPU: a world of one over a FileStore, torn
+    down at the end."""
+    import torch.distributed as dist
+
+    state = launch_train.main(["--smoke", "--device", "cpu", "--steps", "2",
+                               "--batch", "2", "--seq", "32", "--mesh",
+                               "host"])
+    assert int(state["step"]) == 2
+    assert not dist.is_initialized()
+    assert "[train] step=    1" in capsys.readouterr().out
 
 
 def test_launcher_trains_in_process(tmp_path, capsys):
