@@ -309,6 +309,31 @@ Phases, each fatal on failure:
     and with ``grad_compression="int8_pod"`` on a (1, 1, 1) ``("pod",
     "data", "model")`` mesh: B2 28 launches a step, finite losses, the
     residuals' max, each run's wall and peak memory beside phase 24 c's.
+29. tensor parallelism over "model" and data-parallel serving, each part
+    2 spawned processes joined by gloo on cuda:0 (NCCL refuses two ranks
+    on one card): (a) qwen3-1.7b rm at phase 24 c's shape, 3 steps on a
+    (data 1, model 2) mesh in bf16 and in fp32 compute, each against one
+    device's run: each rank 8 heads, B2 28 a step, its all-reduces over
+    "model" a step; in fp32 the losses and every ``grad_norm`` within
+    TP_FP32_TOL, in bf16 the losses and the first ``grad_norm`` (where
+    both hold the same weights) within the bf16 budget, the later ones
+    printed (ROADMAP.md queue C: a head near its rm clamp); for each dtype
+    the gradient leaves that part most at the third step's state; step
+    walls and peak memory beside phase 24 c's; (b) phase 7's workload
+    through ``Scheduler(mesh=)`` on (2, 1), tokens bitwise one device's
+    serving with the rank's 2 lanes, and on (1, 2), where a request that
+    parts from phase 7's tokens must part inside the bf16 noise (the rows
+    it was sampled from within the budget, the two tokens within twice
+    their gap); B1 / B2 launches and peak memory a rank; (c) deepseek-v2-
+    lite-16b rm drawn by ``make_engine(mesh=)`` (bf16 weights, each rank's
+    shards cut block by block as drawn) prefilling 4 x 256 tokens on (1,
+    2): logits by position and greedy agreement against one rank's,
+    printed (the MoE's routing is discontinuous), its first MoE layer
+    through ``apply_moe(mesh=)`` on one input within the bf16 budget, and
+    its first 4 layers (dense, then 3 MoE) in fp32 within E2E_TOL at
+    every logit, B2 27 and 4 a rank; (d) hubert-xlarge rm in fp32
+    encoding 2 x 1500 frames on (1, 2): B3 and B4 48 a rank, within
+    E2E_TOL.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -339,7 +364,9 @@ at jamba's decode shape, their launches in jamba's serve and their device
 time in its windows; B1 and B6–B8 their launches in a 4-shard apply
 (``sharded_launches``), B1 that apply's event and device times; B2 its
 training peak (``train_peak_gib``) and its launches in phase 28's
-data-parallel runs) and, as its last
+data-parallel runs; B1–B4 their launches a rank in phase 29's tensor- and
+data-parallel runs (``tp_*``, ``dp_*``), B2 a rank's training peak) and,
+as its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
@@ -3263,6 +3290,8 @@ def meshes_phase(torch, np, kernels, counters):
             wall = time.perf_counter() - t0
             runs[label] = {
                 "losses": [row["loss"] for row in trainer.metrics_log],
+                "grad_norms": [row["grad_norm"]
+                               for row in trainer.metrics_log],
                 "step_ms": [row["sec_per_step"] * 1e3
                             for row in trainer.metrics_log],
                 "launches": launches, "wall": wall,
@@ -3298,6 +3327,595 @@ def meshes_phase(torch, np, kernels, counters):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[mesh] phase 28 in {time.perf_counter() - t_phase:.2f}s")
+
+
+# -- phase 29: tensor parallelism over "model", data-parallel serving --------
+TP_RANKS = 2            # gloo processes sharing cuda:0 in phase 29
+TP_TRAIN_TOL = 2e-2     # relative: bf16 losses, and the first grad_norm, 2
+# ranks vs one (the later bf16 grad norms are printed, not held: once bf16
+# rounding has moved the weights apart, a head whose rm denominator nears
+# its clamp moves the norm by 10% either way; ROADMAP.md queue C)
+TP_FP32_TOL = 1e-3      # relative: fp32 losses and every grad_norm, 2 vs 1
+TP_LEAVES = 4           # gradient leaves printed where two runs part most
+ENC_TP_CLIPS = 2        # hubert-xlarge clips of ENC_FRAMES in phase 29 d
+
+
+def _tp_join(rank, world, store):
+    """Join the phase's gloo group of ``world`` ranks on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+
+
+def _tp_counters():
+    from repro_torch.kernels.rm_attention.ops import (
+        rm_fused_apply,
+        rm_fused_causal,
+        rm_fused_state,
+    )
+    from repro_torch.kernels.rm_feature.ops import rm_feature_fused
+
+    return {"B1": rm_feature_fused, "B2": rm_fused_causal,
+            "B3": rm_fused_state, "B4": rm_fused_apply}
+
+
+def tp_train_run(torch, mesh, dtype):
+    """Phase 29 a: qwen3-1.7b rm (phase 24 c's 4 x 256 tokens, ``dtype``
+    compute) DP_STEPS steps through the Trainer on ``mesh`` (None: one
+    device). Per step this rank's B2 launches and its all-reduces over
+    "model"; before the last step, ``[local shape, squared norm]`` of every
+    gradient leaf at the state that step starts from
+    (``train.steps.loss_grads`` on its batch, beside the step)."""
+    import contextlib
+
+    from repro_torch.common.tree import flatten_dict
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.train.steps import TrainHyper, loss_grads
+    from repro_torch.train.trainer import Trainer
+
+    counters = _tp_counters()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", attention_mode="rm"),
+                              compute_dtype=dtype)
+    lcfg = cfg if mesh is None else tp.local_config(cfg, TP_RANKS)
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0,
+                              device="cuda")
+    hyper = TrainHyper(peak_lr=1e-3, warmup_steps=2, total_steps=DP_STEPS)
+    group = None if mesh is None else mesh.get_group("model")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, hyper, data, seed=0, log_every=1, mesh=mesh,
+                      checkpoint_every=10 ** 9, device="cuda")
+    state = trainer.init_or_restore()
+    b2, reduces, leaves = [], [], {}
+    for step in range(1, DP_STEPS + 1):
+        if step == DP_STEPS:
+            batch = {k: v.to("cuda")
+                     for k, v in data.batch_at(step - 1).items()}
+            with (contextlib.nullcontext() if mesh is None
+                  else tp.local_view(mesh)):
+                grads, _ = loss_grads(lcfg, state["params"], batch)
+            leaves = {k: [list(g.shape), float(torch.sum(g.float() ** 2))]
+                      for k, g in flatten_dict(grads).items()}
+            del grads, batch
+        for c in counters.values():
+            c.launches = 0
+        calls = collectives.all_reduce.by_group.get(group, 0)
+        state = trainer.train(step, state)
+        torch.cuda.synchronize()
+        b2.append(counters["B2"].launches)
+        reduces.append(collectives.all_reduce.by_group.get(group, 0) - calls)
+    return {"losses": [r["loss"] for r in trainer.metrics_log],
+            "grad_norms": [r["grad_norm"] for r in trainer.metrics_log],
+            "step_ms": [r["sec_per_step"] * 1e3 for r in trainer.metrics_log],
+            "b2": b2, "model_all_reduces": reduces, "leaves": leaves,
+            "local_heads": lcfg.num_heads,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device": str(next(iter(state["params"]["embed"].values()))
+                          .device)}
+
+
+def _tp_train_worker(rank, world, store, out_dir):
+    """Phase 29 a, one rank: ``tp_train_run`` on a (data 1, model 2) mesh
+    in bf16 and then in fp32 compute."""
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+        for dtype in ("bfloat16", "float32"):
+            report = tp_train_run(torch, mesh, dtype)
+            (Path(out_dir) / f"train{rank}_{dtype}.json").write_text(
+                json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def leaf_gaps(one, ranks):
+    """``[(relative gap, leaf, one device's squared norm, the mesh's)]``,
+    largest gap first: a leaf cut over "model" (its local shape not one
+    device's) sums the ranks' squares, a replicated one is rank 0's."""
+    rows = []
+    for k, (shape, v) in one.items():
+        s0, v0 = ranks[0][k]
+        tp_v = v0 + (ranks[1][k][1] if s0 != shape else 0.0)
+        rows.append((abs(tp_v - v) / max(v, 1e-30), k, v, tp_v))
+    return sorted(rows, reverse=True)
+
+
+def serve_rows(torch, engine, prompts):
+    """``run_workload`` (phase 7's requests, ids 0..) with the logits row
+    behind every sampled token kept on the host -> (its four results,
+    ``{(request, token index): row [V] fp32}``)."""
+    ex = engine.executor
+    admit, decode = ex.admit, ex.decode
+    rows = {}
+
+    def admit_rows(slot, prompt):
+        row, tb = admit(slot, prompt)
+        rid = next(r for r, p_ in prompts.items() if p_ is prompt)
+        rows[(rid, 0)] = row[0].float().cpu()
+        return row, tb
+
+    def decode_rows(tokens, positions):
+        logits = decode(tokens, positions)
+        for i, st in enumerate(engine.slots):
+            if st is not None:
+                rows[(st.request.request_id, len(st.generated))] = \
+                    logits[i, 0].float().cpu()
+        return logits
+
+    ex.admit, ex.decode = admit_rows, decode_rows
+    try:
+        return run_workload(torch, engine, prompts, 0), rows
+    finally:
+        ex.admit, ex.decode = admit, decode
+
+
+def parting_points(tokens, want):
+    """``{request: first token index where tokens[request] parts from
+    want[request]}``, for the requests that part."""
+    out = {}
+    for rid, w in want.items():
+        j = next((i for i, (a, b) in enumerate(zip(tokens[rid], w))
+                  if a != b), None)
+        if j is not None:
+            out[rid] = j
+    return out
+
+
+def _tp_serve_worker(rank, world, store, out_dir, shape):
+    """Phase 29 b, one rank: phase 7's workload through the Scheduler on a
+    ``shape`` mesh; the rank's tokens, B1 / B2 launches and peak memory.
+    Where a request parts from phase 7's tokens, rank 0 keeps the logits
+    row its token was sampled from there."""
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.serve import make_engine
+
+        out = Path(out_dir)
+        counters = _tp_counters()
+        given = torch.load(out / "serve_in.pt", weights_only=False)
+        mesh = make_mesh(shape, ("data", "model"), device_type="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                             num_slots=4, max_len=256, seed=0,
+                             device="cuda", mesh=mesh)
+        for c in counters.values():
+            c.launches = 0
+        (done, admissions, steps, wall), rows = serve_rows(
+            torch, engine, given["prompts"])
+        tokens = {rid: s_.generated for rid, s_ in done.items()}
+        launches = {k: c.launches for k, c in counters.items()
+                    if c.launches}
+        ex = engine.executor
+        report = {"tokens": tokens, "launches": launches,
+                  "admissions": admissions, "steps": steps, "wall": wall,
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "local_slots": ex.local_slots,
+                  "local_heads": ex.model_cfg.num_heads}
+        (out / f"serve{rank}.json").write_text(json.dumps(report))
+        if rank == 0:
+            parts = parting_points(tokens, given["tokens"])
+            torch.save({rid: (j, rows[(rid, j)]) for rid, j in parts.items()},
+                       out / "parting.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_encode_cases():
+    """Phase 29 c-d's ``(tag, config)``: deepseek-v2-lite-16b rm with bf16
+    weights; the same cut to 4 layers (its dense first layer and 3 MoE
+    layers) in fp32; hubert-xlarge rm in fp32. The fp32 runs are held to
+    E2E_TOL at every logit: they show whether the bf16 run's gap is the
+    rounding's, amplified over the depth and through the router's
+    discontinuous choices, or the MoE's tensor-parallel path's."""
+    from repro_torch.configs import get_config
+
+    ds = get_config(DEEPSEEK, attention_mode="rm")
+    fp32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+    return (("ds", dataclasses.replace(ds, param_dtype="bfloat16")),
+            ("ds_moe", dataclasses.replace(ds, num_layers=4, **fp32)),
+            ("hubert", dataclasses.replace(
+                get_config("hubert-xlarge", attention_mode="rm"), **fp32)))
+
+
+def tp_encode(torch, cfg, given, mesh):
+    """One case of phase 29 c-d on ``mesh`` (None: one device) ->
+    ``(logits, the first MoE layer's y or None, seconds to draw the
+    weights, seconds of the prefill or encode)``. A decoder is drawn by ``launch.serve.make_engine`` (on a
+    mesh each rank draws its shards, block by block) and prefills the 4 x
+    256 tokens with the engine's compute weights; the encoder's weights
+    come from ``tensor_parallel.init_local_params`` (one device:
+    ``train.steps.init_params``) and encode the clips. The MoE layer runs
+    ``apply_moe(mesh=)`` on the saved input."""
+    import contextlib
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.transformer import forward, prefill
+    from repro_torch.train.steps import init_params
+
+    t0 = time.perf_counter()
+    if cfg.causal:
+        ex = make_engine(DEEPSEEK, cfg=cfg, num_slots=1, max_len=256, seed=0,
+                         device="cuda", mesh=mesh).executor
+        params, compute, lcfg = ex.params, ex.compute_params, ex.model_cfg
+    elif mesh is None:
+        params = compute = init_params(cfg, 0, "cuda")
+        lcfg = cfg
+    else:
+        params, _ = tp.init_local_params(cfg, 0, mesh, "cuda")
+        compute, lcfg = params, tp.local_config(cfg, TP_RANKS)
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    view = (contextlib.nullcontext() if mesh is None
+            else tp.local_view(mesh))
+    y = None
+    t0 = time.perf_counter()
+    with torch.inference_mode(), view:
+        if cfg.causal:
+            logits, _ = prefill(compute, lcfg, {"tokens": given["ds"].cuda()},
+                                256)
+        else:
+            logits, _ = forward(compute, lcfg,
+                                {"embeds": given["hubert"].cuda()})
+        logits = tp.gather_vocab(logits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if cfg.moe is not None and cfg.param_dtype == "bfloat16":
+        with torch.inference_mode():
+            y, _ = apply_moe(params["layers"][1]["moe"], cfg,
+                             given["moe_x"].cuda(), mesh=mesh)
+    return logits, y, ready, wall
+
+
+def _tp_encode_worker(rank, world, store, out_dir):
+    """Phase 29 c and d, one rank: each of ``tp_encode_cases`` through
+    ``tp_encode`` on a (1, 2) mesh. Rank 0 holds them against the one-rank
+    results the parent saved."""
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.distributed import tensor_parallel as tp
+        from repro_torch.launch.mesh import make_mesh
+
+        out = Path(out_dir)
+        counters = _tp_counters()
+        given = torch.load(out / "encode_in.pt")
+        mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+        report = {}
+        for tag, cfg in tp_encode_cases():
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            logits, y, ready, wall = tp_encode(torch, cfg, given, mesh)
+            report[tag] = {
+                "launches": {k: c.launches for k, c in counters.items()
+                             if c.launches},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "ready_s": ready, "wall_s": wall,
+                "local_heads": tp.local_config(cfg, world).num_heads,
+                "finite": bool(torch.isfinite(logits).all())}
+            if rank == 0:
+                want = torch.load(out / f"{tag}_logits.pt").cuda()
+                report[tag]["rel"] = rel_err(torch, logits, want)
+                # per position: max |gap| over the vocabulary relative to
+                # max(1, max |one rank's logit|) there
+                pos = ((logits - want).abs().amax(-1)
+                       / want.abs().amax(-1).clamp_min(1.0)).flatten()
+                report[tag]["pos_quantiles"] = torch.quantile(
+                    pos.float().cpu(), torch.tensor([0.5, 0.9, 0.99])
+                ).tolist()
+                tol = BF16_LOGITS_TOL if tag == "ds" else E2E_TOL
+                report[tag]["pos_within"] = float(
+                    (pos <= tol).float().mean())
+                report[tag]["argmax_agree"] = float(
+                    (logits.argmax(-1) == want.argmax(-1)).float().mean())
+                if y is not None:
+                    report[tag]["moe_rel"] = rel_err(
+                        torch, y.float(), torch.load(out / f"{tag}_moe_y.pt"))
+                del want
+            del logits, y
+        (out / f"encode{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
+    """Phase 29 (see the module docstring): 2 gloo ranks on cuda:0 train
+    qwen3-1.7b on (data 1, model 2), serve phase 7's workload on (2, 1)
+    and (1, 2), prefill deepseek-v2-lite-16b and encode hubert-xlarge on
+    (1, 2). Every check is fatal."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_engine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+
+        # a. training on (data 1, model 2) in bf16 and in fp32, each against
+        # one device's run (made first, freed before the ranks start)
+        dtypes = ("bfloat16", "float32")
+        one = {dtype: tp_train_run(torch, None, dtype) for dtype in dtypes}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks(_tp_train_worker, TP_RANKS, str(out / "s_train"), tmp)
+        spawn_s = time.perf_counter() - t0
+        want_b2 = [cfg.num_layers] * DP_STEPS
+        ok = True
+        for dtype in dtypes:
+            reps = [json.loads((out / f"train{r}_{dtype}.json").read_text())
+                    for r in range(TP_RANKS)]
+            ref = one[dtype]
+            gaps = [abs(a - b) / abs(b) for a, b in zip(reps[0]["losses"],
+                                                        ref["losses"])]
+            ngaps = [abs(a - b) / abs(b) for a, b in zip(
+                reps[0]["grad_norms"], ref["grad_norms"])]
+            bf16 = dtype == "bfloat16"
+            tol = TP_TRAIN_TOL if bf16 else TP_FP32_TOL
+            print(f"[tp a] qwen3-1.7b rm {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+                  f"{dtype} compute, {DP_STEPS} steps on (data 1, model "
+                  f"{TP_RANKS}), {TP_RANKS} gloo processes on cuda:0 "
+                  f"({spawn_s:.1f}s for both dtypes with their start-up): "
+                  "losses " + " ".join(f"{v:.6f}" for v in reps[0]["losses"])
+                  + " against one device's "
+                  + " ".join(f"{v:.6f}" for v in ref["losses"])
+                  + "; gaps " + " ".join(f"{v:.2e}" for v in gaps)
+                  + "; grad_norm " + " ".join(f"{v:.5f}"
+                                              for v in reps[0]["grad_norms"])
+                  + " against " + " ".join(f"{v:.5f}"
+                                           for v in ref["grad_norms"])
+                  + "; gaps " + " ".join(f"{v:.2e}" for v in ngaps)
+                  + (f" (budget {tol:.0e} on the losses and "
+                     + ("the first grad_norm, where both runs hold the same "
+                        "weights; the later ones parted by ROADMAP.md queue "
+                        "C's bf16 clamp fault)" if bf16
+                        else "every grad_norm)")))
+            rows = leaf_gaps(ref["leaves"],
+                             [r_["leaves"] for r_ in reps])
+            big = sorted(((v[1], k) for k, v in ref["leaves"].items()),
+                         reverse=True)[:TP_LEAVES]
+            print(f"[tp a] {dtype}, the gradient at the state step "
+                  f"{DP_STEPS} starts from (loss_grads beside the step): "
+                  f"squared norm {sum(v[1] for v in ref['leaves'].values()):.4f}"
+                  " on one device; the leaves that part most: "
+                  + "; ".join(f"{k} {v:.6g} on one device, {tp_v:.6g} on the"
+                              f" mesh ({gap:.2e})"
+                              for gap, k, v, tp_v in rows[:TP_LEAVES])
+                  + "; the largest on one device: "
+                  + ", ".join(f"{k} {v:.4f}" for v, k in big))
+            for r, rep in enumerate(reps):
+                print(f"[tp a] {dtype} rank {r}: {rep['local_heads']} heads "
+                      f"(BH {TRAIN_BATCH * rep['local_heads']}), B2 a step "
+                      f"{rep['b2']}, all-reduces over 'model' a step "
+                      f"{rep['model_all_reduces']}, step walls "
+                      + " / ".join(f"{v:.1f}" for v in rep["step_ms"])
+                      + f" ms (warm {rep['step_ms'][-1]:.1f} ms; one device "
+                      f"{ref['step_ms'][-1]:.1f} ms), peak "
+                      f"{rep['peak_gib']:.2f} GiB (one device "
+                      f"{ref['peak_gib']:.2f}; phase 24 c: "
+                      f"{kernels['B2']['train_peak_gib']:.2f} GiB), on "
+                      f"{rep['device']}")
+            held = gaps + (ngaps[:1] if bf16 else ngaps)
+            ok = ok and (reps[0]["losses"] == reps[1]["losses"]
+                         and reps[0]["grad_norms"] == reps[1]["grad_norms"]
+                         and max(held) <= tol and ref["b2"] == want_b2
+                         and all(r_["b2"] == want_b2 for r_ in reps)
+                         and all(r_["device"] == "cuda:0" for r_ in reps))
+            if bf16:
+                kernels["B2"]["tp_train_launches_per_rank_step"] = \
+                    reps[0]["b2"][0]
+                kernels["B2"]["tp_train_peak_gib_per_rank"] = max(
+                    r_["peak_gib"] for r_ in reps)
+        del one
+        if not ok:
+            raise AssertionError("29 a: tensor-parallel training failed")
+
+        # b. rm serving on (2, 1) and (1, 2)
+        torch.save({"prompts": prompts, "tokens": rm_tokens},
+                   out / "serve_in.pt")
+        for shape in ((TP_RANKS, 1), (1, TP_RANKS)):
+            t0 = time.perf_counter()
+            spawn_ranks(_tp_serve_worker, TP_RANKS, str(out / f"s_{shape}"),
+                        tmp, shape)
+            spawn_s = time.perf_counter() - t0
+            reps = [json.loads((out / f"serve{r}.json").read_text())
+                    for r in range(TP_RANKS)]
+            tokens = {int(k): v for k, v in reps[0]["tokens"].items()}
+            same = tokens == rm_tokens
+            print(f"[tp b] qwen3-1.7b rm, phase 7's workload on (data "
+                  f"{shape[0]}, model {shape[1]}) ({spawn_s:.1f}s with the "
+                  f"start-up): tokens equal phase 7's (mesh=None, 4 lanes) "
+                  f"{same}; ranks agree {reps[0]['tokens'] == reps[1]['tokens']}")
+            for r, rep in enumerate(reps):
+                print(f"[tp b] rank {r}: {rep['local_slots']} slots, "
+                      f"{rep['local_heads']} heads, launches "
+                      f"{rep['launches']} over {rep['admissions']} admissions"
+                      f" and {rep['steps']} decode steps, {rep['wall']:.3f}s,"
+                      f" peak {rep['peak_gib']:.2f} GiB")
+            if reps[0]["tokens"] != reps[1]["tokens"]:
+                raise AssertionError(f"29 b {shape}: the ranks disagree")
+            if shape[1] == 1:
+                # each data rank decodes its own lanes: one device serving
+                # with that many lanes is the bitwise reference (bf16 decode
+                # rows depend on the batch's shape)
+                lanes = reps[0]["local_slots"]
+                eng = make_engine("qwen3-1.7b", smoke=False,
+                                  attention_mode="rm", num_slots=lanes,
+                                  max_len=256, seed=0, device="cuda")
+                done, *_ = run_workload(torch, eng, prompts, 0)
+                want = {r: s_.generated for r, s_ in done.items()}
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"[tp b] one device serving with {lanes} lanes: tokens"
+                      f" equal the data-parallel run's {tokens == want}; "
+                      f"they part from phase 7's (4 lanes) at "
+                      f"{parting_points(want, rm_tokens)}, the run's at "
+                      f"{parting_points(tokens, rm_tokens)}")
+                if tokens != want:
+                    raise AssertionError("29 b: data-parallel tokens differ "
+                                         f"from one device's at {lanes} "
+                                         "lanes")
+            parting = torch.load(out / "parting.pt")
+            if parting and shape[1] > 1:
+                # one device's rows at the same tokens: phase 7's serve
+                # again, each row kept
+                eng = make_engine("qwen3-1.7b", smoke=False,
+                                  attention_mode="rm", num_slots=4,
+                                  max_len=256, seed=0, device="cuda")
+                (done, *_), one_rows = serve_rows(torch, eng, prompts)
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                if {r: s_.generated for r, s_ in done.items()} != rm_tokens:
+                    raise AssertionError("29 b: phase 7's serve did not "
+                                         "repeat its tokens")
+                for rid, (j, row) in sorted(parting.items()):
+                    one_row = one_rows[(rid, j)]
+                    gap = rel_err(torch, row, one_row)
+                    noise = float((row - one_row).abs().max())
+                    tok, want_tok = tokens[rid][j], rm_tokens[rid][j]
+                    deficit = float(one_row.max() - one_row[tok])
+                    print(f"[tp b] request {rid} parts at token {j} "
+                          f"({'prefill' if j == 0 else 'decode'}): {tok} "
+                          f"against {want_tok}; the rows it was sampled from"
+                          f" are {gap:.3e} apart relative (bf16 budget "
+                          f"{BF16_LOGITS_TOL:.0e}), {noise:.4f} at most; in "
+                          f"one device's row {tok} trails {want_tok} by "
+                          f"{deficit:.4f}")
+                    if not (gap <= BF16_LOGITS_TOL and deficit <= 2 * noise):
+                        raise AssertionError(f"29 b {shape}: request {rid} "
+                                             "parts beyond the bf16 noise")
+            key = "dp" if shape[1] == 1 else "tp"
+            for kid in ("B1", "B2"):
+                kernels[kid][f"{key}_serve_launches_per_rank"] = \
+                    reps[0]["launches"].get(kid, 0)
+
+        # c, d. deepseek's prefill (and its MoE layer, and a 4-layer fp32
+        # cut) and hubert's encode on (1, 2), against one rank's run (kept
+        # on the host, freed before the ranks start)
+        cases = tp_encode_cases()
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(29)
+        ds, hb = cases[0][1], cases[2][1]
+        given = {"ds": torch.randint(0, ds.vocab_size, (TRAIN_BATCH, 256),
+                                     generator=gen),
+                 "hubert": torch.randn((ENC_TP_CLIPS, ENC_FRAMES,
+                                        hb.d_model), generator=gen),
+                 "moe_x": torch.randn((TRAIN_BATCH, 256, ds.d_model),
+                                      generator=gen).to(torch.bfloat16)}
+        torch.save(given, out / "encode_in.pt")
+        one = {}
+        for tag, c_ in cases:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            logits, y, _, _ = tp_encode(torch, c_, given, None)
+            if y is not None:
+                torch.save(y.float().cpu(), out / f"{tag}_moe_y.pt")
+            torch.save(logits.cpu(), out / f"{tag}_logits.pt")
+            one[tag] = torch.cuda.max_memory_allocated() / 2**30
+            del logits, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks(_tp_encode_worker, TP_RANKS, str(out / "s_enc"), tmp)
+        spawn_s = time.perf_counter() - t0
+        reps = [json.loads((out / f"encode{r}.json").read_text())
+                for r in range(TP_RANKS)]
+    labels = {"ds": f"deepseek-v2-lite-16b rm bf16 weights, prefill "
+                    f"{TRAIN_BATCH} x 256",
+              "ds_moe": "the same cut to 4 layers (its dense first layer, "
+                        "3 MoE layers), fp32",
+              "hubert": f"hubert-xlarge rm fp32, encode {ENC_TP_CLIPS} x "
+                        f"{ENC_FRAMES} frames"}
+    for tag, c_ in cases:
+        want = ({"B3": c_.num_layers, "B4": c_.num_layers} if not c_.causal
+                else {"B2": c_.num_layers})
+        r0 = reps[0][tag]
+        q50, q90, q99 = r0["pos_quantiles"]
+        tol = BF16_LOGITS_TOL if tag == "ds" else E2E_TOL
+        print(f"[tp c] {labels[tag]} on (data 1, model {TP_RANKS}) "
+              f"({spawn_s:.1f}s for the three with the start-up): logits "
+              f"{r0['rel']:.3e} from one rank's at most; by position "
+              f"{q50:.2e} / {q90:.2e} / {q99:.2e} (median / 90% / 99%), "
+              f"{100 * r0['pos_within']:.2f}% of positions within "
+              f"{tol:.0e}, greedy tokens agree at "
+              f"{100 * r0['argmax_agree']:.2f}%"
+              + (f"; its first MoE layer on one input through "
+                 f"apply_moe(mesh=) {r0['moe_rel']:.3e} from one rank's"
+                 if tag == "ds" else "")
+              + f"; one rank's peak {one[tag]:.2f} GiB; per rank: "
+              + "; ".join(f"rank {r} {rep[tag]['local_heads']} heads, "
+                          f"launches {rep[tag]['launches']}, weights drawn "
+                          f"and cut in {rep[tag]['ready_s']:.2f}s, call "
+                          f"{rep[tag]['wall_s'] * 1e3:.1f} ms, peak "
+                          f"{rep[tag]['peak_gib']:.2f} GiB"
+                          for r, rep in enumerate(reps)))
+        # the MoE's routing (top-k, then each expert's capacity in token
+        # order) is discontinuous: a bf16 difference that flips one choice
+        # moves that token, every later token's drops in that expert and,
+        # through causal attention, every later position. So the full
+        # deepseek prefill is printed; its MoE layer on one input is held
+        # to the bf16 budget, and the fp32 runs at every logit to E2E_TOL:
+        # the 4-layer cut runs the MoE's tensor-parallel path through 3
+        # layers, where a fault that builds up over the layers would show
+        held = (r0["moe_rel"] <= BF16_LOGITS_TOL if tag == "ds"
+                else r0["rel"] <= E2E_TOL)
+        if not (held and all(rep[tag]["finite"]
+                             and rep[tag]["launches"] == want
+                             for rep in reps)):
+            raise AssertionError(f"29 c {tag}: failed")
+        for kid, n in want.items():
+            kernels[kid][f"tp_{tag}_launches_per_rank"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] phase 29 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -4884,6 +5502,11 @@ def main():
 
     # -- 28. meshes: the sharded estimator, data-parallel training -----------
     meshes_phase(torch, np, kernels, rm_counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 29. tensor parallelism over "model"; data-parallel serving ----------
+    tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -2,7 +2,10 @@
 feature-sharded estimator over ``torch.distributed`` (port of
 ``repro.distributed``). The reference's ``shard_map`` wrapper has no
 counterpart: each rank of a ``DeviceMesh`` runs the per-shard code itself
-(``distributed.estimator``)."""
+(``distributed.estimator``). ``distributed.tensor_parallel`` gives a
+rank its local view of a mesh with a ``"model"`` axis: its shards of the
+params, its local config and the collectives of Megatron-style tensor
+parallelism."""
 from repro_torch.distributed.estimator import (
     FEATURE_AXIS,
     ShardedFeatureMap,

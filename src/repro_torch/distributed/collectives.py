@@ -1,10 +1,11 @@
 """The collectives of the mesh paths, each counted.
 
-``all_reduce`` and ``all_gather`` wrap ``torch.distributed``'s on a process
-group (a ``DeviceMesh`` dim's group), and each adds one to its ``calls``
-where it issues its collective, as the kernel wrappers count launches: the
-sharded estimator's contract (one ``all_reduce`` a Gram) is checked by
-reading ``all_reduce.calls`` around a call. NCCL takes CUDA tensors and
+``all_reduce``, ``all_gather`` and ``broadcast`` wrap ``torch.distributed``'s
+on a process group (a ``DeviceMesh`` dim's group), and each adds one to its
+``calls`` where it starts its collective, as the kernel wrappers count
+launches: the sharded estimator's contract (one ``all_reduce`` a Gram) is
+checked by reading ``all_reduce.calls`` around a call, and
+``all_reduce.by_group`` counts them per group. NCCL takes CUDA tensors and
 gloo CPU or CUDA tensors; the backend is the group's own, chosen once
 (``launch.mesh.init_distributed``).
 """
@@ -14,7 +15,7 @@ from typing import List
 
 import torch
 
-__all__ = ["all_reduce", "all_gather"]
+__all__ = ["all_reduce", "all_gather", "broadcast"]
 
 _OPS = ("sum", "max")
 
@@ -31,12 +32,14 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     if op not in _OPS:
         raise ValueError(f"op must be one of {_OPS}, got {op!r}")
     all_reduce.calls += 1
+    all_reduce.by_group[group] = all_reduce.by_group.get(group, 0) + 1
     dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
                     else dist.ReduceOp.MAX, group=group)
     return t
 
 
 all_reduce.calls = 0
+all_reduce.by_group = {}     # the calls on each process group
 
 
 def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
@@ -50,3 +53,17 @@ def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
 
 
 all_gather.calls = 0
+
+
+def broadcast(t: torch.Tensor, group, group_src: int) -> torch.Tensor:
+    """Overwrite ``t`` in place with the ``t`` of the group's rank
+    ``group_src`` (in the group's rank order) and return it."""
+    import torch.distributed as dist
+
+    broadcast.calls += 1
+    dist.broadcast(t, src=dist.get_global_rank(group, group_src),
+                   group=group)
+    return t
+
+
+broadcast.calls = 0

@@ -4,11 +4,12 @@ Two pieces, as in the reference:
 
 1. **Activation constraints.** Models call ``constrain(x, logical_axes)``
    at block boundaries. Outside a ``logical_rules_context`` it is a no-op,
-   so models run unmodified on one device. Inside one, the port's meshes
-   are data-parallel: every rank already holds its own rows, so
-   ``constrain`` checks the rank of ``x`` against the logical axes and
-   returns ``x`` unchanged. Redistributing a DTensor to the spec
-   (tensor parallelism over ``"model"``, FSDP over ``"data"``) is the next
+   so models run unmodified on one device. Inside one, every rank already
+   holds its local view (its rows over the batch axes; its heads, ff and
+   vocabulary over ``"model"``: ``distributed.tensor_parallel``, whose
+   collectives stand where GSPMD puts them), so ``constrain`` checks the
+   rank of ``x`` against the logical axes and returns ``x`` unchanged.
+   FSDP over ``"data"`` and ``"act_seq"`` sequence sharding are the third
    part of ROADMAP.md queue A item 7.
 
 2. **Parameter specs.** ``params_partition_specs`` maps every parameter

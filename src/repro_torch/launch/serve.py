@@ -33,6 +33,14 @@ hybrid (its FULL config, 51.6 B parameters, does not fit one card: serve
 ``--smoke`` there, or cut its depth in a config of your own) and ``--arch
 xlstm-350m`` the attention-free xLSTM; ``--attention-mode`` defaults to rm
 where the arch attends and to the config's own mode where it does not.
+``--data-parallel`` serves over ``launch.mesh.make_host_mesh()``, every
+rank of the default process group (``launch.mesh.init_distributed``: under
+``torchrun`` one process a rank, else a world of one), slots split over
+``"data"``; every rank runs the same Scheduler and rank 0 prints:
+
+    torchrun --nproc-per-node 1 -m repro_torch.launch.serve --smoke \
+        --data-parallel
+
 Not ported yet: ``--arrival-trace`` (it replays through
 ``bench/loadgen.py``, ROADMAP.md queue A item 2).
 """
@@ -53,6 +61,7 @@ from repro_torch.configs import (
     list_archs,
     supports_rm,
 )
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
 from repro_torch.models.transformer import init_model
@@ -75,6 +84,7 @@ def make_engine(
     cfg=None,
     accuracy_tiers: Optional[Dict[str, int]] = None,
     param_dtype: Optional[str] = None,
+    mesh=None,
 ) -> Scheduler:
     """Config -> random weights from ``seed`` -> a :class:`Scheduler`.
 
@@ -85,7 +95,9 @@ def make_engine(
     ("float32" | "bfloat16") overrides the config's weight dtype (the
     weights are drawn on the device in it). ``device`` defaults to
     ``"cuda"`` and raises a ``RuntimeError`` where CUDA is absent; only
-    ``device="cpu"`` runs on the CPU.
+    ``device="cpu"`` runs on the CPU. ``mesh`` (a ``DeviceMesh``) serves on
+    it: every rank draws its shards of the same weights, one block at a
+    time (``distributed.tensor_parallel.init_local_params``).
     """
     dev = resolve_device(device)
     if cfg is None:
@@ -95,12 +107,15 @@ def make_engine(
         cfg = dataclasses.replace(cfg, param_dtype=param_dtype).validate()
     if not cfg.causal:
         raise ValueError(f"{arch} is encoder-only; nothing to serve")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    params = init_model(cfg, gen)
+    if mesh is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = init_model(cfg, gen)
+    else:
+        params, _ = tp.init_local_params(cfg, seed, mesh, dev)
     return Scheduler(cfg, params, num_slots=num_slots, max_len=max_len,
                      rng_seed=seed, obs=obs, accuracy_tiers=accuracy_tiers,
-                     device=dev)
+                     device=dev, mesh=mesh)
 
 
 def parse_tiers(spec: str) -> Dict[str, int]:
@@ -150,6 +165,9 @@ def main(argv=None):
                     choices=["float32", "bfloat16"],
                     help="dtype the weights are drawn in (default: the "
                          "config's)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="serve over a host mesh of every rank of the "
+                         "default process group (slots split over 'data')")
     ap.add_argument("--accuracy-tiers", default=None, metavar="SPEC",
                     help="per-request accuracy tiers as name:generations "
                          "pairs, e.g. 'low:1,standard:2,high:4' (rm "
@@ -179,11 +197,34 @@ def main(argv=None):
                 cfg.rm, num_features=d)).validate()
             print(f"[serve] rounded D up to {d} (a multiple of {gmax} "
                   "tier generations)")
+    mesh, rank0 = None, True
+    if args.data_parallel:
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as mesh_mod
+
+        mesh_mod.init_distributed(device=args.device)
+        mesh = mesh_mod.make_host_mesh()
+        rank0 = dist.get_rank() == 0
+        if rank0:
+            print(f"[serve] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  f" over {dist.get_world_size()} ranks")
+    try:
+        _serve(args, cfg, tiers, mesh, rank0)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, tiers, mesh, rank0: bool) -> None:
+    """Submit the synthetic requests, run them, print on rank 0."""
     obs = make_obs(args, cfg, resolve_device(args.device), "serve")
     engine = make_engine(args.arch, num_slots=args.slots,
                          max_len=args.max_len, seed=args.seed, obs=obs,
                          device=args.device, cfg=cfg, accuracy_tiers=tiers,
-                         param_dtype=args.param_dtype)
+                         param_dtype=args.param_dtype, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
     tier_names = sorted(tiers) if tiers else None
@@ -196,6 +237,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     done = engine.run()
     wall = time.perf_counter() - t0
+    if not rank0:
+        close_obs(obs, args, "serve")
+        return
     stats = summarize(done)
     print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
           f"in {wall:.3f}s ({stats['tokens'] / wall:.1f} tok/s aggregate) "

@@ -18,8 +18,9 @@ kernels train). ``--mesh host`` trains data-parallel over every rank of
 the default process group (``launch.mesh.init_distributed``: under
 ``torchrun`` one process a rank, else a world of one), ``--mesh single``
 and ``multi`` over the 256- and 512-rank production meshes (they raise
-with fewer ranks); ``--model-parallel`` above 1 (tensor parallelism) is
-the next part of ROADMAP.md queue A item 7:
+with fewer ranks); ``--model-parallel N`` gives the host mesh a ``"model"``
+axis of N (tensor parallelism, ``distributed.tensor_parallel``; the SSM
+archs refuse N above 1):
 
     torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh host \
         --smoke --steps 20
@@ -64,7 +65,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default="none",
                     choices=["none", "host", "single", "multi"])
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="TP size for --mesh host")
+                    help="tensor-parallel size (the 'model' axis) of "
+                         "--mesh host")
     add_obs_args(ap, "train steps")
     add_budget_args(ap)
     args = ap.parse_args(argv)

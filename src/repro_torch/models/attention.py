@@ -63,6 +63,7 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_noncausal,
     rm_attention_prefill_final_state,
 )
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -142,7 +143,8 @@ def _rm_scaled_qk(params: Params, cfg: ModelConfig,
     norm = torch.linalg.vector_norm(xf, dim=-1, keepdim=True)
     xhat = xf / torch.clamp_min(norm, 1e-6)
     if cfg.rm.learnable_scale:
-        scale = F.softplus(params["rm_scale"]).float()
+        # every model rank scales its own heads: the gradient sums
+        scale = F.softplus(tp.copy_to_model(params["rm_scale"])).float()
     else:
         scale = torch.tensor(cfg.rm.qk_scale, dtype=torch.float32)
     return (xhat * scale).transpose(1, 2)
@@ -236,8 +238,12 @@ def init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
 
 
 def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
+    """q, k, v ``[B, T, heads, dh]`` at ``cfg``'s head counts (a model
+    rank's own heads under a model-parallel view, where x and the qk-norm
+    scales enter through ``tensor_parallel.copy_to_model``)."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    x = tp.copy_to_model(x)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -249,9 +255,18 @@ def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
     k = k.reshape(b, t, hkv, dh)
     v = v.reshape(b, t, hkv, dh)
     if cfg.qk_norm:
-        q = rms_norm_headwise(q, params["q_norm_scale"], cfg.norm_eps)
-        k = rms_norm_headwise(k, params["k_norm_scale"], cfg.norm_eps)
+        q = rms_norm_headwise(q, tp.copy_to_model(params["q_norm_scale"]),
+                              cfg.norm_eps)
+        k = rms_norm_headwise(k, tp.copy_to_model(params["k_norm_scale"]),
+                              cfg.norm_eps)
     return q, k, v
+
+
+def _out_proj(params: Params, out: torch.Tensor) -> torch.Tensor:
+    """``out [.., heads * dh] @ wo``; under a model-parallel view ``wo``
+    holds this rank's head rows and one all-reduce sums the ranks'
+    parts."""
+    return tp.reduce_from_model(out @ params["wo"])
 
 
 def _apply_positional(cfg: ModelConfig, q, k, positions):
@@ -388,7 +403,7 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     v = _repeat_kv(v, cfg.q_per_kv)
     if cfg.attention_mode != "rm":
         out = _softmax_attention(cfg, q, k, v, positions, positions)
-        return out.reshape(b, t, h * dh) @ params["wo"]
+        return _out_proj(params, out.reshape(b, t, h * dh))
     meta = rm_plan_for(cfg, dh)
     v_t = v.transpose(1, 2)
     if rm_fuse_enabled(cfg):
@@ -410,7 +425,7 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
         else:
             out = rm_attention_noncausal(zq, zk, v_t, eps=cfg.rm.eps)
     out = out.transpose(1, 2).to(x.dtype)
-    return out.reshape(b, t, h * dh) @ params["wo"]
+    return _out_proj(params, out.reshape(b, t, h * dh))
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, device,
@@ -475,7 +490,7 @@ def attention_decode(
         zk = _rm_featurize(params, cfg, meta, k)[:, :, 0]
         out, s_new, n_new = rm_attention_decode_step(
             zq, zk, v0, cache["rm_s"], cache["rm_n"], eps=cfg.rm.eps)
-    y = out.reshape(b, 1, h * dh).to(x.dtype) @ params["wo"]
+    y = _out_proj(params, out.reshape(b, 1, h * dh).to(x.dtype))
     return y, {"rm_s": s_new, "rm_n": n_new}
 
 
@@ -504,7 +519,7 @@ def attention_prefill_cache(
             raise ValueError("exact attention's prefill cache needs max_len "
                              "(the ring buffer's length)")
         out = _softmax_attention(cfg, q, kr, vr, positions, positions)
-        y = out.reshape(b, t, h * dh) @ params["wo"]
+        y = _out_proj(params, out.reshape(b, t, h * dh))
         return y, _exact_prefill_cache(cfg, k, v, positions, max_len)
     meta = rm_plan_for(cfg, dh)
     v_t = vr.transpose(1, 2)
@@ -520,7 +535,8 @@ def attention_prefill_cache(
         out = rm_attention_causal(zq, zk, v_t, chunk=cfg.rm.chunk,
                                   eps=cfg.rm.eps)
         s, n = rm_attention_prefill_final_state(zk, v_t)
-    y = out.transpose(1, 2).to(x.dtype).reshape(b, t, h * dh) @ params["wo"]
+    y = _out_proj(params, out.transpose(1, 2).to(x.dtype)
+                  .reshape(b, t, h * dh))
     return y, {"rm_s": s, "rm_n": n}
 
 
@@ -551,7 +567,7 @@ def _exact_decode(params: Params, cfg: ModelConfig, q, k, v,
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs.to(vv.dtype), vv)
-    y = out.reshape(b, 1, h * dh) @ params["wo"]
+    y = _out_proj(params, out.reshape(b, 1, h * dh))
     return y, {"k": k_cache, "v": v_cache}
 
 

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -98,14 +99,20 @@ def apply_mlp(params: Params, cfg: ModelConfig,
               x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or the biased GELU MLP. The reference's ``jax.nn.gelu`` is
     the tanh approximation by default (PyTorch's default is the exact erf
-    form, up to ~1e-3 away), so the port asks for ``approximate="tanh"``."""
+    form, up to ~1e-3 away), so the port asks for ``approximate="tanh"``.
+
+    Under a model-parallel view (``distributed.tensor_parallel``)
+    ``w_gate`` / ``w_up`` hold this rank's ff columns and ``w_down`` its ff
+    rows: one all-reduce completes the block, and ``b_down`` is added once,
+    after it."""
+    x = tp.copy_to_model(x)
     if cfg.mlp_kind == "swiglu":
         gate = x @ params["w_gate"]
         up = x @ params["w_up"]
-        return (F.silu(gate) * up) @ params["w_down"]
+        return tp.reduce_from_model((F.silu(gate) * up) @ params["w_down"])
     up = x @ params["w_up"] + params["b_up"]
-    return F.gelu(up, approximate="tanh") @ params["w_down"] \
-        + params["b_down"]
+    return tp.reduce_from_model(F.gelu(up, approximate="tanh")
+                                @ params["w_down"]) + params["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -189,12 +196,19 @@ def init_embedding(cfg: ModelConfig, generator, dtype) -> Params:
 
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
-    return params["embedding"].to(compute_dtype)[tokens]
+    """The tokens' rows; under a model-parallel view the table is this
+    rank's vocab slice (``tensor_parallel.vocab_parallel_embed``)."""
+    table = params["embedding"].to(compute_dtype)
+    if tp.model_view() is not None:
+        return tp.vocab_parallel_embed(table, tokens)
+    return table[tokens]
 
 
 def unembed(params: Params, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 (the matmul runs in the activations' dtype)."""
+    """Logits in fp32 (the matmul runs in the activations' dtype); under a
+    model-parallel view, this rank's vocab columns, each softcapped."""
+    x = tp.copy_to_model(x)
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].to(x.dtype).T
     else:

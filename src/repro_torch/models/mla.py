@@ -41,6 +41,7 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_fused_prefill,
     rm_attention_prefill_final_state,
 )
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.attention import (
     NEG_INF,
     _rm_featurize,
@@ -105,13 +106,16 @@ def _mla_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor):
     """Decompressed q, k ``[B, T, H, nope + rope]``, v ``[B, T, H, dv]``,
     the normed latent ``c_kv [B, T, lora]`` and the roped shared key
-    ``k_pe [B, T, 1, rope]``."""
+    ``k_pe [B, T, 1, rope]``. Under a model-parallel view H is this rank's
+    heads (``w_q``, ``w_ukv`` column slices); the latent and the shared key
+    are computed whole on every rank and enter the per-head region through
+    ``tensor_parallel.copy_to_model``."""
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.num_heads
     nope, rope, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
-    q = (x @ params["w_q"]).reshape(b, t, h, nope + rope)
+    q = (tp.copy_to_model(x) @ params["w_q"]).reshape(b, t, h, nope + rope)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
@@ -120,19 +124,23 @@ def _mla_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
     c_kv = rms_norm_headwise(c_kv, params["kv_norm_scale"], cfg.norm_eps)
     k_pe = apply_rope(k_pe[:, :, None, :], positions, cfg.rope_theta)
 
-    kv = (c_kv @ params["w_ukv"]).reshape(b, t, h, nope + dv)
+    kv = (tp.copy_to_model(c_kv) @ params["w_ukv"]).reshape(b, t, h,
+                                                             nope + dv)
     k_nope, v = kv[..., :nope], kv[..., nope:]
-    k = torch.cat([k_nope, k_pe.expand(b, t, h, rope)], dim=-1)
+    k = torch.cat([k_nope, tp.copy_to_model(k_pe).expand(b, t, h, rope)],
+                  dim=-1)
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     return q_full, k, v, c_kv, k_pe
 
 
 def _out_proj(params: Params, cfg: ModelConfig, out: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
-    """``[B, H, T, dv]`` attention output -> ``[B, T, d]``."""
+    """``[B, H, T, dv]`` attention output -> ``[B, T, d]`` (the model
+    ranks' parts summed by one all-reduce)."""
     b, _, t, dv = out.shape
     out = out.transpose(1, 2).to(x.dtype)
-    return out.reshape(b, t, cfg.num_heads * dv) @ params["w_o"]
+    return tp.reduce_from_model(out.reshape(b, t, cfg.num_heads * dv)
+                                @ params["w_o"])
 
 
 def mla_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -142,8 +150,9 @@ def mla_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     q, k, v, _, _ = _mla_qkv(params, cfg, x, positions)
     if cfg.attention_mode != "rm":
         out = _softmax_attention(cfg, q, k, v, positions, positions)
-        return out.reshape(b, t, cfg.num_heads * cfg.mla.v_head_dim) \
-            @ params["w_o"]
+        return tp.reduce_from_model(
+            out.reshape(b, t, cfg.num_heads * cfg.mla.v_head_dim)
+            @ params["w_o"])
     meta = rm_plan_for(cfg, mla_qk_dim(cfg))
     v_t = v.transpose(1, 2)
     if rm_fuse_enabled(cfg):
@@ -209,7 +218,8 @@ def mla_prefill_cache(params: Params, cfg: ModelConfig, x: torch.Tensor,
             s, n = rm_attention_prefill_final_state(zk, v_t)
         return _out_proj(params, cfg, out, x), {"rm_s": s, "rm_n": n}
     out = _softmax_attention(cfg, q, k, v, positions, positions)
-    y = out.reshape(b, t, cfg.num_heads * cfg.mla.v_head_dim) @ params["w_o"]
+    y = tp.reduce_from_model(
+        out.reshape(b, t, cfg.num_heads * cfg.mla.v_head_dim) @ params["w_o"])
     cache = init_mla_cache(cfg, b, max_len, x.dtype, x.device)
     cache["c_kv"][:, :t] = c_kv
     cache["k_pe"][:, :t] = k_pe[:, :, 0]
@@ -242,7 +252,8 @@ def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
             zk = _rm_featurize(params, cfg, meta, k)[:, :, 0]
             out, s_new, n_new = rm_attention_decode_step(
                 zq, zk, v0, cache["rm_s"], cache["rm_n"], eps=cfg.rm.eps)
-        y = out.reshape(b, 1, h * dv).to(x.dtype) @ params["w_o"]
+        y = tp.reduce_from_model(out.reshape(b, 1, h * dv).to(x.dtype)
+                                 @ params["w_o"])
         return y, {"rm_s": s_new, "rm_n": n_new}
 
     c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
@@ -266,5 +277,6 @@ def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", probs, c_f)
     out = torch.einsum("bhl,lhv->bhv", o_lat, w_uv)
-    y = out.reshape(b, 1, h * dv).to(x.dtype) @ params["w_o"]
+    y = tp.reduce_from_model(out.reshape(b, 1, h * dv).to(x.dtype)
+                             @ params["w_o"])
     return y, {"c_kv": c_cache, "k_pe": pe_cache}

@@ -25,10 +25,24 @@ losses are the load-balance term ``E * sum_e f_e p_e`` and the router
 z-loss ``mean(logsumexp(logits)^2)``.
 
 The reference has no Pallas kernel here: the expert products are plain
-``torch.bmm`` / ``einsum``, as the reference computes them in XLA. Its
-``shard_map`` path (tokens routed per data-parallel shard, experts split
-over the tensor-parallel axis) is the next part of ROADMAP.md queue A
-item 7: ``mesh=`` raises.
+``torch.bmm`` / ``einsum``, as the reference computes them in XLA.
+
+On a mesh (the reference's ``shard_map`` path, ``src/repro/models/
+moe.py:160-224``): each data-parallel shard routes and dispatches its own
+tokens, so the capacity is counted per shard, and every expert's ff dim
+(and the shared experts') is split over ``"model"``; each model rank
+computes its ff slice's part of every token's output and one all-reduce
+over ``"model"`` completes the block, while ``lb_fe``, ``lb_pe`` and
+``z_sq`` are averaged over the data axes. The expert stacks are stored by
+ff slice, ``w_gate`` / ``w_up [E, d, ff / m]`` and ``w_down [E, ff / m,
+d]``: that is the reference's compute layout (``P(None, None, ep)``),
+where ``params_partition_specs`` would put the expert dim on ``"model"``
+(a layout the reference gathers before it computes). Inside a
+``distributed.tensor_parallel.local_view`` (the Trainer, the serving
+executor) ``apply_moe`` takes this rank's tokens; ``apply_moe(mesh=)``
+takes the whole batch on every rank, splits it over the batch axes where
+they divide it (else every shard routes every token, as the reference
+does for a batch of 1) and gathers the result back.
 """
 from __future__ import annotations
 
@@ -37,6 +51,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import normal_init
 
@@ -99,13 +115,14 @@ def _aux(logits, probs, top_idx, e: int, k: int) -> Dict[str, torch.Tensor]:
     }
 
 
-def _moe_core_local(params: Params, cfg: ModelConfig, xf: torch.Tensor):
-    """Sorted-rank dispatch -> expert FFN -> combine. xf: [G, d] ->
-    (y [G, d] fp32, aux)."""
+def _moe_core_local(params: Params, cfg: ModelConfig, xf: torch.Tensor,
+                    routed):
+    """Sorted-rank dispatch -> expert FFN -> combine. xf: [G, d], routed:
+    :func:`_route`'s -> (y [G, d] fp32, aux)."""
     moe = cfg.moe
     g, d = xf.shape
     e, k = moe.num_experts, moe.top_k
-    logits, probs, top_vals, top_idx = _route(params, moe, xf)
+    logits, probs, top_vals, top_idx = routed
     cap = _capacity(moe, g)
 
     e_flat = top_idx.reshape(-1)                              # [G*K]
@@ -136,12 +153,13 @@ def _moe_core_local(params: Params, cfg: ModelConfig, xf: torch.Tensor):
     return y, _aux(logits, probs, top_idx, e, k)
 
 
-def _moe_core_einsum(params: Params, cfg: ModelConfig, xf: torch.Tensor):
+def _moe_core_einsum(params: Params, cfg: ModelConfig, xf: torch.Tensor,
+                     routed):
     """GShard one-hot dispatch (toy scale / ablation)."""
     moe = cfg.moe
     g, d = xf.shape
     e, k = moe.num_experts, moe.top_k
-    logits, probs, top_vals, top_idx = _route(params, moe, xf)
+    logits, probs, top_vals, top_idx = routed
     cap = _capacity(moe, g)
 
     onehot = F.one_hot(top_idx, e).float()                    # [G, K, E]
@@ -174,24 +192,61 @@ def _finalize_aux(moe: MoEConfig, aux) -> Dict[str, torch.Tensor]:
     }
 
 
+def _moe_tokens(params: Params, cfg: ModelConfig,
+                xf: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """This rank's tokens ``[G, d]`` -> (y [G, d] fp32, aux). The router
+    runs on the whole token (replicated over ``"model"``); the tokens and
+    the combine weights enter the experts' ff slices through
+    ``tensor_parallel.copy_to_model``, and one all-reduce sums the slices'
+    parts. Outside a model-parallel view both are the identity."""
+    moe = cfg.moe
+    core = _moe_core_einsum if moe.dispatch == "einsum" else _moe_core_local
+    logits, probs, top_vals, top_idx = _route(params, moe, xf)
+    xin = tp.copy_to_model(xf)
+    y, aux = core(params, cfg, xin,
+                  (logits, probs, tp.copy_to_model(top_vals), top_idx))
+    if moe.num_shared_experts > 0:
+        y = y + _shared_expert_out(params, xin).float()
+    y = tp.reduce_from_model(y)
+    view = tp.active()
+    if view is not None and view.batch_groups:
+        # the reference's pmean over the data axes, in one all-reduce
+        e = moe.num_experts
+        vec = tp.mean_over_batch(torch.cat([aux["lb_fe"], aux["lb_pe"],
+                                            aux["z_sq"].reshape(1)]))
+        aux = {"lb_fe": vec[:e], "lb_pe": vec[e:2 * e], "z_sq": vec[2 * e]}
+    return y, aux
+
+
 def apply_moe(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
               mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, T, d] -> (y [B, T, d] in x's dtype, aux losses).
 
+    ``mesh`` (a ``DeviceMesh``): ``x`` is the whole batch, the same on
+    every rank, and ``params`` this rank's ff slices
+    (``distributed.tensor_parallel.shard_params``); the rows are split
+    over the mesh's batch axes where they divide ``B`` (else replicated),
+    routed per shard, and gathered back, so every rank returns the whole
+    ``y``. Without it, inside a ``tensor_parallel.local_view``, ``x`` is
+    this rank's rows.
+
     Raises:
-        NotImplementedError: ``mesh`` given (expert parallelism is the
-            next part of ROADMAP.md queue A item 7).
+        RuntimeError: ``mesh`` has no process group behind it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded MoE path (experts split over the mesh's 'model' "
-            "axis, over DTensor) is the next part of ROADMAP.md queue A "
-            "item 7")
     moe = cfg.moe
     b, t, d = x.shape
-    core = _moe_core_einsum if moe.dispatch == "einsum" else _moe_core_local
-    xf = x.reshape(-1, d)
-    y, aux = core(params, cfg, xf)
-    if moe.num_shared_experts > 0:
-        y = y + _shared_expert_out(params, xf).float()
-    return y.reshape(b, t, d).to(x.dtype), _finalize_aux(moe, aux)
+    if mesh is None:
+        y, aux = _moe_tokens(params, cfg, x.reshape(-1, d))
+        return y.reshape(b, t, d).to(x.dtype), _finalize_aux(moe, aux)
+    tp.local_view_of(mesh)               # raises without a process group
+    index, parts = tp.batch_index(mesh)
+    split = b % parts == 0
+    rows = x[index * (b // parts):(index + 1) * (b // parts)] if split \
+        else x
+    with tp.local_view(mesh, batch_sharded=split) as view:
+        y, aux = _moe_tokens(params, cfg, rows.reshape(-1, d))
+        y = y.reshape(rows.shape).to(x.dtype)
+        if split:
+            for group in reversed(view.batch_groups):   # data, then pod
+                y = torch.cat(all_gather(y, group), dim=0)
+    return y, _finalize_aux(moe, aux)

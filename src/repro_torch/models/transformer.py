@@ -33,6 +33,15 @@ a caller that casts once — the serving executor — pays nothing per step).
 The copies are differentiable casts: gradients reach the fp32 masters. The
 packed ``rm_w`` / ``rm_slab`` live only in the compute copy, never in the
 masters a train state holds.
+
+On a mesh every function here runs on the local view
+(``distributed.tensor_parallel``): params cut by ``shard_params``, the
+config of ``local_config`` (a rank's heads, ff and vocabulary), called
+inside ``tensor_parallel.local_view(mesh)``. The blocks all-reduce their
+outputs over ``"model"``, the logits are this rank's vocab columns
+(``tensor_parallel.gather_vocab`` joins them) and ``loss_fn`` reduces its
+``logsumexp`` and target logits over the columns. A Mamba or xLSTM mixer
+refuses a model axis above 1 (``local_config``).
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.dtypes import canonical_dtype
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mla as mla_mod
@@ -156,15 +166,26 @@ def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
     return params
 
 
-def init_model(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random parameters from ``generator``, on the generator's device."""
+def init_model(cfg: ModelConfig, generator: torch.Generator, *,
+               cut=None) -> Params:
+    """Random parameters from ``generator``, on the generator's device.
+    ``cut(key, subtree)``, where given, takes each top-level part
+    (``"embed"``, then ``"layers"`` one block at a time as ``[block]``,
+    then ``"final_norm"``) as soon as it is drawn and returns what to keep
+    (``distributed.tensor_parallel.init_local_params`` keeps one rank's
+    shards, so the full weights never stand at once); the draws are the
+    same."""
     cfg.validate()
     device = generator.device
     dtype = canonical_dtype(cfg.param_dtype)
-    params: Params = {"embed": init_embedding(cfg, generator, dtype)}
-    params["layers"] = [_init_block(cfg, kind, generator, dtype)
+    keep = cut or (lambda _, sub: sub)
+    params: Params = {"embed": keep("embed", init_embedding(cfg, generator,
+                                                            dtype))}
+    params["layers"] = [keep("layers", [_init_block(cfg, kind, generator,
+                                                    dtype)])[0]
                         for kind in layer_kinds(cfg)]
-    params["final_norm"] = init_norm(cfg, cfg.d_model, dtype, device)
+    params["final_norm"] = keep("final_norm", init_norm(cfg, cfg.d_model,
+                                                        dtype, device))
     return params
 
 
@@ -302,9 +323,14 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     logits, aux = forward(params, cfg, batch)
     targets = batch["targets"]
     logits = logits[:, -targets.shape[1]:, :].float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          targets.clamp_min(0).long()[..., None])[..., 0]
+    if tp.model_view() is not None:
+        # this rank's vocab columns: the lse and the target logit reduce
+        # over "model"
+        lse, picked = tp.vocab_parallel_ce(logits, targets)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, targets.clamp_min(0).long()[
+            ..., None])[..., 0]
     mask = (targets >= 0).float()
     denom = mask.sum().clamp_min(1.0)
     ce = ((lse - picked) * mask).sum() / denom

@@ -15,7 +15,7 @@ are 20.6 GB) instead of two. It runs under ``torch.no_grad()``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -104,8 +104,14 @@ def adamw_update(
     opt_state: Dict[str, Any],
     lr,
     cfg: AdamWConfig = AdamWConfig(),
+    *,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step -> ``(params, opt_state, {"grad_norm", "lr"})``.
+    ``grad_norm``: the norm to clip by where the caller has it (a
+    tensor-parallel rank holds a part of the gradient; its global norm is
+    ``distributed.tensor_parallel.global_grad_norm``), else
+    :func:`global_norm` of ``grads``.
 
     Frozen leaves keep their values (their gradients are masked to 0, so
     their moments stay 0). The gradients are clipped to
@@ -116,7 +122,8 @@ def adamw_update(
     """
     with torch.no_grad():
         grads = mask_frozen(grads)
-        grad_norm = global_norm(grads)
+        if grad_norm is None:
+            grad_norm = global_norm(grads)
         scale = _clip_scale(grad_norm, cfg.grad_clip_norm)
         step = opt_state["step"] + 1
         b1, b2 = cfg.b1, cfg.b2

@@ -8,6 +8,22 @@ mode), the prefill bucket ladder, the compute-dtype copy of the weights
 admission: the rm decode state, or exact attention's ring-buffer KV
 cache), and the prefill and decode calls. PyTorch runs eagerly, so there is no compile
 cache; CUDA graphs for the decode step are later work.
+
+On a mesh (``mesh=``, a ``DeviceMesh`` over ``("data", "model")`` or
+``("pod", "data", "model")``) every rank runs the same executor calls in
+the same order; only the model's compute is sharded. The weights are this
+rank's shards (``distributed.tensor_parallel.init_local_params``); the
+decode cache follows ``cache_partition_specs``: its slots split over the
+batch axes where ``num_slots`` divides them (else every rank holds every
+slot) and its heads over ``"model"``. A MoE config keeps every slot on
+every rank: its routing counts capacity over the whole decode batch, as
+the reference's single-controller step does, so splitting the lanes
+would change its drops. A request's prefill runs on the ranks that own its
+slot, and its first logits row is broadcast from them. After each decode
+step the local logits are gathered over the batch axes and their vocab
+columns over ``"model"``, so every rank samples every slot and makes the
+same admissions, evictions and restarts (the reference is single-
+controller: ``src/repro/serve/executor.py:152-169``).
 """
 from __future__ import annotations
 
@@ -17,12 +33,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.collectives import all_gather, broadcast
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     _split_kind,
     cast_params_to_compute,
     decode_step,
     init_decode_cache,
+    layer_kinds,
     prefill,
 )
 
@@ -60,6 +79,10 @@ class StepExecutor:
         device: where the cache lives and the steps run.
         feature_generations: how many equal generations the RM feature
             budget splits into for accuracy tiers (1: no tiers).
+        mesh: optional ``DeviceMesh`` (see the module doc); ``params``
+            are then this rank's shards
+            (``distributed.tensor_parallel.init_local_params``, or
+            ``shard_params`` of weights handed over).
 
     Attributes:
         estimator: the registry name of the RM feature family served
@@ -75,12 +98,16 @@ class StepExecutor:
     Raises:
         ValueError: an encoder config, an unknown attention mode,
             ``feature_generations`` below 1, not dividing the RM budget,
-            or above 1 outside rm mode.
+            or above 1 outside rm mode; a mesh axis other than ``pod``,
+            ``data`` and ``model``, or a width its model axis does not
+            divide.
+        NotImplementedError: an SSM mixer on a model axis above 1.
+        RuntimeError: a mesh without a process group behind it.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int,
                  max_len: int, *, buckets: Sequence[int] = None,
-                 device="cuda", feature_generations: int = 1):
+                 device="cuda", feature_generations: int = 1, mesh=None):
         if not cfg.causal:
             raise ValueError("encoder-only models cannot be served "
                              "autoregressively")
@@ -121,10 +148,17 @@ class StepExecutor:
                 "feature budget to tier")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.num_slots = int(num_slots)
+        self.mesh = mesh
+        # the config and weights the model calls take: a rank's on a mesh
+        self.model_cfg = cfg
+        self.local_slots = self.num_slots
+        self._split = False
+        if mesh is not None:
+            self._set_mesh(mesh)
         self.params = params
         # the fp32 master weights stay; the steps read one compute copy
-        self.compute_params = cast_params_to_compute(params, cfg)
-        self.num_slots = int(num_slots)
+        self.compute_params = cast_params_to_compute(params, self.model_cfg)
         self.max_len = int(max_len)
         self.buckets = effective_buckets(
             DEFAULT_BUCKETS if buckets is None else buckets, self.max_len)
@@ -132,6 +166,38 @@ class StepExecutor:
         self.bucketed = mixers <= {"attn", "mla"}
         self.cache = None
         self.reset_cache()
+
+    def _set_mesh(self, mesh) -> None:
+        from repro_torch.distributed.sharding import mesh_axes
+        from repro_torch.launch.mesh import mesh_device
+
+        tp.local_view_of(mesh)             # raises without a process group
+        axes = set(mesh_axes(mesh))
+        if not axes <= {"pod", "data", "model"}:
+            raise ValueError(f"serving meshes have axes pod, data and model;"
+                             f" got {sorted(axes)}")
+        if self.device.type != mesh.device_type:
+            raise ValueError(f"device {self.device} is not the mesh's "
+                             f"{mesh.device_type!r}")
+        self.device = mesh_device(mesh)
+        self.model_cfg = tp.local_config(self.cfg, tp.model_size_of(mesh))
+        self._index, parts = tp.batch_index(mesh)
+        # cache_partition_specs' rule: slots over the batch axes where
+        # they divide num_slots; a MoE routes every slot together (its
+        # capacity counts the whole decode batch, as the reference's
+        # single-controller step does), so every rank decodes every lane
+        moe = any(_split_kind(k)[1] == "moe" for k in layer_kinds(self.cfg))
+        self._split = (parts > 1 and self.num_slots % parts == 0
+                       and not moe)
+        if self._split:
+            self.local_slots = self.num_slots // parts
+
+    def _view(self, batch_sharded: bool = False):
+        import contextlib
+
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tp.local_view(self.mesh, batch_sharded=batch_sharded)
 
     def tier_features(self, generations: int) -> int:
         """The feature budget a tier of ``generations`` generations
@@ -161,7 +227,7 @@ class StepExecutor:
     @torch.inference_mode()
     def reset_cache(self) -> None:
         """(Re)initialize the batched decode cache — fresh lanes."""
-        self.cache = init_decode_cache(self.cfg, self.num_slots,
+        self.cache = init_decode_cache(self.model_cfg, self.local_slots,
                                        self.max_len, self.device)
 
     def bucket_for(self, n: int) -> int:
@@ -189,12 +255,43 @@ class StepExecutor:
         tokens[0, :t] = np.asarray(prompt, np.int64)
         positions = np.full((1, tb), -1, np.int32)
         positions[0, :t] = np.arange(t, dtype=np.int32)
-        logits, cache1 = prefill(
-            self.compute_params, self.cfg,
-            {"tokens": torch.from_numpy(tokens).to(self.device),
-             "positions": torch.from_numpy(positions).to(self.device)},
-            self.max_len)
+        with self._view():
+            logits, cache1 = prefill(
+                self.compute_params, self.model_cfg,
+                {"tokens": torch.from_numpy(tokens).to(self.device),
+                 "positions": torch.from_numpy(positions).to(self.device)},
+                self.max_len)
         return logits, cache1, tb
+
+    @torch.inference_mode()
+    def admit(self, slot: int, prompt: np.ndarray
+              ) -> Tuple[torch.Tensor, int]:
+        """Prefill ``prompt`` into lane ``slot``; return ``(logits of its
+        last real position [1, V] fp32, bucket)``. On a mesh whose batch
+        axes split the slots, the ranks that own ``slot`` run the prefill
+        and broadcast the row to the others (every rank calls this)."""
+        t = len(prompt)
+        owner = slot // self.local_slots if self._split else None
+        if owner is None or owner == self._index:
+            logits, cache1, tb = self.prefill(prompt)
+            self.splice(slot % self.local_slots, cache1)
+            with self._view():
+                row = tp.gather_vocab(logits[:, t - 1])
+        else:
+            tb = self.bucket_for(t)
+            row = torch.empty((1, self.cfg.vocab_size), dtype=torch.float32,
+                              device=self.device)
+        if owner is not None:
+            # data group first (within each pod, from the owner's data
+            # index), then pod group (from the owner's pod)
+            from repro_torch.distributed.sharding import mesh_axes
+
+            sizes = mesh_axes(self.mesh)
+            data = sizes.get("data", 1)
+            for axis, src in (("data", owner % data), ("pod", owner // data)):
+                if sizes.get(axis, 1) > 1:
+                    broadcast(row, self.mesh.get_group(axis), src)
+        return row, tb
 
     @torch.inference_mode()
     def splice(self, slot: int, cache1: Any) -> None:
@@ -213,7 +310,19 @@ class StepExecutor:
         tensors (idle lanes at :attr:`scratch_position`). Returns logits
         ``[num_slots, 1, V]`` fp32.
         """
-        logits, self.cache = decode_step(
-            self.compute_params, self.cfg, self.cache,
-            tokens.to(self.device), positions.to(self.device))
+        if self.mesh is None:
+            logits, self.cache = decode_step(
+                self.compute_params, self.cfg, self.cache,
+                tokens.to(self.device), positions.to(self.device))
+            return logits
+        lo = self._index * self.local_slots if self._split else 0
+        lanes = slice(lo, lo + self.local_slots)
+        with self._view(batch_sharded=self._split) as view:
+            logits, self.cache = decode_step(
+                self.compute_params, self.model_cfg, self.cache,
+                tokens[lanes].to(self.device),
+                positions[lanes].to(self.device))
+            logits = tp.gather_vocab(logits)
+            for group in reversed(view.batch_groups):   # data, then pod
+                logits = torch.cat(all_gather(logits, group), dim=0)
         return logits

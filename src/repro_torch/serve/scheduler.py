@@ -43,8 +43,14 @@ and in its ``RequestState.tier_features``. As in the reference this is
 bookkeeping: every request is served at the full budget, so tiers change
 no token.
 
-Not ported yet: data-parallel serving, whose slot shards must agree on
-admissions (the next part of ROADMAP.md queue A item 7).
+Meshes (``mesh=``, a ``DeviceMesh`` over ``("data", "model")`` or
+``("pod", "data", "model")``): every rank runs this Scheduler over the same
+requests and keeps the whole scheduling state; the executor shards the
+model's compute (slots over the batch axes, except for a MoE, whose
+routing counts capacity over every slot; heads and vocabulary over
+``"model"``) and hands every rank every slot's logits, so every rank
+samples the same tokens and makes the same admissions and evictions. A
+failed rank fails the run: a mesh refuses ``max_restarts`` above 0.
 """
 from __future__ import annotations
 
@@ -91,7 +97,8 @@ class Scheduler:
 
     Args:
         cfg: frozen model config.
-        params: model parameters on ``device``.
+        params: model parameters on ``device``; on a mesh, this rank's
+            shards (``distributed.tensor_parallel.init_local_params``).
         num_slots: decode lanes.
         max_len: per-lane length (the scratch position is the last).
         rng_seed: base seed of every request's sampling stream.
@@ -107,11 +114,13 @@ class Scheduler:
         accuracy_tiers: optional tier name -> feature generations map
             (each >= 1); validated here and in the executor.
         device: where the model runs (default ``"cuda"``).
+        mesh: optional ``DeviceMesh`` to serve on (see the module doc).
 
     Raises:
         ValueError: a tier of fewer than 1 generation, or a tier map the
             executor refuses (outside rm mode, or ``max(tiers)`` not
-            dividing the RM budget).
+            dividing the RM budget); ``max_restarts`` above 0 on a mesh;
+            a mesh the executor refuses.
     """
 
     def __init__(self, cfg: Any, params: Any, *, num_slots: int = 4,
@@ -120,7 +129,10 @@ class Scheduler:
                  max_restarts: int = 0, straggler_monitor: Any = None,
                  obs: Any = None,
                  accuracy_tiers: Optional[Dict[str, int]] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        if mesh is not None and max_restarts > 0:
+            raise ValueError("a mesh serves without restarts: a rank that "
+                             "fails fails the run (max_restarts=0)")
         self.obs = _obs_resolve(obs)
         self.accuracy_tiers: Optional[Dict[str, int]] = None
         feature_generations = 1
@@ -135,7 +147,8 @@ class Scheduler:
             feature_generations = max(self.accuracy_tiers.values())
         self.executor = StepExecutor(cfg, params, num_slots, max_len,
                                      buckets=buckets, device=device,
-                                     feature_generations=feature_generations)
+                                     feature_generations=feature_generations,
+                                     mesh=mesh)
         self.estimator = self.executor.estimator
         self.fused_attention = self.executor.fused_attention
         self.cfg = cfg
@@ -333,8 +346,7 @@ class Scheduler:
                            tier_features=tier_features)
             with self.obs.span("prefill", request_id=rid, bucket=tb,
                                prompt_len=t):
-                logits, cache1, _ = self.executor.prefill(req.prompt)
-                self.executor.splice(slot, cache1)
+                row, _ = self.executor.admit(slot, req.prompt)
         t_enqueue = self._t_submit.pop(rid, None)
         if t_enqueue is None:
             t_enqueue = self.obs.now()
@@ -343,7 +355,7 @@ class Scheduler:
                              tier_features=tier_features)
         info.admitted.append(rid)
         # first token from the LAST REAL prefill position (token index 0)
-        tok = self._sample(logits[:, t - 1], rid, 0, req.temperature)
+        tok = self._sample(row, rid, 0, req.temperature)
         state.generated.append(tok)
         state.t_first_token = self.obs.now()
         state.t_tokens.append(state.t_first_token)

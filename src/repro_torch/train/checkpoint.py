@@ -8,6 +8,12 @@ flattened state, ``common.tree.flatten_dict`` paths -> numpy arrays) plus
 crash mid-save never corrupts the latest checkpoint. ``restore(device=)``
 puts every leaf on ``device`` as a tensor of its saved dtype; bf16 leaves
 travel as their 16-bit patterns, so every leaf restores bitwise.
+
+A checkpoint always holds full tensors, whatever mesh wrote it: a
+tensor-parallel Trainer gathers its shards before rank 0 saves
+(``distributed.tensor_parallel.gather_state``), and ``restore(mesh=,
+cfg=)`` cuts this rank's shards again, so a run moves between model sizes
+(``train.fault.elastic_remesh``).
 """
 from __future__ import annotations
 
@@ -22,7 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.common.tree import flatten_dict, unflatten_dict
+from repro_torch.common.tree import (
+    flatten_dict,
+    tree_map_with_path,
+    unflatten_dict,
+)
+from repro_torch.distributed import tensor_parallel as tp
 
 __all__ = ["CheckpointManager"]
 
@@ -101,16 +112,29 @@ class CheckpointManager:
         for s in steps[: -self.keep]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
+    def shapes(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """Checkpoint ``step``'s (the latest by default) tree as ``meta``
+        tensors of its leaves' shapes and dtypes, read from its
+        ``meta.json`` alone."""
+        if step is None:
+            step = self.latest_step()
+        meta = json.loads((self._step_dir(step) / "meta.json").read_text())
+        return unflatten_dict({
+            k: torch.empty(shape, dtype=_DTYPES[dtype], device="meta")
+            for k, (shape, dtype) in meta["leaves"].items()})
+
     # -- restore ---------------------------------------------------------------
     def restore(self, step: Optional[int] = None, template: Any = None,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", *, mesh=None, cfg=None) -> Dict[str, Any]:
         """Load checkpoint ``step`` (the latest by default) with every leaf
-        on ``device``.
+        on ``device``; on a ``mesh`` with a ``"model"`` axis above 1, this
+        rank's shards of it (``tensor_parallel.shard_state`` for the model
+        config ``cfg``), cut on the host.
 
         Raises:
             FileNotFoundError: no checkpoint in the directory.
             ValueError: ``template`` (a tree) has other leaf paths than the
-                checkpoint.
+                checkpoint; a model axis above 1 without ``cfg``.
             RuntimeError: ``device`` is CUDA (the default) and there is
                 none.
         """
@@ -133,6 +157,15 @@ class CheckpointManager:
                     f"checkpoint structure mismatch: "
                     f"missing={sorted(missing)[:5]} "
                     f"extra={sorted(extra)[:5]}")
-        return unflatten_dict({
-            k: _from_numpy(a, meta["leaves"][k][1], device)
+        cut = mesh is not None and tp.model_size_of(mesh) > 1
+        if cut and cfg is None:
+            raise ValueError("restoring onto a model axis above 1 cuts the "
+                             "params by their config: pass cfg=")
+        state = unflatten_dict({
+            k: _from_numpy(a, meta["leaves"][k][1],
+                           "cpu" if cut else device)
             for k, a in flat.items()})
+        if not cut:
+            return state
+        return tree_map_with_path(lambda _, t: t.to(device),
+                                  tp.shard_state(state, mesh, cfg))

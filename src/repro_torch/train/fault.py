@@ -100,20 +100,26 @@ def run_with_restarts(
 
 def elastic_remesh(ckpt_manager, make_mesh_fn: Callable[[], Any],
                    make_shardings_fn: Optional[Callable[[Any], Any]] = None,
-                   step: Optional[int] = None):
+                   step: Optional[int] = None, *, cfg=None):
     """Restore checkpoint ``step`` (the latest by default) onto the mesh
     ``make_mesh_fn()`` builds -> ``(mesh, state)``.
 
-    The checkpoint is host numpy, free of any layout, so any mesh can pick
-    the run up (two pods down to one after a failure, 2 ranks down to 1).
-    The port's training state is replicated on data-parallel meshes, so
-    ``make_shardings_fn(mesh)`` says only where this rank's copy goes: a
-    device (``None``, or no function: the mesh's own device).
+    The checkpoint holds full tensors, free of any layout, so any mesh can
+    pick the run up (two pods down to one after a failure, 2 ranks down to
+    1, a model axis of 2 to one of 1 or back): on a ``"model"`` axis above
+    1 this rank's shards are cut for the model config ``cfg``, elsewhere
+    every rank holds the whole state. ``make_shardings_fn(mesh)`` says only
+    where this rank's state goes: a device (``None``, or no function: the
+    mesh's own device).
+
+    Raises:
+        ValueError: a model axis above 1 without ``cfg``.
     """
     from repro_torch.launch.mesh import mesh_device
 
     mesh = make_mesh_fn()
     device = make_shardings_fn(mesh) if make_shardings_fn else None
     state = ckpt_manager.restore(
-        step, device=mesh_device(mesh) if device is None else device)
+        step, device=mesh_device(mesh) if device is None else device,
+        mesh=mesh, cfg=cfg)
     return mesh, state

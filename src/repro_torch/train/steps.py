@@ -26,6 +26,14 @@ its share of the target tokens before the mean, so the result is the
 global batch's mean whatever the ranks' masks; with equal token counts
 the weight is exactly 1.
 
+A tensor-parallel rank (``Trainer(mesh=)`` with a ``"model"`` axis above
+1) runs the step inside ``distributed.tensor_parallel.local_view`` on its
+local params and the local config, and passes ``cuts`` (the params'
+``tensor_parallel.param_cuts``): the gradients of a kv head kept on
+several ranks are summed over them, ``grad_norm`` is the full gradient's
+(each rank's squared norms weighted so one all-reduce over ``"model"``
+counts every leaf once), and the clip and AdamW act on the local shards.
+
 ``make_eval_step(cfg)``, ``make_prefill_step(cfg, max_len)`` and
 ``make_decode_step(cfg)`` are forward-only, under ``torch.inference_mode``.
 For an encoder (``causal=False``) "prefill" is a full bidirectional
@@ -50,7 +58,12 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.common.tree import tree_get, tree_map_with_path
+from repro_torch.common.tree import (
+    tree_get,
+    tree_leaves,
+    tree_map_with_path,
+)
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     decode_step,
@@ -64,6 +77,7 @@ from repro_torch.optim.adamw import (
     adamw_init,
     adamw_update,
     is_frozen,
+    mask_frozen,
 )
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -72,6 +86,7 @@ __all__ = [
     "TrainState",
     "init_params",
     "init_train_state",
+    "train_state_from_params",
     "loss_grads",
     "make_train_step",
     "make_eval_step",
@@ -122,12 +137,18 @@ def init_train_state(cfg: ModelConfig, seed: int = 0,
     """``{"params", "opt", "step"}``: masters from ``seed`` on ``device``,
     zero AdamW moments, step 0; with ``grad_compression="int8_pod"`` also
     zero fp32 ``residuals`` of the params' layout."""
-    params = init_params(cfg, seed, device)
+    return train_state_from_params(init_params(cfg, seed, device), hyper)
+
+
+def train_state_from_params(params, hyper: TrainHyper = TrainHyper()
+                            ) -> TrainState:
+    """The step-0 train state around ``params`` (full, or a tensor-parallel
+    rank's shards), on their device."""
     state = {
         "params": params,
         "opt": adamw_init(params),
         "step": torch.zeros((), dtype=torch.int32,
-                            device=resolve_device(device)),
+                            device=tree_leaves(params)[0].device),
     }
     if hyper.grad_compression == "int8_pod":
         state["residuals"] = tree_map_with_path(
@@ -220,7 +241,7 @@ def _average(grads, metrics, group, residuals=None):
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
-                    data_group=None, pod_group=None):
+                    data_group=None, pod_group=None, cuts=None):
     """``step(state, batch) -> (state, metrics)``: gradients of ``loss_fn``
     (averaged over ``hyper.grad_accum`` microbatches; then over
     ``data_group``, then over ``pod_group``, int8-compressed under
@@ -228,7 +249,10 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
     warm-up-cosine learning rate of ``state["step"]``. ``metrics`` holds
     ``loss_fn``'s (``loss``, ``ce``, ``z_loss``, ``tokens``) and the
     optimizer's (``grad_norm``, ``lr``), as 0-dim tensors on the state's
-    device, the same on every rank.
+    device, the same on every rank. With ``cuts`` (a tensor-parallel
+    rank's ``tensor_parallel.param_cuts``, the step run inside its
+    ``local_view``) the replicated kv heads' gradients are summed over
+    their ranks and ``grad_norm`` is the global one.
 
     Raises:
         ValueError: ``int8_pod`` without a ``pod_group``; the params hold
@@ -262,15 +286,20 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         _check_masters(state["params"])
         grads, metrics = accumulate(state["params"], batch)
+        if cuts is not None:
+            grads = tp.sync_replicated_grads(grads, cuts)
         if data_group is not None:
             grads, metrics = _average(grads, metrics, data_group)
         if pod_group is not None:
             grads, metrics = _average(
                 grads, metrics, pod_group,
                 state["residuals"] if compress else None)
+        grad_norm = None if cuts is None else tp.global_grad_norm(
+            mask_frozen(grads), cuts)
         lr = _lr_at(hyper, state["step"])
         params, opt, opt_metrics = adamw_update(
-            state["params"], grads, state["opt"], lr, hyper.adamw)
+            state["params"], grads, state["opt"], lr, hyper.adamw,
+            grad_norm=grad_norm)
         new_state = dict(state)
         new_state.update(params=params, opt=opt, step=state["step"] + 1)
         return new_state, {**metrics, **opt_metrics}

@@ -5,17 +5,23 @@ StragglerMonitor and observability.
 ``Trainer(cfg, hyper, dataset, ckpt_dir=, mesh=, seed=, log_every=,
 checkpoint_every=, obs=, device=)``. With ``mesh=None`` it trains on one
 device. With a ``DeviceMesh`` over ``("data", "model")`` or ``("pod",
-"data", "model")`` (``launch.mesh``) it trains data-parallel, one process
-a rank: the params and optimizer state are replicated (every rank draws
-them from ``seed``), rank r trains on its rows of ``dataset.batch_at(step)``
-(the batch dim split over the axes ``batch_partition_specs`` gives it),
-the gradients are averaged over ``"data"`` and then over ``"pod"``
-(int8-compressed under ``grad_compression="int8_pod"``), so every rank
-holds the same state and logs the same metrics. Only rank 0 prints and
-writes checkpoints; every rank waits at a barrier after a save. A
-``"model"`` axis larger than 1 (tensor parallelism) and FSDP's sharded
-weights are the next part of ROADMAP.md queue A item 7. A step's wall time
-is read on the ``obs`` clock after ``torch.cuda.synchronize`` (the
+"data", "model")`` (``launch.mesh``) it trains on every rank, one
+process a rank. Rank r trains on its rows of ``dataset.batch_at(step)``
+(the batch dim split over the axes ``batch_partition_specs`` gives it)
+and the gradients are averaged over ``"data"`` and then over ``"pod"``
+(int8-compressed under ``grad_compression="int8_pod"``). A ``"model"``
+axis above 1 adds tensor parallelism (``distributed.tensor_parallel``):
+every rank draws its shards of the params from ``seed``, one block at a
+time (``tensor_parallel.init_local_params``: the full weights never stand
+on the card), or restores them from a checkpoint; it runs
+the model at its local widths inside the mesh's local view and clips by
+the global ``grad_norm``; ranks of one model index hold the same state
+and log the same metrics. Only rank 0 prints; every rank joins a save
+(the shards are gathered into the full, topology-free state that rank 0
+writes) and then waits at a barrier, and a restore onto the mesh cuts the
+shards again. The SSM mixers refuse a model axis above 1, and FSDP's
+sharded weights are the third part of ROADMAP.md queue A item 7. A step's
+wall time is read on the ``obs`` clock after ``torch.cuda.synchronize`` (the
 reference's ``block_until_ready``). With ``obs`` (``repro_torch.obs.Obs``)
 each step records the reference's ``train/step`` span, ``train/step_s``
 histogram, ``train/loss`` gauge and ``train/steps`` counter, and ticks the
@@ -28,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import resolve as _obs_resolve
 from repro_torch.train.checkpoint import CheckpointManager
@@ -36,6 +43,7 @@ from repro_torch.train.steps import (
     TrainHyper,
     init_train_state,
     make_train_step,
+    train_state_from_params,
 )
 
 __all__ = ["Trainer"]
@@ -43,8 +51,14 @@ __all__ = ["Trainer"]
 _MESH_AXES = ("pod", "data", "model")
 
 
-def _mesh_sizes(mesh) -> Dict[str, int]:
-    """The mesh's axis sizes, checked for data-parallel training."""
+def _mesh_sizes(mesh, cfg: ModelConfig) -> Dict[str, int]:
+    """The mesh's axis sizes, checked for training ``cfg`` on it.
+
+    Raises:
+        ValueError: an axis other than ``pod``, ``data`` and ``model``, or
+            a width the model axis does not divide.
+        NotImplementedError: an SSM mixer under a model axis above 1.
+    """
     from repro_torch.distributed.sharding import mesh_axes
 
     sizes = mesh_axes(mesh)
@@ -52,11 +66,7 @@ def _mesh_sizes(mesh) -> Dict[str, int]:
     if unknown:
         raise ValueError(f"Trainer meshes have axes {_MESH_AXES}; got "
                          f"{tuple(sizes)}")
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a 'model' axis of {sizes['model']} (tensor parallelism over "
-            "DTensor) is the next part of ROADMAP.md queue A item 7; this "
-            "Trainer trains data-parallel over 'pod' and 'data'")
+    tp.local_config(cfg, sizes.get("model", 1))
     return sizes
 
 
@@ -75,10 +85,12 @@ class Trainer:
         device="cuda",
     ):
         """Raises:
-            NotImplementedError: the mesh has a ``"model"`` axis above 1.
+            NotImplementedError: a Mamba or xLSTM mixer on a ``"model"``
+                axis above 1.
             ValueError: a mesh axis other than ``pod``, ``data`` and
-                ``model``; ``device`` is not the mesh's device type;
-                ``int8_pod`` without a ``"pod"`` axis.
+                ``model``; a width the model axis does not divide;
+                ``device`` is not the mesh's device type; ``int8_pod``
+                without a ``"pod"`` axis.
             RuntimeError: ``device`` is CUDA (the default) and there is
                 none.
         """
@@ -88,10 +100,13 @@ class Trainer:
         self.mesh = mesh
         self.device = resolve_device(device)
         groups = {}
+        self._model = 1
+        self._local_cfg = cfg
+        self._template = self._cuts = None
         if mesh is not None:
             from repro_torch.launch.mesh import mesh_device
 
-            sizes = _mesh_sizes(mesh)
+            sizes = _mesh_sizes(mesh, cfg)
             if self.device.type != mesh.device_type:
                 raise ValueError(f"device {device!r} is not the mesh's "
                                  f"{mesh.device_type!r}")
@@ -99,23 +114,55 @@ class Trainer:
             groups = {f"{axis}_group": mesh.get_group(axis)
                       for axis in ("data", "pod") if axis in sizes}
             self._sizes = sizes
+            self._model = sizes.get("model", 1)
+            self._local_cfg = tp.local_config(cfg, self._model)
         self._rank0 = mesh is None or _global_rank() == 0
+        self._rows_split = False
         self.log_every = log_every
         self.checkpoint_every = checkpoint_every
         self.obs = _obs_resolve(obs)
         self.monitor = StragglerMonitor()
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.metrics_log: List[Dict[str, float]] = []
-        self._step = make_train_step(cfg, hyper, **groups)
+        self._groups = groups
+        self._step = make_train_step(self._local_cfg, hyper, **groups)
         self._seed = seed
 
     # -- lifecycle -------------------------------------------------------------
     def init_or_restore(self) -> Dict[str, Any]:
-        """The latest checkpoint's state, else a fresh one from the seed."""
+        """The latest checkpoint's state, else a fresh one from the seed;
+        on a model axis above 1, this rank's shards of it."""
+        if self._model == 1:
+            if self.ckpt is not None and self.ckpt.latest_step() is not None:
+                return self.ckpt.restore(device=self.device)
+            return init_train_state(self.cfg, self._seed, self.hyper,
+                                    device=self.device)
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            return self.ckpt.restore(device=self.device)
-        return init_train_state(self.cfg, self._seed, self.hyper,
-                                device=self.device)
+            self._set_layout(self.ckpt.shapes()["params"])
+            return self.ckpt.restore(device=self.device, mesh=self.mesh,
+                                     cfg=self.cfg)
+        params, template = tp.init_local_params(self.cfg, self._seed,
+                                                self.mesh, self.device)
+        self._set_layout(template)
+        return train_state_from_params(params, self.hyper)
+
+    def _set_layout(self, template) -> None:
+        """The full params' shapes (``meta`` tensors: the gather's
+        template) and their cuts; the step clips by the global norm over
+        them."""
+        self._template = template
+        self._cuts = tp.param_cuts(template, self.mesh, self.cfg)
+        self._step = make_train_step(self._local_cfg, self.hyper,
+                                     cuts=self._cuts, **self._groups)
+
+    def _view(self):
+        """The mesh's local view around a step (the model code reads it);
+        no context without a mesh."""
+        import contextlib
+
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return tp.local_view(self.mesh, batch_sharded=self._rows_split)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -123,7 +170,8 @@ class Trainer:
 
     def _local_rows(self, batch: Dict[str, torch.Tensor]):
         """This rank's rows: the batch dim split over the mesh axes its
-        spec names, in mesh order (all rows where the spec replicates)."""
+        spec names, in mesh order (all rows where the spec replicates);
+        sets whether they were split."""
         if self.mesh is None:
             return batch
         from repro_torch.distributed.sharding import batch_partition_specs
@@ -141,10 +189,15 @@ class Trainer:
                 parts *= self._sizes[axis]
             rows = v.shape[0] // parts
             out[k] = v[index * rows:(index + 1) * rows]
+            self._rows_split = parts > 1
         return out
 
     def _save(self, step: int, state) -> None:
-        """Rank 0 writes; on a mesh every rank then waits at a barrier."""
+        """Rank 0 writes; on a mesh every rank then waits at a barrier. On
+        a model axis above 1 every rank first joins the gather of the full
+        state."""
+        if self._model > 1:
+            state = tp.gather_state(state, self.mesh, self._template)
         if self._rank0:
             self.ckpt.save(step, state)
         if self.mesh is not None:
@@ -156,6 +209,9 @@ class Trainer:
         of ``metrics_log``); checkpoint every ``checkpoint_every`` steps and
         at the end. Returns the final state."""
         state = state if state is not None else self.init_or_restore()
+        if self._model > 1 and self._cuts is None:
+            raise ValueError("a tensor-parallel Trainer trains the state of "
+                             "its init_or_restore()")
         start = int(state["step"])
         for step in range(start, num_steps):
             batch = self._local_rows(
@@ -163,7 +219,7 @@ class Trainer:
                  for k, v in self.dataset.batch_at(step).items()})
             self._sync()
             t0 = self.obs.now()
-            with self.obs.span("train/step", step=step):
+            with self.obs.span("train/step", step=step), self._view():
                 state, metrics = self._step(state, batch)
                 self._sync()
             dt = self.obs.now() - t0

@@ -16,7 +16,9 @@ qwen3-1.7b SMOKE, fp32 compute, 4 steps of 4 x 32 tokens:
   checkpoint;
 * ``int8_pod`` on a ``("pod", "data", "model")`` (2, 1, 1) mesh: it runs,
   its loss falls, residuals are carried;
-* a ``"model"`` axis of 2 and ``make_production_mesh`` on 2 ranks raise;
+* an xLSTM model on a ``"model"`` axis of 2 (its tensor parallelism is
+  the third part of ROADMAP.md queue A item 7) and
+  ``make_production_mesh`` on 2 ranks raise;
 * ``elastic_remesh`` from those 2 ranks onto 1: the checkpoint restores
   bitwise rank 0's final state.
 
@@ -86,6 +88,7 @@ def _dp_worker(rank, world, store, out):
     import torch.distributed as dist
 
     from repro_torch.common.tree import flatten_dict
+    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import (
         make_host_mesh,
         make_mesh,
@@ -115,8 +118,8 @@ def _dp_worker(rank, world, store, out):
         .values())
     for label, build in (
             ("model_axis", lambda: Trainer(
-                cfg, hyper, data, mesh=make_mesh((1, world),
-                                                 ("data", "model")),
+                get_config("xlstm-350m", smoke=True), hyper, data,
+                mesh=make_mesh((1, world), ("data", "model")),
                 device="cpu")),
             ("production", make_production_mesh)):
         try:
@@ -242,7 +245,7 @@ def test_model_axis_and_production_mesh_raise(dp_run):
     _, reports, _ = dp_run
     for r in reports:
         assert r["model_axis"].startswith("NotImplementedError")
-        assert "next part of ROADMAP.md queue A item 7" in r["model_axis"]
+        assert "third part of ROADMAP.md queue A item 7" in r["model_axis"]
         assert r["production"].startswith("RuntimeError")
         assert "256 ranks" in r["production"]
 

@@ -183,8 +183,13 @@ def test_apply_moe_matches_reference_with_drops(arch, dispatch):
     assert int(per_expert.max()) > cap
     srt = torch.sort(probs, dim=-1).values
     assert float((srt[:, 1:] - srt[:, :-1]).min()) > 0.0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmoe.apply_moe(tp, tcfg, torch.from_numpy(x), mesh=object())
+    # a mesh needs a process group behind it (the mesh path itself is held
+    # in tests/test_torch_tensor_parallel.py)
+    from repro_torch.distributed.sharding import AbstractMesh
+
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        tmoe.apply_moe(tp, tcfg, torch.from_numpy(x),
+                       mesh=AbstractMesh((1, 2), ("data", "model")))
 
 
 # ---------------------------------------------------------------------------

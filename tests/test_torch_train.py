@@ -319,8 +319,9 @@ def test_checkpoint_resume_is_deterministic(tmp_path):
 def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
     """``Trainer(mesh=make_host_mesh())`` on one gloo rank: every loss and
     the final state bitwise ``mesh=None``'s (the all-reduce of one rank
-    and the token weight 1 change nothing). A "model" axis above 1 and an
-    unknown axis are refused before any group is touched."""
+    and the token weight 1 change nothing). An xLSTM model on a "model"
+    axis above 1 and an unknown axis are refused before any group is
+    touched."""
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -338,8 +339,9 @@ def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
         [r["loss"] for r in single.metrics_log]
     a, b = flatten_dict(state_a), flatten_dict(state_b)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="next part of ROADMAP"):
-        Trainer(CFG, TrainHyper(), None, device=CPU,
+    with pytest.raises(NotImplementedError, match="third part of ROADMAP"):
+        Trainer(get_config("xlstm-350m", smoke=True), TrainHyper(),
+                None, device=CPU,
                 mesh=AbstractMesh((1, 2), ("data", "model")))
     with pytest.raises(ValueError, match="axes"):
         Trainer(CFG, TrainHyper(), None, device=CPU,
