@@ -317,11 +317,14 @@ Phases, each fatal on failure:
     "model" a step; in fp32 the losses and every ``grad_norm`` within
     TP_FP32_TOL, in bf16 the losses and the first ``grad_norm`` (where
     both hold the same weights) within the bf16 budget, the later ones
-    printed (ROADMAP.md queue C: a head near its rm clamp); for each dtype
-    the gradient leaves that part most at the third step's state; step
-    walls and peak memory beside phase 24 c's; (b) phase 7's workload
-    through ``Scheduler(mesh=)`` on (2, 1), tokens bitwise one device's
-    serving with the rank's 2 lanes, and on (1, 2), where a request that
+    printed (ROADMAP.md queue C, measured gaps: a head near its rm clamp);
+    for each dtype the gradient leaves that part most at the third step's
+    state and layer 15's smallest |rm denominator| there on one device
+    and on each rank (``clamp_probe``); step walls and peak memory beside
+    phase 24 c's; the mesh runs with ``"act_seq"`` on, the default; (b)
+    phase 7's workload through ``Scheduler(mesh=)`` on (2, 1), tokens
+    bitwise one device's serving with the rank's 2 lanes, and on (1, 2),
+    where a request that
     parts from phase 7's tokens must part inside the bf16 noise (the rows
     it was sampled from within the budget, the two tokens within twice
     their gap); B1 / B2 launches and peak memory a rank; (c) deepseek-v2-
@@ -334,6 +337,23 @@ Phases, each fatal on failure:
     every logit, B2 27 and 4 a rank; (d) hubert-xlarge rm in fp32
     encoding 2 x 1500 frames on (1, 2): B3 and B4 48 a rank, within
     E2E_TOL.
+30. SSM tensor parallelism, FSDP and "act_seq", in one spawn of 2 gloo
+    processes on cuda:0 after the one-device runs: (a) jamba-v0.1-52b rm
+    at full width, one pattern period (8 layers), drawn by
+    ``make_engine(mesh=)`` on (data 1, model 2): in fp32 the prefill
+    logits of a 40-token prompt (``"act_seq"`` cuts it) within E2E_TOL of
+    one device's and the greedy tokens of three prompts beside one
+    device's (printed, with where they part); in bf16 weights phase 27
+    c's requests with B2 once a prefill and B1 once a decode step on each
+    rank, a decode step's wall, and a rank's peak beside phase 27 c's;
+    (b) xlstm-350m at full width and depth in fp32: 3 training steps of 4
+    x 128 tokens on (1, 2), losses and ``grad_norm`` within TP_FP32_TOL
+    of one device's, then three prompts' greedy tokens; (c) qwen3-1.7b rm
+    at phase 24 c's shape: 3 fp32 steps with FSDP on (2, 1) against phase
+    29 a's one-device fp32 run (within TP_FP32_TOL), B2 28 a step a rank,
+    a rank's train state under 0.6 of one device's and its peak beside
+    phase 24 c's; then 3 bf16 steps on (1, 2) with ``"act_seq"`` off
+    (the replicated path), a rank's peak beside phase 29 a's with it on.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -365,17 +385,22 @@ time in its windows; B1 and B6–B8 their launches in a 4-shard apply
 (``sharded_launches``), B1 that apply's event and device times; B2 its
 training peak (``train_peak_gib``) and its launches in phase 28's
 data-parallel runs; B1–B4 their launches a rank in phase 29's tensor- and
-data-parallel runs (``tp_*``, ``dp_*``), B2 a rank's training peak) and,
-as its last
+data-parallel runs (``tp_*``, ``dp_*``), B2 a rank's training peak and
+layer 15's smallest |rm denominator| (``clamp_min_den_*``); B1 and B2
+their launches a rank in phase 30's jamba serve (``tp_jamba_*``), B1 its
+decode-step wall there, B2 a rank's peak there, its launches a step and a
+rank's peak and train state under FSDP (``fsdp_*``) and a rank's peak
+with ``"act_seq"`` off (``seq_off_*``)) and, as its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
 tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
 its timings alone, then phase 25's exact hubert encode (e) and its warm
 exact decode timing, then phase 26's deepseek profiler windows, then phase
-27's jamba and xlstm profiler windows; no kernel check and no gradient
-check is cut.
+27's jamba and xlstm profiler windows, then phase 30's xlstm tokens; no
+kernel check and no gradient check is cut.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2999,6 +3024,7 @@ def ssm_phase(torch, np, kernels, counters, prompts):
           f"1 x rm_s / rm_n)")
     done, launches, admissions, steps, own = serve_full_width(
         torch, np, "jamba", engine, cfg, prompts, counters)
+    kernels["B2"]["jamba_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if launches != {"B1": steps, "B2": admissions}:
         raise AssertionError(f"jamba launches {launches}: want B2 once a "
                              f"prefill ({admissions}), B1 once a decode "
@@ -3362,20 +3388,59 @@ def _tp_counters():
             "B3": rm_fused_state, "B4": rm_fused_apply}
 
 
-def tp_train_run(torch, mesh, dtype):
-    """Phase 29 a: qwen3-1.7b rm (phase 24 c's 4 x 256 tokens, ``dtype``
-    compute) DP_STEPS steps through the Trainer on ``mesh`` (None: one
-    device). Per step this rank's B2 launches and its all-reduces over
-    "model"; before the last step, ``[local shape, squared norm]`` of every
-    gradient leaf at the state that step starts from
-    (``train.steps.loss_grads`` on its batch, beside the step)."""
-    import contextlib
+@contextlib.contextmanager
+def clamp_probe(torch, layer):
+    """Inside: the model's fused causal rm op records, at its ``layer``-th
+    call (the layer's attention in a forward), the smallest |den| of its
+    heads (the signed denominator ``z(q_t) . sum_{s <= t} z(k_s)`` from
+    the plain featurize, fp32) and how many positions sit within 10 eps of
+    the clamp. Yields the record."""
+    from repro_torch.kernels.rm_attention.ref import featurize_ref4
+    from repro_torch.models import attention as am
 
+    orig = am.rm_attention_fused_causal
+    seen = {"calls": 0}
+
+    def probed(q, k, v, w, cd, cs, **kw):
+        if seen["calls"] == layer:
+            with torch.no_grad():
+                zq = featurize_ref4(q.detach().float(), w.float(), cd, cs)
+                zk = featurize_ref4(k.detach().float(), w.float(), cd, cs)
+                den = (zq * zk.cumsum(2)).sum(-1).abs()
+                eps = kw["eps"]
+                seen.update(min_den=float(den.min()), eps=eps,
+                            near=int((den < 10 * eps).sum()),
+                            positions=den.numel())
+                del zq, zk, den
+        seen["calls"] += 1
+        return orig(q, k, v, w, cd, cs, **kw)
+
+    am.rm_attention_fused_causal = probed
+    try:
+        yield seen
+    finally:
+        am.rm_attention_fused_causal = orig
+
+
+CLAMP_LAYER = 15         # the layer whose bf16 gradient parts most (29 a)
+
+
+def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
+    """Phase 29 a and 30 c: qwen3-1.7b rm (phase 24 c's 4 x 256 tokens,
+    ``dtype`` compute) DP_STEPS steps through the Trainer on ``mesh``
+    (None: one device), under the sharding ``rules`` where given (e.g.
+    ``{"act_seq": None}``). Per step this rank's B2 launches and its
+    all-reduces over "model"; the bytes of its train state; with
+    ``leaves``, before the last step, ``[local shape, squared norm]`` of
+    every gradient leaf at the state that step starts from
+    (``train.steps.loss_grads`` on its batch, beside the step) and layer
+    CLAMP_LAYER's smallest |rm denominator| there (``clamp_probe``)."""
     from repro_torch.common.tree import flatten_dict
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.distributed import collectives
     from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import logical_rules_context
     from repro_torch.train.steps import TrainHyper, loss_grads
     from repro_torch.train.trainer import Trainer
 
@@ -3391,31 +3456,39 @@ def tp_train_run(torch, mesh, dtype):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(cfg, hyper, data, seed=0, log_every=1, mesh=mesh,
-                      checkpoint_every=10 ** 9, device="cuda")
-    state = trainer.init_or_restore()
-    b2, reduces, leaves = [], [], {}
-    for step in range(1, DP_STEPS + 1):
-        if step == DP_STEPS:
-            batch = {k: v.to("cuda")
-                     for k, v in data.batch_at(step - 1).items()}
-            with (contextlib.nullcontext() if mesh is None
-                  else tp.local_view(mesh)):
-                grads, _ = loss_grads(lcfg, state["params"], batch)
-            leaves = {k: [list(g.shape), float(torch.sum(g.float() ** 2))]
-                      for k, g in flatten_dict(grads).items()}
-            del grads, batch
-        for c in counters.values():
-            c.launches = 0
-        calls = collectives.all_reduce.by_group.get(group, 0)
-        state = trainer.train(step, state)
-        torch.cuda.synchronize()
-        b2.append(counters["B2"].launches)
-        reduces.append(collectives.all_reduce.by_group.get(group, 0) - calls)
+    with (contextlib.nullcontext() if rules is None
+          else logical_rules_context(mesh, rules)):
+        trainer = Trainer(cfg, hyper, data, seed=0, log_every=1, mesh=mesh,
+                          checkpoint_every=10 ** 9, device="cuda")
+        state = trainer.init_or_restore()
+        b2, reduces, grad_leaves, den = [], [], {}, {}
+        for step in range(1, DP_STEPS + 1):
+            if step == DP_STEPS and leaves:
+                batch = {k: v.to("cuda")
+                         for k, v in data.batch_at(step - 1).items()}
+                with (contextlib.nullcontext() if mesh is None
+                      else tp.local_view(mesh)), \
+                        clamp_probe(torch, CLAMP_LAYER) as den:
+                    grads, _ = loss_grads(lcfg, state["params"], batch)
+                grad_leaves = {k: [list(g.shape),
+                                   float(torch.sum(g.float() ** 2))]
+                               for k, g in flatten_dict(grads).items()}
+                del grads, batch
+            for c in counters.values():
+                c.launches = 0
+            calls = collectives.all_reduce.by_group.get(group, 0)
+            state = trainer.train(step, state)
+            torch.cuda.synchronize()
+            b2.append(counters["B2"].launches)
+            reduces.append(collectives.all_reduce.by_group.get(group, 0)
+                           - calls)
+    state_bytes = sum(t_.numel() * t_.element_size() for t_ in tree_leaves(
+        [state["params"], state["opt"]["mu"], state["opt"]["nu"]]))
     return {"losses": [r["loss"] for r in trainer.metrics_log],
             "grad_norms": [r["grad_norm"] for r in trainer.metrics_log],
             "step_ms": [r["sec_per_step"] * 1e3 for r in trainer.metrics_log],
-            "b2": b2, "model_all_reduces": reduces, "leaves": leaves,
+            "b2": b2, "model_all_reduces": reduces, "leaves": grad_leaves,
+            "den": den, "state_gib": state_bytes / 2**30,
             "local_heads": lcfg.num_heads,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "device": str(next(iter(state["params"]["embed"].values()))
@@ -3687,6 +3760,7 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
         spawn_s = time.perf_counter() - t0
         want_b2 = [cfg.num_layers] * DP_STEPS
         ok = True
+        tp_runs = {}
         for dtype in dtypes:
             reps = [json.loads((out / f"train{r}_{dtype}.json").read_text())
                     for r in range(TP_RANKS)]
@@ -3728,6 +3802,18 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
                               for gap, k, v, tp_v in rows[:TP_LEAVES])
                   + "; the largest on one device: "
                   + ", ".join(f"{k} {v:.4f}" for v, k in big))
+            dens = [ref["den"]] + [r_["den"] for r_ in reps]
+            print(f"[tp a] {dtype}, layer {CLAMP_LAYER}'s rm attention at "
+                  f"that state (clamp_probe, fp32 from the layer's "
+                  f"{dtype} q and k): smallest |den| "
+                  + ", ".join(f"{lab} {d_['min_den']:.3e} ({d_['near']} of "
+                              f"{d_['positions']} head positions within 10 "
+                              "eps)" for lab, d_ in zip(
+                                  ["one device"] + [f"rank {r}" for r in
+                                                    range(TP_RANKS)], dens))
+                  + f"; eps {ref['den']['eps']:.0e}")
+            kernels["B2"][f"clamp_min_den_{dtype}"] = min(
+                d_["min_den"] for d_ in dens)
             for r, rep in enumerate(reps):
                 print(f"[tp a] {dtype} rank {r}: {rep['local_heads']} heads "
                       f"(BH {TRAIN_BATCH * rep['local_heads']}), B2 a step "
@@ -3747,10 +3833,12 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
                          and all(r_["b2"] == want_b2 for r_ in reps)
                          and all(r_["device"] == "cuda:0" for r_ in reps))
             if bf16:
+                tp_runs["bf16_mesh_losses"] = reps[0]["losses"]
                 kernels["B2"]["tp_train_launches_per_rank_step"] = \
                     reps[0]["b2"][0]
                 kernels["B2"]["tp_train_peak_gib_per_rank"] = max(
                     r_["peak_gib"] for r_ in reps)
+        tp_runs["one_fp32"] = one["float32"]
         del one
         if not ok:
             raise AssertionError("29 a: tensor-parallel training failed")
@@ -3916,6 +4004,362 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[tp] phase 29 in {time.perf_counter() - t_phase:.2f}s")
+    return tp_runs
+
+
+# -- phase 30: SSM tensor parallelism, FSDP over "data", "act_seq" ----------
+JAMBA_TP_PROMPT_T = 40     # jamba's prefill on the mesh: "act_seq" divides it
+XLSTM_TRAIN_SEQ = 128      # xlstm-350m training tokens a row (4 rows)
+SSM_NEW_TOKENS = 8         # greedy tokens a request in phase 30 a-b
+
+
+def ssm_tp_configs():
+    """Phase 30's configs: jamba-v0.1-52b rm cut to one pattern period in
+    fp32 and in bf16 weights (phase 27 c's), xlstm-350m in fp32."""
+    from repro_torch.configs import get_config
+
+    jamba = dataclasses.replace(get_config(JAMBA, attention_mode="rm"),
+                                num_layers=JAMBA_DEPTH).validate()
+    fp32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+    return {"jamba32": dataclasses.replace(jamba, **fp32),
+            "jamba16": dataclasses.replace(jamba, param_dtype="bfloat16"),
+            "xlstm32": dataclasses.replace(get_config(XLSTM), **fp32)}
+
+
+def ssm_tp_serve(torch, cfg, prompts, mesh, new_tokens):
+    """``cfg`` drawn by ``make_engine`` (on a mesh each rank its shards)
+    -> the logits of prompt 0's prefill (every vocab column), the greedy
+    tokens of every prompt, the seconds to draw, and the engine."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.serve import Request
+
+    t0 = time.perf_counter()
+    engine = make_engine(cfg.name, cfg=cfg, num_slots=2, max_len=256,
+                         seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    with torch.inference_mode():
+        logits, _, _ = engine.executor.prefill(prompts[0])
+        with (contextlib.nullcontext() if mesh is None
+              else tp.local_view(mesh)):
+            logits = tp.gather_vocab(logits)
+    for rid, prompt in prompts.items():
+        engine.submit(Request(rid, prompt, max_new_tokens=new_tokens))
+    done = engine.run()
+    return logits, {rid: done[rid].generated for rid in prompts}, ready, \
+        engine
+
+
+def xlstm_train_run(torch, cfg, mesh):
+    """Phase 30 b: xlstm-350m (fp32) DP_STEPS steps of 4 x
+    XLSTM_TRAIN_SEQ tokens through the Trainer on ``mesh`` (None: one
+    device) -> losses, grad norms, step walls, peak."""
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.train.steps import TrainHyper
+    from repro_torch.train.trainer import Trainer
+
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                              seq_len=XLSTM_TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0,
+                              device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainHyper(peak_lr=1e-3, warmup_steps=2,
+                                      total_steps=DP_STEPS), data, seed=0,
+                      log_every=1, mesh=mesh, checkpoint_every=10 ** 9,
+                      device="cuda")
+    trainer.train(DP_STEPS, trainer.init_or_restore())
+    torch.cuda.synchronize()
+    return {"losses": [r["loss"] for r in trainer.metrics_log],
+            "grad_norms": [r["grad_norm"] for r in trainer.metrics_log],
+            "step_ms": [r["sec_per_step"] * 1e3 for r in trainer.metrics_log],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def decode_step_ms(torch, executor, iters=10):
+    """The median wall of ``iters`` batched decode steps over every lane
+    (idle lanes at the scratch position), each synchronized."""
+    tokens = torch.zeros((executor.num_slots, 1), dtype=torch.long)
+    positions = torch.full((executor.num_slots,), executor.scratch_position,
+                           dtype=torch.long)
+    walls = []
+    for _ in range(iters + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        executor.decode(tokens, positions)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return median(walls[2:])
+
+
+def _ssm_fsdp_worker(rank, world, store, out_dir):
+    """Phase 30, one rank: (a) jamba fp32 on (1, 2) [logits, tokens] and
+    bf16 [phase 7's workload, launches, decode-step wall, peak], (b) xlstm
+    fp32 training and tokens on (1, 2), (c) qwen3 FSDP on (2, 1) in fp32
+    and (1, 2) with "act_seq" off in bf16; rank 0 holds the logits against
+    the one-device run the parent saved."""
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.distributed import tensor_parallel as tp
+        from repro_torch.launch.mesh import make_mesh
+
+        out = Path(out_dir)
+        counters = _tp_counters()
+        given = torch.load(out / "ssm_in.pt", weights_only=False)
+        cfgs = ssm_tp_configs()
+        mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+        report = {}
+        # a. jamba fp32: prefill logits and greedy tokens
+        torch.cuda.reset_peak_memory_stats()
+        logits, tokens, ready, engine = ssm_tp_serve(
+            torch, cfgs["jamba32"], given["short"], mesh, SSM_NEW_TOKENS)
+        report["jamba32"] = {
+            "tokens": tokens, "ready_s": ready,
+            "local_heads": engine.executor.model_cfg.num_heads,
+            "local_d_inner": cfgs["jamba32"].mamba.expand
+            * cfgs["jamba32"].d_model // tp.shards_of(
+                engine.executor.model_cfg),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "finite": bool(torch.isfinite(logits).all())}
+        if rank == 0:
+            want = torch.load(out / "jamba32_logits.pt").cuda()
+            report["jamba32"]["rel"] = rel_err(torch, logits, want)
+            del want
+        del logits, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a. jamba bf16 weights at phase 27 c's depth: phase 7's workload
+        torch.cuda.reset_peak_memory_stats()
+        from repro_torch.launch.serve import make_engine
+
+        t0 = time.perf_counter()
+        engine = make_engine(JAMBA, cfg=cfgs["jamba16"], num_slots=4,
+                             max_len=256, seed=0, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        ready = time.perf_counter() - t0
+        for c in counters.values():
+            c.launches = 0
+        done, admissions, steps, wall = run_workload(torch, engine,
+                                                     given["prompts"], 0)
+        launches = {k: c.launches for k, c in counters.items()
+                    if c.launches}
+        report["jamba16"] = {
+            "launches": launches, "admissions": admissions, "steps": steps,
+            "wall": wall, "ready_s": ready,
+            "decode_ms": decode_step_ms(torch, engine.executor),
+            "tokens": {rid: s_.generated for rid, s_ in done.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        # b. xlstm fp32: training, then greedy tokens
+        report["xlstm_train"] = xlstm_train_run(torch, cfgs["xlstm32"], mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, tokens, _, engine = ssm_tp_serve(
+            torch, cfgs["xlstm32"], given["short"], mesh, SSM_NEW_TOKENS)
+        report["xlstm_tokens"] = tokens
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        # c. qwen3-1.7b: FSDP on (2, 1) in fp32, "act_seq" off on (1, 2)
+        fsdp_mesh = make_mesh((world, 1), ("data", "model"),
+                              device_type="cuda")
+        report["fsdp"] = tp_train_run(torch, fsdp_mesh, "float32",
+                                      leaves=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["seq_off"] = tp_train_run(torch, mesh, "bfloat16",
+                                         leaves=False,
+                                         rules={"act_seq": None})
+        (out / f"ssm{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
+    """Phase 30 (see the module docstring): 2 gloo ranks on cuda:0 serve
+    jamba-v0.1-52b (one pattern period) on (data 1, model 2) in fp32 and in
+    bf16 weights, train and serve xlstm-350m on (1, 2), and train
+    qwen3-1.7b with FSDP on (2, 1) (against phase 29 a's one-device fp32
+    run, ``one_fp32``) and on (1, 2) with "act_seq" off (against phase
+    29 a's bf16 ranks, where it is on; ``tp_runs``: what phase 29 a
+    returned). Every check is fatal."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfgs = ssm_tp_configs()
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(30)
+    short = {rid: torch.randint(0, cfgs["xlstm32"].vocab_size, (t,),
+                                generator=gen).numpy()
+             for rid, t in enumerate((JAMBA_TP_PROMPT_T, 5, 37))}
+    # phase 27 c's requests: phase 7's lengths, ids in jamba's vocabulary
+    rng = np.random.default_rng(0)
+    own = {rid: rng.integers(0, cfgs["jamba16"].vocab_size, size=len(p_))
+           for rid, p_ in prompts.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        torch.save({"short": short, "prompts": own}, out / "ssm_in.pt")
+        # one device first, each freed before the next and the ranks
+        one = {}
+        for tag in ("jamba32", "xlstm32"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            logits, tokens, ready, engine = ssm_tp_serve(
+                torch, cfgs[tag], short, None, SSM_NEW_TOKENS)
+            one[tag] = {"tokens": tokens, "ready_s": ready,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            torch.save(logits.cpu(), out / f"{tag}_logits.pt")
+            del logits, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        one["xlstm_train"] = xlstm_train_run(torch, cfgs["xlstm32"], None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        spawn_ranks(_ssm_fsdp_worker, TP_RANKS, str(out / "s_ssm"), tmp)
+        spawn_s = time.perf_counter() - t0
+        reps = [json.loads((out / f"ssm{r}.json").read_text())
+                for r in range(TP_RANKS)]
+
+    def keyed(tokens):
+        return {int(k): v for k, v in tokens.items()}
+
+    # a. jamba fp32: logits held, tokens printed with where they part
+    r0 = reps[0]["jamba32"]
+    tok = keyed(r0["tokens"])
+    print(f"[ssm-tp a] {JAMBA} rm fp32, {JAMBA_DEPTH} layers, on (data 1, "
+          f"model {TP_RANKS}), {TP_RANKS} gloo processes on cuda:0 "
+          f"({spawn_s:.1f}s for all of phase 30's mesh runs with their "
+          f"start-up): prefill T {JAMBA_TP_PROMPT_T} logits {r0['rel']:.3e} "
+          f"from one device's (budget {E2E_TOL:.0e}); greedy tokens of "
+          f"{len(short)} prompts (T "
+          + ", ".join(str(len(p_)) for p_ in short.values()) + ") "
+          f"equal one device's {tok == one['jamba32']['tokens']}, part at "
+          f"{parting_points(tok, one['jamba32']['tokens'])}; per rank "
+          + "; ".join(f"rank {r} {rep['jamba32']['local_heads']} heads, "
+                      f"d_inner {rep['jamba32']['local_d_inner']}, drawn in "
+                      f"{rep['jamba32']['ready_s']:.2f}s, peak "
+                      f"{rep['jamba32']['peak_gib']:.2f} GiB"
+                      for r, rep in enumerate(reps))
+          + f" (one device {one['jamba32']['peak_gib']:.2f} GiB, drawn in "
+          f"{one['jamba32']['ready_s']:.2f}s)")
+    if not (r0["rel"] <= E2E_TOL and all(rep["jamba32"]["finite"]
+                                         for rep in reps)
+            and reps[0]["jamba32"]["tokens"] == reps[1]["jamba32"]["tokens"]):
+        raise AssertionError("30 a: jamba fp32 on the mesh failed")
+    # a. jamba bf16 weights: one B2 a prefill, one B1 a decode step a rank
+    for r, rep in enumerate(reps):
+        j = rep["jamba16"]
+        print(f"[ssm-tp a] {JAMBA} rm bf16 weights, {JAMBA_DEPTH} layers, "
+              f"phase 7's workload on (1, {TP_RANKS}), rank {r}: launches "
+              f"{j['launches']} over {j['admissions']} admissions and "
+              f"{j['steps']} decode steps, {j['wall']:.3f}s; a decode step "
+              f"(4 lanes) {j['decode_ms']:.2f} ms wall (median of 10); drawn "
+              f"in {j['ready_s']:.2f}s; peak {j['peak_gib']:.2f} GiB (phase "
+              f"27 c, one device: {kernels['B2'].get('jamba_peak_gib', 0):.2f}"
+              " GiB)")
+        if j["launches"] != {"B1": j["steps"], "B2": j["admissions"]}:
+            raise AssertionError(f"30 a: jamba bf16 rank {r} launches "
+                                 f"{j['launches']}")
+    if reps[0]["jamba16"]["tokens"] != reps[1]["jamba16"]["tokens"]:
+        raise AssertionError("30 a: the jamba bf16 ranks disagree")
+    kernels["B1"]["tp_jamba_launches_per_rank"] = \
+        reps[0]["jamba16"]["launches"]["B1"]
+    kernels["B2"]["tp_jamba_launches_per_rank"] = \
+        reps[0]["jamba16"]["launches"]["B2"]
+    kernels["B1"]["tp_jamba_decode_step_ms"] = reps[0]["jamba16"]["decode_ms"]
+    kernels["B2"]["tp_jamba_peak_gib_per_rank"] = max(
+        rep["jamba16"]["peak_gib"] for rep in reps)
+
+    # b. xlstm-350m fp32 training and tokens
+    x0, x1 = one["xlstm_train"], reps[0]["xlstm_train"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(x1["losses"], x0["losses"])]
+    ngaps = [abs(a - b) / abs(b) for a, b in zip(x1["grad_norms"],
+                                                 x0["grad_norms"])]
+    xtok = keyed(reps[0]["xlstm_tokens"])
+    print(f"[ssm-tp b] {XLSTM} fp32 at full width and depth, {DP_STEPS} "
+          f"steps of {TRAIN_BATCH} x {XLSTM_TRAIN_SEQ} tokens on (1, "
+          f"{TP_RANKS}): losses " + " ".join(f"{v:.6f}" for v in x1["losses"])
+          + " against one device's " + " ".join(f"{v:.6f}"
+                                                for v in x0["losses"])
+          + "; gaps " + " ".join(f"{v:.2e}" for v in gaps) + "; grad_norm "
+          "gaps " + " ".join(f"{v:.2e}" for v in ngaps)
+          + f" (budget {TP_FP32_TOL:.0e}); step walls "
+          + " / ".join(f"{v:.0f}" for v in x1["step_ms"]) + " ms (one device "
+          + " / ".join(f"{v:.0f}" for v in x0["step_ms"]) + " ms); peak a "
+          f"rank {x1['peak_gib']:.2f} GiB (one device {x0['peak_gib']:.2f});"
+          " greedy tokens equal one device's "
+          f"{xtok == one['xlstm32']['tokens']}, part at "
+          f"{parting_points(xtok, one['xlstm32']['tokens'])}")
+    if not (max(gaps + ngaps) <= TP_FP32_TOL
+            and reps[0]["xlstm_train"]["losses"]
+            == reps[1]["xlstm_train"]["losses"]
+            and reps[0]["xlstm_tokens"] == reps[1]["xlstm_tokens"]):
+        raise AssertionError("30 b: xlstm on the mesh failed")
+
+    # c. qwen3-1.7b: FSDP on (2, 1) in fp32; "act_seq" off on (1, 2)
+    one_fp32 = tp_runs["one_fp32"]
+    f0 = reps[0]["fsdp"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(f0["losses"],
+                                                one_fp32["losses"])]
+    ngaps = [abs(a - b) / abs(b) for a, b in zip(f0["grad_norms"],
+                                                 one_fp32["grad_norms"])]
+    want_b2 = [get_config("qwen3-1.7b").num_layers] * DP_STEPS
+    print(f"[fsdp c] qwen3-1.7b rm fp32, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(2 rows a rank), {DP_STEPS} steps with FSDP on (data "
+          f"{TP_RANKS}, model 1): losses "
+          + " ".join(f"{v:.6f}" for v in f0["losses"]) + " against one "
+          "device's (phase 29 a) " + " ".join(f"{v:.6f}"
+                                               for v in one_fp32["losses"])
+          + "; gaps " + " ".join(f"{v:.2e}" for v in gaps) + "; grad_norm "
+          "gaps " + " ".join(f"{v:.2e}" for v in ngaps)
+          + f" (budget {TP_FP32_TOL:.0e})")
+    for r, rep in enumerate(reps):
+        f_ = rep["fsdp"]
+        print(f"[fsdp c] rank {r}: train state (params, mu, nu) "
+              f"{f_['state_gib']:.2f} GiB (one device "
+              f"{one_fp32['state_gib']:.2f}), peak {f_['peak_gib']:.2f} GiB "
+              f"(one device {one_fp32['peak_gib']:.2f}; phase 24 c "
+              f"{kernels['B2']['train_peak_gib']:.2f} GiB), B2 a step "
+              f"{f_['b2']}, step walls "
+              + " / ".join(f"{v:.1f}" for v in f_["step_ms"])
+              + f" ms (one device {one_fp32['step_ms'][-1]:.1f} warm)")
+    off = [rep["seq_off"] for rep in reps]
+    print(f"[fsdp c] qwen3-1.7b rm bf16 on (1, {TP_RANKS}) with \"act_seq\" "
+          "off (the replicated path): peak a rank "
+          + " / ".join(f"{o['peak_gib']:.2f}" for o in off) + " GiB against "
+          f"{kernels['B2']['tp_train_peak_gib_per_rank']:.2f} GiB with it on "
+          "(phase 29 a); losses "
+          + " ".join(f"{v:.6f}" for v in off[0]["losses"]) + ", with it on "
+          + " ".join(f"{v:.6f}" for v in tp_runs["bf16_mesh_losses"])
+          + "; step walls " + " / ".join(f"{v:.1f}" for v in off[0]["step_ms"])
+          + " ms")
+    if not (max(gaps + ngaps) <= TP_FP32_TOL
+            and reps[0]["fsdp"]["losses"] == reps[1]["fsdp"]["losses"]
+            and all(rep["fsdp"]["b2"] == want_b2 for rep in reps)
+            and all(rep["fsdp"]["state_gib"] < 0.6 * one_fp32["state_gib"]
+                    for rep in reps)
+            and off[0]["losses"] == off[1]["losses"]):
+        raise AssertionError("30 c: FSDP or act_seq training failed")
+    kernels["B2"]["fsdp_train_launches_per_rank_step"] = f0["b2"][0]
+    kernels["B2"]["fsdp_train_peak_gib_per_rank"] = max(
+        rep["fsdp"]["peak_gib"] for rep in reps)
+    kernels["B2"]["fsdp_state_gib_per_rank"] = f0["state_gib"]
+    kernels["B2"]["seq_off_train_peak_gib_per_rank"] = max(
+        o["peak_gib"] for o in off)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[ssm-tp] phase 30 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -5506,7 +5950,12 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 29. tensor parallelism over "model"; data-parallel serving ----------
-    tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens)
+    tp_runs = tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 30. SSM tensor parallelism, FSDP over "data", "act_seq" -------------
+    ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -9,8 +9,12 @@ Two pieces, as in the reference:
    vocabulary over ``"model"``: ``distributed.tensor_parallel``, whose
    collectives stand where GSPMD puts them), so ``constrain`` checks the
    rank of ``x`` against the logical axes and returns ``x`` unchanged.
-   FSDP over ``"data"`` and ``"act_seq"`` sequence sharding are the third
-   part of ROADMAP.md queue A item 7.
+   Two rules also switch the local view's layouts, read through
+   :func:`rule`: ``"act_seq"`` (the residual stream cut by sequence over
+   ``"model"``, ``tensor_parallel.sequence_sharding``) and ``"fsdp"`` (the
+   Trainer's weights cut over ``"data"``, ``distributed.fsdp``); a rules
+   context that maps either to ``None`` switches it off, as the
+   reference's overrides do.
 
 2. **Parameter specs.** ``params_partition_specs`` maps every parameter
    leaf to a :class:`PartitionSpec` from a name-based rule table (TP over
@@ -49,6 +53,7 @@ __all__ = [
     "mesh_axes",
     "set_default_rules",
     "logical_rules_context",
+    "rule",
     "spec_for",
     "constrain",
     "params_partition_specs",
@@ -173,6 +178,14 @@ def logical_rules_context(mesh, rules: Optional[Dict[str, object]] = None):
         yield merged
     finally:
         _local.ctx = prev
+
+
+def rule(name: str):
+    """The mesh axis the logical axis ``name`` maps to: the active rules
+    context's entry (``None`` where that context's mesh lacks the axis),
+    else ``DEFAULT_RULES``'."""
+    ctx = _active()
+    return (ctx[1] if ctx is not None else DEFAULT_RULES).get(name)
 
 
 def spec_for(logical_axes: Tuple[Optional[str], ...],

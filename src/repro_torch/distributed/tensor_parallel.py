@@ -12,32 +12,58 @@ holds plain local tensors and runs the model at its local widths:
   ``"model"`` entries of ``distributed.sharding.params_partition_specs``
   (contiguous slices: the fused-head layout keeps query head ``i`` with kv
   head ``i // q_per_kv``), and :func:`gather_params` is its inverse,
-  bitwise. Two departures from the specs: the MoE expert stacks are cut
+  bitwise. Departures from the specs: the MoE expert stacks are cut
   along their ff dim (the reference computes them so,
-  ``P(None, None, "model")``), and with more model ranks than kv heads
-  each rank keeps the one kv head its query heads read (Megatron's rule;
-  the reference's GSPMD splits inside a head there). A dim the model axis
-  divides in neither direction raises ``ValueError``.
+  ``P(None, None, "model")``); with more model ranks than kv heads each
+  rank keeps the one kv head its query heads read (Megatron's rule; the
+  reference's GSPMD splits inside a head there); a fused column group
+  (Mamba's ``w_in`` ``[x | z]``, the mLSTM's ``w_up`` ``[xu | z]`` and
+  ``w_if`` ``[i | f]``, the sLSTM's gate-major ``w_in`` and ``b_in``) is
+  cut group by group, each rank keeping its channels or heads of every
+  group; and the xLSTM leaves the reference replicates but reads per head
+  (the mLSTM's ``w_if``, ``b_if`` and ``gn_scale``, the sLSTM's
+  ``r_rec``, ``b_in`` and ``gn_scale``) are cut by head. A dim the model
+  axis divides in neither direction raises ``ValueError``;
+  :func:`shard_cache` / :func:`gather_cache` cut decode caches along the
+  ``"model"`` entries of ``cache_partition_specs`` the same way.
 * :func:`local_config` divides ``num_heads``, ``num_kv_heads``, ``d_ff``,
-  the experts' ff and ``vocab_size`` by the model size, so the model code
-  needs no branch for widths.
-* The collectives stand where GSPMD puts them, as two autograd functions
-  over the model group: :func:`reduce_from_model` (all-reduce forward,
-  identity backward) after ``wo`` / ``w_o`` / ``w_down`` and the MoE's
-  combine, and :func:`copy_to_model` (identity forward, all-reduce
-  backward) where the block's input, or a replicated weight, enters a
-  region each rank computes a part of.
+  the experts' ff and ``vocab_size`` by the model size and returns a
+  :class:`LocalConfig`, whose ``model_shards`` the SSM mixers divide their
+  inner widths by (Mamba's ``d_inner``, the mLSTM's up-projection, the
+  sLSTM's cells), so the model code needs no branch for widths.
+* The collectives stand where GSPMD puts them, as autograd functions over
+  the model group: :func:`reduce_from_model` (all-reduce forward,
+  identity backward) after ``wo`` / ``w_o`` / ``w_down`` / ``w_out`` and
+  the MoE's combine, and :func:`copy_to_model` (identity forward,
+  all-reduce backward) where a replicated tensor enters a region each
+  rank computes a part of; :func:`gather_from_model` joins a rank's
+  channels where the next product reads all of them (the mLSTM's conv'd
+  input before ``wq`` / ``wk`` / ``wv``, the sLSTM's cells before its
+  feed-forward). A block's own input and output pass through
+  :func:`enter_block` and :func:`exit_block`.
+* ``"act_seq"`` (Megatron's sequence parallelism, on by default as in the
+  reference's rules): inside :func:`sequence_sharding`, where the model
+  axis divides T (training, prefill), the residual stream between blocks
+  is each rank's slice of the sequence (:func:`scatter_sequence`), the
+  norms and residual adds run on the slice, :func:`enter_block` is an
+  all-gather over the sequence with a reduce-scatter backward and
+  :func:`exit_block` a reduce-scatter with an all-gather backward. At
+  decode, or where T does not divide, it is replicated, and a rules
+  context with ``{"act_seq": None}`` turns it off. Each reduce-scatter is
+  an all-reduce and this rank's slice, so the numbers are the replicated
+  path's bit for bit.
 * The vocabulary is split over ``"model"`` too: a masked local embedding
   lookup then an all-reduce (:func:`vocab_parallel_embed`), local logit
   columns, and a cross entropy whose ``logsumexp`` reduces the max and then
   the sum of exponentials over the group (:func:`vocab_parallel_ce`).
 
-Activations between blocks stay replicated over ``"model"``; weight dims
-on ``"fsdp"`` stay replicated over ``"data"``. The model code reads the
-view from :func:`local_view`, a context the caller enters (the Trainer, the
-serving executor, ``models.moe.apply_moe(mesh=)``). Outside it, or on a
-model axis of size 1, every function here returns its input: ``mesh=None``
-is bitwise the single-device path.
+The weight dims on ``"fsdp"`` are cut over ``"data"`` in training
+(``distributed.fsdp``; ``shard_params(fsdp=True)``, and
+:func:`gather_params` gathers them back) and stay replicated in serving.
+The model code reads the view from :func:`local_view`, a context the caller
+enters (the Trainer, the serving executor, ``models.moe.apply_moe(mesh=)``).
+Outside it, or on a model axis of size 1, every function here returns its
+input: ``mesh=None`` is bitwise the single-device path.
 
     view = local_view_of(mesh)                     # a DeviceMesh, group up
     lcfg = local_config(cfg, view.model_size)
@@ -57,13 +83,22 @@ from typing import Any, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.common.tree import tree_get, tree_map_with_path
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.collectives import all_gather, all_reduce
-from repro_torch.distributed.sharding import mesh_axes, params_partition_specs
+from repro_torch.distributed.sharding import (
+    cache_partition_specs,
+    mesh_axes,
+    params_partition_specs,
+    rule,
+)
+from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "MODEL_AXIS",
     "BATCH_AXES",
     "LocalView",
+    "LocalConfig",
+    "shards_of",
     "local_view_of",
     "local_view",
     "active",
@@ -78,9 +113,19 @@ __all__ = [
     "meta_template",
     "shard_state",
     "gather_state",
+    "cache_cuts",
+    "shard_cache",
+    "gather_cache",
     "batch_index",
     "reduce_from_model",
     "copy_to_model",
+    "gather_from_model",
+    "sequence_sharding",
+    "scatter_sequence",
+    "gather_sequence",
+    "sequence_params",
+    "enter_block",
+    "exit_block",
     "mean_over_batch",
     "sync_replicated_grads",
     "global_grad_norm",
@@ -91,9 +136,6 @@ __all__ = [
 
 MODEL_AXIS = "model"
 BATCH_AXES = ("pod", "data")
-# the mixers this slice shards; Mamba's "state" dims and xLSTM's ff_up /
-# ff_down wait for the third part of ROADMAP.md queue A item 7
-_SSM_MIXERS = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,13 +146,32 @@ class LocalView:
     when the axis is absent or of size 1); ``batch_groups`` the groups of
     the batch axes (``"pod"``, ``"data"``, each of size above 1) that this
     call's rows are split over, empty where the rows are replicated, and
-    ``batch_size`` the product of their sizes."""
+    ``batch_size`` the product of their sizes; ``seq`` whether the
+    residual stream is cut by sequence over ``"model"`` (set inside
+    :func:`sequence_sharding`)."""
 
     model_size: int
     model_rank: int
     model_group: Any
     batch_groups: Tuple[Any, ...]
     batch_size: int
+    seq: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalConfig(ModelConfig):
+    """A :class:`ModelConfig` at one model rank's widths (what
+    :func:`local_config` returns): ``model_shards`` is the model axis its
+    widths were divided by, which the SSM mixers divide their inner widths
+    by (their sub-configs keep the full model's fields)."""
+
+    model_shards: int = 1
+
+
+def shards_of(cfg) -> int:
+    """The model axis ``cfg``'s widths are divided by: a
+    :class:`LocalConfig`'s ``model_shards``, 1 for a full config."""
+    return getattr(cfg, "model_shards", 1)
 
 
 def model_size_of(mesh) -> int:
@@ -201,14 +262,14 @@ def kv_replication(cfg, model_size: int) -> int:
 
 
 def local_config(cfg, model_size: int):
-    """``cfg`` at one model rank's widths: heads, kv heads, ``d_ff``, the
-    experts' ff and the vocabulary divided by ``model_size`` (kv heads: 1
-    where they are replicated, :func:`kv_replication`); ``cfg`` itself at
-    size 1.
+    """``cfg`` at one model rank's widths, a :class:`LocalConfig`: heads,
+    kv heads, ``d_ff``, the experts' ff and the vocabulary divided by
+    ``model_size`` (kv heads: 1 where they are replicated,
+    :func:`kv_replication`), and ``model_shards`` set for the SSM mixers'
+    inner widths (Mamba's ``d_inner``, the mLSTM's up-projection; the
+    sLSTM's cells are its heads); ``cfg`` itself at size 1.
 
     Raises:
-        NotImplementedError: a Mamba or xLSTM mixer under a model axis
-            above 1 (the third part of ROADMAP.md queue A item 7).
         ValueError: a width the model axis does not divide (the message
             names the dim and the axis).
     """
@@ -219,13 +280,11 @@ def local_config(cfg, model_size: int):
 
     kinds = layer_kinds(cfg)
     mixers = {_split_kind(k)[0] for k in kinds}
-    ssm = sorted(mixers & set(_SSM_MIXERS))
-    if ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {', '.join(ssm)} "
-            f"mixer(s) on a model axis of {m} is the third part of "
-            "ROADMAP.md queue A item 7; a model axis of 1 trains and serves "
-            "them data-parallel")
+    if "mamba" in mixers:
+        _divide("mamba d_inner", cfg.mamba.expand * cfg.d_model, m, cfg)
+    if "mlstm" in mixers:
+        _divide("xlstm d_up", int(cfg.xlstm.proj_factor * cfg.d_model), m,
+                cfg)
     dh = cfg.resolved_head_dim
     heads = _divide("num_heads", cfg.num_heads, m, cfg)
     reps = kv_replication(cfg, m)
@@ -236,24 +295,49 @@ def local_config(cfg, model_size: int):
     if moe is not None and "moe" in ffns:
         moe = dataclasses.replace(moe, d_ff_expert=_divide(
             "moe.d_ff_expert", moe.d_ff_expert, m, cfg))
-    return dataclasses.replace(
-        cfg, num_heads=heads, num_kv_heads=kv, head_dim=dh, d_ff=d_ff,
-        vocab_size=_divide("vocab_size", cfg.vocab_size, m, cfg),
-        moe=moe).validate()
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields.update(
+        num_heads=heads, num_kv_heads=kv, head_dim=dh, d_ff=d_ff,
+        vocab_size=_divide("vocab_size", cfg.vocab_size, m, cfg), moe=moe)
+    return LocalConfig(**fields, model_shards=m).validate()
 
 
 @dataclasses.dataclass(frozen=True)
 class Cut:
     """How one leaf is cut over ``"model"``: along ``dim``, each rank
     keeping slice ``rank // reps`` of ``model_size // reps`` (``reps`` > 1:
-    ranks that share a replicated kv head)."""
+    ranks that share a replicated kv head) of each of the dim's ``groups``
+    equal column groups (a fused ``[x | z]`` projection: 2)."""
 
     dim: int
     reps: int = 1
+    groups: int = 1
 
 
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 _MOE_FF_DIM = {"w_gate": 2, "w_up": 2, "w_down": 1}
+# the SSM leaves cut otherwise than (or where) the spec says: (mixer, leaf)
+# -> (dim, column groups). Fused groups are cut group by group; the xLSTM's
+# per-head leaves the spec replicates are cut by head.
+_SSM_CUTS = {
+    ("mamba", "w_in"): (1, 2),
+    ("mlstm", "w_up"): (1, 2),
+    ("mlstm", "w_if"): (1, 2),
+    ("mlstm", "b_if"): (0, 2),
+    ("mlstm", "gn_scale"): (0, 1),
+    ("slstm", "w_in"): (1, 4),
+    ("slstm", "b_in"): (0, 4),
+    ("slstm", "r_rec"): (1, 1),
+    ("slstm", "gn_scale"): (0, 1),
+}
+
+
+def _groups(path) -> int:
+    """The column groups of the leaf at ``path`` (1 but for the fused SSM
+    projections)."""
+    key = tuple(path[-2:]) if len(path) >= 2 else None
+    return _SSM_CUTS.get(key, (None, 1))[1]
 
 
 def param_cuts(params, mesh, cfg):
@@ -274,6 +358,9 @@ def param_cuts(params, mesh, cfg):
         name = path[-1]
         if "moe" in path and name in _MOE_FF_DIM and p.ndim == 3:
             return Cut(_MOE_FF_DIM[name])
+        if len(path) >= 2 and tuple(path[-2:]) in _SSM_CUTS:
+            dim, groups = _SSM_CUTS[tuple(path[-2:])]
+            return Cut(dim, groups=groups)
         if name in _KV_LEAVES and "attn" in path and reps > 1:
             return Cut(p.ndim - 1, reps)
         for dim, entry in enumerate(tree_get(specs, path)):
@@ -289,13 +376,27 @@ def _slice(p: torch.Tensor, cut: Optional[Cut], m: int, rank: int):
     if cut is None:
         return p
     parts = m // cut.reps
-    width = p.shape[cut.dim] // parts
-    return p.narrow(cut.dim, (rank // cut.reps) * width, width).clone()
+    pieces = []
+    for group in p.chunk(cut.groups, dim=cut.dim):
+        width = group.shape[cut.dim] // parts
+        pieces.append(group.narrow(cut.dim, (rank // cut.reps) * width,
+                                   width))
+    return torch.cat(pieces, dim=cut.dim)
 
 
-def shard_params(params, mesh, cfg):
+def _join(pieces, dim: int, groups: int) -> torch.Tensor:
+    """The inverse of :func:`_slice` from the distinct slices, in rank
+    order: group by group, each group's slices in order."""
+    split = [piece.chunk(groups, dim=dim) for piece in pieces]
+    return torch.cat([part[g] for g in range(groups) for part in split],
+                     dim=dim)
+
+
+def shard_params(params, mesh, cfg, *, fsdp_cut: bool = False):
     """This rank's local tensors of the full ``params`` (new tensors where
-    a leaf is cut; a replicated leaf is the caller's tensor).
+    a leaf is cut; a replicated leaf is the caller's tensor); with
+    ``fsdp_cut``, each leaf's ``"fsdp"`` dim is then cut over ``"data"``
+    too (``distributed.fsdp``, the Trainer's layout).
 
     Raises:
         RuntimeError: ``mesh`` has no process group behind it.
@@ -303,17 +404,22 @@ def shard_params(params, mesh, cfg):
     """
     view = local_view_of(mesh)
     cuts = param_cuts(params, mesh, cfg)
-    return tree_map_with_path(
+    local = tree_map_with_path(
         lambda path, p: _slice(p, tree_get(cuts, path),
                                view.model_size, view.model_rank), params)
+    if fsdp_cut:
+        local = fsdp.shard(local, mesh, fsdp.data_dims(params, mesh))
+    return local
 
 
-def init_local_params(cfg, seed: int, mesh, device="cuda"):
+def init_local_params(cfg, seed: int, mesh, device="cuda", *,
+                      fsdp_cut: bool = False):
     """This rank's shards of ``transformer.init_model(cfg)`` from ``seed``
     on ``device``: the same draws as ``train.steps.init_params``, each
-    block cut as soon as it is drawn, so a rank holds its shards and one
-    full block at most (a model that fits the card only in shards). The
-    one way the port's entry points (``Trainer``, ``launch.serve.
+    block cut as soon as it is drawn (over ``"data"`` too with
+    ``fsdp_cut``, as :func:`shard_params`), so a rank holds its shards and
+    one full block at most (a model that fits the card only in shards).
+    The one way the port's entry points (``Trainer``, ``launch.serve.
     make_engine``) draw a model onto a mesh.
 
     Returns ``(params, template)``: the local params and the full params'
@@ -323,7 +429,7 @@ def init_local_params(cfg, seed: int, mesh, device="cuda"):
     Raises:
         RuntimeError: as :func:`shard_params`; ``device`` is CUDA and
             there is none.
-        ValueError, NotImplementedError: as :func:`local_config`.
+        ValueError: as :func:`local_config`.
     """
     from repro_torch import resolve_device
     from repro_torch.models.transformer import init_model
@@ -337,7 +443,7 @@ def init_local_params(cfg, seed: int, mesh, device="cuda"):
             shapes["layers"].extend(meta_template(sub))
         else:
             shapes[key] = meta_template(sub)
-        return shard_params({key: sub}, mesh, cfg)[key]
+        return shard_params({key: sub}, mesh, cfg, fsdp_cut=fsdp_cut)[key]
 
     return init_model(cfg, gen, cut=cut), shapes
 
@@ -350,25 +456,36 @@ def meta_template(tree):
         tree)
 
 
+def _gather_model(path, p, full, view) -> torch.Tensor:
+    """One leaf's model slices joined back to ``full``'s shape (one copy
+    of a replicated kv head; the column groups of a fused projection)."""
+    if tuple(p.shape) == tuple(full):
+        return p
+    dim = next(i for i, (a, b) in enumerate(zip(p.shape, full)) if a != b)
+    reps = view.model_size * p.shape[dim] // full[dim]
+    pieces = all_gather(p, view.model_group)
+    return _join(pieces[::reps], dim, _groups(path))
+
+
 def gather_params(local, mesh, template):
-    """The full params back from every rank's ``local`` tensors: each leaf
-    whose shape differs from ``template``'s (a tree of full-shaped leaves,
-    e.g. :func:`meta_template`) is all-gathered over ``"model"`` and its
-    slices concatenated (one copy of a replicated kv head). Every rank
-    gets the result; the round trip with :func:`shard_params` is bitwise.
+    """The full params back from every rank's ``local`` tensors: a leaf
+    cut over ``"data"`` (its ``"fsdp"`` dim shorter than ``template``'s)
+    is all-gathered over ``"data"`` first, then each leaf whose shape
+    still differs from ``template``'s (a tree of full-shaped leaves, e.g.
+    :func:`meta_template`) is all-gathered over ``"model"`` and its slices
+    joined. Every rank gets the result; the round trip with
+    :func:`shard_params` is bitwise.
     """
     view = local_view_of(mesh)
-    m = view.model_size
+    data = fsdp.data_dims(template, mesh) \
+        if mesh_axes(mesh).get(fsdp.DATA_AXIS, 1) > 1 else None
 
     def one(path, p):
         full = tree_get(template, path).shape
-        if tuple(p.shape) == tuple(full):
-            return p
-        dim = next(i for i, (a, b) in enumerate(zip(p.shape, full))
-                   if a != b)
-        reps = m * p.shape[dim] // full[dim]
-        pieces = all_gather(p, view.model_group)
-        return torch.cat(pieces[::reps], dim=dim)
+        dim = None if data is None else tree_get(data, path)
+        if dim is not None and p.shape[dim] != full[dim]:
+            p = fsdp.gather_leaf(p, dim, mesh)
+        return _gather_model(path, p, full, view)
 
     return tree_map_with_path(one, local)
 
@@ -376,16 +493,19 @@ def gather_params(local, mesh, template):
 _STATE_PARAM_TREES = ("params", "residuals")
 
 
-def shard_state(state, mesh, cfg):
+def shard_state(state, mesh, cfg, *, fsdp_cut: bool = False):
     """A train state (``{"params", "opt": {"mu", "nu", "step"}, "step"}``,
-    maybe ``"residuals"``) at full widths -> this rank's local state."""
+    maybe ``"residuals"``) at full widths -> this rank's local state (cut
+    over ``"data"`` too with ``fsdp_cut``)."""
+    def cut(tree):
+        return shard_params(tree, mesh, cfg, fsdp_cut=fsdp_cut)
+
     out = dict(state)
     for key in _STATE_PARAM_TREES:
         if key in state:
-            out[key] = shard_params(state[key], mesh, cfg)
-    out["opt"] = {**state["opt"],
-                  "mu": shard_params(state["opt"]["mu"], mesh, cfg),
-                  "nu": shard_params(state["opt"]["nu"], mesh, cfg)}
+            out[key] = cut(state[key])
+    out["opt"] = {**state["opt"], "mu": cut(state["opt"]["mu"]),
+                  "nu": cut(state["opt"]["nu"])}
     return out
 
 
@@ -400,6 +520,57 @@ def gather_state(state, mesh, template):
                   "mu": gather_params(state["opt"]["mu"], mesh, template),
                   "nu": gather_params(state["opt"]["nu"], mesh, template)}
     return out
+
+
+def cache_cuts(cache, mesh, cfg):
+    """A tree matching a decode ``cache`` (FULL widths): a :class:`Cut`
+    along each leaf's ``"model"`` entry of ``cache_partition_specs``
+    (Mamba's ``conv`` / ``ssm`` by channel; the rm state, the mLSTM's
+    ``c`` / ``n`` / ``m`` and the sLSTM's ``h`` / ``c`` / ``n`` / ``m`` by
+    head; exact attention's ``k`` / ``v`` by kv head, one a rank where the
+    kv heads are replicated), None where it stays whole.
+
+    Raises:
+        ValueError: as :func:`local_config`.
+    """
+    m = model_size_of(mesh)
+    local_config(cfg, m)
+    if m == 1:
+        return tree_map_with_path(lambda *_: None, cache)
+    specs = cache_partition_specs(cache, mesh)
+    reps = kv_replication(cfg, m)
+
+    def one(path, p):
+        if path[-1] in ("k", "v") and reps > 1:
+            return Cut(2, reps)
+        for dim, entry in enumerate(tree_get(specs, path)):
+            if MODEL_AXIS in (entry if isinstance(entry, tuple)
+                              else (entry,)):
+                return Cut(dim)
+        return None
+
+    return tree_map_with_path(one, cache)
+
+
+def shard_cache(cache, mesh, cfg):
+    """This rank's slices of a full decode ``cache`` (:func:`cache_cuts`):
+    the cache a rank's prefill returns, and the shapes
+    ``transformer.init_decode_cache`` gives at :func:`local_config`'s
+    widths."""
+    view = local_view_of(mesh)
+    cuts = cache_cuts(cache, mesh, cfg)
+    return tree_map_with_path(
+        lambda path, p: _slice(p, tree_get(cuts, path), view.model_size,
+                               view.model_rank), cache)
+
+
+def gather_cache(cache, mesh, template):
+    """The inverse of :func:`shard_cache` (``template`` full-shaped, e.g.
+    :func:`meta_template`); bitwise."""
+    view = local_view_of(mesh)
+    return tree_map_with_path(
+        lambda path, p: _gather_model(path, p, tree_get(template, path).shape,
+                                      view), cache)
 
 
 def batch_index(mesh) -> Tuple[int, int]:
@@ -472,6 +643,136 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     return _CopyToModel.apply(x, view.model_group)
 
 
+class _GatherDim(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward: this rank's slice of
+    the gradient, summed over the group first where ``reduce`` (the
+    gathered tensor feeds a region each rank computes a part of)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, dim, reduce):
+        ctx.group, ctx.rank, ctx.dim, ctx.reduce = group, rank, dim, reduce
+        ctx.width = x.shape[dim]
+        return torch.cat(all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.reduce:
+            grad = _sum_over(grad, (ctx.group,))
+        return (grad.narrow(ctx.dim, ctx.rank * ctx.width,
+                            ctx.width).contiguous(), None, None, None, None)
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Forward: this rank's slice along ``dim``, of the sum over the group
+    where ``reduce`` (a reduce-scatter, as an all-reduce and a slice);
+    backward: the all-gather of the gradient's slices."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, dim, reduce):
+        ctx.group, ctx.dim = group, dim
+        out = _sum_over(x, (group,)) if reduce else x
+        width = x.shape[dim] // group.size()
+        return out.narrow(dim, rank * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (torch.cat(all_gather(grad.contiguous(), ctx.group),
+                          dim=ctx.dim), None, None, None, None)
+
+
+def gather_from_model(x: torch.Tensor, dim: int = -1, *,
+                      partial: bool = True) -> torch.Tensor:
+    """Every model rank's ``x`` joined along ``dim`` (a rank's channels or
+    heads -> all of them): one all-gather forward; backward, this rank's
+    slice of the gradient, all-reduced first where ``partial`` (the joined
+    tensor feeds a product each rank computes a part of). ``x`` itself
+    outside a view or on a model axis of 1."""
+    view = model_view()
+    if view is None:
+        return x
+    return _GatherDim.apply(x, view.model_group, view.model_rank,
+                            dim % x.ndim, partial)
+
+
+@contextlib.contextmanager
+def sequence_sharding(seq_len: int) -> Iterator[bool]:
+    """Inside: the residual stream cut by sequence over ``"model"``
+    (``"act_seq"``) where a model view is active, the ``"act_seq"`` rule
+    maps to ``"model"`` (``sharding.rule``) and the model axis divides
+    ``seq_len``; yields whether it is."""
+    view = model_view()
+    on = (view is not None and rule("act_seq") == MODEL_AXIS
+          and seq_len % view.model_size == 0)
+    if not on:
+        yield False
+        return
+    prev = _local.view
+    _local.view = dataclasses.replace(view, seq=True)
+    try:
+        yield True
+    finally:
+        _local.view = prev
+
+
+def _seq_view() -> Optional[LocalView]:
+    view = model_view()
+    return view if view is not None and view.seq else None
+
+
+def scatter_sequence(x: torch.Tensor) -> torch.Tensor:
+    """A replicated ``[B, T, ...]`` -> this rank's slice of the sequence
+    (all-gather backward) inside :func:`sequence_sharding`; else ``x``."""
+    view = _seq_view()
+    if view is None:
+        return x
+    return _ScatterDim.apply(x, view.model_group, view.model_rank, 1, False)
+
+
+def gather_sequence(x: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the sequence -> the whole ``[B, T, ...]``,
+    replicated (backward: the gradient's slice) inside
+    :func:`sequence_sharding`; else ``x``. For a mixer whose input feeds
+    replicated and per-rank products alike (MLA, the MoE), which then
+    keep their own :func:`copy_to_model`."""
+    view = _seq_view()
+    if view is None:
+        return x
+    return _GatherDim.apply(x, view.model_group, view.model_rank, 1, False)
+
+
+def sequence_params(tree):
+    """Replicated params read on this rank's slice of the sequence (the
+    norms between blocks, a bias added after :func:`exit_block`): inside
+    :func:`sequence_sharding` each leaf passes through
+    :func:`copy_to_model`, so its gradient, each rank's part from its
+    positions, is summed over ``"model"``; ``tree`` itself elsewhere."""
+    if _seq_view() is None:
+        return tree
+    return tree_map_with_path(lambda _, p: copy_to_model(p), tree)
+
+
+def enter_block(x: torch.Tensor) -> torch.Tensor:
+    """A block's input ``[B, T, d]`` entering its per-rank products: the
+    sequence all-gathered (reduce-scatter backward) inside
+    :func:`sequence_sharding`, else :func:`copy_to_model`."""
+    view = _seq_view()
+    if view is None:
+        return copy_to_model(x)
+    return _GatherDim.apply(x, view.model_group, view.model_rank, 1, True)
+
+
+def exit_block(y: torch.Tensor, *, partial: bool = True) -> torch.Tensor:
+    """A block's output ``[B, T, d]``, each rank's part where ``partial``
+    (replicated otherwise): reduce-scattered over the sequence
+    (all-gather backward) inside :func:`sequence_sharding`, else
+    :func:`reduce_from_model` (``y`` itself where not ``partial``)."""
+    view = _seq_view()
+    if view is None:
+        return reduce_from_model(y) if partial else y
+    return _ScatterDim.apply(y, view.model_group, view.model_rank, 1,
+                             partial)
+
+
 def mean_over_batch(x: torch.Tensor) -> torch.Tensor:
     """The mean of ``x`` over the ranks the batch is split over (one
     all-reduce an axis forward, identity backward: each rank's loss uses
@@ -509,30 +810,39 @@ def sync_replicated_grads(grads, cuts):
     return grads
 
 
-def global_grad_norm(grads, cuts) -> torch.Tensor:
+def global_grad_norm(grads, cuts, plan=None) -> torch.Tensor:
     """The 2-norm of the FULL gradient from this rank's local ``grads``:
     each leaf's sum of squares weighted so that one all-reduce over
     ``"model"`` counts it once (a split leaf 1, a replicated leaf ``1 /
-    model_size``, a kv head replicated on ``reps`` ranks ``1 / reps``).
-    Outside a view it is ``optim.adamw.global_norm``."""
+    model_size``, a kv head replicated on ``reps`` ranks ``1 / reps``) and,
+    with an FSDP ``plan`` (``distributed.fsdp.Plan``), one more over
+    ``"data"`` (a leaf cut over it 1, a replicated one ``1 / size``).
+    Outside a view and without ``plan`` it is
+    ``optim.adamw.global_norm``."""
     from repro_torch.common.tree import tree_leaves
     from repro_torch.optim.adamw import global_norm
 
     view = model_view()
-    if view is None:
+    if view is None and plan is None:
         return global_norm(grads)
-    m = view.model_size
     total = torch.zeros((), dtype=torch.float32,
                         device=tree_leaves(grads)[0].device)
 
     def one(path, g):
         nonlocal total
-        cut = tree_get(cuts, path)
-        w = 1.0 / m if cut is None else 1.0 / cut.reps
+        w = 1.0
+        if view is not None:
+            cut = tree_get(cuts, path)
+            w = 1.0 / view.model_size if cut is None else 1.0 / cut.reps
+        if plan is not None and tree_get(plan.dims, path) is None:
+            w = w / plan.size
         total = total + torch.sum(torch.square(g.float())) * w
 
     tree_map_with_path(one, grads)
-    all_reduce(total, view.model_group)
+    if view is not None:
+        all_reduce(total, view.model_group)
+    if plan is not None:
+        all_reduce(total, plan.group)
     return torch.sqrt(total)
 
 

@@ -19,8 +19,10 @@ the default process group (``launch.mesh.init_distributed``: under
 ``torchrun`` one process a rank, else a world of one), ``--mesh single``
 and ``multi`` over the 256- and 512-rank production meshes (they raise
 with fewer ranks); ``--model-parallel N`` gives the host mesh a ``"model"``
-axis of N (tensor parallelism, ``distributed.tensor_parallel``; the SSM
-archs refuse N above 1):
+axis of N (tensor parallelism, ``distributed.tensor_parallel``, with
+``"act_seq"`` sequence sharding where N divides ``--seq``); the ranks
+left form its ``"data"`` axis, over which the Trainer cuts params and
+optimizer state (FSDP, ``distributed.fsdp``):
 
     torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh host \
         --smoke --steps 20

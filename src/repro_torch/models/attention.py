@@ -239,11 +239,11 @@ def init_attention(cfg: ModelConfig, generator, dtype, device) -> Params:
 
 def _project_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor):
     """q, k, v ``[B, T, heads, dh]`` at ``cfg``'s head counts (a model
-    rank's own heads under a model-parallel view, where x and the qk-norm
-    scales enter through ``tensor_parallel.copy_to_model``)."""
+    rank's own heads under a model-parallel view, where the qk-norm
+    scales enter through ``tensor_parallel.copy_to_model``; x has entered
+    the block through ``tensor_parallel.enter_block``)."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    x = tp.copy_to_model(x)
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -266,7 +266,7 @@ def _out_proj(params: Params, out: torch.Tensor) -> torch.Tensor:
     """``out [.., heads * dh] @ wo``; under a model-parallel view ``wo``
     holds this rank's head rows and one all-reduce sums the ranks'
     parts."""
-    return tp.reduce_from_model(out @ params["wo"])
+    return tp.exit_block(out @ params["wo"])
 
 
 def _apply_positional(cfg: ModelConfig, q, k, positions):
@@ -395,6 +395,7 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention (training forward, or an encoder's encode;
     causal or not as ``cfg.causal`` says). x: [B, T, d]."""
+    x = tp.enter_block(x)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -470,6 +471,7 @@ def attention_decode(
     size`` (the returned cache holds the same tensors), then the query
     attends to every slot whose absolute position is in range."""
     _require_decoder(cfg)
+    x = tp.enter_block(x)
     b = x.shape[0]
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
@@ -508,6 +510,7 @@ def attention_prefill_cache(
     keys and values written into a fresh ring buffer of ``max_len`` (or the
     sliding window) slots; ``max_len`` is required there."""
     _require_decoder(cfg)
+    x = tp.enter_block(x)
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)

@@ -105,14 +105,15 @@ def apply_mlp(params: Params, cfg: ModelConfig,
     ``w_gate`` / ``w_up`` hold this rank's ff columns and ``w_down`` its ff
     rows: one all-reduce completes the block, and ``b_down`` is added once,
     after it."""
-    x = tp.copy_to_model(x)
+    x = tp.enter_block(x)
     if cfg.mlp_kind == "swiglu":
         gate = x @ params["w_gate"]
         up = x @ params["w_up"]
-        return tp.reduce_from_model((F.silu(gate) * up) @ params["w_down"])
+        return tp.exit_block((F.silu(gate) * up) @ params["w_down"])
     up = x @ params["w_up"] + params["b_up"]
-    return tp.reduce_from_model(F.gelu(up, approximate="tanh")
-                                @ params["w_down"]) + params["b_down"]
+    return tp.exit_block(F.gelu(up, approximate="tanh")
+                         @ params["w_down"]) + tp.sequence_params(
+                             params["b_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +208,10 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def unembed(params: Params, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 (the matmul runs in the activations' dtype); under a
-    model-parallel view, this rank's vocab columns, each softcapped."""
-    x = tp.copy_to_model(x)
+    model-parallel view, this rank's vocab columns, each softcapped (x
+    this rank's slice of the sequence inside ``tensor_parallel.
+    sequence_sharding``: it is gathered first)."""
+    x = tp.enter_block(x)
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].to(x.dtype).T
     else:

@@ -16,6 +16,17 @@ the port computes it in plain PyTorch. The SSM dynamics run in fp32 from
 the compute-dtype projections, at the reference's cast points: ``a_log``
 and ``d_skip`` arrive in the compute dtype (``cast_params_to_compute``
 casts every fp32 leaf) and are upcast where they are read.
+
+Under a model-parallel view (``distributed.tensor_parallel``) a rank
+holds ``d_inner / model`` of the channels (the reference's ``"state"``
+rule): its slice of each half of ``w_in`` (``[x | z]``), of the conv, of
+``dt_proj``'s columns, ``dt_bias``, ``a_log``, ``d_skip`` and of
+``x_proj``'s and ``w_out``'s rows. The scan is per channel and needs no
+collective; ``x_proj``'s product over the channels is a partial sum that
+one all-reduce completes before dt, B and C are split (each rank then
+reads all of them), and ``w_out``'s rows end in the block's own
+reduction (``tensor_parallel.exit_block``). The cache holds the rank's
+channels.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, normal_init
 
@@ -36,6 +48,11 @@ __all__ = ["init_mamba", "mamba_forward", "mamba_prefill_cache",
 
 def _dt_rank(cfg: ModelConfig) -> int:
     return cfg.mamba.dt_rank or math.ceil(cfg.d_model / 16)
+
+
+def _d_inner(cfg: ModelConfig) -> int:
+    """The channels a rank holds (all of them outside a model axis)."""
+    return cfg.mamba.expand * cfg.d_model // tp.shards_of(cfg)
 
 
 def init_mamba(cfg: ModelConfig, generator: torch.Generator,
@@ -72,7 +89,9 @@ def _ssm_coeffs(params: Params, cfg: ModelConfig, xc: torch.Tensor):
     d_in, N]`` and ``c`` ``[B, T, N]``, all fp32."""
     n = cfg.mamba.d_state
     r = _dt_rank(cfg)
-    proj = xc @ params["x_proj"]                              # [B,T,r+2n]
+    # a rank's channels' part of the product, summed over "model"
+    proj = tp.copy_to_model(tp.reduce_from_model(
+        xc @ params["x_proj"]))                               # [B,T,r+2n]
     dt, b_in, c_in = torch.split(proj, [r, n, n], dim=-1)
     # the softplus in the projections' dtype, as the reference takes it
     dt = F.softplus(dt @ params["dt_proj"]
@@ -103,6 +122,7 @@ def _mamba_core(params: Params, cfg: ModelConfig, x: torch.Tensor):
     """The chunked-scan forward -> (y ``[B, T, d]``, the pre-conv input xs
     ``[B, T, d_in]``, the final ssm state ``[B, d_in, N]`` fp32)."""
     mc = cfg.mamba
+    x = tp.enter_block(x)
     b, t, _ = x.shape
     xs, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
     xc, _ = causal_conv(params["conv_w"], params["conv_b"], xs)
@@ -130,7 +150,7 @@ def _mamba_core(params: Params, cfg: ModelConfig, x: torch.Tensor):
     y = torch.einsum("btdn,btn->btd", hs, c)
     y = y + params["d_skip"].float() * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ params["w_out"], xs, h
+    return tp.exit_block(y @ params["w_out"]), xs, h
 
 
 def mamba_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -152,10 +172,11 @@ def mamba_prefill_cache(params: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
-    """Zero state for ``batch`` lanes: ``conv [batch, d_conv - 1, d_in]``
+    """Zero state for ``batch`` lanes (``d_in`` a rank's channels):
+    ``conv [batch, d_conv - 1, d_in]``
     in ``dtype`` (the compute dtype), ``ssm [batch, d_in, N]`` fp32."""
     mc = cfg.mamba
-    d_in = mc.expand * cfg.d_model
+    d_in = _d_inner(cfg)
     return {
         "conv": torch.zeros((batch, mc.d_conv - 1, d_in), dtype=dtype,
                             device=device),
@@ -168,6 +189,7 @@ def mamba_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], positions=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x ``[B, 1, d]``: the O(1) per-token recurrence."""
+    x = tp.enter_block(x)
     xs, z = torch.chunk(x @ params["w_in"], 2, dim=-1)
     xc, conv_state = causal_conv(params["conv_w"], params["conv_b"], xs,
                                  cache["conv"])
@@ -177,4 +199,5 @@ def mamba_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None]
     y = y + params["d_skip"].float() * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ params["w_out"], {"conv": conv_state, "ssm": h}
+    return tp.exit_block(y @ params["w_out"]), {"conv": conv_state,
+                                                "ssm": h}

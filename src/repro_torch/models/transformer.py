@@ -36,12 +36,21 @@ masters a train state holds.
 
 On a mesh every function here runs on the local view
 (``distributed.tensor_parallel``): params cut by ``shard_params``, the
-config of ``local_config`` (a rank's heads, ff and vocabulary), called
-inside ``tensor_parallel.local_view(mesh)``. The blocks all-reduce their
-outputs over ``"model"``, the logits are this rank's vocab columns
-(``tensor_parallel.gather_vocab`` joins them) and ``loss_fn`` reduces its
-``logsumexp`` and target logits over the columns. A Mamba or xLSTM mixer
-refuses a model axis above 1 (``local_config``).
+config of ``local_config`` (a rank's heads, ff, vocabulary and SSM
+channels), called inside ``tensor_parallel.local_view(mesh)``. The blocks
+all-reduce their outputs over ``"model"``, the logits are this rank's
+vocab columns (``tensor_parallel.gather_vocab`` joins them) and
+``loss_fn`` reduces its ``logsumexp`` and target logits over the columns.
+``forward`` and ``prefill`` run inside ``tensor_parallel.
+sequence_sharding``: where the model axis divides T the residual stream
+between blocks is this rank's slice of the sequence (``"act_seq"``), the
+blocks gather it on entry and reduce-scatter their outputs, and MLA and
+the MoE, whose input also feeds replicated products, take the whole
+sequence from the block. Inside a Trainer step with FSDP
+(``distributed.fsdp.training``) ``forward`` gathers each block's weights
+over ``"data"`` just before the block (``distributed.fsdp.block``) and
+casts them there, in place of ``cast_params_to_compute``'s one cast of
+the whole tree.
 """
 from __future__ import annotations
 
@@ -49,7 +58,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+import contextlib
+
 from repro_torch.common.dtypes import canonical_dtype
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -115,6 +127,9 @@ _MIXER_DECODE = {
 _MIXERS = tuple(_MIXER_FWD)
 # the mixers that attend: the ones rm mode featurizes
 _ATTENTION_MIXERS = ("attn", "mla")
+# the kinds whose input also feeds a replicated product (MLA's latent, the
+# MoE's router): under "act_seq" they take the whole sequence
+_WHOLE_SEQUENCE = ("mla", "moe")
 
 
 def _split_kind(kind: str) -> Tuple[str, Optional[str]]:
@@ -199,30 +214,45 @@ def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
     is never cast to the compute dtype: the packed sketch tensors are cos
     and sin values that bf16 would round while ``rm.precision`` is fp32.
     On params this has already returned it copies no tensor."""
-    cdtype = canonical_dtype(cfg.compute_dtype)
-
-    def _cast(p):
-        if isinstance(p, dict):
-            # rm_w (a tensor or a list of them) and rm_slab are already in
-            # the dtype their kernels take
-            return {k: v if k in ("rm_w", "rm_slab") else _cast(v)
-                    for k, v in p.items()}
-        if isinstance(p, list):
-            return [_cast(v) for v in p]
-        return p.to(cdtype) if p.dtype == torch.float32 else p
-
-    out = _cast(params)
-    layers = []
-    for layer in out["layers"]:
-        kind, mp = _mixer(layer)
-        if kind not in _ATTENTION_MIXERS:
-            layers.append(layer)
-            continue
-        width = mla_mod.mla_qk_dim(cfg) if kind == "mla" else None
-        layers.append({**layer, kind: attn_mod.rm_packed_weights(
-            mp, cfg, width)})
-    out["layers"] = layers
+    out = _cast_tree(params, canonical_dtype(cfg.compute_dtype))
+    out["layers"] = [_pack_layer(layer, cfg) for layer in out["layers"]]
     return out
+
+
+def _cast_tree(p, cdtype):
+    """Every fp32 leaf of ``p`` in ``cdtype`` (the packed ``rm_w``, a
+    tensor or a list of them, and ``rm_slab`` are already in the dtype
+    their kernels take)."""
+    if isinstance(p, dict):
+        return {k: v if k in ("rm_w", "rm_slab") else _cast_tree(v, cdtype)
+                for k, v in p.items()}
+    if isinstance(p, list):
+        return [_cast_tree(v, cdtype) for v in p]
+    return p.to(cdtype) if p.dtype == torch.float32 else p
+
+
+def _pack_layer(layer: Params, cfg: ModelConfig) -> Params:
+    """An attention or MLA layer with its estimator's packed ``rm_w``."""
+    kind, mp = _mixer(layer)
+    if kind not in _ATTENTION_MIXERS:
+        return layer
+    width = mla_mod.mla_qk_dim(cfg) if kind == "mla" else None
+    return {**layer, kind: attn_mod.rm_packed_weights(mp, cfg, width)}
+
+
+@contextlib.contextmanager
+def _compute_part(plan, cfg: ModelConfig, path, part):
+    """The compute copy of the params at ``path``: ``part`` itself (the
+    caller cast the whole tree) without an FSDP ``plan``; with one, its
+    leaves gathered over ``"data"`` and cast for the part's forward
+    inside the context (``distributed.fsdp.block``)."""
+    if plan is None:
+        yield part
+        return
+    cdtype = canonical_dtype(cfg.compute_dtype)
+    with fsdp.block(plan, path, part, cdtype) as full:
+        out = _cast_tree(full, cdtype)
+        yield _pack_layer(out, cfg) if path[0] == "layers" else out
 
 
 def _prepare_inputs(params: Params, cfg: ModelConfig,
@@ -270,14 +300,28 @@ def _mixer(layer: Params) -> Tuple[str, Params]:
     raise KeyError(f"a layer without a mixer: keys {sorted(layer)}")
 
 
+def _mixer_call(fn, kind: str, *args):
+    """``fn(*args)`` (args: params, cfg, the normed x, then the rest); a
+    :data:`_WHOLE_SEQUENCE` kind takes x's whole sequence and returns its
+    output's slice (``tensor_parallel.gather_sequence`` /
+    ``scatter_sequence``: the identity outside ``"act_seq"``)."""
+    if kind not in _WHOLE_SEQUENCE:
+        return fn(*args)
+    params, cfg, h, *rest = args
+    out = fn(params, cfg, tp.gather_sequence(h), *rest)
+    if isinstance(out, tuple):
+        return (tp.scatter_sequence(out[0]), *out[1:])
+    return tp.scatter_sequence(out)
+
+
 def _ffn_residual(layer: Params, cfg: ModelConfig, x: torch.Tensor):
     """x plus the layer's FFN (dense MLP or MoE) of its second norm ->
     (x, the MoE's aux losses or {}); a kind without an FFN returns x."""
     if "norm2" not in layer:
         return x, {}
-    h = apply_norm(layer["norm2"], cfg, x)
+    h = apply_norm(tp.sequence_params(layer["norm2"]), cfg, x)
     if "moe" in layer:
-        y, aux = moe_mod.apply_moe(layer["moe"], cfg, h)
+        y, aux = _mixer_call(moe_mod.apply_moe, "moe", layer["moe"], cfg, h)
         return x + y, aux
     return x + apply_mlp(layer["mlp"], cfg, h), {}
 
@@ -287,22 +331,31 @@ def forward(params: Params, cfg: ModelConfig,
     """Full-sequence forward -> (logits [B, T, V] fp32, aux losses: the
     MoE layers' ``moe_load_balance`` and ``moe_router_z`` summed, or {}
     for a config without MoE)."""
-    params = cast_params_to_compute(params, cfg)
+    plan = fsdp.active()
+    if plan is None:
+        params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
     aux_total: Dict[str, torch.Tensor] = {}
-    for layer in params["layers"]:
-        kind, mp = _mixer(layer)
-        h = apply_norm(layer["norm1"], cfg, x)
-        x = x + _MIXER_FWD[kind](mp, cfg, h, positions)
-        x, aux = _ffn_residual(layer, cfg, x)
-        for k, v in aux.items():
-            aux_total[k] = aux_total[k] + v if k in aux_total else v
-    x = apply_norm(params["final_norm"], cfg, x)
-    if cfg.moe is not None:
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux_total = {k: aux_total.get(k, zero)
-                     for k in ("moe_load_balance", "moe_router_z")}
-    return unembed(params["embed"], cfg, x), aux_total
+    with tp.sequence_sharding(x.shape[1]):
+        x = tp.scatter_sequence(x)
+        for i, layer in enumerate(params["layers"]):
+            with _compute_part(plan, cfg, ("layers", i), layer) as layer:
+                kind, mp = _mixer(layer)
+                h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
+                x = x + _mixer_call(_MIXER_FWD[kind], kind, mp, cfg, h,
+                                    positions)
+                x, aux = _ffn_residual(layer, cfg, x)
+            for k, v in aux.items():
+                aux_total[k] = aux_total[k] + v if k in aux_total else v
+        with _compute_part(plan, cfg, ("final_norm",),
+                           params["final_norm"]) as final_norm:
+            x = apply_norm(tp.sequence_params(final_norm), cfg, x)
+        if cfg.moe is not None:
+            zero = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux_total = {k: aux_total.get(k, zero)
+                         for k in ("moe_load_balance", "moe_router_z")}
+        with _compute_part(plan, cfg, ("embed",), params["embed"]) as embed:
+            return unembed(embed, cfg, x), aux_total
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -357,14 +410,17 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
     caches = []
-    for layer in params["layers"]:
-        kind, mp = _mixer(layer)
-        h = apply_norm(layer["norm1"], cfg, x)
-        y, cache = _MIXER_PREFILL[kind](mp, cfg, h, positions, max_len)
-        x, _ = _ffn_residual(layer, cfg, x + y)
-        caches.append(cache)
-    x = apply_norm(params["final_norm"], cfg, x)
-    return unembed(params["embed"], cfg, x), {"layers": caches}
+    with tp.sequence_sharding(x.shape[1]):
+        x = tp.scatter_sequence(x)
+        for layer in params["layers"]:
+            kind, mp = _mixer(layer)
+            h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
+            y, cache = _mixer_call(_MIXER_PREFILL[kind], kind, mp, cfg, h,
+                                   positions, max_len)
+            x, _ = _ffn_residual(layer, cfg, x + y)
+            caches.append(cache)
+        x = apply_norm(tp.sequence_params(params["final_norm"]), cfg, x)
+        return unembed(params["embed"], cfg, x), {"layers": caches}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,

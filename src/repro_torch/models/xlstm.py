@@ -25,6 +25,22 @@ every other state fp32. ``r_rec`` is fp32 in the masters and arrives in the
 compute dtype (``cast_params_to_compute`` casts every fp32 leaf); the
 recurrent product upcasts it to fp32, as the reference's mixed-dtype
 einsum does.
+
+Under a model-parallel view (``distributed.tensor_parallel``) a rank
+holds ``heads / model`` of the heads. mLSTM: its slice of each half of
+``w_up`` (``[xu | z]``, the reference's ``"ffn"`` rule) and of the conv,
+so ``xu`` is cut by channel, not replicated: its conv'd ``xc`` and ``xu``
+itself are all-gathered over ``"model"`` (one collective) before ``wq`` /
+``wk`` / ``wv``, whose columns are the rank's heads, as are its columns of
+``w_if``'s i and f halves, ``b_if`` and ``gn_scale`` (the group norm is
+per head); ``w_down``'s rows end in the block's reduction. sLSTM: its
+heads' columns of each of ``w_in``'s four gates and of ``b_in``, its
+heads' blocks of the block-diagonal ``r_rec`` and of ``gn_scale``; the
+cells need no collective, and the normed cells are all-gathered before
+the feed-forward, which follows the MLP's cut where the model axis
+divides its width and runs whole on every rank where it does not
+(``int(slstm_ff_factor * d_model)`` is odd at both sizes: the reference's
+spec replicates it then). The caches hold the rank's channels and heads.
 """
 from __future__ import annotations
 
@@ -34,6 +50,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, normal_init
 
@@ -72,18 +89,27 @@ def init_mlstm(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
+def _d_up(cfg: ModelConfig) -> int:
+    """The up-projection's channels a rank holds (all outside a model
+    axis)."""
+    return int(cfg.xlstm.proj_factor * cfg.d_model) // tp.shards_of(cfg)
+
+
 def _mlstm_qkv_gates(params: Params, cfg: ModelConfig, xu: torch.Tensor,
                      conv_state: Optional[torch.Tensor] = None):
-    """xu ``[B, T, d_up]`` -> q, k, v ``[B, T, H, dh]`` (compute dtype, k
-    over sqrt(dh)), the input and forget gate logits ``[B, T, H]`` fp32,
-    and the conv window."""
+    """xu ``[B, T, d_up]`` (a rank's channels) -> q, k, v ``[B, T, H,
+    dh]`` (compute dtype, k over sqrt(dh)), the input and forget gate
+    logits ``[B, T, H]`` fp32, and the conv window."""
     h = cfg.num_heads
     xc, new_conv = causal_conv(params["conv_w"], params["conv_b"], xu,
                                conv_state)
     xc = F.silu(xc)
-    b, t, d_up = xu.shape
-    dh = d_up // h
-    q = (xc @ params["wq"]).reshape(b, t, h, dh)
+    b, t, _ = xu.shape
+    if tp.model_view() is not None:
+        # every channel feeds the rank's heads: one gather of both
+        xc, xu = tp.gather_from_model(torch.stack([xc, xu]), -1).unbind(0)
+    q = (xc @ params["wq"]).reshape(b, t, h, -1)
+    dh = q.shape[-1]
     k = (xc @ params["wk"]).reshape(b, t, h, dh) / math.sqrt(dh)
     v = (xu @ params["wv"]).reshape(b, t, h, dh)
     gates = (xc @ params["w_if"] + params["b_if"].to(xu.dtype)).float()
@@ -167,13 +193,15 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, groups: int,
 
 def _mlstm_core(params: Params, cfg: ModelConfig, x: torch.Tensor):
     """-> (y ``[B, T, d]``, k, v, the gate logits, the conv window)."""
+    x = tp.enter_block(x)
     b, t, _ = x.shape
     xu, z = torch.chunk(x @ params["w_up"], 2, dim=-1)
     q, k, v, i_log, f_log, conv = _mlstm_qkv_gates(params, cfg, xu)
     out = _mlstm_cell_chunked(cfg, q, k, v, i_log, f_log).reshape(b, t, -1)
     out = _group_norm(out, params["gn_scale"], cfg.num_heads, cfg.norm_eps)
     out = out * F.silu(z.float())
-    return out.to(x.dtype) @ params["w_down"], k, v, i_log, f_log, conv
+    return (tp.exit_block(out.to(x.dtype) @ params["w_down"]), k, v, i_log,
+            f_log, conv)
 
 
 def mlstm_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -201,7 +229,7 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
     """Zero state: ``conv`` in ``dtype``, ``c [batch, H, dh, dh]``, ``n``
     and ``m`` (the sentinel) fp32."""
     h = cfg.num_heads
-    d_up = int(cfg.xlstm.proj_factor * cfg.d_model)
+    d_up = _d_up(cfg)
     dh = d_up // h
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -216,6 +244,7 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype,
 def mlstm_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], positions=None):
     """x ``[B, 1, d]``: one step of the stabilized recurrence."""
+    x = tp.enter_block(x)
     b = x.shape[0]
     xu, z = torch.chunk(x @ params["w_up"], 2, dim=-1)
     q, k, v, i_log, f_log, conv = _mlstm_qkv_gates(
@@ -236,7 +265,7 @@ def mlstm_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     out = (num / den[..., None]).reshape(b, 1, -1)
     out = _group_norm(out, params["gn_scale"], cfg.num_heads, cfg.norm_eps)
     out = out * F.silu(z.float())
-    y = out.to(x.dtype) @ params["w_down"]
+    y = tp.exit_block(out.to(x.dtype) @ params["w_down"])
     return y, {"conv": conv, "c": c_new, "n": n_new, "m": m_new}
 
 
@@ -287,28 +316,38 @@ def _slstm_cell(params: Params, cfg: ModelConfig, wx: torch.Tensor, state):
 
 def _slstm_out(params: Params, cfg: ModelConfig, hs: torch.Tensor,
                dtype) -> torch.Tensor:
-    """The cells' outputs ``[B, T, d]`` fp32 -> group norm -> the block's
-    GELU feed-forward (the reference's ``jax.nn.gelu``: tanh form)."""
+    """The cells' outputs ``[B, T, d]`` fp32 (a rank's heads) -> group
+    norm -> the block's GELU feed-forward (the reference's
+    ``jax.nn.gelu``: tanh form), whole where the model axis does not cut
+    it."""
     out = _group_norm(hs, params["gn_scale"], cfg.num_heads, cfg.norm_eps)
-    y = out.to(dtype)
-    return F.gelu(y @ params["ff_up"], approximate="tanh") @ params["ff_down"]
+    ff_cut = params["ff_up"].shape[1] != int(cfg.xlstm.slstm_ff_factor
+                                             * cfg.d_model)
+    y = tp.gather_from_model(out.to(dtype), -1, partial=ff_cut)
+    y = F.gelu(y @ params["ff_up"], approximate="tanh") @ params["ff_down"]
+    return tp.exit_block(y, partial=ff_cut)
+
+
+def _slstm_in(params: Params, cfg: ModelConfig, x: torch.Tensor):
+    """The gates' input part ``[B, T, 4, H, dh]`` of a rank's heads."""
+    x = tp.enter_block(x)
+    return (x @ params["w_in"] + params["b_in"].to(x.dtype)).reshape(
+        x.shape[0], x.shape[1], 4, cfg.num_heads, -1)
 
 
 def _slstm_scan(params: Params, cfg: ModelConfig, x: torch.Tensor, state):
-    b, t, d = x.shape
-    h = cfg.num_heads
-    wx = (x @ params["w_in"] + params["b_in"].to(x.dtype)).reshape(
-        b, t, 4, h, d // h)
+    wx = _slstm_in(params, cfg, x)
+    b, t = wx.shape[:2]
     hs = []
     for i in range(t):
         state = _slstm_cell(params, cfg, wx[:, i], state)
         hs.append(state[0])
-    return torch.stack(hs, dim=1).reshape(b, t, d), state
+    return torch.stack(hs, dim=1).reshape(b, t, -1), state
 
 
 def _slstm_state0(cfg: ModelConfig, batch: int, device):
     h = cfg.num_heads
-    shape = (batch, h, cfg.d_model // h)
+    shape = (batch, h, cfg.d_model // tp.shards_of(cfg) // h)
     zeros = torch.zeros(shape, dtype=torch.float32, device=device)
     return (zeros, zeros, zeros,
             torch.full(shape, SENTINEL, dtype=torch.float32, device=device))
@@ -341,11 +380,9 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
 
 def slstm_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], positions=None):
-    b, _, d = x.shape
-    h = cfg.num_heads
-    wx = (x @ params["w_in"] + params["b_in"].to(x.dtype)).reshape(
-        b, 4, h, d // h)
+    b = x.shape[0]
+    wx = _slstm_in(params, cfg, x)[:, 0]
     state = (cache["h"], cache["c"], cache["n"], cache["m"])
     h_new, c, n, m = _slstm_cell(params, cfg, wx, state)
-    y = _slstm_out(params, cfg, h_new.reshape(b, 1, d), x.dtype)
+    y = _slstm_out(params, cfg, h_new.reshape(b, 1, -1), x.dtype)
     return y, {"h": h_new, "c": c, "n": n, "m": m}

@@ -37,13 +37,15 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_leaf(g: torch.Tensor, r: torch.Tensor,
-                  group) -> Tuple[torch.Tensor, torch.Tensor]:
+def compress_leaf(g: torch.Tensor, r: torch.Tensor, group,
+                  scale_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One leaf of :func:`compressed_psum_with_feedback`: ``(mean-reduced
     fp32 gradient, new residual)``, in the reference's order: the shared
-    scale (one ``all_reduce(MAX)``), ``q = clip(round(corrected / scale),
-    -127, 127)``, the residual ``corrected - q * scale``, the ``int32`` sum
-    of ``q`` (one ``all_reduce(SUM)``), then ``sum * scale / n``. Neither
+    scale (one ``all_reduce(MAX)``; a leaf cut over ``scale_group``, an
+    FSDP data slice, takes the max over its slices first, so the whole
+    leaf has one codebook), ``q = clip(round(corrected / scale), -127,
+    127)``, the residual ``corrected - q * scale``, the ``int32`` sum of
+    ``q`` (one ``all_reduce(SUM)``), then ``sum * scale / n``. Neither
     input is modified; the temporaries are updated in place, so at most
     four leaf-sized ones live at once."""
     import torch.distributed as dist
@@ -52,6 +54,9 @@ def compress_leaf(g: torch.Tensor, r: torch.Tensor,
 
     corrected = g.float() + r
     local_scale = torch.clamp_min(corrected.abs().max(), 1e-12) / 127.0
+    if scale_group is not None:
+        local_scale = all_reduce(local_scale.reshape(1), scale_group,
+                                 "max")[0]
     shared = all_reduce(local_scale.reshape(1), group, "max")[0]
     q = torch.round(corrected / shared).clamp_(-127, 127)
     new_r = corrected.sub_(q * shared)

@@ -15,10 +15,14 @@ the same order; only the model's compute is sharded. The weights are this
 rank's shards (``distributed.tensor_parallel.init_local_params``); the
 decode cache follows ``cache_partition_specs``: its slots split over the
 batch axes where ``num_slots`` divides them (else every rank holds every
-slot) and its heads over ``"model"``. A MoE config keeps every slot on
-every rank: its routing counts capacity over the whole decode batch, as
-the reference's single-controller step does, so splitting the lanes
-would change its drops. A request's prefill runs on the ranks that own its
+slot) and its heads (the SSM mixers' channels and heads too:
+``tensor_parallel.cache_cuts``) over ``"model"``, at ``local_config``'s
+widths. The weights stay replicated over ``"data"``: serving takes no
+FSDP cut. A prefill whose length the model axis divides runs with the
+residual stream cut by sequence (``"act_seq"``). A MoE config keeps every
+slot on every rank: its routing counts capacity over the whole decode
+batch, as the reference's single-controller step does, so splitting the
+lanes would change its drops. A request's prefill runs on the ranks that own its
 slot, and its first logits row is broadcast from them. After each decode
 step the local logits are gathered over the batch axes and their vocab
 columns over ``"model"``, so every rank samples every slot and makes the
@@ -101,7 +105,6 @@ class StepExecutor:
             or above 1 outside rm mode; a mesh axis other than ``pod``,
             ``data`` and ``model``, or a width its model axis does not
             divide.
-        NotImplementedError: an SSM mixer on a model axis above 1.
         RuntimeError: a mesh without a process group behind it.
     """
 

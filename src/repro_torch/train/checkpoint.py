@@ -10,10 +10,11 @@ puts every leaf on ``device`` as a tensor of its saved dtype; bf16 leaves
 travel as their 16-bit patterns, so every leaf restores bitwise.
 
 A checkpoint always holds full tensors, whatever mesh wrote it: a
-tensor-parallel Trainer gathers its shards before rank 0 saves
-(``distributed.tensor_parallel.gather_state``), and ``restore(mesh=,
-cfg=)`` cuts this rank's shards again, so a run moves between model sizes
-(``train.fault.elastic_remesh``).
+sharded Trainer (tensor parallel, or FSDP over ``"data"``) gathers its
+shards before rank 0 saves (``distributed.tensor_parallel.
+gather_state``), and ``restore(mesh=, cfg=)`` cuts this rank's shards
+again, the Trainer's layout on that mesh, so a run moves between model
+and data sizes (``train.fault.elastic_remesh``).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.common.tree import (
     tree_map_with_path,
     unflatten_dict,
 )
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 
 __all__ = ["CheckpointManager"]
@@ -127,9 +129,12 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None, template: Any = None,
                 device="cuda", *, mesh=None, cfg=None) -> Dict[str, Any]:
         """Load checkpoint ``step`` (the latest by default) with every leaf
-        on ``device``; on a ``mesh`` with a ``"model"`` axis above 1, this
-        rank's shards of it (``tensor_parallel.shard_state`` for the model
-        config ``cfg``), cut on the host.
+        on ``device``; with a ``mesh`` and the model config ``cfg``, this
+        rank's shards of it in a Trainer's layout on that mesh
+        (``tensor_parallel.shard_state``: over ``"model"``, and over
+        ``"data"`` where ``distributed.fsdp.enabled``), cut on the host;
+        without ``cfg``, the whole state, which a model axis above 1
+        refuses.
 
         Raises:
             FileNotFoundError: no checkpoint in the directory.
@@ -157,10 +162,13 @@ class CheckpointManager:
                     f"checkpoint structure mismatch: "
                     f"missing={sorted(missing)[:5]} "
                     f"extra={sorted(extra)[:5]}")
-        cut = mesh is not None and tp.model_size_of(mesh) > 1
-        if cut and cfg is None:
+        model_cut = mesh is not None and tp.model_size_of(mesh) > 1
+        if model_cut and cfg is None:
             raise ValueError("restoring onto a model axis above 1 cuts the "
                              "params by their config: pass cfg=")
+        data_cut = mesh is not None and cfg is not None and \
+            fsdp.enabled(mesh)
+        cut = model_cut or data_cut
         state = unflatten_dict({
             k: _from_numpy(a, meta["leaves"][k][1],
                            "cpu" if cut else device)
@@ -168,4 +176,5 @@ class CheckpointManager:
         if not cut:
             return state
         return tree_map_with_path(lambda _, t: t.to(device),
-                                  tp.shard_state(state, mesh, cfg))
+                                  tp.shard_state(state, mesh, cfg,
+                                                 fsdp_cut=data_cut))

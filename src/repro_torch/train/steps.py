@@ -34,6 +34,16 @@ several ranks are summed over them, ``grad_norm`` is the full gradient's
 (each rank's squared norms weighted so one all-reduce over ``"model"``
 counts every leaf once), and the clip and AdamW act on the local shards.
 
+With FSDP (``Trainer(mesh=)`` with ``"data"`` above 1; ``distributed.
+fsdp``) the step also gets ``fsdp_dims``, the dim each leaf is cut along
+over ``"data"``: it runs the forward and backward inside ``fsdp.
+training``, so each block's weights are gathered before the block and
+their gradients arrive already summed over ``"data"`` (each rank's share
+weighted by its target tokens before the sum, as the all-reduce weights
+it); the average then only divides them by the data size, the int8
+reduction over ``"pod"`` shares each leaf's scale over the data slices
+too, and ``grad_norm`` is reduced over ``"data"`` as well.
+
 ``make_eval_step(cfg)``, ``make_prefill_step(cfg, max_len)`` and
 ``make_decode_step(cfg)`` are forward-only, under ``torch.inference_mode``.
 For an encoder (``causal=False``) "prefill" is a full bidirectional
@@ -63,6 +73,7 @@ from repro_torch.common.tree import (
     tree_leaves,
     tree_map_with_path,
 )
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
@@ -202,37 +213,58 @@ def _microbatch(batch, accum: int, i: int):
             for k, v in batch.items()}
 
 
-def _average(grads, metrics, group, residuals=None):
+def _token_weight(tokens: torch.Tensor, group):
+    """``(weight, sum)``: a rank's share of the target tokens over
+    ``group``, ``tokens_r * n / sum tokens`` (exactly 1 for equal counts),
+    and the sum."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import all_reduce
+
+    tokens = tokens.float().reshape(1)
+    total = all_reduce(tokens.clone(), group)
+    return tokens[0] * dist.get_world_size(group) / total[0], total[0]
+
+
+def _average(grads, metrics, group, residuals=None, *, summed=None,
+             scale_group=None):
     """Average ``grads`` and ``metrics`` over ``group`` in place: each
-    rank's share weighted by its target tokens (``tokens_r * n / sum
-    tokens``, exactly 1 for equal counts), then one ``all_reduce`` a leaf
-    and ``/ n``, or with ``residuals`` the int8 reduction with error
-    feedback (``optim.compression.compress_leaf``), the new residuals
-    written over the old. Returns ``(grads, metrics)``;
-    ``metrics["tokens"]`` becomes the sum over the group."""
+    rank's share weighted by its target tokens (:func:`_token_weight`),
+    then one ``all_reduce`` a leaf and ``/ n``, or with ``residuals`` the
+    int8 reduction with error feedback (``optim.compression.
+    compress_leaf``, its scale shared over ``scale_group`` too where a
+    leaf is cut over it), the new residuals written over the old.
+    ``summed``: a tree, not None where a leaf's gradient is already the
+    weighted sum over ``group`` (FSDP's), which is only divided by ``n``.
+    Returns ``(grads, metrics)``; ``metrics["tokens"]`` becomes the sum
+    over the group."""
     import torch.distributed as dist
 
     from repro_torch.distributed.collectives import all_reduce
     from repro_torch.optim.compression import compress_leaf
 
     n = dist.get_world_size(group)
-    tokens = metrics["tokens"].float().reshape(1)
-    total = all_reduce(tokens.clone(), group)
-    weight = tokens[0] * n / total[0]
+    weight, total = _token_weight(metrics["tokens"], group)
     keys = [k for k in metrics if k != "tokens"]
     vec = all_reduce(torch.stack([metrics[k].float() * weight
                                   for k in keys]), group).div_(n)
-    metrics = {**dict(zip(keys, vec.unbind())), "tokens": total[0]}
+    metrics = {**dict(zip(keys, vec.unbind())), "tokens": total}
 
     def leaf(path, g):
         if not g.is_floating_point():      # frozen integer tables
+            return
+        if summed is not None and tree_get(summed, path) is not None:
+            g.div_(n)
             return
         g.mul_(weight)
         if residuals is None:
             all_reduce(g, group).div_(n)
             return
         r = tree_get(residuals, path)
-        mean, new_r = compress_leaf(g, r, group)
+        cut = scale_group is not None and tree_get(scale_group[1],
+                                                   path) is not None
+        mean, new_r = compress_leaf(g, r, group,
+                                    scale_group[0] if cut else None)
         g.copy_(mean)
         r.copy_(new_r)
 
@@ -241,7 +273,8 @@ def _average(grads, metrics, group, residuals=None):
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
-                    data_group=None, pod_group=None, cuts=None):
+                    data_group=None, pod_group=None, cuts=None,
+                    fsdp_dims=None):
     """``step(state, batch) -> (state, metrics)``: gradients of ``loss_fn``
     (averaged over ``hyper.grad_accum`` microbatches; then over
     ``data_group``, then over ``pod_group``, int8-compressed under
@@ -252,7 +285,10 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
     device, the same on every rank. With ``cuts`` (a tensor-parallel
     rank's ``tensor_parallel.param_cuts``, the step run inside its
     ``local_view``) the replicated kv heads' gradients are summed over
-    their ranks and ``grad_norm`` is the global one.
+    their ranks and ``grad_norm`` is the global one. With ``fsdp_dims``
+    (the FSDP cut's ``distributed.fsdp.data_dims`` of the full params;
+    ``data_group`` required) the step trains a rank's data slices, as the
+    module doc says.
 
     Raises:
         ValueError: ``int8_pod`` without a ``pod_group``; the params hold
@@ -283,19 +319,34 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(), *,
         g = tree_map_with_path(lambda _, x: x * scale, g)
         return g, {k: v * scale for k, v in m.items()}
 
+    def plan_for(batch):
+        if fsdp_dims is None:
+            return None
+        import torch.distributed as dist
+
+        weight, _ = _token_weight((batch["targets"] >= 0).sum(), data_group)
+        return fsdp.Plan(data_group, dist.get_group_rank(
+            data_group, dist.get_rank()), dist.get_world_size(data_group),
+            fsdp_dims, weight)
+
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         _check_masters(state["params"])
-        grads, metrics = accumulate(state["params"], batch)
+        plan = plan_for(batch)
+        with fsdp.training(plan):
+            grads, metrics = accumulate(state["params"], batch)
         if cuts is not None:
             grads = tp.sync_replicated_grads(grads, cuts)
         if data_group is not None:
-            grads, metrics = _average(grads, metrics, data_group)
+            grads, metrics = _average(grads, metrics, data_group,
+                                      summed=fsdp_dims)
         if pod_group is not None:
             grads, metrics = _average(
                 grads, metrics, pod_group,
-                state["residuals"] if compress else None)
-        grad_norm = None if cuts is None else tp.global_grad_norm(
-            mask_frozen(grads), cuts)
+                state["residuals"] if compress else None,
+                scale_group=None if fsdp_dims is None else (data_group,
+                                                            fsdp_dims))
+        grad_norm = None if cuts is None and plan is None else \
+            tp.global_grad_norm(mask_frozen(grads), cuts, plan)
         lr = _lr_at(hyper, state["step"])
         params, opt, opt_metrics = adamw_update(
             state["params"], grads, state["opt"], lr, hyper.adamw,

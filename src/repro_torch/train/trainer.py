@@ -16,11 +16,17 @@ time (``tensor_parallel.init_local_params``: the full weights never stand
 on the card), or restores them from a checkpoint; it runs
 the model at its local widths inside the mesh's local view and clips by
 the global ``grad_norm``; ranks of one model index hold the same state
-and log the same metrics. Only rank 0 prints; every rank joins a save
-(the shards are gathered into the full, topology-free state that rank 0
-writes) and then waits at a barrier, and a restore onto the mesh cuts the
-shards again. The SSM mixers refuse a model axis above 1, and FSDP's
-sharded weights are the third part of ROADMAP.md queue A item 7. A step's
+and log the same metrics. A ``"data"`` axis above 1 adds FSDP
+(``distributed.fsdp``, the reference's ``"fsdp": "data"`` rule, on unless
+a ``logical_rules_context`` maps ``"fsdp"`` to None when the Trainer is
+built): params, ``mu``, ``nu`` and the int8 residuals are cut along each
+leaf's ``"fsdp"`` dim over ``"data"``, drawn so from the seed, each block
+gathered just before it runs and its gradients reduce-scattered. Only
+rank 0 prints; every rank joins a save (the shards are gathered into the
+full, topology-free state that rank 0 writes) and then waits at a
+barrier, and a restore onto the mesh cuts the shards again
+(``elastic_remesh(cfg=)`` moves a run between data and model sizes). A
+step's
 wall time is read on the ``obs`` clock after ``torch.cuda.synchronize`` (the
 reference's ``block_until_ready``). With ``obs`` (``repro_torch.obs.Obs``)
 each step records the reference's ``train/step`` span, ``train/step_s``
@@ -34,6 +40,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import resolve as _obs_resolve
@@ -57,7 +64,6 @@ def _mesh_sizes(mesh, cfg: ModelConfig) -> Dict[str, int]:
     Raises:
         ValueError: an axis other than ``pod``, ``data`` and ``model``, or
             a width the model axis does not divide.
-        NotImplementedError: an SSM mixer under a model axis above 1.
     """
     from repro_torch.distributed.sharding import mesh_axes
 
@@ -85,8 +91,6 @@ class Trainer:
         device="cuda",
     ):
         """Raises:
-            NotImplementedError: a Mamba or xLSTM mixer on a ``"model"``
-                axis above 1.
             ValueError: a mesh axis other than ``pod``, ``data`` and
                 ``model``; a width the model axis does not divide;
                 ``device`` is not the mesh's device type; ``int8_pod``
@@ -101,6 +105,7 @@ class Trainer:
         self.device = resolve_device(device)
         groups = {}
         self._model = 1
+        self._fsdp = False
         self._local_cfg = cfg
         self._template = self._cuts = None
         if mesh is not None:
@@ -115,7 +120,10 @@ class Trainer:
                       for axis in ("data", "pod") if axis in sizes}
             self._sizes = sizes
             self._model = sizes.get("model", 1)
+            self._fsdp = fsdp.enabled(mesh)
             self._local_cfg = tp.local_config(cfg, self._model)
+        # the state is cut: over "model", or over "data" (FSDP)
+        self._sharded = self._model > 1 or self._fsdp
         self._rank0 = mesh is None or _global_rank() == 0
         self._rows_split = False
         self.log_every = log_every
@@ -131,8 +139,8 @@ class Trainer:
     # -- lifecycle -------------------------------------------------------------
     def init_or_restore(self) -> Dict[str, Any]:
         """The latest checkpoint's state, else a fresh one from the seed;
-        on a model axis above 1, this rank's shards of it."""
-        if self._model == 1:
+        on a model axis above 1 or under FSDP, this rank's shards of it."""
+        if not self._sharded:
             if self.ckpt is not None and self.ckpt.latest_step() is not None:
                 return self.ckpt.restore(device=self.device)
             return init_train_state(self.cfg, self._seed, self.hyper,
@@ -141,19 +149,23 @@ class Trainer:
             self._set_layout(self.ckpt.shapes()["params"])
             return self.ckpt.restore(device=self.device, mesh=self.mesh,
                                      cfg=self.cfg)
-        params, template = tp.init_local_params(self.cfg, self._seed,
-                                                self.mesh, self.device)
+        params, template = tp.init_local_params(
+            self.cfg, self._seed, self.mesh, self.device,
+            fsdp_cut=self._fsdp)
         self._set_layout(template)
         return train_state_from_params(params, self.hyper)
 
     def _set_layout(self, template) -> None:
         """The full params' shapes (``meta`` tensors: the gather's
-        template) and their cuts; the step clips by the global norm over
-        them."""
+        template) and their cuts over ``"model"`` and ``"data"``; the step
+        clips by the global norm over them."""
         self._template = template
-        self._cuts = tp.param_cuts(template, self.mesh, self.cfg)
+        self._cuts = tp.param_cuts(template, self.mesh, self.cfg) \
+            if self._model > 1 else None
+        dims = fsdp.data_dims(template, self.mesh) if self._fsdp else None
         self._step = make_train_step(self._local_cfg, self.hyper,
-                                     cuts=self._cuts, **self._groups)
+                                     cuts=self._cuts, fsdp_dims=dims,
+                                     **self._groups)
 
     def _view(self):
         """The mesh's local view around a step (the model code reads it);
@@ -194,14 +206,21 @@ class Trainer:
 
     def _save(self, step: int, state) -> None:
         """Rank 0 writes; on a mesh every rank then waits at a barrier. On
-        a model axis above 1 every rank first joins the gather of the full
+        a sharded mesh every rank first joins the gather of the full
         state."""
-        if self._model > 1:
-            state = tp.gather_state(state, self.mesh, self._template)
+        state = self.full_state(state)
         if self._rank0:
             self.ckpt.save(step, state)
         if self.mesh is not None:
             _barrier(self.device)
+
+    def full_state(self, state):
+        """``state`` at full widths: this rank's shards gathered over
+        ``"data"`` and ``"model"`` (every rank joins), or ``state`` itself
+        where nothing is cut."""
+        if not self._sharded:
+            return state
+        return tp.gather_state(state, self.mesh, self._template)
 
     def train(self, num_steps: int, state: Optional[Dict] = None):
         """Run steps ``state["step"] .. num_steps - 1``; log every
@@ -209,9 +228,10 @@ class Trainer:
         of ``metrics_log``); checkpoint every ``checkpoint_every`` steps and
         at the end. Returns the final state."""
         state = state if state is not None else self.init_or_restore()
-        if self._model > 1 and self._cuts is None:
-            raise ValueError("a tensor-parallel Trainer trains the state of "
-                             "its init_or_restore()")
+        if self._sharded and self._template is None:
+            raise ValueError("a sharded Trainer (model axis above 1, or "
+                             "FSDP) trains the state of its "
+                             "init_or_restore()")
         start = int(state["step"])
         for step in range(start, num_steps):
             batch = self._local_rows(

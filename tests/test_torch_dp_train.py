@@ -8,7 +8,8 @@ oracle here; the reference's DP/TP check allows 1e-3).
 qwen3-1.7b SMOKE, fp32 compute, 4 steps of 4 x 32 tokens:
 
 * 2 ranks on a ``("data", "model")`` (2, 1) mesh, each training on its 2
-  rows: every step's loss within 1e-4 relative of ``mesh=None``'s (the
+  rows (FSDP by default: the states compared are the gathered ones,
+  ``Trainer.full_state``): every step's loss within 1e-4 relative of ``mesh=None``'s (the
   gaps measured are 0 to 8e-8), every step's ``grad_norm`` within 1e-6
   (measured: 0) and every leaf of the final params and AdamW moments
   within 1e-5 in relative 2-norm (measured: at most 6.5e-7), the loss
@@ -16,8 +17,8 @@ qwen3-1.7b SMOKE, fp32 compute, 4 steps of 4 x 32 tokens:
   checkpoint;
 * ``int8_pod`` on a ``("pod", "data", "model")`` (2, 1, 1) mesh: it runs,
   its loss falls, residuals are carried;
-* an xLSTM model on a ``"model"`` axis of 2 (its tensor parallelism is
-  the third part of ROADMAP.md queue A item 7) and
+* a model axis that divides the kv heads in neither direction (qwen3
+  SMOKE with 6 heads and 3 kv heads on a ``"model"`` axis of 2) and
   ``make_production_mesh`` on 2 ranks raise;
 * ``elastic_remesh`` from those 2 ranks onto 1: the checkpoint restores
   bitwise rank 0's final state.
@@ -85,6 +86,8 @@ def _grad_norms(trainer):
 
 
 def _dp_worker(rank, world, store, out):
+    import dataclasses
+
     import torch.distributed as dist
 
     from repro_torch.common.tree import flatten_dict
@@ -107,7 +110,8 @@ def _dp_worker(rank, world, store, out):
     state = trainer.train(STEPS)
     report["losses"] = _losses(trainer)
     report["grad_norms"] = _grad_norms(trainer)
-    torch.save(flatten_dict(state), out / f"state{rank}.pt")
+    torch.save(flatten_dict(trainer.full_state(state)),
+               out / f"state{rank}.pt")
     cfg, data, hyper8 = _setup("int8_pod")
     pod = make_mesh((world, 1, 1), ("pod", "data", "model"))
     trainer = Trainer(cfg, hyper8, data, mesh=pod, log_every=1, device="cpu")
@@ -116,16 +120,18 @@ def _dp_worker(rank, world, store, out):
     report["residual_max"] = max(
         float(v.abs().max()) for v in flatten_dict(state["residuals"])
         .values())
+    odd = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              num_heads=6, num_kv_heads=3)
     for label, build in (
             ("model_axis", lambda: Trainer(
-                get_config("xlstm-350m", smoke=True), hyper, data,
+                odd, hyper, data,
                 mesh=make_mesh((1, world), ("data", "model")),
                 device="cpu")),
             ("production", make_production_mesh)):
         try:
             build()
             report[label] = "no error"
-        except (NotImplementedError, RuntimeError) as e:
+        except (ValueError, RuntimeError) as e:
             report[label] = f"{type(e).__name__}: {e}"
     (out / f"dp{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()
@@ -244,8 +250,8 @@ def test_int8_pod_compression_trains(dp_run):
 def test_model_axis_and_production_mesh_raise(dp_run):
     _, reports, _ = dp_run
     for r in reports:
-        assert r["model_axis"].startswith("NotImplementedError")
-        assert "third part of ROADMAP.md queue A item 7" in r["model_axis"]
+        assert r["model_axis"].startswith("ValueError")
+        assert "divide in neither direction" in r["model_axis"]
         assert r["production"].startswith("RuntimeError")
         assert "256 ranks" in r["production"]
 

@@ -29,8 +29,10 @@ arrays while the reference goes on. Everything is fp32 SMOKE:
    capacity 8.0 equal to ``mesh=None``'s within 1e-5;
 5. a checkpoint saved at model 2 restores bitwise at model 1 and at data
    2, and at model 2 into the shards trained;
-6. Mamba and xLSTM under model 2 raise; a model axis that divides a width
-   in neither direction raises ``ValueError``.
+6. Mamba and xLSTM take a model axis of 2 (``local_config`` halves their
+   heads and inner widths: ``tests/test_torch_ssm_tensor_parallel.py`` and
+   ``test_torch_xlstm_tensor_parallel.py`` hold them); a model axis that
+   divides a width in neither direction raises ``ValueError``.
 
 Each multi-rank run is one spawn (2 ranks, then 4) over a ``FileStore`` in
 ``tmp_path``, with a timeout a spawn.
@@ -395,11 +397,13 @@ def _worker2(rank, world, store, out):
             torch.save(logits, out / f"fwd_{name}.pt")
     refusals = {}
     for arch in ("jamba-v0.1-52b", "xlstm-350m"):
+        lcfg = tp.local_config(get_config(arch, smoke=True), 2)
+        refusals[arch] = [lcfg.num_heads, tp.shards_of(lcfg)]
         try:
-            tp.local_config(get_config(arch, smoke=True), 2)
-            refusals[arch] = "no error"
-        except NotImplementedError as e:
-            refusals[arch] = str(e)
+            tp.local_config(get_config(arch, smoke=True), 8)
+            refusals[f"{arch}/8"] = "no error"
+        except ValueError as e:
+            refusals[f"{arch}/8"] = str(e)
     import dataclasses
 
     odd = dataclasses.replace(_configs("qwen3_rm"), num_heads=6,
@@ -742,7 +746,9 @@ def test_checkpoint_at_model_two_restores_anywhere(runs):
 def test_ssm_mixers_and_indivisible_widths_raise(runs):
     ref = runs["report"]["refusals"]
     for arch in ("jamba-v0.1-52b", "xlstm-350m"):
-        assert "third part of ROADMAP.md queue A item 7" in ref[arch], arch
+        assert ref[arch] == [2, 2], arch            # 4 heads, 2 ranks
+        assert "num_heads=4 is not divisible by the mesh's model axis " \
+            "of 8" in ref[f"{arch}/8"], arch
     assert "num_heads=6 is not divisible" in ref["heads"]
     assert "model axis of 4" in ref["heads"]
     assert "divide in neither direction" in ref["kv"]

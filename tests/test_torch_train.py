@@ -320,8 +320,8 @@ def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
     """``Trainer(mesh=make_host_mesh())`` on one gloo rank: every loss and
     the final state bitwise ``mesh=None``'s (the all-reduce of one rank
     and the token weight 1 change nothing). An xLSTM model on a "model"
-    axis above 1 and an unknown axis are refused before any group is
-    touched."""
+    axis its heads do not divide and an unknown axis are refused before
+    any group is touched."""
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -339,10 +339,10 @@ def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
         [r["loss"] for r in single.metrics_log]
     a, b = flatten_dict(state_a), flatten_dict(state_b)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="third part of ROADMAP"):
+    with pytest.raises(ValueError, match="num_heads=4 is not divisible"):
         Trainer(get_config("xlstm-350m", smoke=True), TrainHyper(),
                 None, device=CPU,
-                mesh=AbstractMesh((1, 2), ("data", "model")))
+                mesh=AbstractMesh((1, 8), ("data", "model")))
     with pytest.raises(ValueError, match="axes"):
         Trainer(CFG, TrainHyper(), None, device=CPU,
                 mesh=AbstractMesh((2,), ("fsdp",)))
