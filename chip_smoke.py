@@ -196,7 +196,9 @@ Phases, each fatal on failure:
     depth (28 layers, bf16 compute, fp32 masters, AdamW) trained 8 steps
     through ``train.trainer.Trainer`` on ``SyntheticLMDataset`` (4 x 256
     tokens a step, vocab 151936), the first step cold: every step finite,
-    B2 exactly 28 launches and no other RM kernel, the last step's CE
+    B2 exactly 56 launches (28 forward, 28 in the remat recompute:
+    ``ModelConfig.remat``, on by default) and no other RM kernel, the last
+    step's CE
     below the first's, the final checkpoint restored bitwise; the cold and
     warm step walls, tokens/s, peak device memory beside the train state's
     bytes, and one profiled warm step (wall, device busy and idle share,
@@ -204,7 +206,8 @@ Phases, each fatal on failure:
     its backward's recompute, and both alone at the step's shape); (d) one
     ``make_train_step`` of hubert-xlarge at full width and depth (48
     layers, 2 clips x 1500 frames, framewise targets from the seed):
-    finite, B3 and B4 48 launches each, its wall and peak memory;
+    finite, B3 and B4 96 launches each (48 forward, 48 recompute), its
+    wall and peak memory;
 25. observability, restart recovery and exact attention: (a) phase 7's
     workload served again by a ``Scheduler(obs=Obs(trace_path=...,
     install_kernel_tracing=True))`` (the trace under ``smoke_out/
@@ -307,13 +310,13 @@ Phases, each fatal on failure:
     c's 4 x 256 tokens, bf16 compute) 3 steps through the ``Trainer`` with
     ``mesh=None``, on ``make_host_mesh()`` (losses bitwise ``mesh=None``'s)
     and with ``grad_compression="int8_pod"`` on a (1, 1, 1) ``("pod",
-    "data", "model")`` mesh: B2 28 launches a step, finite losses, the
+    "data", "model")`` mesh: B2 56 launches a step, finite losses, the
     residuals' max, each run's wall and peak memory beside phase 24 c's.
 29. tensor parallelism over "model" and data-parallel serving, each part
     2 spawned processes joined by gloo on cuda:0 (NCCL refuses two ranks
     on one card): (a) qwen3-1.7b rm at phase 24 c's shape, 3 steps on a
     (data 1, model 2) mesh in bf16 and in fp32 compute, each against one
-    device's run: each rank 8 heads, B2 28 a step, its all-reduces over
+    device's run: each rank 8 heads, B2 56 a step, its all-reduces over
     "model" a step; in fp32 the losses and every ``grad_norm`` within
     TP_FP32_TOL, in bf16 the losses and the first ``grad_norm`` (where
     both hold the same weights) within the bf16 budget, the later ones
@@ -322,7 +325,9 @@ Phases, each fatal on failure:
     state and layer 15's smallest |rm denominator| there on one device
     and on each rank (``clamp_probe``); step walls and peak memory beside
     phase 24 c's; the mesh runs with ``"act_seq"`` on, the default; (b)
-    phase 7's workload through ``Scheduler(mesh=)`` on (2, 1), tokens
+    phase 7's workload through ``Scheduler(mesh=)``, the weights whole
+    over "data" (``rules={"fsdp": None}``; phase 31 c serves them cut), on
+    (2, 1), tokens
     bitwise one device's serving with the rank's 2 lanes, and on (1, 2),
     where a request that
     parts from phase 7's tokens must part inside the bf16 noise (the rows
@@ -350,10 +355,31 @@ Phases, each fatal on failure:
     x 128 tokens on (1, 2), losses and ``grad_norm`` within TP_FP32_TOL
     of one device's, then three prompts' greedy tokens; (c) qwen3-1.7b rm
     at phase 24 c's shape: 3 fp32 steps with FSDP on (2, 1) against phase
-    29 a's one-device fp32 run (within TP_FP32_TOL), B2 28 a step a rank,
+    29 a's one-device fp32 run (within TP_FP32_TOL), B2 56 a step a rank,
     a rank's train state under 0.6 of one device's and its peak beside
     phase 24 c's; then 3 bf16 steps on (1, 2) with ``"act_seq"`` off
     (the replicated path), a rank's peak beside phase 29 a's with it on.
+31. activation checkpointing, the dry run against the card, and serving
+    weights cut over "data": (a) qwen3-1.7b rm at phase 24 c's shape, 3
+    bf16 steps with ``remat`` on and 3 off (``tp_train_run`` on one
+    device): losses bitwise equal (else the gap is printed and an fp32
+    pair held within REMAT_LOSS_TOL), B2 56 a step on and 28 off, both
+    peaks beside 36.80 GiB (the step's before remat) and both warm step
+    walls; hubert's remat step is phase 24 d's (B3 and B4 96, its peak
+    beside 45.84 GiB); (b) the dry run (``launch.dryrun.measure`` on a
+    one-rank fake mesh, run after (a)'s timings) of (a)'s two steps and
+    of phase 7's decode step (4 slots, max_len 256): the predicted train
+    state's and fp32 weights' bytes equal the card's exactly; each
+    predicted peak (arguments + temp) beside the card's, with the error;
+    the counted FLOPs and ``model_flops`` over (a)'s warm wall as TFLOP/s
+    and a share of 989; (c) phase 7's first CUT_SERVE_REQUESTS requests through
+    ``make_engine(mesh=)`` on (data 2, model 1), 2 gloo processes on
+    cuda:0, with the weights cut over "data" and with ``rules={"fsdp":
+    None}``: tokens bitwise equal between the two and across the ranks,
+    B1 28 a decode step and B2 28 an owned admission a rank (112 over
+    the ranks for the 4 admissions, as in phase 29 b's (2, 1) serve), a
+    rank's fp32 masters under 0.6 of the whole weights', its peak and a
+    decode step's wall printed.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -397,8 +423,9 @@ slice's warm repeat (phase 8) is the part to cut first, then the
 tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
 its timings alone, then phase 25's exact hubert encode (e) and its warm
 exact decode timing, then phase 26's deepseek profiler windows, then phase
-27's jamba and xlstm profiler windows, then phase 30's xlstm tokens; no
-kernel check and no gradient check is cut.
+27's jamba and xlstm profiler windows, then phase 30's xlstm tokens, then
+phase 31 c's requests (down to 2); no kernel check and no gradient check
+is cut.
 """
 import contextlib
 import dataclasses
@@ -1534,6 +1561,15 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 256
 ENC_TRAIN_CLIPS = 2      # hubert-xlarge clips of ENC_FRAMES in its step
 
 
+def train_launches(cfg) -> int:
+    """A fused attention kernel's launches a train step (every layer of
+    ``cfg`` attends): one a layer in forward, and one again a layer of each
+    checkpointed group in its recompute under ``cfg.remat`` (the
+    ``first_k_dense`` layers are not checkpointed)."""
+    again = cfg.num_layers - cfg.first_k_dense if cfg.remat else 0
+    return cfg.num_layers + again
+
+
 def trainable_grads(cfg, params, batch):
     """``({path: grad}, loss)`` of ``loss_fn`` for every trainable float
     leaf (``train.steps.loss_grads``, flattened)."""
@@ -1787,7 +1823,8 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
         marks = CountedData.marks
         per_step = [{k: marks[i + 1][k] - marks[i][k] for k in counters}
                     for i in range(TRAIN_STEPS)]
-        want = {k: layers if k == "B2" else 0 for k in counters}
+        want = {k: train_launches(cfg) if k == "B2" else 0
+                for k in counters}
         walls = [row["sec_per_step"] for row in rows]
         for i, (row, launched) in enumerate(zip(rows, per_step)):
             finite = math.isfinite(row["loss"]) and math.isfinite(
@@ -1803,7 +1840,8 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
               + " ".join(f"{row['ce']:.4f}" for row in rows)
               + f"; grad_norm " + " ".join(f"{row['grad_norm']:.3f}"
                                            for row in rows)
-              + f"; every step B2 x {layers}, no other RM kernel")
+              + f"; every step B2 x {train_launches(cfg)} ({layers} "
+              "forward, the rest the remat recompute), no other RM kernel")
         print(f"[train c] step wall: cold {walls[0] * 1e3:.1f} ms, warm "
               f"median {warm * 1e3:.1f} ms (min {min(walls[1:]) * 1e3:.1f}, "
               f"max {max(walls[1:]) * 1e3:.1f}) = {tokens / warm:.0f} "
@@ -1831,7 +1869,7 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
             raise AssertionError("train c: the checkpoint did not restore "
                                  "bitwise")
         del restored, back
-    kernels["B2"]["train_step_launches"] = layers
+    kernels["B2"]["train_step_launches"] = train_launches(cfg)
 
     # where a warm step's time goes
     step_fn = make_train_step(cfg, hyper)
@@ -1872,7 +1910,8 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
           f"{100 * (1 - busy / wall_ms):.0f}%), {count} device kernels; top "
           + "; ".join(f"{name[:56]} {ms:.2f} ms" for name, ms in top))
     print(f"[train time] B2 (forward, kernel) {b2_ms:.2f} ms device a step "
-          f"({layers} launches); its backward's recompute (the "
+          f"({train_launches(cfg)} launches: forward and remat); its "
+          "backward's recompute (the "
           f"rm_attention_fused_causal.backward spans) {bwd_ms:.2f} ms device "
           "a step ("
           + (f"{100 * bwd_ms / busy:.1f}% of device busy)" if busy else
@@ -1934,12 +1973,14 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
           f"finite {finite}; step wall {h_wall * 1e3:.1f} ms (cold), peak "
           f"{h_peak / 2**30:.2f} GiB beside the state "
           f"{tree_bytes(hstate) / 2**30:.2f} GiB; launches {launched}")
-    want = {k: hlayers if k in ("B3", "B4") else 0 for k in counters}
+    want = {k: train_launches(hcfg) if k in ("B3", "B4") else 0
+            for k in counters}
     if not (finite and launched == want):
         raise AssertionError(f"train d: finite {finite}, launches "
                              f"{launched} (want {want})")
-    kernels["B3"]["train_step_launches"] = hlayers
-    kernels["B4"]["train_step_launches"] = hlayers
+    kernels["B3"]["train_step_launches"] = train_launches(hcfg)
+    kernels["B4"]["train_step_launches"] = train_launches(hcfg)
+    kernels["B3"]["train_peak_gib"] = h_peak / 2**30
     del hstate, hstep, embeds, targets
     gc.collect()
     torch.cuda.empty_cache()
@@ -3327,7 +3368,7 @@ def meshes_phase(torch, np, kernels, counters):
                                      tree_leaves(state["residuals"]))
                                  if "residuals" in state else None)}
             del state, trainer
-        want = {"B2": cfg.num_layers * DP_STEPS}
+        want = {"B2": train_launches(cfg) * DP_STEPS}
         for label, r in runs.items():
             print(f"[mesh d] qwen3-1.7b rm {TRAIN_BATCH} x {TRAIN_SEQ} tokens,"
                   f" {DP_STEPS} steps, mesh {label}: losses "
@@ -3425,7 +3466,8 @@ def clamp_probe(torch, layer):
 CLAMP_LAYER = 15         # the layer whose bf16 gradient parts most (29 a)
 
 
-def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
+def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None,
+                 remat=True):
     """Phase 29 a and 30 c: qwen3-1.7b rm (phase 24 c's 4 x 256 tokens,
     ``dtype`` compute) DP_STEPS steps through the Trainer on ``mesh``
     (None: one device), under the sharding ``rules`` where given (e.g.
@@ -3434,7 +3476,10 @@ def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
     ``leaves``, before the last step, ``[local shape, squared norm]`` of
     every gradient leaf at the state that step starts from
     (``train.steps.loss_grads`` on its batch, beside the step) and layer
-    CLAMP_LAYER's smallest |rm denominator| there (``clamp_probe``)."""
+    CLAMP_LAYER's smallest |rm denominator| there (``clamp_probe``);
+    ``remat``: the config's activation checkpointing (phase 31 a runs it
+    off too); ``base_gib``: the device bytes held before the run;
+    ``state_bytes``: the whole train state's (its two steps too)."""
     from repro_torch.common.tree import flatten_dict
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticLMDataset
@@ -3446,7 +3491,7 @@ def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
 
     counters = _tp_counters()
     cfg = dataclasses.replace(get_config("qwen3-1.7b", attention_mode="rm"),
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, remat=remat)
     lcfg = cfg if mesh is None else tp.local_config(cfg, TP_RANKS)
     data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                               global_batch=TRAIN_BATCH, seed=0,
@@ -3456,6 +3501,7 @@ def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with (contextlib.nullcontext() if rules is None
           else logical_rules_context(mesh, rules)):
         trainer = Trainer(cfg, hyper, data, seed=0, log_every=1, mesh=mesh,
@@ -3489,7 +3535,9 @@ def tp_train_run(torch, mesh, dtype, *, leaves=True, rules=None):
             "step_ms": [r["sec_per_step"] * 1e3 for r in trainer.metrics_log],
             "b2": b2, "model_all_reduces": reduces, "leaves": grad_leaves,
             "den": den, "state_gib": state_bytes / 2**30,
-            "local_heads": lcfg.num_heads,
+            "local_heads": lcfg.num_heads, "base_gib": base / 2**30,
+            "state_bytes": sum(t_.numel() * t_.element_size()
+                               for t_ in tree_leaves(state)),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "device": str(next(iter(state["params"]["embed"].values()))
                           .device)}
@@ -3569,7 +3617,8 @@ def parting_points(tokens, want):
 
 def _tp_serve_worker(rank, world, store, out_dir, shape):
     """Phase 29 b, one rank: phase 7's workload through the Scheduler on a
-    ``shape`` mesh; the rank's tokens, B1 / B2 launches and peak memory.
+    ``shape`` mesh, the weights whole over "data" (``rules={"fsdp":
+    None}``); the rank's tokens, B1 / B2 launches and peak memory.
     Where a request parts from phase 7's tokens, rank 0 keeps the logits
     row its token was sampled from there."""
     import torch
@@ -3577,6 +3626,7 @@ def _tp_serve_worker(rank, world, store, out_dir, shape):
 
     _tp_join(rank, world, store)
     try:
+        from repro_torch.distributed.sharding import logical_rules_context
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.launch.serve import make_engine
 
@@ -3585,9 +3635,13 @@ def _tp_serve_worker(rank, world, store, out_dir, shape):
         given = torch.load(out / "serve_in.pt", weights_only=False)
         mesh = make_mesh(shape, ("data", "model"), device_type="cuda")
         torch.cuda.reset_peak_memory_stats()
-        engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
-                             num_slots=4, max_len=256, seed=0,
-                             device="cuda", mesh=mesh)
+        # the weights whole over "data": phase 31 c
+        # holds the cut (gathered through gloo, 2.5 s a decode step) alone
+        with logical_rules_context(mesh, {"fsdp": None}):
+            engine = make_engine("qwen3-1.7b", smoke=False,
+                                 attention_mode="rm", num_slots=4,
+                                 max_len=256, seed=0, device="cuda",
+                                 mesh=mesh)
         for c in counters.values():
             c.launches = 0
         (done, admissions, steps, wall), rows = serve_rows(
@@ -3758,7 +3812,7 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
         t0 = time.perf_counter()
         spawn_ranks(_tp_train_worker, TP_RANKS, str(out / "s_train"), tmp)
         spawn_s = time.perf_counter() - t0
-        want_b2 = [cfg.num_layers] * DP_STEPS
+        want_b2 = [train_launches(cfg)] * DP_STEPS
         ok = True
         tp_runs = {}
         for dtype in dtypes:
@@ -4314,7 +4368,7 @@ def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
                                                 one_fp32["losses"])]
     ngaps = [abs(a - b) / abs(b) for a, b in zip(f0["grad_norms"],
                                                  one_fp32["grad_norms"])]
-    want_b2 = [get_config("qwen3-1.7b").num_layers] * DP_STEPS
+    want_b2 = [train_launches(get_config("qwen3-1.7b"))] * DP_STEPS
     print(f"[fsdp c] qwen3-1.7b rm fp32, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
           f"(2 rows a rank), {DP_STEPS} steps with FSDP on (data "
           f"{TP_RANKS}, model 1): losses "
@@ -4360,6 +4414,287 @@ def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[ssm-tp] phase 30 in {time.perf_counter() - t_phase:.2f}s")
+
+
+# -- phase 31: remat, the dry run against the card, weights cut over "data"
+REMAT_OFF_PEAK_GIB = 36.80     # PERF.md §5: the qwen3 step's peak, no remat
+HUBERT_OFF_PEAK_GIB = 45.84    # PERF.md: hubert-xlarge's step, no remat
+H100_BF16_TFLOPS = 989.0       # dense bf16 on the tensor cores
+CUT_SERVE_REQUESTS = 4         # phase 7's first requests in phase 31 c: a
+# decode step gathers every block's weights over gloo, through the host
+REMAT_LOSS_TOL = 1e-6          # relative, fp32, if bf16 is not bitwise
+
+
+def dryrun_predictions():
+    """Phase 31 b's dry runs (no card: ``meta`` tensors over a fake
+    process group of one rank): qwen3-1.7b rm's train step at phase 24
+    c's shape with remat on and off, and phase 7's decode step (4 slots,
+    max_len 256) -> their records by name."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    train = ShapeSpec("train_4x256", TRAIN_SEQ, TRAIN_BATCH, "train")
+    decode = ShapeSpec("decode_4x256", 256, 4, "decode")
+    out = {}
+    with dryrun.dry_world(1):
+        mesh = dryrun._mesh("one")
+        for remat in (True, False):
+            out[f"train_remat_{remat}"] = dryrun.measure(
+                dc.replace(cfg, remat=remat), train, mesh, "one")
+        out["decode"] = dryrun.measure(cfg, decode, mesh, "one")
+    return out
+
+
+def _cut_serve_worker(rank, world, store, out_dir):
+    """Phase 31 c, one rank: phase 7's first CUT_SERVE_REQUESTS requests
+    through ``make_engine(mesh=)`` on (data 2, model 1), first with the
+    weights cut over "data" (the default "fsdp" rule), then whole
+    (``rules={"fsdp": None}``): tokens, B1 / B2 launches, the bytes of the
+    weights a rank holds (fp32 masters and the bf16 compute copy), its
+    peak above what it held before, and the median wall of 3 decode
+    steps over all lanes."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.common.tree import tree_leaves
+        from repro_torch.distributed.sharding import logical_rules_context
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.serve import make_engine
+
+        out = Path(out_dir)
+        counters = _tp_counters()
+        given = torch.load(out / "cut_in.pt", weights_only=False)
+        mesh = make_mesh((world, 1), ("data", "model"), device_type="cuda")
+        report = {}
+        for label, rules in (("cut", None), ("whole", {"fsdp": None})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with logical_rules_context(mesh, rules):
+                engine = make_engine("qwen3-1.7b", smoke=False,
+                                     attention_mode="rm", num_slots=4,
+                                     max_len=256, seed=0, device="cuda",
+                                     mesh=mesh)
+            ex = engine.executor
+            for c in counters.values():
+                c.launches = 0
+            done, admissions, steps, wall = run_workload(
+                torch, engine, given["prompts"], 0)
+            launches = {k: c.launches for k, c in counters.items()
+                        if c.launches}
+            tokens = torch.zeros((4, 1), dtype=torch.long)
+            positions = torch.full((4,), ex.scratch_position,
+                                   dtype=torch.int32)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.decode(tokens, positions)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            nbytes = {key: sum(t_.numel() * t_.element_size()
+                               for t_ in tree_leaves(tree))
+                      for key, tree in (("masters", ex.params),
+                                        ("compute", ex.compute_params))}
+            report[label] = {
+                "tokens": {rid: s_.generated for rid, s_ in done.items()},
+                "launches": launches, "admissions": admissions,
+                "steps": steps, "wall": wall,
+                "decode_ms": statistics.median(walls) * 1e3,
+                "weight_bytes": nbytes, "cut": ex._plan is not None,
+                "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                / 2**30}
+            del engine, ex
+        (out / f"cut{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def remat_dryrun_phase(torch, np, kernels, prompts):
+    """Phase 31 (see the module docstring): (a) remat on qwen3-1.7b's
+    train step against remat off, hubert's remat step (phase 24 d); (b)
+    the dry run's predictions (:func:`dryrun_predictions`, run here after
+    (a)'s timings) against the card; (c) phase 7's first requests served
+    on (2, 1) with the weights cut over "data" and whole. Every check is
+    fatal."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_engine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+
+    # a. remat on and off: 3 bf16 steps each from seed 0
+    runs = {}
+    for remat in (True, False):
+        runs[remat] = tp_train_run(torch, None, "bfloat16", leaves=False,
+                                   remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    bitwise = on["losses"] == off["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(on["losses"], off["losses"])]
+    want = {True: train_launches(cfg), False: cfg.num_layers}
+    for remat, r in runs.items():
+        print(f"[remat a] qwen3-1.7b rm bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens, remat {remat}: losses "
+              + " ".join(f"{v:.6f}" for v in r["losses"])
+              + f"; B2 a step {r['b2']} (want {want[remat]}); step walls "
+              + " / ".join(f"{v:.1f}" for v in r["step_ms"])
+              + f" ms (warm {r['step_ms'][-1]:.1f}); peak "
+              f"{r['peak_gib']:.2f} GiB ({r['peak_gib'] - r['base_gib']:.2f}"
+              f" above the {r['base_gib']:.2f} GiB held before; before "
+              f"remat: {REMAT_OFF_PEAK_GIB:.2f} GiB)")
+    print(f"[remat a] losses bitwise equal {bitwise}; gaps "
+          + " ".join(f"{v:.2e}" for v in gaps))
+    if not all(r["b2"] == [want[m]] * DP_STEPS for m, r in runs.items()):
+        raise AssertionError("31 a: B2 launches a step")
+    if not bitwise:
+        fp32 = {m: tp_train_run(torch, None, "float32", leaves=False,
+                                remat=m) for m in (True, False)}
+        gaps32 = [abs(a - b) / abs(b) for a, b in
+                  zip(fp32[True]["losses"], fp32[False]["losses"])]
+        print("[remat a] fp32 losses gaps " + " ".join(f"{v:.2e}"
+                                                       for v in gaps32)
+              + f" (tol {REMAT_LOSS_TOL:.0e})")
+        if max(gaps32) > REMAT_LOSS_TOL:
+            raise AssertionError("31 a: fp32 remat losses part")
+    h_peak = kernels["B3"]["train_peak_gib"]
+    print(f"[remat a] hubert-xlarge one step on {ENC_TRAIN_CLIPS} x "
+          f"{ENC_FRAMES} frames with remat (phase 24 d): B3 and B4 "
+          f"{kernels['B3']['train_step_launches']} each, peak {h_peak:.2f} "
+          f"GiB (before remat: {HUBERT_OFF_PEAK_GIB:.2f} GiB)")
+    kernels["B2"]["remat_train_launches_per_step"] = on["b2"][-1]
+    kernels["B2"]["no_remat_train_launches_per_step"] = off["b2"][-1]
+    kernels["B2"]["remat_train_peak_gib"] = on["peak_gib"]
+    kernels["B2"]["no_remat_train_peak_gib"] = off["peak_gib"]
+
+    # b. the dry run's predictions against the card
+    t_dry = time.perf_counter()
+    pred = dryrun_predictions()
+    print(f"[dryrun b] the three dry runs took "
+          f"{time.perf_counter() - t_dry:.1f} s on the host")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for remat, r in runs.items():
+        rec = pred[f"train_remat_{remat}"]
+        ma = rec["memory_analysis"]
+        state = ma["argument_parts"]["state"]
+        want_gib = (ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]) \
+            / 2**30
+        card = r["peak_gib"] - r["base_gib"]
+        warm_s = r["step_ms"][-1] / 1e3
+        flops, mf = rec["per_device_flops"], rec["model_flops"]
+        print(f"[dryrun b] train remat {remat}: state {state} B predicted, "
+              f"{r['state_bytes']} B on the card; peak {want_gib:.2f} GiB "
+              "predicted (arguments "
+              f"{ma['argument_size_in_bytes'] / 2**30:.2f} + temp "
+              f"{ma['temp_size_in_bytes'] / 2**30:.2f}) against "
+              f"{card:.2f} on the card ({100 * (want_gib - card) / card:+.1f}"
+              f"%); counted {flops / 1e12:.3f} TFLOP, model_flops "
+              f"{mf / 1e12:.3f} TFLOP over the warm step "
+              f"{warm_s * 1e3:.1f} ms: {flops / warm_s / 1e12:.1f} / "
+              f"{mf / warm_s / 1e12:.1f} TFLOP/s, "
+              f"{100 * flops / warm_s / 1e12 / H100_BF16_TFLOPS:.2f}% / "
+              f"{100 * mf / warm_s / 1e12 / H100_BF16_TFLOPS:.2f}% of "
+              f"{H100_BF16_TFLOPS:.0f}; meta run {rec['meta_s']:.1f}s")
+        if state != r["state_bytes"]:
+            raise AssertionError(f"31 b: predicted state bytes {state} "
+                                 f"against {r['state_bytes']}")
+        kernels["B2"][f"dryrun_train_remat_{remat}_peak_err"] = \
+            (want_gib - card) / card
+    base = torch.cuda.memory_allocated()
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                         num_slots=4, max_len=256, seed=0, device="cuda")
+    ex = engine.executor
+    tokens = torch.zeros((4, 1), dtype=torch.long)
+    positions = torch.full((4,), ex.scratch_position, dtype=torch.int32)
+    ex.decode(tokens, positions)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex.decode(tokens, positions)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    card = (torch.cuda.max_memory_allocated() - base) / 2**30
+    masters = sum(t_.numel() * t_.element_size()
+                  for t_ in tree_leaves(ex.params))
+    rec = pred["decode"]
+    ma = rec["memory_analysis"]
+    want_gib = (ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]) \
+        / 2**30
+    print(f"[dryrun b] decode step (4 slots, max_len 256): weights "
+          f"{ma['argument_parts']['params']} B predicted, {masters} B on the "
+          f"card; peak {want_gib:.3f} GiB predicted (arguments "
+          f"{ma['argument_size_in_bytes'] / 2**30:.3f} + temp "
+          f"{ma['temp_size_in_bytes'] / 2**30:.3f}, the compute copy made "
+          f"in the step) against {card:.3f} GiB on the card "
+          f"({100 * (want_gib - card) / card:+.1f}%); counted "
+          f"{rec['per_device_flops'] / 1e9:.2f} GFLOP over a "
+          f"{dec_s * 1e3:.1f} ms step")
+    if ma["argument_parts"]["params"] != masters:
+        raise AssertionError("31 b: predicted weight bytes differ")
+    kernels["B1"]["dryrun_decode_peak_err"] = (want_gib - card) / card
+    del engine, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. phase 7's first requests on (2, 1), the weights cut and whole
+    first = dict(list(prompts.items())[:CUT_SERVE_REQUESTS])
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        torch.save({"prompts": first}, out / "cut_in.pt")
+        t0 = time.perf_counter()
+        spawn_ranks(_cut_serve_worker, TP_RANKS, str(out / "s_cut"), tmp)
+        spawn_s = time.perf_counter() - t0
+        reps = [json.loads((out / f"cut{r}.json").read_text())
+                for r in range(TP_RANKS)]
+    ok = True
+    for r, rep in enumerate(reps):
+        for label in ("cut", "whole"):
+            x = rep[label]
+            gib = {k: v / 2**30 for k, v in x["weight_bytes"].items()}
+            print(f"[cut c] rank {r}, weights {label} (cut over data "
+                  f"{x['cut']}): {x['admissions']} admissions, "
+                  f"{x['steps']} decode steps in {x['wall']:.2f}s, launches "
+                  f"{x['launches']}; weights held {gib['masters']:.2f} GiB "
+                  f"fp32 + {gib['compute']:.2f} GiB bf16; peak "
+                  f"{x['peak_gib']:.2f} GiB above what it held; decode "
+                  f"step {x['decode_ms']:.1f} ms")
+            layers = cfg.num_layers
+            ok = ok and (x["launches"].get("B1", 0) == layers * x["steps"]
+                         and x["launches"].get("B2", 0) % layers == 0)
+        ok = ok and (rep["cut"]["tokens"] == rep["whole"]["tokens"]
+                     and rep["cut"]["cut"] and not rep["whole"]["cut"]
+                     and rep["cut"]["launches"] == rep["whole"]["launches"]
+                     and rep["cut"]["weight_bytes"]["masters"]
+                     < 0.6 * rep["whole"]["weight_bytes"]["masters"])
+    b2 = sum(rep["cut"]["launches"].get("B2", 0) for rep in reps)
+    ok = ok and b2 == cfg.num_layers * CUT_SERVE_REQUESTS and \
+        reps[0]["cut"]["tokens"] == reps[1]["cut"]["tokens"]
+    same = all(rep["cut"]["tokens"] == rep["whole"]["tokens"] for rep in reps)
+    agree = reps[0]["cut"]["tokens"] == reps[1]["cut"]["tokens"]
+    print(f"[cut c] phase 7's first {CUT_SERVE_REQUESTS} requests on (data "
+          f"{TP_RANKS}, model 1), {spawn_s:.1f}s with the start-up: tokens "
+          f"equal with the weights cut and whole {same}, ranks agree "
+          f"{agree}, B2 over the ranks {b2}")
+    if not ok:
+        raise AssertionError("31 c: serving with the weights cut over "
+                             "'data' failed")
+    for kid in ("B1", "B2"):
+        kernels[kid]["cut_serve_launches_per_rank"] = \
+            reps[0]["cut"]["launches"].get(kid, 0)
+    print(f"[remat] phase 31 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -5956,6 +6291,11 @@ def main():
 
     # -- 30. SSM tensor parallelism, FSDP over "data", "act_seq" -------------
     ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 31. remat, the dry run against the card, weights cut over "data" ----
+    remat_dryrun_phase(torch, np, kernels, prompts)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

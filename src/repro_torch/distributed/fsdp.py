@@ -28,10 +28,25 @@ gathered weight for a handle, and backward gathers the block again at the
 first such handle it unpacks (one all-gather a block), freeing it once
 the block's last handle is unpacked.
 
+Under activation checkpointing (``ModelConfig.remat``, the default) the
+gather runs inside each checkpointed group, without the saved-tensor
+hook: checkpoint keeps nothing of the group, and its recompute in
+backward gathers each block again. So a rank makes, a step, one
+all-gather a block in forward and one a block of the groups in the
+recompute (the ``first_k_dense`` blocks, the final norm and the
+unembedding, which are not checkpointed, gather again through the hook).
+
 The reduce-scatter is an all-reduce and this rank's slice
 (``tensor_parallel._sum_over``): the bytes of an all-reduce, and the sums
-of the replicated path bit for bit. Serving keeps its weights replicated
-over ``"data"`` (ROADMAP.md queue A item 7).
+of the replicated path bit for bit.
+
+Serving (``serve.executor.StepExecutor(mesh=)``) takes the same cut of
+its weights: the compute copy of a rank's slices is made once, and
+``models.transformer.prefill`` / ``decode_step`` run inside
+:func:`training` with a serving plan (``Plan.serving``), where
+:func:`block` gathers a block's slices (already in
+the compute dtype) just before it, with no autograd function and no
+hooks, and frees them after it.
 """
 from __future__ import annotations
 
@@ -46,13 +61,14 @@ from repro_torch.common.tree import tree_get, tree_map_with_path
 from repro_torch.distributed.collectives import all_gather, all_reduce
 
 __all__ = ["DATA_AXIS", "Plan", "data_dims", "enabled", "shard",
-           "gather_leaf", "active", "training", "block"]
+           "gather_leaf", "plan_for_mesh", "active", "training", "block"]
 
 DATA_AXIS = "data"
 
 
 def enabled(mesh) -> bool:
-    """Whether a Trainer on ``mesh`` cuts its weights over ``"data"``: a
+    """Whether a Trainer or a serving executor on ``mesh`` cuts its
+    weights over ``"data"``: a
     data axis above 1 and the ``"fsdp"`` rule on (``sharding.rule``;
     ``logical_rules_context(mesh, rules={"fsdp": None})`` turns it off)."""
     from repro_torch.distributed.sharding import mesh_axes, rule
@@ -110,16 +126,25 @@ def gather_leaf(p: torch.Tensor, dim: int, mesh) -> torch.Tensor:
 
 @dataclasses.dataclass
 class Plan:
-    """What a train step's forward reads: the data group, this rank's
-    index in it and its size, the params' :func:`data_dims`, and the
-    weight of this rank's gradient (its share of the target tokens times
-    the data size over their sum: exactly 1 for equal shares)."""
+    """What a step's forward reads: the data group, this rank's index in
+    it and its size, the params' :func:`data_dims`, the weight of this
+    rank's gradient (its share of the target tokens times the data size
+    over their sum: exactly 1 for equal shares), and whether it serves
+    (forward only: the params are the compute copy's slices)."""
 
     group: Any
     rank: int
     size: int
     dims: Any
     weight: Any = 1.0
+    serving: bool = False
+
+
+def plan_for_mesh(mesh, dims, *, serving: bool = False) -> Plan:
+    """The :class:`Plan` of this rank on ``mesh`` with ``dims``."""
+    rank, size = _data_rank(mesh)
+    return Plan(mesh.get_group(DATA_AXIS), rank, size, dims,
+                serving=serving)
 
 
 _local = threading.local()
@@ -132,8 +157,9 @@ def active() -> Optional[Plan]:
 
 @contextlib.contextmanager
 def training(plan: Optional[Plan]) -> Iterator[Optional[Plan]]:
-    """Run a step's forward and backward with ``plan`` active (None: no
-    FSDP, a no-op)."""
+    """Run a step's forward and backward (a train step's), or its forward
+    alone (a serving plan's), with ``plan`` active (None: no FSDP, a
+    no-op)."""
     prev = active()
     _local.plan = plan
     try:
@@ -233,11 +259,14 @@ class _Regather:
 
 
 @contextlib.contextmanager
-def block(plan: Optional[Plan], path, sub, dtype) -> Iterator[Any]:
+def block(plan: Optional[Plan], path, sub, dtype, *,
+          regather: bool = True) -> Iterator[Any]:
     """``sub`` (the params at ``path``, e.g. ``("layers", i)``) with each
     cut leaf replaced by its gathered compute-dtype tensor, for the block's
     forward inside the context; ``sub`` itself where ``plan`` is None or
-    nothing in it is cut."""
+    nothing in it is cut. ``regather``: whether backward gathers the block
+    again through saved-tensor hooks (off inside a checkpointed group). A
+    serving plan's leaves are gathered as they are, with no gradient."""
     if plan is None:
         yield sub
         return
@@ -250,9 +279,21 @@ def block(plan: Optional[Plan], path, sub, dtype) -> Iterator[Any]:
         return
     leaves = [tree_get(sub, p) for p in cut]
     dim_list = [tree_get(dims, p) for p in cut]
-    fulls = _GatherBlock.apply(plan, dim_list, dtype, *leaves)
+    if plan.serving:
+        fulls = [None] * len(leaves)
+        for dt in sorted({p.dtype for p in leaves}, key=str):
+            at = [i for i, p in enumerate(leaves) if p.dtype == dt]
+            got = _gather_flat(plan, [leaves[i] for i in at],
+                               [dim_list[i] for i in at], dt)
+            for i, full in zip(at, got):
+                fulls[i] = full
+    else:
+        fulls = _GatherBlock.apply(plan, dim_list, dtype, *leaves)
     gathered = dict(zip(cut, fulls))
     out = tree_map_with_path(lambda p, leaf: gathered.get(p, leaf), sub)
+    if plan.serving or not regather:
+        yield out
+        return
     hooks = _Regather(plan, [p.detach() for p in leaves], dim_list, dtype,
                       fulls)
     with torch.autograd.graph.saved_tensors_hooks(hooks.pack, hooks.unpack):

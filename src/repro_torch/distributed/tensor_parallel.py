@@ -57,9 +57,9 @@ holds plain local tensors and runs the model at its local widths:
   columns, and a cross entropy whose ``logsumexp`` reduces the max and then
   the sum of exponentials over the group (:func:`vocab_parallel_ce`).
 
-The weight dims on ``"fsdp"`` are cut over ``"data"`` in training
-(``distributed.fsdp``; ``shard_params(fsdp=True)``, and
-:func:`gather_params` gathers them back) and stay replicated in serving.
+The weight dims on ``"fsdp"`` are cut over ``"data"`` in training and in
+serving (``distributed.fsdp``; ``shard_params(fsdp_cut=True)``, and
+:func:`gather_params` gathers them back).
 The model code reads the view from :func:`local_view`, a context the caller
 enters (the Trainer, the serving executor, ``models.moe.apply_moe(mesh=)``).
 Outside it, or on a model axis of size 1, every function here returns its
@@ -101,6 +101,7 @@ __all__ = [
     "shards_of",
     "local_view_of",
     "local_view",
+    "restore_view",
     "active",
     "model_view",
     "model_size_of",
@@ -229,6 +230,19 @@ def local_view(mesh, *, batch_sharded: bool = True) -> Iterator[LocalView]:
     _local.view = local_view_of(mesh, batch_sharded=batch_sharded)
     try:
         yield _local.view
+    finally:
+        _local.view = prev
+
+
+@contextlib.contextmanager
+def restore_view(view: Optional[LocalView]) -> Iterator[Optional[LocalView]]:
+    """Run the code inside on ``view`` as :func:`active` returned it (None:
+    no view), e.g. a checkpointed group's recompute in backward, after the
+    forward's contexts have been left."""
+    prev = active()
+    _local.view = view
+    try:
+        yield view
     finally:
         _local.view = prev
 
@@ -392,35 +406,57 @@ def _join(pieces, dim: int, groups: int) -> torch.Tensor:
                      dim=dim)
 
 
+def _leaf_cutter(template, mesh, cfg, fsdp_cut: bool):
+    """``cut(path, p)``: this rank's part of the leaf at ``path`` of a tree
+    shaped as ``template`` (full widths; tensors or ``meta``): its
+    ``"model"`` slice (:func:`param_cuts`), then, with ``fsdp_cut``, its
+    ``"data"`` slice (``fsdp.data_dims``). A cut leaf is a new tensor; a
+    whole one is ``p`` itself."""
+    view = local_view_of(mesh)
+    cuts = param_cuts(template, mesh, cfg)
+    dims = fsdp.data_dims(template, mesh) if fsdp_cut else None
+    if fsdp_cut:
+        data_rank, data_size = fsdp._data_rank(mesh)
+
+    def cut(path, p):
+        p = _slice(p, tree_get(cuts, path), view.model_size, view.model_rank)
+        dim = None if dims is None else tree_get(dims, path)
+        if dim is None:
+            return p
+        width = p.shape[dim] // data_size
+        return p.narrow(dim, data_rank * width, width).clone()
+
+    return cut
+
+
 def shard_params(params, mesh, cfg, *, fsdp_cut: bool = False):
     """This rank's local tensors of the full ``params`` (new tensors where
     a leaf is cut; a replicated leaf is the caller's tensor); with
     ``fsdp_cut``, each leaf's ``"fsdp"`` dim is then cut over ``"data"``
-    too (``distributed.fsdp``, the Trainer's layout).
+    too (``distributed.fsdp``, the Trainer's layout and a serving
+    executor's on a data axis).
 
     Raises:
         RuntimeError: ``mesh`` has no process group behind it.
         ValueError: as :func:`local_config`.
     """
-    view = local_view_of(mesh)
-    cuts = param_cuts(params, mesh, cfg)
-    local = tree_map_with_path(
-        lambda path, p: _slice(p, tree_get(cuts, path),
-                               view.model_size, view.model_rank), params)
-    if fsdp_cut:
-        local = fsdp.shard(local, mesh, fsdp.data_dims(params, mesh))
-    return local
+    return tree_map_with_path(_leaf_cutter(params, mesh, cfg, fsdp_cut),
+                              params)
 
 
 def init_local_params(cfg, seed: int, mesh, device="cuda", *,
                       fsdp_cut: bool = False):
     """This rank's shards of ``transformer.init_model(cfg)`` from ``seed``
     on ``device``: the same draws as ``train.steps.init_params``, each
-    block cut as soon as it is drawn (over ``"data"`` too with
+    weight cut as soon as it is drawn (over ``"data"`` too with
     ``fsdp_cut``, as :func:`shard_params`), so a rank holds its shards and
-    one full block at most (a model that fits the card only in shards).
-    The one way the port's entry points (``Trainer``, ``launch.serve.
-    make_engine``) draw a model onto a mesh.
+    one full weight at most (a model that fits the card only in shards).
+    Each part is walked once with ``meta`` stand-ins for its weights
+    (``models.layers.drawing``; a copy of the generator takes the other,
+    small draws) to learn which leaf each draw becomes; then it is drawn
+    for real and each weight is cut at once. The one way the
+    port's entry points (``Trainer``, ``launch.serve.make_engine``) draw a
+    model onto a mesh.
 
     Returns ``(params, template)``: the local params and the full params'
     :func:`meta_template` (what :func:`gather_params` and
@@ -429,21 +465,55 @@ def init_local_params(cfg, seed: int, mesh, device="cuda", *,
     Raises:
         RuntimeError: as :func:`shard_params`; ``device`` is CUDA and
             there is none.
-        ValueError: as :func:`local_config`.
+        ValueError: as :func:`local_config`; a draw of a part does not
+            become one of its leaves unchanged.
     """
     from repro_torch import resolve_device
+    from repro_torch.models.layers import draw_normal, drawing
     from repro_torch.models.transformer import init_model
 
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     shapes = {"embed": None, "layers": [], "final_norm": None}
 
-    def cut(key, sub):
+    def cut(key, draw):
+        stand_ins = []
+
+        def stand_in(g, shape, std, dtype):
+            stand_ins.append(torch.empty(shape, dtype=dtype, device="meta"))
+            return stand_ins[-1]
+
+        probe = torch.Generator(device=gen.device)
+        probe.set_state(gen.get_state())
+        with drawing(stand_in):
+            walked = {key: draw(probe)}
+        template = meta_template(walked)
         if key == "layers":
-            shapes["layers"].extend(meta_template(sub))
+            shapes["layers"].extend(template["layers"])
         else:
-            shapes[key] = meta_template(sub)
-        return shard_params({key: sub}, mesh, cfg, fsdp_cut=fsdp_cut)[key]
+            shapes[key] = template[key]
+        one = _leaf_cutter(template, mesh, cfg, fsdp_cut)
+        where = {}
+        tree_map_with_path(lambda path, p: where.setdefault(id(p), path),
+                           walked)
+        for i, t in enumerate(stand_ins):
+            if id(t) not in where:
+                raise ValueError(
+                    f"init_local_params: draw {i} of part {key!r} (shape "
+                    f"{tuple(t.shape)}) does not become one leaf as drawn; "
+                    "an init must return each normal_init draw unchanged")
+        order = iter([where[id(t)] for t in stand_ins])
+        drawn = set()
+
+        def keep_shard(g, shape, std, dtype):
+            path = next(order)
+            drawn.add(path)
+            return one(path, draw_normal(g, shape, std, dtype))
+
+        with drawing(keep_shard):
+            sub = {key: draw(gen)}
+        return tree_map_with_path(
+            lambda path, p: p if path in drawn else one(path, p), sub)[key]
 
     return init_model(cfg, gen, cut=cut), shapes
 

@@ -30,6 +30,12 @@ blocks on the tensor cores, its tiles and shared memory cut by
 registers (a block's, past 1024 points; in passes through a scratch, past
 8192), its warps and lanes a row chosen by :func:`structured_schedule`.
 There is no autotune cache yet.
+
+Every wrapper takes its plain PyTorch version on a tensor whose device is
+one of :data:`PLAIN_DEVICES`: the CPU, and ``meta`` (shapes only, as a dry
+run's step runs: ``launch.dryrun``, the counterpart of the reference
+lowering its jnp paths off the TPU); a CUDA tensor launches the kernel,
+and any other device raises.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import functools
 from typing import NamedTuple, Sequence, Tuple
 
 __all__ = [
+    "PLAIN_DEVICES",
     "SMEM_PER_BLOCK",
     "round_up",
     "feature_tile_smem",
@@ -60,6 +67,8 @@ __all__ = [
     "structured_schedule",
 ]
 
+# the devices whose tensors take a wrapper's plain version
+PLAIN_DEVICES = ("cpu", "meta")
 # Hopper: the most dynamic shared memory one block may opt into.
 SMEM_PER_BLOCK = 232_448
 # Streaming multiprocessors of an H100 SXM: enough blocks to fill them.

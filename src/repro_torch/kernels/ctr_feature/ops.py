@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch.ctr.ref import ctr_feature_fused_ref
+from repro_torch.kernels.common import PLAIN_DEVICES
 from repro_torch.obs.trace import kernel_scope as _kernel_scope
 
 __all__ = ["ctr_feature_fused"]
@@ -95,11 +96,11 @@ def ctr_feature_fused(
     with _kernel_scope("ctr_feature", x=x,
                        cost=dict(batch=b, d=d, depth=k, f=fc,
                                  itemsize=x.element_size())):
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             z = ctr_feature_fused_ref(xf, wr, wi, col_deg, col_scale)
             return z.reshape(*batch_shape, 2 * fc)
         if x.device.type != "cuda":
-            raise ValueError(f"ctr_feature_fused runs on cpu or cuda "
+            raise ValueError(f"ctr_feature_fused runs on cpu, meta or cuda "
                              f"tensors, got {x.device}")
         _check_cuda_operands(xf, wr, wi, col_deg, col_scale)
         out = torch.empty((b, 2 * fc), dtype=torch.float32, device=x.device)

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import (
+    PLAIN_DEVICES,
     causal_schedule,
     chunked_schedule,
     noncausal_schedule,
@@ -139,11 +140,11 @@ def rm_attention_chunked(zq, zk, v, s_prev, n_prev, *, chunk: int,
     dv = v.shape[-1]
     dev = zq.device
     with _kernel_scope("rm_attention", x=zq, chunk=chunk):
-        if dev.type == "cpu":
+        if dev.type in PLAIN_DEVICES:
             return rm_attention_chunked_ref(zq, zk, v, s_prev, n_prev,
                                             chunk=chunk, eps=eps)
         if dev.type != "cuda":
-            raise ValueError(f"rm_attention_chunked runs on cpu or cuda "
+            raise ValueError(f"rm_attention_chunked runs on cpu, meta or cuda "
                              f"tensors, got {dev}")
         if zq.dtype not in _DTYPE_CODE or zk.dtype != zq.dtype:
             raise TypeError(f"zq and zk must share one of fp32/bf16, got "
@@ -294,7 +295,7 @@ def _check_cuda_operands(op: str, x, others, w):
     """Raise unless ``x`` and ``w`` share fp32 or bf16 and every tensor of
     ``others`` (name -> tensor) lies on ``x``'s device."""
     if x.device.type != "cuda":
-        raise ValueError(f"{op} runs on cpu or cuda tensors, got "
+        raise ValueError(f"{op} runs on cpu, meta or cuda tensors, got "
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
         raise TypeError(f"{op}: rows and w must share one of fp32/bf16, got "
@@ -336,11 +337,11 @@ def rm_fused_causal(q, k, v, kvalid, w, col_deg, col_scale, eps: float, *,
     with _kernel_scope("rm_attn_fused", x=q,
                        cost=dict(batch=b * h, t=t, d=d, depth=kdeg,
                                  f=f, dv=dv, itemsize=q.element_size())):
-        if dev.type == "cpu":
+        if dev.type in PLAIN_DEVICES:
             return rm_fused_causal_ref(q, k, v, kvalid, w, col_deg, col_scale,
                                        chunk=plain_chunk, eps=eps)
         if dev.type != "cuda":
-            raise ValueError(f"fused RM attention runs on cpu or cuda "
+            raise ValueError(f"fused RM attention runs on cpu, meta or cuda "
                              f"tensors, got {dev}")
         if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
                 w.dtype != q.dtype:
@@ -548,7 +549,7 @@ def rm_fused_state(k, v, kvalid, w, col_deg, col_scale, *,
         return (torch.zeros((bh, f, dv), dtype=torch.float32, device=dev),
                 torch.zeros((bh, f), dtype=torch.float32, device=dev))
     col_deg, col_scale = _columns(col_deg, col_scale, dev)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return rm_fused_state_ref(k, v, kvalid, w, col_deg, col_scale)
     _check_cuda_operands("rm_fused_state", k, {"v": v, "kvalid": kvalid},
                          w)
@@ -618,7 +619,7 @@ def rm_fused_apply(q, s, n, w, col_deg, col_scale, eps: float, *,
     if bh == 0 or t == 0 or f == 0:
         return torch.zeros((bh, t, dv), dtype=torch.float32, device=dev)
     col_deg, col_scale = _columns(col_deg, col_scale, dev)
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return rm_fused_apply_ref(q, s, n, w, col_deg, col_scale, eps)
     _check_cuda_operands("rm_fused_apply", q, {"s": s, "n": n}, w)
     pack = _slab_for("rm_fused_apply", q, w, col_deg, col_scale, pack)

@@ -26,7 +26,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import bucket_schedule, pick_feature_tiles
+from repro_torch.kernels.common import (
+    PLAIN_DEVICES,
+    bucket_schedule,
+    pick_feature_tiles,
+)
 from repro_torch.kernels.rm_feature.ref import (
     rm_feature_bucket_ref,
     rm_feature_fused_ref,
@@ -122,12 +126,12 @@ def rm_feature_fused(
     with _kernel_scope("rm_feature", x=x,
                        cost=dict(batch=b, d=d, depth=k, f=f,
                                  itemsize=x.element_size())):
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return rm_feature_fused_ref(xf, w, col_deg,
                                         col_scale).reshape(*batch_shape, f)
         if x.device.type != "cuda":
-            raise ValueError(f"rm_feature_fused runs on cpu or cuda tensors, "
-                             f"got {x.device}")
+            raise ValueError(f"rm_feature_fused runs on cpu, meta or cuda "
+                             f"tensors, got {x.device}")
         _check_cuda_operands(xf, w, col_deg, col_scale)
         out = torch.empty((b, f), dtype=torch.float32, device=x.device)
         launch = _library()
@@ -243,15 +247,15 @@ def rm_feature_bucket(
             return torch.zeros((*batch_shape, count), dtype=torch.float32,
                                device=x.device)
         return target.reshape(*batch_shape, count)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         z = rm_feature_bucket_ref(xf, omega, degree, scale)
         if out is None:
             return z.reshape(*batch_shape, count)
         target.copy_(z)
         return target.reshape(*batch_shape, count)
     if x.device.type != "cuda":
-        raise ValueError(f"rm_feature_bucket runs on cpu or cuda tensors, "
-                         f"got {x.device}")
+        raise ValueError(f"rm_feature_bucket runs on cpu, meta or cuda "
+                         f"tensors, got {x.device}")
     _check_bucket_operands(xf, omega)
     if out is None:
         out, col = torch.empty((b, count), dtype=torch.float32,

@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.common import (
+    PLAIN_DEVICES,
     check_structured_d_pad,
     structured_schedule,
     structured_split_rows,
@@ -191,14 +192,14 @@ def structured_feature_fused(
     with _kernel_scope("structured_feature", x=x,
                        cost=dict(batch=b, d=m, depth=k, f=cols,
                                  itemsize=x.element_size())):
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             z = structured_feature_fused_ref(xf, d1, d2, col_deg, col_scale)
             if out is not None:
                 return _route(z, out, keep, m)
             return z.reshape(*batch_shape, cols)
         if x.device.type != "cuda":
-            raise ValueError(f"structured_feature_fused runs on cpu or cuda "
-                             f"tensors, got {x.device}")
+            raise ValueError(f"structured_feature_fused runs on cpu, meta or "
+                             f"cuda tensors, got {x.device}")
         _check_cuda_operands(xf, d1, d2, col_deg, col_scale)
         xf = xf.contiguous()
         sched = structured_schedule(m, b, s)

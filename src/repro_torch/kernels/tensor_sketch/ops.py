@@ -21,7 +21,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels.common import sketch_schedule
+from repro_torch.kernels.common import PLAIN_DEVICES, sketch_schedule
 from repro_torch.obs.trace import kernel_scope as _kernel_scope
 from repro_torch.sketch.ref import tensor_sketch_fused_ref
 
@@ -113,11 +113,11 @@ def tensor_sketch_fused(
     with _kernel_scope("tensor_sketch", x=x,
                        cost=dict(batch=b, d=d, depth=k, f=fs,
                                  itemsize=x.element_size())):
-        if x.device.type == "cpu":
+        if x.device.type in PLAIN_DEVICES:
             return tensor_sketch_fused_ref(xf, wr, wi, col_deg, mr, mi,
                                            col_scale).reshape(*batch_shape, fs)
         if x.device.type != "cuda":
-            raise ValueError(f"tensor_sketch_fused runs on cpu or cuda "
+            raise ValueError(f"tensor_sketch_fused runs on cpu, meta or cuda "
                              f"tensors, got {x.device}")
         starts = tuple(int(s) for s in blocks)
         _check_cuda_operands(xf, wr, wi, col_deg, mr, mi, col_scale, starts)

@@ -61,6 +61,7 @@ from repro_torch.configs import (
     list_archs,
     supports_rm,
 )
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
@@ -96,8 +97,9 @@ def make_engine(
     weights are drawn on the device in it). ``device`` defaults to
     ``"cuda"`` and raises a ``RuntimeError`` where CUDA is absent; only
     ``device="cpu"`` runs on the CPU. ``mesh`` (a ``DeviceMesh``) serves on
-    it: every rank draws its shards of the same weights, one block at a
-    time (``distributed.tensor_parallel.init_local_params``).
+    it: every rank draws its shards of the same weights, each weight cut as
+    it is drawn, over ``"data"`` too where ``distributed.fsdp.enabled``
+    (``distributed.tensor_parallel.init_local_params``).
     """
     dev = resolve_device(device)
     if cfg is None:
@@ -112,7 +114,8 @@ def make_engine(
         gen.manual_seed(seed)
         params = init_model(cfg, gen)
     else:
-        params, _ = tp.init_local_params(cfg, seed, mesh, dev)
+        params, _ = tp.init_local_params(cfg, seed, mesh, dev,
+                                         fsdp_cut=fsdp.enabled(mesh))
     return Scheduler(cfg, params, num_slots=num_slots, max_len=max_len,
                      rng_seed=seed, obs=obs, accuracy_tiers=accuracy_tiers,
                      device=dev, mesh=mesh)

@@ -2,8 +2,12 @@
 
 The reference's frozen dataclasses and field names, restricted to the
 fields the port reads, so a config reads the same in both packages: every
-field but ``remat`` and ``scan_unroll``, which only the reference's jit and
-scan machinery reads. The MoE, MLA, Mamba and xLSTM sub-configs are read
+field but ``scan_unroll``, which only the reference's jit and scan
+machinery reads (the port has no layer scan to unroll). ``remat`` is
+read by ``models.transformer.forward``: each ``block_pattern`` group after
+the ``first_k_dense`` layers runs under ``torch.utils.checkpoint`` when a
+gradient is taken, as the reference wraps its scanned group in
+``jax.checkpoint``. The MoE, MLA, Mamba and xLSTM sub-configs are read
 by ``models/moe.py``, ``models/mla.py``, ``models/mamba.py`` and
 ``models/xlstm.py``. ``frontend`` is ``"none"`` (token inputs),
 ``"audio_stub"`` (precomputed frame embeddings, the HuBERT encoder) or
@@ -140,6 +144,7 @@ class ModelConfig:
     init_std: float = 0.02
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True             # activation checkpointing on the groups
 
     @property
     def resolved_head_dim(self) -> int:

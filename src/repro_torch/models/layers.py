@@ -9,6 +9,8 @@ so a reference parameter tree maps across one leaf at a time
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -22,8 +24,35 @@ Params = Dict[str, torch.Tensor]
 
 def normal_init(generator: torch.Generator, shape, std: float,
                 dtype) -> torch.Tensor:
+    """A weight drawn from ``generator``: N(0, std^2) in ``dtype``. Inside
+    :func:`drawing` the active hook makes it instead."""
+    hook = getattr(_draws, "hook", None)
+    if hook is not None:
+        return hook(generator, shape, std, dtype)
+    return draw_normal(generator, shape, std, dtype)
+
+
+def draw_normal(generator: torch.Generator, shape, std: float,
+                dtype) -> torch.Tensor:
+    """:func:`normal_init`'s own draw."""
     return (torch.randn(shape, generator=generator, device=generator.device)
             * std).to(dtype)
+
+
+_draws = threading.local()
+
+
+@contextlib.contextmanager
+def drawing(hook):
+    """Inside: every :func:`normal_init` returns ``hook(generator, shape,
+    std, dtype)`` (``tensor_parallel.init_local_params`` cuts each weight
+    as it is drawn; a ``meta`` stand-in for a dry run's shapes)."""
+    prev = getattr(_draws, "hook", None)
+    _draws.hook = hook
+    try:
+        yield
+    finally:
+        _draws.hook = prev
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,7 @@ Params = Dict[str, Any]
 
 __all__ = [
     "init_model",
+    "meta_params",
     "cast_params_to_compute",
     "forward",
     "loss_fn",
@@ -184,24 +185,40 @@ def _init_block(cfg: ModelConfig, kind: str, generator: torch.Generator,
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
                cut=None) -> Params:
     """Random parameters from ``generator``, on the generator's device.
-    ``cut(key, subtree)``, where given, takes each top-level part
-    (``"embed"``, then ``"layers"`` one block at a time as ``[block]``,
-    then ``"final_norm"``) as soon as it is drawn and returns what to keep
-    (``distributed.tensor_parallel.init_local_params`` keeps one rank's
-    shards, so the full weights never stand at once); the draws are the
-    same."""
+    ``cut(key, draw)``, where given, draws each top-level part (``"embed"``,
+    then ``"layers"`` one block at a time as ``[block]``, then
+    ``"final_norm"``) by calling ``draw(generator)`` and returns what to
+    keep (``distributed.tensor_parallel.init_local_params`` keeps one
+    rank's shards, each weight cut as it is drawn, so the full weights
+    never stand at once); the draws are the same."""
     cfg.validate()
     device = generator.device
     dtype = canonical_dtype(cfg.param_dtype)
-    keep = cut or (lambda _, sub: sub)
-    params: Params = {"embed": keep("embed", init_embedding(cfg, generator,
-                                                            dtype))}
-    params["layers"] = [keep("layers", [_init_block(cfg, kind, generator,
-                                                    dtype)])[0]
-                        for kind in layer_kinds(cfg)]
-    params["final_norm"] = keep("final_norm", init_norm(cfg, cfg.d_model,
-                                                        dtype, device))
+    keep = cut or (lambda _, draw: draw(generator))
+    params: Params = {"embed": keep("embed", lambda g: init_embedding(
+        cfg, g, dtype))}
+    params["layers"] = [
+        keep("layers", lambda g, kind=kind: [_init_block(cfg, kind, g,
+                                                         dtype)])[0]
+        for kind in layer_kinds(cfg)]
+    params["final_norm"] = keep("final_norm", lambda g: init_norm(
+        cfg, cfg.d_model, dtype, device))
     return params
+
+
+def meta_params(cfg: ModelConfig) -> Params:
+    """``init_model(cfg)``'s tree as ``meta`` tensors: every weight a
+    stand-in (``layers.drawing``), nothing allocated but the small leaves
+    drawn on the CPU on the way (norm scales, the estimator draws), which
+    become ``meta`` too. A dry run's params and a template's shapes."""
+    from repro_torch.distributed.tensor_parallel import meta_template
+    from repro_torch.models.layers import drawing
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    with drawing(lambda g, shape, std, dtype: torch.empty(
+            shape, dtype=dtype, device="meta")):
+        return meta_template(init_model(cfg, gen))
 
 
 def cast_params_to_compute(params: Params, cfg: ModelConfig) -> Params:
@@ -241,16 +258,25 @@ def _pack_layer(layer: Params, cfg: ModelConfig) -> Params:
 
 
 @contextlib.contextmanager
-def _compute_part(plan, cfg: ModelConfig, path, part):
+def _compute_part(plan, cfg: ModelConfig, path, part, *,
+                  regather: bool = True):
     """The compute copy of the params at ``path``: ``part`` itself (the
     caller cast the whole tree) without an FSDP ``plan``; with one, its
-    leaves gathered over ``"data"`` and cast for the part's forward
-    inside the context (``distributed.fsdp.block``)."""
+    leaves gathered over ``"data"`` for the part's forward inside the
+    context (``distributed.fsdp.block``; ``regather``: whether backward
+    gathers them again through saved-tensor hooks, off inside a
+    checkpointed group, whose recompute gathers anew). A training plan's
+    part is the fp32 masters, cast here; a serving plan's
+    (``Plan.serving``) is the compute copy's shards, already cast and
+    packed."""
     if plan is None:
         yield part
         return
     cdtype = canonical_dtype(cfg.compute_dtype)
-    with fsdp.block(plan, path, part, cdtype) as full:
+    with fsdp.block(plan, path, part, cdtype, regather=regather) as full:
+        if plan.serving:
+            yield full
+            return
         out = _cast_tree(full, cdtype)
         yield _pack_layer(out, cfg) if path[0] == "layers" else out
 
@@ -326,27 +352,85 @@ def _ffn_residual(layer: Params, cfg: ModelConfig, x: torch.Tensor):
     return x + apply_mlp(layer["mlp"], cfg, h), {}
 
 
+def _block_forward(layer: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, aux_total: Dict):
+    """One block's pre-norm mixer and FFN residuals -> (x, the running
+    MoE aux sums with this block's added)."""
+    kind, mp = _mixer(layer)
+    h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
+    x = x + _mixer_call(_MIXER_FWD[kind], kind, mp, cfg, h, positions)
+    x, aux = _ffn_residual(layer, cfg, x)
+    aux_total = dict(aux_total)
+    for k, v in aux.items():
+        aux_total[k] = aux_total[k] + v if k in aux_total else v
+    return x, aux_total
+
+
+def _run_group(plan, cfg: ModelConfig, layers, start: int, x, positions,
+               aux_total, *, regather: bool = True):
+    """The blocks ``layers`` (layer ``start`` on) in order, each gathered
+    over ``"data"`` just before it under an FSDP ``plan``."""
+    for j, layer in enumerate(layers):
+        with _compute_part(plan, cfg, ("layers", start + j), layer,
+                           regather=regather) as layer:
+            x, aux_total = _block_forward(layer, cfg, x, positions,
+                                          aux_total)
+    return x, aux_total
+
+
+def _checkpointed_group(plan, cfg: ModelConfig, layers, start: int, x,
+                        positions, aux_total):
+    """:func:`_run_group` under ``torch.utils.checkpoint`` (non-reentrant):
+    nothing inside is saved for backward but the group's inputs, and the
+    backward runs the group again. The thread-local views the blocks read
+    (the tensor-parallel view with its ``"act_seq"`` flag, the FSDP plan)
+    are taken here and entered again in the recompute, which runs after
+    ``forward`` has left them; the FSDP gather runs inside, so the
+    recompute gathers each block again and no gathered weight outlives
+    the forward (no saved-tensor hook of ``distributed.fsdp`` is
+    installed)."""
+    from torch.utils.checkpoint import checkpoint
+
+    view = tp.active()
+
+    def group(x, aux_total):
+        with tp.restore_view(view), fsdp.training(plan):
+            return _run_group(plan, cfg, layers, start, x, positions,
+                              aux_total, regather=False)
+
+    return checkpoint(group, x, aux_total, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def forward(params: Params, cfg: ModelConfig,
             batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward -> (logits [B, T, V] fp32, aux losses: the
     MoE layers' ``moe_load_balance`` and ``moe_router_z`` summed, or {}
-    for a config without MoE)."""
+    for a config without MoE).
+
+    With ``cfg.remat`` and a gradient being taken, each group of
+    ``len(cfg.block_pattern)`` layers after the ``first_k_dense`` ones runs
+    under activation checkpointing (:func:`_checkpointed_group`), the
+    reference's ``jax.checkpoint`` of its scanned group: the dense layers,
+    the final norm and the unembedding are not wrapped. The aux sums run
+    through the groups in the same order either way, so the numbers do
+    not depend on ``remat``."""
     plan = fsdp.active()
     if plan is None:
         params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
     aux_total: Dict[str, torch.Tensor] = {}
+    layers = params["layers"]
+    dense, period = cfg.first_k_dense, len(cfg.block_pattern)
+    remat = cfg.remat and torch.is_grad_enabled()
     with tp.sequence_sharding(x.shape[1]):
         x = tp.scatter_sequence(x)
-        for i, layer in enumerate(params["layers"]):
-            with _compute_part(plan, cfg, ("layers", i), layer) as layer:
-                kind, mp = _mixer(layer)
-                h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
-                x = x + _mixer_call(_MIXER_FWD[kind], kind, mp, cfg, h,
-                                    positions)
-                x, aux = _ffn_residual(layer, cfg, x)
-            for k, v in aux.items():
-                aux_total[k] = aux_total[k] + v if k in aux_total else v
+        x, aux_total = _run_group(plan, cfg, layers[:dense], 0, x,
+                                  positions, aux_total)
+        for start in range(dense, len(layers), period):
+            run = _checkpointed_group if remat else _run_group
+            x, aux_total = run(plan, cfg, layers[start:start + period],
+                               start, x, positions, aux_total)
         with _compute_part(plan, cfg, ("final_norm",),
                            params["final_norm"]) as final_norm:
             x = apply_norm(tp.sequence_params(final_norm), cfg, x)
@@ -405,22 +489,56 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     """Consume a prompt; return (logits [B, T, V], decode cache).
 
     ``max_len`` sizes exact attention's ring-buffer KV cache; the rm decode
-    state does not grow with the sequence.
+    state does not grow with the sequence. Under a serving plan
+    (``distributed.fsdp.training``) the params are the compute copy of a
+    rank's slices over ``"data"``, each block gathered just before it
+    runs.
     """
-    params = cast_params_to_compute(params, cfg)
+    plan = fsdp.active()
+    if plan is None:
+        params = cast_params_to_compute(params, cfg)
     x, positions = _prepare_inputs(params, cfg, batch)
     caches = []
+    *blocks, final_norm, embed = serving_parts(params)
     with tp.sequence_sharding(x.shape[1]):
         x = tp.scatter_sequence(x)
-        for layer in params["layers"]:
-            kind, mp = _mixer(layer)
-            h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
-            y, cache = _mixer_call(_MIXER_PREFILL[kind], kind, mp, cfg, h,
-                                   positions, max_len)
-            x, _ = _ffn_residual(layer, cfg, x + y)
+        for path, layer in blocks:
+            with _compute_part(plan, cfg, path, layer) as layer:
+                kind, mp = _mixer(layer)
+                h = apply_norm(tp.sequence_params(layer["norm1"]), cfg, x)
+                y, cache = _mixer_call(_MIXER_PREFILL[kind], kind, mp, cfg,
+                                       h, positions, max_len)
+                x, _ = _ffn_residual(layer, cfg, x + y)
             caches.append(cache)
-        x = apply_norm(tp.sequence_params(params["final_norm"]), cfg, x)
-        return unembed(params["embed"], cfg, x), {"layers": caches}
+        with _compute_part(plan, cfg, *final_norm) as final_norm:
+            x = apply_norm(tp.sequence_params(final_norm), cfg, x)
+        with _compute_part(plan, cfg, *embed) as embed:
+            return unembed(embed, cfg, x), {"layers": caches}
+
+
+def serving_parts(params: Params):
+    """``[(path, part)]`` in the order :func:`prefill` and
+    :func:`decode_step` run them: each block, the final norm, the
+    unembedding. Under a serving plan each part is gathered over
+    ``"data"`` just before it runs, so this is also the order every data
+    rank issues those gathers in (:func:`join_serving_gathers`)."""
+    return ([(("layers", i), layer)
+             for i, layer in enumerate(params["layers"])]
+            + [(("final_norm",), params["final_norm"]),
+               (("embed",), params["embed"])])
+
+
+def join_serving_gathers(params: Params, cfg: ModelConfig) -> None:
+    """A prefill's gathers over ``"data"`` under the active serving plan,
+    in :func:`serving_parts`' order, computing nothing: a data rank that
+    does not own an admission's slot joins the owner's prefill with it
+    (``serve.executor``). A no-op without a plan."""
+    plan = fsdp.active()
+    if plan is None:
+        return
+    for path, part in serving_parts(params):
+        with _compute_part(plan, cfg, path, part):
+            pass
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -456,17 +574,25 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 ) -> Tuple[torch.Tensor, Params]:
     """One autoregressive step -> (logits [B, 1, V] fp32, new cache).
     Exact attention writes the new keys and values into the cache's ring
-    buffers in place."""
-    params = cast_params_to_compute(params, cfg)
+    buffers in place. Under a serving plan (``distributed.fsdp``) each block's
+    slices are gathered over ``"data"`` just before it, as in
+    :func:`prefill`."""
+    plan = fsdp.active()
+    if plan is None:
+        params = cast_params_to_compute(params, cfg)
     cdtype = canonical_dtype(cfg.compute_dtype)
     x = embed_tokens(params["embed"], cfg, tokens, cdtype)
     new_caches = []
-    for layer, layer_cache in zip(params["layers"], cache["layers"]):
-        kind, mp = _mixer(layer)
-        h = apply_norm(layer["norm1"], cfg, x)
-        y, new_cache = _MIXER_DECODE[kind](mp, cfg, h, layer_cache,
-                                           positions)
-        x, _ = _ffn_residual(layer, cfg, x + y)
+    *blocks, final_norm, embed = serving_parts(params)
+    for (path, layer), layer_cache in zip(blocks, cache["layers"]):
+        with _compute_part(plan, cfg, path, layer) as layer:
+            kind, mp = _mixer(layer)
+            h = apply_norm(layer["norm1"], cfg, x)
+            y, new_cache = _MIXER_DECODE[kind](mp, cfg, h, layer_cache,
+                                               positions)
+            x, _ = _ffn_residual(layer, cfg, x + y)
         new_caches.append(new_cache)
-    x = apply_norm(params["final_norm"], cfg, x)
-    return unembed(params["embed"], cfg, x), {"layers": new_caches}
+    with _compute_part(plan, cfg, *final_norm) as final_norm:
+        x = apply_norm(final_norm, cfg, x)
+    with _compute_part(plan, cfg, *embed) as embed:
+        return unembed(embed, cfg, x), {"layers": new_caches}

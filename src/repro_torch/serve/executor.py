@@ -17,13 +17,23 @@ decode cache follows ``cache_partition_specs``: its slots split over the
 batch axes where ``num_slots`` divides them (else every rank holds every
 slot) and its heads (the SSM mixers' channels and heads too:
 ``tensor_parallel.cache_cuts``) over ``"model"``, at ``local_config``'s
-widths. The weights stay replicated over ``"data"``: serving takes no
-FSDP cut. A prefill whose length the model axis divides runs with the
-residual stream cut by sequence (``"act_seq"``). A MoE config keeps every
-slot on every rank: its routing counts capacity over the whole decode
-batch, as the reference's single-controller step does, so splitting the
-lanes would change its drops. A request's prefill runs on the ranks that own its
-slot, and its first logits row is broadcast from them. After each decode
+widths. On a data axis above 1 with the ``"fsdp"`` rule on
+(``distributed.fsdp.enabled``; a rules context with ``{"fsdp": None}``
+around the construction keeps them whole) the weights are cut over
+``"data"`` too, as the reference's executor places them with
+``params_partition_specs``: each leaf's ``"fsdp"`` dim is this rank's
+slice (``launch.serve.make_engine`` draws the slices; weights handed over
+are cut by ``shard_params(fsdp_cut=True)``), the compute copy is made of
+the slices, and each prefill and decode step gathers a block's slices
+just before the block (``distributed.fsdp.training`` with its serving
+plan), forward only; a data rank that does not own an admission's slot
+joins its prefill's gathers without computing. A prefill whose length the model axis divides
+runs with the residual stream cut by sequence (``"act_seq"``). A MoE
+config keeps every slot on every rank: its routing counts capacity over
+the whole decode batch, as the reference's single-controller step does,
+so splitting the lanes would change its drops. A request's prefill runs on
+the ranks that own its slot, and its first logits row is broadcast from
+them. After each decode
 step the local logits are gathered over the batch axes and their vocab
 columns over ``"model"``, so every rank samples every slot and makes the
 same admissions, evictions and restarts (the reference is single-
@@ -31,12 +41,14 @@ controller: ``src/repro/serve/executor.py:152-169``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.collectives import all_gather, broadcast
 from repro_torch.models.config import ModelConfig
@@ -45,7 +57,9 @@ from repro_torch.models.transformer import (
     cast_params_to_compute,
     decode_step,
     init_decode_cache,
+    join_serving_gathers,
     layer_kinds,
+    meta_params,
     prefill,
 )
 
@@ -86,7 +100,9 @@ class StepExecutor:
         mesh: optional ``DeviceMesh`` (see the module doc); ``params``
             are then this rank's shards
             (``distributed.tensor_parallel.init_local_params``, or
-            ``shard_params`` of weights handed over).
+            ``shard_params`` of weights handed over), cut over ``"data"``
+            exactly where ``distributed.fsdp.enabled(mesh)`` (the
+            constructor raises ``ValueError`` otherwise).
 
     Attributes:
         estimator: the registry name of the RM feature family served
@@ -157,8 +173,11 @@ class StepExecutor:
         self.model_cfg = cfg
         self.local_slots = self.num_slots
         self._split = False
+        self._plan = None
         if mesh is not None:
             self._set_mesh(mesh)
+            if fsdp.enabled(mesh):
+                self._plan = self._serving_plan(params)
         self.params = params
         # the fp32 master weights stay; the steps read one compute copy
         self.compute_params = cast_params_to_compute(params, self.model_cfg)
@@ -195,12 +214,42 @@ class StepExecutor:
         if self._split:
             self.local_slots = self.num_slots // parts
 
-    def _view(self, batch_sharded: bool = False):
-        import contextlib
+    def _serving_plan(self, params):
+        """The serving plan that gathers each block's slices over
+        ``"data"`` a block at a time.
 
+        Raises:
+            ValueError: a leaf of ``params`` is not this rank's slice of
+                its ``"fsdp"`` dim.
+        """
+        from repro_torch.common.tree import tree_get, tree_map_with_path
+        from repro_torch.distributed.sharding import mesh_axes
+
+        template = meta_params(self.cfg)
+        dims = fsdp.data_dims(template, self.mesh)
+        size = mesh_axes(self.mesh)[fsdp.DATA_AXIS]
+
+        def check(path, p):
+            dim = tree_get(dims, path)
+            if dim is not None and \
+                    p.shape[dim] * size != tree_get(template, path).shape[dim]:
+                raise ValueError(
+                    f"{'/'.join(map(str, path))} is not cut over 'data' "
+                    "(the fsdp rule is on: shard_params(fsdp_cut=True))")
+
+        tree_map_with_path(check, params)
+        return fsdp.plan_for_mesh(self.mesh, dims, serving=True)
+
+    @contextlib.contextmanager
+    def _view(self, batch_sharded: bool = False):
+        """The mesh's local view and the serving plan (nothing without a
+        mesh)."""
         if self.mesh is None:
-            return contextlib.nullcontext()
-        return tp.local_view(self.mesh, batch_sharded=batch_sharded)
+            yield None
+            return
+        with tp.local_view(self.mesh, batch_sharded=batch_sharded) as view, \
+                fsdp.training(self._plan):
+            yield view
 
     def tier_features(self, generations: int) -> int:
         """The feature budget a tier of ``generations`` generations
@@ -272,7 +321,10 @@ class StepExecutor:
         """Prefill ``prompt`` into lane ``slot``; return ``(logits of its
         last real position [1, V] fp32, bucket)``. On a mesh whose batch
         axes split the slots, the ranks that own ``slot`` run the prefill
-        and broadcast the row to the others (every rank calls this)."""
+        and broadcast the row to the others (every rank calls this); with
+        the weights cut over ``"data"`` the others join the prefill's
+        gathers of each block over ``"data"`` and compute nothing
+        (``models.transformer.join_serving_gathers``)."""
         t = len(prompt)
         owner = slot // self.local_slots if self._split else None
         if owner is None or owner == self._index:
@@ -282,6 +334,8 @@ class StepExecutor:
                 row = tp.gather_vocab(logits[:, t - 1])
         else:
             tb = self.bucket_for(t)
+            with self._view():
+                join_serving_gathers(self.compute_params, self.model_cfg)
             row = torch.empty((1, self.cfg.vocab_size), dtype=torch.float32,
                               device=self.device)
         if owner is not None:

@@ -3,8 +3,8 @@ reference's (``repro.configs``) on the CPU:
 
 * ``list_archs()`` is the reference's ten ids, in its order, and each
   ``FULL`` and ``SMOKE`` equals the reference's in every field the port's
-  ``ModelConfig`` has (it leaves out ``remat`` and ``scan_unroll``, which
-  only the reference's jit and scan machinery reads);
+  ``ModelConfig`` has (it leaves out ``scan_unroll``, which only the
+  reference's scan machinery reads; ``remat`` is the port's too);
 * ``attention_mode="rm"`` is refused for the attention-free xlstm-350m,
   as the reference refuses it, and accepted everywhere else;
 * the last four dense configs — olmo-1b (parameter-free layernorm),
@@ -50,7 +50,7 @@ def test_list_archs_is_the_reference_ten():
 def test_full_and_smoke_equal_reference(arch, smoke):
     ours = dataclasses.asdict(get_config(arch, smoke=smoke))
     theirs = dataclasses.asdict(jget(arch, smoke=smoke))
-    assert set(theirs) - set(ours) == {"remat", "scan_unroll"}
+    assert set(theirs) - set(ours) == {"scan_unroll"}
     assert ours == {k: theirs[k] for k in ours}
 
 

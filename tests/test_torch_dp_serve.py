@@ -13,7 +13,10 @@ the same for deepseek SMOKE rm (MLA and a MoE) on (2, 1) and (2, 2): the
 reference's single-controller step routes every slot together, so its MoE
 counts capacity over the whole decode batch, and the port keeps every
 slot on every rank for a MoE. The port serves the same requests from the
-same weights (each rank's shards, ``tensor_parallel.shard_params``) on one
+same weights (each rank's shards, ``tensor_parallel.shard_params``; on a
+data axis above 1 they are cut over "data" too, ``fsdp_cut=True``, as the
+reference's specs place them, and qwen3's cases also run with them whole,
+``rules={"fsdp": None}``, for tokens, logits and bytes) on one
 2-rank spawn ((2, 1), (1, 2), (2, 1) with 3 slots, deepseek's (2, 1), then
 the launcher) and one 4-rank spawn (the (2, 2) cases), each over a
 ``FileStore`` with a timeout. Every rank's tokens must be identical to
@@ -39,6 +42,9 @@ CASES = (("qwen3", (2, 1), 4), ("qwen3", (1, 2), 4), ("qwen3", (2, 2), 4),
          ("qwen3", (2, 1), 3), ("deepseek", (2, 1), 4),
          ("deepseek", (2, 2), 4))
 ARCHS = {"qwen3": "qwen3-1.7b", "deepseek": "deepseek-v2-lite-16b"}
+# the meshes the serving cut over "data" is held on against the whole
+# weights (rules={"fsdp": None})
+CUT = ((2, 1), (2, 2))
 
 ORACLE = r'''
 import dataclasses, os, pickle, sys
@@ -80,11 +86,27 @@ for name, label, shape, slots in [(a, f"{a}/none", None, 4) for a in ARCHS] \
     done = sched.run()
     tokens[label] = {r: [int(t) for t in done[r].generated]
                      for r in sorted(done)}
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.distributed.sharding import (logical_rules_context,
+                                        params_partition_specs)
+spec_bytes = {}
+for shape in CUT:
+    mesh = make_mesh(shape, ("data", "model"))
+    with logical_rules_context(mesh) as rules:
+        specs = params_partition_specs(params["qwen3"], mesh, rules)
+    spec_bytes[f"{shape[0]}x{shape[1]}"] = int(sum(
+        np.prod(NamedSharding(mesh, s).shard_shape(a.shape))
+        * a.dtype.itemsize for a, s in zip(
+            jax.tree_util.tree_leaves(params["qwen3"]),
+            jax.tree_util.tree_leaves(
+                specs, is_leaf=lambda s: isinstance(s, P)))))
+with open(os.path.join(out, "ref_bytes.pkl"), "wb") as f:
+    pickle.dump(spec_bytes, f)
 with open(os.path.join(out, "ref.pkl"), "wb") as f:
     pickle.dump(tokens, f)
 '''.replace("REQUESTS", str(REQUESTS)).replace("MAX_NEW", str(MAX_NEW)) \
     .replace("MAX_LEN", str(MAX_LEN)).replace("CASES", repr(CASES)) \
-    .replace("ARCHS", repr(ARCHS))
+    .replace("ARCHS", repr(ARCHS)).replace("CUT", repr(CUT))
 
 
 def _config(name):
@@ -96,24 +118,119 @@ def _config(name):
     return dataclasses.replace(cfg, compute_dtype="float32")
 
 
-def _serve(handed, name, mesh, slots):
+def _serve(handed, name, mesh, slots, rules=None):
     """Every request of ``name`` through a port Scheduler (on a mesh, each
-    rank's shards of the handed weights) -> {request id: tokens}."""
+    rank's shards of the handed weights; built under ``rules``) ->
+    ({request id: tokens}, the bytes of the executor's weights)."""
+    import contextlib
+
     from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import fsdp
     from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import logical_rules_context
     from repro_torch.serve import Request, Scheduler
 
     cfg = _config(name)
     handed = handed[name]
     params = params_from_jax(handed["params"], cfg)
-    if mesh is not None:
-        params = tp.shard_params(params, mesh, cfg)
-    sched = Scheduler(cfg, params, num_slots=slots, max_len=MAX_LEN,
-                      device="cpu", mesh=mesh)
+    ctx = contextlib.nullcontext() if rules is None else \
+        logical_rules_context(mesh, rules)
+    with ctx:
+        if mesh is not None:
+            params = tp.shard_params(params, mesh, cfg,
+                                     fsdp_cut=fsdp.enabled(mesh))
+        sched = Scheduler(cfg, params, num_slots=slots, max_len=MAX_LEN,
+                          device="cpu", mesh=mesh)
     for i, p in enumerate(handed["prompts"]):
         sched.submit(Request(request_id=i, prompt=p, max_new_tokens=MAX_NEW))
     done = sched.run()
-    return {r: [int(t) for t in done[r].generated] for r in sorted(done)}
+    return ({r: [int(t) for t in done[r].generated] for r in sorted(done)},
+            _weight_bytes(sched.executor.params))
+
+
+def _weight_bytes(params):
+    from repro_torch.common.tree import tree_leaves
+
+    return sum(p.numel() * p.element_size() for p in tree_leaves(params))
+
+
+def _spec_bytes(name, mesh):
+    """A rank's bytes under the port's ``params_partition_specs`` of the
+    full weights (the cut over "data" and over "model")."""
+    from repro_torch.distributed.sharding import (mesh_axes,
+                                                  params_partition_specs)
+    from repro_torch.common.tree import tree_get, tree_map_with_path
+    from repro_torch.models.transformer import meta_params
+
+    template = meta_params(_config(name))
+    specs = params_partition_specs(template, mesh)
+    sizes = mesh_axes(mesh)
+    total = [0]
+
+    def one(path, p):
+        shape = list(p.shape)
+        for d, entry in enumerate(tree_get(specs, path)):
+            for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                if axis is not None:
+                    shape[d] //= sizes[axis]
+        total[0] += int(np.prod(shape)) * p.element_size()
+
+    tree_map_with_path(one, template)
+    return total[0]
+
+
+def _decode_logits(handed, name, mesh, rules=None):
+    """Two admissions and three greedy decode steps through a
+    ``StepExecutor`` on ``mesh`` (built under ``rules``) -> every logits
+    row, in order."""
+    import contextlib
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import logical_rules_context
+    from repro_torch.serve.executor import StepExecutor
+
+    cfg = _config(name)
+    ctx = contextlib.nullcontext() if rules is None else \
+        logical_rules_context(mesh, rules)
+    with ctx:
+        params = tp.shard_params(
+            params_from_jax(handed[name]["params"], cfg), mesh, cfg,
+            fsdp_cut=fsdp.enabled(mesh))
+        ex = StepExecutor(cfg, params, 4, MAX_LEN, device="cpu", mesh=mesh)
+    rows, lens = [], []
+    for slot in (0, 1):
+        prompt = handed[name]["prompts"][slot]
+        row, _ = ex.admit(slot, prompt)
+        rows.append(row)
+        lens.append(len(prompt))
+    tokens = torch.zeros((4, 1), dtype=torch.long)
+    positions = torch.full((4,), ex.scratch_position, dtype=torch.int32)
+    for step in range(3):
+        for slot in (0, 1):
+            tokens[slot, 0] = int(rows[-2 + slot].argmax())
+            positions[slot] = lens[slot] + step
+        logits = ex.decode(tokens, positions)
+        rows.extend([logits[0, 0][None], logits[1, 0][None]])
+    return rows
+
+
+def _whole_refused(handed, name, mesh):
+    """Whether a ``StepExecutor`` under the "fsdp" rule refuses weights
+    not cut over "data" (the message)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.serve.executor import StepExecutor
+
+    cfg = _config(name)
+    params = tp.shard_params(params_from_jax(handed[name]["params"], cfg),
+                             mesh, cfg)
+    try:
+        StepExecutor(cfg, params, 4, MAX_LEN, device="cpu", mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def _worker(rank, world, store, out):
@@ -137,10 +254,24 @@ def _worker(rank, world, store, out):
     for name, shape, slots in CASES:
         if shape[0] * shape[1] == world:
             label = f"{name}/{shape[0]}x{shape[1]}/{slots}"
+            mesh = make_mesh(shape, ("data", "model"))
             calls = collectives.broadcast.calls
-            got[label] = _serve(handed, name,
-                                make_mesh(shape, ("data", "model")), slots)
+            got[label], got[label + "/bytes"] = _serve(handed, name, mesh,
+                                                       slots)
             got[label + "/broadcasts"] = collectives.broadcast.calls - calls
+            if name == "qwen3" and shape in CUT and slots == 4:
+                calls = collectives.broadcast.calls
+                got[label + "/whole"], got[label + "/whole_bytes"] = _serve(
+                    handed, name, mesh, slots, {"fsdp": None})
+                got[label + "/whole_broadcasts"] = \
+                    collectives.broadcast.calls - calls
+                got[label + "/spec_bytes"] = _spec_bytes(name, mesh)
+                cut = _decode_logits(handed, name, mesh)
+                whole = _decode_logits(handed, name, mesh, {"fsdp": None})
+                got[label + "/logits_equal"] = len(cut) == len(whole) == 8 \
+                    and all(torch.equal(a, b) for a, b in zip(cut, whole))
+                got[label + "/whole_refused"] = _whole_refused(handed, name,
+                                                               mesh)
     if world == 2:
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
@@ -206,8 +337,9 @@ def runs(tmp_path_factory):
             ranks[(world, r)] = json.loads(
                 (out / f"serve{world}_{r}.json").read_text())
     return {"ref": pickle.loads((out / "ref.pkl").read_bytes()),
+            "ref_bytes": pickle.loads((out / "ref_bytes.pkl").read_bytes()),
             "ranks": ranks,
-            "single": {name: _serve(handed, name, None, 4)
+            "single": {name: _serve(handed, name, None, 4)[0]
                        for name in ARCHS}}
 
 
@@ -237,8 +369,10 @@ def test_mesh_tokens_equal_one_device_and_the_reference(runs, name, shape,
     are identical to ``mesh=None``'s and to the reference's
     ``Scheduler(mesh=)`` on the same mesh shape. Slots split over "data"
     (qwen3's 4 on data 2) broadcast each admission's first logits row from
-    its owner, one broadcast an admission; 3 slots on data 2, and a MoE's
-    slots (deepseek), are replicated (no broadcast)."""
+    its owner, one broadcast an admission, whether the weights are cut
+    over "data" (the default "fsdp" rule: the other data ranks join the
+    owner's gathers) or whole (``rules={"fsdp": None}``); 3 slots on data
+    2, and a MoE's slots (deepseek), are replicated (no broadcast)."""
     label = f"{name}/{shape[0]}x{shape[1]}/{slots}"
     world = shape[0] * shape[1]
     want = _keyed(runs["ref"][label])
@@ -248,6 +382,29 @@ def test_mesh_tokens_equal_one_device_and_the_reference(runs, name, shape,
         split = (shape[0] > 1 and slots % shape[0] == 0
                  and name != "deepseek")
         assert got[label + "/broadcasts"] == (REQUESTS if split else 0)
+        if label + "/whole" in got:
+            assert got[label + "/whole_broadcasts"] == REQUESTS
+
+
+@pytest.mark.parametrize("shape", CUT, ids=[f"{s[0]}x{s[1]}" for s in CUT])
+def test_weights_cut_over_data_serve_as_the_whole_weights(runs, shape):
+    """qwen3 SMOKE, 4 slots: with the weights cut over "data" (the
+    default), each rank's tokens and every logits row of two admissions
+    and three decode steps are bitwise those of the same mesh with the
+    weights whole (``rules={"fsdp": None}``); a rank holds the bytes of
+    its spec (the port's ``params_partition_specs`` and the
+    reference's), about half of the whole weights' on data 2. Under the
+    "fsdp" rule the executor refuses weights not cut over "data"."""
+    label = f"qwen3/{shape[0]}x{shape[1]}/4"
+    world = shape[0] * shape[1]
+    for r in range(world):
+        got = runs["ranks"][(world, r)]
+        assert got[label] == got[label + "/whole"], r
+        assert got[label + "/logits_equal"] is True, r
+        assert got[label + "/bytes"] == got[label + "/spec_bytes"] == \
+            runs["ref_bytes"][f"{shape[0]}x{shape[1]}"], r
+        assert got[label + "/bytes"] < 0.7 * got[label + "/whole_bytes"]
+        assert "is not cut over 'data'" in got[label + "/whole_refused"], r
 
 
 def test_serve_launcher_data_parallel(runs):

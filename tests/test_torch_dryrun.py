@@ -1,0 +1,227 @@
+"""The dry run (``repro_torch.launch.dryrun``, ``launch.hillclimb``): one
+rank's step on ``meta`` tensors over PyTorch's fake process group, on the
+CPU.
+
+1. The counterpart of the reference's ``tests/dist_scripts/
+   run_dryrun_tiny.py``: qwen3, mixtral, jamba and xlstm SMOKE train
+   steps on a (2, 2, 2) ``("pod", "data", "model")`` mesh count FLOPs,
+   temp and argument bytes above 0, and collective bytes above 0 (the
+   model axis is 2); nothing is allocated. The bytes that ``memory_s``
+   reads (the counted products' operands and results) are above 0 and
+   below the unfused count of every operator.
+2. A rank's param bytes on the 16 x 16 mesh (its shards over ``"model"``
+   and ``"data"``) equal the bytes of the reference's
+   ``params_partition_specs`` on a ``jax.sharding.AbstractMesh`` but for
+   the listed departures, each pinned: a kv head copied to every rank
+   where the model axis exceeds the kv heads (``attn/wk``, ``attn/wv``:
+   Megatron's rule; the reference splits inside a head), and mixtral's
+   router, which the reference's stacked spec cuts along the 32-layer
+   stack over ``"model"`` and the port keeps whole a layer. The train
+   state is three times the params and two int32 steps in both. The archs
+   whose heads or vocabulary 16 does not divide raise ``ValueError``
+   (their dry-run cells are recorded as failed).
+3. The counted FLOPs of qwen3 SMOKE (exact attention) equal the step's
+   matrix products counted by hand, at 2 FLOPs a multiply-add; beside the
+   reference's ``lower_cell`` on a one-device Auto mesh they are within a
+   factor of 2 (XLA's CPU cost analysis counts other work than the matrix
+   products: measured 1.47x).
+4. Each experiment whose lever the port lacks raises
+   ``NotImplementedError`` and writes nothing; ``no_fsdp`` does switch the
+   serving cut off (a decode step's weights whole over ``"data"``, no
+   gather).
+"""
+import math
+import os
+
+import jax
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.distributed.sharding import logical_rules_context as jrules
+from repro.distributed.sharding import params_partition_specs as jspecs
+from repro.models import transformer as jt
+from repro_torch.analysis.roofline import HW_H100
+from repro_torch.common.tree import flatten_dict, tree_bytes
+from repro_torch.configs import get_config, list_archs
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch import hillclimb
+from repro_torch.launch.shapes import SHAPES, ShapeSpec
+from repro_torch.models.transformer import meta_params
+from repro_torch.train.steps import train_state_from_params
+
+TINY = ("qwen3-1.7b", "mixtral-8x7b", "jamba-v0.1-52b", "xlstm-350m")
+# bytes a rank holds beyond the reference's specs on 16 x 16, by leaf
+DEPARTURES = {
+    "qwen3-1.7b": {"attn/wk": 917504, "attn/wv": 917504},
+    "h2o-danube-3-4b": {"attn/wk": 1382400, "attn/wv": 1382400},
+    "olmo-1b": {},
+    "mixtral-8x7b": {"attn/wk": 2097152, "attn/wv": 2097152,
+                     "moe/router": 3932160},
+    "deepseek-v2-lite-16b": {},
+    "jamba-v0.1-52b": {"attn/wk": 262144, "attn/wv": 262144},
+}
+# 16 divides neither way: the port raises (dry-run cells FAILED)
+RAISES = {"qwen2-7b": "num_heads=28", "internvl2-1b": "num_heads=14",
+          "hubert-xlarge": "vocab_size=504", "xlstm-350m": "num_heads=4"}
+
+
+def test_every_arch_is_listed():
+    assert set(DEPARTURES) | set(RAISES) == set(list_archs())
+
+
+@pytest.mark.parametrize("arch", TINY)
+def test_tiny_train_step_on_a_2x2x2_mesh(arch):
+    cfg = get_config(arch, smoke=True)
+    with dr.dry_world(8):
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+        rec = dr.measure(cfg, ShapeSpec("tiny", 32, 8, "train"), mesh,
+                         "tiny")
+    assert rec["per_device_flops"] > 0
+    mem = rec["memory_analysis"]
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["argument_size_in_bytes"] > 0
+    assert rec["per_device_collective_bytes"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    assert rec["mesh_shape"] == {"pod": 2, "data": 2, "model": 2}
+    assert rec["inner_loop_flops_correction"] == 0.0
+    assert 0 < rec["per_device_bytes"] < rec["per_device_bytes_unfused"]
+    assert rec["memory_s"] == rec["per_device_bytes"] / HW_H100.hbm_bw
+    assert rec["memory_s_unfused"] == \
+        rec["per_device_bytes_unfused"] / HW_H100.hbm_bw
+    assert not torch.distributed.is_initialized()
+
+
+def _by_leaf_ref(arch):
+    """Bytes a device holds under the reference's specs on 16 x 16, by
+    the leaf's last two path keys."""
+    from jax.sharding import AbstractMesh, PartitionSpec as P
+
+    cfg = jget(arch)
+    sds = jax.eval_shape(lambda: jt.init_model(cfg, jax.random.PRNGKey(0)))
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    with jrules(mesh) as rules:
+        specs = jspecs(sds, mesh, rules)
+    out = {}
+    leaves = jax.tree_util.tree_leaves_with_path(sds)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda s: isinstance(s, P))
+    for (path, leaf), spec in zip(leaves, spec_leaves, strict=True):
+        shape = list(leaf.shape)
+        for d, entry in enumerate(tuple(spec)):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                shape[d] //= 16 ** len(axes)
+        keys = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path[-2:])
+        out[keys] = out.get(keys, 0) + math.prod(shape) * leaf.dtype.itemsize
+    return out
+
+
+@pytest.fixture
+def single():
+    """The 16 x 16 mesh over a dry world of 256 ranks (made in
+    milliseconds; each test's own, since a process holds one)."""
+    with dr.dry_world(256):
+        yield dr._mesh("single")
+
+
+@pytest.mark.parametrize("arch", sorted(DEPARTURES))
+def test_rank_bytes_on_16x16_equal_reference_specs(arch, single):
+    cfg = get_config(arch)
+    local = tp.shard_params(meta_params(cfg), single, cfg, fsdp_cut=True)
+    mine = {}
+    for k, v in flatten_dict(local).items():
+        if k.endswith("__empty_dict__"):    # a parameter-free norm
+            continue
+        key = "/".join(k.split("/")[-2:])
+        mine[key] = mine.get(key, 0) + v.numel() * v.element_size()
+    ref = _by_leaf_ref(arch)
+    assert set(mine) == set(ref)
+    assert {k: mine[k] - ref[k] for k in mine
+            if mine[k] != ref[k]} == DEPARTURES[arch]
+    state = train_state_from_params(local)
+    assert tree_bytes(state) == 3 * sum(mine.values()) + 8
+
+
+@pytest.mark.parametrize("arch", sorted(RAISES))
+def test_archs_16_does_not_divide_raise(arch, single):
+    cfg = get_config(arch)
+    with pytest.raises(ValueError, match=RAISES[arch]):
+        tp.shard_params(meta_params(cfg), single, cfg, fsdp_cut=True)
+
+
+@pytest.fixture
+def jdryrun(monkeypatch):
+    """The reference's dry-run module. Importing it puts 512 forced host
+    devices into XLA_FLAGS: jax's backend is started first (with this
+    process's own flags) and the variable is restored after the test."""
+    jax.devices()
+    monkeypatch.setenv("XLA_FLAGS", os.environ.get("XLA_FLAGS", ""))
+    from repro.launch import dryrun as jdr
+
+    return jdr
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_counted_flops_beside_reference(kind, jdryrun, monkeypatch):
+    from repro.launch import shapes as jshapes
+    from repro.launch.mesh import make_mesh as jmesh
+
+    b, t = 8, 64
+    monkeypatch.setitem(jshapes.SHAPES, "tiny",
+                        jshapes.ShapeSpec("tiny", t, b, kind))
+    ref = jdryrun.lower_cell(
+        "qwen3-1.7b", "tiny", jmesh((1, 1), ("data", "model")), "one",
+        "exact", cfg_override=lambda _: jget("qwen3-1.7b", smoke=True))
+    cfg = get_config("qwen3-1.7b", smoke=True)
+    with dr.dry_world(1):
+        rec = dr.measure(cfg, ShapeSpec("tiny", t, b, kind),
+                         dr._mesh("one"), "one")
+    # the forward's matrix products a token, 2 FLOPs a multiply-add: the
+    # projections and MLP of each layer, QK^T and PV over all t keys, the
+    # (tied) unembedding
+    d, h, kv, dh, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size)
+    groups = 2 * (d * h * dh * 2 + d * kv * dh * 2 + 3 * d * ff
+                  + 2 * t * h * dh)
+    unembed = 2 * d * v
+    fwd = (groups * cfg.num_layers + unembed) * b * t
+    if kind == "prefill":
+        assert rec["per_device_flops"] == fwd
+    else:
+        # forward, the groups' recompute, and a backward of twice the
+        # forward but for the attention's gradients into its inputs
+        assert rec["per_device_flops"] > fwd + groups * cfg.num_layers * \
+            b * t
+    ratio = rec["per_device_flops"] / ref["per_device_flops"]
+    assert 0.5 <= ratio <= 2.0, ratio
+
+
+@pytest.mark.parametrize("exp", ["kv_seq_shard", "sp_data",
+                                 "vocab_unsharded"])
+def test_levers_the_port_lacks_raise(exp, tmp_path):
+    with pytest.raises(NotImplementedError, match="not expressible"):
+        hillclimb.run_experiment("qwen3-1.7b", "decode_32k", exp,
+                                 out_dir=tmp_path)
+    assert list(tmp_path.iterdir()) == []
+    assert not torch.distributed.is_initialized()
+
+
+def test_no_fsdp_switches_the_serving_cut_off(tmp_path, single):
+    base = dr.measure(get_config("qwen3-1.7b"), SHAPES["decode_32k"],
+                      single, "single")
+    off = hillclimb.run_experiment("qwen3-1.7b", "decode_32k", "no_fsdp",
+                                   single, out_dir=tmp_path)
+    assert (tmp_path / "qwen3-1.7b__decode_32k__no_fsdp.json").exists()
+    assert off["experiment"] == "no_fsdp" and off["rules"] == {"fsdp": None}
+    params = (base["memory_analysis"]["argument_parts"]["params"],
+              off["memory_analysis"]["argument_parts"]["params"])
+    # 4.50x: the embedding table (vocab over "model" only) is whole over
+    # "data" either way
+    assert params[1] > 4 * params[0]
+    assert base["collectives"]["all-gather"]["count"] > \
+        off["collectives"]["all-gather"]["count"]

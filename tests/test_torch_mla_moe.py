@@ -121,11 +121,11 @@ def test_configs_resolve_and_layer_kinds():
     for arch in ("deepseek-v2-lite-16b", "mixtral-8x7b"):
         for smoke in (False, True):
             # every field the port has equals the reference's (it leaves
-            # out the jit/scan switches)
+            # out the scan switch)
             ours = dataclasses.asdict(get_config(arch, smoke=smoke))
             theirs = dataclasses.asdict(jget(arch, smoke=smoke))
             assert ours == {k: theirs[k] for k in ours}
-            assert set(theirs) - set(ours) == {"remat", "scan_unroll"}
+            assert set(theirs) - set(ours) == {"scan_unroll"}
     assert tt.layer_kinds(ds) == ["mla_mlp"] + ["mla_moe"] * 26
     assert tt.layer_kinds(get_config("mixtral-8x7b", smoke=True)) == [
         "attn_moe"] * 2

@@ -269,16 +269,25 @@ def test_noncausal_ops_refuse_autograd():
                                             scale).shape == (1, 1, 4, 8)
 
 
-def test_wrappers_take_no_other_device_and_check_shapes():
-    """A tensor on neither the CPU nor a card raises (there is no silent
-    fallback), and so do mismatched shapes."""
+def test_wrappers_take_no_other_device_and_check_shapes(monkeypatch):
+    """A ``meta`` tensor takes the plain version (shapes only, a dry
+    run's step); a tensor on a device neither plain nor a card raises
+    (there is no silent fallback: meta taken out of
+    ``common.PLAIN_DEVICES`` stands for one), and so do mismatched
+    shapes."""
+    from repro_torch.kernels.rm_attention import ops as rm_attn_ops
+
     w, deg, scale = _packed(16, 64, 6)
     wt = torch.from_numpy(np.array(w))
     k = torch.ones(2, 8, 16, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        rm_fused_state(k, torch.ones(2, 8, 4, device="meta"),
-                       torch.ones(2, 8, device="meta"), wt.to("meta"), deg,
-                       scale)
+    args = (k, torch.ones(2, 8, 4, device="meta"),
+            torch.ones(2, 8, device="meta"), wt.to("meta"), deg, scale)
+    s, n = rm_fused_state(*args)
+    assert s.device.type == "meta" and s.shape == (2, wt.shape[1], 4)
+    assert n.shape == (2, wt.shape[1])
+    monkeypatch.setattr(rm_attn_ops, "PLAIN_DEVICES", ("cpu",))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        rm_fused_state(*args)
     with pytest.raises(ValueError, match="shape mismatch"):
         rm_fused_state(torch.ones(2, 8, 16), torch.ones(2, 8, 4),
                        torch.ones(2, 7), wt, deg, scale)

@@ -186,7 +186,7 @@ def test_bucket_batch_dims_match_reference_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_bucket_wrapper_dispatch_and_edges():
+def test_bucket_wrapper_dispatch_and_edges(monkeypatch):
     x, omega = _bucket_inputs(4, 8, 3, 2, 1)
     xt, om = torch.from_numpy(x), torch.from_numpy(omega)
     before = rm_feature_bucket.launches
@@ -199,7 +199,17 @@ def test_bucket_wrapper_dispatch_and_edges():
         rm_feature_bucket(xt, om, 0, 0.5)
     with pytest.raises(ValueError, match="rows"):
         rm_feature_bucket(xt, om[:5], 2, 0.5)
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    # a meta tensor takes the plain version: shapes only (a dry run)
+    before = rm_feature_bucket.launches
+    z = rm_feature_bucket(xt.to("meta"), om.to("meta"), 2, 0.5)
+    assert z.device.type == "meta" and z.shape == (4, 3)
+    assert rm_feature_bucket.launches == before
+    # a device neither plain nor cuda raises (no silent fallback): meta
+    # taken out of the plain devices stands for one
+    from repro_torch.kernels.rm_feature import ops as rm_ops
+
+    monkeypatch.setattr(rm_ops, "PLAIN_DEVICES", ("cpu",))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
         rm_feature_bucket(xt.to("meta"), om.to("meta"), 2, 0.5)
     with pytest.raises(NotImplementedError, match="backward"):
         rm_feature_bucket(xt.requires_grad_(), om, 2, 0.5)

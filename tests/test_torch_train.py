@@ -285,6 +285,22 @@ def test_elastic_remesh_restores_onto_a_mesh(tmp_path):
             assert all(torch.equal(a[k], b[k]) for k in a)
 
 
+def test_init_local_params_refuses_a_draw_that_is_not_a_leaf(
+        tmp_path, monkeypatch):
+    """Each weight is cut as it is drawn, so an init that changes a draw
+    before it becomes a leaf is refused, never drawn whole and cut."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+
+    draw = attention.normal_init
+    monkeypatch.setattr(attention, "normal_init",
+                        lambda *a: draw(*a) * 1.0)
+    with _world_of_one(tmp_path):
+        with pytest.raises(ValueError, match="part 'layers'"):
+            tp.init_local_params(CFG, 0, make_host_mesh(), CPU)
+
+
 # -- the Trainer (tests/test_trainer_integration.py) -------------------------
 def _mk_trainer(tmp=None, steps=24):
     data = SyntheticLMDataset(vocab_size=128, seq_len=64, global_batch=4,

@@ -148,6 +148,7 @@ def worker(rank, world, store, out, name, train, serve_shapes):
     handed = pickle.loads((out / "handed.pkl").read_bytes())
     from repro_torch.common.tree import flatten_dict
     from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import fsdp
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.trainer import Trainer
@@ -176,7 +177,8 @@ def worker(rank, world, store, out, name, train, serve_shapes):
             continue
         mesh = make_mesh(shape, ("data", "model"))
         local = tp.shard_params(params_from_jax(
-            handed["state"]["params"], cfg), mesh, cfg)
+            handed["state"]["params"], cfg), mesh, cfg,
+            fsdp_cut=fsdp.enabled(mesh))
         report["tokens"][str(shape)] = serve(cfg, local, handed["prompts"],
                                              mesh)
     (out / f"report{world}_{rank}.json").write_text(json.dumps(report))
