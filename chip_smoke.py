@@ -193,10 +193,11 @@ Phases, each fatal on failure:
     card against CPU: every trainable leaf's ``loss_fn`` gradient within
     1e-4 x max(1, max |g|), and one ``make_train_step`` each (loss and
     grad_norm within 1e-4 relative); (c) qwen3-1.7b at full width and
-    depth (28 layers, bf16 compute, fp32 masters, AdamW) trained 8 steps
-    through ``train.trainer.Trainer`` on ``SyntheticLMDataset`` (4 x 256
-    tokens a step, vocab 151936), the first step cold: every step finite,
-    B2 exactly 56 launches (28 forward, 28 in the remat recompute:
+    TRAIN_DEPTH (8) of its 28 layers (``dataclasses.replace``; bf16
+    compute, fp32 masters, AdamW) trained 8 steps through
+    ``train.trainer.Trainer`` on ``SyntheticLMDataset`` (4 x 256 tokens a
+    step, vocab 151936), the first step cold: every step finite, B2
+    exactly 16 launches (8 forward, 8 in the remat recompute:
     ``ModelConfig.remat``, on by default) and no other RM kernel, the last
     step's CE
     below the first's, the final checkpoint restored bitwise; the cold and
@@ -351,7 +352,8 @@ Phases, each fatal on failure:
     device's (printed, with where they part); in bf16 weights phase 27
     c's requests with B2 once a prefill and B1 once a decode step on each
     rank, a decode step's wall, and a rank's peak beside phase 27 c's;
-    (b) xlstm-350m at full width and depth in fp32: 3 training steps of 4
+    (b) xlstm-350m at full width in fp32, XLSTM_TP_DEPTH (8) of its 24
+    layers (two pattern periods): 3 training steps of 4
     x 128 tokens on (1, 2), losses and ``grad_norm`` within TP_FP32_TOL
     of one device's, then three prompts' greedy tokens; (c) qwen3-1.7b rm
     at phase 24 c's shape: 3 fp32 steps with FSDP on (2, 1) against phase
@@ -376,10 +378,32 @@ Phases, each fatal on failure:
     ``make_engine(mesh=)`` on (data 2, model 1), 2 gloo processes on
     cuda:0, with the weights cut over "data" and with ``rules={"fsdp":
     None}``: tokens bitwise equal between the two and across the ranks,
-    B1 28 a decode step and B2 28 an owned admission a rank (112 over
-    the ranks for the 4 admissions, as in phase 29 b's (2, 1) serve), a
+    B1 28 a decode step and B2 28 an owned admission a rank (56 over
+    the ranks for the 2 admissions, as in phase 29 b's (2, 1) serve), a
     rank's fp32 masters under 0.6 of the whole weights', its peak and a
     decode step's wall printed.
+32. the deprecated bucketed engine and the SMOKE-only configs at full
+    width: (a) qwen3 SMOKE rm in fp32 through ``ServingEngine`` on the
+    card and the CPU, greedy tokens of 5 requests identical, B2 once a
+    layer a prefill and B1 once a layer a decode iteration; qwen3-1.7b at
+    full width through ``make_engine(scheduler="bucketed")`` on phase 7's
+    workload, its B2 / B1 launches checked and its tokens' agreement with
+    phase 7's Scheduler printed (bf16, not gated); (b) olmo-1b,
+    h2o-danube-3-4b (sliding window 4096, which rm mode does not use),
+    qwen2-7b (QKV bias) and internvl2-1b (its vision_stub served on
+    tokens, as the reference's executor serves it) at full width and
+    depth, and mixtral-8x7b at full width with MIXTRAL_DEPTH of its 32
+    layers (``dataclasses.replace``; its 93 GB do not fit one card), each
+    in rm mode with bf16 weights drawn on the card on phase 7's workload:
+    first B2 at the model's bucket-256 prefill shape (its heads and head
+    width, 56 keys padded) and B1 at its decode shape (2 x 4 lanes x its
+    heads) against their plain versions, fp32 and bf16, on a feature plan
+    drawn for the model's head width (``h2o`` 120, ``internvl2`` 64, the
+    rest 128), timed with CUDA events (no profiler window); then B2 once a layer a prefill and B1 once a layer a
+    decode step, peak
+    memory beside the weights' bytes, TTFT and tokens/s cold and warm, and
+    one profiler window of a decode step and one of the bucket-256
+    prefill (wall, busy, idle, kernels, largest consumers).
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -407,7 +431,10 @@ in phase 25's traced serve, B1 the drift check's; B1 and B2 with
 deepseek's serve and their device time in its windows; B1 and B2 with
 ``jamba_*`` keys: B2's times at T 5, 37 and 200 (``jamba_t5_*`` ...), B1's
 at jamba's decode shape, their launches in jamba's serve and their device
-time in its windows; B1 and B6–B8 their launches in a 4-shard apply
+time in its windows; B1 and B2 with ``olmo_*``, ``h2o_*``, ``qwen2_*``,
+``internvl2_*`` and ``mixtral_*`` keys: their times at those models'
+bucket-256 prefill and decode shapes (phase 32); B1 and B6–B8 their
+launches in a 4-shard apply
 (``sharded_launches``), B1 that apply's event and device times; B2 its
 training peak (``train_peak_gib``) and its launches in phase 28's
 data-parallel runs; B1–B4 their launches a rank in phase 29's tensor- and
@@ -424,8 +451,9 @@ tensor_sketch slice's (phase 10), then phase 24's profiled warm step and
 its timings alone, then phase 25's exact hubert encode (e) and its warm
 exact decode timing, then phase 26's deepseek profiler windows, then phase
 27's jamba and xlstm profiler windows, then phase 30's xlstm tokens, then
-phase 31 c's requests (down to 2); no kernel check and no gradient check
-is cut.
+phase 32's profiler windows; no kernel check and no gradient check is cut.
+Already cut for time: phase 24 c's depth (TRAIN_DEPTH), phase 30 b's
+(XLSTM_TP_DEPTH) and phase 31 c's requests (CUT_SERVE_REQUESTS, 2).
 """
 import contextlib
 import dataclasses
@@ -1557,6 +1585,9 @@ TRAIN_GRAD_TOL = 1e-4   # x max(1, max |g_cpu|): one fp32 formulation
 #                         differentiated on both devices, sums reordered
 TRAIN_METRIC_TOL = 1e-4  # relative: loss and grad_norm card vs CPU
 TRAIN_STEPS = 8          # qwen3-1.7b steps through the Trainer
+TRAIN_DEPTH = 8          # of qwen3-1.7b's 28 layers in 24 c: the save and
+#                          restore of the whole model's 20 GB train state
+#                          took 76 s of the script's 1200
 TRAIN_BATCH, TRAIN_SEQ = 4, 256
 ENC_TRAIN_CLIPS = 2      # hubert-xlarge clips of ENC_FRAMES in its step
 
@@ -1783,8 +1814,9 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
             raise AssertionError(f"train b {small.name}: card vs CPU failed")
     del state_cpu, state_gpu, g_cpu, g_gpu
 
-    # c. qwen3-1.7b at full width and depth through the Trainer
-    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    # c. qwen3-1.7b at full width, TRAIN_DEPTH layers, through the Trainer
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", attention_mode="rm"),
+                              num_layers=TRAIN_DEPTH).validate()
     layers = cfg.num_layers
     hyper = TrainHyper(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 
@@ -1802,7 +1834,8 @@ def train_phase(torch, np, kernels, counters, w32, col_deg, col_scale,
     print(f"[train c] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}, rm attention (fused: B2), compute "
           f"{cfg.compute_dtype}, fp32 masters, AdamW; SyntheticLMDataset "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; depth cut: none")
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; depth cut from "
+          f"{get_config('qwen3-1.7b').num_layers} to {layers}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2473,11 +2506,13 @@ TIERS = {"low": 1, "standard": 2, "high": 4}
 DEEPSEEK = "deepseek-v2-lite-16b"
 
 
-def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag):
+def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag, profile=True):
     """B1 at a model's decode shape (x ``[rows, d]``, q and k of every lane
     and head stacked) against its plain version, fp32 and bf16, with times
     and bounds; returns the fp32 figures (``shape``, ``max_abs_err``,
-    ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``, ``bound_by``)."""
+    ``ms``, ``device_ms``, ``plain_ms``, ``bound_ms``, ``bound_by``).
+    ``profile``: whether to take the kernel's device time in a profiler
+    window (``device_ms`` None without)."""
     from repro_torch.kernels.rm_feature.ops import rm_feature_fused
     from repro_torch.kernels.rm_feature.ref import rm_feature_fused_ref
 
@@ -2496,7 +2531,7 @@ def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag):
         same = torch.equal(got, again)
         ms = time_ms(torch, lambda: rm_feature_fused(x, w, cd, cs))
         dev_ms = kernel_device_ms(torch, lambda: rm_feature_fused(
-            x, w, cd, cs), "rm_feature_kernel")
+            x, w, cd, cs), "rm_feature_kernel") if profile else None
         plain_ms = time_ms(torch, lambda: rm_feature_fused_ref(x, w, cd, cs),
                            iters=10)
         dname = str(dtype).split(".")[-1]
@@ -2507,9 +2542,9 @@ def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag):
                                        0, dname, True)
         print(f"[{tag} B1] decode x[{rows},{d}] F {f} {dname}: max_abs_err "
               f"{err:.3e} (tol {tol:.1e}), two calls bitwise equal {same}; "
-              f"kernel {dev_ms:.4f} ms device (profiler), {ms:.4f} ms "
-              f"events; plain {plain_ms:.4f} ms; bound {tcms:.6f} ms "
-              f"({tcby}, tensor cores)")
+              f"kernel {device_text(dev_ms)}{ms:.4f} ms events; plain "
+              f"{plain_ms:.4f} ms; bound {tcms:.6f} ms ({tcby}, tensor "
+              "cores)")
         if not (err <= tol and same):
             raise AssertionError(f"B1 at {tag}'s decode shape {dname}: "
                                  f"error {err} > {tol} or two calls differ")
@@ -2521,12 +2556,12 @@ def b1_shape_check(torch, np, gen, w32, cd, cs, rows, tag):
 
 
 def b2_shape_check(torch, np, gen, w32, cd, cs, heads, dv, eps, t, pad,
-                   tag):
+                   tag, profile=True):
     """B2 at a model's prefill (one prompt's ``heads`` heads, q/k width of
     ``w32``, values ``dv``, T ``t`` with the last ``pad`` keys padded)
     against its plain version: fp32 within the 3xTF32 gate, bf16 within
     B2_TOL, two calls bitwise equal, with times and bounds; returns the
-    fp32 figures (the keys of :func:`b1_shape_check`)."""
+    fp32 figures (the keys and ``profile`` of :func:`b1_shape_check`)."""
     from repro_torch.kernels.rm_attention.ops import rm_fused_causal
     from repro_torch.kernels.rm_attention.ref import rm_fused_causal_ref
 
@@ -2559,7 +2594,7 @@ def b2_shape_check(torch, np, gen, w32, cd, cs, heads, dv, eps, t, pad,
         sched = rm_fused_causal.last_schedule
         ms = time_ms(torch, lambda: rm_fused_causal(*args, eps), iters=20)
         dev_ms = kernel_device_ms(torch, lambda: rm_fused_causal(*args, eps),
-                                  "chunk_", iters=20)
+                                  "chunk_", iters=20) if profile else None
         plain_ms = time_ms(torch, lambda: rm_fused_causal_ref(
             *args, chunk=128, eps=eps), iters=10)
         bh, item = heads, q.element_size()
@@ -2574,8 +2609,8 @@ def b2_shape_check(torch, np, gen, w32, cd, cs, heads, dv, eps, t, pad,
         print(f"[{tag} B2] prefill q,k[{bh},{t},{d}] v dv {dv} F {f} ({pad} "
               f"keys padded) {dname}: err out/S/n {errs[0]:.2e}/"
               f"{errs[1]:.2e}/{errs[2]:.2e} x max(1, max |plain|) (gate "
-              f"{gate:.0e}), two calls bitwise equal; kernel {dev_ms:.4f} "
-              f"ms device (profiler), {ms:.4f} ms events; plain "
+              f"{gate:.0e}), two calls bitwise equal; kernel "
+              f"{device_text(dev_ms)}{ms:.4f} ms events; plain "
               f"{plain_ms:.4f} ms; bound {tcms:.5f} ms ({tcby}, tensor "
               f"cores); grid pass A {sched.blocks_a} + pass B "
               f"{sched.blocks_b} blocks")
@@ -2585,6 +2620,11 @@ def b2_shape_check(torch, np, gen, w32, cd, cs, heads, dv, eps, t, pad,
                           max_abs_err=max(errs), ms=ms, device_ms=dev_ms,
                           plain_ms=plain_ms, bound_ms=tcms, bound_by=tcby)
     return record
+
+
+def device_text(dev_ms):
+    """A shape check's device time for its line ("" where not taken)."""
+    return "" if dev_ms is None else f"{dev_ms:.4f} ms device (profiler), "
 
 
 def prefixed(prefix, record):
@@ -3377,7 +3417,8 @@ def meshes_phase(torch, np, kernels, counters):
                                                  for v in r["step_ms"])
                   + f" ms; launches {r['launches']}; {r['wall']:.2f}s; peak "
                   f"{r['peak']:.2f} GiB with {r['base']:.2f} GiB held before "
-                  f"(phase 24 c: {kernels['B2']['train_peak_gib']:.2f} GiB)"
+                  f"(phase 24 c, {TRAIN_DEPTH} layers: "
+                  f"{kernels['B2']['train_peak_gib']:.2f} GiB)"
                   + (f"; residual max {r['residual_max']:.3e}"
                      if r["residual_max"] is not None else ""))
             if r["launches"] != want or not all(
@@ -3722,7 +3763,7 @@ def tp_encode(torch, cfg, given, mesh):
         else:
             logits, _ = forward(compute, lcfg,
                                 {"embeds": given["hubert"].cuda()})
-        logits = tp.gather_vocab(logits)
+        logits = tp.gather_vocab(logits, lcfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if cfg.moe is not None and cfg.param_dtype == "bfloat16":
@@ -3877,8 +3918,9 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
                       + f" ms (warm {rep['step_ms'][-1]:.1f} ms; one device "
                       f"{ref['step_ms'][-1]:.1f} ms), peak "
                       f"{rep['peak_gib']:.2f} GiB (one device "
-                      f"{ref['peak_gib']:.2f}; phase 24 c: "
-                      f"{kernels['B2']['train_peak_gib']:.2f} GiB), on "
+                      f"{ref['peak_gib']:.2f}; phase 24 c, {TRAIN_DEPTH} "
+                      f"layers: {kernels['B2']['train_peak_gib']:.2f} GiB),"
+                      f" on "
                       f"{rep['device']}")
             held = gaps + (ngaps[:1] if bf16 else ngaps)
             ok = ok and (reps[0]["losses"] == reps[1]["losses"]
@@ -4065,11 +4107,14 @@ def tensor_parallel_phase(torch, np, kernels, prompts, rm_tokens):
 JAMBA_TP_PROMPT_T = 40     # jamba's prefill on the mesh: "act_seq" divides it
 XLSTM_TRAIN_SEQ = 128      # xlstm-350m training tokens a row (4 rows)
 SSM_NEW_TOKENS = 8         # greedy tokens a request in phase 30 a-b
+XLSTM_TP_DEPTH = 8         # of xlstm-350m's 24 layers in phase 30 b: two
+#                            periods of its (mLSTM x 3, sLSTM) pattern
 
 
 def ssm_tp_configs():
     """Phase 30's configs: jamba-v0.1-52b rm cut to one pattern period in
-    fp32 and in bf16 weights (phase 27 c's), xlstm-350m in fp32."""
+    fp32 and in bf16 weights (phase 27 c's), xlstm-350m cut to
+    XLSTM_TP_DEPTH layers in fp32."""
     from repro_torch.configs import get_config
 
     jamba = dataclasses.replace(get_config(JAMBA, attention_mode="rm"),
@@ -4077,7 +4122,9 @@ def ssm_tp_configs():
     fp32 = {"param_dtype": "float32", "compute_dtype": "float32"}
     return {"jamba32": dataclasses.replace(jamba, **fp32),
             "jamba16": dataclasses.replace(jamba, param_dtype="bfloat16"),
-            "xlstm32": dataclasses.replace(get_config(XLSTM), **fp32)}
+            "xlstm32": dataclasses.replace(get_config(XLSTM),
+                                           num_layers=XLSTM_TP_DEPTH,
+                                           **fp32).validate()}
 
 
 def ssm_tp_serve(torch, cfg, prompts, mesh, new_tokens):
@@ -4097,7 +4144,7 @@ def ssm_tp_serve(torch, cfg, prompts, mesh, new_tokens):
         logits, _, _ = engine.executor.prefill(prompts[0])
         with (contextlib.nullcontext() if mesh is None
               else tp.local_view(mesh)):
-            logits = tp.gather_vocab(logits)
+            logits = tp.gather_vocab(logits, engine.executor.model_cfg)
     for rid, prompt in prompts.items():
         engine.submit(Request(rid, prompt, max_new_tokens=new_tokens))
     done = engine.run()
@@ -4341,7 +4388,8 @@ def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
     ngaps = [abs(a - b) / abs(b) for a, b in zip(x1["grad_norms"],
                                                  x0["grad_norms"])]
     xtok = keyed(reps[0]["xlstm_tokens"])
-    print(f"[ssm-tp b] {XLSTM} fp32 at full width and depth, {DP_STEPS} "
+    print(f"[ssm-tp b] {XLSTM} fp32 at full width, {XLSTM_TP_DEPTH} of 24 "
+          f"layers, {DP_STEPS} "
           f"steps of {TRAIN_BATCH} x {XLSTM_TRAIN_SEQ} tokens on (1, "
           f"{TP_RANKS}): losses " + " ".join(f"{v:.6f}" for v in x1["losses"])
           + " against one device's " + " ".join(f"{v:.6f}"
@@ -4383,8 +4431,9 @@ def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
         print(f"[fsdp c] rank {r}: train state (params, mu, nu) "
               f"{f_['state_gib']:.2f} GiB (one device "
               f"{one_fp32['state_gib']:.2f}), peak {f_['peak_gib']:.2f} GiB "
-              f"(one device {one_fp32['peak_gib']:.2f}; phase 24 c "
-              f"{kernels['B2']['train_peak_gib']:.2f} GiB), B2 a step "
+              f"(one device {one_fp32['peak_gib']:.2f}; phase 24 c, "
+              f"{TRAIN_DEPTH} layers, {kernels['B2']['train_peak_gib']:.2f} "
+              f"GiB), B2 a step "
               f"{f_['b2']}, step walls "
               + " / ".join(f"{v:.1f}" for v in f_["step_ms"])
               + f" ms (one device {one_fp32['step_ms'][-1]:.1f} warm)")
@@ -4420,7 +4469,7 @@ def ssm_fsdp_phase(torch, np, kernels, prompts, tp_runs):
 REMAT_OFF_PEAK_GIB = 36.80     # PERF.md §5: the qwen3 step's peak, no remat
 HUBERT_OFF_PEAK_GIB = 45.84    # PERF.md: hubert-xlarge's step, no remat
 H100_BF16_TFLOPS = 989.0       # dense bf16 on the tensor cores
-CUT_SERVE_REQUESTS = 4         # phase 7's first requests in phase 31 c: a
+CUT_SERVE_REQUESTS = 2         # phase 7's first requests in phase 31 c: a
 # decode step gathers every block's weights over gloo, through the host
 REMAT_LOSS_TOL = 1e-6          # relative, fp32, if bf16 is not bitwise
 
@@ -4695,6 +4744,223 @@ def remat_dryrun_phase(torch, np, kernels, prompts):
         kernels[kid]["cut_serve_launches_per_rank"] = \
             reps[0]["cut"]["launches"].get(kid, 0)
     print(f"[remat] phase 31 in {time.perf_counter() - t_phase:.2f}s")
+
+
+# -- phase 32: the bucketed engine; the SMOKE-only configs at full width ----
+MIXTRAL_DEPTH = 8          # of mixtral-8x7b's 32 layers: about 24 GB in bf16
+# (arch, depth or None for the config's own): phase 7's workload at full
+# width in rm mode, bf16 weights drawn on the card
+FULL_WIDTH_CASES = (("olmo-1b", None), ("h2o-danube-3-4b", None),
+                    ("qwen2-7b", None), ("internvl2-1b", None),
+                    ("mixtral-8x7b", MIXTRAL_DEPTH))
+
+
+def engine_run(torch, engine, prompts, base):
+    """Phase 7's workload (greedy, 16 new tokens a request, ids ``base +
+    i``) through a ``ServingEngine`` built with an ``Obs``, whose token
+    latency histogram counts its decode iterations -> (finished states by
+    request, decode iterations, wall seconds)."""
+    from repro_torch.serve import Request
+
+    for rid, prompt in prompts.items():
+        engine.submit(Request(base + rid, prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finished = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = engine.obs.metrics.histogram("serve/token_latency_s").count
+    return {rid: finished[base + rid] for rid in prompts}, steps, wall
+
+
+def bucketed_engine_checks(torch, np, kernels, counters, prompts,
+                           rm_tokens):
+    """Phase 32 a: qwen3 SMOKE rm in fp32 through ``ServingEngine`` on the
+    card and the CPU, greedy tokens identical (the gate) and B2 / B1 once
+    a layer a prefill / decode step; then qwen3-1.7b at full width through
+    ``make_engine(scheduler="bucketed")`` on phase 7's workload: B2 and
+    B1 launches, and the tokens' agreement with phase 7's Scheduler's
+    (printed: bf16 decode rows depend on the lanes decoded together)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import Obs
+    from repro_torch.serve import ServingEngine
+
+    scfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True,
+                                          attention_mode="rm"),
+                               compute_dtype="float32")
+    p_cpu = tt.init_model(scfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(32)
+    small = {rid: rng.integers(0, scfg.vocab_size, size=n)
+             for rid, n in enumerate((3, 17, 33, 40, 9))}
+    got, card_launches = {}, None
+    for dev, params in (("cuda", tree_to(p_cpu, "cuda")), ("cpu", p_cpu)):
+        for fn in counters.values():
+            fn.launches = 0
+        engine = ServingEngine(scfg, params, num_slots=2, max_len=64,
+                               device=dev, obs=Obs())
+        done, steps, _ = engine_run(torch, engine, small, 0)
+        got[dev] = {rid: s_.generated for rid, s_ in done.items()}
+        if dev == "cuda":
+            card_launches = ({k: fn.launches for k, fn in counters.items()
+                              if fn.launches}, steps)
+    layers = scfg.num_layers
+    launches, steps = card_launches
+    want = {"B1": layers * steps, "B2": layers * len(small)}
+    print(f"[engine] qwen3 SMOKE rm fp32 through ServingEngine, card vs "
+          f"CPU: greedy tokens of {len(small)} requests identical "
+          f"{got['cuda'] == got['cpu']}; card launches {launches} over "
+          f"{steps} decode iterations (want {want})")
+    if got["cuda"] != got["cpu"] or launches != want or \
+            not all(len(t_) == 16 for t_ in got["cuda"].values()):
+        raise AssertionError("the bucketed engine's SMOKE card vs CPU "
+                             "check failed")
+
+    cfg = get_config("qwen3-1.7b", attention_mode="rm")
+    engine = make_engine("qwen3-1.7b", smoke=False, attention_mode="rm",
+                         num_slots=4, max_len=256, seed=0, device="cuda",
+                         obs=Obs(), scheduler="bucketed")
+    if not isinstance(engine, ServingEngine):
+        raise AssertionError("make_engine(scheduler='bucketed') did not "
+                             "return a ServingEngine")
+    for fn in counters.values():
+        fn.launches = 0
+    done, steps, wall = engine_run(torch, engine, prompts, 0)
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    tokens = {rid: s_.generated for rid, s_ in done.items()}
+    same_req = sum(tokens[r] == rm_tokens[r] for r in prompts)
+    same_tok = sum(a == b for r in prompts
+                   for a, b in zip(tokens[r], rm_tokens[r]))
+    n_tok = sum(len(t_) for t_ in rm_tokens.values())
+    layers = cfg.num_layers
+    want = {"B1": layers * steps, "B2": layers * len(prompts)}
+    print(f"[engine] qwen3-1.7b rm at full width through make_engine("
+          f"scheduler='bucketed'), phase 7's workload: "
+          f"{sum(len(t_) for t_ in tokens.values())} tokens in {wall:.3f}s, "
+          f"launches {launches} over {steps} decode iterations (want "
+          f"{want}: B2 {layers} a prefill, B1 {layers} a decode step); "
+          f"tokens beside phase 7's Scheduler's: {same_req} of "
+          f"{len(prompts)} requests and {same_tok} of {n_tok} tokens "
+          "identical (bf16; not gated)")
+    if launches != want or any(s_.finish_reason not in VALID_REASONS
+                               for s_ in done.values()):
+        raise AssertionError("the bucketed engine's full-width serve "
+                             "failed")
+    kernels["B1"]["engine_launches"] = launches["B1"]
+    kernels["B2"]["engine_launches"] = launches["B2"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def full_width_phase(torch, np, kernels, counters, prompts, rm_tokens):
+    """Phase 32 (see the module docstring): (a) the bucketed engine, (b)
+    olmo-1b, h2o-danube-3-4b, qwen2-7b and internvl2-1b at full width and
+    depth and mixtral-8x7b at full width with MIXTRAL_DEPTH layers, each in
+    rm mode with bf16 weights on phase 7's workload: B2 once a layer a
+    prefill and B1 once a layer a decode step (each first held against its
+    plain version at the model's shapes, on a plan drawn for its head
+    width), peak memory beside the weights' bytes, TTFT and tokens/s cold
+    and warm, and one profiler window of a decode step and of the
+    bucket-256 prefill. Every check is fatal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.models.attention import rm_plan_for
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    bucketed_engine_checks(torch, np, kernels, counters, prompts, rm_tokens)
+    for arch, depth in FULL_WIDTH_CASES:
+        cfg = get_config(arch, attention_mode="rm")
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth).validate()
+        tag = arch.split("-")[0]
+        # B2 at the bucket-256 prefill, B1 at the decode shape
+        dh, heads = cfg.resolved_head_dim, cfg.num_heads
+        plan = rm_plan_for(cfg, dh)
+        w32 = pack_omegas(plan, init_omegas(plan, gen))
+        cd, cs = plan_columns(plan, "cuda")
+        print(f"[{tag} plan] rm at head width {dh}: packed w "
+              f"{tuple(w32.shape)}, F={plan.output_dim}; {heads} heads")
+        # events only: after phases 28-31 the profiler has returned
+        # windows of these short calls without a device event
+        kernels["B2"].update(prefixed(tag, b2_shape_check(
+            torch, np, gen, w32, cd, cs, heads, dh, cfg.rm.eps, 256, 56,
+            tag, profile=False)))
+        kernels["B1"].update(prefixed(tag, b1_shape_check(
+            torch, np, gen, w32, cd, cs, 2 * 4 * heads, tag,
+            profile=False)))
+        del w32
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = make_engine(arch, cfg=cfg, num_slots=4, max_len=256,
+                             seed=0, device="cuda", param_dtype="bfloat16")
+        torch.cuda.synchronize()
+        ready_s = time.perf_counter() - t0
+        n_params = sum(p_.numel()
+                       for p_ in tree_leaves(engine.executor.params))
+        p_bytes = sum(p_.numel() * p_.element_size()
+                      for p_ in tree_leaves(engine.executor.params))
+        state_bytes = sum(t_.numel() * t_.element_size()
+                          for t_ in tree_leaves(engine.executor.cache))
+        extra = []
+        if cfg.sliding_window:
+            extra.append(f"sliding window {cfg.sliding_window} (rm mode "
+                         "reads every position)")
+        if cfg.qkv_bias:
+            extra.append("QKV bias")
+        if cfg.frontend == "vision_stub":
+            extra.append("vision_stub frontend served on tokens, as the "
+                         "reference's executor serves it")
+        if cfg.moe is not None:
+            extra.append(f"{cfg.moe.num_experts} experts top-"
+                         f"{cfg.moe.top_k}, d_ff_expert "
+                         f"{cfg.moe.d_ff_expert}")
+        cut = (f"depth cut from {get_config(arch).num_layers} to "
+               f"{cfg.num_layers}" if depth is not None else "depth not cut")
+        print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers ({cut}), "
+              f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+              f"{cfg.num_kv_heads} kv of {cfg.resolved_head_dim}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+              f"{cfg.tie_embeddings}"
+              + "".join(f", {e}" for e in extra)
+              + f"; rm attention; {n_params / 1e9:.3f} B parameters, "
+              f"{p_bytes / 2**30:.2f} GiB of weights (bf16), ready in "
+              f"{ready_s:.2f}s; decode state {state_bytes / 2**20:.2f} MiB "
+              "(4 lanes)")
+        done, launches, admissions, steps, own = serve_full_width(
+            torch, np, tag, engine, cfg, prompts, counters)
+        peak = torch.cuda.max_memory_allocated()
+        layers = cfg.num_layers
+        print(f"[{tag}] B2 {launches.get('B2', 0) / admissions:g} a prefill "
+              f"and B1 {launches.get('B1', 0) / steps:g} a decode step "
+              f"({layers} layers); peak memory {peak / 2**30:.2f} GiB beside "
+              f"{p_bytes / 2**30:.2f} GiB of weights "
+              f"({peak / p_bytes:.2f}x)")
+        if launches != {"B1": steps * layers, "B2": admissions * layers}:
+            raise AssertionError(f"{arch} launches {launches}: want B2 "
+                                 f"{layers} a prefill ({admissions}), B1 "
+                                 f"{layers} a decode step ({steps})")
+        shares = where_time_goes(
+            torch, tag, engine, own, done,
+            families={"B1": ("rm_feature_kernel",), "B2": ("chunk_",)})
+        for kid, window in (("B1", "decode step"),
+                            ("B2", "prefill bucket 256")):
+            kernels[kid].setdefault("full_width", {})[arch] = {
+                "launches": launches[kid],
+                "per_call": launches[kid] // (steps if kid == "B1"
+                                              else admissions),
+                "window_device_ms": shares[window][kid],
+                "peak_gib": peak / 2**30, "weights_gib": p_bytes / 2**30}
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[full] phase 32 in {time.perf_counter() - t_phase:.2f}s")
 
 
 def main():
@@ -6296,6 +6562,11 @@ def main():
 
     # -- 31. remat, the dry run against the card, weights cut over "data" ----
     remat_dryrun_phase(torch, np, kernels, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 32. the bucketed engine; the SMOKE-only configs at full width -------
+    full_width_phase(torch, np, kernels, rm_counters, prompts, rm_tokens)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -1,9 +1,12 @@
 """mixtral-8x7b [moe] — 32L d_model=4096 32H (GQA kv=8) d_ff=14336
 vocab=32000, MoE 8 experts top-2, SWA. [arXiv:2401.04088; hf] (port of
 ``repro.configs.mixtral_8x7b``). FULL is about 47 B parameters, 93 GB in
-bf16: it does not fit one 80 GB card; on a mesh with a "model" axis
-over two or more cards each holds its shards
-(``distributed.tensor_parallel``). SMOKE runs anywhere."""
+bf16: it does not fit one 80 GB card, even before its activations; on a
+mesh with a "model" axis over two or more cards each holds its shards
+(``distributed.tensor_parallel``). One card serves it at full width with
+its depth cut (``dataclasses.replace(FULL, num_layers=8)``: about 12 B
+parameters, 24 GB in bf16), as ``chip_smoke.py`` phase 32 does. SMOKE
+runs anywhere."""
 from repro_torch.models.config import ModelConfig, MoEConfig, RMAttentionConfig
 
 FULL = ModelConfig(

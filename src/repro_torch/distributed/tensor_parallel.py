@@ -22,8 +22,9 @@ holds plain local tensors and runs the model at its local widths:
   cut group by group, each rank keeping its channels or heads of every
   group; and the xLSTM leaves the reference replicates but reads per head
   (the mLSTM's ``w_if``, ``b_if`` and ``gn_scale``, the sLSTM's
-  ``r_rec``, ``b_in`` and ``gn_scale``) are cut by head. A dim the model
-  axis divides in neither direction raises ``ValueError``;
+  ``r_rec``, ``b_in`` and ``gn_scale``) are cut by head. A Mamba
+  ``d_inner``, ``d_ff``, experts' ff or MLA head count the model axis
+  does not divide raises ``ValueError``;
   :func:`shard_cache` / :func:`gather_cache` cut decode caches along the
   ``"model"`` entries of ``cache_partition_specs`` the same way.
 * :func:`local_config` divides ``num_heads``, ``num_kv_heads``, ``d_ff``,
@@ -31,6 +32,18 @@ holds plain local tensors and runs the model at its local widths:
   :class:`LocalConfig`, whose ``model_shards`` the SSM mixers divide their
   inner widths by (Mamba's ``d_inner``, the mLSTM's up-projection, the
   sLSTM's cells), so the model code needs no branch for widths.
+* A part whose width the model axis divides in neither direction is kept
+  whole on every model rank, as the reference's ``_dedupe_spec``
+  replicates such a dim: the attention, mLSTM and sLSTM mixers together
+  (they read one ``num_heads``; attention also where its kv heads and
+  the axis divide in neither direction) and the vocabulary
+  (``LocalConfig.whole`` names them). Their leaves
+  and caches are not cut, and their code runs inside
+  :func:`whole_part`, where the collectives over ``"model"`` are the
+  identity and a block's entry and exit only move the sequence. Where the
+  reference's fused 2-D weight does divide (qwen2-7b's ``wq``, 28 heads x
+  128 = 3584 columns over 16), GSPMD splits inside a head and the port
+  keeps the head whole: the same numbers, more bytes a rank.
 * The collectives stand where GSPMD puts them, as autograd functions over
   the model group: :func:`reduce_from_model` (all-reduce forward,
   identity backward) after ``wo`` / ``w_o`` / ``w_down`` / ``w_out`` and
@@ -70,7 +83,7 @@ input: ``mesh=None`` is bitwise the single-device path.
     local, template = init_local_params(cfg, seed, mesh)  # or shard_params
     with local_view(mesh):
         logits_shard, _ = transformer.forward(local, lcfg, batch)
-    logits = gather_vocab(logits_shard)
+    logits = gather_vocab(logits_shard, lcfg)
 """
 from __future__ import annotations
 
@@ -99,6 +112,8 @@ __all__ = [
     "LocalView",
     "LocalConfig",
     "shards_of",
+    "is_whole",
+    "whole_part",
     "local_view_of",
     "local_view",
     "restore_view",
@@ -149,7 +164,11 @@ class LocalView:
     call's rows are split over, empty where the rows are replicated, and
     ``batch_size`` the product of their sizes; ``seq`` whether the
     residual stream is cut by sequence over ``"model"`` (set inside
-    :func:`sequence_sharding`)."""
+    :func:`sequence_sharding`); ``whole`` whether the code runs a part
+    every model rank holds whole (set inside :func:`whole_part`);
+    ``gather_batch`` whether the MoE routes the whole batch, its tokens
+    gathered over the batch groups (the serving executor's decode step:
+    the reference's single-controller step routes every slot together)."""
 
     model_size: int
     model_rank: int
@@ -157,6 +176,8 @@ class LocalView:
     batch_groups: Tuple[Any, ...]
     batch_size: int
     seq: bool = False
+    whole: bool = False
+    gather_batch: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,14 +185,26 @@ class LocalConfig(ModelConfig):
     """A :class:`ModelConfig` at one model rank's widths (what
     :func:`local_config` returns): ``model_shards`` is the model axis its
     widths were divided by, which the SSM mixers divide their inner widths
-    by (their sub-configs keep the full model's fields)."""
+    by (their sub-configs keep the full model's fields); ``whole`` the
+    parts every model rank keeps whole (of ``"attn"``, ``"mlstm"``,
+    ``"slstm"`` and ``"vocab"``), at their full widths."""
 
     model_shards: int = 1
+    whole: Tuple[str, ...] = ()
 
 
-def shards_of(cfg) -> int:
+def is_whole(cfg, part: str) -> bool:
+    """Whether ``cfg`` (a :class:`LocalConfig`) keeps ``part`` whole on
+    every model rank."""
+    return part in getattr(cfg, "whole", ())
+
+
+def shards_of(cfg, part: Optional[str] = None) -> int:
     """The model axis ``cfg``'s widths are divided by: a
-    :class:`LocalConfig`'s ``model_shards``, 1 for a full config."""
+    :class:`LocalConfig`'s ``model_shards``, 1 for a full config or for a
+    ``part`` it keeps whole."""
+    if part is not None and is_whole(cfg, part):
+        return 1
     return getattr(cfg, "model_shards", 1)
 
 
@@ -214,20 +247,55 @@ def active() -> Optional[LocalView]:
 
 
 def model_view() -> Optional[LocalView]:
-    """The active view where its model axis is above 1, else None: the
-    one test every model-parallel branch of the model code makes."""
+    """The active view where its model axis is above 1 and the code runs
+    a cut part (not inside :func:`whole_part`), else None: the one test
+    every model-parallel branch of the model code makes."""
     view = active()
-    return view if view is not None and view.model_size > 1 else None
+    return view if view is not None and view.model_size > 1 \
+        and not view.whole else None
+
+
+_NO_PART = contextlib.nullcontext()
+
+
+def whole_part(cfg, part: str):
+    """A context to run ``part``'s code in (a mixer kind or ``"vocab"``)
+    where ``cfg`` keeps it whole on every model rank: inside,
+    :func:`model_view` is None, so every collective over ``"model"`` is the
+    identity, and :func:`enter_block` / :func:`exit_block` only gather and
+    slice the sequence under ``"act_seq"`` (no sum: each rank computes
+    the whole block). A part ``cfg`` cuts gets a shared no-op context."""
+    if not is_whole(cfg, part):
+        return _NO_PART
+    return _whole_view()
 
 
 @contextlib.contextmanager
-def local_view(mesh, *, batch_sharded: bool = True) -> Iterator[LocalView]:
+def _whole_view() -> Iterator[None]:
+    view = active()
+    if view is None or view.model_size == 1:
+        yield
+        return
+    prev = _local.view
+    _local.view = dataclasses.replace(view, whole=True)
+    try:
+        yield
+    finally:
+        _local.view = prev
+
+
+@contextlib.contextmanager
+def local_view(mesh, *, batch_sharded: bool = True,
+               gather_batch: bool = False) -> Iterator[LocalView]:
     """Run the model code inside on ``mesh``'s local view.
     ``batch_sharded``: whether the rows the code is given are this rank's
     share of a batch split over the batch axes (so the MoE averages its aux
-    losses over them), or replicated."""
+    losses over them), or replicated; ``gather_batch``: the MoE routes the
+    whole batch instead (:class:`LocalView`)."""
     prev = active()
-    _local.view = local_view_of(mesh, batch_sharded=batch_sharded)
+    _local.view = dataclasses.replace(
+        local_view_of(mesh, batch_sharded=batch_sharded),
+        gather_batch=gather_batch)
     try:
         yield _local.view
     finally:
@@ -250,13 +318,6 @@ def restore_view(view: Optional[LocalView]) -> Iterator[Optional[LocalView]]:
 # ---------------------------------------------------------------------------
 # the local config and the cut of the params
 # ---------------------------------------------------------------------------
-def _divide(name: str, value: int, m: int, cfg) -> int:
-    if value % m:
-        raise ValueError(f"{cfg.name}: {name}={value} is not divisible by "
-                         f"the mesh's model axis of {m}")
-    return value // m
-
-
 def kv_replication(cfg, model_size: int) -> int:
     """Ranks that hold one kv head: 1 where the model axis divides
     ``num_kv_heads``, ``model_size // num_kv_heads`` where the kv heads
@@ -264,7 +325,8 @@ def kv_replication(cfg, model_size: int) -> int:
     read).
 
     Raises:
-        ValueError: neither divides the other.
+        ValueError: neither divides the other (:func:`local_config` then
+            keeps the attention whole).
     """
     hkv = cfg.num_kv_heads
     if hkv % model_size == 0:
@@ -275,46 +337,96 @@ def kv_replication(cfg, model_size: int) -> int:
                      f"axis of {model_size} divide in neither direction")
 
 
+_HEAD_MIXERS = ("attn", "mlstm", "slstm")
+
+
+def _divide(name: str, value: int, m: int, cfg) -> None:
+    if value % m:
+        raise ValueError(f"{cfg.name}: {name}={value} is not divisible by "
+                         f"the mesh's model axis of {m}")
+
+
+def _parts(cfg):
+    """``(mixers, ffns)``: the mixer and FFN kinds of ``cfg``'s layers."""
+    from repro_torch.models.transformer import _split_kind, layer_kinds
+
+    kinds = [_split_kind(k) for k in layer_kinds(cfg)]
+    return {k[0] for k in kinds}, {k[1] for k in kinds}
+
+
+def _whole_parts(cfg, model_size: int) -> Tuple[str, ...]:
+    """The parts of ``cfg`` a model axis of ``model_size`` keeps whole,
+    in the order of :data:`_HEAD_MIXERS`, then ``"vocab"``: the head
+    mixers together where the axis does not divide ``num_heads``
+    (attention's kv heads, the mLSTM's up-projection likewise: they share
+    the one ``num_heads``), the vocabulary where it does not divide
+    ``vocab_size``. The reference's ``_dedupe_spec`` replicates each such
+    dim.
+
+    Raises:
+        ValueError: the axis does not divide MLA's heads, Mamba's
+            ``d_inner``, ``d_ff`` or the experts' ff (the message names the
+            dim and the axis).
+    """
+    m = int(model_size)
+    if m == 1:
+        return ()
+    mixers, ffns = _parts(cfg)
+    if "mla" in mixers:
+        _divide("num_heads", cfg.num_heads, m, cfg)
+    if "mamba" in mixers:
+        _divide("mamba d_inner", cfg.mamba.expand * cfg.d_model, m, cfg)
+    if "mlp" in ffns:
+        _divide("d_ff", cfg.d_ff, m, cfg)
+    if "moe" in ffns:
+        _divide("moe.d_ff_expert", cfg.moe.d_ff_expert, m, cfg)
+    heads = cfg.num_heads % m != 0
+    if "attn" in mixers and cfg.num_kv_heads % m and m % cfg.num_kv_heads:
+        heads = True
+    if "mlstm" in mixers and int(cfg.xlstm.proj_factor * cfg.d_model) % m:
+        heads = True
+    whole = [k for k in _HEAD_MIXERS if heads and k in mixers]
+    if cfg.vocab_size % m:
+        whole.append("vocab")
+    return tuple(whole)
+
+
 def local_config(cfg, model_size: int):
     """``cfg`` at one model rank's widths, a :class:`LocalConfig`: heads,
     kv heads, ``d_ff``, the experts' ff and the vocabulary divided by
     ``model_size`` (kv heads: 1 where they are replicated,
     :func:`kv_replication`), and ``model_shards`` set for the SSM mixers'
     inner widths (Mamba's ``d_inner``, the mLSTM's up-projection; the
-    sLSTM's cells are its heads); ``cfg`` itself at size 1.
+    sLSTM's cells are its heads); the head mixers or the vocabulary the
+    axis does not divide are kept whole at their full widths
+    (:func:`_whole_parts`, ``LocalConfig.whole``); ``cfg`` itself at
+    size 1.
 
     Raises:
-        ValueError: a width the model axis does not divide (the message
-            names the dim and the axis).
+        ValueError: as :func:`_whole_parts`.
     """
     m = int(model_size)
     if m == 1:
         return cfg
-    from repro_torch.models.transformer import _split_kind, layer_kinds
-
-    kinds = layer_kinds(cfg)
-    mixers = {_split_kind(k)[0] for k in kinds}
-    if "mamba" in mixers:
-        _divide("mamba d_inner", cfg.mamba.expand * cfg.d_model, m, cfg)
-    if "mlstm" in mixers:
-        _divide("xlstm d_up", int(cfg.xlstm.proj_factor * cfg.d_model), m,
-                cfg)
-    dh = cfg.resolved_head_dim
-    heads = _divide("num_heads", cfg.num_heads, m, cfg)
-    reps = kv_replication(cfg, m)
-    kv = cfg.num_kv_heads // m if reps == 1 else 1
-    ffns = {_split_kind(k)[1] for k in kinds}
-    d_ff = _divide("d_ff", cfg.d_ff, m, cfg) if "mlp" in ffns else cfg.d_ff
+    whole = _whole_parts(cfg, m)
+    _, ffns = _parts(cfg)
+    heads, kv = cfg.num_heads, cfg.num_kv_heads
+    if not set(_HEAD_MIXERS) & set(whole):
+        heads //= m
+        # a replicated kv head: one a rank (kv_replication); neither way
+        # only without attention, where nothing reads it
+        kv = kv // m if kv % m == 0 else (1 if m % kv == 0 else kv)
+    d_ff = cfg.d_ff // m if "mlp" in ffns else cfg.d_ff
     moe = cfg.moe
     if moe is not None and "moe" in ffns:
-        moe = dataclasses.replace(moe, d_ff_expert=_divide(
-            "moe.d_ff_expert", moe.d_ff_expert, m, cfg))
+        moe = dataclasses.replace(moe, d_ff_expert=moe.d_ff_expert // m)
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
     fields.update(
-        num_heads=heads, num_kv_heads=kv, head_dim=dh, d_ff=d_ff,
-        vocab_size=_divide("vocab_size", cfg.vocab_size, m, cfg), moe=moe)
-    return LocalConfig(**fields, model_shards=m).validate()
+        num_heads=heads, num_kv_heads=kv, head_dim=cfg.resolved_head_dim,
+        d_ff=d_ff, moe=moe, vocab_size=cfg.vocab_size if "vocab" in whole
+        else cfg.vocab_size // m)
+    return LocalConfig(**fields, model_shards=m, whole=whole).validate()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,18 +468,16 @@ def _groups(path) -> int:
 
 def param_cuts(params, mesh, cfg):
     """A tree matching ``params`` (FULL widths): a :class:`Cut` for each
-    leaf split over ``"model"``, None for each replicated one.
-
-    Raises:
-        ValueError: as :func:`local_config`.
-    """
+    leaf split over ``"model"``, None for each replicated one (every leaf
+    of a part :func:`local_config` keeps whole among them)."""
     m = model_size_of(mesh)
-    local_config(cfg, m)                  # validates every width
+    whole = _whole_parts(cfg, m)
     specs = params_partition_specs(params, mesh)
-    reps = kv_replication(cfg, m) if m > 1 else 1
+    reps = kv_replication(cfg, m) if m > 1 and "attn" in _parts(cfg)[0] \
+        and "attn" not in whole else 1
 
     def one(path, p):
-        if m == 1:
+        if m == 1 or _in_whole_part(path, whole):
             return None
         name = path[-1]
         if "moe" in path and name in _MOE_FF_DIM and p.ndim == 3:
@@ -384,6 +494,15 @@ def param_cuts(params, mesh, cfg):
         return None
 
     return tree_map_with_path(one, params)
+
+
+def _in_whole_part(path, whole) -> bool:
+    """Whether the params leaf at ``path`` belongs to a part in ``whole``
+    (a layer's mixer; the token embedding and unembedding for
+    ``"vocab"``)."""
+    if path[0] == "layers":
+        return len(path) > 2 and path[2] in whole
+    return path[0] == "embed" and "vocab" in whole
 
 
 def _slice(p: torch.Tensor, cut: Optional[Cut], m: int, rank: int):
@@ -600,17 +719,22 @@ def cache_cuts(cache, mesh, cfg):
     head; exact attention's ``k`` / ``v`` by kv head, one a rank where the
     kv heads are replicated), None where it stays whole.
 
-    Raises:
-        ValueError: as :func:`local_config`.
+    A part :func:`local_config` keeps whole keeps its cache whole.
     """
     m = model_size_of(mesh)
-    local_config(cfg, m)
     if m == 1:
         return tree_map_with_path(lambda *_: None, cache)
+    from repro_torch.models.transformer import _split_kind, layer_kinds
+
+    whole = _whole_parts(cfg, m)
+    mixers = [_split_kind(k)[0] for k in layer_kinds(cfg)]
     specs = cache_partition_specs(cache, mesh)
-    reps = kv_replication(cfg, m)
+    reps = kv_replication(cfg, m) if "attn" in mixers \
+        and "attn" not in whole else 1
 
     def one(path, p):
+        if mixers[path[1]] in whole:
+            return None
         if path[-1] in ("k", "v") and reps > 1:
             return Cut(2, reps)
         for dim, entry in enumerate(tree_get(specs, path)):
@@ -785,8 +909,11 @@ def sequence_sharding(seq_len: int) -> Iterator[bool]:
 
 
 def _seq_view() -> Optional[LocalView]:
-    view = model_view()
-    return view if view is not None and view.seq else None
+    """The active view inside :func:`sequence_sharding` (inside a
+    :func:`whole_part` too), else None."""
+    view = active()
+    return view if view is not None and view.model_size > 1 and view.seq \
+        else None
 
 
 def scatter_sequence(x: torch.Tensor) -> torch.Tensor:
@@ -823,24 +950,27 @@ def sequence_params(tree):
 
 def enter_block(x: torch.Tensor) -> torch.Tensor:
     """A block's input ``[B, T, d]`` entering its per-rank products: the
-    sequence all-gathered (reduce-scatter backward) inside
-    :func:`sequence_sharding`, else :func:`copy_to_model`."""
+    sequence all-gathered (reduce-scatter backward; in a
+    :func:`whole_part`, this rank's slice of the gradient, unsummed)
+    inside :func:`sequence_sharding`, else :func:`copy_to_model`."""
     view = _seq_view()
     if view is None:
         return copy_to_model(x)
-    return _GatherDim.apply(x, view.model_group, view.model_rank, 1, True)
+    return _GatherDim.apply(x, view.model_group, view.model_rank, 1,
+                            not view.whole)
 
 
 def exit_block(y: torch.Tensor, *, partial: bool = True) -> torch.Tensor:
     """A block's output ``[B, T, d]``, each rank's part where ``partial``
-    (replicated otherwise): reduce-scattered over the sequence
-    (all-gather backward) inside :func:`sequence_sharding`, else
-    :func:`reduce_from_model` (``y`` itself where not ``partial``)."""
+    (replicated otherwise, as in a :func:`whole_part`): reduce-scattered
+    over the sequence (all-gather backward) inside
+    :func:`sequence_sharding`, sliced where replicated, else
+    :func:`reduce_from_model` (``y`` itself where replicated)."""
     view = _seq_view()
     if view is None:
         return reduce_from_model(y) if partial else y
     return _ScatterDim.apply(y, view.model_group, view.model_rank, 1,
-                             partial)
+                             partial and not view.whole)
 
 
 def mean_over_batch(x: torch.Tensor) -> torch.Tensor:
@@ -950,11 +1080,12 @@ def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor):
     return lse, picked
 
 
-def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+def gather_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     """The full-vocabulary logits from every model rank's columns (one
     all-gather over ``"model"``, no gradient); ``logits`` itself outside a
-    view or on a model axis of 1."""
+    view, on a model axis of 1 or where ``cfg`` (the local config the
+    logits came from) keeps the vocabulary whole."""
     view = model_view()
-    if view is None:
+    if view is None or is_whole(cfg, "vocab"):
         return logits
     return torch.cat(all_gather(logits.detach(), view.model_group), dim=-1)

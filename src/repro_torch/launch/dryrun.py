@@ -147,8 +147,9 @@ UNSUPPORTED_RULES = {
                "sequence sharding is over 'model' only)",
     "kv_heads": "kv heads replicated over 'model' (the port cuts them, "
                 "tensor_parallel.local_config)",
-    "vocab": "the vocabulary replicated over 'model' (the port cuts it, "
-             "tensor_parallel.local_config)",
+    "vocab": "the vocabulary replicated over 'model' where the axis "
+             "divides it (the port cuts it then, tensor_parallel."
+             "local_config)",
 }
 
 
@@ -274,10 +275,6 @@ def _local_rows(batch, mesh) -> tuple:
     return out, split
 
 
-def _is_moe(cfg) -> bool:
-    return any("moe" in b for b in cfg.block_pattern)
-
-
 def _collectives() -> Dict[str, Dict[str, float]]:
     return {"all-reduce": {"bytes": coll.all_reduce.nbytes,
                            "count": coll.all_reduce.calls},
@@ -335,10 +332,10 @@ def _step(cfg, spec: ShapeSpec, mesh, hyper: TrainHyper):
 
         return run, {"params": local, "batch": batch}
     # decode: one token a slot; the slots split over the batch axes where
-    # they divide them, but a MoE keeps every slot on every rank (as the
-    # serving executor)
+    # they divide them, a MoE routing the gathered lanes (as the serving
+    # executor)
     parts = math.prod(sizes.get(a, 1) for a in tp.BATCH_AXES)
-    split = parts > 1 and b % parts == 0 and not _is_moe(cfg)
+    split = parts > 1 and b % parts == 0
     rows = b // parts if split else b
     cache = init_decode_cache(lcfg, rows, t, "meta")
     tokens = torch.empty((rows, 1), dtype=torch.int32, device="meta")
@@ -346,7 +343,8 @@ def _step(cfg, spec: ShapeSpec, mesh, hyper: TrainHyper):
 
     def run():
         with torch.inference_mode(), \
-                tp.local_view(mesh, batch_sharded=split), \
+                tp.local_view(mesh, batch_sharded=split,
+                              gather_batch=split), \
                 fsdp.training(plan):
             params = cast_params_to_compute(local, lcfg)
             return decode_step(params, lcfg, cache, tokens, positions)
@@ -366,8 +364,7 @@ def measure(cfg, spec: ShapeSpec, mesh, mesh_name: str, *,
     Raises:
         NotImplementedError: ``rules`` override a logical axis the port
             does not read (:data:`UNSUPPORTED_RULES`).
-        ValueError: a width the model axis does not divide, and whatever
-            the step raises.
+        ValueError: whatever the step raises.
     """
     _check_rules(rules)
     hyper = hyper or TrainHyper()

@@ -33,6 +33,9 @@ hybrid (its FULL config, 51.6 B parameters, does not fit one card: serve
 ``--smoke`` there, or cut its depth in a config of your own) and ``--arch
 xlstm-350m`` the attention-free xLSTM; ``--attention-mode`` defaults to rm
 where the arch attends and to the config's own mode where it does not.
+``--scheduler bucketed`` serves through the deprecated batch-synchronous
+``serve.ServingEngine`` in place of the continuous-batching Scheduler
+(default ``continuous``).
 ``--data-parallel`` serves over ``launch.mesh.make_host_mesh()``, every
 rank of the default process group (``launch.mesh.init_distributed``: under
 ``torchrun`` one process a rank, else a world of one), slots split over
@@ -49,7 +52,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,7 +69,7 @@ from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.budget import add_budget_args, apply_budget_selection
 from repro_torch.launch.obs_flags import add_obs_args, close_obs, make_obs
 from repro_torch.models.transformer import init_model
-from repro_torch.serve import Request, Scheduler
+from repro_torch.serve import Request, Scheduler, ServingEngine
 
 __all__ = ["make_engine", "parse_tiers", "main"]
 
@@ -86,8 +89,13 @@ def make_engine(
     accuracy_tiers: Optional[Dict[str, int]] = None,
     param_dtype: Optional[str] = None,
     mesh=None,
-) -> Scheduler:
-    """Config -> random weights from ``seed`` -> a :class:`Scheduler`.
+    scheduler: str = "continuous",
+    buckets: Optional[Sequence[int]] = None,
+) -> Union[Scheduler, ServingEngine]:
+    """Config -> random weights from ``seed`` -> a :class:`Scheduler`
+    (``scheduler="continuous"``) or the deprecated
+    :class:`ServingEngine` (``"bucketed"``), with the prefill bucket
+    ladder ``buckets`` (default ``serve.DEFAULT_BUCKETS``).
 
     ``estimator`` (a registry name) is forwarded to ``get_config``, which
     validates it; ``cfg`` instead serves a config resolved already (the
@@ -100,7 +108,20 @@ def make_engine(
     it: every rank draws its shards of the same weights, each weight cut as
     it is drawn, over ``"data"`` too where ``distributed.fsdp.enabled``
     (``distributed.tensor_parallel.init_local_params``).
+
+    Raises:
+        ValueError: an encoder config; an unknown ``scheduler``;
+            ``accuracy_tiers`` with the bucketed engine (it has no
+            per-request admission surface). Both before any weight is
+            drawn.
     """
+    if scheduler not in ("continuous", "bucketed"):
+        raise ValueError(f"unknown scheduler {scheduler!r}: expected "
+                         "'continuous' or 'bucketed'")
+    if scheduler == "bucketed" and accuracy_tiers is not None:
+        raise ValueError("accuracy tiers need the continuous scheduler; "
+                         "the bucketed engine has no per-request admission "
+                         "surface")
     dev = resolve_device(device)
     if cfg is None:
         cfg = get_config(arch, smoke=smoke, attention_mode=attention_mode,
@@ -116,9 +137,13 @@ def make_engine(
     else:
         params, _ = tp.init_local_params(cfg, seed, mesh, dev,
                                          fsdp_cut=fsdp.enabled(mesh))
+    if scheduler == "bucketed":
+        return ServingEngine(cfg, params, num_slots=num_slots,
+                             max_len=max_len, rng_seed=seed, mesh=mesh,
+                             obs=obs, buckets=buckets, device=dev)
     return Scheduler(cfg, params, num_slots=num_slots, max_len=max_len,
-                     rng_seed=seed, obs=obs, accuracy_tiers=accuracy_tiers,
-                     device=dev, mesh=mesh)
+                     rng_seed=seed, buckets=buckets, obs=obs,
+                     accuracy_tiers=accuracy_tiers, device=dev, mesh=mesh)
 
 
 def parse_tiers(spec: str) -> Dict[str, int]:
@@ -158,6 +183,11 @@ def main(argv=None):
                     help="feature-estimator registry name (rm, "
                          "tensor_sketch, ctr or structured; default: the "
                          "config's)")
+    ap.add_argument("--scheduler", default="continuous",
+                    choices=["continuous", "bucketed"],
+                    help="serving frontend: the continuous-batching "
+                         "Scheduler (default) or the deprecated "
+                         "batch-synchronous bucketed ServingEngine")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -227,7 +257,8 @@ def _serve(args, cfg, tiers, mesh, rank0: bool) -> None:
     engine = make_engine(args.arch, num_slots=args.slots,
                          max_len=args.max_len, seed=args.seed, obs=obs,
                          device=args.device, cfg=cfg, accuracy_tiers=tiers,
-                         param_dtype=args.param_dtype, mesh=mesh)
+                         param_dtype=args.param_dtype, mesh=mesh,
+                         scheduler=args.scheduler)
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
     tier_names = sorted(tiers) if tiers else None
@@ -246,7 +277,8 @@ def _serve(args, cfg, tiers, mesh, rank0: bool) -> None:
     stats = summarize(done)
     print(f"[serve] {stats['requests']} requests, {stats['tokens']} tokens "
           f"in {wall:.3f}s ({stats['tokens'] / wall:.1f} tok/s aggregate) "
-          f"on {engine.device}, {_attention_label(engine)}")
+          f"on {engine.device}, {_attention_label(engine)}"
+          + (", bucketed engine" if args.scheduler == "bucketed" else ""))
     print(f"[serve] ttft p50={stats['ttft_p50_s']:.4f}s "
           f"p99={stats['ttft_p99_s']:.4f}s")
     for rid in sorted(done):

@@ -227,9 +227,10 @@ def init_embedding(cfg: ModelConfig, generator, dtype) -> Params:
 def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
     """The tokens' rows; under a model-parallel view the table is this
-    rank's vocab slice (``tensor_parallel.vocab_parallel_embed``)."""
+    rank's vocab slice (``tensor_parallel.vocab_parallel_embed``) unless
+    the local config keeps the vocabulary whole."""
     table = params["embedding"].to(compute_dtype)
-    if tp.model_view() is not None:
+    if tp.model_view() is not None and not tp.is_whole(cfg, "vocab"):
         return tp.vocab_parallel_embed(table, tokens)
     return table[tokens]
 
@@ -237,10 +238,12 @@ def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def unembed(params: Params, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 (the matmul runs in the activations' dtype); under a
-    model-parallel view, this rank's vocab columns, each softcapped (x
-    this rank's slice of the sequence inside ``tensor_parallel.
+    model-parallel view, this rank's vocab columns (every column where the
+    local config keeps the vocabulary whole), each softcapped (x this
+    rank's slice of the sequence inside ``tensor_parallel.
     sequence_sharding``: it is gathered first)."""
-    x = tp.enter_block(x)
+    with tp.whole_part(cfg, "vocab"):
+        x = tp.enter_block(x)
     if cfg.tie_embeddings:
         logits = x @ params["embedding"].to(x.dtype).T
     else:

@@ -198,9 +198,24 @@ def _moe_tokens(params: Params, cfg: ModelConfig,
     runs on the whole token (replicated over ``"model"``); the tokens and
     the combine weights enter the experts' ff slices through
     ``tensor_parallel.copy_to_model``, and one all-reduce sums the slices'
-    parts. Outside a model-parallel view both are the identity."""
+    parts. Outside a model-parallel view both are the identity.
+    Where the view's ``gather_batch`` is set (the serving executor's decode
+    step on a data axis) the tokens of every batch rank are all-gathered
+    first and routed together, so the capacity counts the whole decode
+    batch, as the reference's single-controller step does; the aux losses
+    are then the whole batch's and this rank's rows are returned."""
     moe = cfg.moe
     core = _moe_core_einsum if moe.dispatch == "einsum" else _moe_core_local
+    view = tp.active()
+    gather = view is not None and view.gather_batch and view.batch_groups
+    if gather:
+        # route the whole batch: every rank's tokens, pod-major as the
+        # batch is split (tensor_parallel.batch_index)
+        rows, index = xf.shape[0], 0
+        for group in view.batch_groups:
+            index = index * group.size() + group.rank()
+        for group in reversed(view.batch_groups):   # data, then pod
+            xf = torch.cat(all_gather(xf, group), dim=0)
     logits, probs, top_vals, top_idx = _route(params, moe, xf)
     xin = tp.copy_to_model(xf)
     y, aux = core(params, cfg, xin,
@@ -208,7 +223,8 @@ def _moe_tokens(params: Params, cfg: ModelConfig,
     if moe.num_shared_experts > 0:
         y = y + _shared_expert_out(params, xin).float()
     y = tp.reduce_from_model(y)
-    view = tp.active()
+    if gather:
+        return y[index * rows:(index + 1) * rows], aux
     if view is not None and view.batch_groups:
         # the reference's pmean over the data axes, in one all-reduce
         e = moe.num_experts

@@ -40,7 +40,10 @@ config of ``local_config`` (a rank's heads, ff, vocabulary and SSM
 channels), called inside ``tensor_parallel.local_view(mesh)``. The blocks
 all-reduce their outputs over ``"model"``, the logits are this rank's
 vocab columns (``tensor_parallel.gather_vocab`` joins them) and
-``loss_fn`` reduces its ``logsumexp`` and target logits over the columns.
+``loss_fn`` reduces its ``logsumexp`` and target logits over the columns;
+a part the local config keeps whole (``LocalConfig.whole``: its widths
+the model axis does not divide) runs whole on every rank inside
+``tensor_parallel.whole_part``, with no reduction.
 ``forward`` and ``prefill`` run inside ``tensor_parallel.
 sequence_sharding``: where the model axis divides T the residual stream
 between blocks is this rank's slice of the sequence (``"act_seq"``), the
@@ -327,14 +330,16 @@ def _mixer(layer: Params) -> Tuple[str, Params]:
 
 
 def _mixer_call(fn, kind: str, *args):
-    """``fn(*args)`` (args: params, cfg, the normed x, then the rest); a
-    :data:`_WHOLE_SEQUENCE` kind takes x's whole sequence and returns its
-    output's slice (``tensor_parallel.gather_sequence`` /
+    """``fn(*args)`` (args: params, cfg, the normed x, then the rest),
+    inside ``tensor_parallel.whole_part`` for a kind the local config
+    keeps whole; a :data:`_WHOLE_SEQUENCE` kind takes x's whole sequence
+    and returns its output's slice (``tensor_parallel.gather_sequence`` /
     ``scatter_sequence``: the identity outside ``"act_seq"``)."""
-    if kind not in _WHOLE_SEQUENCE:
-        return fn(*args)
     params, cfg, h, *rest = args
-    out = fn(params, cfg, tp.gather_sequence(h), *rest)
+    with tp.whole_part(cfg, kind):
+        if kind not in _WHOLE_SEQUENCE:
+            return fn(*args)
+        out = fn(params, cfg, tp.gather_sequence(h), *rest)
     if isinstance(out, tuple):
         return (tp.scatter_sequence(out[0]), *out[1:])
     return tp.scatter_sequence(out)
@@ -460,7 +465,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     logits, aux = forward(params, cfg, batch)
     targets = batch["targets"]
     logits = logits[:, -targets.shape[1]:, :].float()
-    if tp.model_view() is not None:
+    if tp.model_view() is not None and not tp.is_whole(cfg, "vocab"):
         # this rank's vocab columns: the lse and the target logit reduce
         # over "model"
         lse, picked = tp.vocab_parallel_ce(logits, targets)
@@ -588,8 +593,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
         with _compute_part(plan, cfg, path, layer) as layer:
             kind, mp = _mixer(layer)
             h = apply_norm(layer["norm1"], cfg, x)
-            y, new_cache = _MIXER_DECODE[kind](mp, cfg, h, layer_cache,
-                                               positions)
+            with tp.whole_part(cfg, kind):
+                y, new_cache = _MIXER_DECODE[kind](mp, cfg, h, layer_cache,
+                                                   positions)
             x, _ = _ffn_residual(layer, cfg, x + y)
         new_caches.append(new_cache)
     with _compute_part(plan, cfg, *final_norm) as final_norm:

@@ -92,7 +92,7 @@ def init_mlstm(cfg: ModelConfig, generator: torch.Generator,
 def _d_up(cfg: ModelConfig) -> int:
     """The up-projection's channels a rank holds (all outside a model
     axis)."""
-    return int(cfg.xlstm.proj_factor * cfg.d_model) // tp.shards_of(cfg)
+    return int(cfg.xlstm.proj_factor * cfg.d_model) // tp.shards_of(cfg, "mlstm")
 
 
 def _mlstm_qkv_gates(params: Params, cfg: ModelConfig, xu: torch.Tensor,
@@ -347,7 +347,7 @@ def _slstm_scan(params: Params, cfg: ModelConfig, x: torch.Tensor, state):
 
 def _slstm_state0(cfg: ModelConfig, batch: int, device):
     h = cfg.num_heads
-    shape = (batch, h, cfg.d_model // tp.shards_of(cfg) // h)
+    shape = (batch, h, cfg.d_model // tp.shards_of(cfg, "slstm") // h)
     zeros = torch.zeros(shape, dtype=torch.float32, device=device)
     return (zeros, zeros, zeros,
             torch.full(shape, SENTINEL, dtype=torch.float32, device=device))

@@ -1,4 +1,4 @@
-from repro_torch.serve.engine import Request, RequestState
+from repro_torch.serve.engine import Request, RequestState, ServingEngine
 from repro_torch.serve.executor import (
     DEFAULT_BUCKETS,
     StepExecutor,
@@ -12,6 +12,7 @@ __all__ = [
     "Request",
     "RequestState",
     "Scheduler",
+    "ServingEngine",
     "StepExecutor",
     "StepInfo",
     "effective_buckets",

@@ -29,9 +29,12 @@ just before the block (``distributed.fsdp.training`` with its serving
 plan), forward only; a data rank that does not own an admission's slot
 joins its prefill's gathers without computing. A prefill whose length the model axis divides
 runs with the residual stream cut by sequence (``"act_seq"``). A MoE
-config keeps every slot on every rank: its routing counts capacity over
-the whole decode batch, as the reference's single-controller step does,
-so splitting the lanes would change its drops. A request's prefill runs on
+config splits its slots like a dense one, but its MoE layers route the
+whole decode batch: ``models.moe`` all-gathers their tokens over the
+batch axes, routes and counts capacity over every lane, as the
+reference's single-controller step does, and keeps this rank's rows
+(``LocalView.gather_batch``), so the tokens are ``mesh=None``'s and a
+rank's cache is its slots' share. A request's prefill runs on
 the ranks that own its slot, and its first logits row is broadcast from
 them. After each decode
 step the local logits are gathered over the batch axes and their vocab
@@ -58,7 +61,6 @@ from repro_torch.models.transformer import (
     decode_step,
     init_decode_cache,
     join_serving_gathers,
-    layer_kinds,
     meta_params,
     prefill,
 )
@@ -119,8 +121,7 @@ class StepExecutor:
         ValueError: an encoder config, an unknown attention mode,
             ``feature_generations`` below 1, not dividing the RM budget,
             or above 1 outside rm mode; a mesh axis other than ``pod``,
-            ``data`` and ``model``, or a width its model axis does not
-            divide.
+            ``data`` and ``model``.
         RuntimeError: a mesh without a process group behind it.
     """
 
@@ -205,12 +206,8 @@ class StepExecutor:
         self.model_cfg = tp.local_config(self.cfg, tp.model_size_of(mesh))
         self._index, parts = tp.batch_index(mesh)
         # cache_partition_specs' rule: slots over the batch axes where
-        # they divide num_slots; a MoE routes every slot together (its
-        # capacity counts the whole decode batch, as the reference's
-        # single-controller step does), so every rank decodes every lane
-        moe = any(_split_kind(k)[1] == "moe" for k in layer_kinds(self.cfg))
-        self._split = (parts > 1 and self.num_slots % parts == 0
-                       and not moe)
+        # they divide num_slots (a MoE gathers the lanes to route them)
+        self._split = parts > 1 and self.num_slots % parts == 0
         if self._split:
             self.local_slots = self.num_slots // parts
 
@@ -242,12 +239,13 @@ class StepExecutor:
 
     @contextlib.contextmanager
     def _view(self, batch_sharded: bool = False):
-        """The mesh's local view and the serving plan (nothing without a
-        mesh)."""
+        """The mesh's local view (the MoE routing the whole batch where it
+        is split) and the serving plan (nothing without a mesh)."""
         if self.mesh is None:
             yield None
             return
-        with tp.local_view(self.mesh, batch_sharded=batch_sharded) as view, \
+        with tp.local_view(self.mesh, batch_sharded=batch_sharded,
+                           gather_batch=batch_sharded) as view, \
                 fsdp.training(self._plan):
             yield view
 
@@ -331,7 +329,7 @@ class StepExecutor:
             logits, cache1, tb = self.prefill(prompt)
             self.splice(slot % self.local_slots, cache1)
             with self._view():
-                row = tp.gather_vocab(logits[:, t - 1])
+                row = tp.gather_vocab(logits[:, t - 1], self.model_cfg)
         else:
             tb = self.bucket_for(t)
             with self._view():
@@ -379,7 +377,7 @@ class StepExecutor:
                 self.compute_params, self.model_cfg, self.cache,
                 tokens[lanes].to(self.device),
                 positions[lanes].to(self.device))
-            logits = tp.gather_vocab(logits)
+            logits = tp.gather_vocab(logits, self.model_cfg)
             for group in reversed(view.batch_groups):   # data, then pod
                 logits = torch.cat(all_gather(logits, group), dim=0)
         return logits

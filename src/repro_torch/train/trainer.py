@@ -62,8 +62,7 @@ def _mesh_sizes(mesh, cfg: ModelConfig) -> Dict[str, int]:
     """The mesh's axis sizes, checked for training ``cfg`` on it.
 
     Raises:
-        ValueError: an axis other than ``pod``, ``data`` and ``model``, or
-            a width the model axis does not divide.
+        ValueError: an axis other than ``pod``, ``data`` and ``model``.
     """
     from repro_torch.distributed.sharding import mesh_axes
 
@@ -92,9 +91,8 @@ class Trainer:
     ):
         """Raises:
             ValueError: a mesh axis other than ``pod``, ``data`` and
-                ``model``; a width the model axis does not divide;
-                ``device`` is not the mesh's device type; ``int8_pod``
-                without a ``"pod"`` axis.
+                ``model``; ``device`` is not the mesh's device type;
+                ``int8_pod`` without a ``"pod"`` axis.
             RuntimeError: ``device`` is CUDA (the default) and there is
                 none.
         """

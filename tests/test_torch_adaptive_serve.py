@@ -16,6 +16,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.core import ExponentialDotProductKernel as JExp
 from repro.core import make_growable_feature_map as jax_growable

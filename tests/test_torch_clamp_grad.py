@@ -42,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.configs import get_config as jax_get_config
 from repro.kernels.rm_attention import ops as jops

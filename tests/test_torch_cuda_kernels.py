@@ -7,6 +7,7 @@ the machine with the card:
 """
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro_torch.configs import get_config
 from repro_torch.core.plan import init_omegas, pack_omegas, plan_columns

@@ -29,6 +29,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 FAMILIES = ["rm", "tensor_sketch", "ctr", "structured"]
 D_IN, D_FEAT, SHARDS = 12, 1024, 8

@@ -11,8 +11,10 @@ writes them out for the port, then serves 8 greedy requests on no mesh,
 slots (which data 2 does not divide: every rank holds every slot). It does
 the same for deepseek SMOKE rm (MLA and a MoE) on (2, 1) and (2, 2): the
 reference's single-controller step routes every slot together, so its MoE
-counts capacity over the whole decode batch, and the port keeps every
-slot on every rank for a MoE. The port serves the same requests from the
+counts capacity over the whole decode batch; the port splits a MoE's
+slots over "data" like a dense model's, and its MoE layers all-gather the
+decode tokens to route them together, so a rank's decode cache is half
+the cache of every slot. The port serves the same requests from the
 same weights (each rank's shards, ``tensor_parallel.shard_params``; on a
 data axis above 1 they are cut over "data" too, ``fsdp_cut=True``, as the
 reference's specs place them, and qwen3's cases also run with them whole,
@@ -34,6 +36,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 SPAWN_TIMEOUT = 150
 ORACLE_TIMEOUT = 240
@@ -121,7 +124,8 @@ def _config(name):
 def _serve(handed, name, mesh, slots, rules=None):
     """Every request of ``name`` through a port Scheduler (on a mesh, each
     rank's shards of the handed weights; built under ``rules``) ->
-    ({request id: tokens}, the bytes of the executor's weights)."""
+    ({request id: tokens}, the bytes of the executor's weights, the
+    executor)."""
     import contextlib
 
     from repro_torch.convert import params_from_jax
@@ -145,7 +149,17 @@ def _serve(handed, name, mesh, slots, rules=None):
         sched.submit(Request(request_id=i, prompt=p, max_new_tokens=MAX_NEW))
     done = sched.run()
     return ({r: [int(t) for t in done[r].generated] for r in sorted(done)},
-            _weight_bytes(sched.executor.params))
+            _weight_bytes(sched.executor.params), sched.executor)
+
+
+def _cache_bytes(executor):
+    """A rank's decode-cache bytes, and those of the cache of every slot
+    at the rank's model widths."""
+    from repro_torch.models.transformer import init_decode_cache
+
+    whole = init_decode_cache(executor.model_cfg, executor.num_slots,
+                              executor.max_len, "cpu")
+    return _weight_bytes(executor.cache), _weight_bytes(whole)
 
 
 def _weight_bytes(params):
@@ -256,13 +270,14 @@ def _worker(rank, world, store, out):
             label = f"{name}/{shape[0]}x{shape[1]}/{slots}"
             mesh = make_mesh(shape, ("data", "model"))
             calls = collectives.broadcast.calls
-            got[label], got[label + "/bytes"] = _serve(handed, name, mesh,
-                                                       slots)
+            got[label], got[label + "/bytes"], executor = _serve(
+                handed, name, mesh, slots)
             got[label + "/broadcasts"] = collectives.broadcast.calls - calls
+            got[label + "/cache_bytes"] = _cache_bytes(executor)
             if name == "qwen3" and shape in CUT and slots == 4:
                 calls = collectives.broadcast.calls
-                got[label + "/whole"], got[label + "/whole_bytes"] = _serve(
-                    handed, name, mesh, slots, {"fsdp": None})
+                got[label + "/whole"], got[label + "/whole_bytes"], _ = \
+                    _serve(handed, name, mesh, slots, {"fsdp": None})
                 got[label + "/whole_broadcasts"] = \
                     collectives.broadcast.calls - calls
                 got[label + "/spec_bytes"] = _spec_bytes(name, mesh)
@@ -371,17 +386,19 @@ def test_mesh_tokens_equal_one_device_and_the_reference(runs, name, shape,
     (qwen3's 4 on data 2) broadcast each admission's first logits row from
     its owner, one broadcast an admission, whether the weights are cut
     over "data" (the default "fsdp" rule: the other data ranks join the
-    owner's gathers) or whole (``rules={"fsdp": None}``); 3 slots on data
-    2, and a MoE's slots (deepseek), are replicated (no broadcast)."""
+    owner's gathers) or whole (``rules={"fsdp": None}``); a MoE's slots
+    (deepseek) are split alike, a rank's decode cache half the cache of
+    every slot; 3 slots on data 2 are replicated (no broadcast)."""
     label = f"{name}/{shape[0]}x{shape[1]}/{slots}"
     world = shape[0] * shape[1]
     want = _keyed(runs["ref"][label])
     for r in range(world):
         got = runs["ranks"][(world, r)]
         assert _keyed(got[label]) == runs["single"][name] == want, (label, r)
-        split = (shape[0] > 1 and slots % shape[0] == 0
-                 and name != "deepseek")
+        split = shape[0] > 1 and slots % shape[0] == 0
         assert got[label + "/broadcasts"] == (REQUESTS if split else 0)
+        rank_bytes, all_slots = got[label + "/cache_bytes"]
+        assert rank_bytes * (shape[0] if split else 1) == all_slots
         if label + "/whole" in got:
             assert got[label + "/whole_broadcasts"] == REQUESTS
 

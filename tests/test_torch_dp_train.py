@@ -32,6 +32,7 @@ import time
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 STEPS, BATCH, SEQ = 4, 4, 32
 LOSS_TOL = 1e-4        # relative: a mean of rank means vs one mean
@@ -250,8 +251,10 @@ def test_int8_pod_compression_trains(dp_run):
 def test_model_axis_and_production_mesh_raise(dp_run):
     _, reports, _ = dp_run
     for r in reports:
-        assert r["model_axis"].startswith("ValueError")
-        assert "divide in neither direction" in r["model_axis"]
+        # 6 heads over 3 kv heads on a model axis of 2: the kv heads and
+        # the axis divide in neither direction, so the attention is kept
+        # whole (the reference's dedupe rule) and the Trainer builds
+        assert r["model_axis"] == "no error"
         assert r["production"].startswith("RuntimeError")
         assert "256 ranks" in r["production"]
 

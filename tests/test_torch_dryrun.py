@@ -16,10 +16,16 @@ CPU.
    where the model axis exceeds the kv heads (``attn/wk``, ``attn/wv``:
    Megatron's rule; the reference splits inside a head), and mixtral's
    router, which the reference's stacked spec cuts along the 32-layer
-   stack over ``"model"`` and the port keeps whole a layer. The train
-   state is three times the params and two int32 steps in both. The archs
-   whose heads or vocabulary 16 does not divide raise ``ValueError``
-   (their dry-run cells are recorded as failed).
+   stack over ``"model"`` and the port keeps whole a layer; and the parts
+   16 divides in neither direction, which the port keeps whole where the
+   reference's fused 2-D weight still divides and GSPMD splits inside a
+   head (qwen2-7b's and internvl2-1b's attention, xlstm-350m's mixers;
+   hubert-xlarge's vocabulary of 504 is replicated by both). The train
+   state is three times the params and two int32 steps in both.
+   ``local_config`` names those parts (``LocalConfig.whole``), and one
+   formerly failing cell of each of those archs runs on a small fake mesh
+   where a SMOKE width is made indivisible the same way; a MoE's decode
+   step splits its slots over ``"data"`` (a rank's cache its share).
 3. The counted FLOPs of qwen3 SMOKE (exact attention) equal the step's
    matrix products counted by hand, at 2 FLOPs a multiply-add; beside the
    reference's ``lower_cell`` on a one-device Auto mesh they are within a
@@ -36,6 +42,7 @@ import os
 import jax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.configs import get_config as jget
 from repro.distributed.sharding import logical_rules_context as jrules
@@ -61,14 +68,39 @@ DEPARTURES = {
                      "moe/router": 3932160},
     "deepseek-v2-lite-16b": {},
     "jamba-v0.1-52b": {"attn/wk": 262144, "attn/wv": 262144},
+    # the parts 16 divides in neither direction, kept whole by the port
+    # where GSPMD splits the reference's fused 2-D weight inside a head
+    "qwen2-7b": {"attn/wq": 84295680, "attn/wk": 12042240,
+                 "attn/wv": 12042240, "attn/wo": 84295680,
+                 "attn/bq": 376320, "attn/bk": 53760, "attn/bv": 53760},
+    "internvl2-1b": {"attn/wq": 4515840, "attn/wk": 645120,
+                     "attn/wv": 645120, "attn/wo": 4515840,
+                     "attn/bq": 80640, "attn/bk": 11520, "attn/bv": 11520},
+    "hubert-xlarge": {},
+    "xlstm-350m": {"mlstm/w_up": 17694720, "mlstm/conv_w": 552960,
+                   "mlstm/conv_b": 138240, "mlstm/wq": 17694720,
+                   "mlstm/wk": 17694720, "mlstm/wv": 17694720,
+                   "mlstm/w_down": 8847360, "slstm/w_in": 5898240},
 }
-# 16 divides neither way: the port raises (dry-run cells FAILED)
-RAISES = {"qwen2-7b": "num_heads=28", "internvl2-1b": "num_heads=14",
-          "hubert-xlarge": "vocab_size=504", "xlstm-350m": "num_heads=4"}
+# 16 divides neither way (the cells PR 29's dry run recorded as failed):
+# the parts kept whole
+WHOLE16 = {"qwen2-7b": ("attn",), "internvl2-1b": ("attn", "vocab"),
+           "hubert-xlarge": ("vocab",), "xlstm-350m": ("mlstm", "slstm")}
+# one formerly failing cell of each on a small fake mesh: (shape kind,
+# sequence length, mesh, the SMOKE fields made indivisible there the same
+# way); internvl2's prompt holds its 256 patch embeddings
+SMALL_CELLS = {
+    "qwen2-7b": ("train", 32, (2, 2), {"num_heads": 3, "num_kv_heads": 1}),
+    "internvl2-1b": ("prefill", 288, (1, 2), {
+        "num_heads": 3, "num_kv_heads": 1, "vocab_size": 513}),
+    "hubert-xlarge": ("train", 32, (2, 2), {"vocab_size": 65}),
+    "xlstm-350m": ("decode", 32, (1, 8), {}),
+}
 
 
 def test_every_arch_is_listed():
-    assert set(DEPARTURES) | set(RAISES) == set(list_archs())
+    assert set(DEPARTURES) == set(list_archs())
+    assert set(WHOLE16) <= set(DEPARTURES)
 
 
 @pytest.mark.parametrize("arch", TINY)
@@ -147,11 +179,59 @@ def test_rank_bytes_on_16x16_equal_reference_specs(arch, single):
     assert tree_bytes(state) == 3 * sum(mine.values()) + 8
 
 
-@pytest.mark.parametrize("arch", sorted(RAISES))
+@pytest.mark.parametrize("arch", sorted(WHOLE16))
 def test_archs_16_does_not_divide_raise(arch, single):
+    """They no longer raise: the indivisible parts are kept whole at their
+    full widths (their rank bytes are pinned above)."""
     cfg = get_config(arch)
-    with pytest.raises(ValueError, match=RAISES[arch]):
-        tp.shard_params(meta_params(cfg), single, cfg, fsdp_cut=True)
+    lcfg = tp.local_config(cfg, 16)
+    assert lcfg.whole == WHOLE16[arch]
+    if "attn" in lcfg.whole or "mlstm" in lcfg.whole:
+        assert lcfg.num_heads == cfg.num_heads
+    if "vocab" in lcfg.whole:
+        assert lcfg.vocab_size == cfg.vocab_size
+    local = tp.shard_params(meta_params(cfg), single, cfg, fsdp_cut=True)
+    assert tp.param_cuts(meta_params(cfg), single, cfg) is not None
+    assert flatten_dict(local)
+
+
+@pytest.mark.parametrize("arch", sorted(SMALL_CELLS))
+def test_formerly_failing_cell_on_a_small_fake_mesh(arch):
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_mesh
+
+    kind, seq, shape, fields = SMALL_CELLS[arch]
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **fields)
+    lcfg = tp.local_config(cfg, shape[1])
+    assert lcfg.whole == WHOLE16[arch]
+    with dr.dry_world(shape[0] * shape[1]):
+        mesh = make_mesh(shape, ("data", "model"))
+        rec = dr.measure(cfg, ShapeSpec("tiny", seq, 8, kind), mesh, "tiny")
+    assert rec["per_device_flops"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    assert not torch.distributed.is_initialized()
+
+
+def test_moe_decode_cache_split_over_data():
+    """deepseek SMOKE rm's decode step on (2, 1) holds half the slots of
+    one rank's: its cache is half the bytes (PR 29's run kept every slot on
+    every rank for a MoE), and the MoE gathers the lanes (all-gathers)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True,
+                     attention_mode="rm")
+    spec = ShapeSpec("tiny", 32, 8, "decode")
+    caches = {}
+    for shape in ((1, 1), (2, 1)):
+        with dr.dry_world(shape[0]):
+            rec = dr.measure(cfg, spec, make_mesh(shape, ("data", "model")),
+                             "tiny")
+        caches[shape] = rec["memory_analysis"]["argument_parts"]["cache"]
+        if shape == (2, 1):
+            assert rec["collectives"]["all-gather"]["count"] > 0
+    assert caches[(2, 1)] * 2 == caches[(1, 1)]
 
 
 @pytest.fixture

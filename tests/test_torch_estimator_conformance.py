@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.core import ExponentialDotProductKernel as JExp
 from repro.core import PolynomialKernel as JPoly

@@ -34,6 +34,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import torch_mesh_harness as h
 
@@ -136,8 +137,8 @@ def _seq_collectives(out):
             calls = collectives.all_gather.calls
             tt.apply_norm = spy
             try:
-                logits[label] = tp.gather_vocab(tt.forward(local, lcfg,
-                                                           batch)[0])
+                logits[label] = tp.gather_vocab(
+                    tt.forward(local, lcfg, batch)[0], lcfg)
             finally:
                 tt.apply_norm = norm
             counts[label] = collectives.all_gather.calls - calls

@@ -24,6 +24,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import repro.core as J
 import repro_torch.core as T

@@ -31,6 +31,7 @@ CPU; pytest does not run it):
 """
 import numpy as np
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro_torch.paper import fig2_h01
 from test_torch_paper import (

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.core import plan as jplan
 from repro.core.maclaurin import ExponentialDotProductKernel as JExp

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.kernels.rm_attention import ops as jops
 from repro.kernels.rm_attention import ref as jref

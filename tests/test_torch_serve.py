@@ -8,6 +8,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as jt

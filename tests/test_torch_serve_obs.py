@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.bench.roofline import launch_cost as ref_launch_cost
 from repro.obs import Obs as JObs

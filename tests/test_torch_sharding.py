@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 from jax.sharding import AbstractMesh as JAbstractMesh
 
 from repro.configs import get_config as jget

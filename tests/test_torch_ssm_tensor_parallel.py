@@ -23,6 +23,7 @@ world size):
 """
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import torch_mesh_harness as h
 import torch_ssm_mesh as ssm

@@ -31,8 +31,9 @@ arrays while the reference goes on. Everything is fp32 SMOKE:
    2, and at model 2 into the shards trained;
 6. Mamba and xLSTM take a model axis of 2 (``local_config`` halves their
    heads and inner widths: ``tests/test_torch_ssm_tensor_parallel.py`` and
-   ``test_torch_xlstm_tensor_parallel.py`` hold them); a model axis that
-   divides a width in neither direction raises ``ValueError``.
+   ``test_torch_xlstm_tensor_parallel.py`` hold them); a part whose width
+   the model axis divides in neither direction is kept whole
+   (``tests/test_torch_whole_parts.py`` holds it against the reference).
 
 Each multi-rank run is one spawn (2 ranks, then 4) over a ``FileStore`` in
 ``tmp_path``, with a timeout a spawn.
@@ -49,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 STEPS = 4
 LOSS_TOL = 1e-5        # relative, a step's loss and grad_norm
@@ -327,14 +329,14 @@ def _forward(rank, name, shape, params, batch, out, cfg=None):
     b = {k: v[index * rows:(index + 1) * rows] for k, v in b.items()}
     with tp.local_view(mesh):
         logits, aux = tt.forward(local, lcfg, b)
-        logits = tp.gather_vocab(logits)
+        logits = tp.gather_vocab(logits, lcfg)
     return logits, {k: float(v) for k, v in aux.items()}, index, rows
 
 
 def _worker2(rank, world, store, out):
     """The 2-rank runs: shard round trips and shapes, the (1, 2) training
     runs (qwen3's with a checkpoint), its restores, the forwards, the SSM
-    and indivisible refusals."""
+    and the parts kept whole where a width is indivisible."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
@@ -399,21 +401,16 @@ def _worker2(rank, world, store, out):
     for arch in ("jamba-v0.1-52b", "xlstm-350m"):
         lcfg = tp.local_config(get_config(arch, smoke=True), 2)
         refusals[arch] = [lcfg.num_heads, tp.shards_of(lcfg)]
-        try:
-            tp.local_config(get_config(arch, smoke=True), 8)
-            refusals[f"{arch}/8"] = "no error"
-        except ValueError as e:
-            refusals[f"{arch}/8"] = str(e)
+        lcfg = tp.local_config(get_config(arch, smoke=True), 8)
+        refusals[f"{arch}/8"] = [list(lcfg.whole), lcfg.num_heads]
     import dataclasses
 
     odd = dataclasses.replace(_configs("qwen3_rm"), num_heads=6,
                               num_kv_heads=3)
     for label, m_size in (("heads", 4), ("kv", 2)):
-        try:
-            tp.local_config(odd, m_size)
-            refusals[label] = "no error"
-        except ValueError as e:
-            refusals[label] = str(e)
+        lcfg = tp.local_config(odd, m_size)
+        refusals[label] = [list(lcfg.whole), lcfg.num_heads,
+                           lcfg.num_kv_heads]
     report["refusals"] = refusals
     if rank == 0:
         (out / "report2.json").write_text(json.dumps(report))
@@ -741,14 +738,17 @@ def test_checkpoint_at_model_two_restores_anywhere(runs):
 
 
 # ---------------------------------------------------------------------------
-# 6. refusals
+# 6. parts kept whole
 # ---------------------------------------------------------------------------
 def test_ssm_mixers_and_indivisible_widths_raise(runs):
     ref = runs["report"]["refusals"]
+    """Where the model axis divides a width in neither direction the part
+    is kept whole at its full widths (the reference's dedupe replicates
+    such a dim): 4 heads on 8 ranks (jamba's attention, xlstm's mixers), 6
+    heads on 4, 6 heads over 3 kv heads on 2."""
     for arch in ("jamba-v0.1-52b", "xlstm-350m"):
         assert ref[arch] == [2, 2], arch            # 4 heads, 2 ranks
-        assert "num_heads=4 is not divisible by the mesh's model axis " \
-            "of 8" in ref[f"{arch}/8"], arch
-    assert "num_heads=6 is not divisible" in ref["heads"]
-    assert "model axis of 4" in ref["heads"]
-    assert "divide in neither direction" in ref["kv"]
+    assert ref["jamba-v0.1-52b/8"] == [["attn"], 4]
+    assert ref["xlstm-350m/8"] == [["mlstm", "slstm"], 4]
+    assert ref["heads"] == [["attn"], 6, 3]
+    assert ref["kv"] == [["attn"], 6, 3]

@@ -12,6 +12,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 from repro.configs import get_config as jax_get_config
 from repro.data.synthetic import SyntheticLMDataset as JaxDataset
@@ -336,8 +337,9 @@ def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
     """``Trainer(mesh=make_host_mesh())`` on one gloo rank: every loss and
     the final state bitwise ``mesh=None``'s (the all-reduce of one rank
     and the token weight 1 change nothing). An xLSTM model on a "model"
-    axis its heads do not divide and an unknown axis are refused before
-    any group is touched."""
+    axis its heads do not divide keeps its mixers whole
+    (``tensor_parallel.local_config``, the reference's dedupe rule), and
+    an unknown axis is refused before any group is touched."""
     from repro_torch.distributed.sharding import AbstractMesh
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -355,10 +357,11 @@ def test_trainer_on_a_mesh_of_one_equals_one_device(tmp_path):
         [r["loss"] for r in single.metrics_log]
     a, b = flatten_dict(state_a), flatten_dict(state_b)
     assert all(torch.equal(a[k], b[k]) for k in a)
-    with pytest.raises(ValueError, match="num_heads=4 is not divisible"):
-        Trainer(get_config("xlstm-350m", smoke=True), TrainHyper(),
-                None, device=CPU,
-                mesh=AbstractMesh((1, 8), ("data", "model")))
+    from repro_torch.distributed import tensor_parallel as tp
+
+    lcfg = tp.local_config(get_config("xlstm-350m", smoke=True), 8)
+    assert lcfg.whole == ("mlstm", "slstm") and lcfg.num_heads == 4
+    assert tp.shards_of(lcfg, "mlstm") == tp.shards_of(lcfg, "slstm") == 1
     with pytest.raises(ValueError, match="axes"):
         Trainer(CFG, TrainHyper(), None, device=CPU,
                 mesh=AbstractMesh((2,), ("fsdp",)))

@@ -22,10 +22,12 @@ size):
    within 1e-5 relative 2-norm of the port's ``mesh=None`` run;
 4. greedy tokens through ``Scheduler(mesh=)`` on (1, 2) and (1, 4)
    identical to ``mesh=None``'s and to the reference's ``Scheduler``'s;
-5. a model axis the heads do not divide raises ``ValueError``.
+5. a model axis the heads do not divide keeps both mixers whole (the
+   reference's dedupe replicates such a dim); the vocabulary stays cut.
 """
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 import torch_mesh_harness as h
 import torch_ssm_mesh as ssm
@@ -127,6 +129,9 @@ def test_greedy_tokens_match(runs, shape):
 def test_a_model_axis_the_heads_do_not_divide_raises():
     from repro_torch.distributed import tensor_parallel as tp
 
-    with pytest.raises(ValueError, match="num_heads=4 is not divisible by "
-                       "the mesh's model axis of 8"):
-        tp.local_config(ssm.config("xlstm"), 8)
+    cfg = ssm.config("xlstm")
+    lcfg = tp.local_config(cfg, 8)
+    assert lcfg.whole == ("mlstm", "slstm")
+    assert lcfg.num_heads == cfg.num_heads == 4
+    assert tp.shards_of(lcfg, "mlstm") == tp.shards_of(lcfg, "slstm") == 1
+    assert lcfg.vocab_size == cfg.vocab_size // 8
