@@ -404,6 +404,29 @@ Phases, each fatal on failure:
     memory beside the weights' bytes, TTFT and tokens/s cold and warm, and
     one profiler window of a decode step and one of the bucket-256
     prefill (wall, busy, idle, kernels, largest consumers).
+33. the dry run's last three levers as sharding rules the model reads,
+    in one spawn of 2 gloo processes on cuda:0 after the one-device runs:
+    (a) ``kv_seq_shard`` (``{"kv_seq": "model", "kv_heads": None}``) on
+    (data 1, model 2): qwen3 SMOKE exact fp32 greedy tokens bitwise one
+    device's; qwen3-1.7b exact at full width and depth through
+    ``make_engine(mesh=)`` on phase 7's workload in bf16 (tokens, where
+    they part from one device's and the rows' gaps printed: the mesh's
+    bf16 rows part from one device's before the lever acts), held against
+    the control, the same mesh with the cache cut by kv head (the default
+    rules) on the LEVER_CONTROL_REQUESTS longest requests: every row whose
+    inputs agree within one device's own bf16-against-fp32 gap on those
+    requests (the reading, printed beside the 3e-2 bf16 budget); and the
+    split-K in fp32 on the LEVER_FP32_REQUESTS longest requests, whose
+    decode steps read both ranks' slots (tokens bitwise, every row within
+    E2E_TOL); a rank's k at half the sequence with every kv head, its
+    cache bytes beside the head cut's, a decode step's wall and device
+    busy; (b) ``vocab_unsharded``: 3 fp32 steps of qwen3-1.7b rm at
+    TRAIN_DEPTH layers, 4 x 256 tokens on (1, 2), losses within
+    LEVER_LOSS_TOL of the same run with the vocabulary cut, B2 16 a step
+    a rank, both peaks; (c) ``sp_data``: 3 fp32 steps at batch 1 x 256 on
+    (2, 1) at SP_DEPTH layers, losses and ``grad_norm`` within
+    TP_FP32_TOL of one device's, a rank's peak beside one step without
+    the rule.
 
 Before phase 2 the card runs a second of fp32 products, so the first
 timed kernel does not meet idle clocks. It then prints one ``{"kernels":
@@ -442,8 +465,10 @@ data-parallel runs (``tp_*``, ``dp_*``), B2 a rank's training peak and
 layer 15's smallest |rm denominator| (``clamp_min_den_*``); B1 and B2
 their launches a rank in phase 30's jamba serve (``tp_jamba_*``), B1 its
 decode-step wall there, B2 a rank's peak there, its launches a step and a
-rank's peak and train state under FSDP (``fsdp_*``) and a rank's peak
-with ``"act_seq"`` off (``seq_off_*``)) and, as its last
+rank's peak and train state under FSDP (``fsdp_*``), a rank's peak
+with ``"act_seq"`` off (``seq_off_*``) and its launches a step a rank
+under phase 33's levers (``vocab_unsharded_*``, ``sp_data_*``)) and, as
+its last
 line, ``{"ok": true, "device": {...}}``. Without a CUDA device it prints
 no result and exits non-zero. Should the run near its time limit, the rm
 slice's warm repeat (phase 8) is the part to cut first, then the
@@ -453,7 +478,9 @@ exact decode timing, then phase 26's deepseek profiler windows, then phase
 27's jamba and xlstm profiler windows, then phase 30's xlstm tokens, then
 phase 32's profiler windows; no kernel check and no gradient check is cut.
 Already cut for time: phase 24 c's depth (TRAIN_DEPTH), phase 30 b's
-(XLSTM_TP_DEPTH) and phase 31 c's requests (CUT_SERVE_REQUESTS, 2).
+(XLSTM_TP_DEPTH), phase 31 c's requests (CUT_SERVE_REQUESTS, 2) and
+phase 33 a's control and fp32 requests (LEVER_CONTROL_REQUESTS, 4;
+LEVER_FP32_REQUESTS, 2) and phase 33 c's depth (SP_DEPTH, 4).
 """
 import contextlib
 import dataclasses
@@ -4963,6 +4990,422 @@ def full_width_phase(torch, np, kernels, counters, prompts, rm_tokens):
     print(f"[full] phase 32 in {time.perf_counter() - t_phase:.2f}s")
 
 
+# -- phase 33: the dry run's last three levers as rules the model reads --
+KV_RULES = {"kv_seq": "model", "kv_heads": None}     # kv_seq_shard
+VOCAB_RULES = {"vocab": None}                        # vocab_unsharded
+SP_RULES = {"act_seq": ("data",)}                    # sp_data
+LEVER_STEPS = 3          # qwen3-1.7b train steps a run in phase 33 b-c
+LEVER_LOSS_TOL = 2e-7    # relative, fp32: the vocabulary whole against cut
+SP_SEQ = 256             # tokens of sp_data's one row (batch 1)
+SP_DEPTH = 4             # qwen3-1.7b layers in 33 c (cut from TRAIN_DEPTH)
+LEVER_NEW_TOKENS = 8     # greedy tokens a SMOKE request in phase 33 a
+LEVER_MAX_LEN = 256      # 33 a's ring buffer: rank r holds r * 128 + [0, 128)
+# phase 7's longest requests the head-cut control and one device's fp32
+# serve in 33 a (cut from 8, for time), and those of them served in fp32
+# on the mesh: 130 and 200 tokens, so every decode step reads both ranks'
+# slots
+LEVER_CONTROL_REQUESTS = 4
+LEVER_FP32_REQUESTS = 2
+
+
+def lever_train_run(torch, mesh, rules, batch, seq, steps=LEVER_STEPS,
+                    depth=TRAIN_DEPTH):
+    """Phase 33 b-c: qwen3-1.7b rm in fp32 at full width, ``depth`` of its
+    layers, ``steps`` steps of ``batch`` x ``seq`` tokens through the
+    Trainer on ``mesh`` (None: one device) under ``rules`` (None: the
+    defaults) -> losses, grad_norms, B2 launches a step, the peak and the
+    step walls."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed.sharding import logical_rules_context
+    from repro_torch.train.steps import TrainHyper
+    from repro_torch.train.trainer import Trainer
+
+    b2 = _tp_counters()["B2"]
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", attention_mode="rm"),
+                              compute_dtype="float32",
+                              num_layers=depth).validate()
+    data = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                              global_batch=batch, seed=0, device="cuda")
+    hyper = TrainHyper(peak_lr=1e-3, warmup_steps=2, total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = []
+    with (contextlib.nullcontext() if mesh is None or rules is None
+          else logical_rules_context(mesh, rules)):
+        trainer = Trainer(cfg, hyper, data, seed=0, log_every=1, mesh=mesh,
+                          checkpoint_every=10 ** 9, device="cuda")
+        state = trainer.init_or_restore()
+        for step in range(1, steps + 1):
+            b2.launches = 0
+            state = trainer.train(step, state)
+            torch.cuda.synchronize()
+            launches.append(b2.launches)
+    del state
+    return {"losses": [r["loss"] for r in trainer.metrics_log],
+            "grad_norms": [r["grad_norm"] for r in trainer.metrics_log],
+            "step_ms": [r["sec_per_step"] * 1e3 for r in trainer.metrics_log],
+            "b2": launches, "want_b2": train_launches(cfg),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def smoke_exact_serve(torch, prompts, mesh=None):
+    """Phase 33 a: qwen3 SMOKE in exact attention and fp32 drawn from seed
+    0 (a rank's shards on ``mesh``, under KV_RULES) serving ``prompts``
+    greedily -> {request: tokens}."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.distributed.sharding import logical_rules_context
+    from repro_torch.serve import Request, Scheduler
+    from repro_torch.train.steps import init_params
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              compute_dtype="float32")
+    with (contextlib.nullcontext() if mesh is None
+          else logical_rules_context(mesh, KV_RULES)):
+        params = init_params(cfg, 0, "cuda") if mesh is None else \
+            tp.init_local_params(cfg, 0, mesh, "cuda")[0]
+        sched = Scheduler(cfg, params, num_slots=2, max_len=64,
+                          device="cuda", mesh=mesh)
+        for rid, prompt in prompts.items():
+            sched.submit(Request(rid, prompt,
+                                 max_new_tokens=LEVER_NEW_TOKENS))
+        done = sched.run()
+    return {rid: done[rid].generated for rid in prompts}
+
+
+def exact_engine(mesh=None, dtype="bfloat16", rules=KV_RULES):
+    """Phase 33 a: qwen3-1.7b at full width and depth in exact attention
+    (``dtype`` compute, fp32 masters) for phase 7's workload, 4 slots of
+    LEVER_MAX_LEN positions; on ``mesh`` drawn under ``rules`` (None: the
+    default rules, the cache cut by kv head)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import logical_rules_context
+    from repro_torch.launch.serve import make_engine
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b",
+                                         attention_mode="exact"),
+                              compute_dtype=dtype)
+    with (contextlib.nullcontext() if mesh is None or rules is None
+          else logical_rules_context(mesh, rules)):
+        return make_engine("qwen3-1.7b", cfg=cfg, attention_mode="exact",
+                           num_slots=4, max_len=LEVER_MAX_LEN, seed=0,
+                           device="cuda", mesh=mesh)
+
+
+def longest(prompts, n):
+    """The ``n`` requests of ``prompts`` with the longest prompts, in id
+    order (the same arrays)."""
+    keep = sorted(sorted(prompts, key=lambda rid: len(prompts[rid]))[-n:])
+    return {rid: prompts[rid] for rid in keep}
+
+
+def row_gaps(torch, rows, want_rows, tokens, want_tokens, rids):
+    """``{request: [relative gap of row i, ...]}`` of two ``serve_rows``
+    runs over the rows whose inputs agree: row i (the logits token i is
+    sampled from; row 0 the prefill's) up to the row where the two runs'
+    tokens part, that row included."""
+    out = {}
+    for rid in rids:
+        want = want_tokens[rid]
+        last = parting_points({rid: tokens[rid]}, {rid: want}).get(
+            rid, len(want) - 1)
+        out[rid] = [rel_err(torch, rows[(rid, i)], want_rows[(rid, i)])
+                    for i in range(last + 1)]
+    return out
+
+
+def gap_summary(gaps):
+    """``prefill max / decode max over N rows`` of ``row_gaps``' gaps."""
+    pre = [g[0] for g in gaps.values()]
+    dec = [v for g in gaps.values() for v in g[1:]]
+    return (f"prefill {max(pre):.2e}, decode "
+            f"{max(dec) if dec else float('nan'):.2e} at most over "
+            f"{len(pre) + len(dec)} rows")
+
+
+def _levers_worker(rank, world, store, out_dir):
+    """Phase 33, one rank: (a) kv_seq_shard on (data 1, model 2): qwen3
+    SMOKE fp32 tokens; qwen3-1.7b exact bf16 on phase 7's workload
+    [tokens, the rows behind them, cache bytes, a decode step's wall and
+    device time]; the control, the same with the cache cut by kv head
+    (the default rules) on the LEVER_CONTROL_REQUESTS longest requests
+    [tokens, rows]; the split-K in fp32 on the LEVER_FP32_REQUESTS
+    longest [tokens, rows]; (b) vocab_unsharded: LEVER_STEPS fp32 steps on
+    (1, 2) with the vocabulary whole and cut; (c) sp_data: LEVER_STEPS
+    fp32 steps at batch 1 on (2, 1) with the rule, one step without (its
+    peak)."""
+    import torch
+    import torch.distributed as dist
+
+    _tp_join(rank, world, store)
+    try:
+        from repro_torch.distributed import tensor_parallel as tp
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.transformer import init_decode_cache
+
+        out = Path(out_dir)
+        given = torch.load(out / "levers_in.pt", weights_only=False)
+        model = make_mesh((1, world), ("data", "model"), device_type="cuda")
+        data = make_mesh((world, 1), ("data", "model"), device_type="cuda")
+        report = {"smoke": smoke_exact_serve(torch, given["small"], model)}
+        # a. qwen3-1.7b exact bf16, the cache cut by sequence
+        engine = exact_engine(model)
+        torch.cuda.reset_peak_memory_stats()
+        (done, admissions, steps, wall), rows = serve_rows(
+            torch, engine, given["prompts"])
+        ex = engine.executor
+        base = init_decode_cache(tp.local_config(engine.cfg, world),
+                                 ex.local_slots, ex.max_len, "meta")
+        layer = ex.cache["layers"][0]
+        tokens = torch.zeros((ex.num_slots, 1), dtype=torch.long)
+        positions = torch.full((ex.num_slots,), ex.scratch_position,
+                               dtype=torch.long)
+        busy, _, count, _ = device_profile(
+            torch, lambda: ex.decode(tokens, positions))
+        report["exact"] = {
+            "tokens": {rid: s_.generated for rid, s_ in done.items()},
+            "admissions": admissions, "steps": steps, "wall": wall,
+            "cache_bytes": sum(t_.numel() * t_.element_size()
+                               for t_ in tree_leaves(ex.cache)),
+            "base_cache_bytes": sum(t_.numel() * t_.element_size()
+                                    for t_ in tree_leaves(base)),
+            "k_shape": list(layer["k"].shape),
+            "base_k_shape": list(base["layers"][0]["k"].shape),
+            "kv_seq": ex.model_cfg.kv_seq, "kv_group": ex.model_cfg.kv_group,
+            "decode_ms": decode_step_ms(torch, ex, iters=5),
+            "busy_ms": busy,
+            "kernels": count,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del engine, ex, layer, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a. the control: the cache cut by kv head on the same mesh
+        engine = exact_engine(model, rules=None)
+        (done, _, _, _), head = serve_rows(torch, engine, given["control"])
+        report["head"] = {rid: s_.generated for rid, s_ in done.items()}
+        del engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a. the split-K in fp32 on the longest requests
+        engine = exact_engine(model, "float32")
+        (done, _, _, _), rows32 = serve_rows(torch, engine, given["long"])
+        report["exact32"] = {rid: s_.generated for rid, s_ in done.items()}
+        if rank == 0:
+            torch.save({"bf16": rows, "head": head, "fp32": rows32},
+                       out / "exact_rows.pt")
+        del engine, done, rows, head, rows32
+        gc.collect()
+        torch.cuda.empty_cache()
+        # b. the vocabulary whole on every model rank, then cut
+        report["vocab"] = [lever_train_run(torch, model, rules, TRAIN_BATCH,
+                                           TRAIN_SEQ)
+                           for rules in (VOCAB_RULES, None)]
+        # c. batch 1 on "data": the sequence cut over it, then not
+        report["sp"] = [lever_train_run(torch, data, SP_RULES, 1, SP_SEQ,
+                                        depth=SP_DEPTH),
+                        lever_train_run(torch, data, None, 1, SP_SEQ, 1,
+                                        SP_DEPTH)]
+        (out / f"levers{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def levers_phase(torch, np, kernels, prompts):
+    """Phase 33 (see the module docstring): the dry run's kv_seq_shard,
+    vocab_unsharded and sp_data levers run on the card, 2 gloo processes
+    on cuda:0 in one spawn after the one-device runs. Every check is
+    fatal."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(33)
+    small = {rid: rng.integers(0, 512, size=n)
+             for rid, n in enumerate((3, 17, 33, 40))}
+    control = longest(prompts, LEVER_CONTROL_REQUESTS)
+    long = longest(prompts, LEVER_FP32_REQUESTS)
+    half = LEVER_MAX_LEN // TP_RANKS
+    if min(len(p_) for p_ in long.values()) <= half:
+        raise AssertionError(f"33 a: the fp32 requests {list(long)} do not "
+                             f"reach rank 1's slots (from {half})")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        torch.save({"prompts": prompts, "small": small, "control": control,
+                    "long": long}, out / "levers_in.pt")
+        # one device first, each freed before the next and the ranks
+        one_small = smoke_exact_serve(torch, small)
+        engine = exact_engine()
+        (done, _, _, one_wall), one_rows = serve_rows(torch, engine, prompts)
+        one_tokens = {rid: s_.generated for rid, s_ in done.items()}
+        one_decode_ms = decode_step_ms(torch, engine.executor, iters=5)
+        del engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = exact_engine(dtype="float32")
+        (done, _, _, _), one_rows32 = serve_rows(torch, engine, control)
+        one_tokens32 = {rid: s_.generated for rid, s_ in done.items()}
+        del engine, done
+        gc.collect()
+        torch.cuda.empty_cache()
+        one_sp = lever_train_run(torch, None, None, 1, SP_SEQ, depth=SP_DEPTH)
+        t0 = time.perf_counter()
+        spawn_ranks(_levers_worker, TP_RANKS, str(out / "s_levers"), tmp)
+        spawn_s = time.perf_counter() - t0
+        reps = [json.loads((out / f"levers{r}.json").read_text())
+                for r in range(TP_RANKS)]
+        rows = torch.load(out / "exact_rows.pt")
+
+    def keyed(tokens):
+        return {int(k): v for k, v in tokens.items()}
+
+    # a. kv_seq_shard: SMOKE fp32 tokens bitwise
+    smoke = [keyed(rep["smoke"]) for rep in reps]
+    print(f"[levers a] kv_seq_shard (rules {KV_RULES}) on (data 1, model "
+          f"{TP_RANKS}), {TP_RANKS} gloo processes on cuda:0 ({spawn_s:.1f}s "
+          "for all of phase 33's mesh runs with their start-up): qwen3 SMOKE "
+          f"exact fp32, greedy tokens of {len(small)} prompts equal one "
+          f"device's {smoke[0] == one_small} (rank 1 "
+          f"{smoke[1] == one_small})")
+    if not smoke[0] == smoke[1] == one_small:
+        raise AssertionError(f"33 a: SMOKE split-K tokens {smoke} against "
+                             f"one device's {one_small}")
+    # a. qwen3-1.7b exact: bf16 against one device, the control and the
+    # reading of bf16 itself; fp32 against one device
+    ex0 = reps[0]["exact"]
+    tok, head = keyed(ex0["tokens"]), keyed(reps[0]["head"])
+    tok32 = keyed(reps[0]["exact32"])
+    want32 = {rid: one_tokens32[rid] for rid in long}
+    vs_one = row_gaps(torch, rows["bf16"], one_rows, tok, one_tokens,
+                      prompts)
+    head_one = row_gaps(torch, rows["head"], one_rows, head, one_tokens,
+                        control)
+    reading = row_gaps(torch, one_rows, one_rows32, one_tokens,
+                       one_tokens32, control)
+    lever = row_gaps(torch, rows["bf16"], rows["head"], tok, head, control)
+    fp32 = row_gaps(torch, rows["fp32"], one_rows32, tok32, want32, long)
+    limit = max(max(g) for g in reading.values())
+
+    def within(gaps, tol):
+        flat = [v for g in gaps.values() for v in g]
+        return f"{sum(v <= tol for v in flat)} of {len(flat)}"
+
+    print(f"[levers a] qwen3-1.7b exact, bf16 compute, full width and depth, "
+          f"phase 7's workload: {ex0['admissions']} admissions and "
+          f"{ex0['steps']} decode steps in {ex0['wall']:.3f}s (one device "
+          f"{one_wall:.3f}s); tokens equal one device's {tok == one_tokens},"
+          f" part at {parting_points(tok, one_tokens)}; rows against one "
+          f"device's (the rows whose inputs agree): {gap_summary(vs_one)}, "
+          f"{within(vs_one, BF16_LOGITS_TOL)} within {BF16_LOGITS_TOL:.0e}")
+    print(f"[levers a] the control, the cache cut by kv head (the default "
+          f"rules) on the same mesh, phase 7's {LEVER_CONTROL_REQUESTS} "
+          f"longest requests {list(control)}: tokens part from one device's "
+          f"at {parting_points(head, {r: one_tokens[r] for r in control})};"
+          f" rows against one device's: {gap_summary(head_one)}, "
+          f"{within(head_one, BF16_LOGITS_TOL)} within "
+          f"{BF16_LOGITS_TOL:.0e}")
+    print(f"[levers a] one device, bf16 against fp32 compute on those "
+          f"requests (the reading): tokens part at "
+          f"{parting_points({r: one_tokens[r] for r in control}, one_tokens32)}"
+          f"; rows {gap_summary(reading)}, "
+          f"{within(reading, BF16_LOGITS_TOL)} within "
+          f"{BF16_LOGITS_TOL:.0e}; the limit below {limit:.2e}")
+    print(f"[levers a] split-K against the control (bf16, the same mesh and "
+          f"requests): tokens part at {parting_points(tok, head)}; rows "
+          f"{gap_summary(lever)} (limit {limit:.2e}: one device's bf16 "
+          f"against fp32), {within(lever, BF16_LOGITS_TOL)} within "
+          f"{BF16_LOGITS_TOL:.0e}; by request "
+          + ", ".join(f"{rid}: {max(g):.2e}" for rid, g in lever.items()))
+    crossing = sum(len(long[rid]) + i - 1 >= half
+                   for rid in long for i in range(1, len(want32[rid])))
+    print(f"[levers a] the split-K in fp32 compute on phase 7's "
+          f"{LEVER_FP32_REQUESTS} longest requests "
+          + ", ".join(f"{rid} ({len(p_)} tokens)" for rid, p_ in long.items())
+          + f": tokens equal one device's {tok32 == want32} (rank 1 "
+          f"{keyed(reps[1]['exact32']) == want32}), part at "
+          f"{parting_points(tok32, want32)}; rows against one device's "
+          f"{gap_summary(fp32)} (budget {E2E_TOL:.0e}); {crossing} decode "
+          f"steps read rank 1's slots (positions from {half})")
+    for r, rep in enumerate(reps):
+        e = rep["exact"]
+        print(f"[levers a] rank {r}: kv_seq {e['kv_seq']}, kv_group "
+              f"{e['kv_group']}; a layer's k {e['k_shape']} (head-cut "
+              f"baseline {e['base_k_shape']}); cache {e['cache_bytes']} "
+              f"bytes (baseline {e['base_cache_bytes']}, the shapes' bytes);"
+              f" a decode step (4 lanes) {e['decode_ms']:.2f} ms wall "
+              f"(median of 5; one device {one_decode_ms:.2f}), "
+              f"{e['busy_ms']:.3f} ms device busy over {e['kernels']} "
+              f"kernels (one profiled step); peak {e['peak_gib']:.2f} GiB")
+    size = ex0["base_k_shape"][1]
+    finite = all(math.isfinite(v)
+                 for gaps in (vs_one, head_one, reading, lever, fp32)
+                 for g in gaps.values() for v in g)
+    if not (reps[1]["exact"]["tokens"] == ex0["tokens"]
+            and reps[1]["head"] == reps[0]["head"]
+            and all(rep["exact"]["kv_seq"] and rep["exact"]["k_shape"][1]
+                    == size // TP_RANKS for rep in reps)
+            and finite and max(max(g) for g in lever.values()) <= limit
+            and keyed(reps[1]["exact32"]) == tok32 == want32
+            and max(max(g) for g in fp32.values()) <= E2E_TOL):
+        raise AssertionError("33 a: qwen3-1.7b split-K decode failed")
+    # b. vocab_unsharded: the same run with the vocabulary cut
+    whole, cut = reps[0]["vocab"]
+    vgaps = [abs(a - b) / abs(b) for a, b in zip(whole["losses"],
+                                                 cut["losses"])]
+    ngaps = [abs(a - b) / abs(b) for a, b in zip(whole["grad_norms"],
+                                                 cut["grad_norms"])]
+    print(f"[levers b] vocab_unsharded (rules {VOCAB_RULES}): qwen3-1.7b rm "
+          f"fp32, {TRAIN_DEPTH} layers, {LEVER_STEPS} steps of {TRAIN_BATCH}"
+          f" x {TRAIN_SEQ} tokens on (1, {TP_RANKS}): losses "
+          + " ".join(f"{v:.7f}" for v in whole["losses"]) + " against "
+          + " ".join(f"{v:.7f}" for v in cut["losses"]) + " with it cut; "
+          "gaps " + " ".join(f"{v:.2e}" for v in vgaps) + f" (budget "
+          f"{LEVER_LOSS_TOL:.0e}); grad_norm gaps "
+          + " ".join(f"{v:.2e}" for v in ngaps) + "; B2 a step a rank "
+          f"{whole['b2']} (want {whole['want_b2']}); peak a rank "
+          + " / ".join(f"{rep['vocab'][0]['peak_gib']:.2f}" for rep in reps)
+          + f" GiB whole, {cut['peak_gib']:.2f} cut; step walls "
+          + " / ".join(f"{v:.0f}" for v in whole["step_ms"]) + " ms whole, "
+          + " / ".join(f"{v:.0f}" for v in cut["step_ms"]) + " cut")
+    if not (max(vgaps) <= LEVER_LOSS_TOL
+            and reps[1]["vocab"][0]["losses"] == whole["losses"]
+            and all(rep["vocab"][0]["b2"] == [whole["want_b2"]] * LEVER_STEPS
+                    for rep in reps)):
+        raise AssertionError("33 b: vocab_unsharded training failed")
+    # c. sp_data: batch 1 on (2, 1) against one device
+    on, off = reps[0]["sp"]
+    sgaps = [abs(a - b) / abs(b) for a, b in zip(on["losses"],
+                                                 one_sp["losses"])]
+    sngaps = [abs(a - b) / abs(b) for a, b in zip(on["grad_norms"],
+                                                  one_sp["grad_norms"])]
+    print(f"[levers c] sp_data (rules {SP_RULES}): qwen3-1.7b rm fp32, "
+          f"{SP_DEPTH} layers, {LEVER_STEPS} steps of 1 x {SP_SEQ} tokens "
+          f"on (data {TP_RANKS}, model 1): losses "
+          + " ".join(f"{v:.6f}" for v in on["losses"]) + " against one "
+          "device's " + " ".join(f"{v:.6f}" for v in one_sp["losses"])
+          + "; gaps " + " ".join(f"{v:.2e}" for v in sgaps) + "; grad_norm "
+          "gaps " + " ".join(f"{v:.2e}" for v in sngaps)
+          + f" (budget {TP_FP32_TOL:.0e}); peak a rank "
+          + " / ".join(f"{rep['sp'][0]['peak_gib']:.2f}" for rep in reps)
+          + " GiB with the rule, "
+          + " / ".join(f"{rep['sp'][1]['peak_gib']:.2f}" for rep in reps)
+          + f" without (one device {one_sp['peak_gib']:.2f}); step walls "
+          + " / ".join(f"{v:.0f}" for v in on["step_ms"]) + " ms with, "
+          + " / ".join(f"{v:.0f}" for v in off["step_ms"])
+          + " without (one step, for its peak)")
+    if not (max(sgaps + sngaps) <= TP_FP32_TOL
+            and reps[1]["sp"][0]["losses"] == on["losses"]):
+        raise AssertionError("33 c: sp_data training failed")
+    kernels["B2"]["vocab_unsharded_train_launches_per_rank_step"] = \
+        whole["b2"][0]
+    kernels["B2"]["sp_data_train_launches_per_rank_step"] = on["b2"][0]
+    kernels["B2"]["sp_data_train_peak_gib_per_rank"] = max(
+        rep["sp"][0]["peak_gib"] for rep in reps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[levers] phase 33 in {time.perf_counter() - t_phase:.2f}s")
+
+
 def main():
     import torch
 
@@ -6567,6 +7010,11 @@ def main():
 
     # -- 32. the bucketed engine; the SMOKE-only configs at full width -------
     full_width_phase(torch, np, kernels, rm_counters, prompts, rm_tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 33. the levers kv_seq_shard, vocab_unsharded and sp_data ------------
+    levers_phase(torch, np, kernels, prompts)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "tol", "check", "ms", "plain_ms", "bound_ms",

@@ -27,7 +27,7 @@ packed masked-running-product layout the fused attention kernel takes
 (``pack_fused``); the others run attention through the two-launch path
 (featurize, then kernel B5): ``tensor_sketch``, ``ctr`` and
 ``structured``, as in the reference. ``get`` raises on an unknown name,
-naming what exists.
+naming what exists; ``register`` adds a family of its own.
 """
 from __future__ import annotations
 
@@ -38,8 +38,10 @@ import torch
 
 __all__ = [
     "Estimator",
+    "available",
     "get",
     "list_estimators",
+    "register",
     "featurize_chunked",
     "estimate_gram",
 ]
@@ -274,8 +276,11 @@ def _make_structured_entry() -> Estimator:
 # Built on the first ``get`` / ``list_estimators``, not at import: each
 # family's package imports ``repro_torch.core`` (this module with it), so
 # building the entries here would import a family package half-loaded
-# whenever that package is the first one imported.
+# whenever that package is the first one imported. ``register`` writes into
+# ``_REGISTERED`` too, so an entry registered before the first build is laid
+# over the built-ins when they are built.
 _ENTRIES: Dict[str, Estimator] = {}
+_REGISTERED: Dict[str, Estimator] = {}
 
 
 def _entries() -> Dict[str, Estimator]:
@@ -283,11 +288,27 @@ def _entries() -> Dict[str, Estimator]:
         _ENTRIES.update(rm=_make_rm_entry(), tensor_sketch=_make_ts_entry(),
                         ctr=_make_ctr_entry(),
                         structured=_make_structured_entry())
+        _ENTRIES.update(_REGISTERED)
     return _ENTRIES
+
+
+def register(entry: Estimator) -> Estimator:
+    """Add (or replace) the entry under ``entry.name``. Everything that
+    iterates ``list_estimators()`` (the conformance tests, the sharded
+    estimator) picks it up. Returns the entry, so a family can register
+    itself in one line at import."""
+    _REGISTERED[entry.name] = entry
+    if _ENTRIES:
+        _ENTRIES[entry.name] = entry
+    return entry
 
 
 def list_estimators() -> Tuple[str, ...]:
     return tuple(sorted(_entries()))
+
+
+# the reference's older name; ``list_estimators`` is canonical
+available = list_estimators
 
 
 def get(name: str) -> Estimator:

@@ -9,12 +9,15 @@ Two pieces, as in the reference:
    vocabulary over ``"model"``: ``distributed.tensor_parallel``, whose
    collectives stand where GSPMD puts them), so ``constrain`` checks the
    rank of ``x`` against the logical axes and returns ``x`` unchanged.
-   Two rules also switch the local view's layouts, read through
+   Five rules also switch the local view's layouts, read through
    :func:`rule`: ``"act_seq"`` (the residual stream cut by sequence over
-   ``"model"``, ``tensor_parallel.sequence_sharding``) and ``"fsdp"`` (the
-   Trainer's weights cut over ``"data"``, ``distributed.fsdp``); a rules
-   context that maps either to ``None`` switches it off, as the
-   reference's overrides do.
+   ``"model"``, or over ``("data",)`` at batch 1,
+   ``tensor_parallel.sequence_sharding``), ``"fsdp"`` (the weights cut
+   over ``"data"``, ``distributed.fsdp``), ``"vocab"`` and ``"kv_heads"``
+   (``None``: the vocabulary, or every kv head, whole on every model
+   rank) and ``"kv_seq"`` (``"model"``: the decode caches cut by
+   sequence, ``tensor_parallel.cache_cuts``); a rules context that maps
+   one to ``None`` switches it off, as the reference's overrides do.
 
 2. **Parameter specs.** ``params_partition_specs`` maps every parameter
    leaf to a :class:`PartitionSpec` from a name-based rule table (TP over
@@ -54,6 +57,7 @@ __all__ = [
     "set_default_rules",
     "logical_rules_context",
     "rule",
+    "active_rules",
     "spec_for",
     "constrain",
     "params_partition_specs",
@@ -186,6 +190,14 @@ def rule(name: str):
     else ``DEFAULT_RULES``'."""
     ctx = _active()
     return (ctx[1] if ctx is not None else DEFAULT_RULES).get(name)
+
+
+def active_rules() -> Optional[Dict[str, object]]:
+    """The active rules context's rules (what :func:`rule` reads), or None
+    outside one: what the Trainer keeps at its construction to cut its
+    state under."""
+    ctx = _active()
+    return None if ctx is None else dict(ctx[1])
 
 
 def spec_for(logical_axes: Tuple[Optional[str], ...],

@@ -62,9 +62,26 @@ holds plain local tensors and runs the model at its local widths:
   all-gather over the sequence with a reduce-scatter backward and
   :func:`exit_block` a reduce-scatter with an all-gather backward. At
   decode, or where T does not divide, it is replicated, and a rules
-  context with ``{"act_seq": None}`` turns it off. Each reduce-scatter is
+  context with ``{"act_seq": None}`` turns it off (the rule is read when
+  the Trainer or the serving executor is built, :func:`act_seq_axes`, and
+  kept on every view it enters). Each reduce-scatter is
   an all-reduce and this rank's slice, so the numbers are the replicated
-  path's bit for bit.
+  path's bit for bit. The rule ``("data",)`` (the ``sp_data`` lever) cuts
+  the stream over ``"data"`` instead, where the rows are not split over
+  it (batch 1): each data rank then runs every block on the gathered
+  sequence and keeps its slice between blocks.
+* Three more rules, read like it when the local config and the cuts are
+  made (a rules context around the Trainer's or the Scheduler's
+  construction):
+  ``{"vocab": None}`` keeps the vocabulary whole on every model rank;
+  ``{"kv_heads": None}`` keeps every kv head on every rank while the query
+  heads stay cut (``LocalConfig.kv_group``; ``wk`` / ``wv`` are a cut whose
+  ``reps`` is the whole axis, their gradients summed over it); and
+  ``{"kv_seq": "model"}`` cuts the exact and MLA decode caches by sequence
+  (``LocalConfig.kv_seq``, :func:`cache_cuts`): a decode step writes the
+  new key on the rank that owns its slot, all-gathers the queries
+  (:func:`gather_heads`) and combines each rank's partial softmax by
+  log-sum-exp (``models.attention.split_k_combine``).
 * The vocabulary is split over ``"model"`` too: a masked local embedding
   lookup then an all-reduce (:func:`vocab_parallel_embed`), local logit
   columns, and a cross entropy whose ``logsumexp`` reduces the max and then
@@ -130,12 +147,14 @@ __all__ = [
     "shard_state",
     "gather_state",
     "cache_cuts",
+    "kv_seq_view",
     "shard_cache",
     "gather_cache",
     "batch_index",
     "reduce_from_model",
     "copy_to_model",
     "gather_from_model",
+    "gather_heads",
     "sequence_sharding",
     "scatter_sequence",
     "gather_sequence",
@@ -162,22 +181,33 @@ class LocalView:
     when the axis is absent or of size 1); ``batch_groups`` the groups of
     the batch axes (``"pod"``, ``"data"``, each of size above 1) that this
     call's rows are split over, empty where the rows are replicated, and
-    ``batch_size`` the product of their sizes; ``seq`` whether the
-    residual stream is cut by sequence over ``"model"`` (set inside
-    :func:`sequence_sharding`); ``whole`` whether the code runs a part
+    ``batch_size`` the product of their sizes; ``seq_axis`` the mesh axis
+    the residual stream's sequence is cut over (``"model"`` or
+    ``"data"``), with its group and this rank's place in it, set inside
+    :func:`sequence_sharding`; ``whole`` whether the code runs a part
     every model rank holds whole (set inside :func:`whole_part`);
     ``gather_batch`` whether the MoE routes the whole batch, its tokens
     gathered over the batch groups (the serving executor's decode step:
-    the reference's single-controller step routes every slot together)."""
+    the reference's single-controller step routes every slot together);
+    ``data_seq`` whether every data rank runs this call on the same rows,
+    so the sequence may be cut over ``"data"`` (not a prefill only the
+    slot's owner runs); ``act_seq`` the mesh axes the ``"act_seq"`` rule
+    named when the view's owner was built (:func:`act_seq_axes`);
+    ``mesh`` the mesh."""
 
     model_size: int
     model_rank: int
     model_group: Any
     batch_groups: Tuple[Any, ...]
     batch_size: int
-    seq: bool = False
+    seq_axis: Optional[str] = None
+    seq_group: Any = None
+    seq_rank: int = 0
     whole: bool = False
     gather_batch: bool = False
+    data_seq: bool = True
+    act_seq: Tuple[str, ...] = ()
+    mesh: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,10 +217,17 @@ class LocalConfig(ModelConfig):
     widths were divided by, which the SSM mixers divide their inner widths
     by (their sub-configs keep the full model's fields); ``whole`` the
     parts every model rank keeps whole (of ``"attn"``, ``"mlstm"``,
-    ``"slstm"`` and ``"vocab"``), at their full widths."""
+    ``"slstm"`` and ``"vocab"``), at their full widths; ``kv_group``, where
+    the ``"kv_heads"`` rule is None and the query heads are cut, the
+    model's query heads a kv head (every rank then holds all
+    ``num_kv_heads``; 0 elsewhere); ``kv_seq`` whether the exact and MLA
+    decode caches are cut by sequence over ``"model"`` (the ``"kv_seq"``
+    rule), their decode a split-K over the ranks' slots."""
 
     model_shards: int = 1
     whole: Tuple[str, ...] = ()
+    kv_group: int = 0
+    kv_seq: bool = False
 
 
 def is_whole(cfg, part: str) -> bool:
@@ -235,7 +272,7 @@ def local_view_of(mesh, *, batch_sharded: bool = True) -> LocalView:
                    if batch_sharded and sizes.get(a, 1) > 1)
     size = math.prod(sizes.get(a, 1) for a in BATCH_AXES) \
         if batch_sharded else 1
-    return LocalView(m, rank, group, groups, size)
+    return LocalView(m, rank, group, groups, size, mesh=mesh)
 
 
 _local = threading.local()
@@ -284,18 +321,34 @@ def _whole_view() -> Iterator[None]:
         _local.view = prev
 
 
+def act_seq_axes() -> Tuple[str, ...]:
+    """The mesh axes the active rules' ``"act_seq"`` entry names (``()``
+    where it is None): what the Trainer and the serving executor read at
+    their construction and hand to :func:`local_view`, as the other
+    levers' rules are read into the local config there."""
+    entry = rule("act_seq")
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    return tuple(a for a in axes if a is not None)
+
+
 @contextlib.contextmanager
 def local_view(mesh, *, batch_sharded: bool = True,
-               gather_batch: bool = False) -> Iterator[LocalView]:
+               gather_batch: bool = False, data_seq: bool = True,
+               act_seq: Optional[Tuple[str, ...]] = None
+               ) -> Iterator[LocalView]:
     """Run the model code inside on ``mesh``'s local view.
     ``batch_sharded``: whether the rows the code is given are this rank's
     share of a batch split over the batch axes (so the MoE averages its aux
     losses over them), or replicated; ``gather_batch``: the MoE routes the
-    whole batch instead (:class:`LocalView`)."""
+    whole batch instead; ``data_seq``: every data rank runs the call, so
+    ``"act_seq"`` may cut the sequence over ``"data"``; ``act_seq``: the
+    ``"act_seq"`` rule's axes as the caller read them at its construction
+    (None: :func:`act_seq_axes` now) (:class:`LocalView`)."""
     prev = active()
     _local.view = dataclasses.replace(
         local_view_of(mesh, batch_sharded=batch_sharded),
-        gather_batch=gather_batch)
+        gather_batch=gather_batch, data_seq=data_seq,
+        act_seq=act_seq_axes() if act_seq is None else tuple(act_seq))
     try:
         yield _local.view
     finally:
@@ -319,10 +372,10 @@ def restore_view(view: Optional[LocalView]) -> Iterator[Optional[LocalView]]:
 # the local config and the cut of the params
 # ---------------------------------------------------------------------------
 def kv_replication(cfg, model_size: int) -> int:
-    """Ranks that hold one kv head: 1 where the model axis divides
-    ``num_kv_heads``, ``model_size // num_kv_heads`` where the kv heads
-    divide the model axis (each rank keeps the kv head its query heads
-    read).
+    """Ranks that hold one kv head under the ``"kv_heads"`` rule
+    ``"model"``: 1 where the model axis divides ``num_kv_heads``,
+    ``model_size // num_kv_heads`` where the kv heads divide the model
+    axis (each rank keeps the kv head its query heads read).
 
     Raises:
         ValueError: neither divides the other (:func:`local_config` then
@@ -360,8 +413,9 @@ def _whole_parts(cfg, model_size: int) -> Tuple[str, ...]:
     mixers together where the axis does not divide ``num_heads``
     (attention's kv heads, the mLSTM's up-projection likewise: they share
     the one ``num_heads``), the vocabulary where it does not divide
-    ``vocab_size``. The reference's ``_dedupe_spec`` replicates each such
-    dim.
+    ``vocab_size`` or where the ``"vocab"`` rule is None (the
+    ``vocab_unsharded`` lever). The reference's ``_dedupe_spec``
+    replicates each such dim.
 
     Raises:
         ValueError: the axis does not divide MLA's heads, Mamba's
@@ -386,9 +440,43 @@ def _whole_parts(cfg, model_size: int) -> Tuple[str, ...]:
     if "mlstm" in mixers and int(cfg.xlstm.proj_factor * cfg.d_model) % m:
         heads = True
     whole = [k for k in _HEAD_MIXERS if heads and k in mixers]
-    if cfg.vocab_size % m:
+    if cfg.vocab_size % m or rule("vocab") is None:
         whole.append("vocab")
     return tuple(whole)
+
+
+def _kv_whole(cfg, model_size: int, whole) -> bool:
+    """Whether every model rank holds all of a cut attention's kv heads:
+    the ``"kv_heads"`` rule is None (the ``kv_seq_shard`` lever's
+    second half; the query heads stay cut)."""
+    return (model_size > 1 and "attn" in _parts(cfg)[0]
+            and "attn" not in whole and rule("kv_heads") is None)
+
+
+def _kv_seq(cfg, model_size: int, whole) -> bool:
+    """Whether the exact and MLA decode caches are cut by sequence over
+    ``"model"`` (the ``"kv_seq"`` rule).
+
+    Raises:
+        NotImplementedError: ``"kv_seq"`` over another axis, or over
+            ``"model"`` where a cut attention's kv heads are cut too (the
+            split-K decode reads every kv head on every rank: it needs
+            ``"kv_heads"`` None).
+    """
+    entry = rule("kv_seq")
+    if entry is None or model_size == 1:
+        return False
+    if entry != MODEL_AXIS:
+        raise NotImplementedError(
+            f"the 'kv_seq' rule {entry!r}: the port cuts decode caches by "
+            "sequence over 'model' only")
+    if ("attn" in _parts(cfg)[0] and "attn" not in whole
+            and not _kv_whole(cfg, model_size, whole)):
+        raise NotImplementedError(
+            "'kv_seq' over 'model' with the kv heads cut over 'model' too: "
+            "the split-K decode keeps every kv head on every rank (rules "
+            "{'kv_seq': 'model', 'kv_heads': None})")
+    return True
 
 
 def local_config(cfg, model_size: int):
@@ -398,12 +486,17 @@ def local_config(cfg, model_size: int):
     :func:`kv_replication`), and ``model_shards`` set for the SSM mixers'
     inner widths (Mamba's ``d_inner``, the mLSTM's up-projection; the
     sLSTM's cells are its heads); the head mixers or the vocabulary the
-    axis does not divide are kept whole at their full widths
-    (:func:`_whole_parts`, ``LocalConfig.whole``); ``cfg`` itself at
+    axis does not divide (or the rules replicate) are kept whole at their
+    full widths (:func:`_whole_parts`, ``LocalConfig.whole``); all the kv
+    heads under the ``"kv_heads"`` rule None (``kv_group``) and the
+    ``"kv_seq"`` rule's cut (``kv_seq``), both read from the active rules
+    context (``sharding.logical_rules_context``, entered around the
+    construction of the Trainer or the Scheduler); ``cfg`` itself at
     size 1.
 
     Raises:
         ValueError: as :func:`_whole_parts`.
+        NotImplementedError: as :func:`_kv_seq`.
     """
     m = int(model_size)
     if m == 1:
@@ -411,11 +504,15 @@ def local_config(cfg, model_size: int):
     whole = _whole_parts(cfg, m)
     _, ffns = _parts(cfg)
     heads, kv = cfg.num_heads, cfg.num_kv_heads
+    kv_group = 0
     if not set(_HEAD_MIXERS) & set(whole):
         heads //= m
-        # a replicated kv head: one a rank (kv_replication); neither way
-        # only without attention, where nothing reads it
-        kv = kv // m if kv % m == 0 else (1 if m % kv == 0 else kv)
+        if _kv_whole(cfg, m, whole):
+            kv_group = cfg.num_heads // kv
+        else:
+            # a replicated kv head: one a rank (kv_replication); neither
+            # way only without attention, where nothing reads it
+            kv = kv // m if kv % m == 0 else (1 if m % kv == 0 else kv)
     d_ff = cfg.d_ff // m if "mlp" in ffns else cfg.d_ff
     moe = cfg.moe
     if moe is not None and "moe" in ffns:
@@ -426,7 +523,9 @@ def local_config(cfg, model_size: int):
         num_heads=heads, num_kv_heads=kv, head_dim=cfg.resolved_head_dim,
         d_ff=d_ff, moe=moe, vocab_size=cfg.vocab_size if "vocab" in whole
         else cfg.vocab_size // m)
-    return LocalConfig(**fields, model_shards=m, whole=whole).validate()
+    return LocalConfig(**fields, model_shards=m, whole=whole,
+                       kv_group=kv_group,
+                       kv_seq=_kv_seq(cfg, m, whole)).validate()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -469,12 +568,14 @@ def _groups(path) -> int:
 def param_cuts(params, mesh, cfg):
     """A tree matching ``params`` (FULL widths): a :class:`Cut` for each
     leaf split over ``"model"``, None for each replicated one (every leaf
-    of a part :func:`local_config` keeps whole among them)."""
+    of a part :func:`local_config` keeps whole among them). Kv heads every
+    model rank holds (the ``"kv_heads"`` rule None) are a cut whose
+    ``reps`` is the whole axis: each rank's copy is the whole leaf, and its
+    gradient is summed over the ranks (``sync_replicated_grads``)."""
     m = model_size_of(mesh)
     whole = _whole_parts(cfg, m)
     specs = params_partition_specs(params, mesh)
-    reps = kv_replication(cfg, m) if m > 1 and "attn" in _parts(cfg)[0] \
-        and "attn" not in whole else 1
+    reps = _kv_reps(cfg, m, whole)
 
     def one(path, p):
         if m == 1 or _in_whole_part(path, whole):
@@ -494,6 +595,14 @@ def param_cuts(params, mesh, cfg):
         return None
 
     return tree_map_with_path(one, params)
+
+
+def _kv_reps(cfg, m: int, whole) -> int:
+    """The ranks that hold each kv head of a cut attention (1 without
+    one)."""
+    if m == 1 or "attn" not in _parts(cfg)[0] or "attn" in whole:
+        return 1
+    return m if _kv_whole(cfg, m, whole) else kv_replication(cfg, m)
 
 
 def _in_whole_part(path, whole) -> bool:
@@ -719,7 +828,10 @@ def cache_cuts(cache, mesh, cfg):
     head; exact attention's ``k`` / ``v`` by kv head, one a rank where the
     kv heads are replicated), None where it stays whole.
 
-    A part :func:`local_config` keeps whole keeps its cache whole.
+    A part :func:`local_config` keeps whole keeps its cache whole, but
+    under the ``"kv_seq"`` rule the exact cache's ``k`` / ``v`` and MLA's
+    ``c_kv`` / ``k_pe`` are cut by sequence (dim 1, the ring buffer's
+    slots) in every part, each rank holding every kv head of its slots.
     """
     m = model_size_of(mesh)
     if m == 1:
@@ -729,11 +841,16 @@ def cache_cuts(cache, mesh, cfg):
     whole = _whole_parts(cfg, m)
     mixers = [_split_kind(k)[0] for k in layer_kinds(cfg)]
     specs = cache_partition_specs(cache, mesh)
-    reps = kv_replication(cfg, m) if "attn" in mixers \
-        and "attn" not in whole else 1
+    reps = _kv_reps(cfg, m, whole)
+    kv_whole = _kv_whole(cfg, m, whole)
+    by_seq = _kv_seq(cfg, m, whole)
 
     def one(path, p):
+        if by_seq and path[-1] in _SEQ_CACHE_LEAVES:
+            return Cut(1)
         if mixers[path[1]] in whole:
+            return None
+        if path[-1] in ("k", "v") and kv_whole:
             return None
         if path[-1] in ("k", "v") and reps > 1:
             return Cut(2, reps)
@@ -744,6 +861,20 @@ def cache_cuts(cache, mesh, cfg):
         return None
 
     return tree_map_with_path(one, cache)
+
+
+_SEQ_CACHE_LEAVES = ("k", "v", "c_kv", "k_pe")
+
+
+def kv_seq_view(cfg) -> Optional[LocalView]:
+    """The active view where ``cfg`` (a :class:`LocalConfig`) cuts the
+    exact and MLA decode caches by sequence over ``"model"`` (inside a
+    :func:`whole_part` too: its cache is cut all the same), else None."""
+    view = active()
+    if view is None or view.model_size == 1 or \
+            not getattr(cfg, "kv_seq", False):
+        return None
+    return view
 
 
 def shard_cache(cache, mesh, cfg):
@@ -888,20 +1019,66 @@ def gather_from_model(x: torch.Tensor, dim: int = -1, *,
                             dim % x.ndim, partial)
 
 
+def _seq_axis(view: Optional[LocalView], seq_len: int) -> Optional[str]:
+    """The mesh axis ``"act_seq"`` cuts the residual stream's sequence over
+    in this call, after the reference's ``_dedupe_spec``: ``"model"``
+    where a model view is active and the axis divides ``seq_len``;
+    ``"data"`` (the rule ``("data",)``, the ``sp_data`` lever) where the
+    rows are not split over the batch axes (the ``"batch"`` entry would
+    take ``"data"`` first), every data rank runs the call and the axis
+    divides ``seq_len``; else None (as at any decode, T = 1). The axes
+    are the view's (``LocalView.act_seq``).
+
+    Raises:
+        NotImplementedError: the rule names other axes.
+    """
+    axes = view.act_seq if view is not None else ()
+    if not axes:
+        return None
+    if axes == (MODEL_AXIS,):
+        on = model_view() is not None and seq_len % view.model_size == 0
+        return MODEL_AXIS if on else None
+    if axes == (fsdp.DATA_AXIS,):
+        size = mesh_axes(view.mesh).get(fsdp.DATA_AXIS, 1)
+        on = (size > 1 and not view.batch_groups and view.data_seq
+              and seq_len % size == 0)
+        return fsdp.DATA_AXIS if on else None
+    raise NotImplementedError(
+        f"the 'act_seq' rule {axes!r}: the port cuts the residual stream "
+        "by sequence over 'model' or over ('data',)")
+
+
+def gather_heads(x: torch.Tensor) -> torch.Tensor:
+    """This rank's query heads ``[B, H / m, ...]`` -> every rank's ``[B,
+    H, ...]`` in rank order (one all-gather over ``"model"``, no gradient:
+    the split-K decode's queries); ``x`` itself outside a view, on a model
+    axis of 1 or in a :func:`whole_part`, where a rank holds every head."""
+    view = model_view()
+    if view is None:
+        return x
+    return torch.cat(all_gather(x.contiguous(), view.model_group), dim=1)
+
+
 @contextlib.contextmanager
 def sequence_sharding(seq_len: int) -> Iterator[bool]:
-    """Inside: the residual stream cut by sequence over ``"model"``
-    (``"act_seq"``) where a model view is active, the ``"act_seq"`` rule
-    maps to ``"model"`` (``sharding.rule``) and the model axis divides
-    ``seq_len``; yields whether it is."""
-    view = model_view()
-    on = (view is not None and rule("act_seq") == MODEL_AXIS
-          and seq_len % view.model_size == 0)
-    if not on:
+    """Inside: the residual stream cut by sequence over the mesh axis
+    ``"act_seq"`` names, where :func:`_seq_axis` finds one; yields whether
+    it is. Over ``"model"`` the model ranks share each block's work; over
+    ``"data"`` each data rank runs every block on the whole sequence (its
+    rows are every data rank's) and keeps its slice between blocks."""
+    view = active()
+    axis = _seq_axis(view, seq_len)
+    if axis is None:
         yield False
         return
+    if axis == MODEL_AXIS:
+        group, rank = view.model_group, view.model_rank
+    else:
+        group = view.mesh.get_group(axis)
+        rank = view.mesh.get_local_rank(axis)
     prev = _local.view
-    _local.view = dataclasses.replace(view, seq=True)
+    _local.view = dataclasses.replace(view, seq_axis=axis, seq_group=group,
+                                      seq_rank=rank)
     try:
         yield True
     finally:
@@ -912,8 +1089,7 @@ def _seq_view() -> Optional[LocalView]:
     """The active view inside :func:`sequence_sharding` (inside a
     :func:`whole_part` too), else None."""
     view = active()
-    return view if view is not None and view.model_size > 1 and view.seq \
-        else None
+    return view if view is not None and view.seq_axis is not None else None
 
 
 def scatter_sequence(x: torch.Tensor) -> torch.Tensor:
@@ -922,7 +1098,7 @@ def scatter_sequence(x: torch.Tensor) -> torch.Tensor:
     view = _seq_view()
     if view is None:
         return x
-    return _ScatterDim.apply(x, view.model_group, view.model_rank, 1, False)
+    return _ScatterDim.apply(x, view.seq_group, view.seq_rank, 1, False)
 
 
 def gather_sequence(x: torch.Tensor) -> torch.Tensor:
@@ -934,43 +1110,54 @@ def gather_sequence(x: torch.Tensor) -> torch.Tensor:
     view = _seq_view()
     if view is None:
         return x
-    return _GatherDim.apply(x, view.model_group, view.model_rank, 1, False)
+    return _GatherDim.apply(x, view.seq_group, view.seq_rank, 1, False)
 
 
 def sequence_params(tree):
     """Replicated params read on this rank's slice of the sequence (the
     norms between blocks, a bias added after :func:`exit_block`): inside
-    :func:`sequence_sharding` each leaf passes through
-    :func:`copy_to_model`, so its gradient, each rank's part from its
-    positions, is summed over ``"model"``; ``tree`` itself elsewhere."""
-    if _seq_view() is None:
+    :func:`sequence_sharding` each leaf's gradient, each rank's part from
+    its positions, is summed over the sequence's group (identity
+    forward); ``tree`` itself elsewhere."""
+    view = _seq_view()
+    if view is None:
         return tree
-    return tree_map_with_path(lambda _, p: copy_to_model(p), tree)
+    return tree_map_with_path(
+        lambda _, p: _CopyToModel.apply(p, view.seq_group), tree)
 
 
 def enter_block(x: torch.Tensor) -> torch.Tensor:
     """A block's input ``[B, T, d]`` entering its per-rank products: the
-    sequence all-gathered (reduce-scatter backward; in a
-    :func:`whole_part`, this rank's slice of the gradient, unsummed)
-    inside :func:`sequence_sharding`, else :func:`copy_to_model`."""
+    sequence all-gathered inside :func:`sequence_sharding` (backward: over
+    ``"model"`` a reduce-scatter, or in a :func:`whole_part` this rank's
+    slice of the gradient unsummed; over ``"data"`` the slice unsummed,
+    then :func:`copy_to_model`), else :func:`copy_to_model`."""
     view = _seq_view()
     if view is None:
         return copy_to_model(x)
-    return _GatherDim.apply(x, view.model_group, view.model_rank, 1,
-                            not view.whole)
+    if view.seq_axis == MODEL_AXIS:
+        return _GatherDim.apply(x, view.model_group, view.model_rank, 1,
+                                not view.whole)
+    return copy_to_model(_GatherDim.apply(x, view.seq_group, view.seq_rank,
+                                          1, False))
 
 
 def exit_block(y: torch.Tensor, *, partial: bool = True) -> torch.Tensor:
     """A block's output ``[B, T, d]``, each rank's part where ``partial``
-    (replicated otherwise, as in a :func:`whole_part`): reduce-scattered
-    over the sequence (all-gather backward) inside
-    :func:`sequence_sharding`, sliced where replicated, else
-    :func:`reduce_from_model` (``y`` itself where replicated)."""
+    (replicated otherwise, as in a :func:`whole_part`): inside
+    :func:`sequence_sharding` over ``"model"`` reduce-scattered over the
+    sequence (all-gather backward), sliced where replicated; over
+    ``"data"`` :func:`reduce_from_model` where ``partial``, then sliced;
+    else :func:`reduce_from_model` (``y`` itself where replicated)."""
     view = _seq_view()
     if view is None:
         return reduce_from_model(y) if partial else y
-    return _ScatterDim.apply(y, view.model_group, view.model_rank, 1,
-                             partial and not view.whole)
+    if view.seq_axis == MODEL_AXIS:
+        return _ScatterDim.apply(y, view.model_group, view.model_rank, 1,
+                                 partial and not view.whole)
+    if partial:
+        y = reduce_from_model(y)
+    return _ScatterDim.apply(y, view.seq_group, view.seq_rank, 1, False)
 
 
 def mean_over_batch(x: torch.Tensor) -> torch.Tensor:

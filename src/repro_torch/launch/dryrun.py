@@ -137,19 +137,25 @@ MESHES = {
     "one": ((1, 1), ("data", "model")),
 }
 
-# the rules the port reads are "fsdp" and "act_seq", each on or off
-# (None); a rules override outside them names a lever the port lacks
-_EXPRESSIBLE = {"fsdp": (None, "data"), "act_seq": (None, "model")}
+# the values of each rule the port reads; a rules override outside them
+# names a lever the port lacks
+_EXPRESSIBLE = {
+    "fsdp": (None, "data"),
+    "act_seq": (None, "model", ("data",)),
+    "vocab": ("model", None),
+    "kv_heads": ("model", None),
+    "kv_seq": (None, "model"),
+}
 UNSUPPORTED_RULES = {
-    "kv_seq": "the KV cache's sequence cut over 'model' (the port cuts "
-              "caches by head, tensor_parallel.cache_cuts)",
-    "act_seq": "'act_seq' over an axis other than 'model' (the port's "
-               "sequence sharding is over 'model' only)",
-    "kv_heads": "kv heads replicated over 'model' (the port cuts them, "
-                "tensor_parallel.local_config)",
-    "vocab": "the vocabulary replicated over 'model' where the axis "
-             "divides it (the port cuts it then, tensor_parallel."
-             "local_config)",
+    "kv_seq": "the KV cache's sequence cut over an axis other than 'model' "
+              "(the split-K decode runs over 'model', tensor_parallel."
+              "cache_cuts)",
+    "act_seq": "'act_seq' over axes other than 'model' or ('data',) "
+               "(tensor_parallel.sequence_sharding)",
+    "kv_heads": "kv heads over an axis other than 'model'",
+    "vocab": "the vocabulary over an axis other than 'model'",
+    "heads": "query heads replicated or cut over another axis (the port "
+             "cuts them over 'model', tensor_parallel.local_config)",
 }
 
 

@@ -1,23 +1,34 @@
 """Hill-climbing on the dry run: one cell measured under a named change,
 its hypothesis beside the record (port of ``repro.launch.hillclimb``).
 
-Each experiment is the reference's (its names and hypotheses,
-``src/repro/launch/hillclimb.py:56-139``): an override of the sharding
-rules, the model config or the train hyper-parameters applied to one
-(arch, shape) cell, measured by ``launch.dryrun.measure`` on the 16 x 16
+Each experiment but ``baseline`` is the reference's (its names and
+hypotheses, ``src/repro/launch/hillclimb.py:56-139``): an override of the
+sharding rules, the model config or the train hyper-parameters applied to
+one (arch, shape) cell, measured by ``launch.dryrun.measure`` on the 16 x 16
 mesh and written to ``results_torch/perf/<arch>__<shape>__<exp>.json``.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
         --cell qwen2-7b:prefill_32k --exp rm_mode no_fsdp
 
-An experiment whose lever the port lacks raises ``NotImplementedError``
-naming it, and records nothing: ``kv_seq_shard`` (the KV cache's sequence
-over ``"model"``), ``sp_data`` (``"act_seq"`` over ``"data"``; the port's
-sequence sharding is over ``"model"`` only) and ``vocab_unsharded`` (the
-port always cuts the vocabulary over ``"model"``). ``no_fsdp`` /
-``rm_no_fsdp`` switch off the weights' cut over ``"data"`` in training
-and in serving, ``no_sp`` / ``rm_no_sp`` the sequence sharding, and
-``no_remat`` the activation checkpointing of ``ModelConfig.remat``.
+Every lever is a sharding rule the model code reads
+(``distributed.tensor_parallel``): ``no_fsdp`` / ``rm_no_fsdp`` switch off
+the weights' cut over ``"data"`` in training and in serving, ``no_sp`` /
+``rm_no_sp`` the sequence sharding, ``sp_data`` cuts the residual
+stream's sequence over ``"data"`` where the rows are not split over it
+(batch 1), ``vocab_unsharded`` keeps the vocabulary whole on every model
+rank, and ``kv_seq_shard`` cuts the exact and MLA decode caches by
+sequence over ``"model"`` with every kv head on every rank, its decode a
+split-K over the ranks' slots; ``no_remat`` switches off the activation
+checkpointing of ``ModelConfig.remat``. A rules override the port cannot
+express raises ``NotImplementedError`` (``launch.dryrun.
+UNSUPPORTED_RULES``) and records nothing. ``baseline`` is the cell with
+no override (the default rules, config and hyper every experiment starts
+from; ``rm_mode`` is the rm-mode baseline), so a lever's record has its
+before beside it:
+
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
+        --cell qwen2-7b:decode_32k --exp baseline kv_seq_shard
+
 ``rm_chunk256`` sets ``cfg.rm.chunk`` to 256: the plain versions the dry
 run counts honor it, but the card's fused kernel B2 always takes 64-position
 chunks (``kernels/rm_attention/ops.py``), so its record says the count is
@@ -62,6 +73,10 @@ def _moe_dispatch(kind):
 
 
 EXPERIMENTS = {
+    "baseline": dict(
+        hypothesis="the cell with no override: what every experiment is "
+                   "measured against",
+    ),
     # paper-technique cell: exact -> rm and RM plan tuning
     "rm_mode": dict(
         hypothesis="RM linear attention removes the O(T^2) term; prefill "
@@ -157,7 +172,8 @@ def run_experiment(arch: str, shape: str, exp_name: str, mesh=None,
     16 x 16 mesh in a dry world of its own).
 
     Raises:
-        NotImplementedError: the experiment's lever is not in the port.
+        NotImplementedError: a rules override the port cannot express
+            (``launch.dryrun.UNSUPPORTED_RULES``).
     """
     from repro_torch.configs import get_config
 

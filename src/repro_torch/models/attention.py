@@ -64,6 +64,7 @@ from repro_torch.kernels.rm_attention.ops import (
     rm_attention_prefill_final_state,
 )
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.collectives import all_gather
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -286,6 +287,19 @@ def _repeat_kv(x: torch.Tensor, rep: int) -> torch.Tensor:
     return torch.repeat_interleave(x, rep, dim=2)
 
 
+def _kv_for_queries(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """GQA: kv heads ``[B, T, Hkv, dh]`` -> one a query head of ``cfg``
+    ``[B, T, H, dh]``. Where a model rank holds every kv head but only its
+    own query heads (``LocalConfig.kv_group``, the ``"kv_heads"`` rule
+    None), each query head takes the kv head its global index reads."""
+    group = getattr(cfg, "kv_group", 0)
+    if not group:
+        return _repeat_kv(x, cfg.q_per_kv)
+    first = tp.model_view().model_rank * cfg.num_heads
+    heads = torch.arange(first, first + cfg.num_heads, device=x.device)
+    return x.index_select(2, heads // group)
+
+
 # ---------------------------------------------------------------------------
 # exact softmax attention (the reference's plain jnp, in plain PyTorch)
 # ---------------------------------------------------------------------------
@@ -400,8 +414,8 @@ def attention_forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     q, k = _apply_positional(cfg, q, k, positions)
-    k = _repeat_kv(k, cfg.q_per_kv)
-    v = _repeat_kv(v, cfg.q_per_kv)
+    k = _kv_for_queries(k, cfg)
+    v = _kv_for_queries(v, cfg)
     if cfg.attention_mode != "rm":
         out = _softmax_attention(cfg, q, k, v, positions, positions)
         return _out_proj(params, out.reshape(b, t, h * dh))
@@ -435,15 +449,21 @@ def init_attention_cache(cfg: ModelConfig, batch: int, device,
     """One layer's decode cache for ``batch`` lanes: the O(1) rm state
     (fp32), or exact attention's ring-buffer KV cache ``k``/``v [batch,
     size, Hkv, dh]`` in ``dtype``, ``size = max_len`` (at most
-    ``sliding_window`` when the config has one); exact mode needs both."""
+    ``sliding_window`` when the config has one; a model rank's ``size /
+    model_shards`` slots where ``cfg.kv_seq`` cuts the cache by
+    sequence); exact mode needs both.
+
+    Raises:
+        ValueError: exact mode without ``max_len`` or ``dtype``; a ring
+            buffer the model axis does not divide under ``kv_seq``.
+    """
     _require_decoder(cfg)
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.attention_mode != "rm":
         if max_len is None or dtype is None:
             raise ValueError("exact attention's KV cache needs max_len and "
                              "dtype")
-        size = min(max_len, cfg.sliding_window) if cfg.sliding_window \
-            else max_len
+        size = seq_cut(cfg, ring_size(cfg, max_len), "the KV ring buffer")
         return {
             "k": torch.zeros((batch, size, hkv, dh), dtype=dtype,
                              device=device),
@@ -457,6 +477,28 @@ def init_attention_cache(cfg: ModelConfig, batch: int, device,
         "rm_n": torch.zeros((batch, h, f), dtype=torch.float32,
                             device=device),
     }
+
+
+def ring_size(cfg: ModelConfig, max_len: int) -> int:
+    """The exact KV cache's slots: ``max_len``, at most the sliding
+    window."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+
+
+def seq_cut(cfg: ModelConfig, size: int, what: str) -> int:
+    """A model rank's share of a decode cache's ``size`` positions where
+    ``cfg.kv_seq`` cuts it by sequence over ``"model"``, else ``size``.
+
+    Raises:
+        ValueError: the model axis does not divide ``size``.
+    """
+    m = tp.shards_of(cfg) if getattr(cfg, "kv_seq", False) else 1
+    if size % m:
+        raise ValueError(f"{cfg.name}: {what} of {size} positions (from "
+                         f"max_len) is not divisible by the mesh's model "
+                         f"axis of {m} ('kv_seq' rule)")
+    return size // m
 
 
 def attention_decode(
@@ -479,8 +521,8 @@ def attention_decode(
     if cfg.attention_mode != "rm":
         return _exact_decode(params, cfg, q, k, v, cache, positions)
     meta = rm_plan_for(cfg, dh)
-    k = _repeat_kv(k, cfg.q_per_kv)
-    v = _repeat_kv(v, cfg.q_per_kv)
+    k = _kv_for_queries(k, cfg)
+    v = _kv_for_queries(v, cfg)
     v0 = v[:, 0]                                         # [B, H, dv]
     if rm_fuse_enabled(cfg):
         qs, ks, w, cd, cs = _rm_fused_operands(params, cfg, meta, q, k)
@@ -515,8 +557,8 @@ def attention_prefill_cache(
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, cfg, x)
     q, k = _apply_positional(cfg, q, k, positions)
-    kr = _repeat_kv(k, cfg.q_per_kv)
-    vr = _repeat_kv(v, cfg.q_per_kv)
+    kr = _kv_for_queries(k, cfg)
+    vr = _kv_for_queries(v, cfg)
     if cfg.attention_mode != "rm":
         if max_len is None:
             raise ValueError("exact attention's prefill cache needs max_len "
@@ -548,46 +590,118 @@ def _exact_decode(params: Params, cfg: ModelConfig, q, k, v,
     """Exact decode: ring-buffer write at slot ``positions % size``, then
     softmax over the slots. Slot s holds the largest absolute position p
     <= ``positions`` with p % size == s; slots with p < 0 (not written
-    yet) or out of the sliding window are masked."""
+    yet) or out of the sliding window are masked. Under ``kv_seq`` a model
+    rank holds slots ``[r * size / m, (r + 1) * size / m)`` of the buffer
+    (every kv head), writes only the lanes whose slot it owns and runs the
+    split-K decode (:func:`split_k_combine`)."""
     b = q.shape[0]
     h, dh = cfg.num_heads, cfg.resolved_head_dim
     k_cache, v_cache = cache["k"], cache["v"]
-    size = k_cache.shape[1]
+    view = tp.kv_seq_view(cfg)
+    local = k_cache.shape[1]
+    size = local * (view.model_size if view is not None else 1)
+    first = view.model_rank * local if view is not None else 0
     pos = positions.long()
     bidx = torch.arange(b, device=k_cache.device)
-    slots = pos % size
-    k_cache[bidx, slots] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slots] = v[:, 0].to(v_cache.dtype)
-    slot_ids = torch.arange(size, device=k_cache.device)[None, :]
+    slots = pos % size - first
+    if view is None:
+        k_cache[bidx, slots] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slots] = v[:, 0].to(v_cache.dtype)
+    else:
+        own = (slots >= 0) & (slots < local)
+        write_owned(k_cache, slots, own, k[:, 0])
+        write_owned(v_cache, slots, own, v[:, 0])
+    slot_ids = first + torch.arange(local, device=k_cache.device)[None, :]
     abs_pos = pos[:, None] - ((pos[:, None] - slot_ids) % size)
     valid = abs_pos >= 0
     if cfg.sliding_window > 0:
         valid = valid & ((pos[:, None] - abs_pos) < cfg.sliding_window)
-    kk = _repeat_kv(k_cache, cfg.q_per_kv)
-    vv = _repeat_kv(v_cache, cfg.q_per_kv)
-    scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(),
-                          kk.float()) / math.sqrt(dh)
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhs,bshd->bhd", probs.to(vv.dtype), vv)
+    if view is not None:
+        # every query head against this rank's slots, then the combine
+        q_all = tp.gather_heads(q[:, 0])                   # [B, H, dh]
+        rep = q_all.shape[1] // k_cache.shape[2]
+        kk = _repeat_kv(k_cache, rep).float()
+        scores = torch.einsum("bhd,bshd->bhs", q_all.float(),
+                              kk) / math.sqrt(dh)
+        vv = _repeat_kv(v_cache, rep).float()
+        out = split_k_combine(
+            scores, valid, lambda p: torch.einsum("bhs,bshd->bhd", p, vv),
+            view, h).to(v_cache.dtype)
+    else:
+        kk = _kv_for_queries(k_cache, cfg)
+        vv = _kv_for_queries(v_cache, cfg)
+        scores = torch.einsum("bhd,bshd->bhs", q[:, 0].float(),
+                              kk.float()) / math.sqrt(dh)
+        scores = torch.where(valid[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhs,bshd->bhd", probs.to(vv.dtype), vv)
     y = _out_proj(params, out.reshape(b, 1, h * dh))
     return y, {"k": k_cache, "v": v_cache}
+
+
+def write_owned(cache: torch.Tensor, slots: torch.Tensor, own: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``cache[b, slots[b]] = new[b]`` in place for the lanes ``own``
+    marks (the slots this rank holds); the other lanes rewrite what they
+    hold (no mask-sized index, so it runs on ``meta`` tensors too)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    at = slots.clamp(0, cache.shape[1] - 1)
+    keep = cache[bidx, at]
+    mask = own.reshape((-1,) + (1,) * (keep.ndim - 1))
+    cache[bidx, at] = torch.where(mask, new.to(cache.dtype), keep)
+
+
+def split_k_combine(scores: torch.Tensor, valid: torch.Tensor, weigh,
+                    view, heads: int) -> torch.Tensor:
+    """FlashDecoding's split-K over the model ranks' cache slots: from
+    this rank's ``scores [B, H, S_r]`` of every query head (fp32; ``valid
+    [B, S_r]`` masks the slots) and ``weigh(p)``, its values weighted by
+    ``p [B, H, S_r]`` (``[B, H, dv]`` fp32), the partials ``[B, H, dv +
+    2]`` (the weighted values, the max and the sum of the exponentials
+    over its slots) are all-gathered over ``"model"`` and combined by
+    their log-sum-exp into the softmax attention of this rank's ``heads``
+    query heads (all of them in a part every rank holds whole) -> ``[B,
+    heads, dv]`` fp32."""
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    mx = scores.amax(dim=-1)
+    p = torch.where(valid[:, None, :], torch.exp(scores - mx[..., None]),
+                    0.0)
+    acc = weigh(p)
+    parts = torch.cat([acc, mx[..., None], p.sum(dim=-1)[..., None]], -1)
+    every = torch.stack(all_gather(parts.contiguous(), view.model_group))
+    if heads != every.shape[2]:
+        every = every[:, :, view.model_rank * heads:
+                      (view.model_rank + 1) * heads]
+    acc, mx, l = every[..., :-2], every[..., -2], every[..., -1]
+    w = torch.exp(mx - mx.amax(dim=0))
+    num = (acc * w[..., None]).sum(dim=0)
+    return num / torch.clamp_min((l * w).sum(dim=0), 1e-30)[..., None]
 
 
 def _exact_prefill_cache(cfg: ModelConfig, k, v, positions: torch.Tensor,
                          max_len: int) -> Dict[str, torch.Tensor]:
     """A fresh ring buffer holding the prompt's keys and values: slots
     ``[0, T)`` when the prompt fits, else its last ``size`` tokens at slot
-    ``position % size``."""
+    ``position % size``. Under ``kv_seq`` a model rank keeps its own
+    slots of the buffer."""
     b, t = k.shape[:2]
-    cache = init_attention_cache(cfg, b, k.device, max_len, k.dtype)
-    size = cache["k"].shape[1]
+    local = init_attention_cache(cfg, b, k.device, max_len, k.dtype)
+    size = ring_size(cfg, max_len)
+    cache = local if local["k"].shape[1] == size else {
+        name: torch.zeros((b, size) + leaf.shape[2:], dtype=leaf.dtype,
+                          device=leaf.device)
+        for name, leaf in local.items()}
     if t <= size:
         cache["k"][:, :t] = k
         cache["v"][:, :t] = v
+    else:
+        slots = positions[:, -size:].long() % size
+        bidx = torch.arange(b, device=k.device)[:, None]
+        cache["k"][bidx, slots] = k[:, -size:]
+        cache["v"][bidx, slots] = v[:, -size:]
+    if cache is local:
         return cache
-    slots = positions[:, -size:].long() % size
-    bidx = torch.arange(b, device=k.device)[:, None]
-    cache["k"][bidx, slots] = k[:, -size:]
-    cache["v"][bidx, slots] = v[:, -size:]
-    return cache
+    width = local["k"].shape[1]
+    first = tp.kv_seq_view(cfg).model_rank * width
+    return {name: leaf.narrow(1, first, width).clone()
+            for name, leaf in cache.items()}

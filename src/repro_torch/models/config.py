@@ -169,7 +169,10 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: unknown frontend={self.frontend!r} ('none', "
                 "'vision_stub' or 'audio_stub')")
-        if self.num_heads % self.num_kv_heads:
+        # a model rank's config that holds every kv head (LocalConfig's
+        # kv_group) has fewer query heads than kv heads
+        if self.num_heads % self.num_kv_heads and \
+                not getattr(self, "kv_group", 0):
             raise ValueError(
                 f"{self.name}: num_heads={self.num_heads} is not a multiple "
                 f"of num_kv_heads={self.num_kv_heads}")

@@ -51,6 +51,9 @@ from repro_torch.models.attention import (
     rm_fuse_enabled,
     rm_plan_for,
     rm_valid_mask,
+    seq_cut,
+    split_k_combine,
+    write_owned,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -174,7 +177,13 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> Dict[str, torch.Tensor]:
     """One layer's decode cache: the rm state (fp32), or exact's latent
     ``c_kv [batch, max_len, lora]`` and ``k_pe [batch, max_len, rope]`` in
-    ``dtype``."""
+    ``dtype`` (a model rank's ``max_len / model_shards`` positions where
+    ``cfg.kv_seq`` cuts them by sequence).
+
+    Raises:
+        ValueError: under ``kv_seq``, a ``max_len`` the model axis does not
+            divide.
+    """
     m = cfg.mla
     if cfg.attention_mode == "rm":
         f = rm_plan_for(cfg, mla_qk_dim(cfg)).output_dim
@@ -184,10 +193,11 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "rm_n": torch.zeros((batch, cfg.num_heads, f),
                                 dtype=torch.float32, device=device),
         }
+    size = seq_cut(cfg, max_len, "the latent cache")
     return {
-        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+        "c_kv": torch.zeros((batch, size, m.kv_lora_rank), dtype=dtype,
                             device=device),
-        "k_pe": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+        "k_pe": torch.zeros((batch, size, m.qk_rope_head_dim),
                             dtype=dtype, device=device),
     }
 
@@ -221,8 +231,17 @@ def mla_prefill_cache(params: Params, cfg: ModelConfig, x: torch.Tensor,
     y = tp.reduce_from_model(
         out.reshape(b, t, cfg.num_heads * cfg.mla.v_head_dim) @ params["w_o"])
     cache = init_mla_cache(cfg, b, max_len, x.dtype, x.device)
-    cache["c_kv"][:, :t] = c_kv
-    cache["k_pe"][:, :t] = k_pe[:, :, 0]
+    view = tp.kv_seq_view(cfg)
+    if view is None:
+        cache["c_kv"][:, :t] = c_kv
+        cache["k_pe"][:, :t] = k_pe[:, :, 0]
+        return y, cache
+    # this rank's positions of the prompt
+    size = cache["c_kv"].shape[1]
+    first = view.model_rank * size
+    n = max(0, min(t, first + size) - first)
+    cache["c_kv"][:, :n] = c_kv[:, first:first + n]
+    cache["k_pe"][:, :n] = k_pe[:, first:first + n, 0]
     return y, cache
 
 
@@ -257,11 +276,19 @@ def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
         return y, {"rm_s": s_new, "rm_n": n_new}
 
     c_cache, pe_cache = cache["c_kv"], cache["k_pe"]
+    view = tp.kv_seq_view(cfg)
     size = c_cache.shape[1]
+    first = view.model_rank * size if view is not None else 0
     pos = positions.long()
     bidx = torch.arange(b, device=x.device)
-    c_cache[bidx, pos] = c_kv_t[:, 0].to(c_cache.dtype)
-    pe_cache[bidx, pos] = k_pe_t[:, 0, 0].to(pe_cache.dtype)
+    if view is None:
+        c_cache[bidx, pos] = c_kv_t[:, 0].to(c_cache.dtype)
+        pe_cache[bidx, pos] = k_pe_t[:, 0, 0].to(pe_cache.dtype)
+    else:
+        at = pos - first
+        own = (at >= 0) & (at < size)
+        write_owned(c_cache, at, own, c_kv_t[:, 0])
+        write_owned(pe_cache, at, own, k_pe_t[:, 0, 0])
 
     # absorbed scores: the nope query through w_uk into latent space
     w_ukv = params["w_ukv"].reshape(m.kv_lora_rank, h, nope + dv)
@@ -269,13 +296,23 @@ def mla_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     q_nope, q_pe = q[:, 0, :, :nope].float(), q[:, 0, :, nope:].float()
     c_f, pe_f = c_cache.float(), pe_cache.float()
     q_lat = torch.einsum("bhn,lhn->bhl", q_nope, w_uk)
+    valid = first + torch.arange(size, device=x.device)[None, :] \
+        <= pos[:, None]
+    if view is not None:
+        # split-K: every head's latent query against this rank's positions
+        q_all = tp.gather_heads(torch.cat([q_lat, q_pe], dim=-1))
+        q_lat, q_pe = q_all[..., :m.kv_lora_rank], q_all[..., m.kv_lora_rank:]
     scores = torch.einsum("bhl,bsl->bhs", q_lat, c_f)
     scores = scores + torch.einsum("bhr,bsr->bhs", q_pe, pe_f)
     scores = scores / math.sqrt(nope + rope)
-    valid = torch.arange(size, device=x.device)[None, :] <= pos[:, None]
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhs,bsl->bhl", probs, c_f)
+    if view is not None:
+        o_lat = split_k_combine(
+            scores, valid, lambda p: torch.einsum("bhs,bsl->bhl", p, c_f),
+            view, h)
+    else:
+        scores = torch.where(valid[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhs,bsl->bhl", probs, c_f)
     out = torch.einsum("bhl,lhv->bhv", o_lat, w_uv)
     y = tp.reduce_from_model(out.reshape(b, 1, h * dv).to(x.dtype)
                              @ params["w_o"])

@@ -204,6 +204,7 @@ class StepExecutor:
                              f"{mesh.device_type!r}")
         self.device = mesh_device(mesh)
         self.model_cfg = tp.local_config(self.cfg, tp.model_size_of(mesh))
+        self._act_seq = tp.act_seq_axes()
         self._index, parts = tp.batch_index(mesh)
         # cache_partition_specs' rule: slots over the batch axes where
         # they divide num_slots (a MoE gathers the lanes to route them)
@@ -244,8 +245,11 @@ class StepExecutor:
         if self.mesh is None:
             yield None
             return
+        # a prefill only the slot's owner runs cuts no sequence over "data"
         with tp.local_view(self.mesh, batch_sharded=batch_sharded,
-                           gather_batch=batch_sharded) as view, \
+                           gather_batch=batch_sharded,
+                           data_seq=not self._split,
+                           act_seq=self._act_seq) as view, \
                 fsdp.training(self._plan):
             yield view
 

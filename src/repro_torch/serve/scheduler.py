@@ -103,6 +103,10 @@ class Scheduler:
         max_len: per-lane length (the scratch position is the last).
         rng_seed: base seed of every request's sampling stream.
         buckets: prefill bucket ladder override.
+        max_admits_per_step: cap on admissions (prefills) per tick, which
+            bounds the prefill work one tick adds to its latency; ``None``
+            admits into every free slot. A request that finishes at
+            admission spends its unit of the cap.
         max_restarts: fault-recovery budget. 0 (default) disables
             recovery: executor exceptions propagate. With N > 0, up to N
             failed ticks re-queue every in-flight request onto a fresh
@@ -126,6 +130,7 @@ class Scheduler:
     def __init__(self, cfg: Any, params: Any, *, num_slots: int = 4,
                  max_len: int = 1024, rng_seed: int = 0,
                  buckets: Optional[Sequence[int]] = None,
+                 max_admits_per_step: Optional[int] = None,
                  max_restarts: int = 0, straggler_monitor: Any = None,
                  obs: Any = None,
                  accuracy_tiers: Optional[Dict[str, int]] = None,
@@ -156,6 +161,7 @@ class Scheduler:
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.rng_seed = int(rng_seed)
+        self.max_admits_per_step = max_admits_per_step
         self.max_restarts = int(max_restarts)
         self.straggler_monitor = straggler_monitor
         self.restarts = 0
@@ -231,18 +237,19 @@ class Scheduler:
         info.t_end = self.obs.now()
         return info
 
-    def evict(self, slot: int) -> Request:
+    def evict(self, slot: int, reason: str = "preempted") -> Request:
         """Preempt ``slot``: drop its decode state and re-queue its request
         at its ORIGINAL sequence number; it regenerates the same tokens on
-        re-admission."""
+        re-admission. ``reason`` goes into the ``evict`` span and the
+        ``request/evict`` event."""
         state = self.slots[slot]
         if state is None:
             raise ValueError(f"slot {slot} is not occupied")
         req = state.request
         with self.obs.span("evict", request_id=req.request_id, slot=slot,
-                           reason="preempted"):
+                           reason=reason):
             self.obs.event("request/evict", request_id=req.request_id,
-                           slot=slot, reason="preempted",
+                           slot=slot, reason=reason,
                            tokens_discarded=len(state.generated))
             self.obs.counter("serve/evictions")
             self.slots[slot] = None
@@ -294,10 +301,11 @@ class Scheduler:
 
     def _admit_phase(self, info: StepInfo) -> None:
         free = [i for i, s in enumerate(self.slots) if s is None]
-        # one admission per lane free at the start of the tick; a request
-        # that finishes at admission hands its lane back but spends its
-        # unit, as in the reference
-        budget = len(free)
+        # one admission per lane free at the start of the tick, under the
+        # cap; a request that finishes at admission hands its lane back but
+        # spends its unit, as in the reference
+        budget = (len(free) if self.max_admits_per_step is None
+                  else min(self.max_admits_per_step, len(free)))
         while free and self._heap and budget > 0:
             slot = free.pop(0)
             _, _, req = heapq.heappop(self._heap)

@@ -35,6 +35,7 @@ drift monitor; ``obs=None`` is a no-op.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -42,6 +43,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import (active_rules,
+                                              logical_rules_context)
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs import resolve as _obs_resolve
 from repro_torch.train.checkpoint import CheckpointManager
@@ -120,6 +123,7 @@ class Trainer:
             self._model = sizes.get("model", 1)
             self._fsdp = fsdp.enabled(mesh)
             self._local_cfg = tp.local_config(cfg, self._model)
+            self._act_seq = tp.act_seq_axes()
         # the state is cut: over "model", or over "data" (FSDP)
         self._sharded = self._model > 1 or self._fsdp
         self._rank0 = mesh is None or _global_rank() == 0
@@ -133,6 +137,9 @@ class Trainer:
         self._groups = groups
         self._step = make_train_step(self._local_cfg, hyper, **groups)
         self._seed = seed
+        # the sharding rules the local config was made under: the state is
+        # cut under them too, wherever init_or_restore is called
+        self._rules = active_rules()
 
     # -- lifecycle -------------------------------------------------------------
     def init_or_restore(self) -> Dict[str, Any]:
@@ -143,14 +150,17 @@ class Trainer:
                 return self.ckpt.restore(device=self.device)
             return init_train_state(self.cfg, self._seed, self.hyper,
                                     device=self.device)
-        if self.ckpt is not None and self.ckpt.latest_step() is not None:
-            self._set_layout(self.ckpt.shapes()["params"])
-            return self.ckpt.restore(device=self.device, mesh=self.mesh,
-                                     cfg=self.cfg)
-        params, template = tp.init_local_params(
-            self.cfg, self._seed, self.mesh, self.device,
-            fsdp_cut=self._fsdp)
-        self._set_layout(template)
+        with (contextlib.nullcontext() if self._rules is None
+              else logical_rules_context(self.mesh, self._rules)):
+            if self.ckpt is not None and \
+                    self.ckpt.latest_step() is not None:
+                self._set_layout(self.ckpt.shapes()["params"])
+                return self.ckpt.restore(device=self.device, mesh=self.mesh,
+                                         cfg=self.cfg)
+            params, template = tp.init_local_params(
+                self.cfg, self._seed, self.mesh, self.device,
+                fsdp_cut=self._fsdp)
+            self._set_layout(template)
         return train_state_from_params(params, self.hyper)
 
     def _set_layout(self, template) -> None:
@@ -168,11 +178,10 @@ class Trainer:
     def _view(self):
         """The mesh's local view around a step (the model code reads it);
         no context without a mesh."""
-        import contextlib
-
         if self.mesh is None:
             return contextlib.nullcontext()
-        return tp.local_view(self.mesh, batch_sharded=self._rows_split)
+        return tp.local_view(self.mesh, batch_sharded=self._rows_split,
+                             act_seq=self._act_seq)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -36,6 +36,7 @@ CPU.
    serving cut off (a decode step's weights whole over ``"data"``, no
    gather).
 """
+import json
 import math
 import os
 
@@ -281,14 +282,88 @@ def test_counted_flops_beside_reference(kind, jdryrun, monkeypatch):
     assert 0.5 <= ratio <= 2.0, ratio
 
 
+_DECODE_BASE = {}
+
+
+def _decode_base(mesh):
+    """qwen3-1.7b's ``decode_32k`` record on the 16 x 16 mesh (measured
+    once a process)."""
+    if not _DECODE_BASE:
+        _DECODE_BASE["rec"] = dr.measure(get_config("qwen3-1.7b"),
+                                         SHAPES["decode_32k"], mesh,
+                                         "single")
+    return _DECODE_BASE["rec"]
+
+
 @pytest.mark.parametrize("exp", ["kv_seq_shard", "sp_data",
                                  "vocab_unsharded"])
-def test_levers_the_port_lacks_raise(exp, tmp_path):
+def test_levers_record(exp, tmp_path, single):
+    """Each of the reference's last three levers runs on the 16 x 16 mesh
+    and writes its record, its ``rules`` the reference's override
+    (``src/repro/launch/hillclimb.py``: ``sp_data`` ``{"act_seq":
+    ("data",)}``, ``kv_seq_shard`` ``{"kv_seq": "model", "kv_heads":
+    None}``, ``vocab_unsharded`` ``{"vocab": None}``), with the change the
+    lever makes to the counts."""
+    want = {"sp_data": {"act_seq": ("data",)},
+            "kv_seq_shard": {"kv_seq": "model", "kv_heads": None},
+            "vocab_unsharded": {"vocab": None}}[exp]
+    assert hillclimb.EXPERIMENTS[exp]["rules_override"] == want
+    rec = hillclimb.run_experiment("qwen3-1.7b", "decode_32k", exp, single,
+                                   out_dir=tmp_path)
+    path = tmp_path / f"qwen3-1.7b__decode_32k__{exp}.json"
+    assert json.loads(path.read_text())["rules"] == \
+        {k: list(v) if isinstance(v, tuple) else v for k, v in want.items()}
+    assert rec["experiment"] == exp and rec["rules"] == want
+    base = _decode_base(single)
+    parts = (base["memory_analysis"]["argument_parts"],
+             rec["memory_analysis"]["argument_parts"])
+    colls = (base["collectives"], rec["collectives"])
+    if exp == "sp_data":
+        # a T = 1 decode: no sequence to cut, the baseline's record
+        for key in ("per_device_flops", "per_device_bytes"):
+            assert rec[key] == base[key]
+        assert colls[1] == colls[0] and parts[1] == parts[0]
+    elif exp == "vocab_unsharded":
+        # the embedding and unembedding whole over "model": more weight
+        # bytes, and no vocab-parallel embedding all-reduce
+        assert parts[1]["params"] > parts[0]["params"]
+        assert colls[1]["all-reduce"]["count"] < \
+            colls[0]["all-reduce"]["count"]
+    else:
+        # every kv head on every rank, 1/16 of the sequence: a rank's
+        # cache is 8 kv heads x 2048 slots against the baseline's 1 kv
+        # head (Megatron's replication at 16 ranks) x 32768
+        cfg = get_config("qwen3-1.7b")
+        rows = SHAPES["decode_32k"].global_batch // 16
+        per_layer = 2 * rows * cfg.resolved_head_dim * 2        # k, v bf16
+        assert parts[0]["cache"] == cfg.num_layers * per_layer * 32768
+        assert parts[1]["cache"] == cfg.num_layers * per_layer * 8 * 2048
+        # the split-K's partials [B, H, dh + 2] fp32 all-gathered once a
+        # layer, with the queries
+        assert colls[1]["all-gather"]["count"] > \
+            colls[0]["all-gather"]["count"]
+
+
+def test_baseline_records_the_cell_with_no_override(tmp_path, single):
+    """``baseline`` writes the record the levers are read against: the
+    default rules' counts."""
+    rec = hillclimb.run_experiment("qwen3-1.7b", "decode_32k", "baseline",
+                                   single, out_dir=tmp_path)
+    assert (tmp_path / "qwen3-1.7b__decode_32k__baseline.json").exists()
+    base = _decode_base(single)
+    assert rec["experiment"] == "baseline"
+    for key in ("per_device_flops", "per_device_bytes", "collectives",
+                "memory_analysis"):
+        assert rec[key] == base[key], key
+
+
+@pytest.mark.parametrize("rules", [{"kv_seq": "data"}, {"heads": None},
+                                   {"act_seq": ("data", "model")}],
+                         ids=["kv_seq-data", "heads-none", "act_seq-2d"])
+def test_inexpressible_override_raises(rules, single):
     with pytest.raises(NotImplementedError, match="not expressible"):
-        hillclimb.run_experiment("qwen3-1.7b", "decode_32k", exp,
-                                 out_dir=tmp_path)
-    assert list(tmp_path.iterdir()) == []
-    assert not torch.distributed.is_initialized()
+        dr.measure(get_config("qwen3-1.7b"), SHAPES["decode_32k"], single,
+                   "single", rules=rules)
 
 
 def test_no_fsdp_switches_the_serving_cut_off(tmp_path, single):

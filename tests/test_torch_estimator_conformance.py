@@ -344,3 +344,96 @@ def test_growth_matches_generation_layout(name):
         gm.plan, generation_generator(5, g, "cpu")), X) for g in range(2)],
         dim=-1)
     assert torch.equal(gm.apply(X, rescale=False), want)
+
+
+# ---------------------------------------------------------------------------
+# a family registered from outside: ``register`` and ``available``
+# ---------------------------------------------------------------------------
+import dataclasses  # noqa: E402
+
+TOY = "rm_toy"
+
+
+@pytest.fixture
+def toy_family():
+    """``rm``'s entry under a new name in both registries (the reference's
+    ``register`` too, so the rows that compare with it run); both
+    registries are put back as they were after the test."""
+    saved = (dict(registry._ENTRIES), dict(registry._REGISTERED),
+             dict(jreg._REGISTRY))
+    jreg.register(dataclasses.replace(jreg.get("rm"), name=TOY))
+    entry = registry.register(dataclasses.replace(registry.get("rm"),
+                                                  name=TOY))
+    yield entry
+    for live, old in zip((registry._ENTRIES, registry._REGISTERED,
+                          jreg._REGISTRY), saved):
+        live.clear()
+        live.update(old)
+
+
+def test_register_before_the_first_build_is_kept():
+    """A family registered before the built-ins are built (the lazy
+    ``_entries()``) is listed beside all four of them, and ``get`` finds
+    it; the registry is put back afterwards."""
+    saved = dict(registry._ENTRIES), dict(registry._REGISTERED)
+    toy = dataclasses.replace(registry._make_rm_entry(), name=TOY)
+    try:
+        registry._ENTRIES.clear()
+        assert registry.register(toy) is toy
+        assert not registry._ENTRIES              # nothing built yet
+        assert registry.list_estimators() == tuple(sorted(ESTIMATORS +
+                                                          (TOY,)))
+        assert registry.get(TOY) is toy
+        assert registry.get("rm").name == "rm"
+    finally:
+        registry._ENTRIES.clear()
+        registry._ENTRIES.update(saved[0])
+        registry._REGISTERED.clear()
+        registry._REGISTERED.update(saved[1])
+    assert registry.list_estimators() == ESTIMATORS
+
+
+def test_registered_family_listed_and_resolved(toy_family):
+    names = registry.list_estimators()
+    assert names == tuple(sorted(ESTIMATORS + (TOY,)))
+    assert registry.available is registry.list_estimators
+    assert registry.available() == names == tuple(jreg.available())
+    assert registry.get(TOY) is toy_family
+    assert registry.get(TOY).fused_attention_supported
+    # replacing an entry under its name
+    again = registry.register(dataclasses.replace(toy_family))
+    assert registry.get(TOY) is again and again is not toy_family
+
+
+# the conformance rows above, each run over the registered family
+_TOY_ROWS = [test_apply_shape_matches_output_dim,
+             test_plan_hashable_and_equal_when_built_twice,
+             test_plan_json_round_trip,
+             test_plain_path_matches_reference_oracle,
+             test_fused_attention_matches_two_launch,
+             test_truncation_bias_monotone_in_n_max,
+             test_truncation_bias_zero_radius_and_poly,
+             test_edge_batch_zero, test_edge_single_tile,
+             test_edge_noncontiguous_and_uneven_chunks]
+
+
+@pytest.mark.parametrize("row", _TOY_ROWS, ids=lambda f: f.__name__[5:])
+def test_registered_family_passes_the_conformance_rows(toy_family, row):
+    """Everything that iterates ``list_estimators()`` picks the registered
+    family up: the conformance rows and the sharded estimator."""
+    assert TOY in registry.list_estimators()
+    row(TOY)
+
+
+def test_registered_family_through_the_sharded_estimator(toy_family):
+    from repro_torch.distributed import estimator as dest
+
+    plan = registry.get(TOY).make_plan(TKERN, 10, 64,
+                                       measure="proportional", seed=0)
+    params = dest.shard_init_params(TOY, plan, 3, 2, device="cpu")
+    rm_params = dest.shard_init_params("rm", plan, 3, 2, device="cpu")
+    x = torch.from_numpy(_x(31, (5, 10)))
+    got = dest.sharded_apply(TOY, plan, params, x, None)
+    assert got.shape == (5, 2 * registry.get(TOY).output_dim(plan))
+    assert torch.equal(got, dest.sharded_apply("rm", plan, rm_params, x,
+                                               None))

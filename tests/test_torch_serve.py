@@ -240,3 +240,100 @@ def test_get_config_validates_estimator():
                    estimator="no_such_estimator")
     with pytest.raises(ValueError, match="attention_mode"):
         get_config("qwen3-1.7b", smoke=True, estimator="tensor_sketch")
+
+
+@pytest.fixture(scope="module")
+def exact_fp32_models():
+    """qwen3 SMOKE in its default exact attention, fp32 on both sides, the
+    reference's weights handed across."""
+    jcfg = dataclasses.replace(jax_get_config("qwen3-1.7b", smoke=True),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                               compute_dtype="float32")
+    jp = jt.init_model(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    return jcfg, jp, tcfg, tp
+
+
+# (request_id, prompt_len, max_new_tokens, priority): request 1 wants one
+# token, so it finishes at its admission and hands its lane back
+CAPPED = [(0, 5, 3, 0), (1, 4, 1, 0), (2, 9, 4, 0), (3, 3, 2, 1),
+          (4, 7, 3, 0), (5, 6, 2, 0)]
+
+
+def _drive_ticks(sched, make_request, vocab):
+    for rid, n, new, prio in CAPPED:
+        sched.submit(make_request(request_id=rid,
+                                  prompt=_prompt(rid, n, vocab),
+                                  max_new_tokens=new, priority=prio))
+    ticks = []
+    while sched.pending():
+        info = sched.step()
+        ticks.append((list(info.admitted), list(info.finished)))
+    return ticks, sched.finished
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+def test_max_admits_per_step_matches_reference(exact_fp32_models, cap):
+    """The admissions of every tick, the tokens and the finish reasons equal
+    the reference Scheduler's under the same cap; a request that finishes
+    at admission spends its unit of the cap in both."""
+    jcfg, jp, tcfg, tp = exact_fp32_models
+    jticks, jdone = _drive_ticks(
+        JScheduler(jcfg, jp, num_slots=3, max_len=32,
+                   max_admits_per_step=cap), JRequest, jcfg.vocab_size)
+    tsched = Scheduler(tcfg, tp, num_slots=3, max_len=32,
+                       max_admits_per_step=cap, device="cpu")
+    assert tsched.max_admits_per_step == cap
+    tticks, tdone = _drive_ticks(tsched, Request, tcfg.vocab_size)
+    assert tticks == jticks
+    assert all(len(adm) <= cap for adm, _ in tticks)
+    # request 1 is admitted and finished in the same tick, and its lane
+    # takes no second admission in that tick when the cap is spent
+    tick1 = next(t for t in tticks if 1 in t[0])
+    assert 1 in tick1[1] and len(tick1[0]) <= cap
+    assert sorted(tdone) == sorted(jdone) == [r[0] for r in CAPPED]
+    for rid in jdone:
+        assert tdone[rid].generated == jdone[rid].generated, rid
+        assert tdone[rid].finish_reason == jdone[rid].finish_reason
+    assert tdone[1].finish_reason == "max_new_tokens"
+    uncapped, _ = _drive_ticks(Scheduler(tcfg, tp, num_slots=3, max_len=32,
+                                         device="cpu"),
+                               Request, tcfg.vocab_size)
+    assert max(len(adm) for adm, _ in uncapped) == 3
+
+
+@pytest.mark.parametrize("reason", [None, "test-preempt"])
+def test_evict_reason_in_span_and_event(exact_fp32_models, reason):
+    """``evict(slot, reason=)`` writes the caller's reason (default
+    ``"preempted"``) into the ``evict`` span and the ``request/evict``
+    event, as the reference's does, on a FakeClock trace."""
+    from repro.obs import Obs as JObs
+    from repro.obs import clock as jclock
+    from repro_torch.obs import Obs, clock
+
+    prov = {"backend": "test", "device_kind": "test", "device_count": 1,
+            "interpret": False, "jax_version": "0"}
+    jcfg, jp, tcfg, tp = exact_fp32_models
+    kw = {} if reason is None else {"reason": reason}
+    attrs = []
+    for sched_cls, req_cls, obs_cls, clk, cfg, params, extra in (
+            (JScheduler, JRequest, JObs, jclock, jcfg, jp, {}),
+            (Scheduler, Request, Obs, clock, tcfg, tp, {"device": "cpu"})):
+        obs = obs_cls(clock=clk.FakeClock(), provenance=prov)
+        sched = sched_cls(cfg, params, num_slots=2, max_len=32, obs=obs,
+                          **extra)
+        sched.submit(req_cls(request_id=0, prompt=_prompt(0, 5, 512),
+                             max_new_tokens=4))
+        sched.step()
+        assert sched.evict(0, **kw).request_id == 0
+        sched.run()
+        obs.close()
+        span = [r for r in obs.tracer.records
+                if r.get("type") == "span" and r["name"] == "evict"]
+        event = obs.tracer.events("request/evict")
+        assert len(span) == len(event) == 1
+        attrs.append((span[0]["attrs"], event[0]["attrs"]))
+    assert attrs[1] == attrs[0]
+    assert attrs[1][0]["reason"] == attrs[1][1]["reason"] == (
+        reason or "preempted")
